@@ -1,0 +1,265 @@
+"""NonlinearSolver: the Newton driver, dense route.
+
+Port of the JAX package's solver/newton.py for ``linear_solver="dense"``
+(the route the reference takes below DENSE_LIMIT cells): per iteration the
+residual and the convergence norms, then the Jacobian by
+``torch.func.jacfwd`` of the residual (through the K1 and K3 kernels'
+forward-mode rules), an equilibrated float64 LU solve and the chopped
+update (K9). Oscillation relaxation, the initial well-equation solve and
+the exceptions the timestepper catches follow the reference. The
+block-sparse CPR route is ROADMAP Queue 1 item 6 and raises here.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.func import jacfwd
+
+from opm_tpu_torch.models.blackoil import BlackoilModel
+from opm_tpu_torch.models.linearize import degenerate_x_mask
+from opm_tpu_torch.models.state import BlackoilState
+from opm_tpu_torch.solver.update import update_state
+from opm_tpu_torch.wells import standard as stdwells
+
+
+def dense_solve(J, r):
+    """Dense LU solve with symmetric row/column equilibration, float64
+    (D_r J D_c with D = 1/max|row or col| tames the mixed Pa/saturation/
+    rate unit scales)."""
+    dr = 1.0 / torch.clamp(torch.amax(torch.abs(J), dim=1), min=1e-300)
+    Js = J * dr[:, None]
+    dc = 1.0 / torch.clamp(torch.amax(torch.abs(Js), dim=0), min=1e-300)
+    Js = Js * dc[None, :]
+    du_s = torch.linalg.solve(Js, r * dr)
+    return du_s * dc
+
+
+def connection_offsets(model, state, wd):
+    """Two-pass wellbore pressure profile cdp (nw, mp) from perf-local cell
+    quantities: well-level mixture first, then the implied perforation
+    rates; frozen for a substep."""
+    cellq = model.well_cell_quantities_local(state, wd)
+    cdp0 = stdwells.connection_pressure_offsets(wd, cellq, state.qs)
+    cq = stdwells.perforation_fluxes(
+        wd, cellq, state.bhp, state.qs, cdp0,
+        allow_crossflow=model.params.allow_crossflow)
+    return stdwells.connection_pressure_offsets(wd, cellq, state.qs,
+                                                perf_rates=cq)
+
+
+class NumericalIssue(Exception):
+    """Non-finite or exploding residuals; caught by the timestepper to chop
+    dt."""
+
+
+class TooManyIterations(Exception):
+    pass
+
+
+class LinearSolverProblem(Exception):
+    """The linear solver failed; caught by the dt-chop retry loop."""
+
+
+@dataclass
+class SolverReport:
+    iterations: int = 0
+    converged: bool = False
+    assemble_time: float = 0.0
+    linear_solve_time: float = 0.0
+    linear_iterations: int = 0
+    # per-Newton rows [mb_w mb_o mb_g cnv_w cnv_o cnv_g well_flux well_ctrl]
+    convergence_history: object = None
+
+
+class NonlinearSolver:
+    """linear_solver: 'dense' (or 'auto' at most DENSE_LIMIT cells)."""
+
+    DENSE_LIMIT = 2000
+
+    def __init__(self, model: BlackoilModel, linear_solver: str = "auto",
+                 max_iter: Optional[int] = None, min_iter: int = 1,
+                 relax_max: float = 0.5, relax_increment: float = 0.1,
+                 relax_rel_tol: float = 0.2):
+        self.model = model
+        if linear_solver == "auto":
+            linear_solver = ("dense" if model.nc <= self.DENSE_LIMIT
+                             else "cpr")
+        if linear_solver != "dense":
+            raise NotImplementedError(
+                f"linear_solver={linear_solver!r} (block-sparse CPR) is not "
+                "ported yet (ROADMAP Queue 1 item 6)")
+        self.linear_solver = linear_solver
+        self.max_iter = max_iter or model.params.max_iter
+        self.min_iter = min_iter
+        self.relax_max = relax_max
+        self.relax_increment = relax_increment
+        self.relax_rel_tol = relax_rel_tol
+
+    # ------------------------------------------------------------------
+    def _cdp(self, state, wd):
+        return connection_offsets(self.model, state, wd)
+
+    def _assemble(self, state, acc0, dt, wd, cdp):
+        res = self.model.residual(state, acc0, dt, wd, cdp)
+        conv = self.model.convergence(res, dt, state)
+        ctrl, tgt = stdwells.update_controls(
+            wd, state.bhp, state.qs, state.control, state.target,
+            cq_sum=state.qs - res.well_flux)
+        return res, conv, ctrl, tgt
+
+    def jacobian(self, state, acc0, dt, wd, cdp):
+        """(J, r): the dense Jacobian of the flat residual by forward-mode
+        AD through the kernels, and the residual itself."""
+        model = self.model
+
+        def rfun(u):
+            s = model.unflatten(u, state)
+            r = model.residual_vector(model.residual(s, acc0, dt, wd, cdp))
+            return r, r
+
+        return jacfwd(rfun, has_aux=True)(model.flatten(state))
+
+    def _solve_dense(self, state, acc0, dt, wd, cdp, omega):
+        model = self.model
+        J, r = self.jacobian(state, acc0, dt, wd, cdp)
+        # regularize the degenerate (gas-eq, rs-var) diagonal of
+        # hydrocarbon-free cells; gas-equation rows are the third nc-block
+        nc = model.nc
+        idx = 2 * nc + torch.arange(nc, device=J.device)
+        J[idx, idx] += degenerate_x_mask(model, state) * model.pv / dt
+        du = omega * dense_solve(J, r)
+        return update_state(model, state, du)
+
+    # -- host loop ---------------------------------------------------------
+    def step(self, state0: BlackoilState, dt: float, wd,
+             report: Optional[SolverReport] = None):
+        """One (sub)timestep: Newton to convergence. Returns (state,
+        report); raises NumericalIssue / TooManyIterations for the dt-chop
+        retry loop."""
+        model = self.model
+        rep = report or SolverReport()
+        state = state0
+        acc0 = model.accumulation(state0)
+        dt = float(dt)
+        cdp = self._cdp(state, wd)
+        if model.params.solve_welleq_initially:
+            state = self._solve_welleq(state, acc0, dt, wd, cdp)
+        omega = 1.0
+        mb_history = []
+        if rep.convergence_history is None:
+            rep.convergence_history = []
+        for it in range(self.max_iter + 1):
+            t0 = time.perf_counter()
+            res, conv, ctrl, tgt = self._assemble(state, acc0, dt, wd, cdp)
+            # one host pull per iteration: the history row + both flags
+            row = torch.cat([
+                conv["mb"], conv["cnv"], conv["well_flux"].reshape(1),
+                conv["well_ctrl"].reshape(1),
+                conv["finite"].reshape(1).to(torch.float64),
+                conv["converged"].reshape(1).to(torch.float64)]).cpu()
+            row = row.numpy()
+            finite, converged = bool(row[8]), bool(row[9])
+            mb = row[:3]
+            rep.convergence_history.append(row[:8])
+            rep.assemble_time += time.perf_counter() - t0
+            if not finite:
+                raise NumericalIssue(
+                    f"non-finite residual at iteration {it}: "
+                    f"mb={row[:3]} cnv={row[3:6]}")
+            if converged and it >= self.min_iter:
+                rep.converged = True
+                rep.iterations = it
+                return state, rep
+            if it == self.max_iter:
+                break
+            state = state._replace(control=ctrl, target=tgt)
+            mb_history.append(mb)
+            if self._oscillating(mb_history):
+                omega = max(self.relax_max, omega - self.relax_increment)
+            t0 = time.perf_counter()
+            state = self._solve_dense(state, acc0, dt, wd, cdp, omega)
+            rep.linear_solve_time += time.perf_counter() - t0
+            rep.linear_iterations += 1
+            rep.iterations = it + 1
+        raise TooManyIterations(
+            f"Newton failed to converge in {self.max_iter} iterations "
+            f"(mb={row[:3]}, cnv={row[3:6]})")
+
+    def _solve_welleq(self, state, acc0, dt, wd, cdp):
+        """Inner well-equation Newton with reservoir variables frozen (up to
+        max_welleq_iter iterations on (q_s, bhp); the Jacobian over the
+        4*nw well variables by jacfwd). Perf-local: cell quantities only
+        at the perforated cells."""
+        model = self.model
+        nw = state.bhp.shape[0]
+        if nw == 0:
+            return state
+        nw_, mp = wd["perf_cell"].shape
+        q_pf = model.perf_quantities(state, wd)
+        b_pf = torch.movedim(q_pf.b, 0, -1).reshape(nw_, mp, 3)
+        mob_pf = torch.movedim(q_pf.mob, 0, -1).reshape(nw_, mp, 3)
+        po_pf = q_pf.po.reshape(nw_, mp)
+        rs_pf = q_pf.rs.reshape(nw_, mp)
+        rv_pf = q_pf.rv.reshape(nw_, mp)
+        mask = wd["perf_mask"] * wd["open"][:, None]
+        inj = torch.broadcast_to(wd["is_injector"][:, None], (nw_, mp))
+
+        def rfun_w(u, s):
+            qs = u[:3 * nw].reshape(nw, 3)
+            bhp = u[3 * nw:]
+            cmix = stdwells.wellbore_mixture(qs, wd["comp_frac"],
+                                             wd["is_injector"])
+            cq_s = stdwells.perf_flux_formula(
+                po_pf, b_pf, mob_pf, rs_pf, rv_pf, wd["perf_wi"],
+                bhp[:, None] + cdp,
+                torch.broadcast_to(cmix[:, None, :], (nw_, mp, 3)), inj,
+                allow_crossflow=model.params.allow_crossflow)
+            cq_s = cq_s * mask[..., None]
+            flux_res, ctrl_res = stdwells.well_residuals(
+                wd, qs, bhp, cq_s, s.control, s.target)
+            return torch.cat([flux_res.reshape(-1), ctrl_res])
+
+        def flat(s):
+            return torch.cat([s.qs.reshape(-1), s.bhp])
+
+        r0 = float(torch.linalg.norm(rfun_w(flat(state), state)))
+        s, rn = state, r0
+        it = 0
+        while (rn > 1e-10 and it < model.params.max_welleq_iter
+               and np.isfinite(rn)):
+            ctrl, tgt = stdwells.update_controls(
+                wd, s.bhp, s.qs, s.control, s.target)
+            s = s._replace(control=ctrl, target=tgt)
+            u = flat(s)
+            r = rfun_w(u, s)
+            J = jacfwd(lambda v: rfun_w(v, s))(u)
+            du = dense_solve(J, r)
+            lim = model.params.dp_max_rel * torch.abs(s.bhp)
+            dbhp = torch.clamp(du[3 * nw:], -lim, lim)
+            s = s._replace(qs=s.qs - du[:3 * nw].reshape(nw, 3),
+                           bhp=s.bhp - dbhp)
+            rn = float(torch.linalg.norm(rfun_w(flat(s), s)))
+            it += 1
+        # keep the pre-solve state if the inner solve diverged
+        if np.isfinite(rn) and rn <= r0 + 1e-30:
+            return s
+        return state
+
+    def _oscillating(self, history, num_phases=3):
+        """Oscillation detection on the MB-residual history
+        (NonlinearSolver_impl.hpp:223-255)."""
+        if len(history) < 3:
+            return False
+        f0, f1, f2 = history[-3], history[-2], history[-1]
+        osc = 0
+        for ph in range(num_phases):
+            d1 = (f2[ph] - f1[ph]) / max(abs(f1[ph]), 1e-300)
+            d2 = (f1[ph] - f0[ph]) / max(abs(f1[ph]), 1e-300)
+            if d1 * d2 < 0 and min(abs(d1), abs(d2)) > self.relax_rel_tol:
+                osc += 1
+        return osc >= 2

@@ -1,0 +1,80 @@
+"""flow: the simulator CLI of the port.
+
+Deck in, simulation out: runs the fully-implicit black-oil simulator on
+the chosen device and prints one summary row per report step (with
+``--verbose``) and a final JSON line of iteration totals and wall time.
+
+    python -m opm_tpu_torch.tools.flow CASE.DATA [--device cuda|cpu]
+        [--report-steps N] [--param KEY=VALUE ...] [--quiet]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="flow", description=__doc__)
+    ap.add_argument("deck")
+    ap.add_argument("--device", default="cpu",
+                    help="torch device to run on (cpu, cuda, cuda:1, ...)")
+    ap.add_argument("--report-steps", type=int, default=None)
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--param", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="ParameterGroup override (repeatable), e.g. "
+                         "tolerance_cnv=1e-3, max_iter=12, initial_dt=2.0")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.models.blackoil import ModelParams
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.solver.timestepping import TimeStepControlParams
+    from opm_tpu_torch.utils.param import ParameterGroup
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("flow: --device cuda but no CUDA device is visible")
+    pg = ParameterGroup.from_args(args.param)
+    mparams = pg.apply_to_dataclass(ModelParams())
+    DAY = 86400.0
+    tsp = TimeStepControlParams()
+    for f in ("initial_dt", "max_dt", "min_dt"):
+        if pg.has(f):
+            tsp = dataclasses.replace(
+                tsp, **{f: pg.get_default(f, getattr(tsp, f) / DAY) * DAY})
+    tsp = pg.apply_to_dataclass(tsp)
+
+    case = load_case(args.deck)
+    if not args.quiet:
+        print(f"{case.runspec.title or args.deck}: "
+              f"{case.runspec.dims} {'/'.join(case.runspec.phases)}"
+              f"{' DISGAS' if case.runspec.disgas else ''} on {device}")
+    sim = SimulatorFullyImplicitBlackoil(case, params=mparams, ts_params=tsp,
+                                         device=device)
+    t0 = time.perf_counter()
+    sim.run(report_step_limit=args.report_steps, verbose=not args.quiet)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    unused = pg.unused()
+    if unused:
+        print(f"WARNING: unused parameters: {', '.join(unused)}")
+    rep = sim.report
+    print(json.dumps(dict(
+        device=str(device), wall_s=round(wall, 2), substeps=rep.substeps,
+        failed_substeps=rep.failed_substeps,
+        newton_iterations=rep.newton_iterations,
+        assemble_s=round(rep.assemble_time, 2),
+        linear_solve_s=round(rep.linear_solve_time, 2))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,105 @@
+"""The port's kernels on the card, where chip_smoke.py does not reach:
+K1 with per-query region rows (nreg > 1; SPE1 has one region), and the
+dense Jacobian through the kernels against the plain CPU path as a test
+of its own. chip_smoke.py holds every kernel against its plain version at
+the SPE1 and SPE10-2 shapes.
+
+Needs an NVIDIA GPU, nvcc and Triton; skipped without a card. This file
+imports no JAX, so it also runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPE1 = os.path.join(ROOT, "data", "SPE1CASE2.DATA")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def sims(dev):
+    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    case = load_case(SPE1)
+    return (SimulatorFullyImplicitBlackoil(case, device=dev),
+            SimulatorFullyImplicitBlackoil(case, device="cpu"))
+
+
+def _rel(a, b):
+    d = (a - b).abs()
+    return float(torch.where(d == 0, 0.0, d / b.abs()).max())
+
+
+# K1: relative 1e-13 (both run the same operation sequence; nvcc builds
+# with --fmad=false)
+def test_k1_region_rows_match_plain(dev):
+    """Per-query region rows (nreg > 1) through both K1 entries."""
+    from opm_tpu_torch.utils import tables as k1
+    rng = np.random.default_rng(7)
+    nreg, n, m, nq = 3, 9, 4, 5000
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    xs = t(np.sort(rng.uniform(0, 1, (nreg, n)), axis=1))
+    ys = t(rng.normal(size=(nreg, 2, n)))
+    gy = t(np.sort(rng.uniform(0, 1, (nreg, m)), axis=1))
+    z = t(rng.normal(size=(nreg, 2, n, m)))
+    x, y = t(rng.uniform(-0.2, 1.2, nq)), t(rng.uniform(-0.2, 1.2, nq))
+    reg = t(rng.integers(0, nreg, nq))
+    for clamp in (0, 1):
+        kv = k1.interp1_cuda(xs, ys, x, reg, clamp)
+        pv = k1.lookup1_plain(xs, ys, x, reg, clamp)
+        k2 = k1.interp2_cuda(xs, gy, z, x, y, reg, clamp, clamp)
+        p2 = k1.lookup2_plain(xs, gy, z, x, y, reg, clamp, clamp)
+        torch.cuda.synchronize()
+        for a, b in list(zip(kv, pv)) + list(zip(k2, p2)):
+            assert _rel(a, b) <= 1e-13
+
+
+def test_jacobian_through_kernels_matches_cpu(dev, sims):
+    """torch.func.jacfwd of the residual on the card (through K1 and K3)
+    against the same Jacobian on the CPU's plain path: 1e-10 of max|J|."""
+    from opm_tpu_torch.models.blackoil import (make_well_device_arrays,
+                                               tpfa_div_tangent_cuda)
+    from opm_tpu_torch.sim.blackoil import init_well_state, report_step_wells
+    from opm_tpu_torch.sim.init import initial_state
+    from opm_tpu_torch.utils import tables as k1
+    from opm_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+    out = []
+    for sim in sims:
+        step = sim.schedule.report_steps[0]
+        ws = report_step_wells(step, sim.grid, sim.well_names, sim.max_perf)
+        wd = make_well_device_arrays(ws, sim.grid.gravity, sim.device)
+        if not out:
+            st = initial_state(sim.grid, sim.props, sim.case, ws.nw)
+            st = init_well_state(st, ws, True)
+            host = state_to_numpy(st)
+        st = state_from_numpy(host, sim.device)
+        acc0 = sim.model.accumulation(st)
+        cdp = sim.solver._cdp(st, wd)
+        n0 = (k1.interp1_cuda.launches, tpfa_div_tangent_cuda.launches)
+        J, r = sim.solver.jacobian(st, acc0, 86400.0, wd, cdp)
+        if sim.device.type == "cuda":
+            assert k1.interp1_cuda.launches > n0[0]
+            assert tpfa_div_tangent_cuda.launches > n0[1]
+        out.append((J.cpu(), r.cpu()))
+    (Jg, rg), (Jc, rc) = out
+    scale = float(Jc.abs().max())
+    assert float((Jg - Jc).abs().max()) <= 1e-10 * scale
+    assert float((rg - rc).abs().max()) <= 1e-11 * float(rc.abs().max())

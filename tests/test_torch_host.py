@@ -1,0 +1,141 @@
+"""Host layer of the PyTorch port against the JAX package: deck, grid,
+schedule and WellSet field by field on SPE1 (three- and two-phase), SPE3
+and a toy SPE10-like deck.
+
+The port keeps its own copy of these numpy-only modules (importing them
+through opm_tpu would import jax), so the fields must agree exactly."""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from opm_tpu.grid import build_grid as ref_build_grid
+from opm_tpu.io.eclstate import load_case as ref_load_case
+from opm_tpu.io.eclstate import load_case_string as ref_load_string
+from opm_tpu.io.schedule import build_schedule as ref_build_schedule
+from opm_tpu.sim.testcases import spe10like_deck as ref_spe10like_deck
+from opm_tpu.wells.wells import build_well_set as ref_build_well_set
+from opm_tpu_torch.grid.grid import build_grid
+from opm_tpu_torch.io.eclstate import load_case, load_case_string
+from opm_tpu_torch.io.schedule import build_schedule
+from opm_tpu_torch.sim.testcases import spe10like_deck
+from opm_tpu_torch.wells.wells import build_well_set
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPE1 = os.path.join(ROOT, "data", "SPE1CASE2.DATA")
+TOY = dict(nx=10, ny=10, nz=3, seed=3, tsteps="3*10")
+DECKS = {"spe1": "SPE1CASE2.DATA", "spe1_2p": "SPE1CASE2_2P.DATA",
+         "spe3": "SPE3.DATA"}
+
+
+@pytest.fixture(scope="module",
+                params=["spe1", "spe1_2p", "spe3", "spe10toy"])
+def cases(request):
+    if request.param != "spe10toy":
+        path = os.path.join(ROOT, "data", DECKS[request.param])
+        return ref_load_case(path), load_case(path)
+    return (ref_load_string(ref_spe10like_deck(**TOY)),
+            load_case_string(spe10like_deck(**TOY)))
+
+
+def _eq(a, b):
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and np.array_equal(
+            a, b, equal_nan=a.dtype.kind == "f")
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (np.isnan(a) and np.isnan(b))
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_eq(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_eq(a[k], b[k]) for k in a)
+    if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+        return all(_eq(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if type(a).__name__ == type(b).__name__ == "_Default":
+        return True
+    return a == b
+
+
+def test_spe10like_generator_is_the_reference():
+    assert spe10like_deck(**TOY) == ref_spe10like_deck(**TOY)
+
+
+def test_deck_keywords(cases):
+    ref, port = cases
+    assert [kw.name for kw in ref.deck] == [kw.name for kw in port.deck]
+    for kr, kp in zip(ref.deck, port.deck):
+        assert len(kr.records) == len(kp.records), kr.name
+        for rr, rp in zip(kr.records, kp.records):
+            assert _eq(list(rr), list(rp)), kr.name
+
+
+def test_case_sections(cases):
+    ref, port = cases
+    assert _eq(ref.runspec, port.runspec)
+    assert ref.grid_arrays.keys() == port.grid_arrays.keys()
+    for k in ref.grid_arrays:
+        assert _eq(ref.grid_arrays[k], port.grid_arrays[k]), k
+    assert ref.tables.keys() == port.tables.keys()
+    for k in ref.tables:
+        assert _eq(ref.tables[k], port.tables[k]), k
+    assert _eq(ref.solution, port.solution)
+    assert _eq(ref.regions, port.regions)
+
+
+@pytest.mark.parametrize("field", [
+    "dims", "nc", "global_cell", "cart_to_active", "dx", "dy", "dz",
+    "depth", "volume", "pore_volume", "permx", "permy", "permz",
+    "face_cells", "trans", "face_dir", "structured", "gravity", "satnum",
+    "pvtnum", "eqlnum", "fipnum", "nf_canonical"])
+def test_grid_field(cases, field):
+    ref, port = cases
+    assert _eq(getattr(ref_build_grid(ref), field),
+               getattr(build_grid(port), field))
+
+
+def test_schedule(cases):
+    ref, port = cases
+    rs, ps = ref_build_schedule(ref), build_schedule(port)
+    assert rs.start_date == ps.start_date
+    assert _eq(rs.tuning, ps.tuning)
+    assert len(rs.report_steps) == len(ps.report_steps)
+    for a, b in zip(rs.report_steps, ps.report_steps):
+        assert (a.index, a.start_time, a.end_time, a.events) == \
+            (b.index, b.start_time, b.end_time, b.events)
+        assert _eq(a.wells, b.wells)
+
+
+def test_well_sets(cases):
+    ref, port = cases
+    rg, pg = ref_build_grid(ref), build_grid(port)
+    rsteps = ref_build_schedule(ref).report_steps
+    psteps = build_schedule(port).report_steps
+    for a, b in zip(rsteps, psteps):
+        wa = ref_build_well_set(a.wells, rg)
+        wb = build_well_set(b.wells, pg)
+        for f in dataclasses.fields(wa):
+            assert _eq(getattr(wa, f.name), getattr(wb, f.name)), f.name
+
+
+def test_unported_features_raise():
+    from opm_tpu_torch.models.blackoil import BlackoilModel
+    from opm_tpu_torch.props.blackoil import BlackoilProps
+    from opm_tpu_torch.solver.newton import NonlinearSolver
+    case = load_case(SPE1)
+    grid = build_grid(case)
+    model = BlackoilModel(grid, BlackoilProps.from_case(case, "cpu"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        NonlinearSolver(model, linear_solver="cpr")
+    grid.structured = False
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        BlackoilModel(grid, model.props)
+    spe9 = load_case(os.path.join(ROOT, "data", "SPE9.DATA"))
+    if "COORD" in spe9.grid_arrays:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            build_grid(spe9)
