@@ -6,20 +6,29 @@ Phases (each prints a line of its own; any failure exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit (nvidia-smi)
    and turns TF32 off for matmul and cuDNN;
-2. build: compiles the CUDA kernels (K1 tables.cu, K3 tpfa.cu) with nvcc
-   and JIT-compiles the Triton kernels (K9);
-3. kernel == plain on the card, at SPE1's shapes (K3's tangent also at
-   the main path's jacfwd batch, B = 3 nc + 4 nw, and the whole dense
-   Jacobian through the kernels against the plain CPU path) and at SPE10
-   model 2's (60x220x85 = 1.122M cells, the seeded SPE10-like deck), with
-   each kernel's median time against its plain PyTorch version (CUDA
-   events, warm, 20 runs);
-4. SPE1 end to end on the card through SimulatorFullyImplicitBlackoil,
-   all report steps, held against data/spe1_reference_cpu.json (the JAX
-   package's CPU run), with every kernel's launch counter read over that
-   run;
-5. the SPE10-2-size stages of the same path on the card: initial_state,
-   one residual + convergence, one update_state.
+2. build: compiles the CUDA kernels (K1 tables.cu, K3 tpfa.cu, K4/K6
+   block7.cu, K6 cpr.cu, K7 gmg.cu), one nvcc process each, all started
+   together, and JIT-compiles the Triton kernels (K8, K9);
+3. kernel == plain on the card: (a) K1/K3/K9 at SPE1's shapes (K3's
+   tangent also at the main path's jacfwd batch, B = 3 nc + 4 nw, and the
+   whole dense Jacobian through the kernels against the plain CPU path);
+   (b) K1/K3/K9 at SPE10 model 2's size (60x220x85 = 1.122M cells, the
+   seeded SPE10-like deck), each timed against its plain version (CUDA
+   events, warm, median of 20); (c) the CPR kernels K4, K6, K7 and K8 on
+   real assembled systems (SPE1 and SPE10-2 initial state after the well
+   initialisation, first dt), timed at SPE10-2 with each one's bound and,
+   where one PyTorch call computes the same function, that call's time;
+   then one SPE10-2 Newton system solved with the kernels and again with
+   the plain twins on the card;
+4. SPE1 end to end on the card through SimulatorFullyImplicitBlackoil
+   (dense route), all report steps, held against
+   data/spe1_reference_cpu.json (the JAX package's CPU run), with the
+   launch counters of K1/K3/K9 read over that run;
+5. SPE10-2's first report step (20 days) end to end on the card through
+   the CPR route, with the launch counters of K4/K6/K7/K8 read over that
+   run and host-clock sections (each ended by a synchronize);
+5b. the toy SPE10-like deck on the card against
+   data/spe10like_toy_reference_cpu.json.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -43,13 +52,29 @@ TOL_K1 = 1e-13       # relative, values and slopes
 TOL_K3 = 1e-12       # of max|div| (sum order)
 TOL_K9_UPD = 1e-14   # relative; hcstate exact
 TOL_K9_NORM = 1e-12  # relative
+TOL_K4 = 1e-12       # of max (same order of operations as the twin)
+TOL_K6_SETUP = 1e-13  # of max, per output
+TOL_K7 = 1e-12       # of max, each level operation and a whole V-cycle
+TOL_K8_VEC = 1e-13   # of max (same elementwise operations)
+TOL_K8_DOT = 1e-12   # relative (block-tree vs library summation order)
+# a whole SPE10-2 linear solve, kernels vs twins: the same iteration
+# count; du within TOL_DU of max|du| (BiCGStab amplifies the dot products'
+# summation-order difference; tests/test_torch_cpr.py measures the
+# reference's own sensitivity)
+TOL_DU = 1e-5
 # the dense Jacobian on the card against the plain CPU path (the CPU tests
 # hold the plain path to the JAX package's jax.jacfwd at the same bound)
 TOL_JAC = 1e-10      # of max|J|
-# SPE1 against the JAX package's CPU run
+# end to end against the JAX package's CPU runs
 TOL_FPR = 1e-4
 TOL_RATE = 1e-3
 TOL_NEWTON_TOTAL = 0.01
+TOL_LINEAR = 0.02    # linear iterations per report step (roundoff order)
+
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the FP64 (non-tensor)
+# peak, the bound's two rates for these float64 kernels
+HBM_BYTES_S = 3.35e12
+F64_FLOP_S = 34e12
 
 
 def log(msg):
@@ -69,6 +94,12 @@ def rel_err(a, b):
     return float(r.max()) if r.numel() else 0.0
 
 
+def scaled_err(a, b):
+    """max |a - b| / max |b|."""
+    s = float(b.abs().max()) if b.numel() else 0.0
+    return float((a - b).abs().max()) / max(s, 1e-300) if b.numel() else 0.0
+
+
 def cuda_ms(fn, reps=20):
     """Median device time of fn over reps warm runs (CUDA events)."""
     import torch
@@ -86,54 +117,110 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def nbytes(*ts):
+    import torch
+    n = 0
+    for t in ts:
+        if isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size()
+        elif isinstance(t, (tuple, list)):
+            n += nbytes(*t)
+    return n
+
+
 class Kernels:
-    """The kernels of the path: wrappers, sources, replaced functions."""
+    """The kernels of the paths: wrappers, sources, replaced functions, and
+    what chip_smoke measured for each."""
 
     def __init__(self):
+        from opm_tpu_torch.linalg import gmg as k7
+        from opm_tpu_torch.linalg import kernels_triton as k8
+        from opm_tpu_torch.linalg import precond as k6
         from opm_tpu_torch.models import blackoil as mb
+        from opm_tpu_torch.models import linearize as k4
         from opm_tpu_torch.solver import kernels_triton as k9
         from opm_tpu_torch.utils import tables as k1
+        P = "opm_tpu_torch"
         self.entries = [
-            ("K1 interp1", "cuda", "opm_tpu_torch/csrc/tables.cu",
+            ("K1 interp1", "cuda", f"{P}/csrc/tables.cu",
              f"{JAX_PKG}/utils/tables.py:97", k1.interp1_cuda),
-            ("K1 interp2", "cuda", "opm_tpu_torch/csrc/tables.cu",
+            ("K1 interp2", "cuda", f"{P}/csrc/tables.cu",
              f"{JAX_PKG}/utils/tables.py:217", k1.interp2_cuda),
-            ("K3 tpfa_div", "cuda", "opm_tpu_torch/csrc/tpfa.cu",
+            ("K3 tpfa_div", "cuda", f"{P}/csrc/tpfa.cu",
              f"{JAX_PKG}/models/blackoil.py:176", mb.tpfa_div_cuda),
-            ("K3 tpfa_div_tangent", "cuda", "opm_tpu_torch/csrc/tpfa.cu",
+            ("K3 tpfa_div_tangent", "cuda", f"{P}/csrc/tpfa.cu",
              f"{JAX_PKG}/models/blackoil.py:298",
              mb.tpfa_div_tangent_cuda),
             ("K9 update_pressure", "triton",
-             "opm_tpu_torch/solver/kernels_triton.py",
+             f"{P}/solver/kernels_triton.py",
              f"{JAX_PKG}/solver/update.py:19", k9.update_pressure_triton),
-            ("K9 update_cells", "triton",
-             "opm_tpu_torch/solver/kernels_triton.py",
+            ("K9 update_cells", "triton", f"{P}/solver/kernels_triton.py",
              f"{JAX_PKG}/solver/update.py:19", k9.update_cells_triton),
-            ("K9 conv_norms", "triton",
-             "opm_tpu_torch/solver/kernels_triton.py",
+            ("K9 conv_norms", "triton", f"{P}/solver/kernels_triton.py",
              f"{JAX_PKG}/models/blackoil.py:447", k9.conv_norms_triton),
+            ("K4 block7_matvec", "cuda", f"{P}/csrc/block7.cu",
+             f"{JAX_PKG}/models/linearize.py:559", k4.matvec_cells_cuda),
+            ("K6 block7_smooth", "cuda", f"{P}/csrc/block7.cu",
+             f"{JAX_PKG}/linalg/precond.py:388", k6.smooth_step_cuda),
+            ("K6 cpr_setup", "cuda", f"{P}/csrc/cpr.cu",
+             f"{JAX_PKG}/linalg/precond.py:174", k6.cpr_setup_cuda),
+            ("K6 pressure_rhs", "cuda", f"{P}/csrc/cpr.cu",
+             f"{JAX_PKG}/linalg/precond.py:391", k6.pressure_rhs_cuda),
+            ("K7 gmg_smooth", "cuda", f"{P}/csrc/gmg.cu",
+             f"{JAX_PKG}/linalg/gmg.py:200", k7.smooth_cuda),
+            ("K7 gmg_restrict", "cuda", f"{P}/csrc/gmg.cu",
+             f"{JAX_PKG}/linalg/gmg.py:305", k7.restrict_cuda),
+            ("K7 gmg_prolong_smooth", "cuda", f"{P}/csrc/gmg.cu",
+             f"{JAX_PKG}/linalg/gmg.py:308", k7.prolong_smooth_cuda),
+            ("K8 init", "triton", f"{P}/linalg/kernels_triton.py",
+             f"{JAX_PKG}/linalg/krylov.py:59", k8.init_triton),
+            ("K8 p_update", "triton", f"{P}/linalg/kernels_triton.py",
+             f"{JAX_PKG}/linalg/krylov.py:77", k8.p_update_triton),
+            ("K8 dot_alpha", "triton", f"{P}/linalg/kernels_triton.py",
+             f"{JAX_PKG}/linalg/krylov.py:80", k8.dot_alpha_triton),
+            ("K8 s_update", "triton", f"{P}/linalg/kernels_triton.py",
+             f"{JAX_PKG}/linalg/krylov.py:84", k8.s_update_triton),
+            ("K8 dot_omega", "triton", f"{P}/linalg/kernels_triton.py",
+             f"{JAX_PKG}/linalg/krylov.py:87", k8.dot_omega_triton),
+            ("K8 xr_update", "triton", f"{P}/linalg/kernels_triton.py",
+             f"{JAX_PKG}/linalg/krylov.py:90", k8.xr_update_triton),
         ]
         self.err = {e[0]: 0.0 for e in self.entries}
-        self.ms = {}
-        self.plain_ms = {}
-        self.launches = {}
+        self.ms, self.plain_ms, self.library_ms = {}, {}, {}
+        self.bound_ms, self.bound_by, self.launches = {}, {}, {}
+
+    def names(self, prefixes):
+        return [e[0] for e in self.entries if e[0].split()[0] in prefixes]
 
     def reset(self):
         for e in self.entries:
             e[4].launches = 0
 
-    def read(self):
-        self.launches = {e[0]: e[4].launches for e in self.entries}
+    def read(self, names):
+        for e in self.entries:
+            if e[0] in names:
+                self.launches[e[0]] = e[4].launches
 
     def note(self, name, err):
         self.err[name] = max(self.err[name], err)
+
+    def bound(self, name, ins, outs, flops):
+        """The least time the card could take: each input read once and
+        each output written once over HBM, or the float64 operations over
+        the FP64 peak, whichever is larger."""
+        t_bytes = nbytes(ins, outs) / HBM_BYTES_S * 1e3
+        t_ops = flops / F64_FLOP_S * 1e3
+        self.bound_ms[name] = max(t_bytes, t_ops)
+        self.bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
 
     def report(self):
         return {"kernels": [dict(
             name=n, route=route, source=src, replaces=rep,
             launches=int(self.launches.get(n, 0)),
             max_abs_err=self.err[n], ms=self.ms.get(n),
-            plain_ms=self.plain_ms.get(n))
+            plain_ms=self.plain_ms.get(n), bound_ms=self.bound_ms.get(n),
+            bound_by=self.bound_by.get(n),
+            library_ms=self.library_ms.get(n))
             for n, route, src, rep, _ in self.entries]}
 
 
@@ -157,8 +244,8 @@ def seeded_state(model, seed, dev):
 
 
 def compare_kernels(K, model, state, seed, label, timed, B):
-    """Every kernel against its plain version on the same card inputs;
-    B is the K3 tangent batch."""
+    """K1/K3/K9 against their plain versions on the same card inputs; B is
+    the K3 tangent batch."""
     import numpy as np
     import torch
 
@@ -181,10 +268,11 @@ def compare_kernels(K, model, state, seed, label, timed, B):
                 fail(f"{label}: {name} differs from its plain version "
                      f"(rel {e:.3e} > {tol:g})")
 
-    def time_pair(name, kfn, pfn):
+    def time_pair(name, kfn, pfn, ins, flops):
         if timed:
             K.ms[name] = cuda_ms(kfn)
             K.plain_ms[name] = cuda_ms(pfn)
+            K.bound(name, ins, kfn(), flops)
 
     # K1 1-D: the PVTO saturated curve (linear) and the SWOF columns (clamp)
     lo = props.oil_live
@@ -196,7 +284,8 @@ def compare_kernels(K, model, state, seed, label, timed, B):
         chk("K1 interp1", TOL_K1, zip(kv, pv))
     time_pair("K1 interp1",
               lambda: k1.interp1_cuda(sf.sw, sf.w_cols, sw, None, 1),
-              lambda: k1.lookup1_plain(sf.sw, sf.w_cols, sw, None, 1))
+              lambda: k1.lookup1_plain(sf.sw, sf.w_cols, sw, None, 1),
+              (sw, sf.sw, sf.w_cols), 15 * nc * sf.w_cols.shape[0])
     # K1 2-D: the PVTO inv_b/inv_bmu pair at (rs, p - p_bub(rs))
     rs = q.rs
     dpb = torch.clamp(p - lo.p_bub(rs, None), min=0.0)
@@ -208,7 +297,9 @@ def compare_kernels(K, model, state, seed, label, timed, B):
               lambda: k1.interp2_cuda(lo.rs_tab, lo.dp_grid, lo.grids, rs,
                                       dpb, None, 0, 0),
               lambda: k1.lookup2_plain(lo.rs_tab, lo.dp_grid, lo.grids, rs,
-                                       dpb, None, 0, 0))
+                                       dpb, None, 0, 0),
+              (rs, dpb, lo.rs_tab, lo.dp_grid, lo.grids),
+              30 * nc * lo.grids.shape[0])
 
     # K3 forward and tangent
     p3 = torch.stack([q.pw, q.po, q.pg]).contiguous()
@@ -217,9 +308,10 @@ def compare_kernels(K, model, state, seed, label, timed, B):
     rsv, rvv = q.rs.contiguous(), q.rv.contiguous()
     args = (model.dims, p3, rho, bmob, rsv, rvv, model.depth, model.trans,
             model.gravity)
+    nf = model.trans.shape[0]
     kd = mb.tpfa_div_cuda(*args)
     pd = mb.tpfa_div_plain(*args)
-    e3 = float((kd - pd).abs().max()) / float(pd.abs().max())
+    e3 = scaled_err(kd, pd)
     K.note("K3 tpfa_div", float((kd - pd).abs().max()))
     if not e3 <= TOL_K3:
         fail(f"{label}: K3 tpfa_div off by {e3:.3e} of max|div|")
@@ -227,15 +319,16 @@ def compare_kernels(K, model, state, seed, label, timed, B):
            * a.abs().mean() for a in (p3, rho, bmob, rsv, rvv)]
     kt = mb.tpfa_div_tangent_cuda(*args, *tan)
     pt = mb.tpfa_div_tangent_plain(*args, *tan)
-    e3t = float((kt - pt).abs().max()) / float(pt.abs().max())
+    e3t = scaled_err(kt, pt)
     K.note("K3 tpfa_div_tangent", float((kt - pt).abs().max()))
     if not e3t <= TOL_K3:
         fail(f"{label}: K3 tangent (B = {B}) off by {e3t:.3e} of max|ddiv|")
     time_pair("K3 tpfa_div", lambda: mb.tpfa_div_cuda(*args),
-              lambda: mb.tpfa_div_plain(*args))
+              lambda: mb.tpfa_div_plain(*args), args[1:8], 80 * nf)
     time_pair("K3 tpfa_div_tangent",
               lambda: mb.tpfa_div_tangent_cuda(*args, *tan),
-              lambda: mb.tpfa_div_tangent_plain(*args, *tan))
+              lambda: mb.tpfa_div_tangent_plain(*args, *tan),
+              (args[1:8], tan), 120 * nf * B)
 
     # K9 update (seeded increment) and norms (the residual's shapes)
     du = [torch.as_tensor(rng.standard_normal(nc) * s, device=dev)
@@ -256,19 +349,21 @@ def compare_kernels(K, model, state, seed, label, timed, B):
     chk("K9 update_cells", TOL_K9_UPD, [(ku[0], pu[0]), (ku[1], pu[1])])
     time_pair("K9 update_pressure",
               lambda: k9.update_pressure_triton(p, du[0], prm.dp_max_rel),
-              lambda: k9.update_pressure_plain(p, du[0], prm.dp_max_rel))
+              lambda: k9.update_pressure_plain(p, du[0], prm.dp_max_rel),
+              (p, du[0]), 4 * nc)
     time_pair("K9 update_cells", lambda: k9.update_cells_triton(*uargs),
-              lambda: k9.update_cells_plain(*uargs))
+              lambda: k9.update_cells_plain(*uargs), uargs[:9], 60 * nc)
     R = torch.as_tensor(rng.standard_normal((3, nc)) + 1.0, device=dev) \
         * model.pv * 1e-6
     dt = 86400.0
-    kn = k9.conv_norms_triton(R, q.b.contiguous(), model.pv, dt)
+    bq = q.b.contiguous()
+    kn = k9.conv_norms_triton(R, bq, model.pv, dt)
     pn = k9.conv_norms_plain(R, q.b, model.pv, dt)
     chk("K9 conv_norms", TOL_K9_NORM, zip(kn, pn))
     time_pair("K9 conv_norms",
-              lambda: k9.conv_norms_triton(R, q.b.contiguous(), model.pv,
-                                           dt),
-              lambda: k9.conv_norms_plain(R, q.b, model.pv, dt))
+              lambda: k9.conv_norms_triton(R, bq, model.pv, dt),
+              lambda: k9.conv_norms_plain(R, q.b, model.pv, dt),
+              (R, bq, model.pv), 18 * nc)
     torch.cuda.synchronize()
 
 
@@ -312,6 +407,347 @@ def compare_jacobian(case, dev):
 
 
 # ---------------------------------------------------------------------------
+# 3c: the CPR kernels on real assembled systems
+
+def first_newton_system(sim, state0):
+    """The block system of the first Newton iteration of report step 0 at
+    the deck's first dt, from ``state0`` (an initial state)."""
+    from opm_tpu_torch.models import linearize
+    from opm_tpu_torch.models.blackoil import make_well_device_arrays
+    from opm_tpu_torch.sim.blackoil import init_well_state, report_step_wells
+    from opm_tpu_torch.solver.newton import connection_offsets
+
+    ws = report_step_wells(sim.schedule.report_steps[0], sim.grid,
+                           sim.well_names, sim.max_perf)
+    wd = make_well_device_arrays(ws, sim.grid.gravity, sim.device)
+    st = init_well_state(state0, ws, True)
+    acc0 = sim.model.accumulation(st)
+    cdp = connection_offsets(sim.model, st, wd)
+    dt = float(sim.ts.p.initial_dt)
+    return linearize.assemble(sim.model, st, acc0, dt, wd, cdp)
+
+
+def csr_operator(sys, dims):
+    """The cells-only block operator as a float64 CSR matrix on the card
+    (rows and columns equation-major, as the (3, nc) vectors flatten):
+    the library yardstick for K4."""
+    import torch
+
+    from opm_tpu_torch.models.blackoil import _dir_segments
+    nx, ny, nz = dims
+    nc = nx * ny * nz
+    dev = sys.diag.device
+    cells = torch.arange(nc, device=dev).reshape(nz, ny, nx)
+    L, R = [], []
+    for slL, slR, _ in _dir_segments(dims):
+        L.append(cells[slL].reshape(-1))
+        R.append(cells[slR].reshape(-1))
+    L, R = torch.cat(L), torch.cat(R)
+    rows, cols, vals = [], [], []
+    ar = torch.arange(nc, device=dev)
+    for e in range(3):
+        for v in range(3):
+            k = 3 * e + v
+            rows += [e * nc + ar, e * nc + L, e * nc + R]
+            cols += [v * nc + ar, v * nc + R, v * nc + L]
+            vals += [sys.diag[k], sys.face_R[k], -sys.face_L[k]]
+    A = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                             torch.cat(cols)]),
+                                torch.cat(vals), (3 * nc, 3 * nc))
+    return A.coalesce().to_sparse_csr()
+
+
+def compare_cpr_kernels(K, sim, amg, sys, seed, label, timed):
+    """K4, K6, K7 and K8 against their plain versions on one assembled
+    system; timed (with bounds and library yardsticks) when ``timed``."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.linalg import gmg as k7
+    from opm_tpu_torch.linalg import kernels_triton as k8
+    from opm_tpu_torch.linalg import precond as k6
+    from opm_tpu_torch.models import linearize as k4
+
+    dims = sim.model.dims
+    nc = sim.model.nc
+    nf = sys.face_L.shape[1]
+    dev = sys.diag.device
+    rng = np.random.default_rng(seed + 3)
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device=dev)
+
+    def chk(name, tol, pairs, how=scaled_err):
+        for a, b in pairs:
+            K.note(name, float((a - b).abs().max()) if b.numel() else 0.0)
+            e = how(a, b)
+            if not e <= tol:
+                fail(f"{label}: {name} differs from its plain version "
+                     f"({e:.3e} > {tol:g})")
+
+    def timing(name, kfn, pfn, ins, outs, flops, lib=None):
+        if timed:
+            K.ms[name] = cuda_ms(kfn)
+            K.plain_ms[name] = cuda_ms(pfn)
+            K.library_ms[name] = cuda_ms(lib) if lib is not None else None
+            K.bound(name, ins, outs, flops)
+
+    ops = (sys.diag, sys.face_L, sys.face_R)
+    x = rnd(3, nc)
+    # K4
+    ky = k4.matvec_cells_cuda(*ops, x, dims)
+    py = k4.matvec_cells_plain(*ops, x, dims)
+    chk("K4 block7_matvec", TOL_K4, [(ky, py)])
+    lib = None
+    if timed:
+        A = csr_operator(sys, dims)
+        xv = x.reshape(-1, 1)
+        ly = (A @ xv).reshape(3, nc)
+        if not scaled_err(ly, py) <= 1e-12:
+            fail(f"{label}: the CSR yardstick of K4 disagrees")
+        lib = lambda: A @ xv  # noqa: E731
+    timing("K4 block7_matvec", lambda: k4.matvec_cells_cuda(*ops, x, dims),
+           lambda: k4.matvec_cells_plain(*ops, x, dims), (ops, x), ky,
+           18 * nc + 36 * nf, lib)
+    if timed:
+        del A, xv, lib
+    # K6 setup
+    ks = k6.cpr_setup_cuda(*ops, dims)
+    ps = k6.cpr_setup_plain(*ops, dims)
+    chk("K6 cpr_setup", TOL_K6_SETUP, zip(ks, ps))
+    timing("K6 cpr_setup", lambda: k6.cpr_setup_cuda(*ops, dims),
+           lambda: k6.cpr_setup_plain(*ops, dims),
+           (sys.diag, sys.face_L[0::3], sys.face_R[0::3]), ks,
+           60 * nc + 10 * nf)
+    dinv, w = ps[0], ps[1]
+    # K6 pressure residual and smoothing step (pressure-only and full
+    # iterate: the two steps of an apply)
+    r = rnd(3, nc)
+    kr = k6.pressure_rhs_cuda(w, r)
+    pr = k6.pressure_rhs_plain(w, r)
+    chk("K6 pressure_rhs", TOL_K6_SETUP, [(kr, pr)])
+    timing("K6 pressure_rhs", lambda: k6.pressure_rhs_cuda(w, r),
+           lambda: k6.pressure_rhs_plain(w, r), (w, r), kr, 5 * nc,
+           lambda: torch.linalg.vecdot(w, r, dim=0))
+    xp = rnd(nc)
+    for xx in (xp, x):
+        kx = k6.smooth_step_cuda(*ops, dinv, xx, r, dims)
+        px = k6.smooth_step_plain(*ops, dinv, xx, r, dims)
+        chk("K6 block7_smooth", TOL_K4, [(kx, px)])
+    timing("K6 block7_smooth",
+           lambda: k6.smooth_step_cuda(*ops, dinv, x, r, dims),
+           lambda: k6.smooth_step_plain(*ops, dinv, x, r, dims),
+           (ops, dinv, x, r), kx, 18 * nc + 36 * nf + 24 * nc)
+
+    # K7: every level of this system's hierarchy, then a whole V-cycle
+    vals = amg.coarsen_values(ps[2], ps[3])
+    for lvl, lv in enumerate(amg.levels):
+        d3, offs = vals[lvl]
+        xb, bb = rnd(*d3.shape), rnd(*d3.shape)
+        nxt = amg.levels[lvl + 1] if lvl + 1 < len(amg.levels) else None
+        pad_axis = nxt.axis if nxt is not None and nxt.pad else -1
+        chk("K7 gmg_smooth", TOL_K7, [
+            (k7.smooth_cuda(d3, offs, None, bb),
+             k7.smooth_plain(d3, offs, None, bb)),
+            (k7.smooth_cuda(d3, offs, xb, bb),
+             k7.smooth_plain(d3, offs, xb, bb))])
+        kc = k7.restrict_cuda(d3, offs, xb, bb, lv.axis, pad_axis)
+        chk("K7 gmg_restrict", TOL_K7, [
+            (kc, k7.restrict_plain(d3, offs, xb, bb, lv.axis, pad_axis))])
+        ec = rnd(*kc.shape)
+        chk("K7 gmg_prolong_smooth", TOL_K7, [
+            (k7.prolong_smooth_cuda(d3, offs, xb, ec, lv.axis, bb),
+             k7.prolong_smooth_plain(d3, offs, xb, ec, lv.axis, bb))])
+        if lvl == 0 and timed:
+            n0 = d3.numel()
+            ins = (d3, offs, bb)
+            timing("K7 gmg_smooth",
+                   lambda: k7.smooth_cuda(d3, offs, xb, bb),
+                   lambda: k7.smooth_plain(d3, offs, xb, bb),
+                   (ins, xb), bb, 17 * n0)
+            timing("K7 gmg_restrict",
+                   lambda: k7.restrict_cuda(d3, offs, xb, bb, lv.axis,
+                                            pad_axis),
+                   lambda: k7.restrict_plain(d3, offs, xb, bb, lv.axis,
+                                             pad_axis),
+                   (ins, xb), kc, 16 * n0)
+            timing("K7 gmg_prolong_smooth",
+                   lambda: k7.prolong_smooth_cuda(d3, offs, xb, ec,
+                                                  lv.axis, bb),
+                   lambda: k7.prolong_smooth_plain(d3, offs, xb, ec,
+                                                   lv.axis, bb),
+                   (ins, xb, ec), bb, 18 * n0)
+    bp = rnd(nc)
+    kv = amg.vcycle(vals, bp)
+    pv = amg.vcycle(vals, bp, twin=True)
+    e = scaled_err(kv, pv)
+    if not e <= TOL_K7:
+        fail(f"{label}: a whole V-cycle through K7 is off by {e:.3e}")
+    vc = {}
+    if timed:
+        vc = dict(vcycle_ms=cuda_ms(lambda: amg.vcycle(vals, bp)),
+                  vcycle_plain_ms=cuda_ms(
+                      lambda: amg.vcycle(vals, bp, twin=True)),
+                  levels=len(amg.levels), coarsest_n=amg.coarsest_n)
+
+    # K8: each step from the same scalars and vectors
+    vecs = [rnd(3, nc) for _ in range(7)]
+    sc0 = k8.new_scalars(dev)
+    k8.init_plain(vecs[0], sc0)
+    sc0[k8.ALPHA] = 0.7
+    sc0[k8.OMEGA] = 0.3
+
+    def both(step, *args):
+        sk, sp = sc0.clone(), sc0.clone()
+        ka = [a.clone() for a in args]
+        pa = [a.clone() for a in args]
+        ko = getattr(k8, step + "_triton")(*ka, sk)
+        po = getattr(k8, step + "_plain")(*pa, sp)
+        return ko, po, sk, sp
+
+    def chk8(name, ko, po, sk, sp, slots):
+        ko = ko if isinstance(ko, tuple) else (ko,)
+        po = po if isinstance(po, tuple) else (po,)
+        chk(name, TOL_K8_VEC, [(a, b) for a, b in zip(ko, po)
+                               if a is not None])
+        chk(name, TOL_K8_DOT, [(sk[s], sp[s]) for s in slots], how=rel_err)
+
+    b_, p_, r_, v_, s_, t_, h_ = vecs
+    ko, po, sk, sp = both("init", b_)
+    chk8("K8 init", (), (), sk, sp, [k8.RHO1, k8.BETA, k8.RR, k8.BB])
+    ko, po, sk, sp = both("p_update", p_, r_, v_)
+    chk8("K8 p_update", ko, po, sk, sp, [])
+    ko, po, sk, sp = both("dot_alpha", h_, v_)
+    chk8("K8 dot_alpha", (), (), sk, sp, [k8.ALPHA])
+    ko, po, sk, sp = both("s_update", r_, v_)
+    chk8("K8 s_update", ko, po, sk, sp, [])
+    ko, po, sk, sp = both("dot_omega", t_, s_)
+    chk8("K8 dot_omega", (), (), sk, sp, [k8.OMEGA])
+    ko, po, sk, sp = both("xr_update", b_.clone(), r_, s_, t_, p_, v_, h_)
+    chk8("K8 xr_update", ko, po, sk, sp, [k8.RHO1, k8.RHO, k8.BETA, k8.RR])
+    if timed:
+        n = 3 * nc
+        sc = sc0.clone()
+        sc[k8.BETA] = 0.5     # keep the repeated in-place updates bounded
+        alpha = float(sc[k8.ALPHA])
+        steps = [
+            ("K8 init", lambda: k8.init_triton(b_, sc),
+             lambda: k8.init_plain(b_, sc), (b_,), (), 2 * n,
+             lambda: torch.dot(b_.reshape(-1), b_.reshape(-1))),
+            ("K8 p_update", lambda: k8.p_update_triton(p_, r_, v_, sc),
+             lambda: k8.p_update_plain(p_, r_, v_, sc), (p_, r_, v_),
+             (p_,), 4 * n, None),
+            ("K8 dot_alpha", lambda: k8.dot_alpha_triton(h_, v_, sc),
+             lambda: k8.dot_alpha_plain(h_, v_, sc), (h_, v_), (), 2 * n,
+             lambda: torch.dot(h_.reshape(-1), v_.reshape(-1))),
+            ("K8 s_update", lambda: k8.s_update_triton(r_, v_, sc),
+             lambda: k8.s_update_plain(r_, v_, sc), (r_, v_), (s_,),
+             2 * n, lambda: torch.add(r_, v_, alpha=-alpha)),
+            ("K8 dot_omega", lambda: k8.dot_omega_triton(t_, s_, sc),
+             lambda: k8.dot_omega_plain(t_, s_, sc), (t_, s_), (), 4 * n,
+             None),
+            ("K8 xr_update",
+             lambda: k8.xr_update_triton(x, r_, s_, t_, p_, v_, h_, sc),
+             lambda: k8.xr_update_plain(x, r_, s_, t_, p_, v_, h_, sc),
+             (x, r_, s_, t_, p_, v_, h_), (x, r_), 10 * n, None),
+        ]
+        for name, kfn, pfn, ins, outs, flops, lib in steps:
+            timing(name, kfn, pfn, ins, outs, flops, lib)
+    torch.cuda.synchronize()
+    return vc
+
+
+def solve_twice(sim, sys, tol, maxiter):
+    """One Newton system solved at ``tol`` (at most ``maxiter``
+    iterations) with the kernels (twice: the fused reductions are
+    deterministic, so the two runs must agree bit for bit) and with the
+    plain twins on the card: (converged, iterations, twin iterations,
+    max|du - du_twin| / max|du_twin|, seconds, twin seconds)."""
+    import torch
+
+    from opm_tpu_torch.linalg.krylov import bicgstab
+    from opm_tpu_torch.linalg.precond import make_cpr_cells
+    from opm_tpu_torch.models import linearize
+
+    out = []
+    for twin in (False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mv, rhs, rec = linearize.schur_eliminate_wells(sys, sim.model.dims,
+                                                       twin=twin)
+        M = make_cpr_cells(sys, sim.solver.amg, sim.model.dims, twin=twin)
+        res = bicgstab(mv, rhs, precond=M, tol=tol, maxiter=maxiter,
+                       twin=twin)
+        du = torch.cat([res.x.reshape(-1), rec(res.x).reshape(-1)])
+        torch.cuda.synchronize()
+        out.append((res, du, time.perf_counter() - t0))
+    (rk, dk, tk), (rk2, dk2, _), (rp, dp, tp) = out
+    if rk2.iterations != rk.iterations or not torch.equal(dk, dk2):
+        fail("two kernel solves of the same system differ")
+    return (rk.converged and rp.converged, rk.iterations, rp.iterations,
+            scaled_err(dk, dp), tk, tp)
+
+
+# ---------------------------------------------------------------------------
+def run_vs_fixture(sim, ref, label, state=None, report_step_limit=None):
+    """Run ``sim`` and hold each report step to the fixture: Newton and
+    substep counts, 0 failed, linear iterations within TOL_LINEAR (when
+    recorded), FPR / FOPR (/ FWPR, FGOR) within their limits."""
+    import torch
+
+    lin = []
+    sim.events.event("report_step_completed").add(
+        lambda s, step: lin.append(sim.report.linear_iterations))
+    t0 = time.perf_counter()
+    sim.run(state, report_step_limit=report_step_limit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lin = lin[1:] + [sim.report.linear_iterations]
+    lin = [b - a for a, b in zip([0] + lin[:-1], lin)]
+    rep = sim.report
+    rows, steps = sim.summary.rows, sim._step_timing
+    refs = ref["report_steps"][:len(rows)]
+    diffs = [(s[0], (s[3], s[4]), (r["substeps"], r["newtons"]))
+             for s, r in zip(steps, refs)
+             if (s[3], s[4]) != (r["substeps"], r["newtons"])]
+    keys = [k for k in ("FPR", "FOPR", "FWPR", "FGOR") if k in refs[0]]
+    worst = {k: 0.0 for k in keys}
+    for row, r in zip(rows, refs):
+        for k in keys:
+            worst[k] = max(worst[k], abs(row[k] - r[k])
+                           / max(abs(r[k]), 1e-30))
+    lin_off = [(s[0], li, r["linear"]) for s, li, r in zip(steps, lin, refs)
+               if "linear" in r
+               and abs(li - r["linear"]) > TOL_LINEAR * r["linear"]]
+    log(f"{label} on the card: {wall:.1f} s, {rep.newton_iterations} "
+        f"Newtons, {rep.substeps} substeps, {rep.failed_substeps} failed, "
+        f"{rep.linear_iterations} linear iterations")
+    log("  worst relative summary error: "
+        + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+    if diffs:
+        log(f"  report steps with other counts (index, port, ref): {diffs}")
+    if len(rows) != len(refs):
+        fail(f"{label} ran {len(rows)} report steps, reference "
+             f"{len(refs)}")
+    if rep.failed_substeps != 0:
+        fail(f"{label}: {rep.failed_substeps} failed substeps")
+    if sum(s[3] for s in steps) != sum(r["substeps"] for r in refs):
+        fail(f"{label}: substeps differ from the reference")
+    total = sum(r["newtons"] for r in refs)
+    if abs(rep.newton_iterations - total) > TOL_NEWTON_TOTAL * total:
+        fail(f"{label}: Newton total more than 1% off the reference")
+    if lin_off:
+        fail(f"{label}: linear iterations off by more than 2%: {lin_off}")
+    lim = dict(FPR=TOL_FPR, FOPR=TOL_RATE, FWPR=TOL_RATE, FGOR=TOL_RATE)
+    if any(worst[k] > lim[k] for k in keys):
+        fail(f"{label}: summary vectors outside tolerance")
+    return dict(wall_s=wall, newtons=rep.newton_iterations,
+                substeps=rep.substeps, failed=rep.failed_substeps,
+                linear=rep.linear_iterations, linear_per_step=lin,
+                newton_diffs=diffs, worst_rel=worst)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
@@ -323,22 +759,15 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible")
     sys.path.insert(0, ROOT)
-    import numpy as np
 
-    from opm_tpu_torch.grid.grid import build_grid
     from opm_tpu_torch.io.eclstate import load_case
-    from opm_tpu_torch.io.schedule import build_schedule
+    from opm_tpu_torch.linalg import kernels_triton as k8
+    from opm_tpu_torch.linalg.gmg import StructuredGmg
     from opm_tpu_torch.models import blackoil as mb
-    from opm_tpu_torch.props.blackoil import BlackoilProps
-    from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
-                                            init_well_state,
-                                            report_step_wells,
-                                            schedule_wells)
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
     from opm_tpu_torch.sim.init import initial_state
     from opm_tpu_torch.sim.testcases import spe10like_case
     from opm_tpu_torch.solver import kernels_triton as k9
-    from opm_tpu_torch.solver.newton import connection_offsets
-    from opm_tpu_torch.solver.update import update_state
     from opm_tpu_torch.utils import cuda_lib
 
     results = {}
@@ -358,8 +787,7 @@ def main(argv=None):
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    for name in ("tables", "tpfa"):
-        cuda_lib.build(name)
+    cuda_lib.build_all(["tables", "tpfa", "block7", "cpr", "gmg"])
     K = Kernels()
     tiny = torch.linspace(1.0, 2.0, 8, dtype=torch.float64, device=dev)
     b3 = torch.stack([tiny, tiny, tiny]).contiguous()
@@ -369,11 +797,19 @@ def main(argv=None):
                            tiny, tiny, tiny, tiny, tiny, tiny, 0.2, 1e9,
                            True, False)
     k9.conv_norms_triton(b3, b3, tiny, 1.0)
+    sc = k8.new_scalars(dev)
+    k8.init_triton(b3, sc)
+    k8.p_update_triton(b3.clone(), b3, b3, sc)
+    k8.dot_alpha_triton(b3, b3, sc)
+    k8.s_update_triton(b3, b3, sc)
+    k8.dot_omega_triton(b3, b3, sc)
+    k8.xr_update_triton(b3.clone(), b3.clone(), b3, b3, b3, b3, b3, sc)
     torch.cuda.synchronize()
     results["build_s"] = time.perf_counter() - t0
-    log(f"build: {results['build_s']:.1f} s (nvcc sm_90a + Triton JIT)")
+    log(f"build: {results['build_s']:.1f} s (5 nvcc sm_90a in parallel + "
+        "Triton JIT)")
 
-    # -- 3a. kernel == plain at SPE1's shapes -----------------------------------
+    # -- 3a. K1/K3/K9 == plain at SPE1's shapes -------------------------------
     case1 = load_case(os.path.join(ROOT, "data", "SPE1CASE2.DATA"))
     sim_cmp = SimulatorFullyImplicitBlackoil(case1, device=dev)
     m1 = sim_cmp.model
@@ -381,7 +817,7 @@ def main(argv=None):
     # jacfwd folds every tangent column into one K3 tangent launch
     b_jac = 3 * m1.nc + 4 * len(sim_cmp.well_names)
     compare_kernels(K, m1, st1, args.seed, "SPE1", timed=False, B=b_jac)
-    log(f"kernels == plain at SPE1 shapes (300 cells, K3 tangent B = "
+    log(f"K1/K3/K9 == plain at SPE1 shapes (300 cells, K3 tangent B = "
         f"{b_jac}): ok")
     q1 = m1.cell_quantities(st1)
     a1 = (m1.dims, torch.stack([q1.pw, q1.po, q1.pg]).contiguous(),
@@ -404,114 +840,164 @@ def main(argv=None):
         fail(f"SPE1 Jacobian on the card off by {ejac:.3e} of max|J| "
              f"(> {TOL_JAC:g}) or not through K3 ({n_tan} launches)")
 
-    # -- 3b. kernel == plain at SPE10-2 shapes ----------------------------------
+    # -- 3b. K1/K3/K9 == plain at SPE10-2 shapes --------------------------------
     t0 = time.perf_counter()
     case10 = spe10like_case(nx=60, ny=220, nz=85)
-    grid10 = build_grid(case10)
-    props10 = BlackoilProps.from_case(case10, dev)
-    m10 = mb.BlackoilModel(grid10, props10, device=dev)
+    sim10 = SimulatorFullyImplicitBlackoil(case10)     # the default: cuda
+    m10 = sim10.model
+    if m10.device.type != "cuda" or sim10.solver.linear_solver != "cpr":
+        fail("SPE10-2 did not default to the card's CPR route")
     results["spe10_setup_s"] = time.perf_counter() - t0
-    log(f"SPE10-2 setup (deck parse, grid, props on the host): "
+    amg = sim10.solver.amg
+    log(f"SPE10-2 setup (deck parse, grid, props, GMG levels on the host): "
         f"{results['spe10_setup_s']:.1f} s, {m10.nc} cells, "
-        f"{m10.trans.shape[0]} faces")
+        f"{m10.trans.shape[0]} faces, {len(amg.levels)} GMG levels, "
+        f"coarsest {amg.coarsest_n} cells")
     st10 = seeded_state(m10, args.seed, dev)
     compare_kernels(K, m10, st10, args.seed, "SPE10-2", timed=True, B=3)
-    for n, *_ in K.entries:
-        log(f"  {n:22s} kernel {K.ms[n]:9.4f} ms   plain {K.plain_ms[n]:9.4f}"
-            f" ms   max_abs_err {K.err[n]:.3e}")
-    log("kernels == plain at SPE10-2 shapes (1.122M cells): ok")
+    del st10
+    log("K1/K3/K9 == plain at SPE10-2 shapes (1.122M cells): ok")
+
+    # -- 3c. K4/K6/K7/K8 == plain on real assembled systems ---------------------
+    init1 = initial_state(sim_cmp.grid, sim_cmp.props, case1,
+                          len(sim_cmp.well_names))
+    sys1 = first_newton_system(sim_cmp, init1)
+    compare_cpr_kernels(K, sim_cmp, StructuredGmg(m1.dims,
+                                                  sim_cmp.grid.trans),
+                        sys1, args.seed, "SPE1", timed=False)
+    log("K4/K6/K8 == plain on SPE1's first Newton system: ok")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init10 = initial_state(sim10.grid, sim10.props, case10,
+                           len(sim10.well_names))
+    torch.cuda.synchronize()
+    results["spe10_initial_state_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sys10 = first_newton_system(sim10, init10)
+    torch.cuda.synchronize()
+    results["spe10_first_assembly_s"] = time.perf_counter() - t0
+    vc = compare_cpr_kernels(K, sim10, amg, sys10, args.seed, "SPE10-2",
+                             timed=True)
+    results["spe10_vcycle"] = vc
+    for n in K.names(("K1", "K3", "K9", "K4", "K6", "K7", "K8")):
+        lib = K.library_ms.get(n)
+        log(f"  {n:22s} kernel {K.ms[n]:9.4f} ms   plain "
+            f"{K.plain_ms[n]:9.4f} ms   bound {K.bound_ms[n]:8.4f} ms "
+            f"({K.bound_by[n]})   library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}   "
+            f"max_abs_err {K.err[n]:.3e}")
+    log(f"  V-cycle ({vc['levels']} levels, coarsest {vc['coarsest_n']}): "
+        f"kernels {vc['vcycle_ms']:.4f} ms   plain "
+        f"{vc['vcycle_plain_ms']:.4f} ms")
+    # the production solve; then ten iterations of the recurrence at an
+    # unreachable tolerance, a longer path for the roundoff to travel
+    # (recorded: kernels and twins sum their dot products in other orders)
+    results["spe10_solve_twice"] = []
+    for tol, maxiter in ((1e-2, 50), (1e-12, 10)):
+        ok, its_k, its_p, edu, tk, tp = solve_twice(sim10, sys10, tol,
+                                                    maxiter)
+        log(f"SPE10-2 Newton system at tol {tol:g}, kernels (twice, bit "
+            f"equal) vs twins on the card: {its_k} / {its_p} BiCGStab "
+            f"iterations, du off by {edu:.3e} of max|du|, {tk:.3f} s / "
+            f"{tp:.3f} s")
+        results["spe10_solve_twice"].append(dict(
+            tol=tol, maxiter=maxiter, converged=ok, iterations=its_k,
+            twin_iterations=its_p, du_rel=edu, s=tk, twin_s=tp))
+        if its_k != its_p:
+            fail("the kernel and twin solves take other iteration counts")
+        if tol >= 1e-2 and not (ok and edu <= TOL_DU):
+            fail("the kernel and twin solves of the SPE10-2 system differ")
+    del sys10, sys1
+    torch.cuda.empty_cache()
+    log("K4/K6/K7/K8 == plain at SPE1 and SPE10-2 (1.122M cells): ok")
 
     # -- 4. SPE1 end to end -----------------------------------------------------
     with open(os.path.join(ROOT, "data", "spe1_reference_cpu.json")) as f:
-        ref = json.load(f)
-    sim = SimulatorFullyImplicitBlackoil(case1, device=dev)
+        ref1 = json.load(f)
+    sim = SimulatorFullyImplicitBlackoil(case1)
     K.reset()
-    t0 = time.perf_counter()
-    sim.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    K.read()
-    rep = sim.report
-    log(f"SPE1 end to end on the card: {wall:.1f} s, "
-        f"{rep.newton_iterations} Newtons, {rep.substeps} substeps, "
-        f"{rep.failed_substeps} failed (reference "
-        f"{ref['total_newtons']}/{ref['total_substeps']}/"
-        f"{ref['failed_substeps']})")
-    log("  launches: " + ", ".join(f"{n}={c}" for n, c in K.launches.items()))
-    results["spe1"] = dict(wall_s=wall, newtons=rep.newton_iterations,
-                           substeps=rep.substeps,
-                           failed=rep.failed_substeps,
-                           launches=K.launches)
-    rows = sim.summary.rows
-    steps = sim._step_timing
-    diffs = [(s[0], s[4], r["newtons"]) for s, r in
-             zip(steps, ref["report_steps"]) if s[4] != r["newtons"]]
-    if diffs:
-        log(f"  first report step with another Newton count: {diffs[0]}")
-    results["spe1"]["newton_diffs"] = diffs
-    worst = dict(FPR=0.0, FOPR=0.0, FGOR=0.0)
-    for row, r in zip(rows, ref["report_steps"]):
-        for key in worst:
-            e = abs(row[key] - r[key]) / max(abs(r[key]), 1e-30)
-            worst[key] = max(worst[key], e)
-    log("  worst relative summary error: "
-        + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
-    results["spe1"]["worst_rel"] = worst
-    if len(rows) != len(ref["report_steps"]):
-        fail(f"SPE1 ran {len(rows)} report steps, reference "
-             f"{len(ref['report_steps'])}")
-    if rep.failed_substeps != 0 or rep.substeps != ref["total_substeps"]:
-        fail("SPE1 substeps differ from the reference")
-    if abs(rep.newton_iterations - ref["total_newtons"]) \
-            > TOL_NEWTON_TOTAL * ref["total_newtons"]:
-        fail("SPE1 Newton total more than 1% off the reference")
-    if worst["FPR"] > TOL_FPR or worst["FOPR"] > TOL_RATE \
-            or worst["FGOR"] > TOL_RATE:
-        fail("SPE1 summary vectors outside tolerance")
-    dead = [n for n, c in K.launches.items() if c <= 0]
+    results["spe1"] = run_vs_fixture(sim, ref1, "SPE1 end to end")
+    K.read(K.names(("K1", "K3", "K9")))
+    results["spe1"]["launches_all"] = {e[0]: e[4].launches
+                                       for e in K.entries}
+    log("  launches: " + ", ".join(f"{n}={K.launches[n]}"
+                                   for n in K.names(("K1", "K3", "K9"))))
+    dead = [n for n in K.names(("K1", "K3", "K9")) if K.launches[n] <= 0]
     if dead:
         fail(f"kernels not launched by the SPE1 run: {dead}")
 
-    # -- 5. SPE10-2-size stages of the path -------------------------------------
-    stages = {}
-    sched10 = build_schedule(case10)
-    names10, max_perf10 = schedule_wells(sched10)
-    torch.cuda.synchronize()
+    # -- 5. SPE10-2 first report step through the CPR route --------------------
+    solver = sim10.solver
+    solver.timing = {}
+    vtime = [0.0, 0]
+    plain_vcycle = amg.vcycle
+
+    def timed_vcycle(vals, b, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain_vcycle(vals, b, **kw)
+        torch.cuda.synchronize()
+        vtime[0] += time.perf_counter() - t
+        vtime[1] += 1
+        return out
+
+    amg.vcycle = timed_vcycle
+    new_names = K.names(("K4", "K6", "K7", "K8"))
+    K.reset()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = initial_state(grid10, props10, case10, len(names10))
+    state = sim10.run(init10, report_step_limit=1)
     torch.cuda.synchronize()
-    stages["initial_state_s"] = time.perf_counter() - t0
-    ws = report_step_wells(sched10.report_steps[0], grid10, names10,
-                           max_perf10)
-    wd = mb.make_well_device_arrays(ws, grid10.gravity, dev)
-    state = init_well_state(state, ws, True)
-    dt = 86400.0
-    acc0 = m10.accumulation(state)
-    cdp = connection_offsets(m10, state, wd)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = m10.residual(state, acc0, dt, wd, cdp)
-    conv = m10.convergence(res, dt, state)
-    flags = torch.stack([conv["finite"], conv["converged"]]).cpu()
-    stages["residual_convergence_s"] = time.perf_counter() - t0
-    if not bool(torch.isfinite(res.cell).all()) or not bool(flags[0]):
-        fail("SPE10-2 residual is not finite")
-    rng = np.random.default_rng(args.seed + 2)
-    nc, nw = m10.nc, state.bhp.shape[0]
-    du = torch.as_tensor(np.concatenate([
-        rng.standard_normal(nc) * 1e5, rng.standard_normal(nc) * 0.02,
-        rng.standard_normal(nc) * 0.01, np.zeros(4 * nw)]), device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    new = update_state(m10, state, du)
-    torch.cuda.synchronize()
-    stages["update_state_s"] = time.perf_counter() - t0
-    if not (bool(torch.isfinite(new.pressure).all())
-            and bool((new.sw >= 0).all()) and bool((new.sw <= 1).all())):
-        fail("SPE10-2 update_state produced an invalid state")
-    log("SPE10-2 stages on the card: " + ", ".join(
-        f"{k}={v:.3f}" for k, v in stages.items()))
-    results["spe10_stages"] = stages
+    wall = time.perf_counter() - t0
+    K.read(new_names)
+    amg.vcycle = plain_vcycle
+    rep = sim10.report
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (state.pressure, state.sw, state.x, state.bhp, state.qs))
+    sec = dict(solver.timing)
+    sec["vcycle"] = vtime[0]
+    res10 = dict(
+        wall_s=wall, initial_state_s=results["spe10_initial_state_s"],
+        newtons=rep.newton_iterations, linear=rep.linear_iterations,
+        linear_per_newton=rep.linear_iterations
+        / max(rep.newton_iterations, 1),
+        substeps=rep.substeps, failed=rep.failed_substeps,
+        residual_s=rep.assemble_time, sections_s=sec, vcycles=vtime[1],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches={n: K.launches[n] for n in new_names},
+        # every counter over this run (K1/K3/K9 run here too)
+        launches_all={e[0]: e[4].launches for e in K.entries},
+        report_steps=[list(s) for s in sim10._step_timing])
+    results["spe10_cpr"] = res10
+    log(f"SPE10-2 first report step (20 d) through the CPR route: "
+        f"{wall:.1f} s wall, {rep.newton_iterations} Newtons, "
+        f"{rep.linear_iterations} linear iterations "
+        f"({res10['linear_per_newton']:.2f} per Newton), {rep.substeps} "
+        f"substeps, {rep.failed_substeps} failed; initial_state "
+        f"{results['spe10_initial_state_s']:.2f} s; peak memory "
+        f"{res10['peak_mem_gb']:.1f} GB")
+    log("  sections (s, synced): " + ", ".join(
+        f"{k}={v:.2f}" for k, v in sec.items())
+        + f", residual+convergence={rep.assemble_time:.2f} "
+        f"({vtime[1]} V-cycles)")
+    log("  launches: " + ", ".join(f"{n}={K.launches[n]}"
+                                   for n in new_names))
+    if rep.failed_substeps != 0 or not finite:
+        fail("SPE10-2: failed substeps or a non-finite state")
+    dead = [n for n in new_names if K.launches[n] <= 0]
+    if dead:
+        fail(f"kernels not launched by the SPE10-2 run: {dead}")
+    del sim10, state, init10
+    torch.cuda.empty_cache()
+
+    # -- 5b. the toy SPE10-like deck against its fixture -----------------------
+    with open(os.path.join(ROOT, "data",
+                           "spe10like_toy_reference_cpu.json")) as f:
+        reft = json.load(f)
+    simt = SimulatorFullyImplicitBlackoil(spe10like_case(
+        **reft["deck_kwargs"]))
+    results["spe10_toy"] = run_vs_fixture(simt, reft,
+                                          "toy SPE10-like (2640 cells)")
 
     kern = K.report()
     results.update(kern)
@@ -520,6 +1006,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
+    log(smi)
     print(json.dumps(kern))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,139 @@
+// K6: the per-Newton CPR setup in one pass over the cells, and the
+// weighted pressure residual of each CPR apply, for Hopper.
+//
+// Replaces the JAX package's linalg/precond.py inv3x3_rows (:113-137),
+// quasi_impes_weights (:174-184), the structured branch of
+// cpr_pressure_system (:207-263) and the restriction rp = sum_i w_i r_i of
+// make_cpr_cells (:391), which XLA fused on the TPU.
+//
+// Setup, per cell c with 3x3 diagonal block D_c (diag, (9, nc) row-major):
+//   dinv_c = D_c^-1 (closed form through 1/det),
+//   w_c    = row 0 of D_c^-1 (first-row cofactors / det, a true division),
+//   diag_p = w0 D00 + w1 D10 + w2 D20,
+// and for each face f of the grid (face_L/face_R (9, nf), grid face order)
+//   a_LR[f] =  sum_i w_i[L] face_R[3 i][f],   a_RL[f] = -sum_i w_i[R] face_L[3 i][f],
+// written as off = [a_LR | a_RL] (2 nf). Each face value needs the weights
+// of one of its cells only, so a cell's thread writes a_LR of the <= 3
+// faces where it is the left cell and a_RL of the <= 3 where it is the
+// right cell: every output is written once, no thread reads another's
+// weights, no atomics, one launch.
+//
+// What bounds it on the card: memory traffic. Per cell it reads 9 diagonal
+// entries and 3 entries of each of its <= 6 face blocks' pressure columns,
+// and writes 9 + 3 + 1 values and <= 6 face values.
+// Build with --fmad=false (products and sums round as the plain version's).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void setup_kernel(int nx, int ny, int nz, long long nc,
+                             long long nf, long long ofs_y, long long ofs_z,
+                             const double* __restrict__ diag,
+                             const double* __restrict__ fL,
+                             const double* __restrict__ fR,
+                             double* __restrict__ dinv,
+                             double* __restrict__ w,
+                             double* __restrict__ diag_p,
+                             double* __restrict__ off) {
+    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= nc) return;
+    double a = diag[0 * nc + c], b = diag[1 * nc + c], cc = diag[2 * nc + c];
+    double d = diag[3 * nc + c], e = diag[4 * nc + c], f = diag[5 * nc + c];
+    double g = diag[6 * nc + c], h = diag[7 * nc + c], i = diag[8 * nc + c];
+    double A = e * i - f * h;
+    double B = -(d * i - f * g);
+    double C = d * h - e * g;
+    double det = a * A + b * B + cc * C;
+    det = fabs(det) > 1e-300 ? det : 1.0;
+    double inv_det = 1.0 / det;
+    dinv[0 * nc + c] = A * inv_det;
+    dinv[1 * nc + c] = -(b * i - cc * h) * inv_det;
+    dinv[2 * nc + c] = (b * f - cc * e) * inv_det;
+    dinv[3 * nc + c] = B * inv_det;
+    dinv[4 * nc + c] = (a * i - cc * g) * inv_det;
+    dinv[5 * nc + c] = -(a * f - cc * d) * inv_det;
+    dinv[6 * nc + c] = C * inv_det;
+    dinv[7 * nc + c] = -(a * h - b * g) * inv_det;
+    dinv[8 * nc + c] = (a * e - b * d) * inv_det;
+    double w0 = A / det;
+    double w1 = -(b * i - cc * h) / det;
+    double w2 = (b * f - cc * e) / det;
+    w[c] = w0;
+    w[nc + c] = w1;
+    w[2 * nc + c] = w2;
+    diag_p[c] = (w0 * a + w1 * d) + w2 * g;
+
+    const int ix = (int)(c % nx);
+    const int jy = (int)((c / nx) % ny);
+    const int kz = (int)(c / ((long long)nx * ny));
+    // faces where this cell is left (a_LR) and right (a_RL)
+    long long left[3], right[3];
+    left[0] = ix < nx - 1 ? ((long long)kz * ny + jy) * (nx - 1) + ix : -1;
+    right[0] = ix > 0 ? ((long long)kz * ny + jy) * (nx - 1) + ix - 1 : -1;
+    left[1] = jy < ny - 1
+        ? ofs_y + ((long long)kz * (ny - 1) + jy) * nx + ix : -1;
+    right[1] = jy > 0
+        ? ofs_y + ((long long)kz * (ny - 1) + jy - 1) * nx + ix : -1;
+    left[2] = kz < nz - 1 ? ofs_z + ((long long)kz * ny + jy) * nx + ix : -1;
+    right[2] = kz > 0
+        ? ofs_z + ((long long)(kz - 1) * ny + jy) * nx + ix : -1;
+    for (int dir = 0; dir < 3; ++dir) {
+        long long fl = left[dir];
+        if (fl >= 0) {
+            double s = w0 * fR[0 * nf + fl];
+            s = s + w1 * fR[3 * nf + fl];
+            s = s + w2 * fR[6 * nf + fl];
+            off[fl] = s;
+        }
+        long long fr = right[dir];
+        if (fr >= 0) {
+            double s = w0 * fL[0 * nf + fr];
+            s = s + w1 * fL[3 * nf + fr];
+            s = s + w2 * fL[6 * nf + fr];
+            off[nf + fr] = -s;
+        }
+    }
+}
+
+__global__ void pressure_rhs_kernel(long long nc,
+                                    const double* __restrict__ w,
+                                    const double* __restrict__ r,
+                                    double* __restrict__ rp) {
+    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= nc) return;
+    rp[c] = (w[c] * r[c] + w[nc + c] * r[nc + c])
+            + w[2 * nc + c] * r[2 * nc + c];
+}
+
+}  // namespace
+
+extern "C" {
+
+int opm_cpr_setup(int nx, int ny, int nz, const double* diag,
+                  const double* fL, const double* fR, double* dinv,
+                  double* w, double* diag_p, double* off,
+                  cudaStream_t stream) {
+    long long nc = (long long)nx * ny * nz;
+    long long nfx = (long long)(nx - 1) * ny * nz;
+    long long nfy = (long long)nx * (ny - 1) * nz;
+    long long nf = nfx + nfy + (long long)nx * ny * (nz - 1);
+    if (nc == 0) return 0;
+    int blocks = (int)((nc + kThreads - 1) / kThreads);
+    setup_kernel<<<blocks, kThreads, 0, stream>>>(
+        nx, ny, nz, nc, nf, nfx, nfx + nfy, diag, fL, fR, dinv, w, diag_p,
+        off);
+    return (int)cudaGetLastError();
+}
+
+int opm_cpr_pressure_rhs(long long nc, const double* w, const double* r,
+                         double* rp, cudaStream_t stream) {
+    if (nc == 0) return 0;
+    int blocks = (int)((nc + kThreads - 1) / kThreads);
+    pressure_rhs_kernel<<<blocks, kThreads, 0, stream>>>(nc, w, r, rp);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

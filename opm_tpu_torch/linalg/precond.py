@@ -1,0 +1,287 @@
+"""Block-Jacobi and CPR preconditioning of the well-eliminated system.
+
+Port of the JAX package's linalg/precond.py: the closed-form block
+inverses (``inv3x3``, the equilibrated and regularised ``inv4x4``), the
+quasi-IMPES CPR weights, the weighted pressure system of a fully-active
+cartesian grid, and ``make_cpr_cells``: one structured-GMG V-cycle on the
+weighted pressure residual, then block-Jacobi smoothing of the cell
+system. The settings are the reference's CPU ones: two smoothing steps,
+one V-cycle with one pre- and one post-smoothing sweep, float64.
+
+Kernel K6 (``csrc/cpr.cu``, ``csrc/block7.cu``) does the per-Newton setup
+(block-Jacobi inverses, weights, pressure diagonal and face couplings in
+one pass over the cells) and the apply: the weighted pressure residual
+and the smoothing step x <- x + D^-1 (r - A x) fused with K4's stencil.
+Each has its plain twin here. The non-Schur ``make_cpr`` (and the
+``block_jacobi`` and ``cpr_weights`` selector only it needs), the
+red-black smoother, true-IMPES weights and the frozen preconditioner were
+measured TPU knobs and are not ported (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opm_tpu_torch.models import linearize
+from opm_tpu_torch.models.blackoil import _dir_segments
+from opm_tpu_torch.utils import cuda_lib
+
+_TINY = 1e-300
+
+
+def _nonzero_or_one(det):
+    return torch.where(torch.abs(det) > _TINY, det, torch.ones_like(det))
+
+
+def inv3x3(m):
+    """Batched closed-form 3x3 inverse, (..., 3, 3)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = _nonzero_or_one(a * A + b * B + c * C)
+    adj = torch.stack([
+        torch.stack([A, -(b * i - c * h), (b * f - c * e)], dim=-1),
+        torch.stack([B, (a * i - c * g), -(a * f - c * d)], dim=-1),
+        torch.stack([C, -(a * h - b * g), (a * e - b * d)], dim=-1),
+    ], dim=-2)
+    return adj / det[..., None, None]
+
+
+def inv4x4(m):
+    """Batched 4x4 inverse by 2x2 block elimination, after max-abs row and
+    column equilibration and a 1e-10 Tikhonov shift in the equilibrated
+    metric; 2x2 determinants are clamped relative to the block scale (the
+    reference's guards for rank-deficient well blocks, copied exactly)."""
+    r = torch.clamp(torch.amax(torch.abs(m), dim=-1, keepdim=True),
+                    min=_TINY)
+    m = m / r
+    c = torch.clamp(torch.amax(torch.abs(m), dim=-2, keepdim=True),
+                    min=_TINY)
+    m = m / c + 1e-10 * torch.eye(4, dtype=m.dtype, device=m.device)
+    A = m[..., :2, :2]
+    B = m[..., :2, 2:]
+    C = m[..., 2:, :2]
+    D = m[..., 2:, 2:]
+
+    def inv2(x):
+        a, b = x[..., 0, 0], x[..., 0, 1]
+        c_, d = x[..., 1, 0], x[..., 1, 1]
+        det = a * d - b * c_
+        scale = torch.maximum(torch.abs(a * d), torch.abs(b * c_))
+        floor = torch.clamp(1e-10 * scale, min=_TINY)
+        det = torch.where(torch.abs(det) >= floor, det,
+                          torch.where(det < 0, -floor, floor))
+        return torch.stack([torch.stack([d, -b], dim=-1),
+                            torch.stack([-c_, a], dim=-1)],
+                           dim=-2) / det[..., None, None]
+
+    Ai = inv2(A)
+    S = D - C @ Ai @ B
+    Si = inv2(S)
+    TL = Ai + Ai @ B @ Si @ C @ Ai
+    TR = -Ai @ B @ Si
+    BL = -Si @ C @ Ai
+    BR = Si
+    inv = torch.cat([torch.cat([TL, TR], dim=-1),
+                     torch.cat([BL, BR], dim=-1)], dim=-2)
+    return inv / c.transpose(-1, -2) / r.transpose(-1, -2)
+
+
+def inv3x3_rows(m):
+    """Closed-form inverse of a (9, n) row-major 3x3 block family, as a
+    (9, n) tensor."""
+    a, b, c, d, e, f, g, h, i = m
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = _nonzero_or_one(a * A + b * B + c * C)
+    inv_det = 1.0 / det
+    return torch.stack([
+        A * inv_det, -(b * i - c * h) * inv_det, (b * f - c * e) * inv_det,
+        B * inv_det, (a * i - c * g) * inv_det, -(a * f - c * d) * inv_det,
+        C * inv_det, -(a * h - b * g) * inv_det, (a * e - b * d) * inv_det])
+
+
+def quasi_impes_weights(diag):
+    """Per-cell CPR weights (3, nc) with w^T D = e_p^T: row 0 of D^-1 from
+    the first-row cofactors."""
+    a, b, c, d, e, f, g, h, i = diag
+    A = e * i - f * h
+    det = _nonzero_or_one(a * A + b * -(d * i - f * g) + c * (d * h - e * g))
+    return torch.stack([A, -(b * i - c * h), (b * f - c * e)]) / det
+
+
+def cpr_pressure_system(sys: linearize.BlockSystem, w, dims):
+    """Weighted pressure matrix: diag (nc,) and off (2 nf,) = [a_LR | a_RL]
+    in grid face order (structured branch)."""
+    pR = (sys.face_R[0], sys.face_R[3], sys.face_R[6])
+    pL = (sys.face_L[0], sys.face_L[3], sys.face_L[6])
+    diag_p = w[0] * sys.diag[0] + w[1] * sys.diag[3] + w[2] * sys.diag[6]
+    nx, ny, nz = dims
+    w3 = [wi.reshape(nz, ny, nx) for wi in w]
+    aLR, aRL = [], []
+    ofs = 0
+    for slL, slR, nf_d in _dir_segments(dims):
+        aLR.append(sum(w3[i][slL].reshape(-1) * pR[i][ofs:ofs + nf_d]
+                       for i in range(3)))
+        aRL.append(-sum(w3[i][slR].reshape(-1) * pL[i][ofs:ofs + nf_d]
+                        for i in range(3)))
+        ofs += nf_d
+    return diag_p, torch.cat(aLR + aRL)
+
+
+# ---------------------------------------------------------------------------
+# K6 setup: plain version and CUDA wrapper (csrc/cpr.cu)
+
+def cpr_setup_plain(diag, face_L, face_R, dims):
+    """(dinv (9, nc), w (3, nc), diag_p (nc,), off (2 nf,)): the per-Newton
+    CPR setup of make_cpr_cells."""
+    sys = linearize.BlockSystem(None, None, diag, face_L, face_R, None,
+                                None, None, None, None)
+    w = quasi_impes_weights(diag)
+    diag_p, off = cpr_pressure_system(sys, w, dims)
+    return inv3x3_rows(diag), w, diag_p, off
+
+
+_P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
+CPR_SIGS = {
+    "opm_cpr_setup": [_I, _I, _I] + [_P] * 7 + [_P],
+    "opm_cpr_pressure_rhs": [_L, _P, _P, _P, _P],
+}
+
+
+def cpr_setup_cuda(diag, face_L, face_R, dims):
+    """K6 setup on the card; same contract as cpr_setup_plain."""
+    linearize.check_block_operator(diag, face_L, face_R, dims)
+    nx, ny, nz = dims
+    nc = nx * ny * nz
+    nf = face_L.shape[1]
+    dev = diag.device
+    dinv = torch.empty_like(diag)
+    w = torch.empty((3, nc), dtype=torch.float64, device=dev)
+    diag_p = torch.empty(nc, dtype=torch.float64, device=dev)
+    off = torch.empty(2 * nf, dtype=torch.float64, device=dev)
+    lib = cuda_lib.load("cpr", CPR_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_cpr_setup(nx, ny, nz, ptr(diag), ptr(face_L), ptr(face_R),
+                            ptr(dinv), ptr(w), ptr(diag_p), ptr(off),
+                            cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "opm_cpr_setup")
+    cpr_setup_cuda.launches += 1
+    return dinv, w, diag_p, off
+
+
+cpr_setup_cuda.launches = 0
+
+
+def cpr_setup(sys: linearize.BlockSystem, dims):
+    return cuda_lib.dispatch(sys.diag, cpr_setup_cuda, cpr_setup_plain,
+                             sys.diag, sys.face_L, sys.face_R, tuple(dims),
+                             what="K6 setup")
+
+
+# ---------------------------------------------------------------------------
+# K6 apply: the weighted pressure residual and the fused smoothing step
+
+def pressure_rhs_plain(w, r):
+    """rp = sum_i w_i r_i (nc,)."""
+    return (w[0] * r[0] + w[1] * r[1]) + w[2] * r[2]
+
+
+def pressure_rhs_cuda(w, r):
+    nc = w.shape[1]
+    for t in (w, r):
+        if (t.dtype != torch.float64 or not t.is_contiguous()
+                or t.shape != (3, nc) or t.device != w.device):
+            raise ValueError("K6 pressure_rhs: w and r must be contiguous "
+                             "float64 (3, nc) tensors on one device")
+    rp = torch.empty(nc, dtype=torch.float64, device=w.device)
+    lib = cuda_lib.load("cpr", CPR_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_cpr_pressure_rhs(nc, ptr(w), ptr(r), ptr(rp),
+                                   cuda_lib.stream_ptr(w.device))
+    cuda_lib.check(err, "opm_cpr_pressure_rhs")
+    pressure_rhs_cuda.launches += 1
+    return rp
+
+
+pressure_rhs_cuda.launches = 0
+
+
+def smooth_step_plain(diag, face_L, face_R, dinv, x, r, dims):
+    """x + D^-1 (r - A x) for the cells-only block operator; x (3, nc), or
+    (nc,) for a pressure-only iterate (the other two rows zero)."""
+    if x.dim() == 1:
+        x = torch.stack([x, torch.zeros_like(x), torch.zeros_like(x)])
+    ac = linearize.matvec_cells_plain(diag, face_L, face_R, x, dims)
+    return x + linearize.bapply_rows(dinv, r - ac)
+
+
+def smooth_step_cuda(diag, face_L, face_R, dinv, x, r, dims):
+    """K4 + K6 smoothing step on the card; same contract as
+    smooth_step_plain."""
+    p_only = x.dim() == 1
+    nc = r.shape[1]
+    if p_only and (x.shape != (nc,) or x.dtype != torch.float64
+                   or not x.is_contiguous() or x.device != r.device):
+        raise ValueError("K6 smoothing: a pressure-only iterate must be a "
+                         "contiguous float64 (nc,) tensor")
+    linearize.check_block_operator(diag, face_L, face_R, dims, r,
+                                   *(() if p_only else (x,)))
+    if (dinv.shape != diag.shape or dinv.dtype != torch.float64
+            or not dinv.is_contiguous() or dinv.device != diag.device):
+        raise ValueError("K6 smoothing: dinv must be a contiguous float64 "
+                         "(9, nc) tensor beside diag")
+    nx, ny, nz = dims
+    out = torch.empty_like(r)
+    lib = cuda_lib.load("block7", linearize.BLOCK7_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_block7_smooth(nx, ny, nz, int(p_only), ptr(diag),
+                                ptr(face_L), ptr(face_R), ptr(dinv), ptr(x),
+                                ptr(r), ptr(out),
+                                cuda_lib.stream_ptr(r.device))
+    cuda_lib.check(err, "opm_block7_smooth")
+    smooth_step_cuda.launches += 1
+    return out
+
+
+smooth_step_cuda.launches = 0
+
+
+SMOOTHER_STEPS = 2       # the reference's CPU setting
+
+
+def make_cpr_cells(sys: linearize.BlockSystem, amg, dims, *, twin=False):
+    """CPR preconditioner of the well-eliminated system: weighted pressure
+    residual, one GMG V-cycle (pre = post = 1, one cycle), then
+    SMOOTHER_STEPS block-Jacobi steps on the cell diagonal. ``twin``:
+    every step by its plain twin on any device (the card's whole-solve
+    comparison)."""
+    dims = tuple(dims)
+    if twin:
+        dinv, w, diag_p, off = cpr_setup_plain(sys.diag, sys.face_L,
+                                               sys.face_R, dims)
+    else:
+        dinv, w, diag_p, off = cpr_setup(sys, dims)
+    vals = amg.coarsen_values(diag_p, off)
+
+    def apply(rc):
+        rc = rc.contiguous()
+        if twin:
+            rp = pressure_rhs_plain(w, rc)
+        else:
+            rp = cuda_lib.dispatch(rc, pressure_rhs_cuda,
+                                   pressure_rhs_plain, w, rc,
+                                   what="K6 pressure_rhs")
+        xc = amg.vcycle(vals, rp, twin=twin)
+        for _ in range(SMOOTHER_STEPS):
+            args = (sys.diag, sys.face_L, sys.face_R, dinv, xc, rc, dims)
+            xc = (smooth_step_plain(*args) if twin else cuda_lib.dispatch(
+                rc, smooth_step_cuda, smooth_step_plain, *args,
+                what="K6 smoothing"))
+        return xc
+
+    return apply

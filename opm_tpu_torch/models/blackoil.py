@@ -145,9 +145,13 @@ def face_flux_from_q(p3L, p3R, rhoL, rhoR, bmL, bmR, rsL, rsR, rvL, rvR,
 
 def _face_flux_tangent(p3L, p3R, rhoL, rhoR, bmL, bmR, rsL, rsR, rvL, rvR,
                        trans, dz, gravity, dp3L, dp3R, drhoL, drhoR, dbmL,
-                       dbmR, drsL, drsR, drvL, drvR):
+                       dbmR, drsL, drsR, drvL, drvR, zero_threshold=False):
     """Tangent of face_flux_from_q with the upwind direction fixed by the
-    primal; tangent arrays carry a leading batch axis."""
+    primal; tangent arrays carry a leading batch axis. ``zero_threshold``:
+    the tangent through a THPRES clip with threshold 0,
+    sign(dphi) max(|dphi| - 0, 0), as the reference's block assembly
+    takes it: equal to the plain tangent except where dphi == 0 exactly
+    (a face in hydrostatic equilibrium), where it is 0."""
     rho_face = 0.5 * (rhoL + rhoR)
     dphi = (p3L - p3R) - rho_face * gravity * dz
     up = dphi >= 0.0
@@ -156,6 +160,8 @@ def _face_flux_tangent(p3L, p3R, rhoL, rhoR, bmL, bmR, rsL, rsR, rvL, rvR,
     rs_up = torch.where(up[..., OIL, :], rsL, rsR)
     rv_up = torch.where(up[..., GAS, :], rvL, rvR)
     dphi_t = (dp3L - dp3R) - (0.5 * (drhoL + drhoR)) * gravity * dz
+    if zero_threshold:
+        dphi_t = torch.where(dphi == 0.0, 0.0, dphi_t)
     bm_t = torch.where(up, dbmL, dbmR)
     vf_t = trans * dphi_t
     F_t = bm_t * vf + bm * vf_t

@@ -1,14 +1,42 @@
-"""Jacobian helpers of the dense Newton route.
+"""Block-sparse Jacobian assembly and the block 7-point operator.
 
-Only ``degenerate_x_mask`` is ported so far; the block-sparse assembly of
-the JAX package's models/linearize.py is ROADMAP Queue 1 item 6.
+Port of the JAX package's models/linearize.py for fully-active cartesian
+grids: ``assemble`` builds the residual and the exact Jacobian as 3x3
+cell-diagonal blocks, 3x3 left/right face blocks and the well coupling
+blocks; ``matvec`` applies it; ``schur_eliminate_wells`` gives the
+cells-only reduced operator A - C D^-1 B, its right-hand side and the
+well recovery.
+
+Every derivative comes from forward-mode AD of the same local formulas as
+the residual: the cell quantities and the accumulation by three
+``torch.func.jvp`` calls seeded with all-ones per primary variable (the
+reference seeds ``jax.linearize`` the same way), chained through the
+plain face-flux tangent per direction, and the perforation fluxes by
+seeding each of the seven perforation-local variables over all
+perforations at once (the reference's ``vmap(jacfwd(perf_local))``).
+
+The cell-block part of the operator is kernel K4 (``csrc/block7.cu``),
+with ``matvec_cells_plain`` as its twin. The 3x3 block families are
+stored as (9, n) tensors, row-major over (equation, variable): row 3*i+j
+is dF_i/du_j, the reference's nine flat arrays stacked. The extra-face
+(embedded grid) and unstructured branches are ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from opm_tpu_torch.models.blackoil import (_cells3, _dir_segments,
+                                           _face_flux_tangent, _slice,
+                                           accumulation_from_q,
+                                           compute_cell_quantities,
+                                           face_flux_from_q)
 from opm_tpu_torch.models.state import HC_GASONLY, HC_OILONLY, saturations
+from opm_tpu_torch.utils import cuda_lib
+from opm_tpu_torch.wells import standard as stdwells
+from opm_tpu_torch.wells.wells import CTRL_BHP, CTRL_THP
 
 
 def degenerate_x_mask(model, state):
@@ -26,3 +54,350 @@ def degenerate_x_mask(model, state):
     # reciprocal, one rounding off the reference's quotient
     return torch.clamp(1.0 - s_scale / torch.full_like(s_scale, 1e-5),
                        0.0, 1.0)
+
+
+class BlockSystem(NamedTuple):
+    """Assembled block-sparse Jacobian and residual."""
+
+    r_cell: torch.Tensor     # (3, nc) phase-leading
+    r_well: torch.Tensor     # (nw, 4) [flux eqs (3), control eq]
+    diag: torch.Tensor       # (9, nc) block diagonal, row 3*eq + var
+    face_L: torch.Tensor     # (9, nf) dF/du_L
+    face_R: torch.Tensor     # (9, nf) dF/du_R
+    cw: torch.Tensor         # (nw, mp, 3, 4) cell rows x well vars
+    wc: torch.Tensor         # (nw, mp, 3, 3) well flux rows x cell vars
+    wd_diag: torch.Tensor    # (nw, 4, 4) well rows x well vars
+    perf_cell: torch.Tensor  # (nw, mp)
+    perf_mask: torch.Tensor  # (nw, mp) float
+
+    @property
+    def nc(self):
+        return self.diag.shape[-1]
+
+    @property
+    def nw(self):
+        return self.wd_diag.shape[0]
+
+
+def _check_structured(model):
+    nx, ny, nz = model.dims
+    nf = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+    if model.trans.shape[0] != nf:
+        raise NotImplementedError(
+            "extra faces (faults, NNCs, embedded grids) are not ported yet "
+            "(ROADMAP Queue 1 item 9)")
+
+
+def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
+    """Residual and exact Jacobian blocks at ``state`` (the reference's
+    structured ``assemble``)."""
+    if state.sgmax is not None or state.somax is not None:
+        raise NotImplementedError(
+            "hysteresis/VAPPARS memory is not ported yet "
+            "(ROADMAP Queue 1 item 2)")
+    if model.threshold_dp is not None:
+        raise NotImplementedError(
+            "THPRES is not ported yet (ROADMAP Queue 1 item 8)")
+    _check_structured(model)
+    stdwells._check_ported(wd)
+    props = model.props
+    nc = model.nc
+    dims = model.dims
+    dev = state.pressure.device
+    hc, pvt, sat = state.hcstate, model.pvtnum, model.satnum
+    p, sw, x = state.pressure, state.sw, state.x
+
+    # ---- cell quantities, accumulation and their three tangent columns
+    def q_all(pc, swc, xc):
+        q = compute_cell_quantities(props, pc, swc, xc, hc, pvt, sat)
+        return q, accumulation_from_q(q)
+
+    # the three seeds (all-ones per variable) as one batched jvp
+    seeds = torch.eye(3, dtype=torch.float64, device=dev)[:, :, None] \
+        .expand(3, 3, nc)
+
+    def tangent(seed):
+        return torch.func.jvp(q_all, (p, sw, x), tuple(seed))
+
+    (q_b, acc_b), (q_t, acc_t) = torch.func.vmap(tangent)(seeds)
+    q_val = type(q_b)(*(a[0] for a in q_b))
+    acc_val = acc_b[0]
+    q_tan = [type(q_t)(*(a[j] for a in q_t)) for j in range(3)]
+    acc_tan = [acc_t[j] for j in range(3)]
+    pvdt = model.pv / dt
+    r_cell = pvdt * (acc_val - acc0)
+    diag = torch.stack([pvdt * acc_tan[j][i] for i in range(3)
+                        for j in range(3)])
+    diag[8] = diag[8] + degenerate_x_mask(model, state) * pvdt
+
+    # ---- faces: value and L/R blocks, per direction, by the chain rule
+    # through the face-flux tangent with the per-cell tangent columns
+    def face_inputs(q):
+        return (torch.stack([q.pw, q.po, q.pg]), q.rho, q.b * q.mob, q.rs,
+                q.rv)
+
+    def face_tangents(q, t):
+        return (torch.stack([t.pw, t.po, t.pg]), t.rho,
+                t.b * q.mob + q.b * t.mob, t.rs, t.rv)
+
+    prim = [_cells3(a, dims) for a in face_inputs(q_val)]
+    # tangents batched over the three seeds: (3 var, ...) per field
+    tans = [_cells3(torch.stack(f), dims) for f in
+            zip(*(face_tangents(q_val, t) for t in q_tan))]
+    dep = _cells3(model.depth, dims)
+    r3 = _cells3(r_cell, dims).clone()
+    diag3 = _cells3(diag, dims)
+    fL_segs, fR_segs = [], []
+    ofs = 0
+    for slL, slR, nf_d in _dir_segments(dims):
+        T = model.trans[ofs:ofs + nf_d]
+        dz = (dep[slL] - dep[slR]).reshape(-1)
+        args = []
+        for a in prim:
+            args += [_slice(a, slL), _slice(a, slR)]
+        flux = face_flux_from_q(*args, T, dz, model.gravity)   # (3, nf_d)
+        tL, tR = [], []
+        for a in tans:
+            aL, aR = _slice(a, slL), _slice(a, slR)
+            tL += [aL, torch.zeros_like(aL)]
+            tR += [torch.zeros_like(aR), aR]
+        # (3 var, 3 eq, nf_d) -> rows 3*eq + var
+        # the reference assembles through a zero THPRES threshold, whose
+        # clip has a zero derivative on faces with dphi == 0 exactly
+        fL = _face_flux_tangent(*args, T, dz, model.gravity, *tL,
+                                zero_threshold=True)
+        fR = _face_flux_tangent(*args, T, dz, model.gravity, *tR,
+                                zero_threshold=True)
+        fL = fL.transpose(0, 1).reshape(9, nf_d)
+        fR = fR.transpose(0, 1).reshape(9, nf_d)
+        shp = r3[(slice(None),) + slL].shape
+        r3[(slice(None),) + slL] += flux.reshape(shp)
+        r3[(slice(None),) + slR] += -flux.reshape(shp)
+        diag3[(slice(None),) + slL] += fL.reshape((9,) + shp[1:])
+        diag3[(slice(None),) + slR] += -fR.reshape((9,) + shp[1:])
+        fL_segs.append(fL)
+        fR_segs.append(fR)
+        ofs += nf_d
+    r_cell = r3.reshape(3, nc)
+    face_L = torch.cat(fL_segs, dim=1).contiguous()
+    face_R = torch.cat(fR_segs, dim=1).contiguous()
+
+    # ---- wells: perforation-local fluxes and their exact derivatives
+    nw, mp = wd["perf_cell"].shape
+    pc = wd["perf_cell"]
+    mask = wd["perf_mask"] * wd["open"][:, None]
+    pc_f = pc.reshape(-1)
+    u_pf = torch.stack([p[pc_f], sw[pc_f], x[pc_f]], dim=-1)    # (npf, 3)
+    wv = torch.cat([state.qs, state.bhp[:, None]], dim=1)       # (nw, 4)
+    wv_f = torch.repeat_interleave(wv, mp, dim=0)               # (npf, 4)
+    cf_f = torch.repeat_interleave(wd["comp_frac"], mp, dim=0)
+    ii_f = torch.repeat_interleave(wd["is_injector"], mp)
+    wi_f = wd["perf_wi"].reshape(-1)
+    cdp_f = cdp.reshape(-1)
+    hc_f, pvt_f, sat_f = hc[pc_f], pvt[pc_f], sat[pc_f]
+    xflow = model.params.allow_crossflow
+
+    def perf_local(u, wvars):
+        q = compute_cell_quantities(props, u[:, 0], u[:, 1], u[:, 2], hc_f,
+                                    pvt_f, sat_f)
+        cmix = stdwells.wellbore_mixture(wvars[:, :3], cf_f, ii_f)
+        return stdwells.perf_flux_formula(
+            q.po, q.b.T, q.mob.T, q.rs, q.rv, wi_f, wvars[:, 3] + cdp_f,
+            cmix, ii_f, allow_crossflow=xflow)                  # (npf, 3)
+
+    # the seven perforation-local variables as one batched jvp
+    eye7 = torch.eye(7, dtype=torch.float64, device=dev)
+    npf = u_pf.shape[0]
+    su = eye7[:, None, :3].expand(7, npf, 3)
+    sw_ = eye7[:, None, 3:].expand(7, npf, 4)
+
+    def perf_tangent(du, dw):
+        return torch.func.jvp(perf_local, (u_pf, wv_f), (du, dw))
+
+    cq_b, cols = torch.func.vmap(perf_tangent)(su, sw_)
+    cq_val = cq_b[0]
+    jac_u = torch.movedim(cols[:3], 0, -1)                   # (npf, 3, 3)
+    jac_wv = torch.movedim(cols[3:], 0, -1)                  # (npf, 3, 4)
+    m_f = mask.reshape(-1)
+    cq_val = cq_val * m_f[:, None]
+    jac_u = jac_u * m_f[:, None, None]
+    jac_wv = jac_wv * m_f[:, None, None]
+    r_cell = r_cell.index_add(1, pc_f, -cq_val.T)
+    diag = diag.index_add(1, pc_f, -jac_u.reshape(-1, 9).T)
+    cw = (-jac_wv).reshape(nw, mp, 3, 4)
+    wc = (-jac_u).reshape(nw, mp, 3, 3)
+
+    # well equations: flux rows q - sum cq, control row
+    cq_sum = cq_val.reshape(nw, mp, 3).sum(dim=1)
+    flux_res = state.qs - cq_sum
+    g = stdwells.control_distribution(state.control, wd["comp_frac"])
+    g = stdwells.effective_distribution(
+        g, state.control, wd["is_injector"].to(torch.bool),
+        cq_val.reshape(nw, mp, 3))
+    is_bhp = (state.control == CTRL_BHP) | (state.control == CTRL_THP)
+    closed = wd["open"] < 0.5
+    rate = torch.einsum("wp,wp->w", g, state.qs) - state.target
+    ctrl_res = torch.where(is_bhp, state.bhp - state.target, rate)
+    ctrl_jq = torch.where(is_bhp[:, None], 0.0, g)
+    ctrl_jb = torch.where(is_bhp, 1.0, 0.0).to(torch.float64)
+    flux_res = torch.where(closed[:, None], state.qs, flux_res)
+    ctrl_res = torch.where(closed, state.bhp - wd["bhp_limit"], ctrl_res)
+    r_well = torch.cat([flux_res, ctrl_res[:, None]], dim=1)
+
+    eye34 = torch.zeros((3, 4), dtype=torch.float64, device=dev)
+    eye34[:, :3] = torch.eye(3, dtype=torch.float64, device=dev)
+    dwv_sum = jac_wv.reshape(nw, mp, 3, 4).sum(dim=1)
+    flux_rows = torch.where(closed[:, None, None], eye34[None],
+                            eye34[None] - dwv_sum)
+    ctrl_row = torch.cat([ctrl_jq, ctrl_jb[:, None]], dim=1)
+    ctrl_bhp = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64,
+                            device=dev)
+    ctrl_row = torch.where(closed[:, None], ctrl_bhp[None], ctrl_row)
+    wd_diag = torch.cat([flux_rows, ctrl_row[:, None, :]], dim=1)
+    cw = cw * wd["open"][:, None, None, None]
+    wc = wc * wd["open"][:, None, None, None]
+    return BlockSystem(r_cell=r_cell, r_well=r_well,
+                       diag=diag.contiguous(), face_L=face_L, face_R=face_R,
+                       cw=cw, wc=wc, wd_diag=wd_diag, perf_cell=pc,
+                       perf_mask=mask)
+
+
+def bapply_rows(rows9, v):
+    """(9, n) row-major 3x3 blocks applied to v (3, n) -> (3, n)."""
+    return torch.stack([
+        rows9[0] * v[0] + rows9[1] * v[1] + rows9[2] * v[2],
+        rows9[3] * v[0] + rows9[4] * v[1] + rows9[5] * v[2],
+        rows9[6] * v[0] + rows9[7] * v[1] + rows9[8] * v[2]])
+
+
+# ---------------------------------------------------------------------------
+# K4: the block 7-point operator (plain version)
+
+def matvec_cells_plain(diag, face_L, face_R, v, dims):
+    """Cells-only block stencil y = A v (3, nc) in the reference's order
+    (``_matvec_cells_structured``): the diagonal product, then per
+    direction x, y, z the right neighbour's +face_R term on the left cell
+    and the left neighbour's -face_L term on the right cell."""
+    out = _cells3(bapply_rows(diag, v), dims)
+    v3 = _cells3(v, dims)
+    ofs = 0
+    for slL, slR, nf_d in _dir_segments(dims):
+        shp = out[(slice(None),) + slL].shape
+        fL = face_L[:, ofs:ofs + nf_d].reshape((9,) + shp[1:])
+        fR = face_R[:, ofs:ofs + nf_d].reshape((9,) + shp[1:])
+        out[(slice(None),) + slL] += bapply_rows(fR, v3[(slice(None),) + slR])
+        out[(slice(None),) + slR] -= bapply_rows(fL, v3[(slice(None),) + slL])
+        ofs += nf_d
+    return out.reshape(3, -1)
+
+
+# ---------------------------------------------------------------------------
+# K4 (and the K6 smoothing step, precond.py): CUDA wrappers (csrc/block7.cu)
+
+_P, _I = cuda_lib.P, cuda_lib.I
+BLOCK7_SIGS = {
+    "opm_block7_matvec": [_I, _I, _I] + [_P] * 5 + [_P],
+    "opm_block7_smooth": [_I, _I, _I, _I] + [_P] * 7 + [_P],
+}
+
+
+def check_block_operator(diag, face_L, face_R, dims, *vecs):
+    """Contiguous float64 (9, nc)/(9, nf) blocks and (3, nc) vectors on one
+    device (the contract of the block7 kernels)."""
+    nx, ny, nz = dims
+    nc = nx * ny * nz
+    nf = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+    dev = diag.device
+    for t, shape in [(diag, (9, nc)), (face_L, (9, nf)), (face_R, (9, nf))] \
+            + [(v, (3, nc)) for v in vecs]:
+        if (t.dtype != torch.float64 or t.device != dev
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"block7: expected a contiguous float64 {shape} "
+                             f"tensor on {dev}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+
+
+def matvec_cells_cuda(diag, face_L, face_R, v, dims):
+    """K4 on the card; same contract as matvec_cells_plain."""
+    check_block_operator(diag, face_L, face_R, dims, v)
+    nx, ny, nz = dims
+    out = torch.empty_like(v)
+    lib = cuda_lib.load("block7", BLOCK7_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_block7_matvec(nx, ny, nz, ptr(diag), ptr(face_L),
+                                ptr(face_R), ptr(v), ptr(out),
+                                cuda_lib.stream_ptr(v.device))
+    cuda_lib.check(err, "opm_block7_matvec")
+    matvec_cells_cuda.launches += 1
+    return out
+
+
+matvec_cells_cuda.launches = 0
+
+
+def matvec_cells(sys: BlockSystem, v, dims):
+    """Cell-block part of the operator, (3, nc) -> (3, nc) (K4)."""
+    return cuda_lib.dispatch(v, matvec_cells_cuda, matvec_cells_plain,
+                             sys.diag, sys.face_L, sys.face_R,
+                             v.contiguous(), tuple(dims), what="K4")
+
+
+# ---------------------------------------------------------------------------
+# wells (K5, plain: at most nw * mp perforations)
+
+def well_apply_B(sys: BlockSystem, v_cell):
+    """Well-equation rows x cell vars: B v_cell -> (nw, 4)."""
+    nw, mp = sys.perf_cell.shape
+    pc_f = sys.perf_cell.reshape(-1)
+    vc_perf = v_cell[:, pc_f].T                                # (npf, 3)
+    wf = torch.einsum("pij,pj->pi", sys.wc.reshape(-1, 3, 3), vc_perf)
+    out = torch.zeros((nw, 4), dtype=v_cell.dtype, device=v_cell.device)
+    out[:, :3] += wf.reshape(nw, mp, 3).sum(dim=1)
+    return out
+
+
+def well_apply_C(sys: BlockSystem, v_well):
+    """Cell rows x well vars: C v_well scattered to cells -> (3, nc)."""
+    nw, mp = sys.perf_cell.shape
+    pc_f = sys.perf_cell.reshape(-1)
+    vw_rep = torch.repeat_interleave(v_well, mp, dim=0)        # (npf, 4)
+    cw_add = torch.einsum("pij,pj->pi", sys.cw.reshape(-1, 3, 4), vw_rep)
+    out = torch.zeros((3, sys.nc), dtype=v_well.dtype, device=v_well.device)
+    return out.index_add(1, pc_f, cw_add.T)
+
+
+def matvec(sys: BlockSystem, v_cell, v_well, dims):
+    """J [v_cell (3, nc); v_well (nw, 4)] -> (out_cell, out_well)."""
+    out_c = matvec_cells(sys, v_cell, dims) + well_apply_C(sys, v_well)
+    out_w = torch.einsum("wij,wj->wi", sys.wd_diag, v_well) \
+        + well_apply_B(sys, v_cell)
+    return out_c, out_w
+
+
+def schur_eliminate_wells(sys: BlockSystem, dims, *, twin=False):
+    """Schur-eliminate the well unknowns (per-well dense D^-1; reduced
+    cell operator A - C D^-1 B). Returns (reduced_matvec, rhs (3, nc),
+    recover(x_cell) -> x_well (nw, 4)). ``twin``: the cell operator by
+    K4's plain twin on any device (the card's whole-solve comparison)."""
+    from opm_tpu_torch.linalg.precond import inv4x4
+
+    Dinv = inv4x4(sys.wd_diag)
+
+    def dinv_apply(rw):
+        return torch.einsum("wij,wj->wi", Dinv, rw)
+
+    rhs = sys.r_cell - well_apply_C(sys, dinv_apply(sys.r_well))
+
+    def recover(x_cell):
+        return dinv_apply(sys.r_well - well_apply_B(sys, x_cell))
+
+    def reduced_matvec(v_cell):
+        if twin:
+            out_c = matvec_cells_plain(sys.diag, sys.face_L, sys.face_R,
+                                       v_cell, tuple(dims))
+        else:
+            out_c = matvec_cells(sys, v_cell, dims)
+        w = dinv_apply(well_apply_B(sys, v_cell))
+        return out_c - well_apply_C(sys, w)
+
+    return reduced_matvec, rhs, recover

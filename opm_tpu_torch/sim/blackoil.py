@@ -219,13 +219,24 @@ def init_well_state(state: BlackoilState, ws: WellSet,
         target=torch.as_tensor(target_np, device=dev))
 
 
+def resolve_device(device) -> torch.device:
+    """The torch device to run on: the card unless the caller asks for the
+    CPU. Raises when a CUDA device is asked for and none is visible."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but no CUDA device is visible; pass "
+            "device='cpu' to run on the CPU")
+    return dev
+
+
 class SimulatorFullyImplicitBlackoil:
     def __init__(self, case: EclipseCase, *,
                  params: Optional[ModelParams] = None,
                  ts_params: Optional[TimeStepControlParams] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.case = case
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if case.solution.thpres:
             raise NotImplementedError(
                 "THPRES is not ported yet (ROADMAP Queue 1 item 8)")
@@ -240,8 +251,7 @@ class SimulatorFullyImplicitBlackoil:
         # TUNING record 3 NEWTMX: deck-driven max Newton iterations
         if self.schedule.tuning and self.schedule.tuning.get("newtmx"):
             self.model.params.max_iter = int(self.schedule.tuning["newtmx"])
-        # the dense route only: above DENSE_LIMIT cells this raises until
-        # the CPR route lands (ROADMAP Queue 1 item 6)
+        # dense Newton route at most DENSE_LIMIT cells, CPR above
         self.solver = NonlinearSolver(self.model)
         self.events = EventSource("timestep_completed",
                                   "report_step_completed")
@@ -325,7 +335,7 @@ class SimulatorFullyImplicitBlackoil:
         return state
 
 
-def run_deck(path: str, *, device="cpu", verbose=False, **kw):
+def run_deck(path: str, *, device="cuda", verbose=False, **kw):
     """flow-style entry: load the deck, build, run."""
     case = load_case(path)
     sim = SimulatorFullyImplicitBlackoil(case, device=device, **kw)

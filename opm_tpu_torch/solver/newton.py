@@ -1,13 +1,20 @@
-"""NonlinearSolver: the Newton driver, dense route.
+"""NonlinearSolver: the Newton driver.
 
-Port of the JAX package's solver/newton.py for ``linear_solver="dense"``
-(the route the reference takes below DENSE_LIMIT cells): per iteration the
-residual and the convergence norms, then the Jacobian by
-``torch.func.jacfwd`` of the residual (through the K1 and K3 kernels'
-forward-mode rules), an equilibrated float64 LU solve and the chopped
-update (K9). Oscillation relaxation, the initial well-equation solve and
-the exceptions the timestepper catches follow the reference. The
-block-sparse CPR route is ROADMAP Queue 1 item 6 and raises here.
+Port of the JAX package's solver/newton.py. Per iteration the residual and
+the convergence norms, then the Newton increment by one of two routes,
+and the chopped update (K9):
+
+* ``dense`` (the reference's route at most DENSE_LIMIT cells): the
+  Jacobian by ``torch.func.jacfwd`` of the residual (through the K1 and
+  K3 kernels' forward-mode rules) and an equilibrated float64 LU solve;
+* ``cpr`` (above DENSE_LIMIT, fully-active cartesian grids): block-sparse
+  assembly, Schur elimination of the wells, BiCGStab (tol 1e-2, at most
+  50 iterations) preconditioned by CPR with a structured-GMG pressure
+  stage, and the well recovery (the reference's ``_solve_cpr`` Schur
+  branch with its CPU settings, all float64).
+
+Oscillation relaxation, the initial well-equation solve and the
+exceptions the timestepper catches follow the reference.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd
 
+from opm_tpu_torch.models import linearize
 from opm_tpu_torch.models.blackoil import BlackoilModel
 from opm_tpu_torch.models.linearize import degenerate_x_mask
 from opm_tpu_torch.models.state import BlackoilState
@@ -77,9 +85,14 @@ class SolverReport:
 
 
 class NonlinearSolver:
-    """linear_solver: 'dense' (or 'auto' at most DENSE_LIMIT cells)."""
+    """linear_solver: 'dense', 'cpr', or 'auto' (dense at most DENSE_LIMIT
+    cells, CPR above)."""
 
     DENSE_LIMIT = 2000
+    # BiCGStab's reduction target and iteration cap (the reference's
+    # linear_solver_reduction and its default, ISTLSolver.hpp:250-274)
+    LINEAR_TOL = 1e-2
+    LINEAR_MAXITER = 50
 
     def __init__(self, model: BlackoilModel, linear_solver: str = "auto",
                  max_iter: Optional[int] = None, min_iter: int = 1,
@@ -89,16 +102,25 @@ class NonlinearSolver:
         if linear_solver == "auto":
             linear_solver = ("dense" if model.nc <= self.DENSE_LIMIT
                              else "cpr")
-        if linear_solver != "dense":
-            raise NotImplementedError(
-                f"linear_solver={linear_solver!r} (block-sparse CPR) is not "
-                "ported yet (ROADMAP Queue 1 item 6)")
+        if linear_solver not in ("dense", "cpr"):
+            raise ValueError(f"unknown linear_solver {linear_solver!r}")
         self.linear_solver = linear_solver
         self.max_iter = max_iter or model.params.max_iter
         self.min_iter = min_iter
         self.relax_max = relax_max
         self.relax_increment = relax_increment
         self.relax_rel_tol = relax_rel_tol
+        # host-clock sections of the CPR route (each ended by a device
+        # synchronize) when set to a dict; None costs nothing
+        self.timing = None
+        self.amg = None
+        if linear_solver == "cpr":
+            from opm_tpu_torch.linalg.gmg import StructuredGmg
+
+            # BlackoilModel holds fully-active cartesian grids only
+            grid = model.grid
+            self.amg = StructuredGmg(tuple(grid.dims),
+                                     grid.trans[:grid.nf_canonical])
 
     # ------------------------------------------------------------------
     def _cdp(self, state, wd):
@@ -123,6 +145,42 @@ class NonlinearSolver:
             return r, r
 
         return jacfwd(rfun, has_aux=True)(model.flatten(state))
+
+    def _section(self, name, t0):
+        """Close a timed section (synchronizing the device) and return the
+        next section's start; a no-op unless ``timing`` is a dict."""
+        if self.timing is None:
+            return t0
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+        t1 = time.perf_counter()
+        self.timing[name] = self.timing.get(name, 0.0) + (t1 - t0)
+        return t1
+
+    def _solve_cpr(self, state, acc0, dt, wd, cdp, omega):
+        """Block assembly, Schur elimination of the wells, CPR-BiCGStab and
+        the well recovery. Returns (state, linear iterations, converged)."""
+        from opm_tpu_torch.linalg.krylov import bicgstab
+        from opm_tpu_torch.linalg.precond import make_cpr_cells
+
+        model = self.model
+        dims = model.dims
+        t0 = time.perf_counter()
+        sys = linearize.assemble(model, state, acc0, dt, wd, cdp)
+        t0 = self._section("assembly", t0)
+        mv, rhs, recover = linearize.schur_eliminate_wells(sys, dims)
+        M = make_cpr_cells(sys, self.amg, dims)
+        t0 = self._section("cpr_setup", t0)
+        res = bicgstab(mv, rhs, precond=M, tol=self.LINEAR_TOL,
+                       maxiter=self.LINEAR_MAXITER)
+        du_c = res.x
+        du_w = recover(du_c)
+        t0 = self._section("krylov", t0)
+        du = torch.cat([du_c[0], du_c[1], du_c[2], du_w[:, 3],
+                        du_w[:, :3].reshape(-1)])
+        new = update_state(model, state, omega * du)
+        self._section("update", t0)
+        return new, res.iterations, res.converged
 
     def _solve_dense(self, state, acc0, dt, wd, cdp, omega):
         model = self.model
@@ -182,10 +240,19 @@ class NonlinearSolver:
             if self._oscillating(mb_history):
                 omega = max(self.relax_max, omega - self.relax_increment)
             t0 = time.perf_counter()
-            state = self._solve_dense(state, acc0, dt, wd, cdp, omega)
+            if self.linear_solver == "cpr":
+                state, lin_iters, lin_ok = self._solve_cpr(
+                    state, acc0, dt, wd, cdp, omega)
+            else:
+                state = self._solve_dense(state, acc0, dt, wd, cdp, omega)
+                lin_iters, lin_ok = 1, True
             rep.linear_solve_time += time.perf_counter() - t0
-            rep.linear_iterations += 1
+            rep.linear_iterations += lin_iters
             rep.iterations = it + 1
+            if not lin_ok:
+                raise LinearSolverProblem(
+                    f"linear solver stalled after {lin_iters} iterations "
+                    f"at Newton {it}")
         raise TooManyIterations(
             f"Newton failed to converge in {self.max_iter} iterations "
             f"(mb={row[:3]}, cnv={row[3:6]})")

@@ -5,6 +5,8 @@ the chosen device and prints one summary row per report step (with
 ``--verbose``) and a final JSON line of iteration totals and wall time.
 
     python -m opm_tpu_torch.tools.flow CASE.DATA [--device cuda|cpu]
+
+The default device is the card (cuda); --device cpu runs on the CPU.
         [--report-steps N] [--param KEY=VALUE ...] [--quiet]
 """
 
@@ -20,7 +22,7 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="flow", description=__doc__)
     ap.add_argument("deck")
-    ap.add_argument("--device", default="cpu",
+    ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cpu, cuda, cuda:1, ...)")
     ap.add_argument("--report-steps", type=int, default=None)
     ap.add_argument("--quiet", action="store_true")
@@ -40,7 +42,8 @@ def main(argv=None):
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("flow: --device cuda but no CUDA device is visible")
+        raise SystemExit(f"flow: device {device} but no CUDA device is "
+                         "visible; pass --device cpu to run on the CPU")
     pg = ParameterGroup.from_args(args.param)
     mparams = pg.apply_to_dataclass(ModelParams())
     DAY = 86400.0

@@ -35,22 +35,41 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless an up-to-date library exists; returns
-    the library path."""
-    src = os.path.join(CSRC, name + ".cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if (os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(src)):
-        return out
+def _paths(name: str):
+    return (os.path.join(CSRC, name + ".cu"),
+            os.path.join(BUILD_DIR, f"lib{name}.so"))
+
+
+def _fresh(src: str, out: str) -> bool:
+    return os.path.exists(out) and os.path.getmtime(out) >= \
+        os.path.getmtime(src)
+
+
+def build_all(names) -> list:
+    """Compile the named sources (csrc/<name>.cu) that have no up-to-date
+    library, one nvcc process each, all started together; returns the
+    library paths."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    jobs = []
+    for name in names:
+        src, out = _paths(name)
+        if _fresh(src, out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, out, tmp, proc))
+    errors = []
+    for src, out, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {src}:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [_paths(name)[1] for name in names]
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
@@ -59,7 +78,7 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.CDLL(build_all([name])[0])
             for fn, argtypes in signatures.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes

@@ -297,7 +297,8 @@ def lookup1(xs, ys, x, *, extrap="linear", reg=None):
     """Columns of a 1-D table at x: xs (nreg, n), ys (nreg, ncol, n) ->
     tuple of ncol tensors shaped like x."""
     shape = x.shape
-    v, _ = _Lookup1.apply(x.reshape(-1), xs, ys,
+    # the kernel takes contiguous queries (a strided column is copied)
+    v, _ = _Lookup1.apply(x.reshape(-1).contiguous(), xs, ys,
                           _flat_reg(reg if xs.shape[0] > 1 else None, shape, x.device),
                           _EXTRAP[extrap])
     return tuple(v[c].reshape(shape) for c in range(v.shape[0]))
@@ -310,7 +311,7 @@ def lookup2(xs, ys, z, x, y, *, extrap_x="linear", extrap_y="linear",
     x, y = torch.broadcast_tensors(x, y)
     shape = x.shape
     v, _, _ = _Lookup2.apply(
-        x.reshape(-1), y.reshape(-1), xs, ys, z,
+        x.reshape(-1).contiguous(), y.reshape(-1).contiguous(), xs, ys, z,
         _flat_reg(reg if xs.shape[0] > 1 else None, shape, x.device),
         _EXTRAP[extrap_x], _EXTRAP[extrap_y])
     return tuple(v[g].reshape(shape) for g in range(v.shape[0]))
