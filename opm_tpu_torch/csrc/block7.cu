@@ -10,7 +10,9 @@
 // Blocks are (9, n) row-major over (equation, variable): diag (9, nc),
 // face_L/face_R (9, nf) in grid.build_grid's face order (x faces
 // (nz, ny, nx-1), then y faces (nz, ny-1, nx), then z faces
-// (nz-1, ny, nx)); vectors are (3, nc).
+// (nz-1, ny, nx)), then an embedded grid's extra faces, which these kernels
+// skip (faces.cu adds them; nf is the face arrays' row stride); vectors are
+// (3, nc), or (nc,) for a pressure-only iterate (rows 1 and 2 zero).
 //
 // What bounds it on the card: memory traffic. Per cell the matvec reads
 // its 9 diagonal entries, 18 entries of each of its <= 6 faces (each face
@@ -107,14 +109,14 @@ __device__ __forceinline__ void row_apply(const Op& A, const double* x,
 }
 
 __global__ void matvec_kernel(Op A, const double* __restrict__ x,
-                              double* __restrict__ out) {
+                              int p_only, double* __restrict__ out) {
     long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (c >= A.nc) return;
     int i = (int)(c % A.nx);
     int j = (int)((c / A.nx) % A.ny);
     int k = (int)(c / ((long long)A.nx * A.ny));
     double y[3];
-    row_apply(A, x, false, i, j, k, y);
+    row_apply(A, x, p_only != 0, i, j, k, y);
     for (int e = 0; e < 3; ++e) out[e * A.nc + c] = y[e];
 }
 
@@ -141,8 +143,8 @@ __global__ void smooth_kernel(Op A, const double* __restrict__ dinv,
     }
 }
 
-Op make_op(int nx, int ny, int nz, const double* diag, const double* fL,
-           const double* fR) {
+Op make_op(int nx, int ny, int nz, long long nf, const double* diag,
+           const double* fL, const double* fR) {
     Op A;
     A.nx = nx;
     A.ny = ny;
@@ -150,8 +152,7 @@ Op make_op(int nx, int ny, int nz, const double* diag, const double* fL,
     A.nc = (long long)nx * ny * nz;
     long long nfx = (long long)(nx - 1) * ny * nz;
     long long nfy = (long long)nx * (ny - 1) * nz;
-    long long nfz = (long long)nx * ny * (nz - 1);
-    A.nf = nfx + nfy + nfz;
+    A.nf = nf;
     A.ofs_y = nfx;
     A.ofs_z = nfx + nfy;
     A.diag = diag;
@@ -164,21 +165,21 @@ Op make_op(int nx, int ny, int nz, const double* diag, const double* fL,
 
 extern "C" {
 
-int opm_block7_matvec(int nx, int ny, int nz, const double* diag,
-                      const double* fL, const double* fR, const double* x,
-                      double* out, cudaStream_t stream) {
-    Op A = make_op(nx, ny, nz, diag, fL, fR);
+int opm_block7_matvec(int nx, int ny, int nz, long long nf, int p_only,
+                      const double* diag, const double* fL, const double* fR,
+                      const double* x, double* out, cudaStream_t stream) {
+    Op A = make_op(nx, ny, nz, nf, diag, fL, fR);
     if (A.nc == 0) return 0;
     int blocks = (int)((A.nc + kThreads - 1) / kThreads);
-    matvec_kernel<<<blocks, kThreads, 0, stream>>>(A, x, out);
+    matvec_kernel<<<blocks, kThreads, 0, stream>>>(A, x, p_only, out);
     return (int)cudaGetLastError();
 }
 
-int opm_block7_smooth(int nx, int ny, int nz, int p_only, const double* diag,
-                      const double* fL, const double* fR, const double* dinv,
-                      const double* x, const double* r, double* out,
-                      cudaStream_t stream) {
-    Op A = make_op(nx, ny, nz, diag, fL, fR);
+int opm_block7_smooth(int nx, int ny, int nz, long long nf, int p_only,
+                      const double* diag, const double* fL, const double* fR,
+                      const double* dinv, const double* x, const double* r,
+                      double* out, cudaStream_t stream) {
+    Op A = make_op(nx, ny, nz, nf, diag, fL, fR);
     if (A.nc == 0) return 0;
     int blocks = (int)((A.nc + kThreads - 1) / kThreads);
     smooth_kernel<<<blocks, kThreads, 0, stream>>>(A, dinv, x, p_only, r,

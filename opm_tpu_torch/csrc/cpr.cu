@@ -1,10 +1,11 @@
 // K6: the per-Newton CPR setup in one pass over the cells, and the
-// weighted pressure residual of each CPR apply, for Hopper.
+// weighted pressure residual of each CPR apply, for Hopper; with K6-faces,
+// the pressure couplings over a face list.
 //
 // Replaces the JAX package's linalg/precond.py inv3x3_rows (:113-137),
-// quasi_impes_weights (:174-184), the structured branch of
-// cpr_pressure_system (:207-263) and the restriction rp = sum_i w_i r_i of
-// make_cpr_cells (:391), which XLA fused on the TPU.
+// quasi_impes_weights (:174-184), cpr_pressure_system (:207-263, the
+// structured branch and the face-list one, :245-262) and the restriction
+// rp = sum_i w_i r_i of make_cpr_cells (:391), which XLA fused on the TPU.
 //
 // Setup, per cell c with 3x3 diagonal block D_c (diag, (9, nc) row-major):
 //   dinv_c = D_c^-1 (closed form through 1/det),
@@ -16,7 +17,14 @@
 // of one of its cells only, so a cell's thread writes a_LR of the <= 3
 // faces where it is the left cell and a_RL of the <= 3 where it is the
 // right cell: every output is written once, no thread reads another's
-// weights, no atomics, one launch.
+// weights, no atomics, one launch. The face arrays' row stride may exceed
+// the stencil's face count (an embedded grid's extra faces follow; the
+// structured GMG drops them from the pressure system, precond.py
+// _pressure_off_for), and off then holds the stencil faces only.
+//
+// On a grid with a face list the cell part runs alone (setup_cells) and
+// K6-faces gives each face its couplings from the weights of its two cells
+// (one thread per face, no atomics).
 //
 // What bounds it on the card: memory traffic. Per cell it reads 9 diagonal
 // entries and 3 entries of each of its <= 6 face blocks' pressure columns,
@@ -29,17 +37,13 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void setup_kernel(int nx, int ny, int nz, long long nc,
-                             long long nf, long long ofs_y, long long ofs_z,
-                             const double* __restrict__ diag,
-                             const double* __restrict__ fL,
-                             const double* __restrict__ fR,
-                             double* __restrict__ dinv,
-                             double* __restrict__ w,
-                             double* __restrict__ diag_p,
-                             double* __restrict__ off) {
-    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= nc) return;
+// dinv, w and diag_p of cell c; returns its weights
+__device__ __forceinline__ void setup_cell(long long nc, long long c,
+                                           const double* __restrict__ diag,
+                                           double* __restrict__ dinv,
+                                           double* __restrict__ w,
+                                           double* __restrict__ diag_p,
+                                           double wc[3]) {
     double a = diag[0 * nc + c], b = diag[1 * nc + c], cc = diag[2 * nc + c];
     double d = diag[3 * nc + c], e = diag[4 * nc + c], f = diag[5 * nc + c];
     double g = diag[6 * nc + c], h = diag[7 * nc + c], i = diag[8 * nc + c];
@@ -65,6 +69,26 @@ __global__ void setup_kernel(int nx, int ny, int nz, long long nc,
     w[nc + c] = w1;
     w[2 * nc + c] = w2;
     diag_p[c] = (w0 * a + w1 * d) + w2 * g;
+    wc[0] = w0;
+    wc[1] = w1;
+    wc[2] = w2;
+}
+
+__global__ void setup_kernel(int nx, int ny, int nz, long long nc,
+                             long long nf, long long nfs, long long ofs_y,
+                             long long ofs_z,
+                             const double* __restrict__ diag,
+                             const double* __restrict__ fL,
+                             const double* __restrict__ fR,
+                             double* __restrict__ dinv,
+                             double* __restrict__ w,
+                             double* __restrict__ diag_p,
+                             double* __restrict__ off) {
+    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= nc) return;
+    double wc[3];
+    setup_cell(nc, c, diag, dinv, w, diag_p, wc);
+    const double w0 = wc[0], w1 = wc[1], w2 = wc[2];
 
     const int ix = (int)(c % nx);
     const int jy = (int)((c / nx) % ny);
@@ -83,19 +107,53 @@ __global__ void setup_kernel(int nx, int ny, int nz, long long nc,
     for (int dir = 0; dir < 3; ++dir) {
         long long fl = left[dir];
         if (fl >= 0) {
-            double s = w0 * fR[0 * nf + fl];
-            s = s + w1 * fR[3 * nf + fl];
-            s = s + w2 * fR[6 * nf + fl];
+            double s = w0 * fR[0 * nfs + fl];
+            s = s + w1 * fR[3 * nfs + fl];
+            s = s + w2 * fR[6 * nfs + fl];
             off[fl] = s;
         }
         long long fr = right[dir];
         if (fr >= 0) {
-            double s = w0 * fL[0 * nf + fr];
-            s = s + w1 * fL[3 * nf + fr];
-            s = s + w2 * fL[6 * nf + fr];
+            double s = w0 * fL[0 * nfs + fr];
+            s = s + w1 * fL[3 * nfs + fr];
+            s = s + w2 * fL[6 * nfs + fr];
             off[nf + fr] = -s;
         }
     }
+}
+
+__global__ void setup_cells_kernel(long long nc,
+                                   const double* __restrict__ diag,
+                                   double* __restrict__ dinv,
+                                   double* __restrict__ w,
+                                   double* __restrict__ diag_p) {
+    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= nc) return;
+    double wc[3];
+    setup_cell(nc, c, diag, dinv, w, diag_p, wc);
+}
+
+// K6-faces: off = [a_LR | a_RL] over faces f0 .. f0 + n of the face arrays
+// (row stride nfs), written at off[f - f0] and off[n + f - f0]
+__global__ void faces_kernel(long long n, long long f0, long long nfs,
+                             long long nc, const int* __restrict__ c1,
+                             const int* __restrict__ c2,
+                             const double* __restrict__ w,
+                             const double* __restrict__ fL,
+                             const double* __restrict__ fR,
+                             double* __restrict__ off) {
+    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= n) return;
+    long long f = f0 + t;
+    long long L = c1[t], R = c2[t];
+    double s = w[L] * fR[0 * nfs + f];
+    s = s + w[nc + L] * fR[3 * nfs + f];
+    s = s + w[2 * nc + L] * fR[6 * nfs + f];
+    off[t] = s;
+    double u = w[R] * fL[0 * nfs + f];
+    u = u + w[nc + R] * fL[3 * nfs + f];
+    u = u + w[2 * nc + R] * fL[6 * nfs + f];
+    off[n + t] = -u;
 }
 
 __global__ void pressure_rhs_kernel(long long nc,
@@ -112,7 +170,7 @@ __global__ void pressure_rhs_kernel(long long nc,
 
 extern "C" {
 
-int opm_cpr_setup(int nx, int ny, int nz, const double* diag,
+int opm_cpr_setup(int nx, int ny, int nz, long long nfs, const double* diag,
                   const double* fL, const double* fR, double* dinv,
                   double* w, double* diag_p, double* off,
                   cudaStream_t stream) {
@@ -123,8 +181,28 @@ int opm_cpr_setup(int nx, int ny, int nz, const double* diag,
     if (nc == 0) return 0;
     int blocks = (int)((nc + kThreads - 1) / kThreads);
     setup_kernel<<<blocks, kThreads, 0, stream>>>(
-        nx, ny, nz, nc, nf, nfx, nfx + nfy, diag, fL, fR, dinv, w, diag_p,
-        off);
+        nx, ny, nz, nc, nf, nfs, nfx, nfx + nfy, diag, fL, fR, dinv, w,
+        diag_p, off);
+    return (int)cudaGetLastError();
+}
+
+int opm_cpr_setup_cells(long long nc, const double* diag, double* dinv,
+                        double* w, double* diag_p, cudaStream_t stream) {
+    if (nc == 0) return 0;
+    int blocks = (int)((nc + kThreads - 1) / kThreads);
+    setup_cells_kernel<<<blocks, kThreads, 0, stream>>>(nc, diag, dinv, w,
+                                                        diag_p);
+    return (int)cudaGetLastError();
+}
+
+int opm_cpr_faces(long long n, long long f0, long long nfs, long long nc,
+                  const int* c1, const int* c2, const double* w,
+                  const double* fL, const double* fR, double* off,
+                  cudaStream_t stream) {
+    if (n == 0) return 0;
+    int blocks = (int)((n + kThreads - 1) / kThreads);
+    faces_kernel<<<blocks, kThreads, 0, stream>>>(n, f0, nfs, nc, c1, c2, w,
+                                                  fL, fR, off);
     return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,521 @@
+"""Aggregation AMG for the CPR pressure system of grids with a face list.
+
+Port of the JAX package's linalg/amg.py. The hierarchy (pairwise
+aggregates from the static transmissibility graph, the coarse sparsity
+patterns and the merge maps) is built once per grid on the host, call for
+call as the reference builds it, so the aggregates are the reference's.
+Per Newton only the matrix values are re-coarsened on the card (Galerkin
+products of piecewise-constant aggregation collapse to entry merges) and
+packed in ELL layout, one (K, n) value array per level with K the level's
+widest row (9 at level 0 of the Norne-class gather grid, up to 26 below;
+padding slots are self-loops whose values stay 0).
+
+The V-cycle (the reference's CPU settings: one cycle, one pre- and one
+post-smoothing damped-Jacobi sweep with omega = 0.8) is kernel K10
+(``csrc/amg.cu``, the repository's former Pallas ``ell_spmv`` and
+``jacobi_sweep``): per level a sweep, the residual fused with the
+restriction by aggregate, and the prolongation by gather fused with the
+post-smoothing sweep, three launches per level; the value coarsening is
+K10 too (one launch per level, plus one ELL pack). The coarsest level
+(at most 256 cells) is solved by its float32 dense inverse, formed once
+per Newton and applied as one matmul, as the reference does on every
+backend. Each kernel has its plain twin here, in the reference's order of
+operations; the twins run for CPU tensors.
+
+Every sum of a kernel is a gather over a CSR built once on the host in the
+order the reference's segment sums run (children by fine index, entries by
+entry index): one thread per output, no atomics.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+import torch
+
+from opm_tpu_torch.utils import cuda_lib
+
+OMEGA = 0.8
+DENSE_COARSEST = 256     # coarsest levels up to this size are inverted
+
+
+# ---------------------------------------------------------------------------
+# host structure (numpy; the reference's functions, call for call)
+
+def pack_ell(n, rows, cols):
+    """Static ELL structure for directed entries (rows -> cols): per-row
+    column ids padded with self-loops (their value slots stay 0). Returns
+    (cols_ell (K, n) int32, slot (nnz,) int64 flat index into (K, n))."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    nnz = len(rows)
+    deg = np.bincount(rows, minlength=n) if nnz else np.zeros(n, int)
+    K = max(int(deg.max()) if nnz else 0, 1)
+    cols_ell = np.tile(np.arange(n, dtype=np.int64)[None, :], (K, 1))
+    slot = np.empty(nnz, dtype=np.int64)
+    if nnz:
+        order = np.argsort(rows, kind="stable")
+        sr = rows[order]
+        starts = np.zeros(nnz, dtype=np.int64)
+        newgrp = np.nonzero(np.diff(sr))[0] + 1
+        starts[newgrp] = newgrp
+        starts = np.maximum.accumulate(starts)
+        k_in_row = np.arange(nnz, dtype=np.int64) - starts
+        slot[order] = k_in_row * n + sr
+        cols_ell[k_in_row, sr] = cols[order]
+    return cols_ell.astype(np.int32), slot
+
+
+@dataclass
+class AmgLevel:
+    """Static (host-built) structure for one coarsening step k -> k+1."""
+
+    n_fine: int
+    n_coarse: int
+    agg: np.ndarray            # (n_fine,) aggregate id of each fine cell
+    off_to_coarse: np.ndarray  # (nnz_fine,) coarse off-entry id or -1
+    off_diag_row: np.ndarray   # (nnz_fine,) coarse diag row for folded, or 0
+    off_is_diag: np.ndarray    # (nnz_fine,) bool
+    rows_c: np.ndarray         # (nnz_coarse,)
+    cols_c: np.ndarray
+
+
+@dataclass
+class AmgHierarchy:
+    nc: int
+    rows0: np.ndarray          # level-0 directed entries
+    cols0: np.ndarray
+    levels: List[AmgLevel]
+    coarsest_n: int
+
+    def device(self, device) -> "DeviceAmg":
+        """Upload the static index arrays once, with the ELL layout of
+        every level and the gather CSRs of the kernels."""
+        return DeviceAmg(self, device)
+
+
+def _pairwise_aggregate(n, rows, cols, weights):
+    """Greedy heavy-edge matching: each cell pairs with its strongest
+    unmatched neighbor (the core of pairwise-aggregation AMG)."""
+    order = np.argsort(-np.abs(weights))
+    agg = np.full(n, -1, dtype=np.int64)
+    next_id = 0
+    for e in order:
+        i, j = rows[e], cols[e]
+        if agg[i] < 0 and agg[j] < 0:
+            agg[i] = agg[j] = next_id
+            next_id += 1
+    # attach singletons to the strongest already-aggregated neighbor
+    best = {}
+    for e in order:
+        i, j = rows[e], cols[e]
+        if agg[i] < 0 and agg[j] >= 0 and i not in best:
+            best[i] = agg[j]
+        if agg[j] < 0 and agg[i] >= 0 and j not in best:
+            best[j] = agg[i]
+    for i in range(n):
+        if agg[i] < 0:
+            if i in best:
+                agg[i] = best[i]
+            else:
+                agg[i] = next_id
+                next_id += 1
+    return agg, next_id
+
+
+def build_hierarchy(nc, face_cells, trans, *, coarsest=128,
+                    max_levels=12) -> AmgHierarchy:
+    """Host-side setup from the static TPFA graph (transmissibilities as the
+    strength-of-connection measure)."""
+    c1 = face_cells[:, 0].astype(np.int64)
+    c2 = face_cells[:, 1].astype(np.int64)
+    rows0 = np.concatenate([c1, c2])
+    cols0 = np.concatenate([c2, c1])
+    w0 = np.concatenate([trans, trans])
+
+    levels: List[AmgLevel] = []
+    n = nc
+    rows, cols, w = rows0, cols0, w0
+    while n > coarsest and len(levels) < max_levels:
+        agg, n_c = _pairwise_aggregate(n, rows, cols, w)
+        if n_c >= n:  # no coarsening progress
+            break
+        ra = agg[rows]
+        ca = agg[cols]
+        is_diag = ra == ca
+        keys = ra * n_c + ca
+        off_keys = keys[~is_diag]
+        uniq, inv = np.unique(off_keys, return_inverse=True)
+        off_to_coarse = np.full(len(rows), -1, dtype=np.int64)
+        off_to_coarse[~is_diag] = inv
+        rows_c = (uniq // n_c).astype(np.int64)
+        cols_c = (uniq % n_c).astype(np.int64)
+        levels.append(AmgLevel(
+            n_fine=n, n_coarse=n_c, agg=agg,
+            off_to_coarse=off_to_coarse,
+            off_diag_row=np.where(is_diag, ra, 0),
+            off_is_diag=is_diag, rows_c=rows_c, cols_c=cols_c))
+        # coarse weights for next-level aggregation
+        w_c = np.zeros(len(uniq))
+        np.add.at(w_c, inv, np.abs(w[~is_diag]))
+        rows, cols, w = rows_c, cols_c, w_c
+        n = n_c
+    return AmgHierarchy(nc=nc, rows0=rows0, cols0=cols0, levels=levels,
+                        coarsest_n=n)
+
+
+def csr_by(keys, n):
+    """(ptr (n+1,), idx): the positions of ``keys`` grouped by key value,
+    each group in ascending position (the order of a sequential segment
+    sum)."""
+    keys = np.asarray(keys, dtype=np.int64)
+    idx = np.argsort(keys, kind="stable")
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(keys, minlength=n), out=ptr[1:])
+    return ptr, idx
+
+
+# ---------------------------------------------------------------------------
+# K10 plain twins (the reference's jnp forms, in its order of operations)
+
+def _ell_sum(vals, xg):
+    """sum_k vals[k] * xg[k], accumulated k = 0, 1, ... (the kernel's
+    order)."""
+    acc = vals[0] * xg[0]
+    for k in range(1, vals.shape[0]):
+        acc = acc + vals[k] * xg[k]
+    return acc
+
+
+def ell_spmv_plain(diag, x, vals, cols):
+    """y = diag x + sum_k vals[k] x[cols[k]] (the reference's ell_spmv)."""
+    return diag * x + _ell_sum(vals, x[cols])
+
+
+def sweep_plain(diag, vals, cols, x, b):
+    """Damped Jacobi x + omega (b - A x) / diag with the |diag| > 1e-300
+    guard; x None is the zero iterate (the reference's jacobi_sweep)."""
+    if x is None:
+        x = torch.zeros_like(b)
+    y = ell_spmv_plain(diag, x, vals, cols)
+    safe = torch.where(torch.abs(diag) > 1e-300, diag, 1.0)
+    return x + OMEGA * (b - y) / safe
+
+
+def restrict_plain(diag, vals, cols, x, b, agg, n_c):
+    """r_c = segment_sum(b - A x, agg)."""
+    r = b - ell_spmv_plain(diag, x, vals, cols)
+    return torch.zeros(n_c, dtype=r.dtype, device=r.device) \
+        .index_add_(0, agg, r)
+
+
+def prolong_sweep_plain(diag, vals, cols, x, e_c, agg, b):
+    """The post-smoothing sweep of x + e_c[agg]."""
+    return sweep_plain(diag, vals, cols, x + e_c[agg], b)
+
+
+def coarsen_plain(diag, off, lv):
+    """(diag_c, off_c): Galerkin values of one coarsening step (the
+    reference's segment sums)."""
+    n_c = lv["n_coarse"]
+    diag_c = torch.zeros(n_c, dtype=diag.dtype, device=diag.device) \
+        .index_add_(0, lv["agg"], diag)
+    folded = torch.where(lv["off_is_diag"], off, 0.0)
+    diag_c = diag_c + torch.zeros_like(diag_c).index_add_(
+        0, lv["off_diag_row"], folded)
+    idx = torch.where(lv["off_is_diag"], 0, lv["off_to_coarse"])
+    kept = torch.where(lv["off_is_diag"], 0.0, off)
+    off_c = torch.zeros(lv["nnz_coarse"], dtype=off.dtype,
+                        device=off.device).index_add_(0, idx, kept)
+    return diag_c, off_c
+
+
+def ell_pack_plain(off, ell):
+    """The (K, n) ELL value array of entry values ``off``."""
+    K, n = ell["cols"].shape
+    return torch.zeros(K * n, dtype=off.dtype, device=off.device) \
+        .index_put_((ell["slot"],), off).reshape(K, n)
+
+
+# ---------------------------------------------------------------------------
+# K10 CUDA wrappers (csrc/amg.cu)
+
+_P, _I, _L, _D = cuda_lib.P, cuda_lib.I, cuda_lib.L, cuda_lib.D
+_SIGS = {
+    "opm_amg_sweep": [_I, _I] + [_P] * 6 + [_P, _D, _P, _P],
+    "opm_amg_restrict": [_I, _P, _P, _I, _I] + [_P] * 5 + [_P, _P],
+    "opm_amg_coarsen": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                        _P],
+    "opm_amg_ell_pack": [_L, _P, _P, _P, _P],
+}
+
+
+def _f64(*ts):
+    for t in ts:
+        if t is not None and (t.dtype != torch.float64
+                              or not t.is_contiguous()):
+            raise ValueError("K10: vectors must be contiguous float64")
+
+
+def _sweep_launch(lvl, diag, vals, x, e_c, b):
+    K, n = vals.shape
+    _f64(diag, vals, x, e_c, b)
+    if diag.shape != (n,) or b.shape != (n,) or \
+            (x is not None and x.shape != (n,)):
+        raise ValueError("K10 sweep: diag, x and b must be (n,) beside "
+                         "the (K, n) ELL values")
+    out = torch.empty_like(b)
+    lib = cuda_lib.load("amg", _SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_amg_sweep(
+        n, K, ptr(diag), ptr(vals), ptr(lvl["cols32"]),
+        ptr(x) if x is not None else _P(0),
+        ptr(e_c) if e_c is not None else _P(0),
+        ptr(lvl["agg32"]) if e_c is not None else _P(0), ptr(b), OMEGA,
+        ptr(out), cuda_lib.stream_ptr(b.device))
+    cuda_lib.check(err, "opm_amg_sweep")
+    return out
+
+
+def sweep_cuda(lvl, diag, vals, x, b):
+    """K10 sweep on the card; same contract as sweep_plain."""
+    out = _sweep_launch(lvl, diag, vals, x, None, b)
+    sweep_cuda.launches += 1
+    return out
+
+
+sweep_cuda.launches = 0
+
+
+def prolong_sweep_cuda(lvl, diag, vals, x, e_c, b):
+    """K10 prolongation + post-smoothing sweep on the card; same contract
+    as prolong_sweep_plain (``lvl`` holds this level's agg)."""
+    if e_c.dtype != torch.float64 or e_c.shape != (lvl["n_coarse"],):
+        raise ValueError("K10 prolong: e_c must be float64 (n_coarse,)")
+    out = _sweep_launch(lvl, diag, vals, x, e_c.contiguous(), b)
+    prolong_sweep_cuda.launches += 1
+    return out
+
+
+prolong_sweep_cuda.launches = 0
+
+
+def restrict_cuda(lvl, diag, vals, x, b):
+    """K10 residual + restriction on the card; same contract as
+    restrict_plain."""
+    K, n = vals.shape
+    _f64(diag, vals, x, b)
+    n_c = lvl["n_coarse"]
+    out = torch.empty(n_c, dtype=torch.float64, device=b.device)
+    lib = cuda_lib.load("amg", _SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_amg_restrict(
+        n_c, ptr(lvl["child_ptr"]), ptr(lvl["child_idx"]), n, K, ptr(diag),
+        ptr(vals), ptr(lvl["cols32"]), ptr(x), ptr(b), ptr(out),
+        cuda_lib.stream_ptr(b.device))
+    cuda_lib.check(err, "opm_amg_restrict")
+    restrict_cuda.launches += 1
+    return out
+
+
+restrict_cuda.launches = 0
+
+
+def coarsen_cuda(diag, off, lv):
+    """K10 value coarsening on the card; same contract as coarsen_plain."""
+    _f64(diag, off)
+    n_c, nnz_c = lv["n_coarse"], lv["nnz_coarse"]
+    dev = diag.device
+    diag_c = torch.empty(n_c, dtype=torch.float64, device=dev)
+    off_c = torch.empty(nnz_c, dtype=torch.float64, device=dev)
+    lib = cuda_lib.load("amg", _SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_amg_coarsen(
+        n_c, ptr(lv["child_ptr"]), ptr(lv["child_idx"]), ptr(diag),
+        ptr(lv["fold_ptr"]), ptr(lv["fold_idx"]), ptr(off), ptr(diag_c),
+        nnz_c, ptr(lv["ent_ptr"]), ptr(lv["ent_idx"]), ptr(off_c),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "opm_amg_coarsen")
+    coarsen_cuda.launches += 1
+    return diag_c, off_c
+
+
+coarsen_cuda.launches = 0
+
+
+def ell_pack_cuda(off, ell):
+    """K10 ELL pack on the card; same contract as ell_pack_plain."""
+    _f64(off)
+    K, n = ell["cols"].shape
+    out = torch.empty((K, n), dtype=torch.float64, device=off.device)
+    lib = cuda_lib.load("amg", _SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_amg_ell_pack(K * n, ptr(ell["src"]), ptr(off), ptr(out),
+                               cuda_lib.stream_ptr(off.device))
+    cuda_lib.check(err, "opm_amg_ell_pack")
+    ell_pack_cuda.launches += 1
+    return out
+
+
+ell_pack_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+
+class DeviceAmg:
+    """The hierarchy's index arrays on one device and the per-Newton work:
+    ``coarsen_values`` (K10 coarsening and packing, then the float32
+    coarsest inverse) and ``vcycle`` (K10 level operations)."""
+
+    wants_canonical_faces = False
+
+    def __init__(self, h: AmgHierarchy, device):
+        dev = torch.device(device)
+        self.device = dev
+        self.n0 = h.nc
+        self.coarsest_n = h.coarsest_n
+
+        def t(a, dtype=torch.long):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=dev)
+
+        def ell_of(n, rows, cols):
+            cols_ell, slot = pack_ell(n, rows, cols)
+            src = np.full(cols_ell.size, -1, dtype=np.int64)
+            src[slot] = np.arange(len(slot))
+            return dict(cols=t(cols_ell), cols32=t(cols_ell, torch.int32),
+                        slot=t(slot), src=t(src))
+
+        # self.ell[k]: level k's ELL layout; self.levels[k]: the coarsening
+        # step k -> k + 1 (with level k's ELL and aggregates for the
+        # V-cycle kernels)
+        self.ell = [ell_of(h.nc, h.rows0, h.cols0)]
+        self.levels = []
+        for lv in h.levels:
+            n_c = lv.n_coarse
+            cptr, cidx = csr_by(lv.agg, n_c)
+            diag_e = np.nonzero(lv.off_is_diag)[0]
+            fptr, fsel = csr_by(lv.off_diag_row[diag_e], n_c)
+            kept = np.nonzero(~lv.off_is_diag)[0]
+            eptr, esel = csr_by(lv.off_to_coarse[kept], len(lv.rows_c))
+            self.levels.append(dict(
+                n_fine=lv.n_fine, n_coarse=n_c, nnz_coarse=len(lv.rows_c),
+                agg=t(lv.agg), agg32=t(lv.agg, torch.int32),
+                off_to_coarse=t(lv.off_to_coarse),
+                off_diag_row=t(lv.off_diag_row),
+                off_is_diag=t(lv.off_is_diag, torch.bool),
+                child_ptr=t(cptr, torch.int32),
+                child_idx=t(cidx, torch.int32),
+                fold_ptr=t(fptr, torch.int32),
+                fold_idx=t(diag_e[fsel], torch.int32),
+                ent_ptr=t(eptr, torch.int32),
+                ent_idx=t(kept[esel], torch.int32)))
+            self.ell.append(ell_of(n_c, lv.rows_c, lv.cols_c))
+        for k, lv in enumerate(self.levels):
+            lv.update(cols=self.ell[k]["cols"], cols32=self.ell[k]["cols32"])
+
+    @property
+    def n_levels(self):
+        return len(self.levels) + 1
+
+    # ------------------------------------------------------------------
+    def coarsen_values(self, diag0, off0, *, twin=False):
+        """Per-Newton Galerkin value coarsening: per level (diag, ell_vals
+        (K, n)), level 0 first, then the float32 inverse of the dense
+        coarsest matrix when it has at most DENSE_COARSEST cells.
+        ``twin``: the plain twins on any device."""
+        if twin:
+            coarsen, pack = coarsen_plain, ell_pack_plain
+        else:
+            def coarsen(d, o, lv):
+                return cuda_lib.dispatch(d, coarsen_cuda, coarsen_plain, d,
+                                         o, lv, what="K10 coarsen")
+
+            def pack(o, ell):
+                return cuda_lib.dispatch(o, ell_pack_cuda, ell_pack_plain,
+                                         o, ell, what="K10 ell_pack")
+        vals = []
+        diag, off = diag0.contiguous(), off0.contiguous()
+        for k in range(self.n_levels):
+            vals.append((diag, pack(off, self.ell[k])))
+            if k == len(self.levels):
+                break
+            diag, off = coarsen(diag, off, self.levels[k])
+        if self.coarsest_n <= DENSE_COARSEST:
+            vals.append(self.invert_coarsest(*vals[-1], self.ell[-1]))
+        return vals
+
+    @staticmethod
+    def invert_coarsest(diag, ell_vals, ell):
+        """float32 inverse of the dense coarsest matrix (the reference's
+        jnp.linalg.inv(A.astype(float32)))."""
+        K, n = ell["cols"].shape
+        ar = torch.arange(n, device=diag.device)
+        A = torch.zeros((n, n), dtype=diag.dtype, device=diag.device)
+        A[ar, ar] = diag
+        A.index_put_((ar.repeat(K), ell["cols"].reshape(-1)),
+                     ell_vals.reshape(-1), accumulate=True)
+        return torch.linalg.inv(A.to(torch.float32))
+
+    # ------------------------------------------------------------------
+    def _ops(self, twin):
+        if twin:
+            return (lambda lv, d, v, x, b: sweep_plain(d, v, lv["cols"], x,
+                                                       b),
+                    lambda lv, d, v, x, b: restrict_plain(
+                        d, v, lv["cols"], x, b, lv["agg"], lv["n_coarse"]),
+                    lambda lv, d, v, x, e, b: prolong_sweep_plain(
+                        d, v, lv["cols"], x, e, lv["agg"], b))
+
+        def sweep(lv, d, v, x, b):
+            return cuda_lib.dispatch(
+                b, sweep_cuda,
+                lambda *a: sweep_plain(d, v, lv["cols"], x, b),
+                lv, d, v, x, b, what="K10 sweep")
+
+        def restrict(lv, d, v, x, b):
+            return cuda_lib.dispatch(
+                b, restrict_cuda,
+                lambda *a: restrict_plain(d, v, lv["cols"], x, b, lv["agg"],
+                                          lv["n_coarse"]),
+                lv, d, v, x, b, what="K10 restrict")
+
+        def prolong(lv, d, v, x, e, b):
+            return cuda_lib.dispatch(
+                b, prolong_sweep_cuda,
+                lambda *a: prolong_sweep_plain(d, v, lv["cols"], x, e,
+                                               lv["agg"], b),
+                lv, d, v, x, e, b, what="K10 prolong_sweep")
+
+        return sweep, restrict, prolong
+
+    def _level(self, k):
+        """The arguments of level k's kernels: its coarsening step's dict
+        (aggregates and CSRs) or, at the coarsest, its ELL alone."""
+        if k < len(self.levels):
+            return self.levels[k]
+        return dict(cols=self.ell[k]["cols"], cols32=self.ell[k]["cols32"])
+
+    def vcycle(self, vals, b, *, twin=False):
+        """One V-cycle on b (n0,) (pre = post = 1, one cycle); ``twin``:
+        the level operations by K10's plain twins on any device."""
+        sweep, restrict, prolong = self._ops(twin)
+
+        def cycle(k, bk):
+            diag, ell_vals = vals[k]
+            lv = self._level(k)
+            if k == len(self.levels):
+                if self.coarsest_n <= DENSE_COARSEST:
+                    return (vals[-1] @ bk.to(torch.float32)).to(bk.dtype)
+                x = sweep(lv, diag, ell_vals, None, bk)
+                for _ in range(10):
+                    x = sweep(lv, diag, ell_vals, x, bk)
+                return x
+            x = sweep(lv, diag, ell_vals, None, bk)
+            r_c = restrict(lv, diag, ell_vals, x, bk)
+            e_c = cycle(k + 1, r_c)
+            return prolong(lv, diag, ell_vals, x, e_c, bk)
+
+        return cycle(0, b.contiguous())

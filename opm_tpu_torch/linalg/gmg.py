@@ -250,6 +250,10 @@ class StructuredGmg:
 
     COARSEST = 512      # cells of the dense coarsest level, at most
     MAX_LEVELS = 40
+    # the pressure system over the stencil faces only: an embedded grid's
+    # extra faces are dropped from the hierarchy (precond.py
+    # _pressure_off_for), never from the Krylov operator
+    wants_canonical_faces = True
 
     def __init__(self, dims, trans=None):
         nx, ny, nz = dims
@@ -340,10 +344,11 @@ class StructuredGmg:
                 tuple((_pad_axis(bL, a, 1), _pad_axis(bR, a, 1))
                       for bL, bR in offs))
 
-    def coarsen_values(self, diag0, off0):
+    def coarsen_values(self, diag0, off0, *, twin=False):
         """diag0 (nc,), off0 (2 nf,) = [a_LR | a_RL] in grid face order.
         Returns per-level (diag3, offs), contiguous, then the float32
-        inverse of the dense coarsest matrix."""
+        inverse of the dense coarsest matrix (plain torch on every device;
+        ``twin`` is accepted for the AMG's interface)."""
         nz, ny, nx = self.dims
         nfx = (nx - 1) * ny * nz
         nfy = nx * (ny - 1) * nz

@@ -2,17 +2,21 @@
 
 Port of the JAX package's linalg/precond.py: the closed-form block
 inverses (``inv3x3``, the equilibrated and regularised ``inv4x4``), the
-quasi-IMPES CPR weights, the weighted pressure system of a fully-active
-cartesian grid, and ``make_cpr_cells``: one structured-GMG V-cycle on the
+quasi-IMPES CPR weights, the weighted pressure system (over the stencil
+of a structured grid, an embedded grid's extra faces, or a gather grid's
+face list), and ``make_cpr_cells``: one V-cycle of the pressure
+hierarchy (structured GMG, or aggregation AMG on a gather grid) on the
 weighted pressure residual, then block-Jacobi smoothing of the cell
 system. The settings are the reference's CPU ones: two smoothing steps,
 one V-cycle with one pre- and one post-smoothing sweep, float64.
 
 Kernel K6 (``csrc/cpr.cu``, ``csrc/block7.cu``) does the per-Newton setup
-(block-Jacobi inverses, weights, pressure diagonal and face couplings in
-one pass over the cells) and the apply: the weighted pressure residual
-and the smoothing step x <- x + D^-1 (r - A x) fused with K4's stencil.
-Each has its plain twin here. The non-Schur ``make_cpr`` (and the
+(block-Jacobi inverses, weights, pressure diagonal and stencil face
+couplings in one pass over the cells; on a gather grid the cell part,
+then K6-faces over the face list) and the apply: the weighted pressure
+residual and the smoothing step x <- x + D^-1 (r - A x) fused with K4's
+stencil, or with K4-faces (``csrc/faces.cu``) over a face list. Each has
+its plain twin here. The non-Schur ``make_cpr`` (and the
 ``block_jacobi`` and ``cpr_weights`` selector only it needs), the
 red-black smoother, true-IMPES weights and the frozen preconditioner were
 measured TPU knobs and are not ported (ROADMAP).
@@ -116,59 +120,107 @@ def quasi_impes_weights(diag):
 
 def cpr_pressure_system(sys: linearize.BlockSystem, w, dims):
     """Weighted pressure matrix: diag (nc,) and off (2 nf,) = [a_LR | a_RL]
-    in grid face order (structured branch)."""
+    in grid face order, aligned with the AMG level-0 directed entries
+    [rows c1 | c2, cols c2 | c1]: the stencil faces by shifted slices
+    (dims given), the face list past them by gather."""
     pR = (sys.face_R[0], sys.face_R[3], sys.face_R[6])
     pL = (sys.face_L[0], sys.face_L[3], sys.face_L[6])
     diag_p = w[0] * sys.diag[0] + w[1] * sys.diag[3] + w[2] * sys.diag[6]
-    nx, ny, nz = dims
-    w3 = [wi.reshape(nz, ny, nx) for wi in w]
     aLR, aRL = [], []
-    ofs = 0
-    for slL, slR, nf_d in _dir_segments(dims):
-        aLR.append(sum(w3[i][slL].reshape(-1) * pR[i][ofs:ofs + nf_d]
-                       for i in range(3)))
-        aRL.append(-sum(w3[i][slR].reshape(-1) * pL[i][ofs:ofs + nf_d]
-                        for i in range(3)))
-        ofs += nf_d
+    if dims is not None:
+        nx, ny, nz = dims
+        w3 = [wi.reshape(nz, ny, nx) for wi in w]
+        ofs = 0
+        for slL, slR, nf_d in _dir_segments(dims):
+            aLR.append(sum(w3[i][slL].reshape(-1) * pR[i][ofs:ofs + nf_d]
+                           for i in range(3)))
+            aRL.append(-sum(w3[i][slR].reshape(-1) * pL[i][ofs:ofs + nf_d]
+                            for i in range(3)))
+            ofs += nf_d
+    if sys.faces is not None:
+        fLR, fRL = cpr_faces_plain(sys.faces, w, sys.face_L, sys.face_R)
+        aLR.append(fLR)
+        aRL.append(fRL)
     return diag_p, torch.cat(aLR + aRL)
 
 
-# ---------------------------------------------------------------------------
-# K6 setup: plain version and CUDA wrapper (csrc/cpr.cu)
+def cpr_faces_plain(fl, w, face_L, face_R):
+    """(a_LR, a_RL) of the list's faces: the plain version of K6-faces
+    (cpr_pressure_system's face-list branch)."""
+    f = fl.first
+    a_LR = sum(w[i][fl.c1] * face_R[3 * i][f:] for i in range(3))
+    a_RL = -sum(w[i][fl.c2] * face_L[3 * i][f:] for i in range(3))
+    return a_LR, a_RL
 
-def cpr_setup_plain(diag, face_L, face_R, dims):
+
+def _pressure_off_for(amg, off_p, dims):
+    """Structured GMG consumes only the canonical stencil faces; extra
+    faces of an embedded grid (stair-step faults / NNCs) are dropped from
+    the pressure hierarchy, a preconditioner-quality approximation only
+    (the Krylov operator keeps them)."""
+    if dims is None or not getattr(amg, "wants_canonical_faces", False):
+        return off_p
+    nx, ny, nz = dims
+    nfc = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+    nf_all = off_p.shape[0] // 2
+    if nf_all == nfc:
+        return off_p
+    return torch.cat([off_p[:nfc], off_p[nf_all:nf_all + nfc]])
+
+
+# ---------------------------------------------------------------------------
+# K6 setup: plain version and CUDA wrappers (csrc/cpr.cu)
+
+def cpr_setup_plain(diag, face_L, face_R, dims, faces=None):
     """(dinv (9, nc), w (3, nc), diag_p (nc,), off (2 nf,)): the per-Newton
-    CPR setup of make_cpr_cells."""
+    CPR setup of make_cpr_cells, off over every face (``faces``: the
+    FaceList past the stencil, or of a gather grid)."""
     sys = linearize.BlockSystem(None, None, diag, face_L, face_R, None,
-                                None, None, None, None)
-    w = quasi_impes_weights(diag)
+                                None, None, None, None, faces)
+    dinv, w, _ = cpr_setup_cells_plain(diag)
     diag_p, off = cpr_pressure_system(sys, w, dims)
-    return inv3x3_rows(diag), w, diag_p, off
+    return dinv, w, diag_p, off
+
+
+def cpr_setup_cells_plain(diag):
+    """(dinv, w, diag_p): the cell part of the setup."""
+    w = quasi_impes_weights(diag)
+    diag_p = w[0] * diag[0] + w[1] * diag[3] + w[2] * diag[6]
+    return inv3x3_rows(diag), w, diag_p
 
 
 _P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
 CPR_SIGS = {
-    "opm_cpr_setup": [_I, _I, _I] + [_P] * 7 + [_P],
+    "opm_cpr_setup": [_I, _I, _I, _L] + [_P] * 7 + [_P],
+    "opm_cpr_setup_cells": [_L] + [_P] * 4 + [_P],
+    "opm_cpr_faces": [_L, _L, _L, _L] + [_P] * 6 + [_P],
     "opm_cpr_pressure_rhs": [_L, _P, _P, _P, _P],
 }
 
 
+def _setup_outputs(diag):
+    nc = diag.shape[1]
+    dev = diag.device
+    return (torch.empty_like(diag),
+            torch.empty((3, nc), dtype=torch.float64, device=dev),
+            torch.empty(nc, dtype=torch.float64, device=dev))
+
+
 def cpr_setup_cuda(diag, face_L, face_R, dims):
-    """K6 setup on the card; same contract as cpr_setup_plain."""
+    """K6 setup on a structured grid on the card: cpr_setup_plain's dinv,
+    w and diag_p, and off over the stencil faces only (an embedded grid's
+    extra faces are what _pressure_off_for drops for the GMG)."""
     linearize.check_block_operator(diag, face_L, face_R, dims)
     nx, ny, nz = dims
-    nc = nx * ny * nz
-    nf = face_L.shape[1]
-    dev = diag.device
-    dinv = torch.empty_like(diag)
-    w = torch.empty((3, nc), dtype=torch.float64, device=dev)
-    diag_p = torch.empty(nc, dtype=torch.float64, device=dev)
-    off = torch.empty(2 * nf, dtype=torch.float64, device=dev)
+    nf = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+    dinv, w, diag_p = _setup_outputs(diag)
+    off = torch.empty(2 * nf, dtype=torch.float64, device=diag.device)
     lib = cuda_lib.load("cpr", CPR_SIGS)
     ptr = cuda_lib.ptr
-    err = lib.opm_cpr_setup(nx, ny, nz, ptr(diag), ptr(face_L), ptr(face_R),
-                            ptr(dinv), ptr(w), ptr(diag_p), ptr(off),
-                            cuda_lib.stream_ptr(dev))
+    err = lib.opm_cpr_setup(nx, ny, nz, face_L.shape[1], ptr(diag),
+                            ptr(face_L), ptr(face_R), ptr(dinv), ptr(w),
+                            ptr(diag_p), ptr(off),
+                            cuda_lib.stream_ptr(diag.device))
     cuda_lib.check(err, "opm_cpr_setup")
     cpr_setup_cuda.launches += 1
     return dinv, w, diag_p, off
@@ -177,10 +229,68 @@ def cpr_setup_cuda(diag, face_L, face_R, dims):
 cpr_setup_cuda.launches = 0
 
 
-def cpr_setup(sys: linearize.BlockSystem, dims):
-    return cuda_lib.dispatch(sys.diag, cpr_setup_cuda, cpr_setup_plain,
-                             sys.diag, sys.face_L, sys.face_R, tuple(dims),
-                             what="K6 setup")
+def cpr_setup_cells_cuda(diag):
+    """K6 setup's cell part on the card: (dinv, w, diag_p)."""
+    if (diag.dtype != torch.float64 or not diag.is_contiguous()
+            or diag.dim() != 2 or diag.shape[0] != 9):
+        raise ValueError("K6 setup: diag must be a contiguous float64 "
+                         "(9, nc) tensor")
+    dinv, w, diag_p = _setup_outputs(diag)
+    lib = cuda_lib.load("cpr", CPR_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_cpr_setup_cells(diag.shape[1], ptr(diag), ptr(dinv),
+                                  ptr(w), ptr(diag_p),
+                                  cuda_lib.stream_ptr(diag.device))
+    cuda_lib.check(err, "opm_cpr_setup_cells")
+    cpr_setup_cells_cuda.launches += 1
+    return dinv, w, diag_p
+
+
+cpr_setup_cells_cuda.launches = 0
+
+
+def cpr_faces_cuda(fl, w, face_L, face_R):
+    """K6-faces on the card: off = [a_LR | a_RL] (2 n,) of the list's
+    faces, as cpr_pressure_system's face-list branch."""
+    nc = w.shape[1]
+    linearize.check_block_operator(face_L, face_L, face_R, None)
+    if (w.dtype != torch.float64 or not w.is_contiguous()
+            or w.device != face_L.device):
+        raise ValueError("K6-faces: w must be a contiguous float64 (3, nc) "
+                         "tensor beside the face blocks")
+    off = torch.empty(2 * fl.n, dtype=torch.float64, device=w.device)
+    lib = cuda_lib.load("cpr", CPR_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_cpr_faces(fl.n, fl.first, face_L.shape[1], nc,
+                            ptr(fl.c1_32), ptr(fl.c2_32), ptr(w),
+                            ptr(face_L), ptr(face_R), ptr(off),
+                            cuda_lib.stream_ptr(w.device))
+    cuda_lib.check(err, "opm_cpr_faces")
+    cpr_faces_cuda.launches += 1
+    return off
+
+
+cpr_faces_cuda.launches = 0
+
+
+def cpr_setup(sys: linearize.BlockSystem, dims, amg, *, twin=False):
+    """The per-Newton setup (dinv, w, diag_p, off as the pressure
+    hierarchy takes it): K6 on a structured grid (off over the stencil:
+    the structured GMG drops an embedded grid's extra faces); K6's cell
+    part and K6-faces on a gather grid; the plain twin for CPU tensors or
+    when ``twin``."""
+    ops = (sys.diag, sys.face_L, sys.face_R)
+    dev = sys.diag.device.type
+    if twin or dev == "cpu":
+        dinv, w, diag_p, off = cpr_setup_plain(*ops, dims, sys.faces)
+        return dinv, w, diag_p, _pressure_off_for(amg, off, dims)
+    if dev != "cuda":
+        raise RuntimeError(f"no K6 kernel for device {sys.diag.device}")
+    if dims is not None:
+        return cpr_setup_cuda(*ops, tuple(dims))
+    dinv, w, diag_p = cpr_setup_cells_cuda(sys.diag)
+    return dinv, w, diag_p, cpr_faces_cuda(sys.faces, w, sys.face_L,
+                                           sys.face_R)
 
 
 # ---------------------------------------------------------------------------
@@ -212,10 +322,9 @@ pressure_rhs_cuda.launches = 0
 
 
 def smooth_step_plain(diag, face_L, face_R, dinv, x, r, dims):
-    """x + D^-1 (r - A x) for the cells-only block operator; x (3, nc), or
-    (nc,) for a pressure-only iterate (the other two rows zero)."""
-    if x.dim() == 1:
-        x = torch.stack([x, torch.zeros_like(x), torch.zeros_like(x)])
+    """x + D^-1 (r - A x) for the cells-only stencil operator; x (3, nc),
+    or (nc,) for a pressure-only iterate (the other two rows zero)."""
+    x = linearize.full3(x)
     ac = linearize.matvec_cells_plain(diag, face_L, face_R, x, dims)
     return x + linearize.bapply_rows(dinv, r - ac)
 
@@ -225,10 +334,8 @@ def smooth_step_cuda(diag, face_L, face_R, dinv, x, r, dims):
     smooth_step_plain."""
     p_only = x.dim() == 1
     nc = r.shape[1]
-    if p_only and (x.shape != (nc,) or x.dtype != torch.float64
-                   or not x.is_contiguous() or x.device != r.device):
-        raise ValueError("K6 smoothing: a pressure-only iterate must be a "
-                         "contiguous float64 (nc,) tensor")
+    if p_only:
+        linearize.check_iterate(x, nc, r.device)
     linearize.check_block_operator(diag, face_L, face_R, dims, r,
                                    *(() if p_only else (x,)))
     if (dinv.shape != diag.shape or dinv.dtype != torch.float64
@@ -239,9 +346,9 @@ def smooth_step_cuda(diag, face_L, face_R, dinv, x, r, dims):
     out = torch.empty_like(r)
     lib = cuda_lib.load("block7", linearize.BLOCK7_SIGS)
     ptr = cuda_lib.ptr
-    err = lib.opm_block7_smooth(nx, ny, nz, int(p_only), ptr(diag),
-                                ptr(face_L), ptr(face_R), ptr(dinv), ptr(x),
-                                ptr(r), ptr(out),
+    err = lib.opm_block7_smooth(nx, ny, nz, face_L.shape[1], int(p_only),
+                                ptr(diag), ptr(face_L), ptr(face_R),
+                                ptr(dinv), ptr(x), ptr(r), ptr(out),
                                 cuda_lib.stream_ptr(r.device))
     cuda_lib.check(err, "opm_block7_smooth")
     smooth_step_cuda.launches += 1
@@ -251,22 +358,47 @@ def smooth_step_cuda(diag, face_L, face_R, dinv, x, r, dims):
 smooth_step_cuda.launches = 0
 
 
+def smooth_step(sys: linearize.BlockSystem, dinv, x, r, dims, *,
+                twin=False):
+    """One block-Jacobi smoothing step x + D^-1 (r - A x) of the cell
+    operator: K6's fused stencil step on a structured grid; K4-faces' fused
+    step over a gather grid's faces; on an embedded grid K4 (the stencil
+    product) then K4-faces (the extra faces and the step). ``twin``: the
+    plain twins on any device."""
+    ops = (sys.diag, sys.face_L, sys.face_R)
+    fl = sys.faces
+    if fl is None:
+        args = (*ops, dinv, x, r, tuple(dims))
+        return (smooth_step_plain(*args) if twin else cuda_lib.dispatch(
+            r, smooth_step_cuda, smooth_step_plain, *args,
+            what="K6 smoothing"))
+    base = None
+    if dims is not None:
+        args = (*ops, x, tuple(dims))
+        base = (linearize.matvec_cells_plain(*args) if twin else
+                cuda_lib.dispatch(r, linearize.matvec_cells_cuda,
+                                  linearize.matvec_cells_plain, *args,
+                                  what="K4"))
+    args = (fl, *ops, dinv, x, r, base)
+    return (linearize.faces_smooth_plain(*args) if twin else
+            cuda_lib.dispatch(r, linearize.faces_smooth_cuda,
+                              linearize.faces_smooth_plain, *args,
+                              what="K4-faces smoothing"))
+
+
 SMOOTHER_STEPS = 2       # the reference's CPU setting
 
 
 def make_cpr_cells(sys: linearize.BlockSystem, amg, dims, *, twin=False):
     """CPR preconditioner of the well-eliminated system: weighted pressure
-    residual, one GMG V-cycle (pre = post = 1, one cycle), then
-    SMOOTHER_STEPS block-Jacobi steps on the cell diagonal. ``twin``:
-    every step by its plain twin on any device (the card's whole-solve
-    comparison)."""
-    dims = tuple(dims)
-    if twin:
-        dinv, w, diag_p, off = cpr_setup_plain(sys.diag, sys.face_L,
-                                               sys.face_R, dims)
-    else:
-        dinv, w, diag_p, off = cpr_setup(sys, dims)
-    vals = amg.coarsen_values(diag_p, off)
+    residual, one V-cycle of ``amg`` (the structured GMG with dims, the
+    aggregation AMG's DeviceAmg on a gather grid; pre = post = 1, one
+    cycle), then SMOOTHER_STEPS block-Jacobi steps on the cell diagonal.
+    ``twin``: every step by its plain twin on any device (the card's
+    whole-solve comparison)."""
+    dims = tuple(dims) if dims is not None else None
+    dinv, w, diag_p, off = cpr_setup(sys, dims, amg, twin=twin)
+    vals = amg.coarsen_values(diag_p, off, twin=twin)
 
     def apply(rc):
         rc = rc.contiguous()
@@ -278,10 +410,7 @@ def make_cpr_cells(sys: linearize.BlockSystem, amg, dims, *, twin=False):
                                    what="K6 pressure_rhs")
         xc = amg.vcycle(vals, rp, twin=twin)
         for _ in range(SMOOTHER_STEPS):
-            args = (sys.diag, sys.face_L, sys.face_R, dinv, xc, rc, dims)
-            xc = (smooth_step_plain(*args) if twin else cuda_lib.dispatch(
-                rc, smooth_step_cuda, smooth_step_plain, *args,
-                what="K6 smoothing"))
+            xc = smooth_step(sys, dinv, xc, rc, dims, twin=twin)
         return xc
 
     return apply

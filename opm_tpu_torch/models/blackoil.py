@@ -1,12 +1,17 @@
 """Fully-implicit black-oil model: residual assembly on tensors.
 
-Port of the JAX package's models/blackoil.py (structured grids). Cell
-quantities go through the K1 table lookups (props); face fluxes and their
-divergence are kernel K3 (``csrc/tpfa.cu``), wrapped in a
-``torch.autograd.Function`` whose ``jvp`` launches K3's tangent entry and
-whose ``vmap`` folds the batch of tangent sets into the kernel's B, so the
-dense Newton route's ``torch.func.jacfwd`` goes through the kernel. The
-convergence norms are kernel K9 (``solver/kernels_triton.py``).
+Port of the JAX package's models/blackoil.py. Cell quantities go through
+the K1 table lookups (props). On the structured stencil (a fully-active or
+embedded cartesian grid) face fluxes and their divergence are kernel K3
+(``csrc/tpfa.cu``), wrapped in a ``torch.autograd.Function`` whose ``jvp``
+launches K3's tangent entry and whose ``vmap`` folds the batch of tangent
+sets into the kernel's B, so the dense Newton route's ``torch.func.jacfwd``
+goes through the kernel. Faces outside the stencil (all faces of a gather
+grid, the stair-step fault and NNC "extra" faces of an embedded grid) go
+through K3-faces (``csrc/faces.cu``), a gather over each cell's incident
+faces (``FaceList``). The convergence norms are kernel K9
+(``solver/kernels_triton.py``), masked on embedded grids so the inert
+padding cells do not count.
 """
 
 from __future__ import annotations
@@ -405,18 +410,154 @@ def tpfa_divergence(dims, p3, rho, bmob, rs, rv, depth, trans, gravity):
 
 
 # ---------------------------------------------------------------------------
+# face lists: the faces a kernel visits by gather
+
+@dataclass
+class FaceCsr:
+    """Per output row (cell ``rows[t]``, or t when rows is None) its
+    incident faces ent[ptr[t]:ptr[t+1]] (f >= 0 where the cell is the left
+    cell, -f-1 where it is the right one) and the neighbour cells nbr;
+    int32 tensors."""
+
+    n_rows: int
+    rows: Optional[torch.Tensor]
+    ptr: torch.Tensor
+    ent: torch.Tensor
+    nbr: torch.Tensor
+
+
+def face_csr(face_cells, nc, first, device, touched_only=False) -> FaceCsr:
+    """The incidence CSR of faces ``first:`` in the order of the plain
+    version's scatter-adds: a cell's left-side faces in face order, then
+    its right-side faces in face order. ``touched_only``: rows for the
+    cells with at least one such face only (an in-place update)."""
+    fc = np.asarray(face_cells, dtype=np.int64)[first:]
+    f = np.arange(first, first + len(fc), dtype=np.int64)
+    keys = np.concatenate([fc[:, 0], fc[:, 1]])
+    ent = np.concatenate([f, -f - 1])
+    nbr = np.concatenate([fc[:, 1], fc[:, 0]])
+    order = np.argsort(keys, kind="stable")
+    counts = np.bincount(keys, minlength=nc)
+    rows = np.nonzero(counts)[0] if touched_only else None
+    per_row = counts[rows] if touched_only else counts
+    ptr = np.zeros(len(per_row) + 1, dtype=np.int64)
+    np.cumsum(per_row, out=ptr[1:])
+
+    def i32(a):
+        return torch.as_tensor(a.astype(np.int32), device=device)
+
+    return FaceCsr(n_rows=len(per_row),
+                   rows=None if rows is None else i32(rows), ptr=i32(ptr),
+                   ent=i32(ent[order]), nbr=i32(nbr[order]))
+
+
+class FaceList:
+    """Faces ``first:`` of a grid's face list: all faces of a gather grid
+    (first = 0) or an embedded grid's extra faces (first = nf_canonical),
+    with their cells and incidence CSRs (``full``: a row per cell;
+    ``touched``: rows of the cells the faces touch, for the in-place
+    epilogues after the structured kernels)."""
+
+    def __init__(self, face_cells, nc, first, device):
+        fc = np.asarray(face_cells)[first:]
+        self.first = int(first)
+        self.n = len(fc)
+        self.c1 = torch.as_tensor(fc[:, 0], dtype=torch.long, device=device)
+        self.c2 = torch.as_tensor(fc[:, 1], dtype=torch.long, device=device)
+        self.c1_32 = self.c1.to(torch.int32)
+        self.c2_32 = self.c2.to(torch.int32)
+        self.full = face_csr(face_cells, nc, first, device)
+        self.touched = (self.full if first == 0 else
+                        face_csr(face_cells, nc, first, device, True))
+
+
+# ---------------------------------------------------------------------------
+# K3-faces: the face-list flux divergence (plain version, CUDA wrapper)
+
+def faces_flux_plain(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
+                     gravity):
+    """(3, n) fluxes of the list's faces (the reference's gather
+    branch)."""
+    c1, c2 = fl.c1, fl.c2
+    return face_flux_from_q(p3[:, c1], p3[:, c2], rho[:, c1], rho[:, c2],
+                            bmob[:, c1], bmob[:, c2], rs[c1], rs[c2],
+                            rv[c1], rv[c2], trans[fl.first:],
+                            depth[c1] - depth[c2], gravity)
+
+
+def faces_div_plain(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
+                    gravity, out=None):
+    """Signed scatter-add of the list's face fluxes (left += f, right -= f)
+    onto zeros, or onto ``out`` (the structured divergence of an embedded
+    grid; not modified)."""
+    flux = faces_flux_plain(fl, p3, rho, bmob, rs, rv, depth, trans, gravity)
+    base = torch.zeros_like(p3) if out is None else out.clone()
+    return base.index_add_(1, fl.c1, flux).index_add_(1, fl.c2, -flux)
+
+
+_FACES_SIGS = {
+    "opm_faces_div": [_I, _P, _P, _P, _P, cuda_lib.L] + [_P] * 7
+    + [_D, _I, _P, _P],
+    "opm_faces_apply": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L]
+    + [_P] * 5 + [_I, _P, _P, _P, _P],
+}
+
+
+def csr_args(csr: FaceCsr):
+    ptr = cuda_lib.ptr
+    return (csr.n_rows, ptr(csr.rows) if csr.rows is not None else _P(0),
+            ptr(csr.ptr), ptr(csr.ent), ptr(csr.nbr))
+
+
+def faces_div_cuda(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
+                   gravity, out=None):
+    """K3-faces on the card; same contract as faces_div_plain, except that
+    ``out`` is updated in place."""
+    nc = rs.shape[0]
+    dev = p3.device
+    _check_cells((p3, rho, bmob, rs, rv, depth), dev, nc)
+    if (trans.dtype != torch.float64 or trans.device != dev
+            or not trans.is_contiguous()
+            or trans.shape[0] != fl.first + fl.n):
+        raise ValueError("K3-faces: trans must be contiguous float64 over "
+                         "every face of the grid")
+    if out is not None:
+        _check_cells((out,), dev, nc)
+    div = torch.empty_like(p3) if out is None else out
+    lib = cuda_lib.load("faces", _FACES_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_faces_div(
+        *csr_args(fl.full if out is None else fl.touched), nc, ptr(p3),
+        ptr(rho), ptr(bmob), ptr(rs), ptr(rv), ptr(depth), ptr(trans),
+        float(gravity), int(out is not None), ptr(div),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "opm_faces_div")
+    faces_div_cuda.launches += 1
+    return div
+
+
+faces_div_cuda.launches = 0
+
+
+def faces_divergence(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
+                     gravity, out=None):
+    """div F (3, nc) of the list's faces (K3-faces), added onto ``out``
+    when given."""
+    args = (fl, p3.contiguous(), rho.contiguous(), bmob.contiguous(),
+            rs.contiguous(), rv.contiguous(), depth, trans, gravity, out)
+    return cuda_lib.dispatch(p3, faces_div_cuda, faces_div_plain, *args,
+                             what="K3-faces")
+
+
+# ---------------------------------------------------------------------------
 
 class BlackoilModel:
     """Static model data (tensors on one device) and pure functions over
-    states. Structured (fully-active cartesian) grids only: the gather path
-    for corner-point, embedded and NNC grids is ROADMAP Queue 1 item 9."""
+    states, on a structured grid (fully active or embedded, ``op_dims``
+    its (nx, ny, nz)) or a gather grid (``op_dims`` None)."""
 
     def __init__(self, grid, props, params: Optional[ModelParams] = None,
                  device=None):
-        if not getattr(grid, "structured", False):
-            raise NotImplementedError(
-                "only fully-active cartesian grids are ported "
-                "(ROADMAP Queue 1 item 9)")
         self.device = torch.device(device if device is not None
                                    else props.device)
         self.grid = grid
@@ -441,6 +582,22 @@ class BlackoilModel:
                                       device=dev)
         self.gravity = float(grid.gravity)
         self.threshold_dp = None
+        self.structured = bool(getattr(grid, "structured", False))
+        self.op_dims = self.dims if self.structured else None
+        # faces past the stencil go by gather: all of a gather grid's, an
+        # embedded grid's extra faces (stair-step faults, NNCs)
+        self.nf_canonical = grid.nf_canonical
+        first = self.nf_canonical if self.structured else 0
+        self.n_extra_faces = grid.nf - self.nf_canonical
+        self.faces = (FaceList(grid.face_cells, self.nc, first, dev)
+                      if grid.nf > first or not self.structured else None)
+        self.trans_stencil = self.trans[:self.nf_canonical] \
+            if self.structured else None
+        # embedded grids: the padding cells are masked out of the
+        # convergence norms and the reported pore volume
+        am = getattr(grid, "active_mask", None)
+        self.conv_mask = None if am is None else f64(am)
+        self.pv_out = self.pv if am is None else self.pv * self.conv_mask
 
     # ------------------------------------------------------------------
     def cell_quantities(self, state: BlackoilState) -> CellQuantities:
@@ -462,14 +619,33 @@ class BlackoilModel:
             raise NotImplementedError(
                 "THPRES is not ported yet (ROADMAP Queue 1 item 8)")
         p3 = torch.stack([q.pw, q.po, q.pg], dim=0)
-        return tpfa_divergence(self.dims, p3, q.rho, q.b * q.mob, q.rs,
-                               q.rv, self.depth, self.trans, self.gravity)
+        bmob = q.b * q.mob
+        div = None
+        if self.structured:
+            div = tpfa_divergence(self.dims, p3, q.rho, bmob, q.rs, q.rv,
+                                  self.depth, self.trans_stencil,
+                                  self.gravity)
+        if self.faces is not None:
+            div = faces_divergence(self.faces, p3, q.rho, bmob, q.rs, q.rv,
+                                   self.depth, self.trans, self.gravity,
+                                   out=div)
+        return div
 
     def face_fluxes(self, q: CellQuantities):
-        """Per-face fluxes (3, nf) (plain; for output and tests)."""
+        """Per-face fluxes (3, nf) in grid face order (plain; for output
+        and tests)."""
         p3 = torch.stack([q.pw, q.po, q.pg], dim=0)
-        return face_fluxes(self.dims, p3, q.rho, q.b * q.mob, q.rs, q.rv,
-                           self.depth, self.trans, self.gravity)
+        bmob = q.b * q.mob
+        segs = []
+        if self.structured:
+            segs.append(face_fluxes(self.dims, p3, q.rho, bmob, q.rs, q.rv,
+                                    self.depth, self.trans_stencil,
+                                    self.gravity))
+        if self.faces is not None:
+            segs.append(faces_flux_plain(self.faces, p3, q.rho, bmob, q.rs,
+                                         q.rv, self.depth, self.trans,
+                                         self.gravity))
+        return torch.cat(segs, dim=-1)
 
     # ------------------------------------------------------------------
     def well_cell_quantities(self, q: CellQuantities):
@@ -532,11 +708,12 @@ class BlackoilModel:
 
     # ------------------------------------------------------------------
     def convergence(self, res: Residual, dt, state: BlackoilState):
-        """MB/CNV norms (K9) and the well norms. Returns a dict of
-        tensors."""
+        """MB/CNV norms (K9; padding cells masked out on embedded grids)
+        and the well norms. Returns a dict of tensors."""
         from opm_tpu_torch.solver.kernels_triton import conv_norms
 
-        cnv, mb, b_avg = conv_norms(res.cell, res.b, self.pv, dt)
+        cnv, mb, b_avg = conv_norms(res.cell, res.b, self.pv, dt,
+                                    self.conv_mask)
         if res.well_flux.numel():
             max_nw = torch.amax(torch.abs(res.well_flux), dim=0)
             well_flux_norm = torch.amax(b_avg * max_nw)

@@ -1,11 +1,11 @@
-"""Block-sparse Jacobian assembly and the block 7-point operator.
+"""Block-sparse Jacobian assembly and the block operator.
 
-Port of the JAX package's models/linearize.py for fully-active cartesian
-grids: ``assemble`` builds the residual and the exact Jacobian as 3x3
-cell-diagonal blocks, 3x3 left/right face blocks and the well coupling
-blocks; ``matvec`` applies it; ``schur_eliminate_wells`` gives the
-cells-only reduced operator A - C D^-1 B, its right-hand side and the
-well recovery.
+Port of the JAX package's models/linearize.py: ``assemble`` builds the
+residual and the exact Jacobian as 3x3 cell-diagonal blocks, 3x3
+left/right face blocks and the well coupling blocks; ``matvec`` applies
+it; ``schur_eliminate_wells`` gives the cells-only reduced operator
+A - C D^-1 B, its right-hand side and the well recovery. ``dims`` is the
+structured grid's (nx, ny, nz), or None on a gather grid.
 
 Every derivative comes from forward-mode AD of the same local formulas as
 the residual: the cell quantities and the accumulation by three
@@ -15,11 +15,14 @@ plain face-flux tangent per direction, and the perforation fluxes by
 seeding each of the seven perforation-local variables over all
 perforations at once (the reference's ``vmap(jacfwd(perf_local))``).
 
-The cell-block part of the operator is kernel K4 (``csrc/block7.cu``),
-with ``matvec_cells_plain`` as its twin. The 3x3 block families are
-stored as (9, n) tensors, row-major over (equation, variable): row 3*i+j
-is dF_i/du_j, the reference's nine flat arrays stacked. The extra-face
-(embedded grid) and unstructured branches are ROADMAP Queue 1 item 9.
+The cell-block part of the operator is kernel K4 (``csrc/block7.cu``)
+over the 7-point stencil, with ``matvec_cells_plain`` as its twin, and
+K4-faces (``csrc/faces.cu``) over a face list: a gather grid's faces, or an
+embedded grid's extra faces after K4 (``faces_matvec_plain`` its twin). The
+3x3 block families are stored as (9, n) tensors, row-major over
+(equation, variable): row 3*i+j is dF_i/du_j, the reference's nine flat
+arrays stacked; face blocks follow the grid's face order (on an embedded
+grid the stencil faces, then the extra faces).
 """
 
 from __future__ import annotations
@@ -28,11 +31,12 @@ from typing import NamedTuple
 
 import torch
 
-from opm_tpu_torch.models.blackoil import (_cells3, _dir_segments,
+from opm_tpu_torch.models.blackoil import (_FACES_SIGS, FaceList, _cells3,
+                                           _dir_segments,
                                            _face_flux_tangent, _slice,
                                            accumulation_from_q,
                                            compute_cell_quantities,
-                                           face_flux_from_q)
+                                           csr_args, face_flux_from_q)
 from opm_tpu_torch.models.state import HC_GASONLY, HC_OILONLY, saturations
 from opm_tpu_torch.utils import cuda_lib
 from opm_tpu_torch.wells import standard as stdwells
@@ -69,6 +73,7 @@ class BlockSystem(NamedTuple):
     wd_diag: torch.Tensor    # (nw, 4, 4) well rows x well vars
     perf_cell: torch.Tensor  # (nw, mp)
     perf_mask: torch.Tensor  # (nw, mp) float
+    faces: object = None     # FaceList of the faces past the stencil
 
     @property
     def nc(self):
@@ -79,18 +84,10 @@ class BlockSystem(NamedTuple):
         return self.wd_diag.shape[0]
 
 
-def _check_structured(model):
-    nx, ny, nz = model.dims
-    nf = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
-    if model.trans.shape[0] != nf:
-        raise NotImplementedError(
-            "extra faces (faults, NNCs, embedded grids) are not ported yet "
-            "(ROADMAP Queue 1 item 9)")
-
-
 def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
     """Residual and exact Jacobian blocks at ``state`` (the reference's
-    structured ``assemble``)."""
+    ``assemble``: the stencil faces by direction on a structured grid, then
+    the face list by gather)."""
     if state.sgmax is not None or state.somax is not None:
         raise NotImplementedError(
             "hysteresis/VAPPARS memory is not ported yet "
@@ -98,7 +95,6 @@ def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
     if model.threshold_dp is not None:
         raise NotImplementedError(
             "THPRES is not ported yet (ROADMAP Queue 1 item 8)")
-    _check_structured(model)
     stdwells._check_ported(wd)
     props = model.props
     nc = model.nc
@@ -140,45 +136,74 @@ def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
         return (torch.stack([t.pw, t.po, t.pg]), t.rho,
                 t.b * q.mob + q.b * t.mob, t.rs, t.rv)
 
-    prim = [_cells3(a, dims) for a in face_inputs(q_val)]
+    prim_c = face_inputs(q_val)
     # tangents batched over the three seeds: (3 var, ...) per field
-    tans = [_cells3(torch.stack(f), dims) for f in
-            zip(*(face_tangents(q_val, t) for t in q_tan))]
-    dep = _cells3(model.depth, dims)
-    r3 = _cells3(r_cell, dims).clone()
-    diag3 = _cells3(diag, dims)
+    tans_c = [torch.stack(f) for f in
+              zip(*(face_tangents(q_val, t) for t in q_tan))]
     fL_segs, fR_segs = [], []
-    ofs = 0
-    for slL, slR, nf_d in _dir_segments(dims):
-        T = model.trans[ofs:ofs + nf_d]
-        dz = (dep[slL] - dep[slR]).reshape(-1)
-        args = []
-        for a in prim:
-            args += [_slice(a, slL), _slice(a, slR)]
-        flux = face_flux_from_q(*args, T, dz, model.gravity)   # (3, nf_d)
-        tL, tR = [], []
-        for a in tans:
-            aL, aR = _slice(a, slL), _slice(a, slR)
+    # the reference assembles through a zero THPRES threshold, whose clip
+    # has a zero derivative on faces with dphi == 0 exactly
+    if model.structured:
+        prim = [_cells3(a, dims) for a in prim_c]
+        tans = [_cells3(a, dims) for a in tans_c]
+        dep = _cells3(model.depth, dims)
+        r3 = _cells3(r_cell, dims).clone()
+        diag3 = _cells3(diag, dims)
+        ofs = 0
+        for slL, slR, nf_d in _dir_segments(dims):
+            T = model.trans[ofs:ofs + nf_d]
+            dz = (dep[slL] - dep[slR]).reshape(-1)
+            args = []
+            for a in prim:
+                args += [_slice(a, slL), _slice(a, slR)]
+            flux = face_flux_from_q(*args, T, dz, model.gravity)
+            tL, tR = [], []
+            for a in tans:
+                aL, aR = _slice(a, slL), _slice(a, slR)
+                tL += [aL, torch.zeros_like(aL)]
+                tR += [torch.zeros_like(aR), aR]
+            # (3 var, 3 eq, nf_d) -> rows 3*eq + var
+            fL = _face_flux_tangent(*args, T, dz, model.gravity, *tL,
+                                    zero_threshold=True)
+            fR = _face_flux_tangent(*args, T, dz, model.gravity, *tR,
+                                    zero_threshold=True)
+            fL = fL.transpose(0, 1).reshape(9, nf_d)
+            fR = fR.transpose(0, 1).reshape(9, nf_d)
+            shp = r3[(slice(None),) + slL].shape
+            r3[(slice(None),) + slL] += flux.reshape(shp)
+            r3[(slice(None),) + slR] += -flux.reshape(shp)
+            diag3[(slice(None),) + slL] += fL.reshape((9,) + shp[1:])
+            diag3[(slice(None),) + slR] += -fR.reshape((9,) + shp[1:])
+            fL_segs.append(fL)
+            fR_segs.append(fR)
+            ofs += nf_d
+        r_cell = r3.reshape(3, nc)
+    fl = model.faces
+    if fl is not None:
+        # the face list by gather (all faces of a gather grid, an embedded
+        # grid's extra faces), chained through the same per-cell tangent
+        # columns
+        c1, c2 = fl.c1, fl.c2
+        T = model.trans[fl.first:]
+        dz = model.depth[c1] - model.depth[c2]
+        args, tL, tR = [], [], []
+        for a in prim_c:
+            args += [a[..., c1], a[..., c2]]
+        for a in tans_c:
+            aL, aR = a[..., c1], a[..., c2]
             tL += [aL, torch.zeros_like(aL)]
             tR += [torch.zeros_like(aR), aR]
-        # (3 var, 3 eq, nf_d) -> rows 3*eq + var
-        # the reference assembles through a zero THPRES threshold, whose
-        # clip has a zero derivative on faces with dphi == 0 exactly
+        flux = face_flux_from_q(*args, T, dz, model.gravity)
         fL = _face_flux_tangent(*args, T, dz, model.gravity, *tL,
                                 zero_threshold=True)
         fR = _face_flux_tangent(*args, T, dz, model.gravity, *tR,
                                 zero_threshold=True)
-        fL = fL.transpose(0, 1).reshape(9, nf_d)
-        fR = fR.transpose(0, 1).reshape(9, nf_d)
-        shp = r3[(slice(None),) + slL].shape
-        r3[(slice(None),) + slL] += flux.reshape(shp)
-        r3[(slice(None),) + slR] += -flux.reshape(shp)
-        diag3[(slice(None),) + slL] += fL.reshape((9,) + shp[1:])
-        diag3[(slice(None),) + slR] += -fR.reshape((9,) + shp[1:])
+        fL = fL.transpose(0, 1).reshape(9, fl.n)
+        fR = fR.transpose(0, 1).reshape(9, fl.n)
+        r_cell = r_cell.index_add(1, c1, flux).index_add(1, c2, -flux)
+        diag = diag.index_add(1, c1, fL).index_add(1, c2, -fR)
         fL_segs.append(fL)
         fR_segs.append(fR)
-        ofs += nf_d
-    r_cell = r3.reshape(3, nc)
     face_L = torch.cat(fL_segs, dim=1).contiguous()
     face_R = torch.cat(fR_segs, dim=1).contiguous()
 
@@ -259,7 +284,7 @@ def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
     return BlockSystem(r_cell=r_cell, r_well=r_well,
                        diag=diag.contiguous(), face_L=face_L, face_R=face_R,
                        cw=cw, wc=wc, wd_diag=wd_diag, perf_cell=pc,
-                       perf_mask=mask)
+                       perf_mask=mask, faces=fl)
 
 
 def bapply_rows(rows9, v):
@@ -273,11 +298,21 @@ def bapply_rows(rows9, v):
 # ---------------------------------------------------------------------------
 # K4: the block 7-point operator (plain version)
 
+def full3(v):
+    """A pressure-only iterate (nc,) as (3, nc) with rows 1 and 2 zero."""
+    if v.dim() == 1:
+        return torch.stack([v, torch.zeros_like(v), torch.zeros_like(v)])
+    return v
+
+
 def matvec_cells_plain(diag, face_L, face_R, v, dims):
     """Cells-only block stencil y = A v (3, nc) in the reference's order
     (``_matvec_cells_structured``): the diagonal product, then per
     direction x, y, z the right neighbour's +face_R term on the left cell
-    and the left neighbour's -face_L term on the right cell."""
+    and the left neighbour's -face_L term on the right cell. Face blocks
+    past the stencil (an embedded grid's extra faces) are not visited;
+    v (nc,) is a pressure-only iterate."""
+    v = full3(v)
     out = _cells3(bapply_rows(diag, v), dims)
     v3 = _cells3(v, dims)
     ofs = 0
@@ -294,19 +329,26 @@ def matvec_cells_plain(diag, face_L, face_R, v, dims):
 # ---------------------------------------------------------------------------
 # K4 (and the K6 smoothing step, precond.py): CUDA wrappers (csrc/block7.cu)
 
-_P, _I = cuda_lib.P, cuda_lib.I
+_P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
 BLOCK7_SIGS = {
-    "opm_block7_matvec": [_I, _I, _I] + [_P] * 5 + [_P],
-    "opm_block7_smooth": [_I, _I, _I, _I] + [_P] * 7 + [_P],
+    "opm_block7_matvec": [_I, _I, _I, _L, _I] + [_P] * 5 + [_P],
+    "opm_block7_smooth": [_I, _I, _I, _L, _I] + [_P] * 7 + [_P],
 }
 
 
 def check_block_operator(diag, face_L, face_R, dims, *vecs):
-    """Contiguous float64 (9, nc)/(9, nf) blocks and (3, nc) vectors on one
-    device (the contract of the block7 kernels)."""
-    nx, ny, nz = dims
-    nc = nx * ny * nz
-    nf = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+    """Contiguous float64 (9, nc)/(9, nf) blocks, with nf at least the
+    stencil's faces on a structured grid, and (3, nc) vectors on one
+    device (the contract of the block7 and faces kernels)."""
+    nc = diag.shape[-1]
+    nf = face_L.shape[-1]
+    if dims is not None:
+        nx, ny, nz = dims
+        nc_d = nx * ny * nz
+        nf_d = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
+        if nc != nc_d or nf < nf_d:
+            raise ValueError(f"block7: blocks of {nc} cells and {nf} faces "
+                             f"do not fit the grid {tuple(dims)}")
     dev = diag.device
     for t, shape in [(diag, (9, nc)), (face_L, (9, nf)), (face_R, (9, nf))] \
             + [(v, (3, nc)) for v in vecs]:
@@ -317,16 +359,29 @@ def check_block_operator(diag, face_L, face_R, dims, *vecs):
                              f"{t.dtype} on {t.device}")
 
 
+def check_iterate(x, nc, dev):
+    """A pressure-only iterate: a contiguous float64 (nc,) tensor."""
+    if (x.shape != (nc,) or x.dtype != torch.float64
+            or not x.is_contiguous() or x.device != dev):
+        raise ValueError("a pressure-only iterate must be a contiguous "
+                         "float64 (nc,) tensor")
+
+
 def matvec_cells_cuda(diag, face_L, face_R, v, dims):
     """K4 on the card; same contract as matvec_cells_plain."""
-    check_block_operator(diag, face_L, face_R, dims, v)
+    nc = diag.shape[-1]
+    p_only = v.dim() == 1
+    if p_only:
+        check_iterate(v, nc, diag.device)
+    check_block_operator(diag, face_L, face_R, dims,
+                         *(() if p_only else (v,)))
     nx, ny, nz = dims
-    out = torch.empty_like(v)
+    out = torch.empty((3, nc), dtype=torch.float64, device=v.device)
     lib = cuda_lib.load("block7", BLOCK7_SIGS)
     ptr = cuda_lib.ptr
-    err = lib.opm_block7_matvec(nx, ny, nz, ptr(diag), ptr(face_L),
-                                ptr(face_R), ptr(v), ptr(out),
-                                cuda_lib.stream_ptr(v.device))
+    err = lib.opm_block7_matvec(nx, ny, nz, face_L.shape[1], int(p_only),
+                                ptr(diag), ptr(face_L), ptr(face_R), ptr(v),
+                                ptr(out), cuda_lib.stream_ptr(v.device))
     cuda_lib.check(err, "opm_block7_matvec")
     matvec_cells_cuda.launches += 1
     return out
@@ -335,11 +390,103 @@ def matvec_cells_cuda(diag, face_L, face_R, v, dims):
 matvec_cells_cuda.launches = 0
 
 
-def matvec_cells(sys: BlockSystem, v, dims):
-    """Cell-block part of the operator, (3, nc) -> (3, nc) (K4)."""
-    return cuda_lib.dispatch(v, matvec_cells_cuda, matvec_cells_plain,
-                             sys.diag, sys.face_L, sys.face_R,
-                             v.contiguous(), tuple(dims), what="K4")
+# ---------------------------------------------------------------------------
+# K4-faces: the block operator over a face list (csrc/faces.cu)
+
+def faces_matvec_plain(fl: FaceList, diag, face_L, face_R, v, out=None):
+    """y = A v over the list's faces (the reference's gather matvec): the
+    diagonal product, the left cells' +face_R v_R terms in face order, then
+    the right cells' -face_L v_L terms; with ``out`` (the stencil product
+    of an embedded grid, not modified) the face terms are added onto it
+    instead (``_matvec_cells_structured``'s extra-face correction)."""
+    v = full3(v)
+    f = fl.first
+    y = bapply_rows(diag, v) if out is None else out.clone()
+    y.index_add_(1, fl.c1, bapply_rows(face_R[:, f:], v[:, fl.c2]))
+    y.index_add_(1, fl.c2, -bapply_rows(face_L[:, f:], v[:, fl.c1]))
+    return y
+
+
+def faces_smooth_plain(fl: FaceList, diag, face_L, face_R, dinv, x, r,
+                       base=None):
+    """x + D^-1 (r - A x), A x by faces_matvec_plain (onto ``base``, the
+    stencil product of an embedded grid, when given); x (nc,) is a
+    pressure-only iterate."""
+    x = full3(x)
+    ac = faces_matvec_plain(fl, diag, face_L, face_R, x, out=base)
+    return x + bapply_rows(dinv, r - ac)
+
+
+def _faces_apply(csr, diag, face_L, face_R, x, dinv, r, base, out):
+    nc = diag.shape[-1]
+    lib = cuda_lib.load("faces", _FACES_SIGS)
+    ptr = cuda_lib.ptr
+    nul = cuda_lib.P(0)
+    err = lib.opm_faces_apply(
+        *csr_args(csr), nc, face_L.shape[1],
+        ptr(diag) if base is None else nul,
+        ptr(base) if base is not None else nul, ptr(face_L), ptr(face_R),
+        ptr(x), int(x.dim() == 1), ptr(dinv) if dinv is not None else nul,
+        ptr(r) if r is not None else nul, ptr(out),
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, "opm_faces_apply")
+
+
+def faces_matvec_cuda(fl: FaceList, diag, face_L, face_R, v, out=None):
+    """K4-faces on the card; same contract as faces_matvec_plain, except
+    that ``out`` is updated in place (only the rows the faces touch)."""
+    check_block_operator(diag, face_L, face_R, None, v,
+                         *(() if out is None else (out,)))
+    y = torch.empty_like(v) if out is None else out
+    _faces_apply(fl.full if out is None else fl.touched, diag, face_L,
+                 face_R, v, None, None, out, y)
+    faces_matvec_cuda.launches += 1
+    return y
+
+
+faces_matvec_cuda.launches = 0
+
+
+def faces_smooth_cuda(fl: FaceList, diag, face_L, face_R, dinv, x, r,
+                      base=None):
+    """K4-faces smoothing step on the card; same contract as
+    faces_smooth_plain."""
+    nc = diag.shape[-1]
+    if x.dim() == 1:
+        check_iterate(x, nc, diag.device)
+    check_block_operator(diag, face_L, face_R, None, r,
+                         *(() if x.dim() == 1 else (x,)),
+                         *(() if base is None else (base,)))
+    if (dinv.shape != diag.shape or dinv.dtype != torch.float64
+            or not dinv.is_contiguous() or dinv.device != diag.device):
+        raise ValueError("K4-faces smoothing: dinv must be a contiguous "
+                         "float64 (9, nc) tensor beside diag")
+    out = torch.empty_like(r)
+    _faces_apply(fl.full, diag, face_L, face_R, x, dinv, r, base, out)
+    faces_smooth_cuda.launches += 1
+    return out
+
+
+faces_smooth_cuda.launches = 0
+
+
+def matvec_cells(sys: BlockSystem, v, dims, *, twin=False):
+    """Cell-block part of the operator, (3, nc) -> (3, nc): K4 over the
+    stencil (dims given) and K4-faces over the face list; ``twin``: their
+    plain twins on any device."""
+    v = v.contiguous()
+    ops = (sys.diag, sys.face_L, sys.face_R)
+    out = None
+    if dims is not None:
+        out = (matvec_cells_plain(*ops, v, tuple(dims)) if twin else
+               cuda_lib.dispatch(v, matvec_cells_cuda, matvec_cells_plain,
+                                 *ops, v, tuple(dims), what="K4"))
+    if sys.faces is not None:
+        out = (faces_matvec_plain(sys.faces, *ops, v, out) if twin else
+               cuda_lib.dispatch(v, faces_matvec_cuda, faces_matvec_plain,
+                                 sys.faces, *ops, v, out,
+                                 what="K4-faces"))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +514,8 @@ def well_apply_C(sys: BlockSystem, v_well):
 
 
 def matvec(sys: BlockSystem, v_cell, v_well, dims):
-    """J [v_cell (3, nc); v_well (nw, 4)] -> (out_cell, out_well)."""
+    """J [v_cell (3, nc); v_well (nw, 4)] -> (out_cell, out_well); dims
+    None on a gather grid."""
     out_c = matvec_cells(sys, v_cell, dims) + well_apply_C(sys, v_well)
     out_w = torch.einsum("wij,wj->wi", sys.wd_diag, v_well) \
         + well_apply_B(sys, v_cell)
@@ -378,7 +526,8 @@ def schur_eliminate_wells(sys: BlockSystem, dims, *, twin=False):
     """Schur-eliminate the well unknowns (per-well dense D^-1; reduced
     cell operator A - C D^-1 B). Returns (reduced_matvec, rhs (3, nc),
     recover(x_cell) -> x_well (nw, 4)). ``twin``: the cell operator by
-    K4's plain twin on any device (the card's whole-solve comparison)."""
+    K4's and K4-faces' plain twins on any device (the card's whole-solve
+    comparison)."""
     from opm_tpu_torch.linalg.precond import inv4x4
 
     Dinv = inv4x4(sys.wd_diag)
@@ -392,11 +541,7 @@ def schur_eliminate_wells(sys: BlockSystem, dims, *, twin=False):
         return dinv_apply(sys.r_well - well_apply_B(sys, x_cell))
 
     def reduced_matvec(v_cell):
-        if twin:
-            out_c = matvec_cells_plain(sys.diag, sys.face_L, sys.face_R,
-                                       v_cell, tuple(dims))
-        else:
-            out_c = matvec_cells(sys, v_cell, dims)
+        out_c = matvec_cells(sys, v_cell, dims, twin=twin)
         w = dinv_apply(well_apply_B(sys, v_cell))
         return out_c - well_apply_C(sys, w)
 

@@ -51,8 +51,9 @@ class SimulatorReportTotals:
 
 
 def summary_arrays(model, state):
-    """(qs, bhp, fpr, fip) of one report step, on the model's device."""
-    pv = model.pv
+    """(qs, bhp, fpr, fip) of one report step, on the model's device (the
+    padding cells of an embedded grid carry no pore volume here)."""
+    pv = model.pv_out
     fpr = torch.sum(state.pressure * pv) / torch.sum(pv)
     fip = torch.sum(model.accumulation(state) * pv[None, :], dim=1)
     return state.qs, state.bhp, fpr, fip
@@ -126,7 +127,7 @@ class SummaryCollector:
 def fluid_in_place(model, state: BlackoilState):
     """Surface-volume fluid in place per phase (w, o, g), on the host."""
     acc = model.accumulation(state)
-    return torch.sum(acc * model.pv[None, :], dim=1).cpu().numpy()
+    return torch.sum(acc * model.pv_out[None, :], dim=1).cpu().numpy()
 
 
 def schedule_wells(schedule):

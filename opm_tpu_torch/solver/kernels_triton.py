@@ -16,7 +16,10 @@ bytes per cell). Design:
   pass per cell;
 * norms: each program reduces a block of cells to per-phase partials
   (max |R|/b/pv, sum R, sum 1/b) plus sum pv; a second one-program pass
-  reduces the partials and forms CNV and MB.
+  reduces the partials and forms CNV and MB. On an embedded grid a 0/1
+  mask multiplies every cell term (the padding cells drop out of the max,
+  the sums and the cell count of the 1/b average), the reference's masked
+  branch (models/blackoil.py:452-460).
 
 Triton is imported inside the launching functions only (the CPU path and
 the tests import this module without it). Launches pass
@@ -55,30 +58,45 @@ def _triton():
         return tl.where((a < b) | (a != a), a, b)
 
     @triton.jit
-    def norms_partial(R, b, pv, part, nc, BLOCK: tl.constexpr):
+    def norms_partial(R, b, pv, mask, part, nc, MASKED: tl.constexpr,
+                      BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         m = offs < nc
         v = tl.load(pv + offs, mask=m, other=1.0)
+        if MASKED:
+            mk = tl.load(mask + offs, mask=m, other=0.0)
         for ph in tl.static_range(3):
             r = tl.load(R + ph * nc + offs, mask=m, other=0.0)
             bb = tl.load(b + ph * nc + offs, mask=m, other=1.0)
             B = 1.0 / _max(bb, 1e-300)
-            c = tl.where(m, tl.abs(r) * B / v, 0.0)
-            tl.store(part + pid * 10 + ph, tl.max(c, axis=0))
-            tl.store(part + pid * 10 + 3 + ph, tl.sum(r, axis=0))
-            tl.store(part + pid * 10 + 6 + ph,
+            c = tl.abs(r) * B / v
+            if MASKED:
+                c = c * mk
+                r = r * mk
+                B = B * mk
+            c = tl.where(m, c, 0.0)
+            tl.store(part + pid * 11 + ph, tl.max(c, axis=0))
+            tl.store(part + pid * 11 + 3 + ph, tl.sum(r, axis=0))
+            tl.store(part + pid * 11 + 6 + ph,
                      tl.sum(tl.where(m, B, 0.0), axis=0))
-        tl.store(part + pid * 10 + 9, tl.sum(tl.where(m, v, 0.0), axis=0))
+        if MASKED:
+            v = v * mk
+            tl.store(part + pid * 11 + 10, tl.sum(mk, axis=0))
+        tl.store(part + pid * 11 + 9, tl.sum(tl.where(m, v, 0.0), axis=0))
 
     @triton.jit
-    def norms_final(part, out, nparts, nc, BLOCK: tl.constexpr):
+    def norms_final(part, out, nparts, nc, MASKED: tl.constexpr,
+                    BLOCK: tl.constexpr):
         offs0 = tl.arange(0, BLOCK)
         pvs = tl.zeros([BLOCK], dtype=tl.float64)
+        ms = tl.zeros([BLOCK], dtype=tl.float64)
         for start in range(0, nparts, BLOCK):
             offs = start + offs0
             m = offs < nparts
-            pvs += tl.load(part + offs * 10 + 9, mask=m, other=0.0)
+            pvs += tl.load(part + offs * 11 + 9, mask=m, other=0.0)
+            if MASKED:
+                ms += tl.load(part + offs * 11 + 10, mask=m, other=0.0)
         pv_sum = tl.sum(pvs, axis=0)
         for ph in tl.static_range(3):
             cm = tl.zeros([BLOCK], dtype=tl.float64)
@@ -87,13 +105,17 @@ def _triton():
             for start in range(0, nparts, BLOCK):
                 offs = start + offs0
                 m = offs < nparts
-                cm = _max(cm, tl.load(part + offs * 10 + ph, mask=m,
+                cm = _max(cm, tl.load(part + offs * 11 + ph, mask=m,
                                       other=0.0))
-                rs += tl.load(part + offs * 10 + 3 + ph, mask=m, other=0.0)
-                bs += tl.load(part + offs * 10 + 6 + ph, mask=m, other=0.0)
+                rs += tl.load(part + offs * 11 + 3 + ph, mask=m, other=0.0)
+                bs += tl.load(part + offs * 11 + 6 + ph, mask=m, other=0.0)
             tl.store(out + ph, tl.max(cm, axis=0))
             tl.store(out + 3 + ph, tl.abs(tl.sum(rs, axis=0)))
-            tl.store(out + 6 + ph, tl.sum(bs, axis=0) / nc)
+            if MASKED:
+                tl.store(out + 6 + ph,
+                         tl.sum(bs, axis=0) / tl.sum(ms, axis=0))
+            else:
+                tl.store(out + 6 + ph, tl.sum(bs, axis=0) / nc)
         tl.store(out + 9, pv_sum)
 
     @triton.jit
@@ -218,22 +240,28 @@ def _check(tensors, dev, nc):
 # ---------------------------------------------------------------------------
 # convergence norms
 
-def conv_norms_plain(R, b, pv, dt):
+def conv_norms_plain(R, b, pv, dt, mask=None):
     """(cnv (3,), mb (3,), b_avg (3,)) as the reference's convergence
-    computes them."""
+    computes them; ``mask`` (nc,) 0/1 float64 drops cells (the padding of
+    an embedded grid) from every norm."""
     B = 1.0 / torch.clamp(b, min=1e-300)
-    pv_sum = torch.sum(pv)
-    cnv = dt * torch.amax(torch.abs(R) * B / pv, dim=1)
-    b_avg = torch.mean(B, dim=1)
-    mb = dt * torch.abs(torch.sum(R, dim=1)) * b_avg / pv_sum
+    if mask is None:
+        pv_sum = torch.sum(pv)
+        cnv = dt * torch.amax(torch.abs(R) * B / pv, dim=1)
+        b_avg = torch.mean(B, dim=1)
+        mb = dt * torch.abs(torch.sum(R, dim=1)) * b_avg / pv_sum
+        return cnv, mb, b_avg
+    pv_sum = torch.sum(pv * mask)
+    cnv = dt * torch.amax(torch.abs(R) * B / pv * mask, dim=1)
+    b_avg = torch.sum(B * mask, dim=1) / torch.sum(mask)
+    mb = dt * torch.abs(torch.sum(R * mask, dim=1)) * b_avg / pv_sum
     return cnv, mb, b_avg
 
 
-def conv_norms_triton(R, b, pv, dt):
-    """K9 norms on the card; same contract as conv_norms_plain."""
+def _conv_norms_launch(R, b, pv, dt, mask):
     dev = R.device
     nc = pv.shape[0]
-    _check((pv,), dev, nc)
+    _check((pv,) if mask is None else (pv, mask), dev, nc)
     for t in (R, b):
         if (t.shape != (3, nc) or t.dtype != torch.float64
                 or t.device != dev or not t.is_contiguous()):
@@ -241,13 +269,14 @@ def conv_norms_triton(R, b, pv, dt):
                              "float64 tensors beside pv (nc,)")
     k = _triton()
     nparts = k["cdiv"](nc, _BLOCK)
-    part = torch.empty((nparts, 10), dtype=torch.float64, device=dev)
+    part = torch.empty((nparts, 11), dtype=torch.float64, device=dev)
     out = torch.empty(10, dtype=torch.float64, device=dev)
-    k["norms_partial"][(nparts,)](R, b, pv, part, nc, BLOCK=_BLOCK,
+    masked = mask is not None
+    k["norms_partial"][(nparts,)](R, b, pv, mask if masked else pv, part,
+                                  nc, MASKED=masked, BLOCK=_BLOCK,
                                   num_warps=8, enable_fp_fusion=False)
-    k["norms_final"][(1,)](part, out, nparts, nc, BLOCK=1024, num_warps=8,
-                           enable_fp_fusion=False)
-    conv_norms_triton.launches += 1
+    k["norms_final"][(1,)](part, out, nparts, nc, MASKED=masked, BLOCK=1024,
+                           num_warps=8, enable_fp_fusion=False)
     # the reference's final products: cnv = dt * max, mb = dt |sum R|
     # b_avg / pv_sum
     cnv = dt * out[:3]
@@ -255,12 +284,33 @@ def conv_norms_triton(R, b, pv, dt):
     return cnv, mb, out[6:9]
 
 
+def conv_norms_triton(R, b, pv, dt):
+    """K9 norms on the card; same contract as conv_norms_plain."""
+    out = _conv_norms_launch(R, b, pv, dt, None)
+    conv_norms_triton.launches += 1
+    return out
+
+
 conv_norms_triton.launches = 0
 
 
-def conv_norms(R, b, pv, dt):
-    return cuda_lib.dispatch(R, conv_norms_triton, conv_norms_plain, R, b,
-                             pv, dt, what="K9 norms")
+def conv_norms_masked_triton(R, b, pv, dt, mask):
+    """K9 masked norms on the card; same contract as conv_norms_plain with
+    a mask."""
+    out = _conv_norms_launch(R, b, pv, dt, mask)
+    conv_norms_masked_triton.launches += 1
+    return out
+
+
+conv_norms_masked_triton.launches = 0
+
+
+def conv_norms(R, b, pv, dt, mask=None):
+    if mask is None:
+        return cuda_lib.dispatch(R, conv_norms_triton, conv_norms_plain, R,
+                                 b, pv, dt, what="K9 norms")
+    return cuda_lib.dispatch(R, conv_norms_masked_triton, conv_norms_plain,
+                             R, b, pv, dt, mask, what="K9 norms")
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,12 @@ and the chopped update (K9):
 * ``dense`` (the reference's route at most DENSE_LIMIT cells): the
   Jacobian by ``torch.func.jacfwd`` of the residual (through the K1 and
   K3 kernels' forward-mode rules) and an equilibrated float64 LU solve;
-* ``cpr`` (above DENSE_LIMIT, fully-active cartesian grids): block-sparse
-  assembly, Schur elimination of the wells, BiCGStab (tol 1e-2, at most
-  50 iterations) preconditioned by CPR with a structured-GMG pressure
-  stage, and the well recovery (the reference's ``_solve_cpr`` Schur
-  branch with its CPU settings, all float64).
+* ``cpr`` (above DENSE_LIMIT): block-sparse assembly, Schur elimination
+  of the wells, BiCGStab (tol 1e-2, at most 50 iterations) preconditioned
+  by CPR with a structured-GMG pressure stage on structured grids (fully
+  active or embedded) and an aggregation-AMG one on gather grids, and the
+  well recovery (the reference's ``_solve_cpr`` Schur branch with its CPU
+  settings, all float64).
 
 Oscillation relaxation, the initial well-equation solve and the
 exceptions the timestepper catches follow the reference.
@@ -19,6 +20,7 @@ exceptions the timestepper catches follow the reference.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -97,13 +99,22 @@ class NonlinearSolver:
     def __init__(self, model: BlackoilModel, linear_solver: str = "auto",
                  max_iter: Optional[int] = None, min_iter: int = 1,
                  relax_max: float = 0.5, relax_increment: float = 0.1,
-                 relax_rel_tol: float = 0.2):
+                 relax_rel_tol: float = 0.2, schwarz=None):
         self.model = model
+        if schwarz is not None:
+            raise NotImplementedError(
+                "SchwarzGmg (the shard-local GMG of a multi-device run) is "
+                "not ported yet (ROADMAP Queue 1 item 13)")
         if linear_solver == "auto":
             linear_solver = ("dense" if model.nc <= self.DENSE_LIMIT
                              else "cpr")
         if linear_solver not in ("dense", "cpr"):
             raise ValueError(f"unknown linear_solver {linear_solver!r}")
+        if linear_solver == "dense" and model.faces is not None:
+            raise NotImplementedError(
+                "the dense route on a grid with a face list (a gather grid, "
+                "or an embedded grid with extra faces) needs a forward-mode "
+                "rule for K3-faces (ROADMAP Queue 1 item 9)")
         self.linear_solver = linear_solver
         self.max_iter = max_iter or model.params.max_iter
         self.min_iter = min_iter
@@ -115,12 +126,22 @@ class NonlinearSolver:
         self.timing = None
         self.amg = None
         if linear_solver == "cpr":
-            from opm_tpu_torch.linalg.gmg import StructuredGmg
-
-            # BlackoilModel holds fully-active cartesian grids only
             grid = model.grid
-            self.amg = StructuredGmg(tuple(grid.dims),
-                                     grid.trans[:grid.nf_canonical])
+            if model.op_dims is not None:
+                from opm_tpu_torch.linalg.gmg import StructuredGmg
+
+                if os.environ.get("OPM_TPU_GMG", "1") != "1":
+                    raise NotImplementedError(
+                        "OPM_TPU_GMG=0 (the aggregation AMG on a structured "
+                        "grid) is not ported yet (ROADMAP Queue 1 item 9)")
+                self.amg = StructuredGmg(model.op_dims,
+                                         grid.trans[:grid.nf_canonical])
+            else:
+                from opm_tpu_torch.linalg.amg import build_hierarchy
+
+                self.amg = build_hierarchy(
+                    model.nc, grid.face_cells, grid.trans).device(
+                        model.device)
 
     # ------------------------------------------------------------------
     def _cdp(self, state, wd):
@@ -164,7 +185,7 @@ class NonlinearSolver:
         from opm_tpu_torch.linalg.precond import make_cpr_cells
 
         model = self.model
-        dims = model.dims
+        dims = model.op_dims
         t0 = time.perf_counter()
         sys = linearize.assemble(model, state, acc0, dt, wd, cdp)
         t0 = self._section("assembly", t0)

@@ -1,10 +1,12 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host C++.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with nvcc
 for Hopper (``sm_90a``) into ``build/opm_tpu_torch/lib<name>.so`` at the
-repository root on first use, then loaded with ctypes. Nothing is built
-when a module is imported: the CPU path never calls this. There is no
-fallback: a missing compiler or a failed build raises.
+repository root on first use, then loaded with ctypes. A ``csrc/<name>.cpp``
+(host code: the corner-point connection builder) is compiled the same way
+by the host C++ compiler. Nothing is built when a module is imported: the
+CPU path never builds a CUDA source. There is no fallback: a missing
+compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # products and sums round separately, as the plain PyTorch
               # version's elementwise operations do
               "--fmad=false"]
+HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off"]
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -35,9 +38,19 @@ def _nvcc() -> str:
     return path
 
 
+def _cxx() -> str:
+    path = shutil.which("g++") or shutil.which("c++")
+    if path is None:
+        raise RuntimeError("no host C++ compiler (g++ or c++) found")
+    return path
+
+
 def _paths(name: str):
-    return (os.path.join(CSRC, name + ".cu"),
-            os.path.join(BUILD_DIR, f"lib{name}.so"))
+    """(source, library) of csrc/<name>.cu, else csrc/<name>.cpp."""
+    src = os.path.join(CSRC, name + ".cu")
+    if not os.path.exists(src):
+        src = os.path.join(CSRC, name + ".cpp")
+    return src, os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
 def _fresh(src: str, out: str) -> bool:
@@ -46,9 +59,9 @@ def _fresh(src: str, out: str) -> bool:
 
 
 def build_all(names) -> list:
-    """Compile the named sources (csrc/<name>.cu) that have no up-to-date
-    library, one nvcc process each, all started together; returns the
-    library paths."""
+    """Compile the named sources (csrc/<name>.cu or .cpp) that have no
+    up-to-date library, one compiler process each, all started together;
+    returns the library paths."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
     for name in names:
@@ -56,15 +69,17 @@ def build_all(names) -> list:
         if _fresh(src, out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        cmd = ([_nvcc(), *NVCC_FLAGS] if src.endswith(".cu")
+               else [_cxx(), *HOST_FLAGS])
+        proc = subprocess.Popen(cmd + ["-o", tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
-        jobs.append((src, out, tmp, proc))
+        jobs.append((src, out, tmp, proc, cmd[0]))
     errors = []
-    for src, out, tmp, proc in jobs:
+    for src, out, tmp, proc, compiler in jobs:
         _, err = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {src}:\n{err}")
+            errors.append(f"{compiler} failed for {src}:\n{err}")
         else:
             os.replace(tmp, out)
     if errors:
@@ -74,15 +89,18 @@ def build_all(names) -> list:
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Build (if needed) and load lib<name>.so; ``signatures`` maps each C
-    entry to its argtypes (every entry returns a cudaError_t as int)."""
+    entry to (argtypes) or (argtypes, restype); the default restype is int
+    (a kernel entry's cudaError_t)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build_all([name])[0])
-            for fn, argtypes in signatures.items():
+            for fn, sig in signatures.items():
+                argtypes, restype = (sig if isinstance(sig, tuple)
+                                     else (sig, ctypes.c_int))
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
-                f.restype = ctypes.c_int
+                f.restype = restype
             _libs[name] = lib
         return lib
 

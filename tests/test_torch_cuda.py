@@ -1,8 +1,10 @@
 """The port's kernels on the card, where chip_smoke.py does not reach:
-K1 with per-query region rows (nreg > 1; SPE1 has one region), and the
-dense Jacobian through the kernels against the plain CPU path as a test
-of its own. chip_smoke.py holds every kernel against its plain version at
-the SPE1 and SPE10-2 shapes.
+K1 with per-query region rows (nreg > 1; SPE1 has one region), the dense
+Jacobian through the kernels against the plain CPU path as a test of its
+own, a CPR solve through the kernels against their twins, and the
+face-list kernels and K10 against their twins on the toy Norne-like deck.
+chip_smoke.py holds every kernel against its plain version at the SPE1,
+SPE10-2 and full Norne-class shapes.
 
 Needs an NVIDIA GPU, nvcc and Triton; skipped without a card. This file
 imports no JAX, so it also runs on a machine without it:
@@ -159,3 +161,130 @@ def test_cpr_solve_through_kernels_matches_twins(dev):
     assert rel(dk, dp) <= 1e-2
     (_, dk), (_, dp) = solve(False, 1e-12, 3), solve(True, 1e-12, 3)
     assert rel(dk, dp) <= 1e-8
+
+
+def _norne_toy_system(dev, knob):
+    """The toy Norne-like deck's first Newton system on the card in one
+    representation (OPM_TPU_EMBED unset: embedded; "0": gather)."""
+    from opm_tpu_torch.models import linearize
+    from opm_tpu_torch.models.blackoil import make_well_device_arrays
+    from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
+                                            init_well_state,
+                                            report_step_wells)
+    from opm_tpu_torch.sim.init import initial_state
+    from opm_tpu_torch.sim.testcases import norne_like_case
+    from opm_tpu_torch.solver.newton import connection_offsets
+
+    old = os.environ.pop("OPM_TPU_EMBED", None)
+    if knob is not None:
+        os.environ["OPM_TPU_EMBED"] = knob
+    try:
+        sim = SimulatorFullyImplicitBlackoil(
+            norne_like_case(nx=12, ny=24, nz=22, tsteps="1 2 5"), device=dev)
+    finally:
+        os.environ.pop("OPM_TPU_EMBED", None)
+        if old is not None:
+            os.environ["OPM_TPU_EMBED"] = old
+    ws = report_step_wells(sim.schedule.report_steps[0], sim.grid,
+                           sim.well_names, sim.max_perf)
+    wd = make_well_device_arrays(ws, sim.grid.gravity, dev)
+    st = init_well_state(initial_state(sim.grid, sim.props, sim.case, ws.nw),
+                         ws, True)
+    sys = linearize.assemble(sim.model, st, sim.model.accumulation(st),
+                             86400.0, wd, connection_offsets(sim.model, st,
+                                                             wd))
+    return sim, st, sys
+
+
+def _scaled(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
+@pytest.mark.parametrize("knob", [None, "0"], ids=["embedded", "gather"])
+def test_face_kernels_match_twins_on_toy(dev, knob):
+    """K3-faces, K4-faces (matvec and the fused smoothing step, full and
+    pressure-only iterates) and, on the gather grid, K6's cell part and
+    K6-faces against their plain twins on the card, on the toy Norne-like
+    deck's first Newton system: 1e-12 of max (the kernels sum in the twins'
+    scatter order)."""
+    from opm_tpu_torch.linalg import precond as k6
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize as k4
+
+    sim, st, sys = _norne_toy_system(dev, knob)
+    m = sim.model
+    fl, dims = m.faces, m.op_dims
+    q = m.cell_quantities(st)
+    args = (torch.stack([q.pw, q.po, q.pg]).contiguous(),
+            q.rho.contiguous(), (q.b * q.mob).contiguous(),
+            q.rs.contiguous(), q.rv.contiguous(), m.depth, m.trans,
+            m.gravity)
+    base = None if dims is None else mb.tpfa_div_cuda(
+        dims, *args[:6], m.trans_stencil, m.gravity)
+    n0 = mb.faces_div_cuda.launches
+    kd = mb.faces_div_cuda(fl, *args,
+                           out=None if base is None else base.clone())
+    assert mb.faces_div_cuda.launches == n0 + 1
+    assert _scaled(kd, mb.faces_div_plain(fl, *args, out=base)) <= 1e-12
+    rng = np.random.default_rng(3)
+    ops = (sys.diag, sys.face_L, sys.face_R)
+    x = torch.as_tensor(rng.standard_normal((3, m.nc)), device=dev)
+    r = torch.as_tensor(rng.standard_normal((3, m.nc)), device=dev)
+    dinv, w, diag_p, off = k6.cpr_setup_plain(*ops, dims, fl)
+    for xx in (x, x[0].contiguous()):
+        kb = None if dims is None else k4.matvec_cells_cuda(*ops, xx, dims)
+        if xx.dim() == 2:
+            ky = k4.faces_matvec_cuda(fl, *ops, xx,
+                                      None if kb is None else kb.clone())
+            assert _scaled(ky, k4.faces_matvec_plain(fl, *ops, xx,
+                                                     kb)) <= 1e-12
+        ks = k4.faces_smooth_cuda(fl, *ops, dinv, xx, r, kb)
+        assert _scaled(ks, k4.faces_smooth_plain(fl, *ops, dinv, xx, r,
+                                                 kb)) <= 1e-12
+    if dims is None:
+        kc = k6.cpr_setup_cells_cuda(sys.diag)
+        for a, b in zip(kc, (dinv, w, diag_p)):
+            assert _scaled(a, b) <= 1e-13
+        ko = k6.cpr_faces_cuda(fl, w, sys.face_L, sys.face_R)
+        assert _scaled(ko, off) <= 1e-13
+
+
+def test_k10_matches_twins_on_toy(dev):
+    """K10 on the toy Norne-like deck's gather grid (4176 cells): the value
+    coarsening and ELL packing of every level, each level's sweep (zero
+    and given iterate), residual + restriction and prolongation + sweep
+    against their plain twins on the card (1e-12 of max), and one whole
+    V-cycle (1e-6 of max: the float32 coarsest solve can round the other
+    way when the twins' atomic restriction sums in another order)."""
+    from opm_tpu_torch.linalg import amg as k10
+    from opm_tpu_torch.linalg import precond as k6
+
+    sim, _, sys = _norne_toy_system(dev, "0")
+    amg = sim.solver.amg
+    assert isinstance(amg, k10.DeviceAmg) and amg.n_levels >= 4
+    _, _, diag_p, off = k6.cpr_setup_plain(sys.diag, sys.face_L, sys.face_R,
+                                           None, sys.faces)
+    n0 = k10.coarsen_cuda.launches
+    vk = amg.coarsen_values(diag_p, off)
+    assert k10.coarsen_cuda.launches == n0 + amg.n_levels - 1
+    vp = amg.coarsen_values(diag_p, off, twin=True)
+    for (dk, ek), (dp, ep) in zip(vk[:amg.n_levels], vp[:amg.n_levels]):
+        assert _scaled(dk, dp) <= 1e-12 and _scaled(ek, ep) <= 1e-12
+    rng = np.random.default_rng(5)
+    for lv, (d, ev) in zip(amg.levels, vp):
+        n = d.shape[0]
+        xb = torch.as_tensor(rng.standard_normal(n), device=dev)
+        bb = torch.as_tensor(rng.standard_normal(n), device=dev)
+        ec = torch.as_tensor(rng.standard_normal(lv["n_coarse"]), device=dev)
+        cols, agg = lv["cols"], lv["agg"]
+        for x in (None, xb):
+            assert _scaled(k10.sweep_cuda(lv, d, ev, x, bb),
+                           k10.sweep_plain(d, ev, cols, x, bb)) <= 1e-12
+        assert _scaled(k10.restrict_cuda(lv, d, ev, xb, bb),
+                       k10.restrict_plain(d, ev, cols, xb, bb, agg,
+                                          lv["n_coarse"])) <= 1e-12
+        assert _scaled(k10.prolong_sweep_cuda(lv, d, ev, xb, ec, bb),
+                       k10.prolong_sweep_plain(d, ev, cols, xb, ec, agg,
+                                               bb)) <= 1e-12
+    b = torch.as_tensor(rng.standard_normal(amg.n0), device=dev)
+    assert _scaled(amg.vcycle(vk, b), amg.vcycle(vk, b, twin=True)) <= 1e-6

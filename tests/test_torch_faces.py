@@ -1,0 +1,206 @@
+"""The port's face-list path against the JAX package on the toy Norne-like
+deck (norne_like_deck(nx=12, ny=24, nz=22): two stair-step faults, ACTNUM
+holes), in both representations, on the CPU in float64:
+
+- embedded (OPM_TPU_EMBED unset): 6336 box cells, the stencil plus 1408
+  extra fault faces, structured GMG;
+- gather (OPM_TPU_EMBED=0): 4176 cells, 11793 faces, aggregation AMG.
+
+Inputs: the deck's initial state (EQUIL) after the first report step's well
+initialisation, its pressure perturbed by seeded noise (so that every face
+carries flow and both upwind directions occur), accumulation at the
+unperturbed state, dt = 1 day, seeded vectors; the same arrays go to both
+packages. The reference runs once per representation, in one jitted
+function over every quantity compared.
+
+Tolerances: face fluxes and their divergence 1e-12 of max (the face
+kernels' twins sum in the reference's scatter order); the assembled system
+(r_cell, diag, face_L, face_R and the well blocks) 1e-11 of each field's
+max; the operator, the Schur-reduced operator, its right-hand side and the
+well recovery, the CPR weights, pressure system and the GMG's stencil-only
+couplings (_pressure_off_for) 1e-12 of max; the masked convergence norms
+1e-11 relative. (The CPR apply over these systems is held to the
+reference through the aggregation AMG in tests/test_torch_amg.py and end
+to end in tests/test_torch_norne.py.)"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from opm_tpu.linalg import precond as rprecond
+from opm_tpu.models import linearize as rlin
+from opm_tpu.models.blackoil import make_well_device_arrays as ref_wd
+from opm_tpu.models.state import BlackoilState as RefState
+from opm_tpu.sim.blackoil import SimulatorFullyImplicitBlackoil as RefSim
+from opm_tpu.sim.testcases import norne_like_case as ref_norne_like_case
+from opm_tpu_torch.linalg import precond
+from opm_tpu_torch.models import linearize
+from opm_tpu_torch.models.blackoil import make_well_device_arrays
+from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
+                                        init_well_state, report_step_wells)
+from opm_tpu_torch.sim.init import initial_state
+from opm_tpu_torch.sim.testcases import norne_like_case
+from opm_tpu_torch.solver.newton import connection_offsets
+from opm_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+torch.set_num_threads(2)
+
+TOY = dict(nx=12, ny=24, nz=22, tsteps="1 2 5")
+DT = 86400.0
+REPS = [("embedded", None), ("gather", "0")]
+
+
+def _with_knob(knob, fn):
+    old = os.environ.pop("OPM_TPU_EMBED", None)
+    if knob is not None:
+        os.environ["OPM_TPU_EMBED"] = knob
+    try:
+        return fn()
+    finally:
+        os.environ.pop("OPM_TPU_EMBED", None)
+        if old is not None:
+            os.environ["OPM_TPU_EMBED"] = old
+
+
+@pytest.fixture(scope="module", params=REPS, ids=[r[0] for r in REPS])
+def toy(request):
+    rep, knob = request.param
+    port = _with_knob(knob, lambda: SimulatorFullyImplicitBlackoil(
+        norne_like_case(**TOY), device="cpu"))
+    ref = _with_knob(knob, lambda: RefSim(ref_norne_like_case(**TOY),
+                                          fused=False))
+    m = port.model
+    step = port.schedule.report_steps[0]
+    ws = report_step_wells(step, port.grid, port.well_names, port.max_perf)
+    wd_p = make_well_device_arrays(ws, port.grid.gravity, "cpu")
+    ws_r = ref._pad_well_set(ref._well_set_for(ref.schedule.report_steps[0]))
+    wd_r = ref_wd(ws_r, ref.grid.gravity)
+    s0 = initial_state(port.grid, port.props, port.case, ws.nw)
+    s0 = init_well_state(s0, ws, True)
+    acc0 = m.accumulation(s0)
+    rng = np.random.default_rng(11)
+    snp = state_to_numpy(s0)
+    snp["pressure"] = snp["pressure"] + 2.0e4 * rng.standard_normal(m.nc)
+    s_p = state_from_numpy(snp, "cpu")
+    cdp = connection_offsets(m, s_p, wd_p)
+    s_r = RefState(**{k: (None if snp.get(k) is None else jnp.asarray(snp[k]))
+                      for k in RefState._fields})
+    dims = m.op_dims
+    v = rng.standard_normal((3, m.nc))
+    vw = rng.standard_normal((ws.nw, 4))
+    amg_r = ref.solver.amg
+    rmodel = ref.model
+
+    def ref_all(state, acc0, wd, cdp, v, vw):
+        dt = jnp.asarray(DT)
+        q = rmodel.cell_quantities(state)
+        flux = rmodel.face_fluxes(q)
+        res = rmodel.residual(state, acc0, dt, wd, cdp)
+        sys = rlin.assemble(rmodel, state, acc0, dt, wd, cdp)
+        mv, rhs, rec = rlin.schur_eliminate_wells(sys, dims=dims)
+        w = rprecond.quasi_impes_weights(sys.diag)
+        diag_p, off = rprecond.cpr_pressure_system(sys, w, dims=dims)
+        return dict(flux=flux, div=rmodel.divergence(flux), res=res,
+                    conv=rmodel.convergence(res, dt, state), sys=sys,
+                    rhs=rhs, mv=mv(v), rec=rec(v),
+                    full=rlin.matvec(sys, v, vw, dims=dims), w=w,
+                    diag_p=diag_p, off=off,
+                    off_h=rprecond._pressure_off_for(amg_r, off, dims))
+
+    out = jax.jit(ref_all)(s_r, jnp.asarray(acc0.numpy()), wd_r,
+                           jnp.asarray(cdp.numpy()), jnp.asarray(v),
+                           jnp.asarray(vw))
+    out = jax.tree.map(np.asarray, out)
+    sys = linearize.assemble(m, s_p, acc0, DT, wd_p, cdp)
+    return dict(rep=rep, port=port, s=s_p, acc0=acc0, wd=wd_p, cdp=cdp,
+                dims=dims, sys=sys, v=torch.from_numpy(v),
+                vw=torch.from_numpy(vw), ref=out)
+
+
+def _scaled(a, b, tol):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    err = np.abs(a - b).max()
+    assert err <= tol * max(np.abs(b).max(), 1e-300), \
+        f"{err / max(np.abs(b).max(), 1e-300):.3e} of max"
+
+
+def test_representation(toy):
+    m = toy["port"].model
+    if toy["rep"] == "embedded":
+        assert m.op_dims is not None and m.faces.first == m.nf_canonical
+        assert m.faces.n == 1408 and m.conv_mask is not None
+    else:
+        assert m.op_dims is None and m.faces.first == 0
+        assert m.faces.n == 11793 and m.conv_mask is None
+
+
+def test_face_fluxes_and_divergence(toy):
+    m = toy["port"].model
+    q = m.cell_quantities(toy["s"])
+    flux = m.face_fluxes(q)
+    _scaled(flux.numpy(), toy["ref"]["flux"], 1e-12)
+    _scaled(m.flux_divergence(q).numpy(), toy["ref"]["div"], 1e-12)
+    # the divergence through the K3-faces twin is the fluxes' scatter
+    assert float(flux.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("field", ["r_cell", "r_well", "diag", "face_L",
+                                   "face_R", "cw", "wc", "wd_diag"])
+def test_assembly_matches_reference(toy, field):
+    r = getattr(toy["ref"]["sys"], field)
+    if isinstance(r, tuple):
+        r = np.stack(r)
+    _scaled(getattr(toy["sys"], field).numpy(), r, 1e-11)
+
+
+def test_operator_matches_reference(toy):
+    oc, ow = linearize.matvec(toy["sys"], toy["v"], toy["vw"], toy["dims"])
+    rc, rw = toy["ref"]["full"]
+    _scaled(oc.numpy(), rc, 1e-12)
+    _scaled(ow.numpy(), rw, 1e-12)
+
+
+def test_schur_matches_reference(toy):
+    mv, rhs, rec = linearize.schur_eliminate_wells(toy["sys"], toy["dims"])
+    _scaled(rhs.numpy(), toy["ref"]["rhs"], 1e-12)
+    _scaled(mv(toy["v"]).numpy(), toy["ref"]["mv"], 1e-12)
+    _scaled(rec(toy["v"]).numpy(), toy["ref"]["rec"], 1e-12)
+
+
+def test_pressure_system_matches_reference(toy):
+    sys = toy["sys"]
+    _, w, diag_p, off = precond.cpr_setup_plain(
+        sys.diag, sys.face_L, sys.face_R, toy["dims"], sys.faces)
+    ref = toy["ref"]
+    _scaled(w.numpy(), ref["w"], 1e-12)
+    _scaled(diag_p.numpy(), ref["diag_p"], 1e-12)
+    _scaled(off.numpy(), ref["off"], 1e-12)
+    amg = toy["port"].solver.amg
+    off_h = precond._pressure_off_for(amg, off, toy["dims"])
+    _scaled(off_h.numpy(), ref["off_h"], 1e-12)
+    # what the hierarchy takes: the GMG drops the extra faces, the AMG
+    # keeps every face
+    nf = toy["port"].model.trans.shape[0]
+    nfc = toy["port"].model.nf_canonical
+    assert off_h.shape[0] == 2 * (nfc if toy["rep"] == "embedded" else nf)
+    _, _, _, off_k = precond.cpr_setup(sys, toy["dims"], amg)
+    torch.testing.assert_close(off_k, off_h, rtol=0, atol=0)
+
+
+def test_convergence_matches_reference(toy):
+    m = toy["port"].model
+    res = m.residual(toy["s"], toy["acc0"], DT, toy["wd"], toy["cdp"])
+    _scaled(res.cell.numpy(), toy["ref"]["res"].cell, 1e-12)
+    conv = m.convergence(res, DT, toy["s"])
+    rconv = toy["ref"]["conv"]
+    for k in ("mb", "cnv", "well_flux", "well_ctrl"):
+        np.testing.assert_allclose(conv[k].numpy(), rconv[k], rtol=1e-11,
+                                   atol=0, err_msg=k)
+    for k in ("converged", "finite"):
+        assert bool(conv[k]) == bool(rconv[k]), k
+

@@ -139,10 +139,30 @@ def test_unported_features_raise():
     state = types.SimpleNamespace(sgmax=None, somax=None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         assemble(model, state, None, 1.0, {}, None)
-    grid.structured = False
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        BlackoilModel(grid, model.props)
-    spe9 = load_case(os.path.join(ROOT, "data", "SPE9.DATA"))
-    if "COORD" in spe9.grid_arrays:
+    # OPM_TPU_GMG=0 (the aggregation AMG on a structured grid) is not
+    # ported yet
+    old = os.environ.get("OPM_TPU_GMG")
+    os.environ["OPM_TPU_GMG"] = "0"
+    try:
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            build_grid(spe9)
+            NonlinearSolver(model, linear_solver="cpr")
+    finally:
+        if old is None:
+            del os.environ["OPM_TPU_GMG"]
+        else:
+            os.environ["OPM_TPU_GMG"] = old
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        NonlinearSolver(model, linear_solver="cpr", schwarz=("mesh", "x"))
+    # a grid with a face list (here the gather form of SPE1's box) builds
+    # and takes the CPR route with the aggregation AMG; the dense route on
+    # it needs a forward-mode rule for K3-faces, not ported yet
+    grid.structured = False
+    gmodel = BlackoilModel(grid, model.props)
+    assert gmodel.op_dims is None and gmodel.faces.n == grid.nf
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        NonlinearSolver(gmodel, linear_solver="dense")
+    assert type(NonlinearSolver(gmodel, linear_solver="cpr").amg).__name__ \
+        == "DeviceAmg"
+    # corner-point decks build (SPE9: conforming, reordered to the stencil)
+    spe9 = load_case(os.path.join(ROOT, "data", "SPE9.DATA"))
+    assert "COORD" in spe9.grid_arrays and build_grid(spe9).structured
