@@ -6,20 +6,25 @@ Phases (each prints a line of its own; any failure exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit (nvidia-smi)
    and turns TF32 off for matmul and cuDNN;
-2. build: compiles the CUDA kernels (K1 tables.cu, K3 tpfa.cu, K4/K6
-   block7.cu, K6 cpr.cu, K7 gmg.cu), one nvcc process each, all started
-   together, and JIT-compiles the Triton kernels (K8, K9);
-3. kernel == plain on the card: (a) K1/K3/K9 at SPE1's shapes (K3's
+2. build: compiles the CUDA kernels (K1 tables.cu, K2 cells.cu, K3
+   tpfa.cu, the K3 face blocks blocks.cu, K4/K6 block7.cu, K5 wells.cu,
+   K6 cpr.cu, K7 gmg.cu, K10 amg.cu, the face-list kernels faces.cu), one
+   nvcc process each, all started together, and JIT-compiles the Triton
+   kernels (K8, K9);
+3. kernel == plain on the card: (a) K1/K2/K3/K9 at SPE1's shapes (K3's
    tangent also at the main path's jacfwd batch, B = 3 nc + 4 nw, and the
-   whole dense Jacobian through the kernels against the plain CPU path);
-   (b) K1/K3/K9 at SPE10 model 2's size (60x220x85 = 1.122M cells, the
-   seeded SPE10-like deck), each timed against its plain version (CUDA
-   events, warm, median of 20); (c) the CPR kernels K4, K6, K7 and K8 on
-   real assembled systems (SPE1 and SPE10-2 initial state after the well
-   initialisation, first dt), timed at SPE10-2 with each one's bound and,
-   where one PyTorch call computes the same function, that call's time;
-   then one SPE10-2 Newton system solved with the kernels and again with
-   the plain twins on the card;
+   whole dense Jacobian through the kernels' forward-mode rules against
+   the plain CPU path); (b) K1/K2/K3/K9 at SPE10 model 2's size
+   (60x220x85 = 1.122M cells, the seeded SPE10-like deck), each timed
+   against its plain version (CUDA events, warm, median of 20); (c) the
+   assembly kernels (K2's assembly entry, the K3 face blocks, K5) and the
+   CPR kernels K4, K6, K7 and K8 on real assembled systems (SPE1 and
+   SPE10-2 initial state after the well initialisation, first dt), timed
+   at SPE10-2 with each one's bound and, where one PyTorch call computes
+   the same function, that call's time, and one whole assembly through
+   the kernels against one through their twins; then one SPE10-2 Newton
+   system solved with the kernels and again with the plain twins on the
+   card;
 4. SPE1 end to end on the card through SimulatorFullyImplicitBlackoil
    (dense route), all report steps, held against
    data/spe1_reference_cpu.json (the JAX package's CPU run), with the
@@ -33,7 +38,9 @@ Phases (each prints a line of its own; any failure exits non-zero):
    46x112x22, two stair-step faults, ACTNUM holes), parsed once and built
    in both representations: embedded (113,344 cells, 7,166 extra faces,
    structured GMG) and gather (OPM_TPU_EMBED=0: 75,566 cells, aggregation
-   AMG). On the first Newton system of each, the face-list kernels
+   AMG). On the first Newton system of each, the assembly kernels (K2, the
+   K3 face blocks in stencil form and as the embedded epilogue, or in
+   face-list form on the gather grid, K5), the face-list kernels
    (K3-faces, K4-faces matvec and smoothing step, K6 cells and K6-faces,
    the masked K9 norms) and every K10 level operation, the value
    coarsening and a whole AMG V-cycle against their plain versions, timed
@@ -46,6 +53,10 @@ Phases (each prints a line of its own; any failure exits non-zero):
    the two to each other as closely as the reference's two runs agree;
 7. the toy Norne-like deck in both representations against
    data/nornelike_toy_reference_cpu.json.
+
+Phases 4 to 7 read the launch counters over each run (and print the
+synced Newton sections) and fail if a kernel of that run's path was not
+launched.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -76,6 +87,16 @@ TOL_K7 = 1e-12       # of max, each level operation and a whole V-cycle
 TOL_K8_VEC = 1e-13   # of max (same elementwise operations)
 TOL_K8_DOT = 1e-12   # relative (block-tree vs library summation order)
 TOL_K10 = 1e-12      # of max, each level operation and the coarsening
+# K2: the same operations in the same order as the plain formula
+# (--fmad=false): values relative; tangent columns and the assembly's
+# diag of each row's max (torch's jvp orders a few sums differently)
+TOL_K2_VAL = 1e-13
+TOL_K2_TAN = 1e-12
+# the K3 face blocks (the twin sums in the same order; on the card its
+# face-list scatter-adds use atomics) and K5 (einsum vs in-order sums), of
+# each field's max
+TOL_BLOCKS = 1e-12
+TOL_K5 = 1e-12
 # a whole AMG V-cycle: the coarsest level is solved in float32, and the
 # twin's restriction (an index_add with atomics on the card) sums in
 # another order, which can round the float32 right-hand side the other way
@@ -135,6 +156,32 @@ def scaled_err(a, b):
     """max |a - b| / max |b|."""
     s = float(b.abs().max()) if b.numel() else 0.0
     return float((a - b).abs().max()) / max(s, 1e-300) if b.numel() else 0.0
+
+
+def row_scaled_err(a, b):
+    """max over rows (every axis but the last) of max |a - b| / max |b|."""
+    import torch
+    a = a.reshape(-1, a.shape[-1])
+    b = b.reshape(-1, b.shape[-1])
+    d = (a - b).abs().amax(dim=1)
+    s = b.abs().amax(dim=1)
+    r = torch.where(d == 0, torch.zeros_like(d), d / s.clamp(min=1e-300))
+    return float(r.max()) if r.numel() else 0.0
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock time of fn (ended by a synchronize) over reps
+    warm runs, in ms: for work that is not one kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def cuda_ms(fn, reps=20):
@@ -246,6 +293,22 @@ class Kernels:
              f"{JAX_PKG}/linalg/amg.py:222", k10.coarsen_cuda),
             ("K10 amg_ell_pack", "cuda", f"{P}/csrc/amg.cu",
              f"{JAX_PKG}/linalg/amg.py:215", k10.ell_pack_cuda),
+            ("K2 cells_values", "cuda", f"{P}/csrc/cells.cu",
+             f"{JAX_PKG}/models/blackoil.py:95", mb.cells_values_cuda),
+            ("K2 cells_columns", "cuda", f"{P}/csrc/cells.cu",
+             f"{JAX_PKG}/models/linearize.py:175", mb.cells_columns_cuda),
+            ("K2 cells_assemble", "cuda", f"{P}/csrc/cells.cu",
+             f"{JAX_PKG}/models/linearize.py:141", mb.cells_assemble_cuda),
+            ("K3 face_blocks", "cuda", f"{P}/csrc/blocks.cu",
+             f"{JAX_PKG}/models/linearize.py:169", k4.face_blocks_cuda),
+            ("K3-faces face_blocks", "cuda", f"{P}/csrc/faces.cu",
+             f"{JAX_PKG}/models/linearize.py:275", k4.faces_blocks_cuda),
+            ("K5 schur_matvec", "cuda", f"{P}/csrc/wells.cu",
+             f"{JAX_PKG}/models/linearize.py:653", k4.schur_matvec_cuda),
+            ("K5 schur_rhs", "cuda", f"{P}/csrc/wells.cu",
+             f"{JAX_PKG}/models/linearize.py:638", k4.schur_rhs_cuda),
+            ("K5 schur_recover", "cuda", f"{P}/csrc/wells.cu",
+             f"{JAX_PKG}/models/linearize.py:640", k4.schur_recover_cuda),
         ]
         self.err = {e[0]: 0.0 for e in self.entries}
         self.ms, self.plain_ms, self.library_ms = {}, {}, {}
@@ -254,6 +317,13 @@ class Kernels:
     # entries of the face-list path whose names share a prefix with the
     # structured kernels
     FACE_GRIDS_ONLY = ("K6 cpr_setup_cells", "K9 conv_norms_masked")
+    # the kernels each run must launch: the dense route (SPE1), and the
+    # assembly and Schur elimination of every CPR run
+    DENSE = ("K1 interp1", "K1 interp2", "K2 cells_values",
+             "K2 cells_columns", "K3 tpfa_div", "K3 tpfa_div_tangent",
+             "K9 update_pressure", "K9 update_cells", "K9 conv_norms")
+    ASSEMBLY = ("K2 cells_values", "K2 cells_columns", "K2 cells_assemble",
+                "K5 schur_matvec", "K5 schur_rhs", "K5 schur_recover")
 
     def names(self, prefixes, face_grids=False):
         """The entries whose kernel family is in ``prefixes``: those of the
@@ -279,6 +349,14 @@ class Kernels:
         each output written once over HBM, or the float64 operations over
         the FP64 peak, whichever is larger."""
         t_bytes = nbytes(ins, outs) / HBM_BYTES_S * 1e3
+        t_ops = flops / F64_FLOP_S * 1e3
+        self.bound_ms[name] = max(t_bytes, t_ops)
+        self.bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
+
+    def bound_raw(self, name, nbytes_moved, flops):
+        """bound() from a byte count (a kernel that reads only some rows
+        of its inputs, as K5 reads the perforated cells)."""
+        t_bytes = nbytes_moved / HBM_BYTES_S * 1e3
         t_ops = flops / F64_FLOP_S * 1e3
         self.bound_ms[name] = max(t_bytes, t_ops)
         self.bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
@@ -371,6 +449,29 @@ def compare_kernels(K, model, state, seed, label, timed, B):
               (rs, dpb, lo.rs_tab, lo.dp_grid, lo.grids),
               30 * nc * lo.grids.shape[0])
 
+    # K2: the CellQuantities rows (the residual's entry) and their tangent
+    # columns (the forward-mode rule's), at every cell of the state
+    pack = props.cell_pack()
+    a2 = (p, sw, state.x, state.hcstate, model.pvtnum, model.satnum)
+    kq = mb.cells_values_cuda(pack, *a2)
+    pq = mb.cells_values_plain(props, *a2)
+    chk("K2 cells_values", TOL_K2_VAL, [(kq, pq)])
+    kc = mb.cells_columns_cuda(pack, *a2)
+    pc = mb.cells_columns_plain(props, *a2)
+    K.note("K2 cells_columns", float((kc - pc).abs().max()))
+    e2 = row_scaled_err(kc, pc)
+    if not e2 <= TOL_K2_TAN:
+        fail(f"{label}: K2 cells_columns differ from the plain version "
+             f"({e2:.3e} of a row's max > {TOL_K2_TAN:g})")
+    # about 200 float64 operations per cell for the values, four times
+    # that with the three tangents; bytes bound both entries
+    k2_ins = (a2[:3], state.hcstate, model.pvtnum, model.satnum, pack.tab)
+    time_pair("K2 cells_values", lambda: mb.cells_values_cuda(pack, *a2),
+              lambda: mb.cells_values_plain(props, *a2), k2_ins, 200 * nc)
+    time_pair("K2 cells_columns", lambda: mb.cells_columns_cuda(pack, *a2),
+              lambda: mb.cells_columns_plain(props, *a2), k2_ins, 800 * nc)
+    del kq, pq, kc, pc
+
     # K3 forward and tangent
     p3 = torch.stack([q.pw, q.po, q.pg]).contiguous()
     bmob = (q.b * q.mob).contiguous()
@@ -441,10 +542,12 @@ def compare_jacobian(case, dev):
     """The dense Jacobian of SPE1's first Newton iteration on the card
     (torch.func.jacfwd through K1 and K3, the main path's own tangent
     batch) against the plain path on the CPU, from one initial state.
-    Returns (relative error, K3 tangent launches on the card)."""
+    Returns (relative error, K3 tangent launches and K2 column launches
+    on the card)."""
     import torch
 
-    from opm_tpu_torch.models.blackoil import (make_well_device_arrays,
+    from opm_tpu_torch.models.blackoil import (cells_columns_cuda,
+                                               make_well_device_arrays,
                                                tpfa_div_tangent_cuda)
     from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
                                             init_well_state,
@@ -456,6 +559,7 @@ def compare_jacobian(case, dev):
     out = []
     host = None
     n0 = tpfa_div_tangent_cuda.launches
+    n2 = cells_columns_cuda.launches
     for d in (dev, torch.device("cpu")):
         sim = SimulatorFullyImplicitBlackoil(case, device=d)
         step = sim.schedule.report_steps[0]
@@ -473,16 +577,17 @@ def compare_jacobian(case, dev):
     if not bool(torch.isfinite(Jg).all()):
         fail("SPE1 Jacobian on the card is not finite")
     err = float((Jg - Jc).abs().max()) / float(Jc.abs().max())
-    return err, tpfa_div_tangent_cuda.launches - n0
+    return (err, tpfa_div_tangent_cuda.launches - n0,
+            cells_columns_cuda.launches - n2)
 
 
 # ---------------------------------------------------------------------------
 # 3c: the CPR kernels on real assembled systems
 
-def first_newton_system(sim, state0, with_state=False):
+def first_newton_system(sim, state0):
     """The block system of the first Newton iteration of report step 0 at
-    the deck's first dt, from ``state0`` (an initial state); with
-    ``with_state``, (system, state, dt)."""
+    the deck's first dt, from ``state0`` (an initial state), and what it
+    was assembled from (state, acc0, dt, wd, cdp)."""
     from opm_tpu_torch.models import linearize
     from opm_tpu_torch.models.blackoil import make_well_device_arrays
     from opm_tpu_torch.sim.blackoil import init_well_state, report_step_wells
@@ -496,7 +601,183 @@ def first_newton_system(sim, state0, with_state=False):
     cdp = connection_offsets(sim.model, st, wd)
     dt = float(sim.ts.p.initial_dt)
     sys = linearize.assemble(sim.model, st, acc0, dt, wd, cdp)
-    return (sys, st, dt) if with_state else sys
+    return sys, dict(state=st, acc0=acc0, dt=dt, wd=wd, cdp=cdp)
+
+
+# ---------------------------------------------------------------------------
+# the assembly kernels (K2's assembly entry, the K3 face blocks, K5)
+
+def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
+    """K2's assembly entry, the K3 face blocks (stencil form, then the face
+    list: an embedded grid's epilogue or a gather grid's every face) and
+    K5's three entries against their plain versions on one first Newton
+    system, and the whole assembly through the kernels against one through
+    the twins; timed with bounds when ``timed`` (the face-list form into
+    the kernel table on a gather grid, the rest there only on a structured
+    grid without extra faces: the main path's SPE10-2). Returns extra
+    measurements."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.linalg.precond import inv4x4
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize as lz
+
+    model = sim.model
+    props = model.props
+    pack = props.cell_pack()
+    nc, dev = model.nc, sys.diag.device
+    st, dt = ctx["state"], ctx["dt"]
+    fl, dims = model.faces, model.op_dims
+    table = timed and fl is None
+    rng = np.random.default_rng(seed + 7)
+    extra = {}
+
+    def check(name, tol, pairs, how):
+        for a, b in pairs:
+            K.note(name, float((a - b).abs().max()) if b.numel() else 0.0)
+            e = how(a, b)
+            if not e <= tol:
+                fail(f"{label}: {name} differs from its plain version "
+                     f"({e:.3e} > {tol:g})")
+
+    def timing(name, kfn, pfn, nbytes_moved, flops, into_table):
+        if not timed:
+            return
+        ms, pms = cuda_ms(kfn), cuda_ms(pfn)
+        if into_table:
+            K.ms[name], K.plain_ms[name] = ms, pms
+            K.library_ms[name] = None
+            K.bound_raw(name, nbytes_moved, flops)
+        else:
+            extra[name] = dict(ms=ms, plain_ms=pms)
+
+    # K2's assembly entry
+    a2 = (st.pressure, st.sw, st.x, st.hcstate, model.pvtnum, model.satnum,
+          ctx["acc0"], model.pv, dt)
+    ka = mb.cells_assemble_cuda(pack, *a2)
+    pa = mb.cells_assemble_plain(props, *a2)
+    check("K2 cells_assemble", TOL_K2_VAL, [(ka[0], pa[0])], rel_err)
+    check("K2 cells_assemble", TOL_K2_TAN, list(zip(ka[1:], pa[1:])),
+          row_scaled_err)
+    timing("K2 cells_assemble", lambda: mb.cells_assemble_cuda(pack, *a2),
+           lambda: mb.cells_assemble_plain(props, *a2),
+           nbytes(a2[:8], pack.tab, ka), 900 * nc, table)
+    fv, fc, r0, d0 = pa
+    del ka
+
+    # the K3 face blocks: each form from the same inputs as its twin
+    nf = model.trans.shape[0]
+
+    def run_blocks(fn, lead, r, d):
+        fL = torch.zeros((9, nf), dtype=torch.float64, device=dev)
+        fR = torch.zeros_like(fL)
+        fn(lead, fv, fc, model.depth, model.trans, model.gravity, r, d, fL,
+           fR)
+        return r, d, fL, fR
+
+    nf_s = 0
+    if dims is not None:
+        nf_s = model.nf_canonical
+        kb = run_blocks(lz.face_blocks_cuda, dims, r0.clone(), d0.clone())
+        pb = run_blocks(lz.face_blocks_plain, dims, r0.clone(), d0.clone())
+        check("K3 face_blocks", TOL_BLOCKS,
+              [(kb[0], pb[0]), (kb[1], pb[1]),
+               (kb[2][:, :nf_s], pb[2][:, :nf_s]),
+               (kb[3][:, :nf_s], pb[3][:, :nf_s])], row_scaled_err)
+        r_s, d_s = pb[0], pb[1]
+        rk, dk = r0.clone(), d0.clone()
+        rp, dp_ = r0.clone(), d0.clone()
+        fLk, fRk = kb[2], kb[3]
+        # repeated in place on persistent buffers (r and d grow, finite)
+        timing("K3 face_blocks",
+               lambda: lz.face_blocks_cuda(dims, fv, fc, model.depth,
+                                           model.trans, model.gravity, rk,
+                                           dk, fLk, fRk),
+               lambda: lz.face_blocks_plain(dims, fv, fc, model.depth,
+                                            model.trans, model.gravity, rp,
+                                            dp_, fLk, fRk),
+               # fv, fc, depth, the stencil faces' trans; r and d read and
+               # written; the stencil faces' blocks written
+               nbytes(fv, fc, model.depth) + 8 * nf_s
+               + 2 * nbytes(r0, d0) + 8 * 18 * nf_s, 250 * nf_s, table)
+        del kb, pb
+    else:
+        r_s, d_s = r0, d0
+    if fl is not None:
+        kl = run_blocks(lz.faces_blocks_cuda, fl, r_s.clone(), d_s.clone())
+        pl = run_blocks(lz.faces_blocks_plain, fl, r_s.clone(), d_s.clone())
+        f0 = fl.first
+        check("K3-faces face_blocks", TOL_BLOCKS,
+              [(kl[0], pl[0]), (kl[1], pl[1]),
+               (kl[2][:, f0:], pl[2][:, f0:]),
+               (kl[3][:, f0:], pl[3][:, f0:])], row_scaled_err)
+        rk, dk = r_s.clone(), d_s.clone()
+        rp, dp_ = r_s.clone(), d_s.clone()
+        fLk, fRk = kl[2], kl[3]
+        csr = fl.touched
+        rows = csr.n_rows
+        # the rows' fv and fc, r and d read and written, the list's trans
+        # and blocks, the CSR
+        moved = (8 * (44 + 2 * 12) * rows + 8 * (1 + 18) * fl.n
+                 + nbytes(csr.ptr, csr.ent, csr.nbr) + 8 * rows)
+        timing("K3-faces face_blocks",
+               lambda: lz.faces_blocks_cuda(fl, fv, fc, model.depth,
+                                            model.trans, model.gravity, rk,
+                                            dk, fLk, fRk),
+               lambda: lz.faces_blocks_plain(fl, fv, fc, model.depth,
+                                             model.trans, model.gravity, rp,
+                                             dp_, fLk, fRk),
+               moved, 250 * fl.n, timed and dims is None)
+        del kl, pl
+
+    # K5 on the system's well blocks
+    Dinv = inv4x4(sys.wd_diag).contiguous()
+    v = torch.as_tensor(rng.standard_normal((3, nc)), device=dev)
+    out = torch.as_tensor(rng.standard_normal((3, nc)), device=dev)
+    check("K5 schur_matvec", TOL_K5,
+          [(lz.schur_matvec_cuda(sys, Dinv, v, out.clone()),
+            lz.schur_matvec_plain(sys, Dinv, v, out))], scaled_err)
+    check("K5 schur_rhs", TOL_K5, [(lz.schur_rhs_cuda(sys, Dinv),
+                                    lz.schur_rhs_plain(sys, Dinv))],
+          scaled_err)
+    check("K5 schur_recover", TOL_K5,
+          [(lz.schur_recover_cuda(sys, Dinv, v),
+            lz.schur_recover_plain(sys, Dinv, v))], scaled_err)
+    nw, mp = sys.perf_cell.shape
+    npf = nw * mp
+    rows_w = int(torch.unique(sys.perf_cell).numel())   # perforated cells
+    wells_b = nbytes(sys.wc, sys.cw, Dinv, sys.perf_cell, sys.perf_order)
+    ok = out.clone()
+    timing("K5 schur_matvec",
+           lambda: lz.schur_matvec_cuda(sys, Dinv, v, ok),
+           lambda: lz.schur_matvec_plain(sys, Dinv, v, out),
+           wells_b + 8 * 3 * (npf + 2 * rows_w), 42 * npf + 40 * nw, table)
+    timing("K5 schur_rhs", lambda: lz.schur_rhs_cuda(sys, Dinv),
+           lambda: lz.schur_rhs_plain(sys, Dinv),
+           nbytes(sys.cw, Dinv, sys.perf_cell, sys.perf_order, sys.r_well)
+           + 2 * nbytes(sys.r_cell), 24 * npf + 28 * nw, table)
+    timing("K5 schur_recover", lambda: lz.schur_recover_cuda(sys, Dinv, v),
+           lambda: lz.schur_recover_plain(sys, Dinv, v),
+           nbytes(sys.wc, Dinv, sys.perf_cell, sys.r_well) * 1
+           + 8 * (3 * npf + 4 * nw), 18 * npf + 36 * nw, table)
+
+    # one whole assembly through the kernels and through their twins
+    args = (model, st, ctx["acc0"], dt, ctx["wd"], ctx["cdp"])
+    tw = lz.assemble(*args, twin=True)
+    for f in ("r_cell", "r_well", "diag", "face_L", "face_R", "cw", "wc",
+              "wd_diag"):
+        e = scaled_err(getattr(sys, f), getattr(tw, f))
+        if not e <= TOL_BLOCKS:
+            fail(f"{label}: the assembly through the kernels differs from "
+                 f"the twins' in {f} ({e:.3e} of max)")
+    del tw
+    if timed:
+        extra["assemble_ms"] = host_ms(lambda: lz.assemble(*args))
+        extra["assemble_twin_ms"] = host_ms(
+            lambda: lz.assemble(*args, twin=True))
+    torch.cuda.synchronize()
+    return extra
 
 
 def csr_operator(sys, dims):
@@ -1063,6 +1344,24 @@ def norne_first_step(K, sim, ref, label, names):
     return res
 
 
+def toy_run(K, sim, ref, label, names):
+    """run_vs_fixture for a toy deck, with the synced sections and the
+    launch counters over the run; fails if a kernel of ``names`` (the
+    assembly's) was not launched."""
+    sim.solver.timing = {}
+    K.reset()
+    res = run_vs_fixture(sim, ref, label)
+    counts = {e[0]: e[4].launches for e in K.entries if e[0] in names}
+    res.update(sections_s=dict(sim.solver.timing), launches=counts)
+    log("  sections (s, synced): " + ", ".join(
+        f"{k}={v:.2f}" for k, v in res["sections_s"].items()))
+    log("  launches: " + ", ".join(f"{n}={c}" for n, c in counts.items()))
+    dead = [n for n in names if counts.get(n, 0) <= 0]
+    if dead:
+        fail(f"{label}: kernels not launched: {dead}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 def run_vs_fixture(sim, ref, label, state=None, report_step_limit=None):
     """Run ``sim`` and hold each report step to the fixture: Newton and
@@ -1162,8 +1461,9 @@ def main(argv=None):
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_lib.build_all(["tables", "tpfa", "block7", "cpr", "gmg", "amg",
-                        "faces", "cornerpoint"])
+    cuda_lib.build_all(["tables", "cells", "tpfa", "blocks", "block7",
+                        "wells", "cpr", "gmg", "amg", "faces",
+                        "cornerpoint"])
     K = Kernels()
     tiny = torch.linspace(1.0, 2.0, 8, dtype=torch.float64, device=dev)
     b3 = torch.stack([tiny, tiny, tiny]).contiguous()
@@ -1182,7 +1482,7 @@ def main(argv=None):
     k8.xr_update_triton(b3.clone(), b3.clone(), b3, b3, b3, b3, b3, sc)
     torch.cuda.synchronize()
     results["build_s"] = time.perf_counter() - t0
-    log(f"build: {results['build_s']:.1f} s (7 nvcc sm_90a and the host "
+    log(f"build: {results['build_s']:.1f} s (10 nvcc sm_90a and the host "
         "cornerpoint.cpp in parallel + Triton JIT)")
 
     # -- 3a. K1/K3/K9 == plain at SPE1's shapes -------------------------------
@@ -1193,7 +1493,7 @@ def main(argv=None):
     # jacfwd folds every tangent column into one K3 tangent launch
     b_jac = 3 * m1.nc + 4 * len(sim_cmp.well_names)
     compare_kernels(K, m1, st1, args.seed, "SPE1", timed=False, B=b_jac)
-    log(f"K1/K3/K9 == plain at SPE1 shapes (300 cells, K3 tangent B = "
+    log(f"K1/K2/K3/K9 == plain at SPE1 shapes (300 cells, K3 tangent B = "
         f"{b_jac}): ok")
     q1 = m1.cell_quantities(st1)
     a1 = (m1.dims, torch.stack([q1.pw, q1.po, q1.pg]).contiguous(),
@@ -1208,13 +1508,15 @@ def main(argv=None):
         f"plain {jac_ms[1]:.4f} ms")
     results["spe1_k3_tangent_ms"] = dict(B=b_jac, ms=jac_ms[0],
                                          plain_ms=jac_ms[1])
-    ejac, n_tan = compare_jacobian(case1, dev)
-    log(f"SPE1 Jacobian (jacfwd through K1/K3; K3 tangent launches: "
-        f"{n_tan}) vs the plain CPU path: {ejac:.3e} of max|J|")
+    ejac, n_tan, n_col = compare_jacobian(case1, dev)
+    log(f"SPE1 Jacobian (jacfwd through the forward-mode rules of K2 and K3; "
+        f"K2 column launches: {n_col}, K3 tangent launches: {n_tan}) vs "
+        f"the plain CPU path: {ejac:.3e} of max|J|")
     results["spe1_jacobian_rel"] = ejac
-    if not ejac <= TOL_JAC or n_tan < 1:
+    if not ejac <= TOL_JAC or n_tan < 1 or n_col < 1:
         fail(f"SPE1 Jacobian on the card off by {ejac:.3e} of max|J| "
-             f"(> {TOL_JAC:g}) or not through K3 ({n_tan} launches)")
+             f"(> {TOL_JAC:g}) or not through K2 and K3 ({n_col} and "
+             f"{n_tan} launches)")
 
     # -- 3b. K1/K3/K9 == plain at SPE10-2 shapes --------------------------------
     t0 = time.perf_counter()
@@ -1232,12 +1534,15 @@ def main(argv=None):
     st10 = seeded_state(m10, args.seed, dev)
     compare_kernels(K, m10, st10, args.seed, "SPE10-2", timed=True, B=3)
     del st10
-    log("K1/K3/K9 == plain at SPE10-2 shapes (1.122M cells): ok")
+    log("K1/K2/K3/K9 == plain at SPE10-2 shapes (1.122M cells): ok")
 
     # -- 3c. K4/K6/K7/K8 == plain on real assembled systems ---------------------
     init1 = initial_state(sim_cmp.grid, sim_cmp.props, case1,
                           len(sim_cmp.well_names))
-    sys1 = first_newton_system(sim_cmp, init1)
+    sys1, ctx1 = first_newton_system(sim_cmp, init1)
+    compare_assembly_kernels(K, sim_cmp, sys1, ctx1, args.seed, "SPE1",
+                             timed=False)
+    log("K2/K3 face blocks/K5 == plain on SPE1's first Newton system: ok")
     compare_cpr_kernels(K, sim_cmp, StructuredGmg(m1.dims,
                                                   sim_cmp.grid.trans),
                         sys1, args.seed, "SPE1", timed=False)
@@ -1249,13 +1554,22 @@ def main(argv=None):
     torch.cuda.synchronize()
     results["spe10_initial_state_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sys10 = first_newton_system(sim10, init10)
+    sys10, ctx10 = first_newton_system(sim10, init10)
     torch.cuda.synchronize()
     results["spe10_first_assembly_s"] = time.perf_counter() - t0
+    asm = compare_assembly_kernels(K, sim10, sys10, ctx10, args.seed,
+                                   "SPE10-2", timed=True)
+    results["spe10_assembly"] = asm
+    log(f"K2/K3 face blocks/K5 == plain on SPE10-2's first Newton system; "
+        f"one assembly through the kernels {asm['assemble_ms']:.1f} ms, "
+        f"through their twins {asm['assemble_twin_ms']:.1f} ms (host "
+        f"clock, synced)")
+    del ctx10
     vc = compare_cpr_kernels(K, sim10, amg, sys10, args.seed, "SPE10-2",
                              timed=True)
     results["spe10_vcycle"] = vc
-    for n in K.names(("K1", "K3", "K9", "K4", "K6", "K7", "K8")):
+    for n in K.names(("K1", "K2", "K3", "K5", "K9", "K4", "K6", "K7",
+                      "K8")):
         lib = K.library_ms.get(n)
         log(f"  {n:22s} kernel {K.ms[n]:9.4f} ms   plain "
             f"{K.plain_ms[n]:9.4f} ms   bound {K.bound_ms[n]:8.4f} ms "
@@ -1293,12 +1607,12 @@ def main(argv=None):
     sim = SimulatorFullyImplicitBlackoil(case1)
     K.reset()
     results["spe1"] = run_vs_fixture(sim, ref1, "SPE1 end to end")
-    K.read(K.names(("K1", "K3", "K9")))
+    K.read(K.DENSE)
     results["spe1"]["launches_all"] = {e[0]: e[4].launches
                                        for e in K.entries}
     log("  launches: " + ", ".join(f"{n}={K.launches[n]}"
-                                   for n in K.names(("K1", "K3", "K9"))))
-    dead = [n for n in K.names(("K1", "K3", "K9")) if K.launches[n] <= 0]
+                                   for n in K.DENSE))
+    dead = [n for n in K.DENSE if K.launches[n] <= 0]
     if dead:
         fail(f"kernels not launched by the SPE1 run: {dead}")
 
@@ -1318,7 +1632,8 @@ def main(argv=None):
         return out
 
     amg.vcycle = timed_vcycle
-    new_names = K.names(("K4", "K6", "K7", "K8"))
+    new_names = K.names(("K4", "K6", "K7", "K8")) + list(K.ASSEMBLY) + [
+        "K3 face_blocks"]
     K.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1372,8 +1687,9 @@ def main(argv=None):
         reft = json.load(f)
     simt = SimulatorFullyImplicitBlackoil(spe10like_case(
         **reft["deck_kwargs"]))
-    results["spe10_toy"] = run_vs_fixture(simt, reft,
-                                          "toy SPE10-like (2640 cells)")
+    results["spe10_toy"] = toy_run(
+        K, simt, reft, "toy SPE10-like (2640 cells)",
+        list(K.ASSEMBLY) + ["K3 face_blocks"])
 
     # -- 6. the Norne-class field at full size, both representations ----------
     from opm_tpu_torch.linalg.amg import DeviceAmg
@@ -1403,13 +1719,22 @@ def main(argv=None):
         if (knob is None) != (mn.op_dims is not None) or \
                 (knob is not None) != isinstance(simn.solver.amg, DeviceAmg):
             fail(f"Norne-class {rname}: wrong representation or hierarchy")
-    new_names = K.names(("K3-faces", "K4-faces", "K6-faces", "K10", "K6",
-                         "K9"), face_grids=True) + K.names(
+    face_names = K.names(("K3-faces", "K4-faces", "K6-faces", "K10", "K6",
+                          "K9"), face_grids=True) + K.names(
         ("K3-faces", "K4-faces", "K6-faces", "K10"))
+    # every kernel of the two runs: the face-list path's and the
+    # assembly's (the stencil face blocks on the embedded grid)
+    new_names = face_names + list(K.ASSEMBLY) + ["K3 face_blocks"]
     for rname, simn in sims.items():
         init_n = initial_state(simn.grid, simn.props, casen,
                                len(simn.well_names))
-        sysn, stn, dtn = first_newton_system(simn, init_n, with_state=True)
+        sysn, ctxn = first_newton_system(simn, init_n)
+        stn, dtn = ctxn["state"], ctxn["dt"]
+        asm = compare_assembly_kernels(K, simn, sysn, ctxn, args.seed,
+                                       f"Norne-class {rname}", timed=True)
+        results[f"norne_{rname}_assembly"] = asm
+        log(f"assembly kernels == plain on the Norne-class {rname} first "
+            f"Newton system: ok {json.dumps(asm)}")
         extra = compare_face_kernels(K, simn, sysn, stn, dtn, args.seed,
                                      f"Norne-class {rname}", timed=True)
         results[f"norne_{rname}_kernels"] = extra
@@ -1427,9 +1752,9 @@ def main(argv=None):
             if its_k != its_p or not (ok and edu <= TOL_DU):
                 fail("the kernel and twin solves of the Norne-class gather "
                      "system differ")
-        del sysn, stn, init_n
+        del sysn, stn, init_n, ctxn
         torch.cuda.empty_cache()
-    for n in new_names:
+    for n in face_names:
         lib = K.library_ms.get(n)
         log(f"  {n:22s} kernel {K.ms[n]:9.4f} ms   plain "
             f"{K.plain_ms[n]:9.4f} ms   bound {K.bound_ms[n]:8.4f} ms "
@@ -1440,6 +1765,8 @@ def main(argv=None):
                            "nornelike_full_reference_cpu.json")) as f:
         reff = json.load(f)
     runs = {}
+    # the assembly kernels report SPE10-2's run (phase 5), their main path
+    kept = {n: K.launches[n] for n in new_names if n not in face_names}
     for rname, simn in sims.items():
         runs[rname] = norne_first_step(K, simn, reff[rname],
                                        f"Norne-class {rname}", new_names)
@@ -1449,6 +1776,7 @@ def main(argv=None):
     dead = [n for n in new_names if K.launches[n] <= 0]
     if dead:
         fail(f"kernels not launched by the Norne-class runs: {dead}")
+    K.launches.update(kept)
     # the two representations are held to each other as closely as the
     # reference's own two runs agree, up to the parity limits (the JAX
     # package's embedded and gather runs differ by 2.0e-4 in FPR and 3.5e-4
@@ -1478,9 +1806,11 @@ def main(argv=None):
         with embed_knob(knob):
             simt = SimulatorFullyImplicitBlackoil(norne_like_case(
                 **refn["deck_kwargs"]))
-        results[f"norne_toy_{rname}"] = run_vs_fixture(
-            simt, refn[rname], f"toy Norne-like {rname} "
-            f"({simt.model.nc} cells)")
+        results[f"norne_toy_{rname}"] = toy_run(
+            K, simt, refn[rname], f"toy Norne-like {rname} "
+            f"({simt.model.nc} cells)", list(K.ASSEMBLY)
+            + ["K3-faces face_blocks"]
+            + (["K3 face_blocks"] if knob is None else []))
 
     kern = K.report()
     results.update(kern)

@@ -1,5 +1,6 @@
-// K3-faces and K4-faces: the TPFA flux divergence and the block-3x3
-// operator over an arbitrary face list, for Hopper.
+// K3-faces and K4-faces: the TPFA flux divergence, the Jacobian's face
+// blocks and the block-3x3 operator over an arbitrary face list, for
+// Hopper.
 //
 // Replaces the JAX package's models/blackoil.py face_fluxes / divergence
 // gather branches (:319-338, :359-371: all faces of a gather grid, or the
@@ -7,7 +8,11 @@
 // models/linearize.py matvec's gather branch (:474-482) and the extra-face
 // correction of _matvec_cells_structured (:585-592), with the stage-2
 // smoothing step x + D^-1 (r - A x) of linalg/precond.py make_cpr_cells
-// (:402-403) fused in. XLA lowered these to gathers and scatter-adds.
+// (:402-403) fused in; and the face-list branches of linearize.assemble
+// (:240-270, an embedded grid's extra faces; :272-320, a gather grid's
+// faces): each face's flux and its blocks face_L / face_R chained through
+// K2's per-cell tangent columns, folded into r_cell and diag. XLA lowered
+// these to gathers and scatter-adds.
 //
 // Layout: per output row t (cell rows[t], or t when rows is null) its
 // incident faces ent[ptr[t] .. ptr[t+1]) with the neighbour cell nbr[];
@@ -35,6 +40,7 @@ namespace {
 
 using opm_tpfa::Cells;
 using opm_tpfa::Face;
+using opm_tpfa::face_blocks;
 using opm_tpfa::face_primal;
 
 constexpr int kThreads = 256;
@@ -71,6 +77,48 @@ __global__ void faces_div_kernel(Csr g, long long nc, Cells q,
             acc[e] = left ? acc[e] + flux[e] : acc[e] - flux[e];
     }
     for (int e = 0; e < 3; ++e) div[e * nc + c] = acc[e];
+}
+
+// r_cell (3, nc) and diag (9, nc) updated in place over the CSR's rows;
+// face_L / face_R (9, nf) written at the list's faces (global indices)
+__global__ void faces_blocks_kernel(Csr g, long long nc, long long nf,
+                                    const double* __restrict__ fv,
+                                    const double* __restrict__ fc,
+                                    const double* __restrict__ depth,
+                                    const double* __restrict__ trans,
+                                    double gr, double* __restrict__ r_cell,
+                                    double* __restrict__ diag,
+                                    double* __restrict__ fL,
+                                    double* __restrict__ fR) {
+    int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= g.n_rows) return;
+    long long c = g.rows ? g.rows[t] : t;
+    const Cells q{fv, fv + 3 * nc, fv + 6 * nc, fv + 9 * nc, fv + 10 * nc};
+    double r[3], d[9], flux[3], bl[9], br[9];
+    for (int e = 0; e < 3; ++e) r[e] = r_cell[e * nc + c];
+    for (int b = 0; b < 9; ++b) d[b] = diag[b * nc + c];
+    for (int k = g.ptr[t]; k < g.ptr[t + 1]; ++k) {
+        int s = g.ent[k];
+        long long o = g.nbr[k];
+        if (s >= 0) {
+            face_blocks(q, fc, nc, c, o, trans[s], gr, depth[c] - depth[o],
+                        flux, bl, br);
+            for (int e = 0; e < 3; ++e) r[e] = r[e] + flux[e];
+            for (int b = 0; b < 9; ++b) {
+                fL[b * nf + s] = bl[b];
+                fR[b * nf + s] = br[b];
+                d[b] = d[b] + bl[b];
+            }
+        } else {
+            long long f = -(long long)s - 1;
+            face_blocks(q, fc, nc, o, c, trans[f], gr, depth[o] - depth[c],
+                        flux, nullptr, br);
+            for (int e = 0; e < 3; ++e) r[e] = r[e] + (-flux[e]);
+            for (int b = 0; b < 9; ++b) d[b] = d[b] + (-br[b]);
+        }
+    }
+    for (int e = 0; e < 3; ++e) r_cell[e * nc + c] = r[e];
+    for (int b = 0; b < 9; ++b) diag[b * nc + c] = d[b];
 }
 
 __device__ __forceinline__ double xv(const double* x, bool p_only,
@@ -164,6 +212,22 @@ int opm_faces_div(int n_rows, const int* rows, const int* ptr,
     Cells q{p, rho, bmob, rs, rv};
     faces_div_kernel<<<blocks_for(n_rows), kThreads, 0, stream>>>(
         csr, nc, q, depth, trans, g, accumulate, div);
+    return (int)cudaGetLastError();
+}
+
+// the face blocks of the CSR's faces from the face inputs fv (11, nc) and
+// their tangent columns fc (3, 11, nc): r_cell and diag updated in place,
+// face_L / face_R (9, nf) written at the faces
+int opm_faces_blocks(int n_rows, const int* rows, const int* ptr,
+                     const int* ent, const int* nbr, long long nc,
+                     long long nf, const double* fv, const double* fc,
+                     const double* depth, const double* trans, double g,
+                     double* r_cell, double* diag, double* fL, double* fR,
+                     cudaStream_t stream) {
+    if (n_rows == 0) return 0;
+    Csr csr{n_rows, rows, ptr, ent, nbr};
+    faces_blocks_kernel<<<blocks_for(n_rows), kThreads, 0, stream>>>(
+        csr, nc, nf, fv, fc, depth, trans, g, r_cell, diag, fL, fR);
     return (int)cudaGetLastError();
 }
 

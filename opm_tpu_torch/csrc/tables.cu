@@ -17,52 +17,22 @@
 // coalesced (query-contiguous, column-major outputs).
 //
 // Semantics reproduced exactly (see the plain version in
-// opm_tpu_torch/utils/tables.py):
-//   t = (x - lo) / (hi == lo ? 1 : hi - lo);  v = (1 - t) y0 + t y1;
-//   'clamp' clips t to [0, 1]; the slope factor is then 0 outside,
-//   1/2 at t == 0 or t == 1 (jax.jacfwd of jnp.clip at a tie), 1 inside;
-//   the result is v + 0 * x, so NaN queries stay NaN (slope 0).
-// Build with --fmad=false so every product and sum rounds as the plain
-// PyTorch version's separate elementwise operations do.
+// opm_tpu_torch/utils/tables.py); the segment search and interpolation
+// live in tables.cuh, which K2 (cells.cu) shares. Build with --fmad=false
+// so every product and sum rounds as the plain PyTorch version's separate
+// elementwise operations do.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tables.cuh"
+
 namespace {
 
+using opm_tables::Coord1;
+using opm_tables::coord1;
+
 constexpr int kThreads = 256;
-
-// index i of the active segment [xs[i], xs[i+1]), clipped to [0, n-2]:
-// i = #{xs <= x} - 1 (binary search; xs non-decreasing)
-__device__ __forceinline__ int segment_of(const double* xs, int n, double x) {
-    int lo = 0, hi = n;             // count of xs[j] <= x lies in [lo, hi]
-    while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (xs[mid] <= x) lo = mid + 1; else hi = mid;
-    }
-    int i = lo - 1;
-    if (i < 0) i = 0;
-    if (i > n - 2) i = n - 2;
-    return i;
-}
-
-// local coordinate and its slope factor (d t_clipped / d t)
-__device__ __forceinline__ void local_coord(const double* xs, int i, double x,
-                                            int clamp, double* t_out,
-                                            double* dt_out) {
-    double lo = xs[i];
-    double w = xs[i + 1] - lo;
-    double ws = (w == 0.0) ? 1.0 : w;
-    double t = (x - lo) / ws;
-    double f = 1.0;
-    if (clamp) {
-        if (t < 0.0) { t = 0.0; f = 0.0; }
-        else if (t > 1.0) { t = 1.0; f = 0.0; }
-        else if (t == 0.0 || t == 1.0) { f = 0.5; }
-    }
-    *t_out = t;
-    *dt_out = f * (1.0 / ws);
-}
 
 // xs: (nreg, n); ys: (nreg, ncol, n); x, reg: (nq); val, slope: (ncol, nq)
 __global__ void interp1_kernel(const double* __restrict__ xs,
@@ -82,28 +52,12 @@ __global__ void interp1_kernel(const double* __restrict__ xs,
     long long stride = (long long)gridDim.x * blockDim.x;
     for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          q < nq; q += stride) {
-        double xq = x[q];
         int r = reg ? reg[q] : 0;
-        const double* rx = sx + r * n;
         const double* ry = sy + (long long)r * ncol * n;
-        if (isnan(xq)) {
-            for (int c = 0; c < ncol; ++c) {
-                val[c * nq + q] = xq;
-                slope[c * nq + q] = 0.0;
-            }
-            continue;
-        }
-        int i = segment_of(rx, n, xq);
-        double t, dt;
-        local_coord(rx, i, xq, clamp, &t, &dt);
-        double zx = 0.0 * xq;
-        for (int c = 0; c < ncol; ++c) {
-            double y0 = ry[c * n + i];
-            double y1 = ry[c * n + i + 1];
-            double v = (1.0 - t) * y0 + t * y1;
-            val[c * nq + q] = v + zx;
-            slope[c * nq + q] = (-dt) * y0 + dt * y1;
-        }
+        Coord1 c = coord1(sx + r * n, n, x[q], clamp);
+        for (int k = 0; k < ncol; ++k)
+            opm_tables::interp1(c, ry + k * n, &val[k * nq + q],
+                                &slope[k * nq + q]);
     }
 }
 
@@ -132,43 +86,14 @@ __global__ void interp2_kernel(const double* __restrict__ xs,
     long long stride = (long long)gridDim.x * blockDim.x;
     for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          q < nq; q += stride) {
-        double xq = x[q];
-        double yq = y[q];
         int r = reg ? reg[q] : 0;
-        const double* rx = sx + r * n;
-        const double* ry = sy + r * m;
         const double* rz = sz + (long long)r * ngrid * n * m;
-        if (isnan(xq) || isnan(yq)) {
-            double nanv = xq + yq;
-            for (int g = 0; g < ngrid; ++g) {
-                val[g * nq + q] = nanv;
-                dvdx[g * nq + q] = 0.0;
-                dvdy[g * nq + q] = 0.0;
-            }
-            continue;
-        }
-        int i = segment_of(rx, n, xq);
-        int j = segment_of(ry, m, yq);
-        double tx, dtx, ty, dty;
-        local_coord(rx, i, xq, clamp_x, &tx, &dtx);
-        local_coord(ry, j, yq, clamp_y, &ty, &dty);
-        double zx = 0.0 * xq;
-        double zy = 0.0 * yq;
-        for (int g = 0; g < ngrid; ++g) {
-            const double* zg = rz + (long long)g * n * m;
-            double z00 = zg[i * m + j], z01 = zg[i * m + j + 1];
-            double z10 = zg[(i + 1) * m + j], z11 = zg[(i + 1) * m + j + 1];
-            // y-contraction per x-node first, then x (the reference's
-            // node-basis order)
-            double v0 = (1.0 - ty) * z00 + ty * z01;
-            double v1 = (1.0 - ty) * z10 + ty * z11;
-            double v = (1.0 - tx) * v0 + tx * v1;
-            val[g * nq + q] = (v + zx) + zy;
-            dvdx[g * nq + q] = (-dtx) * v0 + dtx * v1;
-            double d0 = (-dty) * z00 + dty * z01;
-            double d1 = (-dty) * z10 + dty * z11;
-            dvdy[g * nq + q] = (1.0 - tx) * d0 + tx * d1;
-        }
+        Coord1 cx = coord1(sx + r * n, n, x[q], clamp_x);
+        Coord1 cy = coord1(sy + r * m, m, y[q], clamp_y);
+        for (int g = 0; g < ngrid; ++g)
+            opm_tables::interp2(cx, cy, rz + (long long)g * n * m, m,
+                                &val[g * nq + q], &dvdx[g * nq + q],
+                                &dvdy[g * nq + q]);
     }
 }
 

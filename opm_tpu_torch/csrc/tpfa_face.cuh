@@ -20,6 +20,7 @@ struct Cells {
 };
 
 struct Face {
+    double dphi[3];       // potential difference L - R per phase
     double up[3];         // upwind flag (1 = left cell) per phase
     double vf[3];         // trans * dphi
     double bm[3];         // upwind b * mobility
@@ -36,6 +37,7 @@ __device__ __forceinline__ void face_primal(const Cells& q, long long nc,
         double dphi = (q.p[ph * nc + L] - q.p[ph * nc + R])
                       - rho_face * g * dz;
         bool up = dphi >= 0.0;
+        f->dphi[ph] = dphi;
         f->up[ph] = up ? 1.0 : 0.0;
         f->bm[ph] = up ? q.bmob[ph * nc + L] : q.bmob[ph * nc + R];
         f->vf[ph] = T * dphi;
@@ -48,29 +50,110 @@ __device__ __forceinline__ void face_primal(const Cells& q, long long nc,
     flux[2] = F[2] + f->rs_up * f->bm[1] * f->vf[1];
 }
 
-__device__ __forceinline__ void face_tangent(const Cells& dq, long long nc,
-                                             long long L, long long R,
-                                             double T, double g, double dz,
-                                             const Face& f,
-                                             double flux_t[3]) {
+// One side's tangents of the face inputs.
+struct Tan {
+    double p[3], rho[3], bmob[3], rs, rv;
+};
+
+__device__ __forceinline__ Tan tan_zero() {
+    Tan t;
+    for (int ph = 0; ph < 3; ++ph) t.p[ph] = t.rho[ph] = t.bmob[ph] = 0.0;
+    t.rs = t.rv = 0.0;
+    return t;
+}
+
+// column j (rows p3, rho, bmob, rs, rv of a (3, 11, nc) tangent block) at
+// cell c
+__device__ __forceinline__ Tan tan_col(const double* cols, long long nc,
+                                       int j, long long c) {
+    const double* b = cols + (long long)j * 11 * nc + c;
+    Tan t;
+    for (int ph = 0; ph < 3; ++ph) {
+        t.p[ph] = b[ph * nc];
+        t.rho[ph] = b[(3 + ph) * nc];
+        t.bmob[ph] = b[(6 + ph) * nc];
+    }
+    t.rs = b[9 * nc];
+    t.rv = b[10 * nc];
+    return t;
+}
+
+// the flux tangent from the left and right cells' input tangents; with
+// zero_threshold the dphi tangent is 0 where dphi == 0 exactly (the
+// derivative of a THPRES clip with threshold 0, which the block assembly
+// goes through)
+__device__ __forceinline__ void face_tangent_of(const Face& f, double T,
+                                                double g, double dz,
+                                                const Tan& a, const Tan& b,
+                                                bool zero_threshold,
+                                                double flux_t[3]) {
     double F_t[3], bm_t[3], vf_t[3];
     for (int ph = 0; ph < 3; ++ph) {
-        double rho_face_t =
-            0.5 * (dq.rho[ph * nc + L] + dq.rho[ph * nc + R]);
-        double dphi_t = (dq.p[ph * nc + L] - dq.p[ph * nc + R])
-                        - rho_face_t * g * dz;
+        double rho_face_t = 0.5 * (a.rho[ph] + b.rho[ph]);
+        double dphi_t = (a.p[ph] - b.p[ph]) - rho_face_t * g * dz;
+        if (zero_threshold && f.dphi[ph] == 0.0) dphi_t = 0.0;
         bool up = f.up[ph] != 0.0;
-        bm_t[ph] = up ? dq.bmob[ph * nc + L] : dq.bmob[ph * nc + R];
+        bm_t[ph] = up ? a.bmob[ph] : b.bmob[ph];
         vf_t[ph] = T * dphi_t;
         F_t[ph] = bm_t[ph] * f.vf[ph] + f.bm[ph] * vf_t[ph];
     }
-    double rs_up_t = f.up[1] != 0.0 ? dq.rs[L] : dq.rs[R];
-    double rv_up_t = f.up[2] != 0.0 ? dq.rv[L] : dq.rv[R];
+    double rs_up_t = f.up[1] != 0.0 ? a.rs : b.rs;
+    double rv_up_t = f.up[2] != 0.0 ? a.rv : b.rv;
     flux_t[0] = F_t[0];
     flux_t[1] = F_t[1] + ((rv_up_t * f.bm[2] + f.rv_up * bm_t[2]) * f.vf[2]
                           + (f.rv_up * f.bm[2]) * vf_t[2]);
     flux_t[2] = F_t[2] + ((rs_up_t * f.bm[1] + f.rs_up * bm_t[1]) * f.vf[1]
                           + (f.rs_up * f.bm[1]) * vf_t[1]);
+}
+
+__device__ __forceinline__ Tan tan_at(const Cells& dq, long long nc,
+                                      long long c) {
+    Tan t;
+    for (int ph = 0; ph < 3; ++ph) {
+        t.p[ph] = dq.p[ph * nc + c];
+        t.rho[ph] = dq.rho[ph * nc + c];
+        t.bmob[ph] = dq.bmob[ph * nc + c];
+    }
+    t.rs = dq.rs[c];
+    t.rv = dq.rv[c];
+    return t;
+}
+
+__device__ __forceinline__ void face_tangent(const Cells& dq, long long nc,
+                                             long long L, long long R,
+                                             double T, double g, double dz,
+                                             const Face& f,
+                                             double flux_t[3]) {
+    face_tangent_of(f, T, g, dz, tan_at(dq, nc, L), tan_at(dq, nc, R), false,
+                    flux_t);
+}
+
+// The face's contribution to the Jacobian: its flux and, for each
+// primary j of the left (fL) or right (fR) cell, the flux tangent
+// (rows 3 * eq + j); cols is the (3, 11, nc) tangent block of the face
+// inputs. Either block pointer may be null (not wanted).
+__device__ __forceinline__ void face_blocks(const Cells& q,
+                                            const double* cols, long long nc,
+                                            long long L, long long R,
+                                            double T, double g, double dz,
+                                            double flux[3], double* fL,
+                                            double* fR) {
+    Face f;
+    face_primal(q, nc, L, R, T, g, dz, &f, flux);
+    const Tan z = tan_zero();
+    double ft[3];
+    for (int j = 0; j < 3; ++j) {
+        if (fL) {
+            face_tangent_of(f, T, g, dz, tan_col(cols, nc, j, L), z, true,
+                            ft);
+            for (int e = 0; e < 3; ++e) fL[3 * e + j] = ft[e];
+        }
+        if (fR) {
+            face_tangent_of(f, T, g, dz, z, tan_col(cols, nc, j, R), true,
+                            ft);
+            for (int e = 0; e < 3; ++e) fR[3 * e + j] = ft[e];
+        }
+    }
 }
 
 }  // namespace opm_tpfa

@@ -1,7 +1,11 @@
 """Fully-implicit black-oil model: residual assembly on tensors.
 
-Port of the JAX package's models/blackoil.py. Cell quantities go through
-the K1 table lookups (props). On the structured stencil (a fully-active or
+Port of the JAX package's models/blackoil.py. Cell quantities are kernel
+K2 (``csrc/cells.cu``: the values, and their tangent columns in the
+primaries for the forward-mode rule and the assembly), wrapped in a
+``torch.autograd.Function`` whose ``jvp`` contracts K2's columns with the
+input tangents; its plain twin goes through the K1 table lookups (props).
+On the structured stencil (a fully-active or
 embedded cartesian grid) face fluxes and their divergence are kernel K3
 (``csrc/tpfa.cu``), wrapped in a ``torch.autograd.Function`` whose ``jvp``
 launches K3's tangent entry and whose ``vmap`` folds the batch of tangent
@@ -16,6 +20,7 @@ padding cells do not count.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -71,10 +76,11 @@ class Residual(NamedTuple):
     b: torch.Tensor          # (3, nc) inverse FVFs (for convergence norms)
 
 
-def compute_cell_quantities(props, p, sw, x, hcstate, pvtnum,
-                            satnum) -> CellQuantities:
+def cell_quantities_plain(props, p, sw, x, hcstate, pvtnum,
+                          satnum) -> CellQuantities:
     """Secondary variables from the switched primaries (the reference's
-    compute_cell_quantities without hysteresis and VAPPARS memory)."""
+    compute_cell_quantities without hysteresis and VAPPARS memory): the
+    plain version of K2, through the props' K1 lookups."""
     is_sg = hcstate == HC_GASOIL
     is_rs = hcstate == HC_OILONLY
     is_rv = hcstate == HC_GASONLY
@@ -113,6 +119,337 @@ def accumulation_from_q(q: CellQuantities) -> torch.Tensor:
     acc_o = bo * so + q.rv * bg * sg
     acc_g = bg * sg + q.rs * bo * so
     return q.pv_mult * torch.stack([acc_w, acc_o, acc_g], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# K2: cell quantities with their tangent columns (plain versions)
+
+N_Q = 18          # CellQuantities rows: pw, po, pg, b, mob, rho, rs, rv,
+#                   sat, pv_mult
+N_F = 11          # face-input rows: p3, rho, b mob, rs, rv
+
+
+def q_rows(q: CellQuantities) -> torch.Tensor:
+    """CellQuantities as its (18, n) rows."""
+    return torch.cat([torch.stack([q.pw, q.po, q.pg]), q.b, q.mob, q.rho,
+                      torch.stack([q.rs, q.rv]), q.sat, q.pv_mult[None]])
+
+
+def q_of_rows(rows, shape) -> CellQuantities:
+    """The (18, n) rows as CellQuantities (views), reshaped to ``shape``."""
+    shape = tuple(shape)
+
+    def one(i):
+        return rows[i].reshape(shape)
+
+    def three(i):
+        return rows[i:i + 3].reshape((3,) + shape)
+
+    return CellQuantities(pw=one(0), po=one(1), pg=one(2), b=three(3),
+                          mob=three(6), rho=three(9), rs=one(12),
+                          rv=one(13), sat=three(14), pv_mult=one(17))
+
+
+def face_rows(q: CellQuantities) -> torch.Tensor:
+    """The face inputs (p3, rho, b mob, rs, rv) as (11, n) rows."""
+    return torch.cat([torch.stack([q.pw, q.po, q.pg]), q.rho, q.b * q.mob,
+                      torch.stack([q.rs, q.rv])])
+
+
+def face_tangent_rows(q: CellQuantities, t: CellQuantities) -> torch.Tensor:
+    """The face inputs' tangent (11, n) from the quantities' tangent t;
+    b mob by the product rule."""
+    return torch.cat([torch.stack([t.pw, t.po, t.pg]), t.rho,
+                      t.b * q.mob + q.b * t.mob, torch.stack([t.rs, t.rv])])
+
+
+def cell_quantities_tangents_plain(props, p, sw, x, hcstate, pvtnum,
+                                   satnum):
+    """The plain version of K2 with tangents: the cell quantities and the
+    accumulation with their three per-cell tangent columns in (p, sw, x),
+    by one batched ``torch.func.jvp`` seeded with all-ones per primary (the
+    reference's ``jax.linearize`` seeding). Returns (q, q_tan, acc,
+    acc_tan): q_tan the three tangent CellQuantities, acc (3, n) and
+    acc_tan (3 var, 3 eq, n)."""
+    n = p.shape[-1]
+
+    def q_all(pc, swc, xc):
+        q = cell_quantities_plain(props, pc, swc, xc, hcstate, pvtnum,
+                                  satnum)
+        return q, accumulation_from_q(q)
+
+    seeds = torch.eye(3, dtype=p.dtype, device=p.device)[:, :, None] \
+        .expand(3, 3, n)
+
+    def tangent(seed):
+        return torch.func.jvp(q_all, (p, sw, x), tuple(seed))
+
+    (q_b, acc_b), (q_t, acc_t) = torch.func.vmap(tangent)(seeds)
+    q_val = CellQuantities(*(a[0] for a in q_b))
+    q_tan = [CellQuantities(*(a[j] for a in q_t)) for j in range(3)]
+    return q_val, q_tan, acc_b[0], acc_t
+
+
+def cells_values_plain(props, p, sw, x, hcstate, pvtnum, satnum):
+    """K2's values entry, plain: the (18, n) CellQuantities rows."""
+    return q_rows(cell_quantities_plain(props, p, sw, x, hcstate, pvtnum,
+                                        satnum))
+
+
+def cells_columns_plain(props, p, sw, x, hcstate, pvtnum, satnum):
+    """K2's values entry with columns, plain: the (3, 18, n) tangent
+    columns of the CellQuantities rows in p, sw and x."""
+    _, q_tan, _, _ = cell_quantities_tangents_plain(
+        props, p, sw, x, hcstate, pvtnum, satnum)
+    return torch.stack([q_rows(t) for t in q_tan])
+
+
+def degenerate_x_weight(hcstate, so, sg):
+    """Continuous regularization weight in [0, 1] for the (gas-eq, x)
+    diagonal of cells whose x variable is losing its equation: in an rs
+    cell the gas-equation x-column scales with so, in an rv cell with sg.
+    weight = clip(1 - s_scaling / 1e-5, 0, 1)."""
+    is_rs = hcstate == HC_OILONLY
+    is_rv = hcstate == HC_GASONLY
+    s_scale = torch.where(is_rs, so, torch.where(is_rv, sg,
+                                                 torch.ones_like(so)))
+    # a true division: tensor / python float is a multiplication by the
+    # reciprocal on the card, one rounding off the reference's quotient
+    return torch.clamp(1.0 - s_scale / torch.full_like(s_scale, 1e-5),
+                       0.0, 1.0)
+
+
+def cells_assemble_plain(props, p, sw, x, hcstate, pvtnum, satnum, acc0,
+                         pv, dt):
+    """K2's assembly entry, plain: the face inputs fv (11, n) and their
+    tangent columns fc (3, 11, n), r_cell = pv/dt (acc - acc0) (3, n) and
+    the nine diag rows pv/dt d acc_i / d u_j (row 3 i + j), with the
+    degenerate-x weight times pv/dt added to row 8."""
+    q, q_tan, acc, acc_tan = cell_quantities_tangents_plain(
+        props, p, sw, x, hcstate, pvtnum, satnum)
+    fv = face_rows(q)
+    fc = torch.stack([face_tangent_rows(q, t) for t in q_tan])
+    # a true division on every device (the reference divides by a traced
+    # dt; on the card tensor / float multiplies by the reciprocal)
+    pvdt = pv / torch.full_like(pv, dt)
+    r_cell = pvdt * (acc - acc0)
+    diag = torch.stack([pvdt * acc_tan[j][i] for i in range(3)
+                        for j in range(3)])
+    diag[8] = diag[8] + degenerate_x_weight(hcstate, q.sat[OIL],
+                                            q.sat[GAS]) * pvdt
+    return fv, fc, r_cell, diag
+
+
+# ---------------------------------------------------------------------------
+# K2: CUDA wrappers (csrc/cells.cu)
+
+_CELLS_SIGS = {
+    "opm_cells_meta_len": ([], cuda_lib.I),
+    "opm_cells_eval": [cuda_lib.P, cuda_lib.P, cuda_lib.L]
+    + [cuda_lib.P] * 9,
+    "opm_cells_assemble": [cuda_lib.P, cuda_lib.P, cuda_lib.L]
+    + [cuda_lib.P] * 8 + [cuda_lib.D] + [cuda_lib.P] * 5,
+}
+
+
+def _cells_lib(pack):
+    lib = cuda_lib.load("cells", _CELLS_SIGS)
+    if lib.opm_cells_meta_len() != len(pack.meta):
+        raise RuntimeError("K2: the table layout of props/blackoil.py "
+                           "CellPack and csrc/cells.cu disagree")
+    return lib, ctypes.cast(pack.c_meta, ctypes.c_void_p)
+
+
+def _cells_inputs(pack, p, sw, x, hcstate, pvtnum, satnum):
+    """Checked K2 inputs: contiguous float64 (n,) primaries on the tables'
+    device, the hydrocarbon state as int32 and the regions as int64."""
+    n = p.shape[0]
+    dev = p.device
+    if pack.tab.device != dev:
+        raise ValueError(f"K2: the tables are on {pack.tab.device}, the "
+                         f"cells on {dev}")
+    for t in (p, sw, x):
+        if (t.dtype != torch.float64 or t.device != dev or t.dim() != 1
+                or t.shape[0] != n or not t.is_contiguous()):
+            raise ValueError("K2: p, sw and x must be contiguous float64 "
+                             f"(n,) tensors on {dev}")
+    ints = []
+    for t, dt in ((hcstate, torch.int32), (pvtnum, torch.int64),
+                  (satnum, torch.int64)):
+        if t.device != dev or t.shape != (n,):
+            raise ValueError(f"K2: hcstate and the regions must be (n,) "
+                             f"tensors on {dev}")
+        ints.append(t.to(dt).contiguous())
+    return n, ints
+
+
+def cells_values_cuda(pack, p, sw, x, hcstate, pvtnum, satnum):
+    """K2's values entry on the card; same contract as cells_values_plain
+    (with ``pack`` = props.cell_pack() in place of props)."""
+    n, (hc, pvt, sat) = _cells_inputs(pack, p, sw, x, hcstate, pvtnum,
+                                      satnum)
+    out = torch.empty((N_Q, n), dtype=torch.float64, device=p.device)
+    if n:
+        lib, meta = _cells_lib(pack)
+        ptr = cuda_lib.ptr
+        err = lib.opm_cells_eval(ptr(pack.tab), meta, n, ptr(p), ptr(sw),
+                                 ptr(x), ptr(hc), ptr(pvt), ptr(sat),
+                                 ptr(out), cuda_lib.P(0),
+                                 cuda_lib.stream_ptr(p.device))
+        cuda_lib.check(err, "opm_cells_eval")
+        cells_values_cuda.launches += 1
+    return out
+
+
+cells_values_cuda.launches = 0
+
+
+def cells_columns_cuda(pack, p, sw, x, hcstate, pvtnum, satnum):
+    """K2's values entry with columns on the card; same contract as
+    cells_columns_plain."""
+    n, (hc, pvt, sat) = _cells_inputs(pack, p, sw, x, hcstate, pvtnum,
+                                      satnum)
+    out = torch.empty((N_Q, n), dtype=torch.float64, device=p.device)
+    cols = torch.empty((3, N_Q, n), dtype=torch.float64, device=p.device)
+    if n:
+        lib, meta = _cells_lib(pack)
+        ptr = cuda_lib.ptr
+        err = lib.opm_cells_eval(ptr(pack.tab), meta, n, ptr(p), ptr(sw),
+                                 ptr(x), ptr(hc), ptr(pvt), ptr(sat),
+                                 ptr(out), ptr(cols),
+                                 cuda_lib.stream_ptr(p.device))
+        cuda_lib.check(err, "opm_cells_eval")
+        cells_columns_cuda.launches += 1
+    return cols
+
+
+cells_columns_cuda.launches = 0
+
+
+def cells_assemble_cuda(pack, p, sw, x, hcstate, pvtnum, satnum, acc0, pv,
+                        dt):
+    """K2's assembly entry on the card; same contract as
+    cells_assemble_plain."""
+    n, (hc, pvt, sat) = _cells_inputs(pack, p, sw, x, hcstate, pvtnum,
+                                      satnum)
+    dev = p.device
+    for t, shape in ((acc0, (3, n)), (pv, (n,))):
+        if (t.dtype != torch.float64 or t.device != dev
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"K2 assembly: acc0 (3, n) and pv (n,) must "
+                             f"be contiguous float64 on {dev}")
+    fv = torch.empty((N_F, n), dtype=torch.float64, device=dev)
+    fc = torch.empty((3, N_F, n), dtype=torch.float64, device=dev)
+    r_cell = torch.empty((3, n), dtype=torch.float64, device=dev)
+    diag = torch.empty((9, n), dtype=torch.float64, device=dev)
+    if n:
+        lib, meta = _cells_lib(pack)
+        ptr = cuda_lib.ptr
+        err = lib.opm_cells_assemble(
+            ptr(pack.tab), meta, n, ptr(p), ptr(sw), ptr(x), ptr(hc),
+            ptr(pvt), ptr(sat), ptr(acc0), ptr(pv), float(dt), ptr(fv),
+            ptr(fc), ptr(r_cell), ptr(diag), cuda_lib.stream_ptr(dev))
+        cuda_lib.check(err, "opm_cells_assemble")
+        cells_assemble_cuda.launches += 1
+    return fv, fc, r_cell, diag
+
+
+cells_assemble_cuda.launches = 0
+
+
+def _k2(fn_cuda, fn_plain, props, *args):
+    """K2 on the card (with the packed tables), the plain version on the
+    CPU."""
+    return cuda_lib.dispatch(
+        args[0], lambda *a: fn_cuda(props.cell_pack(), *a),
+        lambda *a: fn_plain(props, *a), *args, what="K2")
+
+
+class _CellQuantities(torch.autograd.Function):
+    """The (18, n) CellQuantities rows through K2; the forward-mode rule
+    contracts K2's tangent columns with the input tangents (the quantities
+    of a cell depend on that cell's primaries only), and the vmap rule
+    folds a batch of primaries into the cell axis."""
+
+    @staticmethod
+    def forward(p, sw, x, hcstate, pvtnum, satnum, props):
+        return _k2(cells_values_cuda, cells_values_plain, props, p, sw, x,
+                   hcstate, pvtnum, satnum)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        p, sw, x, hcstate, pvtnum, satnum, props = inputs
+        ctx.save_for_forward(p, sw, x, hcstate, pvtnum, satnum)
+        ctx.props = props
+
+    @staticmethod
+    def jvp(ctx, dp, dsw, dx, *rest):
+        cols = _CellColumns.apply(*ctx.saved_tensors, ctx.props)
+        out = None
+        for col, t in zip(cols, (dp, dsw, dx)):
+            if t is not None:
+                out = col * t if out is None else out + col * t
+        return torch.zeros_like(cols[0]) if out is None else out
+
+    @staticmethod
+    def vmap(info, in_dims, p, sw, x, hcstate, pvtnum, satnum, props):
+        B = info.batch_size
+        args = [cuda_lib.batched(a, d, B).reshape(-1).contiguous()
+                for a, d in zip((p, sw, x, hcstate, pvtnum, satnum),
+                                in_dims[:6])]
+        rows = _CellQuantities.apply(*args, props)
+        return rows.reshape(N_Q, B, -1), 1
+
+
+class _CellColumns(torch.autograd.Function):
+    """The (3, 18, n) tangent columns of the CellQuantities rows through
+    K2 (a Function of its own, so that the forward-mode rule above hands
+    K2 unwrapped tensors under torch.func transforms)."""
+
+    @staticmethod
+    def forward(p, sw, x, hcstate, pvtnum, satnum, props):
+        return _k2(cells_columns_cuda, cells_columns_plain, props, p, sw, x,
+                   hcstate, pvtnum, satnum)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, p, sw, x, hcstate, pvtnum, satnum, props):
+        B = info.batch_size
+        args = [cuda_lib.batched(a, d, B).reshape(-1).contiguous()
+                for a, d in zip((p, sw, x, hcstate, pvtnum, satnum),
+                                in_dims[:6])]
+        cols = _CellColumns.apply(*args, props)
+        return cols.reshape(3, N_Q, B, -1), 2
+
+
+def compute_cell_quantities(props, p, sw, x, hcstate, pvtnum,
+                            satnum) -> CellQuantities:
+    """Secondary variables from the switched primaries (the reference's
+    compute_cell_quantities without hysteresis and VAPPARS memory): K2 on
+    any batch of cells, with forward-mode and vmap rules, so the dense
+    route's ``jacfwd`` and the perforation rows' jvp go through it."""
+    shape = p.shape
+
+    def flat(t, dtype):
+        t = torch.as_tensor(t, device=p.device)
+        return torch.broadcast_to(t, shape).reshape(-1).to(dtype) \
+            .contiguous()
+
+    rows = _CellQuantities.apply(
+        flat(p, torch.float64), flat(sw, torch.float64),
+        flat(x, torch.float64), flat(hcstate, torch.int32),
+        flat(pvtnum, torch.int64), flat(satnum, torch.int64), props)
+    return q_of_rows(rows, shape)
+
+
+def cell_assembly(props, p, sw, x, hcstate, pvtnum, satnum, acc0, pv, dt):
+    """K2's assembly entry (cells_assemble_plain's contract) on the
+    primaries' device."""
+    return _k2(cells_assemble_cuda, cells_assemble_plain, props, p, sw, x,
+               hcstate, pvtnum, satnum, acc0, pv, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -500,6 +837,9 @@ _FACES_SIGS = {
     + [_D, _I, _P, _P],
     "opm_faces_apply": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L]
     + [_P] * 5 + [_I, _P, _P, _P, _P],
+    # the face blocks of the assembly (models/linearize.py)
+    "opm_faces_blocks": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L]
+    + [_P] * 4 + [_D] + [_P] * 5,
 }
 
 

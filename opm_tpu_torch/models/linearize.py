@@ -7,13 +7,20 @@ it; ``schur_eliminate_wells`` gives the cells-only reduced operator
 A - C D^-1 B, its right-hand side and the well recovery. ``dims`` is the
 structured grid's (nx, ny, nz), or None on a gather grid.
 
-Every derivative comes from forward-mode AD of the same local formulas as
-the residual: the cell quantities and the accumulation by three
-``torch.func.jvp`` calls seeded with all-ones per primary variable (the
-reference seeds ``jax.linearize`` the same way), chained through the
-plain face-flux tangent per direction, and the perforation fluxes by
-seeding each of the seven perforation-local variables over all
-perforations at once (the reference's ``vmap(jacfwd(perf_local))``).
+Every derivative is exact forward-mode differentiation of the same local
+formulas as the residual, on the card in hand kernels: K2
+(``csrc/cells.cu``) evaluates the cell quantities and the accumulation
+with their three tangent columns in (p, sw, x) per cell (the reference
+seeds ``jax.linearize`` with all-ones per primary), giving r_cell and the
+accumulation's diagonal blocks; the K3 face blocks chain the face-flux
+tangent with those columns per face (``csrc/blocks.cu`` over the stencil,
+``csrc/faces.cu`` over a face list) and fold the fluxes and blocks into
+r_cell and the diagonal. Their plain twins (``cells_assemble_plain``, a
+batched ``torch.func.jvp``; ``face_blocks_plain``, ``faces_blocks_plain``)
+run on the CPU. The perforation fluxes are differentiated by seeding each
+of the seven perforation-local variables over all perforations at once
+(the reference's ``vmap(jacfwd(perf_local))``), through K2's forward-mode
+rule. K5 (``csrc/wells.cu``) applies the Schur complement of the wells.
 
 The cell-block part of the operator is kernel K4 (``csrc/block7.cu``)
 over the 7-point stencil, with ``matvec_cells_plain`` as its twin, and
@@ -34,30 +41,27 @@ import torch
 from opm_tpu_torch.models.blackoil import (_FACES_SIGS, FaceList, _cells3,
                                            _dir_segments,
                                            _face_flux_tangent, _slice,
-                                           accumulation_from_q,
+                                           cell_assembly,
+                                           cell_quantities_plain,
+                                           cells_assemble_plain,
                                            compute_cell_quantities,
-                                           csr_args, face_flux_from_q)
-from opm_tpu_torch.models.state import HC_GASONLY, HC_OILONLY, saturations
+                                           csr_args, degenerate_x_weight,
+                                           face_flux_from_q)
+from opm_tpu_torch.models.state import saturations
 from opm_tpu_torch.utils import cuda_lib
 from opm_tpu_torch.wells import standard as stdwells
 from opm_tpu_torch.wells.wells import CTRL_BHP, CTRL_THP
 
+_P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
+
 
 def degenerate_x_mask(model, state):
     """Continuous regularization weight in [0, 1] for the (gas-eq, x)
-    diagonal of cells whose x variable is losing its equation: in an rs
-    cell the gas-equation x-column scales with so, in an rv cell with sg.
-    weight = clip(1 - s_scaling / 1e-5, 0, 1); only the Jacobian is
-    touched, never the residual."""
-    sw, so, sg = saturations(state)
-    is_rs = state.hcstate == HC_OILONLY
-    is_rv = state.hcstate == HC_GASONLY
-    s_scale = torch.where(is_rs, so, torch.where(is_rv, sg,
-                                                 torch.ones_like(so)))
-    # a true division: tensor / python float is a multiplication by the
-    # reciprocal, one rounding off the reference's quotient
-    return torch.clamp(1.0 - s_scale / torch.full_like(s_scale, 1e-5),
-                       0.0, 1.0)
+    diagonal of cells whose x variable is losing its equation
+    (``degenerate_x_weight`` at the state's saturations); only the
+    Jacobian is touched, never the residual."""
+    _, so, sg = saturations(state)
+    return degenerate_x_weight(state.hcstate, so, sg)
 
 
 class BlockSystem(NamedTuple):
@@ -74,6 +78,7 @@ class BlockSystem(NamedTuple):
     perf_cell: torch.Tensor  # (nw, mp)
     perf_mask: torch.Tensor  # (nw, mp) float
     faces: object = None     # FaceList of the faces past the stencil
+    perf_order: object = None  # (npf) perforations stably sorted by cell
 
     @property
     def nc(self):
@@ -84,10 +89,12 @@ class BlockSystem(NamedTuple):
         return self.wd_diag.shape[0]
 
 
-def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
+def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
     """Residual and exact Jacobian blocks at ``state`` (the reference's
     ``assemble``: the stencil faces by direction on a structured grid, then
-    the face list by gather)."""
+    the face list by gather): K2 and the K3 face blocks on the card, their
+    plain twins on the CPU or, with ``twin``, on any device (the card's
+    before/after comparison)."""
     if state.sgmax is not None or state.somax is not None:
         raise NotImplementedError(
             "hysteresis/VAPPARS memory is not ported yet "
@@ -97,115 +104,37 @@ def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
             "THPRES is not ported yet (ROADMAP Queue 1 item 8)")
     stdwells._check_ported(wd)
     props = model.props
-    nc = model.nc
     dims = model.dims
     dev = state.pressure.device
     hc, pvt, sat = state.hcstate, model.pvtnum, model.satnum
     p, sw, x = state.pressure, state.sw, state.x
 
-    # ---- cell quantities, accumulation and their three tangent columns
-    def q_all(pc, swc, xc):
-        q = compute_cell_quantities(props, pc, swc, xc, hc, pvt, sat)
-        return q, accumulation_from_q(q)
-
-    # the three seeds (all-ones per variable) as one batched jvp
-    seeds = torch.eye(3, dtype=torch.float64, device=dev)[:, :, None] \
-        .expand(3, 3, nc)
-
-    def tangent(seed):
-        return torch.func.jvp(q_all, (p, sw, x), tuple(seed))
-
-    (q_b, acc_b), (q_t, acc_t) = torch.func.vmap(tangent)(seeds)
-    q_val = type(q_b)(*(a[0] for a in q_b))
-    acc_val = acc_b[0]
-    q_tan = [type(q_t)(*(a[j] for a in q_t)) for j in range(3)]
-    acc_tan = [acc_t[j] for j in range(3)]
-    pvdt = model.pv / dt
-    r_cell = pvdt * (acc_val - acc0)
-    diag = torch.stack([pvdt * acc_tan[j][i] for i in range(3)
-                        for j in range(3)])
-    diag[8] = diag[8] + degenerate_x_mask(model, state) * pvdt
-
-    # ---- faces: value and L/R blocks, per direction, by the chain rule
-    # through the face-flux tangent with the per-cell tangent columns
-    def face_inputs(q):
-        return (torch.stack([q.pw, q.po, q.pg]), q.rho, q.b * q.mob, q.rs,
-                q.rv)
-
-    def face_tangents(q, t):
-        return (torch.stack([t.pw, t.po, t.pg]), t.rho,
-                t.b * q.mob + q.b * t.mob, t.rs, t.rv)
-
-    prim_c = face_inputs(q_val)
-    # tangents batched over the three seeds: (3 var, ...) per field
-    tans_c = [torch.stack(f) for f in
-              zip(*(face_tangents(q_val, t) for t in q_tan))]
-    fL_segs, fR_segs = [], []
-    # the reference assembles through a zero THPRES threshold, whose clip
-    # has a zero derivative on faces with dphi == 0 exactly
+    # ---- cells (K2): the face inputs and their three tangent columns,
+    # r_cell = pv/dt (acc - acc0) and the accumulation's diagonal blocks
+    cells_args = (p, sw, x, hc, pvt, sat, acc0, model.pv, dt)
+    fv, fc, r_cell, diag = (cells_assemble_plain(props, *cells_args) if twin
+                            else cell_assembly(props, *cells_args))
+    # ---- faces (K3 face blocks): the fluxes and face_L / face_R chained
+    # through the per-cell tangent columns, folded into r_cell and diag in
+    # place; the stencil faces by direction, then the face list by gather
+    nf = model.trans.shape[0]
+    face_L = torch.empty((9, nf), dtype=torch.float64, device=dev)
+    face_R = torch.empty_like(face_L)
+    fargs = (fv, fc, model.depth, model.trans, model.gravity, r_cell, diag,
+             face_L, face_R)
     if model.structured:
-        prim = [_cells3(a, dims) for a in prim_c]
-        tans = [_cells3(a, dims) for a in tans_c]
-        dep = _cells3(model.depth, dims)
-        r3 = _cells3(r_cell, dims).clone()
-        diag3 = _cells3(diag, dims)
-        ofs = 0
-        for slL, slR, nf_d in _dir_segments(dims):
-            T = model.trans[ofs:ofs + nf_d]
-            dz = (dep[slL] - dep[slR]).reshape(-1)
-            args = []
-            for a in prim:
-                args += [_slice(a, slL), _slice(a, slR)]
-            flux = face_flux_from_q(*args, T, dz, model.gravity)
-            tL, tR = [], []
-            for a in tans:
-                aL, aR = _slice(a, slL), _slice(a, slR)
-                tL += [aL, torch.zeros_like(aL)]
-                tR += [torch.zeros_like(aR), aR]
-            # (3 var, 3 eq, nf_d) -> rows 3*eq + var
-            fL = _face_flux_tangent(*args, T, dz, model.gravity, *tL,
-                                    zero_threshold=True)
-            fR = _face_flux_tangent(*args, T, dz, model.gravity, *tR,
-                                    zero_threshold=True)
-            fL = fL.transpose(0, 1).reshape(9, nf_d)
-            fR = fR.transpose(0, 1).reshape(9, nf_d)
-            shp = r3[(slice(None),) + slL].shape
-            r3[(slice(None),) + slL] += flux.reshape(shp)
-            r3[(slice(None),) + slR] += -flux.reshape(shp)
-            diag3[(slice(None),) + slL] += fL.reshape((9,) + shp[1:])
-            diag3[(slice(None),) + slR] += -fR.reshape((9,) + shp[1:])
-            fL_segs.append(fL)
-            fR_segs.append(fR)
-            ofs += nf_d
-        r_cell = r3.reshape(3, nc)
+        if twin:
+            face_blocks_plain(dims, *fargs)
+        else:
+            cuda_lib.dispatch(fv, face_blocks_cuda, face_blocks_plain, dims,
+                              *fargs, what="K3 face blocks")
     fl = model.faces
     if fl is not None:
-        # the face list by gather (all faces of a gather grid, an embedded
-        # grid's extra faces), chained through the same per-cell tangent
-        # columns
-        c1, c2 = fl.c1, fl.c2
-        T = model.trans[fl.first:]
-        dz = model.depth[c1] - model.depth[c2]
-        args, tL, tR = [], [], []
-        for a in prim_c:
-            args += [a[..., c1], a[..., c2]]
-        for a in tans_c:
-            aL, aR = a[..., c1], a[..., c2]
-            tL += [aL, torch.zeros_like(aL)]
-            tR += [torch.zeros_like(aR), aR]
-        flux = face_flux_from_q(*args, T, dz, model.gravity)
-        fL = _face_flux_tangent(*args, T, dz, model.gravity, *tL,
-                                zero_threshold=True)
-        fR = _face_flux_tangent(*args, T, dz, model.gravity, *tR,
-                                zero_threshold=True)
-        fL = fL.transpose(0, 1).reshape(9, fl.n)
-        fR = fR.transpose(0, 1).reshape(9, fl.n)
-        r_cell = r_cell.index_add(1, c1, flux).index_add(1, c2, -flux)
-        diag = diag.index_add(1, c1, fL).index_add(1, c2, -fR)
-        fL_segs.append(fL)
-        fR_segs.append(fR)
-    face_L = torch.cat(fL_segs, dim=1).contiguous()
-    face_R = torch.cat(fR_segs, dim=1).contiguous()
+        if twin:
+            faces_blocks_plain(fl, *fargs)
+        else:
+            cuda_lib.dispatch(fv, faces_blocks_cuda, faces_blocks_plain, fl,
+                              *fargs, what="K3-faces face blocks")
 
     # ---- wells: perforation-local fluxes and their exact derivatives
     nw, mp = wd["perf_cell"].shape
@@ -222,9 +151,10 @@ def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
     hc_f, pvt_f, sat_f = hc[pc_f], pvt[pc_f], sat[pc_f]
     xflow = model.params.allow_crossflow
 
+    ccq = cell_quantities_plain if twin else compute_cell_quantities
+
     def perf_local(u, wvars):
-        q = compute_cell_quantities(props, u[:, 0], u[:, 1], u[:, 2], hc_f,
-                                    pvt_f, sat_f)
+        q = ccq(props, u[:, 0], u[:, 1], u[:, 2], hc_f, pvt_f, sat_f)
         cmix = stdwells.wellbore_mixture(wvars[:, :3], cf_f, ii_f)
         return stdwells.perf_flux_formula(
             q.po, q.b.T, q.mob.T, q.rs, q.rv, wi_f, wvars[:, 3] + cdp_f,
@@ -279,12 +209,170 @@ def assemble(model, state, acc0, dt, wd, cdp) -> BlockSystem:
                             device=dev)
     ctrl_row = torch.where(closed[:, None], ctrl_bhp[None], ctrl_row)
     wd_diag = torch.cat([flux_rows, ctrl_row[:, None, :]], dim=1)
-    cw = cw * wd["open"][:, None, None, None]
-    wc = wc * wd["open"][:, None, None, None]
+    cw = (cw * wd["open"][:, None, None, None]).contiguous()
+    wc = (wc * wd["open"][:, None, None, None]).contiguous()
     return BlockSystem(r_cell=r_cell, r_well=r_well,
                        diag=diag.contiguous(), face_L=face_L, face_R=face_R,
                        cw=cw, wc=wc, wd_diag=wd_diag, perf_cell=pc,
-                       perf_mask=mask, faces=fl)
+                       perf_mask=mask, faces=fl,
+                       perf_order=torch.argsort(pc_f, stable=True))
+
+
+# ---------------------------------------------------------------------------
+# K3 face blocks: the fluxes and face_L / face_R of the assembly, folded into
+# r_cell and diag (plain versions, CUDA wrappers: csrc/blocks.cu stencil
+# form, csrc/faces.cu face-list form)
+
+def _face_inputs(fv, fc):
+    """(p3, rho, b mob, rs, rv) of the (11, n) face-input rows, and of
+    their (3, 11, n) tangent columns (a leading variable axis)."""
+    return ((fv[0:3], fv[3:6], fv[6:9], fv[9], fv[10]),
+            (fc[:, 0:3], fc[:, 3:6], fc[:, 6:9], fc[:, 9], fc[:, 10]))
+
+
+def _blocks(args, T, dz, gravity, tans_L, tans_R):
+    """face_L, face_R (9, n) (rows 3 eq + var) of faces with the gathered
+    face inputs ``args`` (L, R pairs) and the tangent columns at the left
+    and right cells, through the zero-THPRES tangent (the reference
+    assembles through a zero threshold, whose clip has a zero derivative
+    on faces with dphi == 0 exactly)."""
+    tL, tR = [], []
+    for aL, aR in zip(tans_L, tans_R):
+        tL += [aL, torch.zeros_like(aL)]
+        tR += [torch.zeros_like(aR), aR]
+    fL = _face_flux_tangent(*args, T, dz, gravity, *tL, zero_threshold=True)
+    fR = _face_flux_tangent(*args, T, dz, gravity, *tR, zero_threshold=True)
+    n = T.shape[-1]
+    # (3 var, 3 eq, n) -> rows 3*eq + var
+    return fL.transpose(0, 1).reshape(9, n), fR.transpose(0, 1).reshape(9, n)
+
+
+def face_blocks_plain(dims, fv, fc, depth, trans, gravity, r_cell, diag,
+                      face_L, face_R):
+    """The stencil faces' fluxes and blocks from K2's face inputs fv (11,
+    nc) and tangent columns fc (3, 11, nc), by direction in the
+    reference's order: r_cell += F and diag += face_L on the left cells,
+    r_cell += -F and diag += -face_R on the right cells (in place); face_L
+    and face_R (9, nf) are written at the stencil faces."""
+    prim, tans = _face_inputs(fv, fc)
+    prim = [_cells3(a, dims) for a in prim]
+    tans = [_cells3(a, dims) for a in tans]
+    dep = _cells3(depth, dims)
+    r3 = _cells3(r_cell, dims)
+    diag3 = _cells3(diag, dims)
+    ofs = 0
+    for slL, slR, nf_d in _dir_segments(dims):
+        T = trans[ofs:ofs + nf_d]
+        dz = (dep[slL] - dep[slR]).reshape(-1)
+        args = []
+        for a in prim:
+            args += [_slice(a, slL), _slice(a, slR)]
+        flux = face_flux_from_q(*args, T, dz, gravity)
+        fL, fR = _blocks(args, T, dz, gravity,
+                         [_slice(a, slL) for a in tans],
+                         [_slice(a, slR) for a in tans])
+        shp = r3[(slice(None),) + slL].shape
+        r3[(slice(None),) + slL] += flux.reshape(shp)
+        r3[(slice(None),) + slR] += -flux.reshape(shp)
+        diag3[(slice(None),) + slL] += fL.reshape((9,) + shp[1:])
+        diag3[(slice(None),) + slR] += -fR.reshape((9,) + shp[1:])
+        face_L[:, ofs:ofs + nf_d] = fL
+        face_R[:, ofs:ofs + nf_d] = fR
+        ofs += nf_d
+
+
+def faces_blocks_plain(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
+                       diag, face_L, face_R):
+    """The list's faces (all faces of a gather grid, an embedded grid's
+    extra faces after the stencil) by gather, chained through the same
+    per-cell tangent columns: r_cell and diag updated in place by
+    scatter-adds (left cells, then right cells), face_L and face_R written
+    at the list's faces."""
+    c1, c2 = fl.c1, fl.c2
+    prim, tans = _face_inputs(fv, fc)
+    T = trans[fl.first:]
+    dz = depth[c1] - depth[c2]
+    args = []
+    for a in prim:
+        args += [a[..., c1], a[..., c2]]
+    flux = face_flux_from_q(*args, T, dz, gravity)
+    fL, fR = _blocks(args, T, dz, gravity, [a[..., c1] for a in tans],
+                     [a[..., c2] for a in tans])
+    r_cell.index_add_(1, c1, flux).index_add_(1, c2, -flux)
+    diag.index_add_(1, c1, fL).index_add_(1, c2, -fR)
+    face_L[:, fl.first:] = fL
+    face_R[:, fl.first:] = fR
+
+
+def _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
+                       face_R):
+    dev = fv.device
+    for t, shape in ((fv, (11, nc)), (fc, (3, 11, nc)), (depth, (nc,)),
+                     (trans, (nf,)), (r_cell, (3, nc)), (diag, (9, nc)),
+                     (face_L, (9, nf)), (face_R, (9, nf))):
+        if (t.dtype != torch.float64 or t.device != dev
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"K3 face blocks: expected a contiguous float64 "
+                             f"{shape} tensor on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+BLOCKS_SIGS = {
+    "opm_face_blocks": [_I, _I, _I, _L] + [_P] * 4 + [cuda_lib.D]
+    + [_P] * 5,
+}
+
+
+def face_blocks_cuda(dims, fv, fc, depth, trans, gravity, r_cell, diag,
+                     face_L, face_R):
+    """K3 face blocks, stencil form, on the card; same contract as
+    face_blocks_plain (trans and the face blocks span every face of the
+    grid; the stencil faces come first)."""
+    nx, ny, nz = dims
+    nc = nx * ny * nz
+    nf = trans.shape[0]
+    _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
+                       face_R)
+    nf_d = sum(n for _, _, n in _dir_segments(dims))
+    if nf < nf_d:
+        raise ValueError(f"K3 face blocks: {nf} faces, the stencil of "
+                         f"{tuple(dims)} has {nf_d}")
+    lib = cuda_lib.load("blocks", BLOCKS_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_face_blocks(nx, ny, nz, nf, ptr(fv), ptr(fc), ptr(depth),
+                              ptr(trans), float(gravity), ptr(r_cell),
+                              ptr(diag), ptr(face_L), ptr(face_R),
+                              cuda_lib.stream_ptr(fv.device))
+    cuda_lib.check(err, "opm_face_blocks")
+    face_blocks_cuda.launches += 1
+
+
+face_blocks_cuda.launches = 0
+
+
+def faces_blocks_cuda(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
+                      diag, face_L, face_R):
+    """K3 face blocks, face-list form, on the card (over the rows of the
+    cells the list's faces touch: every cell of a gather grid, an embedded
+    grid's epilogue); same contract as faces_blocks_plain."""
+    nc = diag.shape[-1]
+    nf = trans.shape[0]
+    _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
+                       face_R)
+    if nf != fl.first + fl.n:
+        raise ValueError("K3-faces face blocks: trans must span every face "
+                         "of the grid")
+    lib = cuda_lib.load("faces", _FACES_SIGS)
+    ptr = cuda_lib.ptr
+    err = lib.opm_faces_blocks(
+        *csr_args(fl.touched), nc, nf, ptr(fv), ptr(fc), ptr(depth),
+        ptr(trans), float(gravity), ptr(r_cell), ptr(diag), ptr(face_L),
+        ptr(face_R), cuda_lib.stream_ptr(fv.device))
+    cuda_lib.check(err, "opm_faces_blocks")
+    faces_blocks_cuda.launches += 1
+
+
+faces_blocks_cuda.launches = 0
 
 
 def bapply_rows(rows9, v):
@@ -329,7 +417,6 @@ def matvec_cells_plain(diag, face_L, face_R, v, dims):
 # ---------------------------------------------------------------------------
 # K4 (and the K6 smoothing step, precond.py): CUDA wrappers (csrc/block7.cu)
 
-_P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
 BLOCK7_SIGS = {
     "opm_block7_matvec": [_I, _I, _I, _L, _I] + [_P] * 5 + [_P],
     "opm_block7_smooth": [_I, _I, _I, _L, _I] + [_P] * 7 + [_P],
@@ -490,7 +577,8 @@ def matvec_cells(sys: BlockSystem, v, dims, *, twin=False):
 
 
 # ---------------------------------------------------------------------------
-# wells (K5, plain: at most nw * mp perforations)
+# wells: the coupling blocks B and C (plain: at most nw * mp perforations),
+# and K5, the Schur complement of the well unknowns (csrc/wells.cu)
 
 def well_apply_B(sys: BlockSystem, v_cell):
     """Well-equation rows x cell vars: B v_cell -> (nw, 4)."""
@@ -522,27 +610,143 @@ def matvec(sys: BlockSystem, v_cell, v_well, dims):
     return out_c, out_w
 
 
+def _dinv_apply(Dinv, rw):
+    return torch.einsum("wij,wj->wi", Dinv, rw)
+
+
+def schur_matvec_plain(sys: BlockSystem, Dinv, v, out):
+    """The reduced operator's well term: out - C D^-1 (B v) (a new
+    tensor)."""
+    return out - well_apply_C(sys, _dinv_apply(Dinv, well_apply_B(sys, v)))
+
+
+def schur_rhs_plain(sys: BlockSystem, Dinv):
+    """The reduced right-hand side r_cell - C D^-1 r_well."""
+    return sys.r_cell - well_apply_C(sys, _dinv_apply(Dinv, sys.r_well))
+
+
+def schur_recover_plain(sys: BlockSystem, Dinv, x):
+    """The well unknowns x_w = D^-1 (r_well - B x) (recoverVariable)."""
+    return _dinv_apply(Dinv, sys.r_well - well_apply_B(sys, x))
+
+
+WELLS_SIGS = {
+    "opm_schur_matvec": [_I, _I] + [_P] * 5 + [_L, _P, _P, _P],
+    "opm_schur_recover": [_I, _I] + [_P] * 5 + [_L, _P, _P, _P, _P],
+    "opm_schur_rhs": [_I, _I] + [_P] * 5 + [_L, _P, _P, _P, _P],
+}
+# shared memory of one block: 4 words per perforation, 4 per well
+_K5_SMEM = 48 * 1024
+
+
+def _wells_args(sys: BlockSystem, Dinv, *vecs):
+    """The well arrays of K5's entries, checked: contiguous float64 blocks
+    and (3, nc) vectors on one device."""
+    nw, mp = sys.perf_cell.shape
+    nc = sys.nc
+    dev = sys.r_cell.device
+    if 8 * (4 * nw * mp + 4 * nw) > _K5_SMEM:
+        raise ValueError(f"K5: {nw * mp} perforations exceed one block's "
+                         "shared memory")
+    for t, shape in ((sys.wc, (nw, mp, 3, 3)), (sys.cw, (nw, mp, 3, 4)),
+                     (Dinv, (nw, 4, 4)), (sys.r_well, (nw, 4)),
+                     (sys.r_cell, (3, nc))) + tuple((v, (3, nc))
+                                                    for v in vecs):
+        if (t.dtype != torch.float64 or t.device != dev
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"K5: expected a contiguous float64 {shape} "
+                             f"tensor on {dev}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    for t in (sys.perf_cell, sys.perf_order):
+        if (t is None or t.dtype != torch.int64 or not t.is_contiguous()
+                or t.device != dev or t.numel() != nw * mp):
+            raise ValueError("K5: perf_cell and perf_order must be "
+                             f"contiguous int64 tensors of {nw * mp} "
+                             f"perforations on {dev}")
+    ptr = cuda_lib.ptr
+    return (nw, mp, ptr(sys.perf_cell), ptr(sys.wc), ptr(sys.cw), ptr(Dinv),
+            ptr(sys.perf_order), nc)
+
+
+def schur_matvec_cuda(sys: BlockSystem, Dinv, v, out):
+    """K5's reduced-operator entry on the card; same contract as
+    schur_matvec_plain, except that ``out`` is updated in place (only the
+    perforated cells' rows) and returned."""
+    args = _wells_args(sys, Dinv, v, out)
+    if args[0]:
+        lib = cuda_lib.load("wells", WELLS_SIGS)
+        err = lib.opm_schur_matvec(*args, cuda_lib.ptr(v), cuda_lib.ptr(out),
+                                   cuda_lib.stream_ptr(v.device))
+        cuda_lib.check(err, "opm_schur_matvec")
+        schur_matvec_cuda.launches += 1
+    return out
+
+
+schur_matvec_cuda.launches = 0
+
+
+def schur_rhs_cuda(sys: BlockSystem, Dinv):
+    """K5's right-hand-side entry on the card; same contract as
+    schur_rhs_plain."""
+    args = _wells_args(sys, Dinv)
+    out = torch.empty_like(sys.r_cell)
+    lib = cuda_lib.load("wells", WELLS_SIGS)
+    err = lib.opm_schur_rhs(*args, cuda_lib.ptr(sys.r_cell),
+                            cuda_lib.ptr(sys.r_well), cuda_lib.ptr(out),
+                            cuda_lib.stream_ptr(out.device))
+    cuda_lib.check(err, "opm_schur_rhs")
+    schur_rhs_cuda.launches += 1
+    return out
+
+
+schur_rhs_cuda.launches = 0
+
+
+def schur_recover_cuda(sys: BlockSystem, Dinv, x):
+    """K5's recovery entry on the card; same contract as
+    schur_recover_plain."""
+    args = _wells_args(sys, Dinv, x)
+    xw = torch.empty_like(sys.r_well)
+    if args[0]:
+        lib = cuda_lib.load("wells", WELLS_SIGS)
+        err = lib.opm_schur_recover(*args, cuda_lib.ptr(x),
+                                    cuda_lib.ptr(sys.r_well),
+                                    cuda_lib.ptr(xw),
+                                    cuda_lib.stream_ptr(x.device))
+        cuda_lib.check(err, "opm_schur_recover")
+        schur_recover_cuda.launches += 1
+    return xw
+
+
+schur_recover_cuda.launches = 0
+
+
 def schur_eliminate_wells(sys: BlockSystem, dims, *, twin=False):
-    """Schur-eliminate the well unknowns (per-well dense D^-1; reduced
-    cell operator A - C D^-1 B). Returns (reduced_matvec, rhs (3, nc),
-    recover(x_cell) -> x_well (nw, 4)). ``twin``: the cell operator by
-    K4's and K4-faces' plain twins on any device (the card's whole-solve
+    """Schur-eliminate the well unknowns (per-well dense D^-1 by the plain
+    ``inv4x4``; reduced cell operator A - C D^-1 B). Returns
+    (reduced_matvec, rhs (3, nc), recover(x_cell) -> x_well (nw, 4)): the
+    cell operator by K4/K4-faces, the well terms by K5. ``twin``: all of
+    them by their plain twins on any device (the card's whole-solve
     comparison)."""
     from opm_tpu_torch.linalg.precond import inv4x4
 
-    Dinv = inv4x4(sys.wd_diag)
+    Dinv = inv4x4(sys.wd_diag).contiguous()
 
-    def dinv_apply(rw):
-        return torch.einsum("wij,wj->wi", Dinv, rw)
+    def k5(cuda_fn, plain_fn, *args):
+        if twin:
+            return plain_fn(sys, Dinv, *args)
+        return cuda_lib.dispatch(sys.r_cell, cuda_fn, plain_fn, sys, Dinv,
+                                 *args, what="K5")
 
-    rhs = sys.r_cell - well_apply_C(sys, dinv_apply(sys.r_well))
+    rhs = k5(schur_rhs_cuda, schur_rhs_plain)
 
     def recover(x_cell):
-        return dinv_apply(sys.r_well - well_apply_B(sys, x_cell))
+        return k5(schur_recover_cuda, schur_recover_plain,
+                  x_cell.contiguous())
 
     def reduced_matvec(v_cell):
+        v_cell = v_cell.contiguous()
         out_c = matvec_cells(sys, v_cell, dims, twin=twin)
-        w = dinv_apply(well_apply_B(sys, v_cell))
-        return out_c - well_apply_C(sys, w)
+        return k5(schur_matvec_cuda, schur_matvec_plain, v_cell, out_c)
 
     return reduced_matvec, rhs, recover

@@ -2,11 +2,14 @@
 
 Port of the JAX package's props/blackoil.py. Phase indexing is canonical
 (water=0, oil=1, gas=2). Each ``*_b_mu`` method returns (b, mu) of one
-phase from one K1 lookup.
+phase from one K1 lookup. ``cell_pack`` gives the ported tables as one
+device buffer for kernel K2 (``csrc/cells.cu``), which evaluates the cell
+quantities without going through these methods.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Optional
 
@@ -121,3 +124,99 @@ class BlackoilProps:
         if self.rock is None:
             return torch.ones_like(p)
         return self.rock.pv_mult(p, reg)
+
+    # -- the packed form read by kernel K2 -----------------------------------
+    def cell_pack(self) -> "CellPack":
+        """The ported tables as K2's input, built once per props object."""
+        if getattr(self, "_cell_pack", None) is None:
+            self._cell_pack = CellPack(self)
+        return self._cell_pack
+
+
+class CellPack:
+    """The tables of ``BlackoilProps`` as K2 reads them: one contiguous
+    float64 buffer ``tab`` on the props' device and ``meta`` (and
+    ``c_meta``, the same as a C int array), the offsets and sizes of each
+    table in it, in the order of ``META`` (the field order of ``Layout``
+    in csrc/cells.cu). Per-region arrays keep
+    their (nreg, ...) layout; K2 takes row 0 of a table with one region
+    and the cell's PVTNUM/SATNUM row otherwise, as ``reg_pick`` and the
+    lookups do."""
+
+    META = ("live", "disgas", "rock",
+            "w_nreg", "w_pref", "w_bref", "w_comp", "w_muref", "w_visc",
+            "od_nreg", "od_n", "od_x", "od_y",
+            "ol_nreg", "ol_nrec", "ol_ndp", "ol_rs", "ol_pbub", "ol_dp",
+            "ol_grid",
+            "g_nreg", "g_n", "g_x", "g_y",
+            "s_nreg", "s_nw", "s_sw", "s_wc", "s_ng", "s_sg", "s_gc",
+            "s_swco",
+            "r_nreg", "r_pref", "r_comp",
+            "d_nreg", "d_sd")
+
+    def __init__(self, props: BlackoilProps):
+        missing = [name for name, t in (("PVTW", props.water),
+                                        ("PVDO/PVTO", props.oil_dead
+                                         or props.oil_live),
+                                        ("PVDG", props.gas_dead),
+                                        ("SWOF/SGOF", props.satfunc))
+                   if t is None]
+        if missing:
+            raise NotImplementedError(
+                f"cell quantities without {', '.join(missing)} are not "
+                "ported (ROADMAP Queue 1 item 2)")
+        parts = []
+        size = 0
+        m = dict.fromkeys(self.META, 0)
+
+        def add(t):
+            nonlocal size
+            a = t.detach().to("cpu", torch.float64).contiguous().reshape(-1)
+            parts.append(a)
+            size += a.numel()
+            return size - a.numel()
+
+        w = props.water
+        m["w_nreg"] = w.p_ref.shape[0]
+        for key, t in (("w_pref", w.p_ref), ("w_bref", w.b_ref),
+                       ("w_comp", w.comp), ("w_muref", w.mu_ref),
+                       ("w_visc", w.viscosibility)):
+            m[key] = add(t)
+        if props.oil_live is not None:
+            lo = props.oil_live
+            m["live"] = 1
+            m["disgas"] = int(bool(props.disgas))
+            m["ol_nreg"], m["ol_nrec"] = lo.rs_tab.shape
+            m["ol_ndp"] = lo.dp_grid.shape[1]
+            m["ol_rs"] = add(lo.rs_tab)
+            m["ol_pbub"] = add(lo.pbub_tab)
+            m["ol_dp"] = add(lo.dp_grid)
+            m["ol_grid"] = add(lo.grids)
+        else:
+            od = props.oil_dead
+            m["od_nreg"], m["od_n"] = od.p.shape
+            m["od_x"] = add(od.p)
+            m["od_y"] = add(od.cols)
+        g = props.gas_dead
+        m["g_nreg"], m["g_n"] = g.p.shape
+        m["g_x"] = add(g.p)
+        m["g_y"] = add(g.cols)
+        sf = props.satfunc
+        m["s_nreg"], m["s_nw"] = sf.sw.shape
+        m["s_ng"] = sf.sg.shape[1]
+        m["s_sw"] = add(sf.sw)
+        m["s_wc"] = add(sf.w_cols)
+        m["s_sg"] = add(sf.sg)
+        m["s_gc"] = add(sf.g_cols)
+        m["s_swco"] = add(sf.swco)
+        if props.rock is not None:
+            m["rock"] = 1
+            m["r_nreg"] = props.rock.p_ref.shape[0]
+            m["r_pref"] = add(props.rock.p_ref)
+            m["r_comp"] = add(props.rock.comp)
+        m["d_nreg"] = props.surface_density.shape[0]
+        m["d_sd"] = add(props.surface_density)
+        self.tab = torch.cat(parts).to(props.device)
+        self.meta = [int(m[k]) for k in self.META]
+        # the layout as the C array K2's entry points read
+        self.c_meta = (ctypes.c_int * len(self.meta))(*self.meta)

@@ -54,8 +54,12 @@ def _paths(name: str):
 
 
 def _fresh(src: str, out: str) -> bool:
-    return os.path.exists(out) and os.path.getmtime(out) >= \
-        os.path.getmtime(src)
+    """The library is newer than its source and every shared header."""
+    if not os.path.exists(out):
+        return False
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith(".cuh")]
+    return os.path.getmtime(out) >= max(os.path.getmtime(d) for d in deps)
 
 
 def build_all(names) -> list:

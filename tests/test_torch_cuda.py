@@ -1,8 +1,10 @@
 """The port's kernels on the card, where chip_smoke.py does not reach:
 K1 with per-query region rows (nreg > 1; SPE1 has one region), the dense
 Jacobian through the kernels against the plain CPU path as a test of its
-own, a CPR solve through the kernels against their twins, and the
-face-list kernels and K10 against their twins on the toy Norne-like deck.
+own, a CPR solve through the kernels against their twins, the face-list
+kernels and K10 against their twins on the toy Norne-like deck, and the
+assembly kernels (K2, the K3 face blocks in both forms, K5) against their
+twins on the toy Norne-like deck in both representations.
 chip_smoke.py holds every kernel against its plain version at the SPE1,
 SPE10-2 and full Norne-class shapes.
 
@@ -75,13 +77,15 @@ def test_k1_region_rows_match_plain(dev):
 
 
 def test_jacobian_through_kernels_matches_cpu(dev, sims):
-    """torch.func.jacfwd of the residual on the card (through K1 and K3)
-    against the same Jacobian on the CPU's plain path: 1e-10 of max|J|."""
-    from opm_tpu_torch.models.blackoil import (make_well_device_arrays,
+    """torch.func.jacfwd of the residual on the card (through the
+    forward-mode rules of K2, whose columns carry the table lookups, and
+    K3) against the same Jacobian on the CPU's plain path: 1e-10 of
+    max|J|."""
+    from opm_tpu_torch.models.blackoil import (cells_columns_cuda,
+                                               make_well_device_arrays,
                                                tpfa_div_tangent_cuda)
     from opm_tpu_torch.sim.blackoil import init_well_state, report_step_wells
     from opm_tpu_torch.sim.init import initial_state
-    from opm_tpu_torch.utils import tables as k1
     from opm_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
     out = []
     for sim in sims:
@@ -95,10 +99,10 @@ def test_jacobian_through_kernels_matches_cpu(dev, sims):
         st = state_from_numpy(host, sim.device)
         acc0 = sim.model.accumulation(st)
         cdp = sim.solver._cdp(st, wd)
-        n0 = (k1.interp1_cuda.launches, tpfa_div_tangent_cuda.launches)
+        n0 = (cells_columns_cuda.launches, tpfa_div_tangent_cuda.launches)
         J, r = sim.solver.jacobian(st, acc0, 86400.0, wd, cdp)
         if sim.device.type == "cuda":
-            assert k1.interp1_cuda.launches > n0[0]
+            assert cells_columns_cuda.launches > n0[0]
             assert tpfa_div_tangent_cuda.launches > n0[1]
         out.append((J.cpu(), r.cpu()))
     (Jg, rg), (Jc, rc) = out
@@ -288,3 +292,91 @@ def test_k10_matches_twins_on_toy(dev):
                                                bb)) <= 1e-12
     b = torch.as_tensor(rng.standard_normal(amg.n0), device=dev)
     assert _scaled(amg.vcycle(vk, b), amg.vcycle(vk, b, twin=True)) <= 1e-6
+
+
+@pytest.mark.parametrize("knob", [None, "0"], ids=["embedded", "gather"])
+def test_assembly_kernels_match_twins_on_toy(dev, knob):
+    """K2 (values, tangent columns, the assembly entry), the K3 face blocks
+    (the stencil form and the embedded epilogue, or the gather grid's face
+    list) and K5's three entries against their plain twins on the card, on
+    the toy Norne-like deck's first Newton system with seeded pressure
+    noise: K2's values relative 1e-13, its tangents, the blocks and K5 1e-12
+    of each row's max; and the whole assembly through the kernels against
+    one through the twins, field by field (1e-12 of max)."""
+    from opm_tpu_torch.linalg.precond import inv4x4
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize as lz
+    from opm_tpu_torch.solver.newton import connection_offsets
+
+    sim, st, _ = _norne_toy_system(dev, knob)
+    m = sim.model
+    rng = np.random.default_rng(11)
+    st = st._replace(pressure=st.pressure + torch.as_tensor(
+        rng.standard_normal(m.nc) * 2.0e4, device=dev))
+    props, pack = m.props, m.props.cell_pack()
+    a = (st.pressure, st.sw, st.x, st.hcstate, m.pvtnum, m.satnum)
+
+    def row_scaled(x, y):
+        x, y = x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])
+        d = (x - y).abs().amax(dim=1)
+        return float(torch.where(d == 0, 0.0,
+                                 d / y.abs().amax(dim=1)).max())
+
+    n0 = mb.cells_values_cuda.launches
+    assert _rel(mb.cells_values_cuda(pack, *a),
+                mb.cells_values_plain(props, *a)) <= 1e-13
+    assert mb.cells_values_cuda.launches == n0 + 1
+    assert row_scaled(mb.cells_columns_cuda(pack, *a),
+                      mb.cells_columns_plain(props, *a)) <= 1e-12
+    acc0 = m.accumulation(st) * 0.999
+    ka = mb.cells_assemble_cuda(pack, *a, acc0, m.pv, 86400.0)
+    pa = mb.cells_assemble_plain(props, *a, acc0, m.pv, 86400.0)
+    assert _rel(ka[0], pa[0]) <= 1e-13
+    for x, y in zip(ka[1:], pa[1:]):
+        assert row_scaled(x, y) <= 1e-12
+    fv, fc, r0, d0 = pa
+    nf = m.trans.shape[0]
+
+    def blocks(fn, lead, r, d):
+        fL = torch.zeros((9, nf), dtype=torch.float64, device=dev)
+        fR = torch.zeros_like(fL)
+        fn(lead, fv, fc, m.depth, m.trans, m.gravity, r, d, fL, fR)
+        return r, d, fL, fR
+
+    r_s, d_s = r0, d0
+    if m.op_dims is not None:
+        ns = m.nf_canonical
+        kb = blocks(lz.face_blocks_cuda, m.op_dims, r0.clone(), d0.clone())
+        pb = blocks(lz.face_blocks_plain, m.op_dims, r0.clone(), d0.clone())
+        for x, y in zip(kb[:2] + tuple(f[:, :ns] for f in kb[2:]),
+                        pb[:2] + tuple(f[:, :ns] for f in pb[2:])):
+            assert row_scaled(x, y) <= 1e-12
+        r_s, d_s = pb[0], pb[1]
+    f0 = m.faces.first
+    kl = blocks(lz.faces_blocks_cuda, m.faces, r_s.clone(), d_s.clone())
+    pl = blocks(lz.faces_blocks_plain, m.faces, r_s.clone(), d_s.clone())
+    for x, y in zip(kl[:2] + tuple(f[:, f0:] for f in kl[2:]),
+                    pl[:2] + tuple(f[:, f0:] for f in pl[2:])):
+        assert row_scaled(x, y) <= 1e-12
+    ws = sim.well_names
+    assert len(ws) > 0
+    from opm_tpu_torch.models.blackoil import make_well_device_arrays
+    from opm_tpu_torch.sim.blackoil import report_step_wells
+    w = report_step_wells(sim.schedule.report_steps[0], sim.grid, ws,
+                          sim.max_perf)
+    wd = make_well_device_arrays(w, sim.grid.gravity, dev)
+    cdp = connection_offsets(m, st, wd)
+    sys = lz.assemble(m, st, acc0, 86400.0, wd, cdp)
+    tw = lz.assemble(m, st, acc0, 86400.0, wd, cdp, twin=True)
+    for f in ("r_cell", "r_well", "diag", "face_L", "face_R", "cw", "wc",
+              "wd_diag"):
+        assert _scaled(getattr(sys, f), getattr(tw, f)) <= 1e-12, f
+    Dinv = inv4x4(sys.wd_diag).contiguous()
+    v = torch.as_tensor(rng.standard_normal((3, m.nc)), device=dev)
+    out = torch.as_tensor(rng.standard_normal((3, m.nc)), device=dev)
+    assert _scaled(lz.schur_matvec_cuda(sys, Dinv, v, out.clone()),
+                   lz.schur_matvec_plain(sys, Dinv, v, out)) <= 1e-12
+    assert _scaled(lz.schur_rhs_cuda(sys, Dinv),
+                   lz.schur_rhs_plain(sys, Dinv)) <= 1e-12
+    assert _scaled(lz.schur_recover_cuda(sys, Dinv, v),
+                   lz.schur_recover_plain(sys, Dinv, v)) <= 1e-12
