@@ -8,9 +8,11 @@ Phases (each prints a line of its own; any failure exits non-zero):
    and turns TF32 off for matmul and cuDNN;
 2. build: compiles the CUDA kernels (K1 tables.cu, K2 cells.cu, K3
    tpfa.cu, the K3 face blocks blocks.cu, K4/K6 block7.cu, K5 wells.cu,
-   K6 cpr.cu, K7 gmg.cu, K10 amg.cu, the face-list kernels faces.cu), one
-   nvcc process each, all started together, and JIT-compiles the Triton
-   kernels (K8, K9);
+   K6 cpr.cu, K7 gmg.cu, K8 krylov.cu, K10 amg.cu, the face-list kernels
+   faces.cu), one nvcc process each, all started together, prints what
+   ptxas says of krylov.cu's kernels (registers: K8's cooperative grid must
+   be co-resident), holds K8 against its twins at an odd length, and
+   JIT-compiles the Triton kernels (K9);
 3. kernel == plain on the card: (a) K1/K2/K3/K9 at SPE1's shapes (K3's
    tangent also at the main path's jacfwd batch, B = 3 nc + 4 nw, and the
    whole dense Jacobian through the kernels' forward-mode rules against
@@ -19,7 +21,8 @@ Phases (each prints a line of its own; any failure exits non-zero):
    against its plain version (CUDA events, warm, median of 20); (c) the
    assembly kernels (K2's assembly entry, the K3 face blocks, K5) and the
    CPR kernels K4, K6, K7 and K8 on real assembled systems (SPE1 and
-   SPE10-2 initial state after the well initialisation, first dt), timed
+   SPE10-2 initial state after the well initialisation, first dt; K8's
+   steps also run twice for equal bits and checked to allocate nothing), timed
    at SPE10-2 with each one's bound and, where one PyTorch call computes
    the same function, that call's time, and one whole assembly through
    the kernels against one through their twins; then one SPE10-2 Newton
@@ -31,7 +34,8 @@ Phases (each prints a line of its own; any failure exits non-zero):
    launch counters of K1/K3/K9 read over that run;
 5. SPE10-2's first report step (20 days) end to end on the card through
    the CPR route, with the launch counters of K4/K6/K7/K8 read over that
-   run and host-clock sections (each ended by a synchronize);
+   run (K8: two launches per BiCGStab iteration, two per solve) and
+   host-clock sections (each ended by a synchronize);
 5b. the toy SPE10-like deck on the card against
    data/spe10like_toy_reference_cpu.json;
 6. the Norne-class corner-point field at full size (norne_like_deck:
@@ -41,13 +45,15 @@ Phases (each prints a line of its own; any failure exits non-zero):
    AMG). On the first Newton system of each, the assembly kernels (K2, the
    K3 face blocks in stencil form and as the embedded epilogue, or in
    face-list form on the gather grid, K5), the face-list kernels
-   (K3-faces, K4-faces matvec and smoothing step, K6 cells and K6-faces,
-   the masked K9 norms) and every K10 level operation, the value
+   (K3-faces, K4-faces' pack into its sliced-ELL layout, matvec and
+   smoothing step, K6 cells and K6-faces, the masked K9 norms), K8 at the
+   gather grid's shapes, and every K10 level operation, the value
    coarsening and a whole AMG V-cycle against their plain versions, timed
    with bounds and yardsticks; one gather Newton system solved with the
    kernels and with the twins; then the first report step (5 days) in each
    representation through SimulatorFullyImplicitBlackoil with no device
-   argument, with its counts, wall time, sections and launch counters,
+   argument, with its counts, wall time, sections and launch counters
+   (one K4-faces pack per Newton system),
    each held to the JAX package's CPU run of the same representation
    (data/nornelike_full_reference_cpu.json) at the limits of phase 4, and
    the two to each other as closely as the reference's two runs agree;
@@ -219,7 +225,7 @@ class Kernels:
     def __init__(self):
         from opm_tpu_torch.linalg import amg as k10
         from opm_tpu_torch.linalg import gmg as k7
-        from opm_tpu_torch.linalg import kernels_triton as k8
+        from opm_tpu_torch.linalg import kernels_k8 as k8
         from opm_tpu_torch.linalg import precond as k6
         from opm_tpu_torch.models import blackoil as mb
         from opm_tpu_torch.models import linearize as k4
@@ -257,24 +263,22 @@ class Kernels:
              f"{JAX_PKG}/linalg/gmg.py:305", k7.restrict_cuda),
             ("K7 gmg_prolong_smooth", "cuda", f"{P}/csrc/gmg.cu",
              f"{JAX_PKG}/linalg/gmg.py:308", k7.prolong_smooth_cuda),
-            ("K8 init", "triton", f"{P}/linalg/kernels_triton.py",
-             f"{JAX_PKG}/linalg/krylov.py:59", k8.init_triton),
-            ("K8 p_update", "triton", f"{P}/linalg/kernels_triton.py",
-             f"{JAX_PKG}/linalg/krylov.py:77", k8.p_update_triton),
-            ("K8 dot_alpha", "triton", f"{P}/linalg/kernels_triton.py",
-             f"{JAX_PKG}/linalg/krylov.py:80", k8.dot_alpha_triton),
-            ("K8 s_update", "triton", f"{P}/linalg/kernels_triton.py",
-             f"{JAX_PKG}/linalg/krylov.py:84", k8.s_update_triton),
-            ("K8 dot_omega", "triton", f"{P}/linalg/kernels_triton.py",
-             f"{JAX_PKG}/linalg/krylov.py:87", k8.dot_omega_triton),
-            ("K8 xr_update", "triton", f"{P}/linalg/kernels_triton.py",
-             f"{JAX_PKG}/linalg/krylov.py:90", k8.xr_update_triton),
+            ("K8 init", "cuda", f"{P}/csrc/krylov.cu",
+             f"{JAX_PKG}/linalg/krylov.py:59", k8.init_cuda),
+            ("K8 p_update", "cuda", f"{P}/csrc/krylov.cu",
+             f"{JAX_PKG}/linalg/krylov.py:77", k8.p_update_cuda),
+            ("K8 alpha_s", "cuda", f"{P}/csrc/krylov.cu",
+             f"{JAX_PKG}/linalg/krylov.py:80-84", k8.alpha_s_cuda),
+            ("K8 omega_xr_p", "cuda", f"{P}/csrc/krylov.cu",
+             f"{JAX_PKG}/linalg/krylov.py:87-92,70-77", k8.omega_xr_p_cuda),
             ("K3-faces faces_div", "cuda", f"{P}/csrc/faces.cu",
              f"{JAX_PKG}/models/blackoil.py:319", mb.faces_div_cuda),
             ("K4-faces matvec", "cuda", f"{P}/csrc/faces.cu",
              f"{JAX_PKG}/models/linearize.py:474", k4.faces_matvec_cuda),
             ("K4-faces smooth", "cuda", f"{P}/csrc/faces.cu",
              f"{JAX_PKG}/linalg/precond.py:402", k4.faces_smooth_cuda),
+            ("K4-faces pack", "cuda", f"{P}/csrc/faces.cu",
+             f"{JAX_PKG}/models/linearize.py:474-482", k4.faces_pack_cuda),
             ("K6 cpr_setup_cells", "cuda", f"{P}/csrc/cpr.cu",
              f"{JAX_PKG}/linalg/precond.py:174", k6.cpr_setup_cells_cuda),
             ("K6-faces cpr_faces", "cuda", f"{P}/csrc/cpr.cu",
@@ -817,7 +821,6 @@ def compare_cpr_kernels(K, sim, amg, sys, seed, label, timed):
     import torch
 
     from opm_tpu_torch.linalg import gmg as k7
-    from opm_tpu_torch.linalg import kernels_triton as k8
     from opm_tpu_torch.linalg import precond as k6
     from opm_tpu_torch.models import linearize as k4
 
@@ -943,71 +946,121 @@ def compare_cpr_kernels(K, sim, amg, sys, seed, label, timed):
                       lambda: amg.vcycle(vals, bp, twin=True)),
                   levels=len(amg.levels), coarsest_n=amg.coarsest_n)
 
-    # K8: each step from the same scalars and vectors
-    vecs = [rnd(3, nc) for _ in range(7)]
-    sc0 = k8.new_scalars(dev)
-    k8.init_plain(vecs[0], sc0)
-    sc0[k8.ALPHA] = 0.7
-    sc0[k8.OMEGA] = 0.3
-
-    def both(step, *args):
-        sk, sp = sc0.clone(), sc0.clone()
-        ka = [a.clone() for a in args]
-        pa = [a.clone() for a in args]
-        ko = getattr(k8, step + "_triton")(*ka, sk)
-        po = getattr(k8, step + "_plain")(*pa, sp)
-        return ko, po, sk, sp
-
-    def chk8(name, ko, po, sk, sp, slots):
-        ko = ko if isinstance(ko, tuple) else (ko,)
-        po = po if isinstance(po, tuple) else (po,)
-        chk(name, TOL_K8_VEC, [(a, b) for a, b in zip(ko, po)
-                               if a is not None])
-        chk(name, TOL_K8_DOT, [(sk[s], sp[s]) for s in slots], how=rel_err)
-
-    b_, p_, r_, v_, s_, t_, h_ = vecs
-    ko, po, sk, sp = both("init", b_)
-    chk8("K8 init", (), (), sk, sp, [k8.RHO1, k8.BETA, k8.RR, k8.BB])
-    ko, po, sk, sp = both("p_update", p_, r_, v_)
-    chk8("K8 p_update", ko, po, sk, sp, [])
-    ko, po, sk, sp = both("dot_alpha", h_, v_)
-    chk8("K8 dot_alpha", (), (), sk, sp, [k8.ALPHA])
-    ko, po, sk, sp = both("s_update", r_, v_)
-    chk8("K8 s_update", ko, po, sk, sp, [])
-    ko, po, sk, sp = both("dot_omega", t_, s_)
-    chk8("K8 dot_omega", (), (), sk, sp, [k8.OMEGA])
-    ko, po, sk, sp = both("xr_update", b_.clone(), r_, s_, t_, p_, v_, h_)
-    chk8("K8 xr_update", ko, po, sk, sp, [k8.RHO1, k8.RHO, k8.BETA, k8.RR])
-    if timed:
-        n = 3 * nc
-        sc = sc0.clone()
-        sc[k8.BETA] = 0.5     # keep the repeated in-place updates bounded
-        alpha = float(sc[k8.ALPHA])
-        steps = [
-            ("K8 init", lambda: k8.init_triton(b_, sc),
-             lambda: k8.init_plain(b_, sc), (b_,), (), 2 * n,
-             lambda: torch.dot(b_.reshape(-1), b_.reshape(-1))),
-            ("K8 p_update", lambda: k8.p_update_triton(p_, r_, v_, sc),
-             lambda: k8.p_update_plain(p_, r_, v_, sc), (p_, r_, v_),
-             (p_,), 4 * n, None),
-            ("K8 dot_alpha", lambda: k8.dot_alpha_triton(h_, v_, sc),
-             lambda: k8.dot_alpha_plain(h_, v_, sc), (h_, v_), (), 2 * n,
-             lambda: torch.dot(h_.reshape(-1), v_.reshape(-1))),
-            ("K8 s_update", lambda: k8.s_update_triton(r_, v_, sc),
-             lambda: k8.s_update_plain(r_, v_, sc), (r_, v_), (s_,),
-             2 * n, lambda: torch.add(r_, v_, alpha=-alpha)),
-            ("K8 dot_omega", lambda: k8.dot_omega_triton(t_, s_, sc),
-             lambda: k8.dot_omega_plain(t_, s_, sc), (t_, s_), (), 4 * n,
-             None),
-            ("K8 xr_update",
-             lambda: k8.xr_update_triton(x, r_, s_, t_, p_, v_, h_, sc),
-             lambda: k8.xr_update_plain(x, r_, s_, t_, p_, v_, h_, sc),
-             (x, r_, s_, t_, p_, v_, h_), (x, r_), 10 * n, None),
-        ]
-        for name, kfn, pfn, ins, outs, flops, lib in steps:
-            timing(name, kfn, pfn, ins, outs, flops, lib)
+    compare_k8(K, (3, nc), dev, seed, label, timed)
     torch.cuda.synchronize()
     return vc
+
+
+def compare_k8(K, shape, dev, seed, label, timed):
+    """K8's steps against their twins on seeded vectors of ``shape`` (a
+    solve's (3, nc)), each step from the same vectors and scalars: vectors
+    to TOL_K8_VEC of max, scalar slots to TOL_K8_DOT relative; a step run
+    twice gives the same bits; no step allocates device memory. Timed with
+    bounds and yardsticks when ``timed``."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.linalg import kernels_k8 as k8
+
+    rng = np.random.default_rng(seed + 9)
+
+    def rnd():
+        return torch.as_tensor(rng.standard_normal(shape), device=dev)
+
+    b, r, p, v, t, s, phat, shat, x = (rnd() for _ in range(9))
+    rhat = b
+    ws = k8.Workspace(b, kernels=True)
+    sp = k8.new_scalars(dev)
+
+    def chk(name, pairs, slots):
+        for a, c in pairs:
+            K.note(name, float((a - c).abs().max()))
+            e = scaled_err(a, c)
+            if not e <= TOL_K8_VEC:
+                fail(f"{label}: {name} differs from its plain version "
+                     f"({e:.3e} of max > {TOL_K8_VEC:g})")
+        for i in slots:
+            K.note(name, abs(float(ws.sc[i]) - float(sp[i])))
+            e = rel_err(ws.sc[i:i + 1], sp[i:i + 1])
+            if not e <= TOL_K8_DOT:
+                fail(f"{label}: {name} scalar slot {i} differs from its "
+                     f"plain version ({e:.3e} > {TOL_K8_DOT:g})")
+
+    k8.init_cuda(ws, b)
+    k8.init_plain(b, sp)
+    chk("K8 init", (), range(k8.EPS))
+    sp[k8.ALPHA], sp[k8.OMEGA], sp[k8.BETA] = 0.7, 0.3, 0.5
+    ws.sc.copy_(sp)
+    pk = k8.p_update_cuda(ws, p.clone(), r, v)
+    chk("K8 p_update", [(pk, k8.p_update_plain(p, r, v, sp))], ())
+    sk = k8.alpha_s_cuda(ws, rhat, v, r).clone()
+    sc_k = ws.sc.clone()
+    chk("K8 alpha_s", [(sk, k8.alpha_s_plain(rhat, v, r, sp))],
+        [k8.ALPHA])
+    ws.sc.copy_(sc_k)
+    k8.alpha_s_cuda(ws, rhat, v, r)
+    if not (torch.equal(ws.s, sk) and torch.equal(ws.sc, sc_k)):
+        fail(f"{label}: K8 alpha_s run twice differs")
+    ws.sc.copy_(sp)
+    xk, rk, pk = (a.clone() for a in (x, r, p))
+    k8.omega_xr_p_cuda(ws, t, s, xk, rk, phat, shat, rhat, pk, v)
+    chk("K8 omega_xr_p", list(zip(
+        (xk, rk, pk),
+        k8.omega_xr_p_plain(t, s, x, r, phat, shat, rhat, p, v, sp))),
+        [k8.OMEGA, k8.RHO, k8.RHO1, k8.BETA, k8.RR])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    for _ in range(3):
+        k8.init_cuda(ws, b)
+        k8.p_update_cuda(ws, pk, rk, v)
+        k8.alpha_s_cuda(ws, rhat, v, rk)
+        k8.omega_xr_p_cuda(ws, t, ws.s, xk, rk, phat, shat, rhat, pk, v)
+    torch.cuda.synchronize()
+    if torch.cuda.memory_stats().get("allocation.all.allocated", 0) != \
+            before:
+        fail(f"{label}: a K8 step allocated device memory")
+    if not timed:
+        return
+    n = b.numel()
+    alpha = 0.7
+    scp = sp.clone()
+    steps = [
+        ("K8 init", lambda: k8.init_cuda(ws, b),
+         lambda: k8.init_plain(b, scp), (b,), (), 2 * n,
+         lambda: torch.dot(b.reshape(-1), b.reshape(-1))),
+        ("K8 p_update", lambda: k8.p_update_cuda(ws, pk, rk, v),
+         lambda: k8.p_update_plain(p, r, v, scp), (p, r, v), (p,), 4 * n,
+         None),
+        ("K8 alpha_s", lambda: k8.alpha_s_cuda(ws, rhat, v, r),
+         lambda: k8.alpha_s_plain(rhat, v, r, scp), (rhat, v, r), (s,),
+         4 * n, lambda: (torch.dot(rhat.reshape(-1), v.reshape(-1)),
+                         torch.add(r, v, alpha=-alpha))),
+        ("K8 omega_xr_p",
+         lambda: k8.omega_xr_p_cuda(ws, t, s, xk, rk, phat, shat, rhat, pk,
+                                    v),
+         lambda: k8.omega_xr_p_plain(t, s, x, r, phat, shat, rhat, p, v,
+                                     scp),
+         (t, s, x, phat, shat, rhat, p, v), (x, r, p), 18 * n, None),
+    ]
+    for name, kfn, pfn, ins, outs, flops, lib in steps:
+        ws.sc.copy_(sp)
+        K.ms[name] = cuda_ms(kfn)
+        K.plain_ms[name] = cuda_ms(pfn)
+        K.library_ms[name] = cuda_ms(lib) if lib is not None else None
+        K.bound(name, ins, outs, flops)
+
+
+def check_k8_launches(launches, rep, label):
+    """Two K8 launches per BiCGStab iteration (alpha_s, omega_xr_p) and two
+    per solve (init, the first p_update), one solve per Newton."""
+    n = {k: launches[f"K8 {k}"] for k in ("init", "p_update", "alpha_s",
+                                          "omega_xr_p")}
+    log(f"  K8 launches: {n} over {rep.linear_iterations} BiCGStab "
+        f"iterations in {rep.newton_iterations} solves")
+    if not (n["alpha_s"] == n["omega_xr_p"] == rep.linear_iterations
+            and n["init"] == n["p_update"] == rep.newton_iterations):
+        fail(f"{label}: K8 launches {n} are not 2 per iteration and 2 per "
+             "solve")
 
 
 def solve_twice(sim, sys, tol, maxiter):
@@ -1140,26 +1193,41 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
     xp = rnd(nc)
     r = rnd(3, nc)
     dinv, w, diag_p, off = k6.cpr_setup_plain(*ops, dims, fl)
-    # K4-faces: the plain product and the fused smoothing step
+    # K4-faces: the pack (into the layout the system's operator holds),
+    # the plain product and the fused smoothing step
+    op, sell = sys.packed, fl.sell
+    kblk = k4.faces_pack_cuda(sell, sys.face_L, sys.face_R)
+    chk("K4-faces pack", TOL_K4, [
+        (kblk, k4.faces_pack_plain(sell, sys.face_L, sys.face_R)),
+        (op.blk, kblk)])
     kb = None if dims is None else k4.matvec_cells_cuda(*ops, x, dims)
-    ky = k4.faces_matvec_cuda(fl, *ops, x,
-                              None if kb is None else kb.clone())
+    ky = k4.faces_matvec_cuda(op, x, None if kb is None else kb.clone())
     py = k4.faces_matvec_plain(fl, *ops, x, kb)
     chk("K4-faces matvec", TOL_K4, [(ky, py)])
+    if kb is not None:
+        # on the embedded grid also a thread per cell, from the diagonal
+        chk("K4-faces matvec", TOL_K4, [(k4.faces_matvec_cuda(op, x),
+                                         k4.faces_matvec_plain(fl, *ops,
+                                                               x))])
     for xx in (xp, x):
         bb = None if dims is None else k4.matvec_cells_cuda(*ops, xx, dims)
         chk("K4-faces smooth", TOL_K4, [
-            (k4.faces_smooth_cuda(fl, *ops, dinv, xx, r, bb),
+            (k4.faces_smooth_cuda(op, dinv, xx, r, bb),
              k4.faces_smooth_plain(fl, *ops, dinv, xx, r, bb))])
     n_ent = fl.full.ent.numel()
+    extra["sell"] = dict(rows=sell.n_rows, chunks=sell.n_chunks,
+                         entries=n_ent,
+                         pad_share=1.0 - n_ent / (32 * sell.n_chunks))
     if timed and dims is not None:
         extra["epilogue_ms"] = dict(
             faces_div=cuda_ms(lambda: mb.faces_div_cuda(
                 fl, *fargs, out=base.clone())),
             faces_matvec=cuda_ms(lambda: k4.faces_matvec_cuda(
-                fl, *ops, x, kb.clone())),
+                op, x, kb.clone())),
             faces_smooth=cuda_ms(lambda: k4.faces_smooth_cuda(
-                fl, *ops, dinv, x, r, kb)),
+                op, dinv, x, r, kb)),
+            faces_pack=cuda_ms(lambda: k4.faces_pack_cuda(
+                sell, sys.face_L, sys.face_R)),
             clone=cuda_ms(lambda: kb.clone()))
     elif timed:
         nb = (fargs[:6], model.trans, csr, kd)
@@ -1171,14 +1239,18 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
         if not scaled_err((A @ xv).reshape(3, nc), py) <= 1e-12:
             fail(f"{label}: the CSR yardstick of K4-faces disagrees")
         timing("K4-faces matvec",
-               lambda: k4.faces_matvec_cuda(fl, *ops, x),
+               lambda: k4.faces_matvec_cuda(op, x),
                lambda: k4.faces_matvec_plain(fl, *ops, x),
                (ops, x, csr), ky, 18 * nc + 36 * nfl, lambda: A @ xv)
         del A, xv
         timing("K4-faces smooth",
-               lambda: k4.faces_smooth_cuda(fl, *ops, dinv, x, r),
+               lambda: k4.faces_smooth_cuda(op, dinv, x, r),
                lambda: k4.faces_smooth_plain(fl, *ops, dinv, x, r),
                (ops, dinv, x, r, csr), ky, 18 * nc + 36 * nfl + 24 * nc)
+        timing("K4-faces pack",
+               lambda: k4.faces_pack_cuda(sell, sys.face_L, sys.face_R),
+               lambda: k4.faces_pack_plain(sell, sys.face_L, sys.face_R),
+               (sys.face_L, sys.face_R, sell.src), kblk, 0)
         extra["faces_csr_entries"] = n_ent
 
     # K6: the cell part and K6-faces (gather), or the stencil setup
@@ -1341,6 +1413,10 @@ def norne_first_step(K, sim, ref, label, names):
         + f", residual+convergence={rep.assemble_time:.2f}")
     log("  launches: " + ", ".join(f"{n}={c}" for n, c in counts.items()
                                    if c))
+    check_k8_launches(counts, rep, label)
+    if counts["K4-faces pack"] != rep.newton_iterations:
+        fail(f"{label}: {counts['K4-faces pack']} K4-faces packs in "
+             f"{rep.newton_iterations} Newton systems")
     return res
 
 
@@ -1351,6 +1427,8 @@ def toy_run(K, sim, ref, label, names):
     sim.solver.timing = {}
     K.reset()
     res = run_vs_fixture(sim, ref, label)
+    check_k8_launches({e[0]: e[4].launches for e in K.entries},
+                      sim.report, label)
     counts = {e[0]: e[4].launches for e in K.entries if e[0] in names}
     res.update(sections_s=dict(sim.solver.timing), launches=counts)
     log("  sections (s, synced): " + ", ".join(
@@ -1435,7 +1513,7 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
 
     from opm_tpu_torch.io.eclstate import load_case
-    from opm_tpu_torch.linalg import kernels_triton as k8
+    from opm_tpu_torch.linalg import kernels_k8 as k8
     from opm_tpu_torch.linalg.gmg import StructuredGmg
     from opm_tpu_torch.models import blackoil as mb
     from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
@@ -1462,7 +1540,7 @@ def main(argv=None):
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     cuda_lib.build_all(["tables", "cells", "tpfa", "blocks", "block7",
-                        "wells", "cpr", "gmg", "amg", "faces",
+                        "wells", "cpr", "gmg", "amg", "faces", "krylov",
                         "cornerpoint"])
     K = Kernels()
     tiny = torch.linspace(1.0, 2.0, 8, dtype=torch.float64, device=dev)
@@ -1473,17 +1551,18 @@ def main(argv=None):
                            tiny, tiny, tiny, tiny, tiny, tiny, 0.2, 1e9,
                            True, False)
     k9.conv_norms_triton(b3, b3, tiny, 1.0)
-    sc = k8.new_scalars(dev)
-    k8.init_triton(b3, sc)
-    k8.p_update_triton(b3.clone(), b3, b3, sc)
-    k8.dot_alpha_triton(b3, b3, sc)
-    k8.s_update_triton(b3, b3, sc)
-    k8.dot_omega_triton(b3, b3, sc)
-    k8.xr_update_triton(b3.clone(), b3.clone(), b3, b3, b3, b3, b3, sc)
     torch.cuda.synchronize()
     results["build_s"] = time.perf_counter() - t0
-    log(f"build: {results['build_s']:.1f} s (10 nvcc sm_90a and the host "
-        "cornerpoint.cpp in parallel + Triton JIT)")
+    log(f"build: {results['build_s']:.1f} s (11 nvcc sm_90a and the host "
+        "cornerpoint.cpp in parallel + Triton JIT of K9)")
+    ptxas = cuda_lib.build_log.get("krylov.cu")
+    log("krylov.cu -Xptxas -v: " + (" | ".join(
+        ln.strip() for ln in ptxas.splitlines()
+        if "registers" in ln or "Compiling entry" in ln or "spill" in ln)
+        if ptxas is not None else "(library up to date, not rebuilt)"))
+    # K8 at an odd length (the tail element) against its twins
+    compare_k8(K, (3, 7), dev, args.seed, "K8 at 21 values", timed=False)
+    log("K8 == plain at an odd length (21 values): ok")
 
     # -- 3a. K1/K3/K9 == plain at SPE1's shapes -------------------------------
     case1 = load_case(os.path.join(ROOT, "data", "SPE1CASE2.DATA"))
@@ -1568,6 +1647,10 @@ def main(argv=None):
     vc = compare_cpr_kernels(K, sim10, amg, sys10, args.seed, "SPE10-2",
                              timed=True)
     results["spe10_vcycle"] = vc
+    g8, info8 = k8.grid_info(dev, 3 * m10.nc)
+    results["k8_grid"] = dict(grid=g8, **info8)
+    log(f"K8 grid at SPE10-2 ({3 * m10.nc} values): {g8} blocks of 256 "
+        f"threads; {json.dumps(info8)}")
     for n in K.names(("K1", "K2", "K3", "K5", "K9", "K4", "K6", "K7",
                       "K8")):
         lib = K.library_ms.get(n)
@@ -1675,6 +1758,7 @@ def main(argv=None):
                                    for n in new_names))
     if rep.failed_substeps != 0 or not finite:
         fail("SPE10-2: failed substeps or a non-finite state")
+    check_k8_launches(K.launches, rep, "SPE10-2")
     dead = [n for n in new_names if K.launches[n] <= 0]
     if dead:
         fail(f"kernels not launched by the SPE10-2 run: {dead}")
@@ -1741,6 +1825,9 @@ def main(argv=None):
         log(f"face-list kernels == plain on the Norne-class {rname} first "
             f"Newton system: ok {json.dumps(extra)}")
         if rname == "gather":
+            compare_k8(K, (3, simn.model.nc), dev, args.seed,
+                       "Norne-class gather", timed=False)
+            log("K8 == plain at the Norne-class gather grid's shapes: ok")
             ok, its_k, its_p, edu, tk, tp = solve_twice(simn, sysn, 1e-2, 50)
             log(f"Norne-class gather Newton system, kernels (twice, bit "
                 f"equal) vs twins on the card: {its_k} / {its_p} BiCGStab "

@@ -30,9 +30,16 @@
 // summed in registers in the CSR order, so the result equals the plain
 // version on the CPU bit for bit; no atomics. A row may start from a base
 // (the structured kernel's result on an embedded grid, updated in place).
+// The operator (K4-faces, with the smoothing step) reads its blocks from a
+// sliced-ELL copy packed once per Newton system (sell_pack_kernel): read in
+// face order, a warp's neighbouring cells found their right-side faces far
+// apart, a 32-byte sector per lane; in the packed copy lane i of slot j
+// reads address base + 32 b + i.
 // Build with --fmad=false (products and sums round as the plain version's).
 
 #include <cuda_runtime.h>
+
+#include <climits>
 
 #include "tpfa_face.cuh"
 
@@ -127,53 +134,79 @@ __device__ __forceinline__ double xv(const double* x, bool p_only,
     return x[comp * nc + c];
 }
 
-// rows9 (stride n, entry f) applied to the vector at cell c
-__device__ __forceinline__ void bapply(const double* __restrict__ rows,
-                                       long long n, long long f,
-                                       const double* x, bool p_only,
-                                       long long nc, long long c,
-                                       double out[3]) {
-    double v0 = xv(x, p_only, nc, 0, c);
-    double v1 = xv(x, p_only, nc, 1, c);
-    double v2 = xv(x, p_only, nc, 2, c);
-    for (int i = 0; i < 3; ++i) {
-        double acc = rows[(3 * i) * n + f] * v0;
-        acc = acc + rows[(3 * i + 1) * n + f] * v1;
-        acc = acc + rows[(3 * i + 2) * n + f] * v2;
-        out[i] = acc;
-    }
-}
+// The operator's sliced-ELL layout (built once per grid on the host from
+// the cell CSR of the rows the faces touch, packed once per Newton system):
+// the rows in slices of 32, one warp; slice s holds chunk0[s+1] -
+// chunk0[s] slots, its longest row. Slot j of row t (lane i = t % 32 of
+// slice s) is entry e = 32 ch + i, ch = chunk0[s] + j, with the neighbour
+// cell col[e] and the signed block entry b (row 3 eq + var) at blk[288 ch
+// + 32 b + i]: +face_R for a face where the row's cell is the left cell,
+// -face_L where it is the right cell, in the CSR's order. Lane i of a
+// warp reads base + 32 b + i: coalesced. Pads (slots past a row's length)
+// are storage only: no thread reads them. On a gather grid row t is cell
+// t (rows and row_of null); on an embedded grid the rows are the cells the
+// extra faces touch, rows[t] the cell of row t and row_of[c] the row of
+// cell c (-1: none).
+struct Sell {
+    const int* rows;
+    const int* row_of;
+    const int* chunk0;
+    const int* ptr;    // the CSR's: row t has ptr[t+1] - ptr[t] slots
+    const int* col;
+    const double* blk;
+};
 
-// y = diag x (or base) + sum over the row's faces; with dinv,
-// out = x + D^-1 (r - y), else out = y. base may alias out.
-__global__ void faces_apply_kernel(Csr g, long long nc, long long nf,
-                                   const double* __restrict__ diag,
-                                   const double* base,
-                                   const double* __restrict__ fL,
-                                   const double* __restrict__ fR,
-                                   const double* __restrict__ x, int p_only,
-                                   const double* __restrict__ dinv,
-                                   const double* __restrict__ r,
-                                   double* out) {
-    int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= g.n_rows) return;
-    long long c = g.rows ? g.rows[t] : t;
+// y = diag x (or base) + the row's signed face blocks times the neighbour
+// values, slot by slot; with dinv, out = x + D^-1 (r - y), else out = y.
+// One thread per row (row_of null: thread t is row t, its cell rows[t]) or
+// per cell (thread c, its row row_of[c] if any). base may alias out where
+// the threads are the rows (an in-place update of the touched cells).
+// Folding the sign into the blocks is exact: (-a) u + (-b) w == -(a u + b
+// w) and y + (-t) == y - t, so the sums are the plain version's.
+__global__ void sell_apply_kernel(Sell g, int n_threads, long long nc,
+                                  const double* __restrict__ diag,
+                                  const double* base,
+                                  const double* __restrict__ x, int p_only,
+                                  const double* __restrict__ dinv,
+                                  const double* __restrict__ r,
+                                  double* out) {
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= n_threads) return;
+    int row = t;
+    long long c = t;
+    if (g.row_of) {
+        row = g.row_of[t];
+    } else if (g.rows) {
+        c = g.rows[t];
+    }
     const bool po = p_only != 0;
-    double y[3], tt[3];
+    double y[3];
     if (diag) {
-        bapply(diag, nc, c, x, po, nc, c, y);
+        const double v0 = xv(x, po, nc, 0, c), v1 = xv(x, po, nc, 1, c),
+                     v2 = xv(x, po, nc, 2, c);
+        for (int i = 0; i < 3; ++i) {
+            double acc = diag[(3 * i) * nc + c] * v0;
+            acc = acc + diag[(3 * i + 1) * nc + c] * v1;
+            acc = acc + diag[(3 * i + 2) * nc + c] * v2;
+            y[i] = acc;
+        }
     } else {
         for (int e = 0; e < 3; ++e) y[e] = base[e * nc + c];
     }
-    for (int k = g.ptr[t]; k < g.ptr[t + 1]; ++k) {
-        int s = g.ent[k];
-        long long o = g.nbr[k];
-        if (s >= 0) {
-            bapply(fR, nf, s, x, po, nc, o, tt);
-            for (int e = 0; e < 3; ++e) y[e] = y[e] + tt[e];
-        } else {
-            bapply(fL, nf, -(long long)s - 1, x, po, nc, o, tt);
-            for (int e = 0; e < 3; ++e) y[e] = y[e] - tt[e];
+    const int len = row >= 0 ? g.ptr[row + 1] - g.ptr[row] : 0;
+    const int lane = row & 31;
+    const long long ch0 = row >= 0 ? g.chunk0[row >> 5] : 0;
+    for (int j = 0; j < len; ++j) {
+        const long long ch = ch0 + j;
+        const long long o = g.col[32 * ch + lane];
+        const double* b = g.blk + 288 * ch + lane;
+        const double v0 = xv(x, po, nc, 0, o), v1 = xv(x, po, nc, 1, o),
+                     v2 = xv(x, po, nc, 2, o);
+        for (int i = 0; i < 3; ++i) {
+            double acc = b[32 * (3 * i)] * v0;
+            acc = acc + b[32 * (3 * i + 1)] * v1;
+            acc = acc + b[32 * (3 * i + 2)] * v2;
+            y[i] = y[i] + acc;
         }
     }
     if (!dinv) {
@@ -188,6 +221,28 @@ __global__ void faces_apply_kernel(Csr g, long long nc, long long nf,
         acc = acc + dinv[(3 * q + 1) * nc + c] * e1;
         acc = acc + dinv[(3 * q + 2) * nc + c] * e2;
         out[q * nc + c] = xv(x, po, nc, q, c) + acc;
+    }
+}
+
+// the pack: padded entry e (thread e) gets src[e] = f >= 0: +face_R[.][f],
+// src[e] = -f-1: -face_L[.][f], src[e] = INT_MIN (a pad): 0; consecutive
+// threads write consecutive addresses of each block entry
+__global__ void sell_pack_kernel(long long n_pad, const int* __restrict__ src,
+                                 long long nf,
+                                 const double* __restrict__ fL,
+                                 const double* __restrict__ fR,
+                                 double* __restrict__ blk) {
+    long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= n_pad) return;
+    const int sv = src[e];
+    double* o = blk + 288 * (e >> 5) + (e & 31);
+    if (sv == INT_MIN) {
+        for (int b = 0; b < 9; ++b) o[32 * b] = 0.0;
+    } else if (sv >= 0) {
+        for (int b = 0; b < 9; ++b) o[32 * b] = fR[b * nf + sv];
+    } else {
+        const long long f = -(long long)sv - 1;
+        for (int b = 0; b < 9; ++b) o[32 * b] = -fL[b * nf + f];
     }
 }
 
@@ -231,19 +286,32 @@ int opm_faces_blocks(int n_rows, const int* rows, const int* ptr,
     return (int)cudaGetLastError();
 }
 
-// blocks (9, nc) diag and dinv, (9, nf) face_L/face_R; vectors (3, nc), x
-// (nc,) when p_only; diag null: start each row from base (3, nc); dinv
-// null: the plain product
-int opm_faces_apply(int n_rows, const int* rows, const int* ptr,
-                    const int* ent, const int* nbr, long long nc,
-                    long long nf, const double* diag, const double* base,
-                    const double* fL, const double* fR, const double* x,
-                    int p_only, const double* dinv, const double* r,
-                    double* out, cudaStream_t stream) {
-    if (n_rows == 0) return 0;
-    Csr csr{n_rows, rows, ptr, ent, nbr};
-    faces_apply_kernel<<<blocks_for(n_rows), kThreads, 0, stream>>>(
-        csr, nc, nf, diag, base, fL, fR, x, p_only, dinv, r, out);
+// K4-faces over the sliced-ELL layout of a face list's cell CSR:
+// n_threads rows (row_of null) or cells (row_of set); blocks (9, nc) diag
+// and dinv; vectors (3, nc), x (nc,) when p_only; diag null: start each
+// row from base (3, nc), which may be out when the threads are the rows;
+// dinv null: the plain product
+int opm_faces_sell_apply(int n_threads, const int* rows, const int* row_of,
+                         const int* chunk0, const int* ptr, const int* col,
+                         const double* blk, long long nc, const double* diag,
+                         const double* base, const double* x, int p_only,
+                         const double* dinv, const double* r, double* out,
+                         cudaStream_t stream) {
+    if (n_threads == 0) return 0;
+    Sell g{rows, row_of, chunk0, ptr, col, blk};
+    sell_apply_kernel<<<blocks_for(n_threads), kThreads, 0, stream>>>(
+        g, n_threads, nc, diag, base, x, p_only, dinv, r, out);
+    return (int)cudaGetLastError();
+}
+
+// the signed face blocks (9, nf) face_L / face_R packed into the layout's
+// n_pad = 32 n_chunks entries: blk (288 n_chunks,)
+int opm_faces_sell_pack(long long n_pad, const int* src, long long nf,
+                        const double* fL, const double* fR, double* blk,
+                        cudaStream_t stream) {
+    if (n_pad == 0) return 0;
+    sell_pack_kernel<<<blocks_for(n_pad), kThreads, 0, stream>>>(
+        n_pad, src, nf, fL, fR, blk);
     return (int)cudaGetLastError();
 }
 

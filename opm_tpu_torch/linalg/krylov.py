@@ -2,8 +2,14 @@
 linalg/krylov.py ``bicgstab``).
 
 The loop runs on the host; each iteration is two preconditioner applies,
-two operator applies and the K8 vector steps (``kernels_triton.py``),
-whose scalars stay on the device. The loop condition reads ||r||^2 once
+two operator applies and two K8 steps (``kernels_k8.py``,
+``csrc/krylov.cu``): ``alpha_s`` (alpha, then s) after the first matvec
+and ``omega_xr_p`` (omega, x, r, the next rho1 and beta, then the next
+iteration's p) after the second. A solve adds ``init`` and the first
+``p_update``. The reference updates p at the top of an iteration; here
+the update closes the one before, so after the last iteration p is
+updated once more than the reference updates it, and nothing reads it.
+The scalars stay on the device; the loop condition reads ||r||^2 once
 per iteration: ``rnorm > tol * ||b||``, ``it < maxiter`` and rnorm
 finite, as the reference's ``lax.while_loop`` condition. The breakdown
 guards (1e-300) are the reference's. ``bicgstab_mp`` and ``gmres`` were
@@ -17,7 +23,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from opm_tpu_torch.linalg import kernels_triton as k8
+from opm_tpu_torch.linalg import kernels_k8 as k8
 
 
 class KrylovResult(NamedTuple):
@@ -39,29 +45,23 @@ def bicgstab(matvec: Callable, b, precond: Callable = None, *,
             return v
     ops = k8.PLAIN if twin else k8.DISPATCH
     b = b.contiguous()
-    sc = k8.new_scalars(b.device)
-    ops.init(b, sc)
-    x = torch.zeros_like(b)
-    r = b.clone()
+    ws = k8.Workspace(b, kernels=not twin and b.device.type == "cuda")
+    x, r, p, v = ws.x, ws.r, ws.p, ws.v
     rhat = b
-    p = torch.zeros_like(b)
-    v = torch.zeros_like(b)
-    b_norm = math.sqrt(float(sc[k8.BB]))
+    ops.init(ws, b)
+    b_norm = math.sqrt(float(ws.sc[k8.BB]))
     rnorm = b_norm
+    p = ops.p_update(ws, p, r, v)
     it = 0
     while rnorm > tol * b_norm and it < maxiter and math.isfinite(rnorm):
-        p = ops.p_update(p, r, v, sc)
-        phat = precond(p)
+        phat = precond(p).contiguous()
         v = matvec(phat).contiguous()
-        ops.dot_alpha(rhat, v, sc)
-        s = ops.s_update(r, v, sc)
-        shat = precond(s)
+        s = ops.alpha_s(ws, rhat, v, r)
+        shat = precond(s).contiguous()
         t = matvec(shat).contiguous()
-        ops.dot_omega(t, s, sc)
-        x, r = ops.xr_update(x, r, s, t, phat.contiguous(),
-                            shat.contiguous(), rhat, sc)
+        x, r, p = ops.omega_xr_p(ws, t, s, x, r, phat, shat, rhat, p, v)
         it += 1
-        rr = float(sc[k8.RR])
+        rr = float(ws.sc[k8.RR])
         rnorm = math.sqrt(rr) if rr >= 0 else math.nan
     rel = rnorm / (b_norm if b_norm != 0 else 1.0)
     return KrylovResult(x=x, iterations=it, rel_residual=rel,

@@ -379,11 +379,11 @@ def smooth_step(sys: linearize.BlockSystem, dinv, x, r, dims, *,
                 cuda_lib.dispatch(r, linearize.matvec_cells_cuda,
                                   linearize.matvec_cells_plain, *args,
                                   what="K4"))
-    args = (fl, *ops, dinv, x, r, base)
-    return (linearize.faces_smooth_plain(*args) if twin else
-            cuda_lib.dispatch(r, linearize.faces_smooth_cuda,
-                              linearize.faces_smooth_plain, *args,
-                              what="K4-faces smoothing"))
+    def plain():
+        return linearize.faces_smooth_plain(fl, *ops, dinv, x, r, base)
+    return plain() if twin else cuda_lib.dispatch(
+        r, lambda: linearize.faces_smooth_cuda(sys.packed, dinv, x, r, base),
+        plain, what="K4-faces smoothing")
 
 
 SMOOTHER_STEPS = 2       # the reference's CPU setting

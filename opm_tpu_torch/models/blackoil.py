@@ -788,12 +788,77 @@ def face_csr(face_cells, nc, first, device, touched_only=False) -> FaceCsr:
                    ent=i32(ent[order]), nbr=i32(nbr[order]))
 
 
+SELL_PAD = np.iinfo(np.int32).min
+
+
+@dataclass
+class SellLayout:
+    """A sliced-ELL layout of a cell CSR (``FaceList.touched``: every cell
+    on a gather grid, the cells the extra faces touch on an embedded grid),
+    built once per grid for K4-faces: the CSR's rows in slices of 32, slice
+    s padded to its longest row, chunk0[s+1] - chunk0[s] slots of 32
+    entries; slot j of row t (lane i = t % 32 of slice s = t // 32) is
+    padded entry e = 32 (chunk0[s] + j) + i. Per padded entry: ``src``,
+    the CSR's entry (f >= 0: +face_R of face f; -f-1: -face_L of face f)
+    or SELL_PAD, and ``col``, the neighbour cell (0 at a pad). ``ptr`` is
+    the CSR's (row t has ptr[t+1] - ptr[t] slots); ``rows`` the cell of
+    row t and ``row_of`` the row of cell c (-1: none), both None where row
+    t is cell t; int32 tensors."""
+
+    nc: int
+    n_rows: int
+    n_chunks: int
+    chunk0: torch.Tensor
+    ptr: torch.Tensor
+    src: torch.Tensor
+    col: torch.Tensor
+    rows: Optional[torch.Tensor]
+    row_of: Optional[torch.Tensor]
+
+
+def sell_layout(csr: FaceCsr, nc) -> SellLayout:
+    """The sliced-ELL layout of a cell CSR over nc cells, its slots in the
+    CSR's order."""
+    ptr = csr.ptr.cpu().numpy().astype(np.int64)
+    ent = csr.ent.cpu().numpy()
+    nbr = csr.nbr.cpu().numpy()
+    n = csr.n_rows
+    lens = np.diff(ptr)
+    ns = -(-n // 32)
+    width = np.zeros(ns * 32, dtype=np.int64)
+    width[:n] = lens
+    chunk0 = np.zeros(ns + 1, dtype=np.int64)
+    np.cumsum(width.reshape(ns, 32).max(axis=1, initial=0), out=chunk0[1:])
+    row = np.repeat(np.arange(n, dtype=np.int64), lens)
+    slot = np.arange(len(ent), dtype=np.int64) - ptr[row]
+    e = 32 * (chunk0[row // 32] + slot) + row % 32
+    n_pad = 32 * int(chunk0[-1])
+    src = np.full(n_pad, SELL_PAD, dtype=np.int32)
+    col = np.zeros(n_pad, dtype=np.int32)
+    src[e] = ent
+    col[e] = nbr
+    dev = csr.ptr.device
+
+    def i32(a):
+        return torch.as_tensor(a.astype(np.int32), device=dev)
+
+    row_of = None
+    if csr.rows is not None:
+        row_of = np.full(nc, -1, dtype=np.int64)
+        row_of[csr.rows.cpu().numpy()] = np.arange(n)
+        row_of = i32(row_of)
+    return SellLayout(nc=int(nc), n_rows=n, n_chunks=int(chunk0[-1]),
+                      chunk0=i32(chunk0), ptr=csr.ptr, src=i32(src),
+                      col=i32(col), rows=csr.rows, row_of=row_of)
+
+
 class FaceList:
     """Faces ``first:`` of a grid's face list: all faces of a gather grid
     (first = 0) or an embedded grid's extra faces (first = nf_canonical),
     with their cells and incidence CSRs (``full``: a row per cell;
     ``touched``: rows of the cells the faces touch, for the in-place
-    epilogues after the structured kernels)."""
+    epilogues after the structured kernels) and ``touched``'s sliced-ELL
+    layout ``sell`` (K4-faces)."""
 
     def __init__(self, face_cells, nc, first, device):
         fc = np.asarray(face_cells)[first:]
@@ -806,6 +871,7 @@ class FaceList:
         self.full = face_csr(face_cells, nc, first, device)
         self.touched = (self.full if first == 0 else
                         face_csr(face_cells, nc, first, device, True))
+        self.sell = sell_layout(self.touched, nc)
 
 
 # ---------------------------------------------------------------------------
@@ -835,8 +901,10 @@ def faces_div_plain(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
 _FACES_SIGS = {
     "opm_faces_div": [_I, _P, _P, _P, _P, cuda_lib.L] + [_P] * 7
     + [_D, _I, _P, _P],
-    "opm_faces_apply": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L]
-    + [_P] * 5 + [_I, _P, _P, _P, _P],
+    # the operator over the sliced-ELL layout (models/linearize.py)
+    "opm_faces_sell_apply": [_I] + [_P] * 6 + [cuda_lib.L] + [_P] * 3
+    + [_I] + [_P] * 4,
+    "opm_faces_sell_pack": [cuda_lib.L, _P, cuda_lib.L] + [_P] * 4,
     # the face blocks of the assembly (models/linearize.py)
     "opm_faces_blocks": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L]
     + [_P] * 4 + [_D] + [_P] * 5,

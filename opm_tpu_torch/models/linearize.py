@@ -25,7 +25,10 @@ rule. K5 (``csrc/wells.cu``) applies the Schur complement of the wells.
 The cell-block part of the operator is kernel K4 (``csrc/block7.cu``)
 over the 7-point stencil, with ``matvec_cells_plain`` as its twin, and
 K4-faces (``csrc/faces.cu``) over a face list: a gather grid's faces, or an
-embedded grid's extra faces after K4 (``faces_matvec_plain`` its twin). The
+embedded grid's extra faces after K4 (``faces_matvec_plain`` its twin).
+K4-faces reads the face blocks from a sliced-ELL copy in row order
+(``FacesOperator``: packed once per system on the card, a
+``BlockSystem.packed`` field that is None on the CPU). The
 3x3 block families are stored as (9, n) tensors, row-major over
 (equation, variable): row 3*i+j is dF_i/du_j, the reference's nine flat
 arrays stacked; face blocks follow the grid's face order (on an embedded
@@ -38,7 +41,8 @@ from typing import NamedTuple
 
 import torch
 
-from opm_tpu_torch.models.blackoil import (_FACES_SIGS, FaceList, _cells3,
+from opm_tpu_torch.models.blackoil import (_FACES_SIGS, SELL_PAD, FaceList,
+                                           SellLayout, _cells3,
                                            _dir_segments,
                                            _face_flux_tangent, _slice,
                                            cell_assembly,
@@ -79,6 +83,7 @@ class BlockSystem(NamedTuple):
     perf_mask: torch.Tensor  # (nw, mp) float
     faces: object = None     # FaceList of the faces past the stencil
     perf_order: object = None  # (npf) perforations stably sorted by cell
+    packed: object = None    # FacesOperator on the card (K4-faces)
 
     @property
     def nc(self):
@@ -211,11 +216,16 @@ def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
     wd_diag = torch.cat([flux_rows, ctrl_row[:, None, :]], dim=1)
     cw = (cw * wd["open"][:, None, None, None]).contiguous()
     wc = (wc * wd["open"][:, None, None, None]).contiguous()
-    return BlockSystem(r_cell=r_cell, r_well=r_well,
-                       diag=diag.contiguous(), face_L=face_L, face_R=face_R,
-                       cw=cw, wc=wc, wd_diag=wd_diag, perf_cell=pc,
-                       perf_mask=mask, faces=fl,
-                       perf_order=torch.argsort(pc_f, stable=True))
+    diag = diag.contiguous()
+    # K4-faces' operator, packed once per system on the card
+    packed = (FacesOperator(fl, diag, face_L, face_R)
+              if fl is not None and not twin and dev.type == "cuda"
+              else None)
+    return BlockSystem(r_cell=r_cell, r_well=r_well, diag=diag,
+                       face_L=face_L, face_R=face_R, cw=cw, wc=wc,
+                       wd_diag=wd_diag, perf_cell=pc, perf_mask=mask,
+                       faces=fl, perf_order=torch.argsort(pc_f, stable=True),
+                       packed=packed)
 
 
 # ---------------------------------------------------------------------------
@@ -504,29 +514,98 @@ def faces_smooth_plain(fl: FaceList, diag, face_L, face_R, dinv, x, r,
     return x + bapply_rows(dinv, r - ac)
 
 
-def _faces_apply(csr, diag, face_L, face_R, x, dinv, r, base, out):
-    nc = diag.shape[-1]
+def faces_pack_plain(sell: SellLayout, face_L, face_R):
+    """The signed face blocks in the sliced-ELL layout (a torch gather):
+    (288 n_chunks,), padded entry e's block entry b at 288 (e // 32) +
+    32 b + e % 32; pads 0."""
+    src = sell.src.long()
+    pad = src == SELL_PAD
+    left = src >= 0
+    f = torch.where(left | pad, src.clamp(min=0), -src - 1)
+    vals = torch.where(left, face_R[:, f], -face_L[:, f])
+    vals[:, pad] = 0.0
+    return vals.reshape(9, -1, 32).permute(1, 0, 2).reshape(-1)
+
+
+def faces_pack_cuda(sell: SellLayout, face_L, face_R):
+    """K4-faces' pack on the card; same contract as faces_pack_plain."""
+    nf = face_L.shape[1]
+    blk = torch.empty(288 * sell.n_chunks, dtype=torch.float64,
+                      device=face_L.device)
     lib = cuda_lib.load("faces", _FACES_SIGS)
     ptr = cuda_lib.ptr
-    nul = cuda_lib.P(0)
-    err = lib.opm_faces_apply(
-        *csr_args(csr), nc, face_L.shape[1],
-        ptr(diag) if base is None else nul,
-        ptr(base) if base is not None else nul, ptr(face_L), ptr(face_R),
-        ptr(x), int(x.dim() == 1), ptr(dinv) if dinv is not None else nul,
-        ptr(r) if r is not None else nul, ptr(out),
-        cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(err, "opm_faces_apply")
+    err = lib.opm_faces_sell_pack(32 * sell.n_chunks, ptr(sell.src), nf,
+                                  ptr(face_L), ptr(face_R), ptr(blk),
+                                  cuda_lib.stream_ptr(face_L.device))
+    cuda_lib.check(err, "opm_faces_sell_pack")
+    faces_pack_cuda.launches += 1
+    return blk
 
 
-def faces_matvec_cuda(fl: FaceList, diag, face_L, face_R, v, out=None):
-    """K4-faces on the card; same contract as faces_matvec_plain, except
-    that ``out`` is updated in place (only the rows the faces touch)."""
-    check_block_operator(diag, face_L, face_R, None, v,
-                         *(() if out is None else (out,)))
-    y = torch.empty_like(v) if out is None else out
-    _faces_apply(fl.full if out is None else fl.touched, diag, face_L,
-                 face_R, v, None, None, out, y)
+faces_pack_cuda.launches = 0
+
+
+class FacesOperator:
+    """K4-faces' operator of one Newton system on the card: the face
+    list's sliced-ELL layout (``FaceList.sell``) with the signed face
+    blocks packed into it (one pack launch), beside the diagonal. The
+    blocks are checked here, once; a call checks only its vectors and
+    passes the cached pointers. A launch runs a thread per row of the
+    layout for an in-place update (only the rows the faces touch change),
+    else a thread per cell."""
+
+    def __init__(self, fl: FaceList, diag, face_L, face_R):
+        check_block_operator(diag, face_L, face_R, None)
+        sell = fl.sell
+        if sell.nc != diag.shape[1]:
+            raise ValueError("K4-faces: the layout's cells are not the "
+                             "system's")
+        self.nc = diag.shape[1]
+        self.device = diag.device
+        self.diag = diag
+        self.blk = faces_pack_cuda(sell, face_L, face_R)
+        self.lib = cuda_lib.load("faces", _FACES_SIGS)
+        self.stream = cuda_lib.stream_ptr(diag.device)
+        self.layout = (sell.chunk0.data_ptr(), sell.ptr.data_ptr(),
+                       sell.col.data_ptr(), self.blk.data_ptr(), self.nc)
+        # (threads, rows, row_of)
+        self.by_row = (sell.n_rows,
+                       0 if sell.rows is None else sell.rows.data_ptr(), 0)
+        self.by_cell = (self.by_row if sell.row_of is None else
+                        (self.nc, 0, sell.row_of.data_ptr()))
+        self.dinv = None
+        self.sell = sell     # owns the layout behind the cached pointers
+
+    def vec(self, t, shape):
+        """A vector's data pointer, after the check of its contract."""
+        if (t.shape != shape or t.dtype != torch.float64
+                or t.device != self.device or not t.is_contiguous()):
+            raise ValueError(f"K4-faces: expected a contiguous float64 "
+                             f"{shape} tensor on {self.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        return t.data_ptr()
+
+    def apply(self, x, base, dinv, r, out, in_place=False):
+        nc = self.nc
+        p_only = x.dim() == 1
+        err = self.lib.opm_faces_sell_apply(
+            *(self.by_row if in_place else self.by_cell), *self.layout,
+            0 if base is not None else self.diag.data_ptr(), base,
+            self.vec(x, (nc,) if p_only else (3, nc)), int(p_only), dinv, r,
+            out, self.stream)
+        cuda_lib.check(err, "opm_faces_sell_apply")
+
+
+def faces_matvec_cuda(op: FacesOperator, v, out=None):
+    """K4-faces on the card; the contract of faces_matvec_plain over the
+    packed operator, except that ``out`` (the stencil product of an
+    embedded grid) is updated in place."""
+    shape = (3, op.nc)
+    y = torch.empty(shape, dtype=torch.float64, device=op.device) \
+        if out is None else out
+    yp = op.vec(y, shape)
+    op.apply(v, None if out is None else yp, None, None, yp,
+             in_place=out is not None)
     faces_matvec_cuda.launches += 1
     return y
 
@@ -534,22 +613,16 @@ def faces_matvec_cuda(fl: FaceList, diag, face_L, face_R, v, out=None):
 faces_matvec_cuda.launches = 0
 
 
-def faces_smooth_cuda(fl: FaceList, diag, face_L, face_R, dinv, x, r,
-                      base=None):
-    """K4-faces smoothing step on the card; same contract as
-    faces_smooth_plain."""
-    nc = diag.shape[-1]
-    if x.dim() == 1:
-        check_iterate(x, nc, diag.device)
-    check_block_operator(diag, face_L, face_R, None, r,
-                         *(() if x.dim() == 1 else (x,)),
-                         *(() if base is None else (base,)))
-    if (dinv.shape != diag.shape or dinv.dtype != torch.float64
-            or not dinv.is_contiguous() or dinv.device != diag.device):
-        raise ValueError("K4-faces smoothing: dinv must be a contiguous "
-                         "float64 (9, nc) tensor beside diag")
-    out = torch.empty_like(r)
-    _faces_apply(fl.full, diag, face_L, face_R, x, dinv, r, base, out)
+def faces_smooth_cuda(op: FacesOperator, dinv, x, r, base=None):
+    """K4-faces smoothing step on the card; the contract of
+    faces_smooth_plain over the packed operator."""
+    shape = (3, op.nc)
+    if dinv is not op.dinv:
+        op.vec(dinv, (9, op.nc))
+        op.dinv = dinv
+    out = torch.empty(shape, dtype=torch.float64, device=op.device)
+    op.apply(x, None if base is None else op.vec(base, shape),
+             dinv.data_ptr(), op.vec(r, shape), out.data_ptr())
     faces_smooth_cuda.launches += 1
     return out
 
@@ -569,10 +642,11 @@ def matvec_cells(sys: BlockSystem, v, dims, *, twin=False):
                cuda_lib.dispatch(v, matvec_cells_cuda, matvec_cells_plain,
                                  *ops, v, tuple(dims), what="K4"))
     if sys.faces is not None:
-        out = (faces_matvec_plain(sys.faces, *ops, v, out) if twin else
-               cuda_lib.dispatch(v, faces_matvec_cuda, faces_matvec_plain,
-                                 sys.faces, *ops, v, out,
-                                 what="K4-faces"))
+        def plain():
+            return faces_matvec_plain(sys.faces, *ops, v, out)
+        out = plain() if twin else cuda_lib.dispatch(
+            v, lambda: faces_matvec_cuda(sys.packed, v, out), plain,
+            what="K4-faces")
     return out
 
 

@@ -24,11 +24,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               # products and sums round separately, as the plain PyTorch
               # version's elementwise operations do
-              "--fmad=false"]
+              "--fmad=false",
+              # each kernel's registers, shared memory and spills, kept in
+              # build_log
+              "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off"]
 
 _libs: dict = {}
 _lock = threading.Lock()
+# the compiler's messages of each source built by this process
+build_log: dict = {}
 
 
 def _nvcc() -> str:
@@ -85,6 +90,7 @@ def build_all(names) -> list:
         if proc.returncode != 0:
             errors.append(f"{compiler} failed for {src}:\n{err}")
         else:
+            build_log[os.path.basename(src)] = err
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

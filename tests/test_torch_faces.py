@@ -21,7 +21,13 @@ well recovery, the CPR weights, pressure system and the GMG's stencil-only
 couplings (_pressure_off_for) 1e-12 of max; the masked convergence norms
 1e-11 relative. (The CPR apply over these systems is held to the
 reference through the aggregation AMG in tests/test_torch_amg.py and end
-to end in tests/test_torch_norne.py.)"""
+to end in tests/test_torch_norne.py.)
+
+K4-faces' sliced-ELL layout (the operator the card's kernel reads): the
+pack's twin, read back slot by slot in plain torch as the kernel reads
+it, gives faces_matvec_plain and faces_smooth_plain bit for bit
+(``torch.equal``), with a full and a pressure-only iterate, on both
+representations; pads hold NaN in that check, so no sum touches one."""
 
 import os
 
@@ -39,7 +45,7 @@ from opm_tpu.sim.blackoil import SimulatorFullyImplicitBlackoil as RefSim
 from opm_tpu.sim.testcases import norne_like_case as ref_norne_like_case
 from opm_tpu_torch.linalg import precond
 from opm_tpu_torch.models import linearize
-from opm_tpu_torch.models.blackoil import make_well_device_arrays
+from opm_tpu_torch.models.blackoil import SELL_PAD, make_well_device_arrays
 from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
                                         init_well_state, report_step_wells)
 from opm_tpu_torch.sim.init import initial_state
@@ -204,3 +210,115 @@ def test_convergence_matches_reference(toy):
     for k in ("converged", "finite"):
         assert bool(conv[k]) == bool(rconv[k]), k
 
+
+
+def _sell_apply(fl, blk, diag, x, dinv=None, r=None, base=None,
+                in_place=False):
+    """K4-faces' arithmetic read from the sliced-ELL layout in plain torch,
+    as the kernel reads it: a thread per row of the layout (``in_place``:
+    only the touched cells change), else a thread per cell, which finds its
+    row through ``row_of``; each from diag x (or base), then its row's slots
+    in order (each row stops at its own length), then the smoothing
+    epilogue when dinv is given."""
+    sell = fl.sell
+    x3 = linearize.full3(x)
+    y = linearize.bapply_rows(diag, x3) if base is None else base.clone()
+    ptr = sell.ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    if in_place or sell.row_of is None:
+        row = torch.arange(sell.n_rows)
+        cell = row if sell.rows is None else sell.rows.long()
+    else:
+        cell = torch.arange(sell.nc)
+        row = sell.row_of.long()
+        cell, row = cell[row >= 0], row[row >= 0]
+    ch0 = sell.chunk0.long()[row // 32]
+    lane = row % 32
+    blocks = blk.reshape(-1, 9, 32)
+    for j in range(int(lens.max())):
+        k = torch.nonzero(lens[row] > j).squeeze(1)
+        ch = ch0[k] + j
+        o = sell.col.long()[32 * ch + lane[k]]
+        y[:, cell[k]] = y[:, cell[k]] + linearize.bapply_rows(
+            blocks[ch, :, lane[k]].T, x3[:, o])
+    if dinv is None:
+        return y
+    return x3 + linearize.bapply_rows(dinv, r - y)
+
+
+def test_sell_layout(toy):
+    """The layout's rows are the touched cells' (every cell on the gather
+    grid; the cells the extra faces touch on the embedded grid), with
+    rows and row_of inverse to each other; every CSR entry sits once in
+    its row's slots, in the CSR's order; slices hold rows of uneven length;
+    the pack's twin signs the blocks."""
+    m = toy["port"].model
+    fl, sys = m.faces, toy["sys"]
+    sell, csr = fl.sell, fl.touched
+    ptr = csr.ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    n = sell.n_rows
+    assert sell.nc == m.nc and sys.packed is None
+    assert torch.equal(sell.ptr, csr.ptr)
+    if toy["dims"] is None:
+        assert n == m.nc and sell.rows is None and sell.row_of is None
+    else:
+        assert n == csr.n_rows < m.nc and bool((lens > 0).all())
+        assert torch.equal(sell.rows, csr.rows)
+        assert torch.equal(sell.row_of.long()[sell.rows.long()],
+                           torch.arange(n))
+        assert int((sell.row_of >= 0).sum()) == n
+    row = torch.repeat_interleave(torch.arange(n), lens)
+    slot = torch.arange(int(ptr[-1])) - ptr[row]
+    e = 32 * (sell.chunk0.long()[row // 32] + slot) + row % 32
+    assert torch.equal(sell.src.long()[e], csr.ent.long())
+    assert torch.equal(sell.col.long()[e], csr.nbr.long())
+    pads = torch.ones(32 * sell.n_chunks, dtype=torch.bool)
+    pads[e] = False
+    assert bool((sell.src.long()[pads] == SELL_PAD).all())
+    widths = sell.chunk0[1:] - sell.chunk0[:-1]
+    lp = torch.zeros(len(widths) * 32, dtype=torch.long)
+    lp[:n] = lens
+    lp = lp.reshape(-1, 32)
+    assert torch.equal(lp.max(dim=1).values, widths.long())
+    assert bool((lp.min(dim=1).values < widths).any())
+    blk = linearize.faces_pack_plain(sell, sys.face_L, sys.face_R)
+    blocks = blk.reshape(-1, 9, 32)
+    k = int(torch.nonzero(csr.ent < 0)[0])
+    f = -int(csr.ent[k]) - 1
+    ek = int(e[k])
+    assert torch.equal(blocks[ek // 32, :, ek % 32], -sys.face_L[:, f])
+    k = int(torch.nonzero(csr.ent >= 0)[0])
+    ek = int(e[k])
+    assert torch.equal(blocks[ek // 32, :, ek % 32],
+                       sys.face_R[:, int(csr.ent[k])])
+
+
+@pytest.mark.parametrize("iterate", ["full", "pressure"])
+def test_sell_operator_matches_face_list(toy, iterate):
+    m = toy["port"].model
+    fl, sys, dims = m.faces, toy["sys"], toy["dims"]
+    ops = (sys.diag, sys.face_L, sys.face_R)
+    blk = linearize.faces_pack_plain(fl.sell, sys.face_L, sys.face_R)
+    # pads are never read
+    pads = torch.repeat_interleave(fl.sell.src == SELL_PAD, 9)
+    blk = blk.reshape(-1, 9, 32).permute(1, 0, 2).reshape(9, -1)
+    blk[:, fl.sell.src == SELL_PAD] = float("nan")
+    blk = blk.reshape(9, -1, 32).permute(1, 0, 2).reshape(-1)
+    assert int(torch.isnan(blk).sum()) == int(pads.sum())
+    rng = np.random.default_rng(17)
+    x = torch.as_tensor(rng.standard_normal((3, m.nc)))
+    if iterate == "pressure":
+        x = x[0].contiguous()
+    r = torch.as_tensor(rng.standard_normal((3, m.nc)))
+    dinv = precond.cpr_setup_plain(*ops, dims, fl)[0]
+    base = None if dims is None else linearize.matvec_cells_plain(*ops, x,
+                                                                 dims)
+    assert torch.equal(_sell_apply(fl, blk, sys.diag, x, base=base,
+                                   in_place=base is not None),
+                       linearize.faces_matvec_plain(fl, *ops, x, base))
+    assert torch.equal(_sell_apply(fl, blk, sys.diag, x),
+                       linearize.faces_matvec_plain(fl, *ops, x))
+    assert torch.equal(
+        _sell_apply(fl, blk, sys.diag, x, dinv, r, base),
+        linearize.faces_smooth_plain(fl, *ops, dinv, x, r, base))
