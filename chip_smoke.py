@@ -10,8 +10,9 @@ Phases (each prints a line of its own; any failure exits non-zero):
    tpfa.cu, the K3 face blocks blocks.cu, K4/K6 block7.cu, K5 wells.cu,
    K6 cpr.cu, K7 gmg.cu, K8 krylov.cu, K10 amg.cu, the face-list kernels
    faces.cu), one nvcc process each, all started together, prints what
-   ptxas says of krylov.cu's kernels (registers: K8's cooperative grid must
-   be co-resident), holds K8 against its twins at an odd length, and
+   ptxas says of krylov.cu's, gmg.cu's and amg.cu's kernels (registers:
+   the cooperative grids of K8 and of K7's and K10's V-cycle legs must be
+   co-resident), holds K8 against its twins at an odd length, and
    JIT-compiles the Triton kernels (K9);
 3. kernel == plain on the card: (a) K1/K2/K3/K9 at SPE1's shapes (K3's
    tangent also at the main path's jacfwd batch, B = 3 nc + 4 nw, and the
@@ -25,17 +26,22 @@ Phases (each prints a line of its own; any failure exits non-zero):
    steps also run twice for equal bits and checked to allocate nothing), timed
    at SPE10-2 with each one's bound and, where one PyTorch call computes
    the same function, that call's time, and one whole assembly through
-   the kernels against one through their twins; then one SPE10-2 Newton
-   system solved with the kernels and again with the plain twins on the
-   card;
+   the kernels against one through their twins; K7's two V-cycle legs
+   (one V-cycle: exactly two launches and one float32 product) against
+   the per-level twins, every level's right-hand side and correction
+   held, with each leg's time, level 0's alone, the V-cycle's time and
+   bound and its device kernels (torch.profiler); then one SPE10-2
+   Newton system solved with the kernels and again with the plain twins
+   on the card;
 4. SPE1 end to end on the card through SimulatorFullyImplicitBlackoil
    (dense route), all report steps, held against
    data/spe1_reference_cpu.json (the JAX package's CPU run), with the
    launch counters of K1/K3/K9 read over that run;
 5. SPE10-2's first report step (20 days) end to end on the card through
    the CPR route, with the launch counters of K4/K6/K7/K8 read over that
-   run (K8: two launches per BiCGStab iteration, two per solve) and
-   host-clock sections (each ended by a synchronize);
+   run (K8: two launches per BiCGStab iteration, two per solve; K7: two
+   launches and one float32 product per V-cycle, two V-cycles per
+   iteration) and host-clock sections (each ended by a synchronize);
 5b. the toy SPE10-like deck on the card against
    data/spe10like_toy_reference_cpu.json;
 6. the Norne-class corner-point field at full size (norne_like_deck:
@@ -47,9 +53,9 @@ Phases (each prints a line of its own; any failure exits non-zero):
    face-list form on the gather grid, K5), the face-list kernels
    (K3-faces, K4-faces' pack into its sliced-ELL layout, matvec and
    smoothing step, K6 cells and K6-faces, the masked K9 norms), K8 at the
-   gather grid's shapes, and every K10 level operation, the value
-   coarsening and a whole AMG V-cycle against their plain versions, timed
-   with bounds and yardsticks; one gather Newton system solved with the
+   gather grid's shapes, K10's value coarsening and its two V-cycle legs
+   on G (K7's on E) against their plain versions, timed with bounds and
+   yardsticks; one gather Newton system solved with the
    kernels and with the twins; then the first report step (5 days) in each
    representation through SimulatorFullyImplicitBlackoil with no device
    argument, with its counts, wall time, sections and launch counters
@@ -89,10 +95,10 @@ TOL_K9_UPD = 1e-14   # relative; hcstate exact
 TOL_K9_NORM = 1e-12  # relative
 TOL_K4 = 1e-12       # of max (same order of operations as the twin)
 TOL_K6_SETUP = 1e-13  # of max, per output
-TOL_K7 = 1e-12       # of max, each level operation and a whole V-cycle
+TOL_K7 = 1e-12       # of max, each level's rhs and correction, a V-cycle
 TOL_K8_VEC = 1e-13   # of max (same elementwise operations)
 TOL_K8_DOT = 1e-12   # relative (block-tree vs library summation order)
-TOL_K10 = 1e-12      # of max, each level operation and the coarsening
+TOL_K10 = 1e-12      # of max, the value coarsening and the ELL pack
 # K2: the same operations in the same order as the plain formula
 # (--fmad=false): values relative; tangent columns and the assembly's
 # diag of each row's max (torch's jvp orders a few sums differently)
@@ -103,9 +109,10 @@ TOL_K2_TAN = 1e-12
 # each field's max
 TOL_BLOCKS = 1e-12
 TOL_K5 = 1e-12
-# a whole AMG V-cycle: the coarsest level is solved in float32, and the
-# twin's restriction (an index_add with atomics on the card) sums in
-# another order, which can round the float32 right-hand side the other way
+# a whole AMG V-cycle and each level's right-hand side and correction of
+# its legs: the coarsest level is solved in float32, and the twin's
+# restriction (an index_add with atomics on the card) sums in another
+# order, which can round the float32 right-hand side the other way
 TOL_K10_VCYCLE = 1e-6
 # a whole SPE10-2 linear solve, kernels vs twins: the same iteration
 # count; du within TOL_DU of max|du| (BiCGStab amplifies the dot products'
@@ -257,12 +264,11 @@ class Kernels:
              f"{JAX_PKG}/linalg/precond.py:174", k6.cpr_setup_cuda),
             ("K6 pressure_rhs", "cuda", f"{P}/csrc/cpr.cu",
              f"{JAX_PKG}/linalg/precond.py:391", k6.pressure_rhs_cuda),
-            ("K7 gmg_smooth", "cuda", f"{P}/csrc/gmg.cu",
-             f"{JAX_PKG}/linalg/gmg.py:200", k7.smooth_cuda),
-            ("K7 gmg_restrict", "cuda", f"{P}/csrc/gmg.cu",
-             f"{JAX_PKG}/linalg/gmg.py:305", k7.restrict_cuda),
-            ("K7 gmg_prolong_smooth", "cuda", f"{P}/csrc/gmg.cu",
-             f"{JAX_PKG}/linalg/gmg.py:308", k7.prolong_smooth_cuda),
+            ("K7 gmg_vcycle_down", "cuda", f"{P}/csrc/gmg.cu",
+             f"{JAX_PKG}/linalg/gmg.py:171,200,295-307",
+             k7.vcycle_down_cuda),
+            ("K7 gmg_vcycle_up", "cuda", f"{P}/csrc/gmg.cu",
+             f"{JAX_PKG}/linalg/gmg.py:171,200,308-312", k7.vcycle_up_cuda),
             ("K8 init", "cuda", f"{P}/csrc/krylov.cu",
              f"{JAX_PKG}/linalg/krylov.py:59", k8.init_cuda),
             ("K8 p_update", "cuda", f"{P}/csrc/krylov.cu",
@@ -287,12 +293,11 @@ class Kernels:
              f"{P}/solver/kernels_triton.py",
              f"{JAX_PKG}/models/blackoil.py:452",
              k9.conv_norms_masked_triton),
-            ("K10 amg_sweep", "cuda", f"{P}/csrc/amg.cu",
-             f"{JAX_PKG}/linalg/amg.py:37", k10.sweep_cuda),
-            ("K10 amg_restrict", "cuda", f"{P}/csrc/amg.cu",
-             f"{JAX_PKG}/linalg/amg.py:278", k10.restrict_cuda),
-            ("K10 amg_prolong_sweep", "cuda", f"{P}/csrc/amg.cu",
-             f"{JAX_PKG}/linalg/amg.py:280", k10.prolong_sweep_cuda),
+            ("K10 amg_vcycle_down", "cuda", f"{P}/csrc/amg.cu",
+             f"{JAX_PKG}/linalg/amg.py:27,37,264-279",
+             k10.vcycle_down_cuda),
+            ("K10 amg_vcycle_up", "cuda", f"{P}/csrc/amg.cu",
+             f"{JAX_PKG}/linalg/amg.py:27,37,280-282", k10.vcycle_up_cuda),
             ("K10 amg_coarsen", "cuda", f"{P}/csrc/amg.cu",
              f"{JAX_PKG}/linalg/amg.py:222", k10.coarsen_cuda),
             ("K10 amg_ell_pack", "cuda", f"{P}/csrc/amg.cu",
@@ -337,8 +342,10 @@ class Kernels:
                 and (e[0] in self.FACE_GRIDS_ONLY) == face_grids]
 
     def reset(self):
+        from opm_tpu_torch.linalg import gmg as k7
         for e in self.entries:
             e[4].launches = 0
+        k7.coarsest_product.calls = 0
 
     def read(self, names):
         for e in self.entries:
@@ -895,60 +902,190 @@ def compare_cpr_kernels(K, sim, amg, sys, seed, label, timed):
            lambda: k6.smooth_step_plain(*ops, dinv, x, r, dims),
            (ops, dinv, x, r), kx, 18 * nc + 36 * nf + 24 * nc)
 
-    # K7: every level of this system's hierarchy, then a whole V-cycle
+    # K7: the two legs on this system's hierarchy, then its V-cycle
     vals = amg.coarsen_values(ps[2], ps[3])
-    for lvl, lv in enumerate(amg.levels):
-        d3, offs = vals[lvl]
-        xb, bb = rnd(*d3.shape), rnd(*d3.shape)
-        nxt = amg.levels[lvl + 1] if lvl + 1 < len(amg.levels) else None
-        pad_axis = nxt.axis if nxt is not None and nxt.pad else -1
-        chk("K7 gmg_smooth", TOL_K7, [
-            (k7.smooth_cuda(d3, offs, None, bb),
-             k7.smooth_plain(d3, offs, None, bb)),
-            (k7.smooth_cuda(d3, offs, xb, bb),
-             k7.smooth_plain(d3, offs, xb, bb))])
-        kc = k7.restrict_cuda(d3, offs, xb, bb, lv.axis, pad_axis)
-        chk("K7 gmg_restrict", TOL_K7, [
-            (kc, k7.restrict_plain(d3, offs, xb, bb, lv.axis, pad_axis))])
-        ec = rnd(*kc.shape)
-        chk("K7 gmg_prolong_smooth", TOL_K7, [
-            (k7.prolong_smooth_cuda(d3, offs, xb, ec, lv.axis, bb),
-             k7.prolong_smooth_plain(d3, offs, xb, ec, lv.axis, bb))])
-        if lvl == 0 and timed:
-            n0 = d3.numel()
-            ins = (d3, offs, bb)
-            timing("K7 gmg_smooth",
-                   lambda: k7.smooth_cuda(d3, offs, xb, bb),
-                   lambda: k7.smooth_plain(d3, offs, xb, bb),
-                   (ins, xb), bb, 17 * n0)
-            timing("K7 gmg_restrict",
-                   lambda: k7.restrict_cuda(d3, offs, xb, bb, lv.axis,
-                                            pad_axis),
-                   lambda: k7.restrict_plain(d3, offs, xb, bb, lv.axis,
-                                             pad_axis),
-                   (ins, xb), kc, 16 * n0)
-            timing("K7 gmg_prolong_smooth",
-                   lambda: k7.prolong_smooth_cuda(d3, offs, xb, ec,
-                                                  lv.axis, bb),
-                   lambda: k7.prolong_smooth_plain(d3, offs, xb, ec,
-                                                   lv.axis, bb),
-                   (ins, xb, ec), bb, 18 * n0)
-    bp = rnd(nc)
-    kv = amg.vcycle(vals, bp)
-    pv = amg.vcycle(vals, bp, twin=True)
-    e = scaled_err(kv, pv)
-    if not e <= TOL_K7:
-        fail(f"{label}: a whole V-cycle through K7 is off by {e:.3e}")
-    vc = {}
-    if timed:
-        vc = dict(vcycle_ms=cuda_ms(lambda: amg.vcycle(vals, bp)),
-                  vcycle_plain_ms=cuda_ms(
-                      lambda: amg.vcycle(vals, bp, twin=True)),
-                  levels=len(amg.levels), coarsest_n=amg.coarsest_n)
+    vc = compare_vcycle(K, k7, amg, vals, rnd(nc), label, TOL_K7, timed)
 
     compare_k8(K, (3, nc), dev, seed, label, timed)
     torch.cuda.synchronize()
     return vc
+
+
+def device_kernels(fn):
+    """The device kernels that one call of fn runs (torch.profiler, after a
+    warm call), by name; None where the profiler recorded no device
+    event (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    return names or None
+
+
+def vcycle_work(amg, vals):
+    """Per level, level 0 first, (bytes, float64 operations) of each V-cycle
+    leg: each input read once and each output written once; the
+    operations of the pre-smoothed iterate (once per cell), the residual
+    and the post-smoothing sweep. K10 stores the pre-smoothed iterate (the
+    down leg writes it, the up leg reads it); K7 does not. A coarsest
+    level solved by sweeps adds its 1 + 10 sweeps to the down leg. Returns
+    (down, up)."""
+    from opm_tpu_torch.linalg import amg as k10
+
+    down, up = [], []
+    if not isinstance(amg, k10.DeviceAmg):
+        L, nc, n_c = len(amg.levels), amg.nc, amg.coarsest_n
+        n = [vals[l][0].numel() for l in range(L)] + [n_c]
+        if L == 0:
+            return [(12 * nc, 0)], [(12 * nc, 0)]
+        for l in range(L):
+            coef = nbytes(vals[l])
+            rhs = 8 * (nc if l == 0 else n[l])
+            nxt = 4 * n_c if l + 1 == L else 8 * n[l + 1]
+            # a stencil 13, a sweep 17 operations per cell
+            down.append((coef + rhs + nxt, 31.5 * n[l]))
+            up.append((coef + rhs + nxt + rhs, 35 * n[l]))
+        return down, up
+    nL, dense = len(amg.levels), amg.coarsest_n <= k10.DENSE_COARSEST
+    for k in range(nL + 1):
+        diag, ev = vals[k]
+        n, Kw = diag.numel(), ev.shape[0]
+        mat = nbytes(diag, ev, amg.ell[k]["cols32"])
+        if k == nL:
+            if not dense:         # the coarsest sweeps
+                down.append((mat + 16 * n, 11 * (2 * Kw + 5) * n))
+            elif nL == 0:
+                down.append((12 * n, 0))
+                up.append((12 * n, 0))
+            break
+        lv = amg.levels[k]
+        nxt = (4 if k + 1 == nL and dense else 8) * lv["n_coarse"]
+        # an ELL row 2 K + 1, a sweep 2 K + 5 operations; the down leg
+        # writes the pre-smoothed iterate, the up leg reads it
+        down.append((mat + 8 * n + nbytes(lv["child_ptr"], lv["child_idx"])
+                     + 8 * n + nxt, (4 * Kw + 8) * n))
+        up.append((mat + 8 * n + 8 * n + nbytes(lv["agg32"]) + nxt + 8 * n,
+                   (2 * Kw + 6) * n))
+    return down, up
+
+
+def compare_vcycle(K, mod, amg, vals, b, label, tol, timed, record=True):
+    """K7's or K10's two V-cycle legs (``mod``: linalg.gmg or linalg.amg)
+    on one Newton system's hierarchy against their plain versions on the
+    card: one V-cycle is exactly two launches plus, where the coarsest is
+    inverted, one float32 product; it equals the per-level composition of
+    the twins, and each level's right-hand side and correction in the
+    workspace the plain legs', within ``tol`` of max. When ``timed``:
+    returns the V-cycle's measurements (each leg, level 0 alone, the
+    product, the V-cycle, their bounds, the device kernels of one V-cycle,
+    the legs' grids and registers), and with ``record`` fills the legs'
+    rows."""
+    import torch
+
+    from opm_tpu_torch.linalg import gmg as k7
+
+    prefix = "K7 gmg" if mod is k7 else "K10 amg"
+    down, up = f"{prefix}_vcycle_down", f"{prefix}_vcycle_up"
+
+    def counts():
+        return (mod.vcycle_down_cuda.launches, mod.vcycle_up_cuda.launches,
+                k7.coarsest_product.calls)
+
+    def chk(name, pairs):
+        for a, c in pairs:
+            K.note(name, float((a - c).abs().max()) if c.numel() else 0.0)
+            e = scaled_err(a, c)
+            if not e <= tol:
+                fail(f"{label}: {name} differs from its plain version "
+                     f"({e:.3e} > {tol:g})")
+
+    n0 = counts()
+    x = amg.vcycle(vals, b).clone()
+    ws = vals.ws
+    dense = ws.bc.numel() > 0
+    per = tuple(a - c for a, c in zip(counts(), n0))
+    if per != (1, 1, int(dense)):
+        fail(f"{label}: one V-cycle ran {per} (down, up, product) launches")
+    bs, c = amg.vcycle_down_plain(vals, b)
+    ec = vals[-1] @ c if dense else c
+    xp, es = amg.vcycle_up_plain(vals, bs, ec)
+    chk(down, [(t, bs[l]) for l, t in enumerate(ws.b) if t is not None]
+        + ([(ws.bc.double(), c.double())] if dense else []))
+    chk(up, [(t, es[l]) for l, t in enumerate(ws.e) if t is not None]
+        + [(x, xp), (x, amg.vcycle(vals, b, twin=True))])
+    if not timed:
+        return None
+    wd, wu = vcycle_work(amg, vals)
+    t = dict(down_ms=cuda_ms(lambda: mod.vcycle_down_cuda(ws, b)),
+             up_ms=cuda_ms(lambda: mod.vcycle_up_cuda(ws, b)),
+             down_plain_ms=cuda_ms(lambda: amg.vcycle_down_plain(vals, b)),
+             up_plain_ms=cuda_ms(lambda: amg.vcycle_up_plain(vals, bs, ec)))
+    bound = {leg: max(sum(w[0] for w in ws_) / HBM_BYTES_S,
+                      sum(w[1] for w in ws_) / F64_FLOP_S) * 1e3
+             for leg, ws_ in (("down", wd), ("up", wu))}
+    t.update(down_bound_ms=bound["down"], up_bound_ms=bound["up"])
+    if record:
+        for name, leg, ws_ in ((down, "down", wd), (up, "up", wu)):
+            K.ms[name] = t[f"{leg}_ms"]
+            K.plain_ms[name] = t[f"{leg}_plain_ms"]
+            K.library_ms[name] = None
+            K.bound_raw(name, sum(w[0] for w in ws_),
+                        sum(w[1] for w in ws_))
+    nlev = len(amg.levels)
+    if nlev:
+        t["level0"] = dict(
+            down_ms=cuda_ms(lambda: mod.vcycle_down_cuda(ws, b, (0, 1))),
+            up_ms=cuda_ms(lambda: mod.vcycle_up_cuda(ws, b, (0, 1))),
+            down_bound_ms=wd[0][0] / HBM_BYTES_S * 1e3,
+            up_bound_ms=wu[0][0] / HBM_BYTES_S * 1e3)
+    prod = 0.0
+    if dense:
+        t["product_ms"] = cuda_ms(lambda: k7.coarsest_product(
+            vals[-1], ws.bc, ws.ec))
+        prod = nbytes(vals[-1], ws.bc, ws.ec) / HBM_BYTES_S * 1e3
+    kernels = device_kernels(lambda: amg.vcycle(vals, b))
+    t.update(
+        vcycle_ms=cuda_ms(lambda: amg.vcycle(vals, b)),
+        vcycle_bound_ms=bound["down"] + bound["up"] + prod,
+        vcycle_plain_legs_ms=cuda_ms(lambda: amg._vcycle_legs_plain(vals,
+                                                                     b)),
+        vcycle_twin_ms=cuda_ms(lambda: amg.vcycle(vals, b, twin=True)),
+        vcycle_host_ms=host_ms(lambda: amg.vcycle(vals, b), reps=20),
+        launches_per_vcycle=dict(zip(("down", "up", "product"), per)),
+        device_kernels_per_vcycle=None if kernels is None else len(kernels),
+        device_kernels=kernels,
+        levels=nlev, coarsest_n=amg.coarsest_n, grid=dict(
+            down=ws.grid_down, up=ws.grid_up, **ws.info))
+    return t
+
+
+def log_vcycle(label, t):
+    """One V-cycle's measurements, as compare_vcycle returned them."""
+    l0 = t.get("level0")
+    log(f"  V-cycle on {label} ({t['levels']} levels, coarsest "
+        f"{t['coarsest_n']}): {t['vcycle_ms']:.4f} ms (bound "
+        f"{t['vcycle_bound_ms']:.4f}; host clock {t['vcycle_host_ms']:.4f}); "
+        f"plain legs {t['vcycle_plain_legs_ms']:.4f}, per-level twins "
+        f"{t['vcycle_twin_ms']:.4f} ms; down {t['down_ms']:.4f} (bound "
+        f"{t['down_bound_ms']:.4f}), up {t['up_ms']:.4f} (bound "
+        f"{t['up_bound_ms']:.4f}), product "
+        f"{t.get('product_ms', 0.0):.4f} ms"
+        + (f"; level 0 alone: down {l0['down_ms']:.4f} (bound "
+           f"{l0['down_bound_ms']:.4f}), up {l0['up_ms']:.4f} (bound "
+           f"{l0['up_bound_ms']:.4f}) ms" if l0 else ""))
+    kernels = t["device_kernels"]
+    log(f"    launches per V-cycle {t['launches_per_vcycle']}; device "
+        "kernels " + ("not measured" if kernels is None else
+                      f"{len(kernels)}: {[n[:40] for n in kernels]}")
+        + f"; grid {t['grid']}")
 
 
 def compare_k8(K, shape, dev, seed, label, timed):
@@ -1063,6 +1200,23 @@ def check_k8_launches(launches, rep, label):
              "solve")
 
 
+def check_vcycle_launches(launches, rep, label, amg):
+    """Two launches per V-cycle (K7's or K10's down and up legs) and one
+    float32 coarsest product, two V-cycles per BiCGStab iteration."""
+    from opm_tpu_torch.linalg import gmg as k7
+    from opm_tpu_torch.linalg.amg import DeviceAmg
+
+    prefix = "K10 amg" if isinstance(amg, DeviceAmg) else "K7 gmg"
+    n = (launches[f"{prefix}_vcycle_down"], launches[f"{prefix}_vcycle_up"],
+         k7.coarsest_product.calls)
+    v = 2 * rep.linear_iterations
+    log(f"  {prefix} V-cycle launches (down, up, product): {n} over {v} "
+        f"V-cycles")
+    if n != (v, v, v):
+        fail(f"{label}: {prefix} launches {n} are not 2 kernels and 1 "
+             f"product per V-cycle ({v} V-cycles)")
+
+
 def solve_twice(sim, sys, tol, maxiter):
     """One Newton system solved at ``tol`` (at most ``maxiter``
     iterations) with the kernels (twice: the fused reductions are
@@ -1144,6 +1298,7 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
     import torch
 
     from opm_tpu_torch.linalg import amg as k10
+    from opm_tpu_torch.linalg import gmg as k7
     from opm_tpu_torch.linalg import precond as k6
     from opm_tpu_torch.models import blackoil as mb
     from opm_tpu_torch.models import linearize as k4
@@ -1299,50 +1454,15 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
             chk("K10 amg_coarsen", TOL_K10, [(vk[k][0], vp[k][0])])
         if scaled_err(vk[-1], vp[-1]) > 1e-5:
             fail(f"{label}: the float32 coarsest inverses differ")
-        for k, lv in enumerate(amg.levels):
-            d, ev = vp[k]
-            n = d.shape[0]
-            xb, bb = rnd(n), rnd(n)
-            cols = lv["cols"]
-            chk("K10 amg_sweep", TOL_K10, [
-                (k10.sweep_cuda(lv, d, ev, None, bb),
-                 k10.sweep_plain(d, ev, cols, None, bb)),
-                (k10.sweep_cuda(lv, d, ev, xb, bb),
-                 k10.sweep_plain(d, ev, cols, xb, bb))])
-            kc_ = k10.restrict_cuda(lv, d, ev, xb, bb)
-            chk("K10 amg_restrict", TOL_K10, [
-                (kc_, k10.restrict_plain(d, ev, cols, xb, bb, lv["agg"],
-                                         lv["n_coarse"]))])
-            ec = rnd(lv["n_coarse"])
-            chk("K10 amg_prolong_sweep", TOL_K10, [
-                (k10.prolong_sweep_cuda(lv, d, ev, xb, ec, bb),
-                 k10.prolong_sweep_plain(d, ev, cols, xb, ec, lv["agg"],
-                                         bb))])
-            if k == 0 and timed:
-                Kw = ev.shape[0]
-                ins = (d, ev, lv["cols32"], bb)
-                timing("K10 amg_sweep",
-                       lambda: k10.sweep_cuda(lv, d, ev, xb, bb),
-                       lambda: k10.sweep_plain(d, ev, cols, xb, bb),
-                       (ins, xb), bb, (2 * Kw + 6) * n)
-                timing("K10 amg_restrict",
-                       lambda: k10.restrict_cuda(lv, d, ev, xb, bb),
-                       lambda: k10.restrict_plain(d, ev, cols, xb, bb,
-                                                  lv["agg"],
-                                                  lv["n_coarse"]),
-                       (ins, xb, lv["child_ptr"], lv["child_idx"]), kc_,
-                       (2 * Kw + 3) * n)
-                timing("K10 amg_prolong_sweep",
-                       lambda: k10.prolong_sweep_cuda(lv, d, ev, xb, ec, bb),
-                       lambda: k10.prolong_sweep_plain(d, ev, cols, xb, ec,
-                                                       lv["agg"], bb),
-                       (ins, xb, ec, lv["agg32"]), bb, (2 * Kw + 7) * n)
-                A0 = csr_of_level(d, ev, cols)
-                extra["level0_spmv_csr_ms"] = cuda_ms(
-                    lambda: A0 @ xb.reshape(-1, 1))
-                extra["level0"] = dict(n=n, K=Kw, nnz=int(off.numel()))
-                del A0
+        d, ev = vp[0]
+        extra["level0"] = dict(n=d.shape[0], K=ev.shape[0],
+                               nnz=int(off.numel()))
         if timed:
+            A0 = csr_of_level(d, ev, amg.levels[0]["cols"])
+            xb = rnd(d.shape[0])
+            extra["level0_spmv_csr_ms"] = cuda_ms(
+                lambda: A0 @ xb.reshape(-1, 1))
+            del A0
             lv0 = amg.levels[0]
             timing("K10 amg_coarsen",
                    lambda: k10.coarsen_cuda(diag_p, off, lv0),
@@ -1354,25 +1474,22 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
                    lambda: k10.ell_pack_cuda(off, amg.ell[0]),
                    lambda: k10.ell_pack_plain(off, amg.ell[0]),
                    (off, amg.ell[0]["src"]), vk[0][1], 0)
-        bp = rnd(nc)
-        xk = amg.vcycle(vk, bp)
-        xt = amg.vcycle(vk, bp, twin=True)
-        e = scaled_err(xk, xt)
-        if not e <= TOL_K10_VCYCLE:
-            fail(f"{label}: a whole AMG V-cycle through K10 is off by "
-                 f"{e:.3e}")
-        extra["vcycle_err"] = e
+        extra["vcycle"] = compare_vcycle(K, k10, amg, vk, rnd(nc), label,
+                                         TOL_K10_VCYCLE, timed)
         extra["widths"] = [int(v[1].shape[0]) for v in vp[:amg.n_levels]]
         extra["sizes"] = [int(v[0].shape[0]) for v in vp[:amg.n_levels]]
         if timed:
             extra.update(
-                vcycle_ms=cuda_ms(lambda: amg.vcycle(vk, bp)),
-                vcycle_plain_ms=cuda_ms(lambda: amg.vcycle(vk, bp,
-                                                           twin=True)),
                 coarsen_values_ms=cuda_ms(
                     lambda: amg.coarsen_values(diag_p, off)),
                 coarsen_values_plain_ms=cuda_ms(
                     lambda: amg.coarsen_values(diag_p, off, twin=True)))
+    else:
+        # K7 on the embedded grid's hierarchy (its stencil faces)
+        vals = amg.coarsen_values(diag_p, k6._pressure_off_for(amg, off,
+                                                               dims))
+        extra["vcycle"] = compare_vcycle(K, k7, amg, vals, rnd(nc), label,
+                                         TOL_K7, timed, record=False)
     torch.cuda.synchronize()
     return extra
 
@@ -1414,6 +1531,7 @@ def norne_first_step(K, sim, ref, label, names):
     log("  launches: " + ", ".join(f"{n}={c}" for n, c in counts.items()
                                    if c))
     check_k8_launches(counts, rep, label)
+    check_vcycle_launches(counts, rep, label, sim.solver.amg)
     if counts["K4-faces pack"] != rep.newton_iterations:
         fail(f"{label}: {counts['K4-faces pack']} K4-faces packs in "
              f"{rep.newton_iterations} Newton systems")
@@ -1429,6 +1547,8 @@ def toy_run(K, sim, ref, label, names):
     res = run_vs_fixture(sim, ref, label)
     check_k8_launches({e[0]: e[4].launches for e in K.entries},
                       sim.report, label)
+    check_vcycle_launches({e[0]: e[4].launches for e in K.entries},
+                          sim.report, label, sim.solver.amg)
     counts = {e[0]: e[4].launches for e in K.entries if e[0] in names}
     res.update(sections_s=dict(sim.solver.timing), launches=counts)
     log("  sections (s, synced): " + ", ".join(
@@ -1555,11 +1675,13 @@ def main(argv=None):
     results["build_s"] = time.perf_counter() - t0
     log(f"build: {results['build_s']:.1f} s (11 nvcc sm_90a and the host "
         "cornerpoint.cpp in parallel + Triton JIT of K9)")
-    ptxas = cuda_lib.build_log.get("krylov.cu")
-    log("krylov.cu -Xptxas -v: " + (" | ".join(
-        ln.strip() for ln in ptxas.splitlines()
-        if "registers" in ln or "Compiling entry" in ln or "spill" in ln)
-        if ptxas is not None else "(library up to date, not rebuilt)"))
+    for src in ("krylov.cu", "gmg.cu", "amg.cu"):
+        ptxas = cuda_lib.build_log.get(src)
+        log(f"{src} -Xptxas -v: " + (" | ".join(
+            ln.strip() for ln in ptxas.splitlines()
+            if "registers" in ln or "Compiling entry" in ln
+            or "spill" in ln)
+            if ptxas is not None else "(library up to date, not rebuilt)"))
     # K8 at an odd length (the tail element) against its twins
     compare_k8(K, (3, 7), dev, args.seed, "K8 at 21 values", timed=False)
     log("K8 == plain at an odd length (21 values): ok")
@@ -1659,9 +1781,7 @@ def main(argv=None):
             f"({K.bound_by[n]})   library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}   "
             f"max_abs_err {K.err[n]:.3e}")
-    log(f"  V-cycle ({vc['levels']} levels, coarsest {vc['coarsest_n']}): "
-        f"kernels {vc['vcycle_ms']:.4f} ms   plain "
-        f"{vc['vcycle_plain_ms']:.4f} ms")
+    log_vcycle("SPE10-2", vc)
     # the production solve; then ten iterations of the recurrence at an
     # unreachable tolerance, a longer path for the roundoff to travel
     # (recorded: kernels and twins sum their dot products in other orders)
@@ -1759,6 +1879,7 @@ def main(argv=None):
     if rep.failed_substeps != 0 or not finite:
         fail("SPE10-2: failed substeps or a non-finite state")
     check_k8_launches(K.launches, rep, "SPE10-2")
+    check_vcycle_launches(K.launches, rep, "SPE10-2", amg)
     dead = [n for n in new_names if K.launches[n] <= 0]
     if dead:
         fail(f"kernels not launched by the SPE10-2 run: {dead}")
@@ -1807,8 +1928,9 @@ def main(argv=None):
                           "K9"), face_grids=True) + K.names(
         ("K3-faces", "K4-faces", "K6-faces", "K10"))
     # every kernel of the two runs: the face-list path's and the
-    # assembly's (the stencil face blocks on the embedded grid)
-    new_names = face_names + list(K.ASSEMBLY) + ["K3 face_blocks"]
+    # assembly's (the stencil face blocks and K7 on the embedded grid)
+    new_names = face_names + list(K.ASSEMBLY) + ["K3 face_blocks"] + \
+        K.names(("K7",))
     for rname, simn in sims.items():
         init_n = initial_state(simn.grid, simn.props, casen,
                                len(simn.well_names))
@@ -1824,6 +1946,7 @@ def main(argv=None):
         results[f"norne_{rname}_kernels"] = extra
         log(f"face-list kernels == plain on the Norne-class {rname} first "
             f"Newton system: ok {json.dumps(extra)}")
+        log_vcycle(f"Norne-class {rname}", extra["vcycle"])
         if rname == "gather":
             compare_k8(K, (3, simn.model.nc), dev, args.seed,
                        "Norne-class gather", timed=False)

@@ -1,43 +1,107 @@
-// K7: the level work of the structured-GMG V-cycle, for Hopper.
+// K7: the structured-GMG V-cycle for Hopper, as two cooperative launches.
 //
 // Replaces the JAX package's linalg/gmg.py StructuredGmg._matvec (:171),
-// _smooth (:200), the residual + _pairsum restriction and the _repeat2
-// prolongation + post-smoothing of _vcycle3 (:295-312), which XLA fused on
-// the TPU into shifted-slice passes.
+// _smooth (:200) and the level work of _vcycle3 (:295-312): the damped
+// Jacobi sweeps, the residual with its _pairsum restriction and the
+// _repeat2 prolongation, which XLA fused on the TPU into shifted-slice
+// passes, one level after another.
 //
 // A level is a scalar 7-point stencil on (nz, ny, nx): diagonal d and per
 // axis the couplings aL (to the next cell along the axis) and aR (to the
 // previous one), each face array one shorter than the level along its
-// axis. Three entries, one thread per output cell each:
-//   smooth:          x' = x + 0.8 (b - A x) / d   (d = 1 where |d| <= 1e-300;
-//                    x may be null: a zero first iterate);
-//   restrict:        coarse b = pair sum along the coarsened axis of the
-//                    fine residual b - A x, written into the next level's
-//                    (ghost-padded) shape with the ghost slab zero;
-//   prolong_smooth:  x + the coarse correction replicated along the axis,
-//                    then one sweep on that iterate (the replicated value is
-//                    formed for the cell and each neighbour on the fly).
-// Every row sums in the reference's order (diagonal, then per axis z, y, x
-// the next cell's aL term and the previous cell's aR term), so results are
-// bitwise those of the plain version; no atomics.
+// axis; an odd axis carries one ghost slab (diagonal 0, couplings 0). The
+// V-cycle (one pre- and one post-smoothing sweep, omega = 0.8) runs as
 //
-// What bounds it on the card: memory traffic at the fine levels (per cell
-// 7 coefficients, 7 neighbours mostly from L2, b and the output), launch
-// latency at the coarse ones (each level is three launches, whatever its
-// size). Build with --fmad=false.
+//   down  for each level l = 0 .. L-1, over the next level's cells: the
+//         pair sum along the level's axis of the residual b - A x of the
+//         zero-start sweep x = 0 + 0.8 (b - A 0) / d (d = 1 where |d| <=
+//         1e-300), the next level's ghost slab 0; x is evaluated where it
+//         is needed, from b, and never stored; the last level writes the
+//         coarsest right-hand side rounded to float32;
+//   (between the two: the float32 product with the coarsest inverse, one
+//         library call, as the reference leaves it to XLA);
+//   up    for each level l = L-1 .. 0, over the level's cells: one sweep
+//         on x + the coarse correction replicated along the axis, with x
+//         again the zero-start sweep evaluated from b; level 0 writes its
+//         real cells (its ghost slab dropped) into the V-cycle's output.
+//
+// Each leg is one cooperative launch with a grid barrier between levels;
+// a level's cells are a grid-stride loop. The levels' arrays, sizes and
+// workspace pointers are a table on the device (one record of eight-byte
+// fields per level, uploaded once per set of level values by
+// linalg/gmg.py, which packs the same order). Every row sums in the
+// reference's order (diagonal, then per axis z, y, x the next cell's aL
+// term and the previous cell's aR term), so each level's right-hand side
+// and correction are bitwise those of the plain per-level version; no
+// atomics, and the grid's size changes no bit.
+//
+// What bounds it on the card: memory traffic at level 0 (per cell seven
+// coefficients and b, plus the output; the neighbours' coefficients that
+// the recomputed x needs come from L1/L2), barriers on the coarse levels
+// (L - 1 per leg instead of three launches per level). Measured at
+// 1.122M cells (NVIDIA H100 80GB HBM3, chip_smoke.py): level 0 runs at
+// 27-31% of its byte bound (each x costs 8 loads and a division at 7
+// cells a row; 124 registers, 2 blocks per SM) and a coarse level ~7 us.
+// Build with --fmad=false (products and sums round as the plain
+// version's).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr double kOmega = 0.8;
 
-struct Level {
-    int nz, ny, nx;
+// one level as the table holds it: its values, its right-hand side b and
+// correction e in the workspace (null at level 0, whose b is the input and
+// whose e is the output), its (ghost-padded) dims, the axis coarsened to
+// the next level, and the dims (rz, ry, rx) of its b and e arrays (level
+// 0: the real cells; every other level: its padded dims). The record after
+// the last level holds the coarsest dims only.
+struct LevelRec {
     const double* d;
     const double* aL[3];   // z, y, x
     const double* aR[3];
+    double* b;
+    double* e;
+    long long nz, ny, nx;
+    long long axis;
+    long long rz, ry, rx;
+};
+
+struct Level {
+    int nz, ny, nx;
+    const double* d;
+    const double* aL[3];
+    const double* aR[3];
+};
+
+__device__ __forceinline__ Level level_of(const LevelRec& R) {
+    Level L;
+    L.nz = (int)R.nz;
+    L.ny = (int)R.ny;
+    L.nx = (int)R.nx;
+    L.d = R.d;
+    for (int a = 0; a < 3; ++a) {
+        L.aL[a] = R.aL[a];
+        L.aR[a] = R.aR[a];
+    }
+    return L;
+}
+
+// a level's right-hand side; cells outside the array (level 0's ghost
+// slab) read 0, as the reference's zero padding
+struct Rhs {
+    const double* b;
+    int rz, ry, rx;
+    __device__ __forceinline__ double operator()(int k, int j, int i) const {
+        return (k < rz && j < ry && i < rx)
+                   ? b[((long long)k * ry + j) * rx + i]
+                   : 0.0;
+    }
 };
 
 struct ZeroX {
@@ -46,33 +110,12 @@ struct ZeroX {
     }
 };
 
-struct PlainX {
-    const double* x;
-    int ny, nx;
-    __device__ __forceinline__ double operator()(int k, int j, int i) const {
-        return x[((long long)k * ny + j) * nx + i];
-    }
-};
-
-// x + the coarse correction e (dims ez, ey, ex) at the parent cell
-struct ProlongX {
-    const double* x;
-    const double* e;
-    int ny, nx, axis, ey, ex;
-    __device__ __forceinline__ double operator()(int k, int j, int i) const {
-        int pk = axis == 0 ? k >> 1 : k;
-        int pj = axis == 1 ? j >> 1 : j;
-        int pi = axis == 2 ? i >> 1 : i;
-        return x[((long long)k * ny + j) * nx + i]
-               + e[((long long)pk * ey + pj) * ex + pi];
-    }
-};
-
+// y = (A x) at (k, j, i), xc the iterate there
 template <class X>
-__device__ __forceinline__ double stencil(const Level& L, const X& xv, int k,
-                                          int j, int i) {
+__device__ __forceinline__ double stencil(const Level& L, const X& xv,
+                                          double xc, int k, int j, int i) {
     const long long ny = L.ny, nx = L.nx;
-    double y = L.d[((long long)k * ny + j) * nx + i] * xv(k, j, i);
+    double y = L.d[((long long)k * ny + j) * nx + i] * xc;
     if (k < L.nz - 1)
         y = y + L.aL[0][((long long)k * ny + j) * nx + i] * xv(k + 1, j, i);
     if (k > 0)
@@ -93,128 +136,208 @@ __device__ __forceinline__ double stencil(const Level& L, const X& xv, int k,
     return y;
 }
 
+// one damped-Jacobi sweep of the iterate xv at (k, j, i)
 template <class X>
 __device__ __forceinline__ double sweep(const Level& L, const X& xv,
-                                        const double* b, int k, int j,
-                                        int i) {
-    long long c = ((long long)k * L.ny + j) * L.nx + i;
-    double d = L.d[c];
+                                        const Rhs& b, int k, int j, int i) {
+    double d = L.d[((long long)k * L.ny + j) * L.nx + i];
     double safe = fabs(d) > 1e-300 ? d : 1.0;
-    double y = stencil(L, xv, k, j, i);
-    return xv(k, j, i) + kOmega * (b[c] - y) / safe;
+    double xc = xv(k, j, i);
+    double y = stencil(L, xv, xc, k, j, i);
+    return xc + kOmega * (b(k, j, i) - y) / safe;
 }
 
-template <class X>
-__global__ void smooth_kernel(Level L, X xv, const double* __restrict__ b,
-                              double* __restrict__ out) {
-    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    long long n = (long long)L.nz * L.ny * L.nx;
-    if (c >= n) return;
-    int i = (int)(c % L.nx);
-    int j = (int)((c / L.nx) % L.ny);
-    int k = (int)(c / ((long long)L.nx * L.ny));
-    out[c] = sweep(L, xv, b, k, j, i);
+// the pre-smoothed iterate: the sweep from zero, evaluated from b
+struct PreX {
+    Level L;
+    Rhs b;
+    __device__ __forceinline__ double operator()(int k, int j, int i) const {
+        return sweep(L, ZeroX{}, b, k, j, i);
+    }
+};
+
+// the pre-smoothed iterate plus the coarse correction e (dims *, ey, ex;
+// float32 at the coarsest) of the parent cell
+template <class E>
+struct PostX {
+    PreX pre;
+    const E* e;
+    int axis, ey, ex;
+    __device__ __forceinline__ double operator()(int k, int j, int i) const {
+        int pk = axis == 0 ? k >> 1 : k;
+        int pj = axis == 1 ? j >> 1 : j;
+        int pi = axis == 2 ? i >> 1 : i;
+        return pre(k, j, i)
+               + (double)e[((long long)pk * ey + pj) * ex + pi];
+    }
+};
+
+__device__ __forceinline__ long long first_index() {
+    return (long long)blockIdx.x * kThreads + threadIdx.x;
 }
 
-__global__ void restrict_kernel(Level L, PlainX xv,
-                                const double* __restrict__ b, int axis,
-                                int cz, int cy, int cx,
-                                double* __restrict__ out) {
-    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    long long n = (long long)cz * cy * cx;
-    if (c >= n) return;
-    int I = (int)(c % cx);
-    int J = (int)((c / cx) % cy);
-    int K = (int)(c / ((long long)cx * cy));
+__device__ __forceinline__ long long grid_stride() {
+    return (long long)gridDim.x * kThreads;
+}
+
+// down leg, level l: the next level's right-hand side (float32 after the
+// last level)
+__device__ void restrict_level(const LevelRec* T, int l, int L,
+                               const double* in, float* bc) {
+    const LevelRec& F = T[l];
+    const LevelRec& C = T[l + 1];
+    Level lev = level_of(F);
+    Rhs b{l == 0 ? in : F.b, (int)F.rz, (int)F.ry, (int)F.rx};
+    PreX x{lev, b};
+    const int axis = (int)F.axis;
+    const int cy = (int)C.ny, cx = (int)C.nx;
     // the real coarse cells: the level halved along the axis
-    int rz = axis == 0 ? L.nz / 2 : L.nz;
-    int ry = axis == 1 ? L.ny / 2 : L.ny;
-    int rx = axis == 2 ? L.nx / 2 : L.nx;
-    if (K >= rz || J >= ry || I >= rx) {
-        out[c] = 0.0;                      // the next level's ghost slab
+    const int rz = axis == 0 ? lev.nz / 2 : lev.nz;
+    const int ry = axis == 1 ? lev.ny / 2 : lev.ny;
+    const int rx = axis == 2 ? lev.nx / 2 : lev.nx;
+    const long long n = C.nz * C.ny * C.nx;
+    for (long long c = first_index(); c < n; c += grid_stride()) {
+        int I = (int)(c % cx);
+        int J = (int)((c / cx) % cy);
+        int K = (int)(c / ((long long)cx * cy));
+        double v = 0.0;                    // the next level's ghost slab
+        if (K < rz && J < ry && I < rx) {
+            int k0 = axis == 0 ? 2 * K : K, k1 = axis == 0 ? 2 * K + 1 : K;
+            int j0 = axis == 1 ? 2 * J : J, j1 = axis == 1 ? 2 * J + 1 : J;
+            int i0 = axis == 2 ? 2 * I : I, i1 = axis == 2 ? 2 * I + 1 : I;
+            double r0 = b(k0, j0, i0)
+                        - stencil(lev, x, x(k0, j0, i0), k0, j0, i0);
+            double r1 = b(k1, j1, i1)
+                        - stencil(lev, x, x(k1, j1, i1), k1, j1, i1);
+            v = r0 + r1;
+        }
+        if (l + 1 < L)
+            C.b[c] = v;
+        else
+            bc[c] = __double2float_rn(v);
+    }
+}
+
+// up leg, level l: the post-smoothing sweep of x + the prolonged
+// correction en of level l + 1, into the level's e (level 0: the output)
+template <class E>
+__device__ void prolong_level(const LevelRec* T, int l, const double* in,
+                              const E* en, double* out) {
+    const LevelRec& F = T[l];
+    const LevelRec& C = T[l + 1];
+    Level lev = level_of(F);
+    Rhs b{l == 0 ? in : F.b, (int)F.rz, (int)F.ry, (int)F.rx};
+    PostX<E> x{PreX{lev, b}, en, (int)F.axis, (int)C.ny, (int)C.nx};
+    double* dst = l == 0 ? out : F.e;
+    const int ry = (int)F.ry, rx = (int)F.rx;
+    const long long n = F.rz * F.ry * F.rx;
+    for (long long c = first_index(); c < n; c += grid_stride()) {
+        int i = (int)(c % rx);
+        int j = (int)((c / rx) % ry);
+        int k = (int)(c / ((long long)rx * ry));
+        dst[c] = sweep(lev, x, b, k, j, i);
+    }
+}
+
+// levels lo .. hi-1 of the down leg (the whole leg: 0 .. L)
+__global__ void __launch_bounds__(kThreads, 2)
+gmg_down(const LevelRec* T, int L, int lo, int hi, const double* in,
+         float* bc) {
+    if (L == 0) {                      // the coarsest level alone
+        const long long n = T[0].nz * T[0].ny * T[0].nx;
+        for (long long c = first_index(); c < n; c += grid_stride())
+            bc[c] = __double2float_rn(in[c]);
         return;
     }
-    int k0 = axis == 0 ? 2 * K : K, k1 = axis == 0 ? 2 * K + 1 : K;
-    int j0 = axis == 1 ? 2 * J : J, j1 = axis == 1 ? 2 * J + 1 : J;
-    int i0 = axis == 2 ? 2 * I : I, i1 = axis == 2 ? 2 * I + 1 : I;
-    long long f0 = ((long long)k0 * L.ny + j0) * L.nx + i0;
-    long long f1 = ((long long)k1 * L.ny + j1) * L.nx + i1;
-    double r0 = b[f0] - stencil(L, xv, k0, j0, i0);
-    double r1 = b[f1] - stencil(L, xv, k1, j1, i1);
-    out[c] = r0 + r1;
+    cg::grid_group grid = cg::this_grid();
+    for (int l = lo; l < hi; ++l) {
+        if (l > lo) grid.sync();
+        restrict_level(T, l, L, in, bc);
+    }
 }
 
-Level make_level(int nz, int ny, int nx, const double* d, const double* aLz,
-                 const double* aRz, const double* aLy, const double* aRy,
-                 const double* aLx, const double* aRx) {
-    Level L;
-    L.nz = nz;
-    L.ny = ny;
-    L.nx = nx;
-    L.d = d;
-    L.aL[0] = aLz;
-    L.aR[0] = aRz;
-    L.aL[1] = aLy;
-    L.aR[1] = aRy;
-    L.aL[2] = aLx;
-    L.aR[2] = aRx;
-    return L;
+// levels hi-1 .. lo of the up leg, ec the coarsest correction
+__global__ void __launch_bounds__(kThreads, 2)
+gmg_up(const LevelRec* T, int L, int lo, int hi, const double* in,
+       const float* ec, double* out) {
+    if (L == 0) {
+        const long long n = T[0].nz * T[0].ny * T[0].nx;
+        for (long long c = first_index(); c < n; c += grid_stride())
+            out[c] = (double)ec[c];
+        return;
+    }
+    cg::grid_group grid = cg::this_grid();
+    for (int l = hi - 1; l >= lo; --l) {
+        if (l < hi - 1) grid.sync();
+        if (l + 1 == L)
+            prolong_level<float>(T, l, in, ec, out);
+        else
+            prolong_level<double>(T, l, in, T[l + 1].e, out);
+    }
 }
 
-int blocks_for(long long n) {
-    return (int)((n + kThreads - 1) / kThreads);
-}
+long long blocks_for(long long n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
 extern "C" {
 
-int opm_gmg_smooth(int nz, int ny, int nx, const double* d,
-                   const double* aLz, const double* aRz, const double* aLy,
-                   const double* aRy, const double* aLx, const double* aRx,
-                   const double* x, const double* b, double* out,
-                   cudaStream_t stream) {
-    Level L = make_level(nz, ny, nx, d, aLz, aRz, aLy, aRy, aLx, aRx);
-    long long n = (long long)nz * ny * nx;
-    if (n == 0) return 0;
-    if (x == nullptr) {
-        smooth_kernel<<<blocks_for(n), kThreads, 0, stream>>>(L, ZeroX{}, b,
-                                                              out);
-    } else {
-        PlainX xv{x, ny, nx};
-        smooth_kernel<<<blocks_for(n), kThreads, 0, stream>>>(L, xv, b, out);
+// the grids of the two legs on the current device for legs whose largest
+// level has work_down and work_up cells: out[0], out[1] the grids (at most
+// the co-resident blocks, at most what the work needs); out[2] the SM
+// count; out[3], out[4] co-resident blocks per SM of down and up; out[5],
+// out[6] their registers per thread
+int opm_gmg_grid(long long work_down, long long work_up, int* out) {
+    int dev = 0, nsm = 0, coop = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                     dev);
+    if (err != cudaSuccess) return (int)err;
+    if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
+    const void* ks[2] = {(const void*)gmg_down, (const void*)gmg_up};
+    const long long work[2] = {work_down, work_up};
+    for (int i = 0; i < 2; ++i) {
+        int nb = 0;
+        cudaFuncAttributes fa;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, ks[i],
+                                                            kThreads, 0);
+        if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, ks[i]);
+        if (err != cudaSuccess) return (int)err;
+        if (nb < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+        long long g = (long long)nb * nsm;
+        long long need = blocks_for(work[i]);
+        if (need < g) g = need;
+        out[i] = (int)(g < 1 ? 1 : g);
+        out[3 + i] = nb;
+        out[5 + i] = fa.numRegs;
     }
-    return (int)cudaGetLastError();
+    out[2] = nsm;
+    return 0;
 }
 
-int opm_gmg_restrict(int nz, int ny, int nx, const double* d,
-                     const double* aLz, const double* aRz, const double* aLy,
-                     const double* aRy, const double* aLx, const double* aRx,
-                     const double* x, const double* b, double* out, int axis,
-                     int cz, int cy, int cx, cudaStream_t stream) {
-    Level L = make_level(nz, ny, nx, d, aLz, aRz, aLy, aRy, aLx, aRx);
-    long long n = (long long)cz * cy * cx;
-    if (n == 0) return 0;
-    PlainX xv{x, ny, nx};
-    restrict_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-        L, xv, b, axis, cz, cy, cx, out);
-    return (int)cudaGetLastError();
+// table: the L + 1 level records; levels lo .. hi-1; in: level 0's right-hand
+// side (the real cells); bc: the coarsest right-hand side, float32
+int opm_gmg_down(const void* table, int L, int lo, int hi, const double* in,
+                 float* bc, int grid, cudaStream_t stream) {
+    const LevelRec* T = static_cast<const LevelRec*>(table);
+    void* args[] = {&T, &L, &lo, &hi, &in, &bc};
+    return (int)cudaLaunchCooperativeKernel((const void*)gmg_down,
+                                            dim3(grid), dim3(kThreads),
+                                            args, 0, stream);
 }
 
-int opm_gmg_prolong_smooth(int nz, int ny, int nx, const double* d,
-                           const double* aLz, const double* aRz,
-                           const double* aLy, const double* aRy,
-                           const double* aLx, const double* aRx,
-                           const double* x, const double* e, int axis,
-                           int ez, int ey, int ex, const double* b,
-                           double* out, cudaStream_t stream) {
-    (void)ez;
-    Level L = make_level(nz, ny, nx, d, aLz, aRz, aLy, aRy, aLx, aRx);
-    long long n = (long long)nz * ny * nx;
-    if (n == 0) return 0;
-    ProlongX xv{x, e, ny, nx, axis, ey, ex};
-    smooth_kernel<<<blocks_for(n), kThreads, 0, stream>>>(L, xv, b, out);
-    return (int)cudaGetLastError();
+// ec: the coarsest correction, float32; out: the V-cycle's result (level
+// 0's real cells)
+int opm_gmg_up(const void* table, int L, int lo, int hi, const double* in,
+               const float* ec, double* out, int grid, cudaStream_t stream) {
+    const LevelRec* T = static_cast<const LevelRec*>(table);
+    void* args[] = {&T, &L, &lo, &hi, &in, &ec, &out};
+    return (int)cudaLaunchCooperativeKernel((const void*)gmg_up, dim3(grid),
+                                            dim3(kThreads), args, 0, stream);
 }
 
 }  // extern "C"

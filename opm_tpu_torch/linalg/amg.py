@@ -13,14 +13,19 @@ padding slots are self-loops whose values stay 0).
 The V-cycle (the reference's CPU settings: one cycle, one pre- and one
 post-smoothing damped-Jacobi sweep with omega = 0.8) is kernel K10
 (``csrc/amg.cu``, the repository's former Pallas ``ell_spmv`` and
-``jacobi_sweep``): per level a sweep, the residual fused with the
-restriction by aggregate, and the prolongation by gather fused with the
-post-smoothing sweep, three launches per level; the value coarsening is
-K10 too (one launch per level, plus one ELL pack). The coarsest level
-(at most 256 cells) is solved by its float32 dense inverse, formed once
+``jacobi_sweep``) in two cooperative launches: the down leg (per level the
+zero-start sweep into the workspace, then its residual restricted by
+aggregate) and the up leg (per level the prolongation by gather plus that
+sweep, then the post-smoothing sweep). The coarsest level (at most 256
+cells) is solved between them by its float32 dense inverse, formed once
 per Newton and applied as one matmul, as the reference does on every
-backend. Each kernel has its plain twin here, in the reference's order of
-operations; the twins run for CPU tensors.
+backend; a larger coarsest level gets 1 + 10 sweeps at the end of the
+down leg. The value coarsening is K10 too (one launch per level, plus one
+ELL pack).
+Each kernel has its plain twins here, in the reference's order of
+operations: the per-level ones (their composition ``vcycle(...,
+twin=True)`` is the oracle) and the legs composed from them (the CPU
+path).
 
 Every sum of a kernel is a gather over a CSR built once on the host in the
 order the reference's segment sums run (children by fine index, entries by
@@ -35,6 +40,8 @@ from typing import List
 import numpy as np
 import torch
 
+from opm_tpu_torch.linalg.gmg import (LevelValues, coarsest_product,
+                                     leg_grids)
 from opm_tpu_torch.utils import cuda_lib
 
 OMEGA = 0.8
@@ -242,10 +249,11 @@ def ell_pack_plain(off, ell):
 # ---------------------------------------------------------------------------
 # K10 CUDA wrappers (csrc/amg.cu)
 
-_P, _I, _L, _D = cuda_lib.P, cuda_lib.I, cuda_lib.L, cuda_lib.D
+_P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
 _SIGS = {
-    "opm_amg_sweep": [_I, _I] + [_P] * 6 + [_P, _D, _P, _P],
-    "opm_amg_restrict": [_I, _P, _P, _I, _I] + [_P] * 5 + [_P, _P],
+    "opm_amg_grid": [_L, _L, _P],
+    "opm_amg_down": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "opm_amg_up": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "opm_amg_coarsen": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                         _P],
     "opm_amg_ell_pack": [_L, _P, _P, _P, _P],
@@ -259,68 +267,113 @@ def _f64(*ts):
             raise ValueError("K10: vectors must be contiguous float64")
 
 
-def _sweep_launch(lvl, diag, vals, x, e_c, b):
-    K, n = vals.shape
-    _f64(diag, vals, x, e_c, b)
-    if diag.shape != (n,) or b.shape != (n,) or \
-            (x is not None and x.shape != (n,)):
-        raise ValueError("K10 sweep: diag, x and b must be (n,) beside "
-                         "the (K, n) ELL values")
-    out = torch.empty_like(b)
-    lib = cuda_lib.load("amg", _SIGS)
-    ptr = cuda_lib.ptr
-    err = lib.opm_amg_sweep(
-        n, K, ptr(diag), ptr(vals), ptr(lvl["cols32"]),
-        ptr(x) if x is not None else _P(0),
-        ptr(e_c) if e_c is not None else _P(0),
-        ptr(lvl["agg32"]) if e_c is not None else _P(0), ptr(b), OMEGA,
-        ptr(out), cuda_lib.stream_ptr(b.device))
-    cuda_lib.check(err, "opm_amg_sweep")
-    return out
+class Workspace:
+    """K10's state for one Newton's level values on the card: per level
+    0 < k < nL its right-hand side ``b[k]`` and correction ``e[k]`` (the
+    coarsest's too, and a second sweep buffer, when it is not inverted),
+    per level k < nL its pre-smoothed iterate ``x[k]``, the residuals'
+    scratch ``r`` (n0,), the float32
+    coarsest right-hand side ``bc`` and correction ``ec`` when it is
+    inverted, the V-cycle's output ``out`` (n0,), the table of level
+    records on the device (csrc/amg.cu ``LevelRec``: 12 eight-byte fields
+    each) and both legs' grids. The level values are checked once, here;
+    nothing is allocated per V-cycle, and ``out`` is overwritten by the
+    next V-cycle on these values."""
+
+    def __init__(self, amg, vals):
+        dev = vals[0][0].device
+        nL = len(amg.levels)
+        self.device, self.n0, self.nL = dev, amg.n0, nL
+        self.dense = amg.coarsest_n <= DENSE_COARSEST
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.b, self.e, self.x, recs = [], [], [], []
+        for k in range(nL + 1):
+            diag, ev = vals[k]
+            ell = amg.ell[k]
+            K, n = ell["cols"].shape
+            _f64(diag, ev)
+            if (diag.device != dev or ev.device != dev
+                    or tuple(diag.shape) != (n,)
+                    or tuple(ev.shape) != (K, n)):
+                raise ValueError(f"K10: level {k}'s values must be (n,) and "
+                                 f"(K, n) = ({K}, {n}) on {dev}")
+            step = amg.levels[k] if k < nL else None
+            sweeps = k == nL and not self.dense
+            inner = 0 < k < nL
+            self.b.append(torch.empty(n, **f64) if inner or sweeps and k
+                          else None)
+            self.e.append(torch.empty(n, **f64) if inner or sweeps
+                          else None)
+            self.x.append(torch.empty(n, **f64) if k < nL else None)
+            if sweeps:
+                self.s = torch.empty(n, **f64)
+            recs.append([
+                diag.data_ptr(), ev.data_ptr(), ell["cols32"].data_ptr()]
+                + [step[f].data_ptr() if step else 0
+                   for f in ("agg32", "child_ptr", "child_idx")]
+                + [t.data_ptr() if t is not None else 0
+                   for t in (self.b[k], self.e[k], self.x[k])]
+                + [self.s.data_ptr() if sweeps else 0, n, K])
+        if self.dense:
+            Ainv, n_c = vals[-1], amg.coarsest_n
+            if (Ainv.dtype != torch.float32
+                    or tuple(Ainv.shape) != (n_c, n_c)):
+                raise ValueError("K10: the coarsest inverse must be a "
+                                 f"float32 ({n_c}, {n_c}) tensor")
+            self.bc = torch.empty(n_c, dtype=torch.float32, device=dev)
+            self.ec = torch.empty_like(self.bc)
+        else:
+            self.bc = self.ec = torch.empty(0, dtype=torch.float32,
+                                            device=dev)
+        self.table = torch.tensor(recs, dtype=torch.int64).reshape(-1).to(dev)
+        self.out = torch.empty(amg.n0, **f64)
+        self.r = torch.empty(amg.n0, **f64)     # the down leg's residuals
+        self.vals = list(vals)          # the table's arrays stay alive
+        sizes = [r[10] for r in recs]
+        self.grid_down, self.grid_up, self.info = leg_grids(
+            "amg", _SIGS, dev, max(sizes), max(sizes[:-1] or sizes))
+        self.lib = cuda_lib.load("amg", _SIGS)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
 
 
-def sweep_cuda(lvl, diag, vals, x, b):
-    """K10 sweep on the card; same contract as sweep_plain."""
-    out = _sweep_launch(lvl, diag, vals, x, None, b)
-    sweep_cuda.launches += 1
-    return out
+def _check_rhs(ws, b):
+    if (b.dtype != torch.float64 or b.device != ws.device
+            or not b.is_contiguous() or tuple(b.shape) != (ws.n0,)):
+        raise ValueError(f"K10: the right-hand side must be a contiguous "
+                         f"float64 ({ws.n0},) tensor on {ws.device}")
 
 
-sweep_cuda.launches = 0
+def vcycle_down_cuda(ws, b, levels=None):
+    """K10's down leg on the card: the workspace's b[k] (k >= 1) and bc (or,
+    when the coarsest is not inverted, its sweeps into e[nL]) from the
+    right-hand side b (n0,); ``levels`` = (lo, hi) runs only those levels
+    (a measurement of their share). Returns bc."""
+    lo, hi = levels or (0, ws.nL)
+    _check_rhs(ws, b)
+    cuda_lib.check(ws.lib.opm_amg_down(
+        ws.table.data_ptr(), ws.nL, int(ws.dense), lo, hi, b.data_ptr(),
+        ws.r.data_ptr(), ws.bc.data_ptr(), ws.grid_down, ws.stream),
+        "opm_amg_down")
+    vcycle_down_cuda.launches += 1
+    return ws.bc
 
 
-def prolong_sweep_cuda(lvl, diag, vals, x, e_c, b):
-    """K10 prolongation + post-smoothing sweep on the card; same contract
-    as prolong_sweep_plain (``lvl`` holds this level's agg)."""
-    if e_c.dtype != torch.float64 or e_c.shape != (lvl["n_coarse"],):
-        raise ValueError("K10 prolong: e_c must be float64 (n_coarse,)")
-    out = _sweep_launch(lvl, diag, vals, x, e_c.contiguous(), b)
-    prolong_sweep_cuda.launches += 1
-    return out
+def vcycle_up_cuda(ws, b, levels=None):
+    """K10's up leg on the card: the workspace's e[k] (k >= 1) and the
+    V-cycle's result ``out`` (returned) from the coarsest correction and
+    the right-hand sides (b, the level-0 one, and the workspace's b[k])."""
+    lo, hi = levels or (0, ws.nL)
+    _check_rhs(ws, b)
+    cuda_lib.check(ws.lib.opm_amg_up(
+        ws.table.data_ptr(), ws.nL, int(ws.dense), lo, hi, b.data_ptr(),
+        ws.ec.data_ptr(), ws.out.data_ptr(), ws.grid_up, ws.stream),
+        "opm_amg_up")
+    vcycle_up_cuda.launches += 1
+    return ws.out
 
 
-prolong_sweep_cuda.launches = 0
-
-
-def restrict_cuda(lvl, diag, vals, x, b):
-    """K10 residual + restriction on the card; same contract as
-    restrict_plain."""
-    K, n = vals.shape
-    _f64(diag, vals, x, b)
-    n_c = lvl["n_coarse"]
-    out = torch.empty(n_c, dtype=torch.float64, device=b.device)
-    lib = cuda_lib.load("amg", _SIGS)
-    ptr = cuda_lib.ptr
-    err = lib.opm_amg_restrict(
-        n_c, ptr(lvl["child_ptr"]), ptr(lvl["child_idx"]), n, K, ptr(diag),
-        ptr(vals), ptr(lvl["cols32"]), ptr(x), ptr(b), ptr(out),
-        cuda_lib.stream_ptr(b.device))
-    cuda_lib.check(err, "opm_amg_restrict")
-    restrict_cuda.launches += 1
-    return out
-
-
-restrict_cuda.launches = 0
+vcycle_down_cuda.launches = 0
+vcycle_up_cuda.launches = 0
 
 
 def coarsen_cuda(diag, off, lv):
@@ -367,7 +420,7 @@ ell_pack_cuda.launches = 0
 class DeviceAmg:
     """The hierarchy's index arrays on one device and the per-Newton work:
     ``coarsen_values`` (K10 coarsening and packing, then the float32
-    coarsest inverse) and ``vcycle`` (K10 level operations)."""
+    coarsest inverse) and ``vcycle`` (K10's two legs)."""
 
     wants_canonical_faces = False
 
@@ -436,7 +489,7 @@ class DeviceAmg:
             def pack(o, ell):
                 return cuda_lib.dispatch(o, ell_pack_cuda, ell_pack_plain,
                                          o, ell, what="K10 ell_pack")
-        vals = []
+        vals = LevelValues()
         diag, off = diag0.contiguous(), off0.contiguous()
         for k in range(self.n_levels):
             vals.append((diag, pack(off, self.ell[k])))
@@ -460,62 +513,94 @@ class DeviceAmg:
         return torch.linalg.inv(A.to(torch.float32))
 
     # ------------------------------------------------------------------
-    def _ops(self, twin):
-        if twin:
-            return (lambda lv, d, v, x, b: sweep_plain(d, v, lv["cols"], x,
-                                                       b),
-                    lambda lv, d, v, x, b: restrict_plain(
-                        d, v, lv["cols"], x, b, lv["agg"], lv["n_coarse"]),
-                    lambda lv, d, v, x, e, b: prolong_sweep_plain(
-                        d, v, lv["cols"], x, e, lv["agg"], b))
+    def _coarsest_plain(self, vals, k, bk):
+        """The coarsest solve of the plain versions: the float32 inverse's
+        product, or 1 + 10 sweeps."""
+        if self.coarsest_n <= DENSE_COARSEST:
+            return (vals[-1] @ bk.to(torch.float32)).to(bk.dtype)
+        diag, ev = vals[k]
+        cols = self.ell[k]["cols"]
+        x = sweep_plain(diag, ev, cols, None, bk)
+        for _ in range(10):
+            x = sweep_plain(diag, ev, cols, x, bk)
+        return x
 
-        def sweep(lv, d, v, x, b):
-            return cuda_lib.dispatch(
-                b, sweep_cuda,
-                lambda *a: sweep_plain(d, v, lv["cols"], x, b),
-                lv, d, v, x, b, what="K10 sweep")
+    def _vcycle_levels(self, vals, b):
+        """The per-level composition of the plain twins (the oracle)."""
+        def cycle(k, bk):
+            if k == len(self.levels):
+                return self._coarsest_plain(vals, k, bk)
+            diag, ev = vals[k]
+            lv = self.levels[k]
+            x = sweep_plain(diag, ev, lv["cols"], None, bk)
+            r_c = restrict_plain(diag, ev, lv["cols"], x, bk, lv["agg"],
+                                 lv["n_coarse"])
+            e_c = cycle(k + 1, r_c)
+            return prolong_sweep_plain(diag, ev, lv["cols"], x, e_c,
+                                       lv["agg"], bk)
 
-        def restrict(lv, d, v, x, b):
-            return cuda_lib.dispatch(
-                b, restrict_cuda,
-                lambda *a: restrict_plain(d, v, lv["cols"], x, b, lv["agg"],
-                                          lv["n_coarse"]),
-                lv, d, v, x, b, what="K10 restrict")
+        return cycle(0, b)
 
-        def prolong(lv, d, v, x, e, b):
-            return cuda_lib.dispatch(
-                b, prolong_sweep_cuda,
-                lambda *a: prolong_sweep_plain(d, v, lv["cols"], x, e,
-                                               lv["agg"], b),
-                lv, d, v, x, e, b, what="K10 prolong_sweep")
+    def vcycle_down_plain(self, vals, b):
+        """K10's down leg, plain, in the kernel's order: per level the
+        zero-start sweep and its residual summed by aggregate, the next
+        level's right-hand side. Returns (bs, c): bs[k] level k's
+        right-hand side (k <= nL), and c the coarsest right-hand side in
+        float32 when the coarsest is inverted, else its 1 + 10 sweeps."""
+        bs = [b]
+        for k, lv in enumerate(self.levels):
+            diag, ev = vals[k]
+            x = sweep_plain(diag, ev, lv["cols"], None, bs[k])
+            bs.append(restrict_plain(diag, ev, lv["cols"], x, bs[k],
+                                     lv["agg"], lv["n_coarse"]))
+        if self.coarsest_n <= DENSE_COARSEST:
+            return bs, bs[-1].to(torch.float32)
+        return bs, self._coarsest_plain(vals, len(self.levels), bs[-1])
 
-        return sweep, restrict, prolong
+    def vcycle_up_plain(self, vals, bs, ec):
+        """K10's up leg, plain, in the kernel's order: from the coarsest
+        correction ec (float32 when inverted), per level k = nL-1 .. 0 the
+        zero-start sweep of bs[k] again plus ec[agg], then one sweep.
+        Returns (x, es): the V-cycle's result (n0,) and es[k] level k's
+        correction (es[0] is x, es[nL] the coarsest one in float64)."""
+        es = [None] * len(self.levels) + [ec.to(torch.float64)]
+        for k in reversed(range(len(self.levels))):
+            diag, ev = vals[k]
+            lv = self.levels[k]
+            x = sweep_plain(diag, ev, lv["cols"], None, bs[k])
+            es[k] = prolong_sweep_plain(diag, ev, lv["cols"], x, es[k + 1],
+                                        lv["agg"], bs[k])
+        return es[0], es
 
-    def _level(self, k):
-        """The arguments of level k's kernels: its coarsening step's dict
-        (aggregates and CSRs) or, at the coarsest, its ELL alone."""
-        if k < len(self.levels):
-            return self.levels[k]
-        return dict(cols=self.ell[k]["cols"], cols32=self.ell[k]["cols32"])
+    def _vcycle_legs_plain(self, vals, b):
+        bs, c = self.vcycle_down_plain(vals, b)
+        if self.coarsest_n <= DENSE_COARSEST:
+            c = vals[-1] @ c
+        return self.vcycle_up_plain(vals, bs, c)[0]
+
+    def workspace(self, vals):
+        """The card's V-cycle workspace of ``vals`` (made on first use)."""
+        if vals.ws is None:
+            vals.ws = Workspace(self, vals)
+        return vals.ws
+
+    def _vcycle_cuda(self, vals, b):
+        ws = self.workspace(vals)
+        vcycle_down_cuda(ws, b)
+        if ws.dense:
+            coarsest_product(vals[-1], ws.bc, ws.ec)
+        return vcycle_up_cuda(ws, b)
 
     def vcycle(self, vals, b, *, twin=False):
-        """One V-cycle on b (n0,) (pre = post = 1, one cycle); ``twin``:
-        the level operations by K10's plain twins on any device."""
-        sweep, restrict, prolong = self._ops(twin)
-
-        def cycle(k, bk):
-            diag, ell_vals = vals[k]
-            lv = self._level(k)
-            if k == len(self.levels):
-                if self.coarsest_n <= DENSE_COARSEST:
-                    return (vals[-1] @ bk.to(torch.float32)).to(bk.dtype)
-                x = sweep(lv, diag, ell_vals, None, bk)
-                for _ in range(10):
-                    x = sweep(lv, diag, ell_vals, x, bk)
-                return x
-            x = sweep(lv, diag, ell_vals, None, bk)
-            r_c = restrict(lv, diag, ell_vals, x, bk)
-            e_c = cycle(k + 1, r_c)
-            return prolong(lv, diag, ell_vals, x, e_c, bk)
-
-        return cycle(0, b.contiguous())
+        """One V-cycle on b (n0,) (pre = post = 1, one cycle): on the card
+        K10's two legs around the float32 coarsest product (the result is
+        the workspace's ``out``, valid until the next V-cycle on
+        ``vals``), on the CPU their plain versions; ``twin``: the per-level
+        composition of the plain twins on any device (the card's
+        oracle)."""
+        b = b.contiguous()
+        if twin:
+            return self._vcycle_levels(vals, b)
+        return cuda_lib.dispatch(b, self._vcycle_cuda,
+                                 self._vcycle_legs_plain, vals, b,
+                                 what="K10 V-cycle")

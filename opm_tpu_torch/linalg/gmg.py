@@ -12,16 +12,23 @@ The inverse is float32 and applied in float32 on every backend, as the
 reference does (``jnp.linalg.inv(A.astype(float32))``): a known reference
 caveat (ROADMAP Queue 3), kept so the linear iteration counts match.
 
-Kernel K7 (``csrc/gmg.cu``) does the level work of the V-cycle: the damped
-Jacobi sweep (omega = 0.8), the residual fused with the pair-sum
-restriction, and the replicate prolongation fused with the post-smoothing
-sweep. The plain twins below follow the reference's slice arithmetic.
+Kernel K7 (``csrc/gmg.cu``) is the level work of the V-cycle in two
+cooperative launches around the float32 coarsest product: the down leg
+(per level the pair-summed residual of the zero-start damped-Jacobi sweep,
+omega = 0.8, the next level's right-hand side) and the up leg (per level
+the replicated coarse correction plus that sweep, then one sweep). The
+pre-smoothed iterate is evaluated from the level's right-hand side where
+it is needed, never stored. The per-level plain twins below follow the
+reference's slice arithmetic; ``vcycle_down_plain`` and
+``vcycle_up_plain`` compose them in the kernel's order (the CPU path), and
+their per-level composition ``vcycle(..., twin=True)`` is the oracle.
 Arrays stay in their padded level shape through the cycle; a ghost slab
 has zero couplings, so it never reaches a real cell.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -117,126 +124,159 @@ def prolong_smooth_plain(diag3, offs, x3, e_c, axis, b3):
 
 
 # ---------------------------------------------------------------------------
-# K7: CUDA wrappers (csrc/gmg.cu)
+# K7: the V-cycle's two legs on the card (csrc/gmg.cu)
 
-_P, _I = cuda_lib.P, cuda_lib.I
+_P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
 _SIGS = {
-    "opm_gmg_smooth": [_I, _I, _I] + [_P] * 7 + [_P, _P, _P, _P],
-    "opm_gmg_restrict": [_I, _I, _I] + [_P] * 7
-    + [_P, _P, _P, _I, _I, _I, _I, _P],
-    "opm_gmg_prolong_smooth": [_I, _I, _I] + [_P] * 7
-    + [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "opm_gmg_grid": [_L, _L, _P],
+    "opm_gmg_down": [_P, _I, _I, _I, _P, _P, _I, _P],
+    "opm_gmg_up": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
 }
+_grids: dict = {}
 
 
-def _level_args(diag3, offs):
-    ts = [diag3] + [a for pair in offs for a in pair]
-    dev = diag3.device
-    for t in ts:
+class LevelValues(list):
+    """``coarsen_values``' result: per level its values, then the coarsest
+    float32 inverse; ``ws`` holds the card's V-cycle workspace of these
+    values once a V-cycle has run on them."""
+
+    ws = None
+
+
+def leg_grids(name, sigs, device, work_down, work_up):
+    """(G_down, G_up, info) of the V-cycle legs of csrc/<name>.cu (K7's or
+    K10's) whose largest level has ``work_down`` and ``work_up`` outputs,
+    on a CUDA device: the fixed grid of each leg and the occupancy query
+    behind it (SMs, blocks per SM and registers per thread of each leg)."""
+    key = (name, torch.device(device).index, work_down, work_up)
+    if key not in _grids:
+        lib = cuda_lib.load(name, sigs)
+        out = (ctypes.c_int * 7)()
+        with torch.cuda.device(device):
+            cuda_lib.check(getattr(lib, f"opm_{name}_grid")(
+                work_down, work_up, out), f"opm_{name}_grid")
+        _grids[key] = (out[0], out[1], dict(
+            sms=out[2], blocks_per_sm=dict(down=out[3], up=out[4]),
+            registers=dict(down=out[5], up=out[6])))
+    return _grids[key]
+
+
+class Workspace:
+    """K7's state for one set of level values on the card: per level l >= 1
+    its right-hand side ``b[l]`` and correction ``e[l]`` (the ghost-padded
+    level shape), the coarsest right-hand side ``bc`` and correction
+    ``ec`` (float32, flat), the V-cycle's output ``out`` (nc,), the table of
+    level records on the device (csrc/gmg.cu ``LevelRec``: 16 eight-byte
+    fields each, the coarsest dims last) and both legs' grids. The level
+    values are checked once, here; nothing is allocated per V-cycle, and
+    ``out`` is overwritten by the next V-cycle on these values."""
+
+    def __init__(self, gmg, vals):
+        Ainv = vals[-1]
+        dev = Ainv.device
+        n_c = gmg.coarsest_n
+        if Ainv.dtype != torch.float32 or tuple(Ainv.shape) != (n_c, n_c):
+            raise ValueError("K7: the coarsest inverse must be a "
+                             f"float32 ({n_c}, {n_c}) tensor")
+        self.device, self.nc, self.L = dev, gmg.nc, len(gmg.levels)
+        f64 = dict(dtype=torch.float64, device=dev)
+        recs = []
+        self.b, self.e = [None], [None]
+        for l, lv in enumerate(gmg.levels):
+            d3, offs = vals[l]
+            shape = list(lv.dims)
+            shape[lv.axis] += int(lv.pad)
+            _check_level(d3, offs, shape, dev)
+            if l > 0:
+                self.b.append(torch.empty(shape, **f64))
+                self.e.append(torch.empty(shape, **f64))
+            real = list(gmg.dims) if l == 0 else shape
+            recs.append([d3.data_ptr()]
+                        + [offs[a][0].data_ptr() for a in range(3)]
+                        + [offs[a][1].data_ptr() for a in range(3)]
+                        + [0 if l == 0 else self.b[l].data_ptr(),
+                           0 if l == 0 else self.e[l].data_ptr()]
+                        + shape + [lv.axis] + real)
+        cd = list(gmg.coarse_dims)
+        recs.append([0] * 9 + cd + [0] + cd)
+        self.table = torch.tensor(recs, dtype=torch.int64).reshape(-1).to(dev)
+        self.bc = torch.empty(n_c, dtype=torch.float32, device=dev)
+        self.ec = torch.empty_like(self.bc)
+        self.out = torch.empty(gmg.nc, **f64)
+        self.vals = list(vals)          # the table's arrays stay alive
+        # the down leg's work per level: the next level's cells; the up
+        # leg's: the level's (level 0's real cells)
+        nxt = [int(np.prod(r[9:12])) for r in recs]
+        own = [int(np.prod(r[13:16])) for r in recs]
+        self.grid_down, self.grid_up, self.info = leg_grids(
+            "gmg", _SIGS, dev, max(nxt[1:] or nxt), max(own[:-1] or own))
+        self.lib = cuda_lib.load("gmg", _SIGS)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_level(d3, offs, shape, dev):
+    for t in [d3] + [a for pair in offs for a in pair]:
         if (t.dtype != torch.float64 or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError("K7: level arrays must be contiguous float64 "
                              f"tensors on {dev}")
-    nz, ny, nx = diag3.shape
+    if list(d3.shape) != shape:
+        raise ValueError(f"K7: a level's diagonal must be {tuple(shape)}")
     for ax, (aL, aR) in enumerate(offs):
-        want = list(diag3.shape)
+        want = list(shape)
         want[ax] = max(want[ax] - 1, 0)
         if list(aL.shape) != want or list(aR.shape) != want:
             raise ValueError("K7: face arrays must be one shorter than the "
                              "level along their axis")
-    return [nz, ny, nx] + [cuda_lib.ptr(t) for t in ts]
 
 
-def _vec(t, shape, dev):
-    if (t.dtype != torch.float64 or t.device != dev or not t.is_contiguous()
-            or tuple(t.shape) != tuple(shape)):
-        raise ValueError(f"K7: expected a contiguous float64 {tuple(shape)} "
-                         f"tensor on {dev}")
+def _check_rhs(ws, b):
+    if (b.dtype != torch.float64 or b.device != ws.device
+            or not b.is_contiguous() or tuple(b.shape) != (ws.nc,)):
+        raise ValueError(f"K7: the right-hand side must be a contiguous "
+                         f"float64 ({ws.nc},) tensor on {ws.device}")
 
 
-def smooth_cuda(diag3, offs, x3, b3):
-    args = _level_args(diag3, offs)
-    dev = diag3.device
-    _vec(b3, diag3.shape, dev)
-    if x3 is not None:
-        _vec(x3, diag3.shape, dev)
-    out = torch.empty_like(b3)
-    lib = cuda_lib.load("gmg", _SIGS)
-    err = lib.opm_gmg_smooth(
-        *args, cuda_lib.ptr(x3) if x3 is not None else cuda_lib.P(0),
-        cuda_lib.ptr(b3), cuda_lib.ptr(out), cuda_lib.stream_ptr(dev))
-    cuda_lib.check(err, "opm_gmg_smooth")
-    smooth_cuda.launches += 1
-    return out
+def vcycle_down_cuda(ws, b, levels=None):
+    """K7's down leg on the card: the workspace's b[l] (l >= 1) and bc from
+    the right-hand side b (nc,); ``levels`` = (lo, hi) runs only those
+    levels (a measurement of their share). Returns bc."""
+    lo, hi = levels or (0, ws.L)
+    _check_rhs(ws, b)
+    cuda_lib.check(ws.lib.opm_gmg_down(
+        ws.table.data_ptr(), ws.L, lo, hi, b.data_ptr(), ws.bc.data_ptr(),
+        ws.grid_down, ws.stream), "opm_gmg_down")
+    vcycle_down_cuda.launches += 1
+    return ws.bc
 
 
-smooth_cuda.launches = 0
+def vcycle_up_cuda(ws, b, levels=None):
+    """K7's up leg on the card: the workspace's e[l] (l >= 1) and the
+    V-cycle's result ``out`` (returned) from ec and the right-hand sides
+    (b, the level-0 one, and the workspace's b[l])."""
+    lo, hi = levels or (0, ws.L)
+    _check_rhs(ws, b)
+    cuda_lib.check(ws.lib.opm_gmg_up(
+        ws.table.data_ptr(), ws.L, lo, hi, b.data_ptr(), ws.ec.data_ptr(),
+        ws.out.data_ptr(), ws.grid_up, ws.stream), "opm_gmg_up")
+    vcycle_up_cuda.launches += 1
+    return ws.out
 
 
-def restrict_cuda(diag3, offs, x3, b3, axis, pad_axis):
-    args = _level_args(diag3, offs)
-    dev = diag3.device
-    _vec(b3, diag3.shape, dev)
-    _vec(x3, diag3.shape, dev)
-    c = list(diag3.shape)
-    if c[axis] & 1:
-        raise ValueError("K7 restrict: the coarsened axis must be even")
-    c[axis] //= 2
-    if pad_axis >= 0:
-        c[pad_axis] += 1
-    out = torch.empty(c, dtype=torch.float64, device=dev)
-    lib = cuda_lib.load("gmg", _SIGS)
-    err = lib.opm_gmg_restrict(*args, cuda_lib.ptr(x3), cuda_lib.ptr(b3),
-                               cuda_lib.ptr(out), axis, *c,
-                               cuda_lib.stream_ptr(dev))
-    cuda_lib.check(err, "opm_gmg_restrict")
-    restrict_cuda.launches += 1
-    return out
+vcycle_down_cuda.launches = 0
+vcycle_up_cuda.launches = 0
 
 
-restrict_cuda.launches = 0
+def coarsest_product(Ainv, bc, ec):
+    """The coarsest solve between the card's legs: one float32
+    matrix-vector product into ec (a library call, as the reference leaves
+    the product to XLA)."""
+    torch.mv(Ainv, bc, out=ec)
+    coarsest_product.calls += 1
+    return ec
 
 
-def prolong_smooth_cuda(diag3, offs, x3, e_c, axis, b3):
-    args = _level_args(diag3, offs)
-    dev = diag3.device
-    _vec(b3, diag3.shape, dev)
-    _vec(x3, diag3.shape, dev)
-    c = list(diag3.shape)
-    c[axis] //= 2
-    if (e_c.dtype != torch.float64 or not e_c.is_contiguous()
-            or e_c.device != dev or e_c.dim() != 3
-            or any(e_c.shape[i] < c[i] for i in range(3))):
-        raise ValueError("K7 prolong: the coarse correction must be a "
-                         "contiguous float64 level array covering the "
-                         "coarse cells")
-    out = torch.empty_like(b3)
-    lib = cuda_lib.load("gmg", _SIGS)
-    err = lib.opm_gmg_prolong_smooth(
-        *args, cuda_lib.ptr(x3), cuda_lib.ptr(e_c), axis, *e_c.shape,
-        cuda_lib.ptr(b3), cuda_lib.ptr(out), cuda_lib.stream_ptr(dev))
-    cuda_lib.check(err, "opm_gmg_prolong_smooth")
-    prolong_smooth_cuda.launches += 1
-    return out
-
-
-prolong_smooth_cuda.launches = 0
-
-
-def smooth(diag3, offs, x3, b3):
-    return cuda_lib.dispatch(b3, smooth_cuda, smooth_plain, diag3, offs, x3,
-                             b3, what="K7 smooth")
-
-
-def restrict(diag3, offs, x3, b3, axis, pad_axis):
-    return cuda_lib.dispatch(b3, restrict_cuda, restrict_plain, diag3, offs,
-                             x3, b3, axis, pad_axis, what="K7 restrict")
-
-
-def prolong_smooth(diag3, offs, x3, e_c, axis, b3):
-    return cuda_lib.dispatch(b3, prolong_smooth_cuda, prolong_smooth_plain,
-                             diag3, offs, x3, e_c, axis, b3,
-                             what="K7 prolong_smooth")
+coarsest_product.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +404,7 @@ class StructuredGmg:
         aRz, aRy, aRx = split(aRf)
         diag3 = diag0.reshape(nz, ny, nx)
         offs = ((aLz, aRz), (aLy, aRy), (aLx, aRx))
-        vals = []
+        vals = LevelValues()
         for lv in self.levels:
             if lv.pad:
                 diag3, offs = self._pad_level(diag3, offs, lv.axis)
@@ -405,37 +445,90 @@ class StructuredGmg:
                               .to(A.dtype))
 
     # -- the V-cycle (pre = post = 1, one cycle) ---------------------------
-    def _coarsest(self, Ainv, b3):
-        x = Ainv @ b3.reshape(-1).to(torch.float32)
-        return x.to(b3.dtype).reshape(b3.shape)
-
-    def _vcycle3(self, vals, b3, level, ops):
-        if level == len(self.levels):
-            return self._coarsest(vals[-1], b3)
-        sm, rs, ps = ops
-        lv = self.levels[level]
-        diag3, offs = vals[level]
-        x3 = sm(diag3, offs, None, b3)
+    def _pad_axis_after(self, level):
+        """The next level's ghost-slab axis after ``level`` (-1: none)."""
         nxt = self.levels[level + 1] \
             if level + 1 < len(self.levels) else None
-        pad_axis = nxt.axis if nxt is not None and nxt.pad else -1
-        bc = rs(diag3, offs, x3, b3, lv.axis, pad_axis)
-        e_c = self._vcycle3(vals, bc, level + 1, ops)
-        return ps(diag3, offs, x3, e_c, lv.axis, b3)
+        return nxt.axis if nxt is not None and nxt.pad else -1
+
+    def _level0_rhs(self, b):
+        b3 = b.reshape(self.dims)
+        if self.levels and self.levels[0].pad:
+            b3 = _pad_axis(b3, self.levels[0].axis, 1)
+        return b3.contiguous()
+
+    def _vcycle3(self, vals, b3, level):
+        """The per-level composition of the plain twins (the oracle)."""
+        if level == len(self.levels):
+            x = vals[-1] @ b3.reshape(-1).to(torch.float32)
+            return x.to(b3.dtype).reshape(b3.shape)
+        lv = self.levels[level]
+        diag3, offs = vals[level]
+        x3 = smooth_plain(diag3, offs, None, b3)
+        bc = restrict_plain(diag3, offs, x3, b3, lv.axis,
+                            self._pad_axis_after(level))
+        e_c = self._vcycle3(vals, bc, level + 1)
+        return prolong_smooth_plain(diag3, offs, x3, e_c, lv.axis, b3)
+
+    def vcycle_down_plain(self, vals, b):
+        """K7's down leg, plain, in the kernel's order: per level the
+        zero-start sweep and the pair-summed residual, the next level's
+        right-hand side. Returns (bs, bc): bs[l] level l's (ghost-padded)
+        right-hand side for l < L, bc the coarsest one, flat, in float32."""
+        bs = [self._level0_rhs(b)]
+        for l, lv in enumerate(self.levels):
+            diag3, offs = vals[l]
+            x3 = smooth_plain(diag3, offs, None, bs[l])
+            bs.append(restrict_plain(diag3, offs, x3, bs[l], lv.axis,
+                                     self._pad_axis_after(l)))
+        return bs[:-1], bs[-1].reshape(-1).to(torch.float32)
+
+    def vcycle_up_plain(self, vals, bs, ec):
+        """K7's up leg, plain, in the kernel's order: from the coarsest
+        correction ec (float32, flat), per level l = L-1 .. 0 the zero-start
+        sweep of bs[l] again, plus the replicated coarse correction, then
+        one sweep. Returns (x, es): the V-cycle's result (nc,) and es[l]
+        level l's (ghost-padded) correction."""
+        e = ec.to(torch.float64).reshape(self.coarse_dims)
+        es = [None] * len(self.levels)
+        for l in reversed(range(len(self.levels))):
+            lv = self.levels[l]
+            diag3, offs = vals[l]
+            x3 = smooth_plain(diag3, offs, None, bs[l])
+            e = es[l] = prolong_smooth_plain(diag3, offs, x3, e, lv.axis,
+                                             bs[l])
+        if self.levels and self.levels[0].pad:
+            e = _take(e, self.levels[0].axis, slice(None, -1))
+        return e.reshape(-1), es
+
+    def _vcycle_legs_plain(self, vals, b):
+        bs, bc = self.vcycle_down_plain(vals, b)
+        return self.vcycle_up_plain(vals, bs, vals[-1] @ bc)[0]
+
+    def workspace(self, vals):
+        """The card's V-cycle workspace of ``vals`` (made on first use)."""
+        if vals.ws is None:
+            vals.ws = Workspace(self, vals)
+        return vals.ws
+
+    def _vcycle_cuda(self, vals, b):
+        ws = self.workspace(vals)
+        vcycle_down_cuda(ws, b)
+        coarsest_product(vals[-1], ws.bc, ws.ec)
+        return vcycle_up_cuda(ws, b)
 
     def vcycle(self, vals, b, *, twin=False):
-        """One V-cycle on b (nc,); ``twin``: the level operations by K7's
-        plain twins on any device (the card's whole-solve comparison)."""
-        ops = ((smooth_plain, restrict_plain, prolong_smooth_plain) if twin
-               else (smooth, restrict, prolong_smooth))
-        nz, ny, nx = self.dims
-        b3 = b.reshape(nz, ny, nx)
-        if not self.levels:
-            return self._coarsest(vals[-1], b3).reshape(-1)
-        lv0 = self.levels[0]
-        if lv0.pad:
-            b3 = _pad_axis(b3, lv0.axis, 1)
-        x3 = self._vcycle3(vals, b3.contiguous(), 0, ops)
-        if lv0.pad:
-            x3 = _take(x3, lv0.axis, slice(None, -1))
-        return x3.reshape(-1)
+        """One V-cycle on b (nc,): on the card K7's two legs around the
+        float32 coarsest product (the result is the workspace's ``out``,
+        valid until the next V-cycle on ``vals``), on the CPU their plain
+        versions; ``twin``: the per-level composition of the plain twins
+        on any device (the card's oracle)."""
+        b = b.contiguous()
+        if twin:
+            x3 = self._vcycle3(vals, self._level0_rhs(b), 0)
+            if self.levels and self.levels[0].pad:
+                x3 = _take(x3, self.levels[0].axis, slice(None, -1))
+            return x3.reshape(-1)
+        return cuda_lib.dispatch(b, self._vcycle_cuda,
+                                 self._vcycle_legs_plain, vals, b,
+                                 what="K7 V-cycle")

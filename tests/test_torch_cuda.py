@@ -1,11 +1,13 @@
 """The port's kernels on the card, where chip_smoke.py does not reach:
 K1 with per-query region rows (nreg > 1; SPE1 has one region), the dense
 Jacobian through the kernels against the plain CPU path as a test of its
-own, a CPR solve through the kernels against their twins, BiCGStab with
-no preconditioner through K8 against its twins, K8's steps at an odd
-length and at the toy SPE10-like deck's, the face-list kernels
-(K4-faces' pack included) and K10 against their twins on the toy
-Norne-like deck, and the
+own, a CPR solve through the kernels against their twins and one with
+only the V-cycle through K7, BiCGStab with no preconditioner through K8
+against its twins, K8's steps at an odd length and at the toy SPE10-like
+deck's, K7's two V-cycle legs on seeded stencils (a padded level, a
+padded level 0), the face-list kernels (K4-faces' pack included) and K10
+(its legs, and the coarsest sweeps of a hierarchy cut short) against
+their twins on the toy Norne-like deck, and the
 assembly kernels (K2, the K3 face blocks in both forms, K5) against their
 twins on the toy Norne-like deck in both representations.
 chip_smoke.py holds every kernel against its plain version at the SPE1,
@@ -129,8 +131,36 @@ def test_cpr_solve_through_kernels_matches_twins(dev):
     exactly 12 iterations agrees to 6.3e-2 of max|du| (that measured
     spread), and after three iterations (du 2.9e-11 from a 1e-15
     perturbation of b) to 1e-8."""
-    from opm_tpu_torch.linalg import precond
-    from opm_tpu_torch.linalg.krylov import bicgstab
+    from opm_tpu_torch.models import linearize
+
+    sim, sys = _spe10_toy_system(dev)
+    dims = sim.model.dims
+
+    def solve(twin, tol, maxiter):
+        return _cpr_solve(sys, sim.solver.amg, dims, twin, tol, maxiter)
+
+    rel = _scaled
+
+    tol = 1e-2
+    rk, dk = solve(False, tol, 50)
+    rk2, dk2 = solve(False, tol, 50)
+    rp, dp = solve(True, tol, 50)
+    assert rk.converged and rp.converged
+    assert rk.iterations == rk2.iterations and torch.equal(dk, dk2)
+    assert abs(rk.iterations - rp.iterations) <= 1
+    mv, rhs, _ = linearize.schur_eliminate_wells(sys, dims, twin=True)
+    for res in (rk, rp):
+        assert float((rhs - mv(res.x)).norm()) <= tol * float(rhs.norm())
+    (rk, dk), (rp, dp) = solve(False, 1e-30, 12), solve(True, 1e-30, 12)
+    assert rk.iterations == rp.iterations == 12
+    assert rel(dk, dp) <= 6.3e-2
+    (_, dk), (_, dp) = solve(False, 1e-12, 3), solve(True, 1e-12, 3)
+    assert rel(dk, dp) <= 1e-8
+
+
+def _spe10_toy_system(dev):
+    """The toy SPE10-like deck's first Newton system on the card (2640
+    cells, three GMG levels)."""
     from opm_tpu_torch.models import linearize
     from opm_tpu_torch.models.blackoil import make_well_device_arrays
     from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
@@ -148,36 +178,56 @@ def test_cpr_solve_through_kernels_matches_twins(dev):
     st = init_well_state(initial_state(sim.grid, sim.props, case, ws.nw),
                          ws, True)
     acc0 = sim.model.accumulation(st)
-    sys = linearize.assemble(sim.model, st, acc0, 21600.0, wd,
-                             connection_offsets(sim.model, st, wd))
+    return sim, linearize.assemble(sim.model, st, acc0, 21600.0, wd,
+                                   connection_offsets(sim.model, st, wd))
+
+
+def _cpr_solve(sys, amg, dims, twin, tol, maxiter):
+    """CPR-BiCGStab on the well-eliminated system: (result, du)."""
+    from opm_tpu_torch.linalg import precond
+    from opm_tpu_torch.linalg.krylov import bicgstab
+    from opm_tpu_torch.models import linearize
+
+    mv, rhs, rec = linearize.schur_eliminate_wells(sys, dims, twin=twin)
+    M = precond.make_cpr_cells(sys, amg, dims, twin=twin)
+    res = bicgstab(mv, rhs, precond=M, tol=tol, maxiter=maxiter, twin=twin)
+    return res, torch.cat([res.x.reshape(-1), rec(res.x).reshape(-1)])
+
+
+class _KernelVcycle:
+    """A hierarchy whose V-cycle always runs its kernels: every other step
+    of a ``twin`` solve stays a plain twin."""
+
+    def __init__(self, amg):
+        self.amg = amg
+
+    def __getattr__(self, name):
+        return getattr(self.amg, name)
+
+    def vcycle(self, vals, b, twin=False):
+        return self.amg.vcycle(vals, b)
+
+
+def test_cpr_solve_through_k7_matches_twins(dev):
+    """The toy SPE10-like deck's Newton system solved on the card with
+    every step by its plain twin except the V-cycle, through K7's two legs
+    (two launches and one product per preconditioner apply, two applies
+    per iteration), against the same solve all by twins: the same
+    iteration count, and du within 1e-10 of max|du| (K7 sums in its twins'
+    order; BiCGStab amplifies any last-bit difference of the float32
+    coarsest product)."""
+    from opm_tpu_torch.linalg import gmg as k7
+
+    sim, sys = _spe10_toy_system(dev)
     dims = sim.model.dims
-
-    def solve(twin, tol, maxiter):
-        mv, rhs, rec = linearize.schur_eliminate_wells(sys, dims, twin=twin)
-        M = precond.make_cpr_cells(sys, sim.solver.amg, dims, twin=twin)
-        res = bicgstab(mv, rhs, precond=M, tol=tol, maxiter=maxiter,
-                       twin=twin)
-        du = torch.cat([res.x.reshape(-1), rec(res.x).reshape(-1)])
-        return res, du
-
-    def rel(a, b):
-        return float((a - b).abs().max()) / float(b.abs().max())
-
-    tol = 1e-2
-    rk, dk = solve(False, tol, 50)
-    rk2, dk2 = solve(False, tol, 50)
-    rp, dp = solve(True, tol, 50)
-    assert rk.converged and rp.converged
-    assert rk.iterations == rk2.iterations and torch.equal(dk, dk2)
-    assert abs(rk.iterations - rp.iterations) <= 1
-    mv, rhs, _ = linearize.schur_eliminate_wells(sys, dims, twin=True)
-    for res in (rk, rp):
-        assert float((rhs - mv(res.x)).norm()) <= tol * float(rhs.norm())
-    (rk, dk), (rp, dp) = solve(False, 1e-30, 12), solve(True, 1e-30, 12)
-    assert rk.iterations == rp.iterations == 12
-    assert rel(dk, dp) <= 6.3e-2
-    (_, dk), (_, dp) = solve(False, 1e-12, 3), solve(True, 1e-12, 3)
-    assert rel(dk, dp) <= 1e-8
+    n0 = _vcycle_launches(k7)
+    rk, dk = _cpr_solve(sys, _KernelVcycle(sim.solver.amg), dims, True,
+                        1e-2, 50)
+    d = [a - c for a, c in zip(_vcycle_launches(k7), n0)]
+    rp, dp = _cpr_solve(sys, sim.solver.amg, dims, True, 1e-2, 50)
+    assert rk.converged and rk.iterations == rp.iterations
+    assert d[0] == d[1] == d[2] == 2 * rk.iterations
+    assert _scaled(dk, dp) <= 1e-10
 
 
 def test_bicgstab_without_preconditioner_matches_twins(dev):
@@ -358,13 +408,38 @@ def test_face_kernels_match_twins_on_toy(dev, knob):
         assert _scaled(ko, off) <= 1e-13
 
 
+def _vcycle_launches(mod):
+    """(down, up, coarsest products) counted so far."""
+    from opm_tpu_torch.linalg import gmg as k7
+    return (mod.vcycle_down_cuda.launches, mod.vcycle_up_cuda.launches,
+            k7.coarsest_product.calls)
+
+
+def _no_allocation(vcycle, x):
+    """Ten V-cycles allocate nothing on the card and repeat x's bits."""
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    for _ in range(10):
+        y = vcycle()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == m0
+    assert torch.equal(y, x)
+
+
 def test_k10_matches_twins_on_toy(dev):
     """K10 on the toy Norne-like deck's gather grid (4176 cells): the value
-    coarsening and ELL packing of every level, each level's sweep (zero
-    and given iterate), residual + restriction and prolongation + sweep
-    against their plain twins on the card (1e-12 of max), and one whole
-    V-cycle (1e-6 of max: the float32 coarsest solve can round the other
-    way when the twins' atomic restriction sums in another order)."""
+    coarsening and ELL packing of every level against their plain twins on
+    the card (1e-12 of max); one V-cycle through the two legs (exactly two
+    K10 launches and one float32 product) against the per-level
+    composition of the twins, and every level's right-hand side and
+    correction in the workspace against the legs' twins, within 1e-6 of
+    max (the twins' restriction is an index_add with atomics on the card,
+    which can round the float32 coarsest right-hand side the other way);
+    ten more V-cycles allocate nothing and repeat the bits. A hierarchy cut
+    at two levels (a coarsest level of more than DENSE_COARSEST cells,
+    solved by 1 + 10 sweeps in the down leg): two launches, no product, and
+    the V-cycle within 1e-10 of max of the twins' (all float64; the
+    atomics' order alone)."""
     from opm_tpu_torch.linalg import amg as k10
     from opm_tpu_torch.linalg import precond as k6
 
@@ -380,23 +455,82 @@ def test_k10_matches_twins_on_toy(dev):
     for (dk, ek), (dp, ep) in zip(vk[:amg.n_levels], vp[:amg.n_levels]):
         assert _scaled(dk, dp) <= 1e-12 and _scaled(ek, ep) <= 1e-12
     rng = np.random.default_rng(5)
-    for lv, (d, ev) in zip(amg.levels, vp):
-        n = d.shape[0]
-        xb = torch.as_tensor(rng.standard_normal(n), device=dev)
-        bb = torch.as_tensor(rng.standard_normal(n), device=dev)
-        ec = torch.as_tensor(rng.standard_normal(lv["n_coarse"]), device=dev)
-        cols, agg = lv["cols"], lv["agg"]
-        for x in (None, xb):
-            assert _scaled(k10.sweep_cuda(lv, d, ev, x, bb),
-                           k10.sweep_plain(d, ev, cols, x, bb)) <= 1e-12
-        assert _scaled(k10.restrict_cuda(lv, d, ev, xb, bb),
-                       k10.restrict_plain(d, ev, cols, xb, bb, agg,
-                                          lv["n_coarse"])) <= 1e-12
-        assert _scaled(k10.prolong_sweep_cuda(lv, d, ev, xb, ec, bb),
-                       k10.prolong_sweep_plain(d, ev, cols, xb, ec, agg,
-                                               bb)) <= 1e-12
     b = torch.as_tensor(rng.standard_normal(amg.n0), device=dev)
-    assert _scaled(amg.vcycle(vk, b), amg.vcycle(vk, b, twin=True)) <= 1e-6
+    n0 = _vcycle_launches(k10)
+    x = amg.vcycle(vk, b).clone()
+    assert tuple(a - c for a, c in zip(_vcycle_launches(k10), n0)) == \
+        (1, 1, 1)
+    assert _scaled(x, amg.vcycle(vk, b, twin=True)) <= 1e-6
+    ws = vk.ws
+    bs, bc = amg.vcycle_down_plain(vk, b)
+    _, es = amg.vcycle_up_plain(vk, bs, vk[-1] @ bc)
+    assert _scaled(ws.bc.double(), bc.double()) <= 1e-6
+    for k in range(1, amg.n_levels - 1):
+        assert _scaled(ws.b[k], bs[k]) <= 1e-6
+        assert _scaled(ws.e[k], es[k]) <= 1e-6
+    _no_allocation(lambda: amg.vcycle(vk, b), x)
+
+    h2 = k10.build_hierarchy(sim.model.nc, sim.grid.face_cells,
+                             sim.grid.trans, max_levels=2).device(dev)
+    assert h2.coarsest_n > k10.DENSE_COARSEST
+    v2 = h2.coarsen_values(diag_p, off)
+    n0 = _vcycle_launches(k10)
+    x2 = h2.vcycle(v2, b).clone()
+    assert tuple(a - c for a, c in zip(_vcycle_launches(k10), n0)) == \
+        (1, 1, 0)
+    assert _scaled(x2, h2.vcycle(v2, b, twin=True)) <= 1e-10
+
+
+def _stencil(dims, seed):
+    """A seeded 7-point pressure stencil in grid face order: (diag, off,
+    face transmissibilities)."""
+    nx, ny, nz = dims
+    cells = np.arange(nx * ny * nz).reshape(nz, ny, nx)
+    c1 = np.concatenate([cells[:, :, :-1].ravel(), cells[:, :-1].ravel(),
+                         cells[:-1].ravel()])
+    c2 = np.concatenate([cells[:, :, 1:].ravel(), cells[:, 1:].ravel(),
+                         cells[1:].ravel()])
+    t = np.random.default_rng(seed).uniform(0.5, 2.0, len(c1))
+    diag = np.zeros(nx * ny * nz)
+    np.add.at(diag, c1, t)
+    np.add.at(diag, c2, t)
+    return diag * 1.05, np.concatenate([-t, -t]), t
+
+
+@pytest.mark.parametrize("case", ["strength", "padded", "level0_padded"])
+def test_k7_legs_match_twins(dev, case):
+    """K7's two legs on seeded stencils: the toy SPE10-like dims with levels
+    by strength, the same dims by argmax (a padded level) and 17x9x7 (level
+    0 padded): one V-cycle is exactly two K7 launches and one float32
+    product; it, each level's right-hand side and correction in the
+    workspace and the float32 coarsest right-hand side equal the twins' to
+    1e-12 of max (the same operations in the same order); ten more
+    V-cycles allocate nothing and repeat the bits."""
+    from opm_tpu_torch.linalg import gmg as k7
+
+    dims = (17, 9, 7) if case == "level0_padded" else (15, 44, 4)
+    diag, off, t = _stencil(dims, 3)
+    g = k7.StructuredGmg(dims, t if case == "strength" else None)
+    assert len(g.levels) >= 2
+    assert (case != "padded") or any(lv.pad for lv in g.levels)
+    assert (case != "level0_padded") or g.levels[0].pad
+    vals = g.coarsen_values(torch.as_tensor(diag, device=dev),
+                            torch.as_tensor(off, device=dev))
+    b = torch.as_tensor(np.random.default_rng(4).standard_normal(g.nc),
+                        device=dev)
+    n0 = _vcycle_launches(k7)
+    x = g.vcycle(vals, b).clone()
+    assert tuple(a - c for a, c in zip(_vcycle_launches(k7), n0)) == \
+        (1, 1, 1)
+    assert _scaled(x, g.vcycle(vals, b, twin=True)) <= 1e-12
+    ws = vals.ws
+    bs, bc = g.vcycle_down_plain(vals, b)
+    _, es = g.vcycle_up_plain(vals, bs, vals[-1] @ bc)
+    assert _scaled(ws.bc.double(), bc.double()) <= 1e-12
+    for lv in range(1, len(g.levels)):
+        assert _scaled(ws.b[lv], bs[lv]) <= 1e-12
+        assert _scaled(ws.e[lv], es[lv]) <= 1e-12
+    _no_allocation(lambda: g.vcycle(vals, b), x)
 
 
 @pytest.mark.parametrize("knob", [None, "0"], ids=["embedded", "gather"])

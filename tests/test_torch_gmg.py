@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from opm_tpu.linalg.gmg import StructuredGmg as RefGmg
 from opm_tpu.linalg.gmg import _pad_axis as ref_pad_axis
 from opm_tpu.linalg.gmg import _pairsum as ref_pairsum
+from opm_tpu.linalg.gmg import _repeat2 as ref_repeat2
 from opm_tpu.linalg.krylov import bicgstab as ref_bicgstab
 from opm_tpu_torch.grid.grid import build_grid
 from opm_tpu_torch.linalg import gmg
@@ -153,3 +154,58 @@ def test_gmg_poisson():
                         maxiter=60)
     assert res.converged and res.iterations < 30
     assert res.iterations == int(rres.iterations)
+
+
+@pytest.mark.parametrize("case", ["toy_strength", "padded"])
+def test_gmg_vcycle_legs(toy_grid, case):
+    """K7's two legs by their plain versions (``vcycle`` on the CPU): the
+    per-level composition (``vcycle(..., twin=True)``) bit for bit, so
+    evaluating the pre-smoothed iterate from b where it is needed changes
+    no bit; each level's right-hand side of the down leg and correction of
+    the up leg against the JAX package's level operations at 1e-12 of max
+    (the up leg from the port's float32 coarsest correction); the whole
+    V-cycle against the reference's within 1e-6 of max (the float32
+    coarsest, as above); two V-cycles in a row equal."""
+    dims = (15, 44, 4)
+    trans = toy_grid.trans if case == "toy_strength" else None
+    g = gmg.StructuredGmg(dims, trans)
+    r = RefGmg(dims, trans)
+    _, diag, off = _poisson(dims, 3, shift=0.05)
+    vals = g.coarsen_values(torch.from_numpy(diag), torch.from_numpy(off))
+    rvals = r.coarsen_values(jnp.asarray(diag), jnp.asarray(off))
+    b = np.random.default_rng(7).standard_normal(g.nc)
+    bt = torch.from_numpy(b)
+    x = g.vcycle(vals, bt)
+    assert torch.equal(x, g.vcycle(vals, bt, twin=True))
+    assert torch.equal(x, g.vcycle(vals, bt))
+    _scaled(x.numpy(), r.vcycle(rvals, jnp.asarray(b)), 1e-6)
+
+    bs, bc = g.vcycle_down_plain(vals, bt)
+    xl, es = g.vcycle_up_plain(vals, bs, vals[-1] @ bc)
+    assert torch.equal(xl, x) and bc.dtype == torch.float32
+    assert len(bs) == len(es) == len(g.levels)
+    rv = [tuple(jnp.asarray(a.numpy()) for a in (d3,)) + (tuple(
+        (jnp.asarray(aL.numpy()), jnp.asarray(aR.numpy()))
+        for aL, aR in offs),) for d3, offs in vals[:-1]]
+    rb = jnp.asarray(bs[0].numpy())
+    for k, lv in enumerate(g.levels):
+        rd3, roffs = rv[k]
+        _scaled(bs[k].numpy(), rb, 1e-12)
+        rx = r._smooth(rd3, roffs, jnp.zeros_like(rb), rb)
+        rb = ref_pairsum(rb - RefGmg._matvec(rd3, roffs, rx), lv.axis)
+        pad_axis = g._pad_axis_after(k)
+        if pad_axis >= 0:
+            rb = ref_pad_axis(rb, pad_axis, 1)
+    _scaled(bc.numpy(), rb.reshape(-1).astype(jnp.float32), 1e-7)
+    re_ = jnp.asarray((vals[-1] @ bc).numpy().astype(np.float64)).reshape(
+        g.coarse_dims)
+    for k in reversed(range(len(g.levels))):
+        rd3, roffs = rv[k]
+        rbk = jnp.asarray(bs[k].numpy())
+        rx = r._smooth(rd3, roffs, jnp.zeros_like(rbk), rbk)
+        axis = g.levels[k].axis
+        c = list(bs[k].shape)
+        c[axis] //= 2          # the coarse level's real cells
+        re_ = r._smooth(rd3, roffs, rx + ref_repeat2(
+            re_[:c[0], :c[1], :c[2]], axis), rbk)
+        _scaled(es[k].numpy(), re_, 1e-12)

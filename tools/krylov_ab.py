@@ -12,15 +12,17 @@ the package are compared in turns on the same card. A leg measures:
   first Newton system solved by CPR-BiCGStab for exactly 10 iterations (an
   unreachable tolerance), median of 11 warm solves, host clock ended by a
   synchronize: ms per iteration (two preconditioner applies, two operator
-  applies and the K8 steps), and K8's two launches of one iteration alone
+  applies and the K8 steps), K8's two launches of one iteration alone
   on seeded vectors of the same length (CUDA events around 20 iterations,
-  median of 5; null for a tree whose K8 is not ``linalg/kernels_k8.py``);
+  median of 5; null for a tree whose K8 is not ``linalg/kernels_k8.py``)
+  and one pressure V-cycle of that system's hierarchy on a seeded
+  right-hand side (CUDA events around 50 V-cycles, median of 5);
   then report step 0 after a warm-up run of the
   same step: wall, the Newton loop's synced sections (``krylov`` among
   them) and the counts;
 - the Norne-class field (``norne_like_deck()``) in both representations:
-  the same 10-iteration solve of the first Newton system and report step
-  0 after a warm-up.
+  the same 10-iteration solve and V-cycle of the first Newton system and
+  report step 0 after a warm-up.
 
 Prints one JSON line per leg and the card's name and power limit; writes
 every leg to --out.
@@ -71,6 +73,35 @@ def _solve_ms(sim, sys_, its=10, reps=11):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / res.iterations)
     return statistics.median(times[1:])
+
+
+def _vcycle_ms(sim, sys_, reps=5, its=50):
+    """One pressure V-cycle of the first Newton system's hierarchy on a
+    seeded right-hand side: ms per V-cycle (CUDA events around ``its``
+    V-cycles in a row, median of ``reps``)."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.linalg.precond import cpr_setup
+
+    amg, dims = sim.solver.amg, sim.model.op_dims
+    _, _, diag_p, off = cpr_setup(sys_, dims, amg)
+    vals = amg.coarsen_values(diag_p, off)
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        diag_p.numel()), device=diag_p.device)
+    amg.vcycle(vals, b)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(its):
+            amg.vcycle(vals, b)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / its)
+    return statistics.median(times)
 
 
 def _k8_ms(n, reps=5, its=20):
@@ -138,6 +169,7 @@ def _leg(tree):
         sys_ = _first_system(sim, init)
         per_it = _solve_ms(sim, sys_)
         k8_it = _k8_ms(sys_.r_cell.numel())
+        vcycle = _vcycle_ms(sim, sys_)
         del sys_
         sim.run(init, report_step_limit=1)          # warm-up
         sim, init = fresh(case, knob)
@@ -150,6 +182,7 @@ def _leg(tree):
         rep = sim.report
         out[label] = dict(
             ms_per_iteration=per_it, k8_ms_per_iteration=k8_it,
+            vcycle_ms=vcycle,
             wall_s=wall,
             sections_s=dict(sim.solver.timing),
             newtons=rep.newton_iterations, linear=rep.linear_iterations,
