@@ -12,15 +12,25 @@ Phases (each prints a line of its own; any failure exits non-zero):
    faces.cu), one nvcc process each, all started together, prints what
    ptxas says of krylov.cu's, gmg.cu's and amg.cu's kernels (registers:
    the cooperative grids of K8 and of K7's and K10's V-cycle legs must be
-   co-resident), holds K8 against its twins at an odd length, and
+   co-resident) and of cells.cu's, block7.cu's, faces.cu's and wells.cu's
+   (registers and spills of K2's entries and of the cell operators that
+   carry K5's well term), K2's resident blocks per SM and the float64
+   instructions of K2's kernels in the SASS (cuobjdump; the operations
+   term of K2's bounds), holds K8 against its twins at an odd length, and
    JIT-compiles the Triton kernels (K9);
 3. kernel == plain on the card: (a) K1/K2/K3/K9 at SPE1's shapes (K3's
    tangent also at the main path's jacfwd batch, B = 3 nc + 4 nw, and the
    whole dense Jacobian through the kernels' forward-mode rules against
    the plain CPU path); (b) K1/K2/K3/K9 at SPE10 model 2's size
    (60x220x85 = 1.122M cells, the seeded SPE10-like deck), each timed
-   against its plain version (CUDA events, warm, median of 20); (c) the
-   assembly kernels (K2's assembly entry, the K3 face blocks, K5) and the
+   against its plain version (CUDA events, warm, median of 20; K2's
+   values bit for bit); (c) the
+   assembly kernels (K2's assembly entry, the K3 face blocks, K5: the
+   Schur-reduced operator with the well term fused into the cell
+   operator's last launch, ten launches in a row bit for bit against the
+   parent's pair, K4 then the stand-alone well term, and against the
+   twins' composition; K2 and the fused operator also timed per launch
+   over 50 back-to-back calls) and the
    CPR kernels K4, K6, K7 and K8 on real assembled systems (SPE1 and
    SPE10-2 initial state after the well initialisation, first dt; K8's
    steps also run twice for equal bits and checked to allocate nothing), timed
@@ -68,7 +78,9 @@ Phases (each prints a line of its own; any failure exits non-zero):
 
 Phases 4 to 7 read the launch counters over each run (and print the
 synced Newton sections) and fail if a kernel of that run's path was not
-launched.
+launched; the CPR runs also fail unless a reduced matvec was one device
+launch (structured and gather grids) or two (embedded grids: K4, then
+K4-faces with the well term) and the stand-alone well term never ran.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -132,6 +144,10 @@ TOL_LINEAR = 0.02    # linear iterations per report step (roundoff order)
 # peak, the bound's two rates for these float64 kernels
 HBM_BYTES_S = 3.35e12
 F64_FLOP_S = 34e12
+# float64 instructions per second: the peak counts a DFMA as two
+# operations; built with --fmad=false every DADD and DMUL is one
+# instruction of one operation, issued at half that rate
+F64_INSTR_S = F64_FLOP_S / 2
 
 
 def log(msg):
@@ -211,6 +227,25 @@ def cuda_ms(fn, reps=20):
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def run_ms(fn, run=50, reps=5):
+    """Median device time per call of fn over ``run`` back-to-back calls
+    (CUDA events around the run), of ``reps`` warm runs."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(run):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / run)
     return statistics.median(times)
 
 
@@ -314,6 +349,9 @@ class Kernels:
              f"{JAX_PKG}/models/linearize.py:275", k4.faces_blocks_cuda),
             ("K5 schur_matvec", "cuda", f"{P}/csrc/wells.cu",
              f"{JAX_PKG}/models/linearize.py:653", k4.schur_matvec_cuda),
+            ("K5 schur_matvec fused", "cuda", f"{P}/csrc/wells.cuh",
+             f"{JAX_PKG}/models/linearize.py:653",
+             k4.reduced_matvec_cuda),
             ("K5 schur_rhs", "cuda", f"{P}/csrc/wells.cu",
              f"{JAX_PKG}/models/linearize.py:638", k4.schur_rhs_cuda),
             ("K5 schur_recover", "cuda", f"{P}/csrc/wells.cu",
@@ -322,6 +360,10 @@ class Kernels:
         self.err = {e[0]: 0.0 for e in self.entries}
         self.ms, self.plain_ms, self.library_ms = {}, {}, {}
         self.bound_ms, self.bound_by, self.launches = {}, {}, {}
+        # ms per launch over a run of back-to-back calls (K2, K5 fused)
+        self.run_ms = {}
+        # float64 instructions per thread in the SASS, by kernel
+        self.sass = {}
 
     # entries of the face-list path whose names share a prefix with the
     # structured kernels
@@ -332,7 +374,11 @@ class Kernels:
              "K2 cells_columns", "K3 tpfa_div", "K3 tpfa_div_tangent",
              "K9 update_pressure", "K9 update_cells", "K9 conv_norms")
     ASSEMBLY = ("K2 cells_values", "K2 cells_columns", "K2 cells_assemble",
-                "K5 schur_matvec", "K5 schur_rhs", "K5 schur_recover")
+                "K5 schur_matvec fused", "K5 schur_rhs", "K5 schur_recover")
+    # K2's entries and their kernels
+    K2_KERNELS = {"K2 cells_values": "cells_values_kernel",
+                  "K2 cells_columns": "cells_columns_kernel",
+                  "K2 cells_assemble": "cells_assemble_kernel"}
 
     def names(self, prefixes, face_grids=False):
         """The entries whose kernel family is in ``prefixes``: those of the
@@ -361,6 +407,14 @@ class Kernels:
         the FP64 peak, whichever is larger."""
         t_bytes = nbytes(ins, outs) / HBM_BYTES_S * 1e3
         t_ops = flops / F64_FLOP_S * 1e3
+        self.bound_ms[name] = max(t_bytes, t_ops)
+        self.bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
+
+    def bound_instr(self, name, nbytes_moved, instructions):
+        """bound() from a byte count and a count of float64 instructions
+        (from the SASS) at the --fmad=false issue rate."""
+        t_bytes = nbytes_moved / HBM_BYTES_S * 1e3
+        t_ops = instructions / F64_INSTR_S * 1e3
         self.bound_ms[name] = max(t_bytes, t_ops)
         self.bound_by[name] = "bytes" if t_bytes >= t_ops else "operations"
 
@@ -467,6 +521,9 @@ def compare_kernels(K, model, state, seed, label, timed, B):
     kq = mb.cells_values_cuda(pack, *a2)
     pq = mb.cells_values_plain(props, *a2)
     chk("K2 cells_values", TOL_K2_VAL, [(kq, pq)])
+    if not torch.equal(kq, pq):
+        fail(f"{label}: K2 cells_values are not bit for bit the plain "
+             "version's")
     kc = mb.cells_columns_cuda(pack, *a2)
     pc = mb.cells_columns_plain(props, *a2)
     K.note("K2 cells_columns", float((kc - pc).abs().max()))
@@ -474,13 +531,21 @@ def compare_kernels(K, model, state, seed, label, timed, B):
     if not e2 <= TOL_K2_TAN:
         fail(f"{label}: K2 cells_columns differ from the plain version "
              f"({e2:.3e} of a row's max > {TOL_K2_TAN:g})")
-    # about 200 float64 operations per cell for the values, four times
-    # that with the three tangents; bytes bound both entries
+    # bytes: the primaries, the states, the regions, the tables and the
+    # rows written; operations: the kernel's float64 instructions per
+    # thread in the SASS, one thread a cell
     k2_ins = (a2[:3], state.hcstate, model.pvtnum, model.satnum, pack.tab)
-    time_pair("K2 cells_values", lambda: mb.cells_values_cuda(pack, *a2),
-              lambda: mb.cells_values_plain(props, *a2), k2_ins, 200 * nc)
-    time_pair("K2 cells_columns", lambda: mb.cells_columns_cuda(pack, *a2),
-              lambda: mb.cells_columns_plain(props, *a2), k2_ins, 800 * nc)
+    for name, kfn, pfn, out in (
+            ("K2 cells_values", lambda: mb.cells_values_cuda(pack, *a2),
+             lambda: mb.cells_values_plain(props, *a2), kq),
+            ("K2 cells_columns", lambda: mb.cells_columns_cuda(pack, *a2),
+             lambda: mb.cells_columns_plain(props, *a2), kc)):
+        if timed:
+            K.ms[name] = cuda_ms(kfn)
+            K.plain_ms[name] = cuda_ms(pfn)
+            K.run_ms[name] = run_ms(kfn)
+            K.bound_instr(name, nbytes(k2_ins, out),
+                          K.sass["cells"][K.K2_KERNELS[name]] * nc)
     del kq, pq, kc, pc
 
     # K3 forward and tangent
@@ -652,14 +717,21 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
                 fail(f"{label}: {name} differs from its plain version "
                      f"({e:.3e} > {tol:g})")
 
-    def timing(name, kfn, pfn, nbytes_moved, flops, into_table):
+    def timing(name, kfn, pfn, nbytes_moved, flops, into_table,
+               instr=None):
+        """Times into the table (bound from the bytes and the float64
+        operations, or the SASS's float64 instructions when ``instr``),
+        else into the extra measurements."""
         if not timed:
             return
         ms, pms = cuda_ms(kfn), cuda_ms(pfn)
         if into_table:
             K.ms[name], K.plain_ms[name] = ms, pms
             K.library_ms[name] = None
-            K.bound_raw(name, nbytes_moved, flops)
+            if instr is None:
+                K.bound_raw(name, nbytes_moved, flops)
+            else:
+                K.bound_instr(name, nbytes_moved, instr)
         else:
             extra[name] = dict(ms=ms, plain_ms=pms)
 
@@ -671,9 +743,22 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
     check("K2 cells_assemble", TOL_K2_VAL, [(ka[0], pa[0])], rel_err)
     check("K2 cells_assemble", TOL_K2_TAN, list(zip(ka[1:], pa[1:])),
           row_scaled_err)
-    timing("K2 cells_assemble", lambda: mb.cells_assemble_cuda(pack, *a2),
-           lambda: mb.cells_assemble_plain(props, *a2),
-           nbytes(a2[:8], pack.tab, ka), 900 * nc, table)
+    if not (torch.equal(ka[0], pa[0]) and torch.equal(ka[2], pa[2])):
+        fail(f"{label}: K2 cells_assemble's face inputs or r_cell are not "
+             "bit for bit the plain version's")
+    if timed:
+        kfn = lambda: mb.cells_assemble_cuda(pack, *a2)  # noqa: E731
+        ms, pms = cuda_ms(kfn), cuda_ms(
+            lambda: mb.cells_assemble_plain(props, *a2))
+        if table:
+            K.ms["K2 cells_assemble"], K.plain_ms["K2 cells_assemble"] = \
+                ms, pms
+            K.run_ms["K2 cells_assemble"] = run_ms(kfn)
+            K.bound_instr("K2 cells_assemble", nbytes(a2[:8], pack.tab, ka),
+                          K.sass["cells"]["cells_assemble_kernel"] * nc)
+        else:
+            extra["K2 cells_assemble"] = dict(ms=ms, plain_ms=pms,
+                                              run_ms=run_ms(kfn))
     fv, fc, r0, d0 = pa
     del ka
 
@@ -742,36 +827,77 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
                moved, 250 * fl.n, timed and dims is None)
         del kl, pl
 
-    # K5 on the system's well blocks
+    # K5 on the system's well blocks, over its prepared arguments
     Dinv = inv4x4(sys.wd_diag).contiguous()
+    wt = lz.WellTerm(sys, Dinv)
     v = torch.as_tensor(rng.standard_normal((3, nc)), device=dev)
     out = torch.as_tensor(rng.standard_normal((3, nc)), device=dev)
     check("K5 schur_matvec", TOL_K5,
-          [(lz.schur_matvec_cuda(sys, Dinv, v, out.clone()),
+          [(lz.schur_matvec_cuda(wt, v, out.clone()),
             lz.schur_matvec_plain(sys, Dinv, v, out))], scaled_err)
-    check("K5 schur_rhs", TOL_K5, [(lz.schur_rhs_cuda(sys, Dinv),
+    check("K5 schur_rhs", TOL_K5, [(lz.schur_rhs_cuda(wt),
                                     lz.schur_rhs_plain(sys, Dinv))],
           scaled_err)
     check("K5 schur_recover", TOL_K5,
-          [(lz.schur_recover_cuda(sys, Dinv, v),
+          [(lz.schur_recover_cuda(wt, v),
             lz.schur_recover_plain(sys, Dinv, v))], scaled_err)
+    # the reduced operator with the well term in the cell operator's last
+    # launch: ten launches in a row bit for bit the parent's pair (the
+    # ticket resets), and the twins' composition within TOL_K5
+    pair = lz.schur_matvec_cuda(wt, v, lz.matvec_cells(sys, v, dims))
+    fused = [lz.reduced_matvec_cuda(wt, v, dims) for _ in range(10)]
+    if not all(torch.equal(f, pair) for f in fused):
+        fail(f"{label}: the fused reduced operator differs from K4 then "
+             "the stand-alone well term")
+    check("K5 schur_matvec fused", TOL_K5,
+          [(fused[0], lz.reduced_matvec_plain(sys, Dinv, v, dims))],
+          scaled_err)
+    del fused
     nw, mp = sys.perf_cell.shape
     npf = nw * mp
     rows_w = int(torch.unique(sys.perf_cell).numel())   # perforated cells
     wells_b = nbytes(sys.wc, sys.cw, Dinv, sys.perf_cell, sys.perf_order)
     ok = out.clone()
+    # the operations terms of K5's rows: the SASS's float64 instructions
+    # per thread times the threads launched (256 a block, wells.cu; an
+    # upper count: much of the code runs in one block only)
+    ws = K.sass["wells"]
     timing("K5 schur_matvec",
-           lambda: lz.schur_matvec_cuda(sys, Dinv, v, ok),
+           lambda: lz.schur_matvec_cuda(wt, v, ok),
            lambda: lz.schur_matvec_plain(sys, Dinv, v, out),
-           wells_b + 8 * 3 * (npf + 2 * rows_w), 42 * npf + 40 * nw, table)
-    timing("K5 schur_rhs", lambda: lz.schur_rhs_cuda(sys, Dinv),
+           wells_b + 8 * 3 * (npf + 2 * rows_w), 0, table,
+           instr=ws["schur_matvec_kernel"] * 256)
+    if timed:
+        # the fused operator against the parent's pair, two ways; its
+        # bound is the cell operator's (blocks and both vectors once) plus
+        # the well term's
+        fn = lambda: lz.reduced_matvec_cuda(wt, v, dims)  # noqa: E731
+        pfn = lambda: lz.schur_matvec_cuda(  # noqa: E731
+            wt, v, lz.matvec_cells(sys, v, dims))
+        two = dict(ms=cuda_ms(fn), run_ms=run_ms(fn), pair_ms=cuda_ms(pfn),
+                   pair_run_ms=run_ms(pfn))
+        extra["K5 schur_matvec fused"] = two
+        if table:
+            nf = sys.face_L.shape[1]
+            K.ms["K5 schur_matvec fused"] = two["ms"]
+            K.run_ms["K5 schur_matvec fused"] = two["run_ms"]
+            K.plain_ms["K5 schur_matvec fused"] = cuda_ms(
+                lambda: lz.reduced_matvec_plain(sys, Dinv, v, dims))
+            K.library_ms["K5 schur_matvec fused"] = None
+            K.bound_instr("K5 schur_matvec fused",
+                          nbytes(sys.diag, sys.face_L, sys.face_R, v, v)
+                          + wells_b + 8 * 3 * npf,
+                          K.sass["block7"]["matvec_kernel"] * nc)
+    timing("K5 schur_rhs", lambda: lz.schur_rhs_cuda(wt),
            lambda: lz.schur_rhs_plain(sys, Dinv),
            nbytes(sys.cw, Dinv, sys.perf_cell, sys.perf_order, sys.r_well)
-           + 2 * nbytes(sys.r_cell), 24 * npf + 28 * nw, table)
-    timing("K5 schur_recover", lambda: lz.schur_recover_cuda(sys, Dinv, v),
+           + 2 * nbytes(sys.r_cell), 0, table,
+           instr=ws["schur_rhs_kernel"] * 256 * (-(-nc // 2048) + 1))
+    timing("K5 schur_recover", lambda: lz.schur_recover_cuda(wt, v),
            lambda: lz.schur_recover_plain(sys, Dinv, v),
            nbytes(sys.wc, Dinv, sys.perf_cell, sys.r_well) * 1
-           + 8 * (3 * npf + 4 * nw), 18 * npf + 36 * nw, table)
+           + 8 * (3 * npf + 4 * nw), 0, table,
+           instr=ws["schur_recover_kernel"] * 256)
 
     # one whole assembly through the kernels and through their twins
     args = (model, st, ctx["acc0"], dt, ctx["wd"], ctx["cdp"])
@@ -1200,6 +1326,30 @@ def check_k8_launches(launches, rep, label):
              "solve")
 
 
+def check_reduced_launches(counts, label, model):
+    """A reduced matvec (the Krylov operator) is one device launch on a
+    structured or a gather grid (K4, or K4-faces, with K5's well term) and
+    two on an embedded grid (K4, then K4-faces with the well term); the
+    stand-alone well term never runs. On an embedded grid K4 also runs as
+    the base of each K4-faces smoothing step, which is left out."""
+    kind = ("gather" if model.op_dims is None else
+            "embedded" if model.faces is not None else "structured")
+    fused = counts["K5 schur_matvec fused"]
+    k4, k4f = counts["K4 block7_matvec"], counts["K4-faces matvec"]
+    alone = counts["K5 schur_matvec"]
+    if kind == "embedded":
+        k4 -= counts["K4-faces smooth"]
+    per = (k4 + k4f + alone) / max(fused, 1)
+    log(f"  {label} ({kind}): {fused} reduced matvecs, {per:g} device "
+        f"launches each (K4 {k4}, K4-faces {k4f}, stand-alone well term "
+        f"{alone})")
+    if fused <= 0 or alone or per != (2 if kind == "embedded" else 1):
+        fail(f"{label}: a reduced matvec was not "
+             f"{2 if kind == 'embedded' else 1} launch(es) with the well "
+             "term fused")
+    return per
+
+
 def check_vcycle_launches(launches, rep, label, amg):
     """Two launches per V-cycle (K7's or K10's down and up legs) and one
     float32 coarsest product, two V-cycles per BiCGStab iteration."""
@@ -1532,6 +1682,8 @@ def norne_first_step(K, sim, ref, label, names):
                                    if c))
     check_k8_launches(counts, rep, label)
     check_vcycle_launches(counts, rep, label, sim.solver.amg)
+    res["launches_per_reduced_matvec"] = check_reduced_launches(
+        counts, label, sim.model)
     if counts["K4-faces pack"] != rep.newton_iterations:
         fail(f"{label}: {counts['K4-faces pack']} K4-faces packs in "
              f"{rep.newton_iterations} Newton systems")
@@ -1549,8 +1701,11 @@ def toy_run(K, sim, ref, label, names):
                       sim.report, label)
     check_vcycle_launches({e[0]: e[4].launches for e in K.entries},
                           sim.report, label, sim.solver.amg)
+    per = check_reduced_launches({e[0]: e[4].launches for e in K.entries},
+                                 label, sim.model)
     counts = {e[0]: e[4].launches for e in K.entries if e[0] in names}
-    res.update(sections_s=dict(sim.solver.timing), launches=counts)
+    res.update(sections_s=dict(sim.solver.timing), launches=counts,
+               launches_per_reduced_matvec=per)
     log("  sections (s, synced): " + ", ".join(
         f"{k}={v:.2f}" for k, v in res["sections_s"].items()))
     log("  launches: " + ", ".join(f"{n}={c}" for n, c in counts.items()))
@@ -1640,6 +1795,7 @@ def main(argv=None):
     from opm_tpu_torch.sim.init import initial_state
     from opm_tpu_torch.sim.testcases import spe10like_case
     from opm_tpu_torch.solver import kernels_triton as k9
+    from opm_tpu_torch.tools.assembly_ab import parse_ptxas, sass_fp64
     from opm_tpu_torch.utils import cuda_lib
 
     results = {}
@@ -1675,13 +1831,25 @@ def main(argv=None):
     results["build_s"] = time.perf_counter() - t0
     log(f"build: {results['build_s']:.1f} s (11 nvcc sm_90a and the host "
         "cornerpoint.cpp in parallel + Triton JIT of K9)")
-    for src in ("krylov.cu", "gmg.cu", "amg.cu"):
+    for src in ("krylov.cu", "gmg.cu", "amg.cu", "cells.cu", "block7.cu",
+                "faces.cu", "wells.cu"):
         ptxas = cuda_lib.build_log.get(src)
-        log(f"{src} -Xptxas -v: " + (" | ".join(
-            ln.strip() for ln in ptxas.splitlines()
-            if "registers" in ln or "Compiling entry" in ln
-            or "spill" in ln)
+        log(f"{src} -Xptxas -v: " + (json.dumps(parse_ptxas(ptxas))
             if ptxas is not None else "(library up to date, not rebuilt)"))
+        results.setdefault("ptxas", {})[src] = parse_ptxas(ptxas)
+    # the float64 instructions per thread of K2's and K5's kernels (and of
+    # the cell operators that carry K5's well term) in the SASS
+    for name in ("cells", "block7", "faces", "wells"):
+        counts = sass_fp64(os.path.join(cuda_lib.BUILD_DIR,
+                                        f"lib{name}.so"))
+        K.sass[name] = {k: c["main"] for k, c in counts.items()}
+        results.setdefault("sass_fp64", {})[name] = counts
+        log(f"lib{name}.so float64 instructions per thread (SASS, main "
+            f"body / division slow path): " + ", ".join(
+                f"{k} {c['main']}/{c['sub']}" for k, c in counts.items()))
+    results["k2_occupancy"] = mb.cells_occupancy(dev)
+    log(f"K2 per entry (threads, blocks per SM, registers, local bytes): "
+        f"{json.dumps(results['k2_occupancy'])}")
     # K8 at an odd length (the tail element) against its twins
     compare_k8(K, (3, 7), dev, args.seed, "K8 at 21 values", timed=False)
     log("K8 == plain at an odd length (21 values): ok")
@@ -1776,11 +1944,15 @@ def main(argv=None):
     for n in K.names(("K1", "K2", "K3", "K5", "K9", "K4", "K6", "K7",
                       "K8")):
         lib = K.library_ms.get(n)
+        run = K.run_ms.get(n)
         log(f"  {n:22s} kernel {K.ms[n]:9.4f} ms   plain "
             f"{K.plain_ms[n]:9.4f} ms   bound {K.bound_ms[n]:8.4f} ms "
             f"({K.bound_by[n]})   library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}   "
-            f"max_abs_err {K.err[n]:.3e}")
+            f"max_abs_err {K.err[n]:.3e}"
+            + ("" if run is None else f"   per launch in a run of 50 "
+               f"{run:.4f} ms"))
+    results["run_ms"] = dict(K.run_ms)
     log_vcycle("SPE10-2", vc)
     # the production solve; then ten iterations of the recurrence at an
     # unreachable tolerance, a longer path for the roundoff to travel
@@ -1880,6 +2052,8 @@ def main(argv=None):
         fail("SPE10-2: failed substeps or a non-finite state")
     check_k8_launches(K.launches, rep, "SPE10-2")
     check_vcycle_launches(K.launches, rep, "SPE10-2", amg)
+    res10["launches_per_reduced_matvec"] = check_reduced_launches(
+        res10["launches_all"], "SPE10-2", m10)
     dead = [n for n in new_names if K.launches[n] <= 0]
     if dead:
         fail(f"kernels not launched by the SPE10-2 run: {dead}")

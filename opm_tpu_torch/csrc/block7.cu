@@ -25,9 +25,15 @@
 // so the result is bitwise that of the plain version; no atomics. The
 // smoothing entry adds the 9 inverse-block entries and the residual and
 // writes the new iterate (a pressure-only iterate has rows 1 and 2 zero).
+// The matvec optionally carries the reduced operator's well term (K5,
+// wells.cuh): an extra block 0 forms D^-1 (B x) while the others compute
+// their rows, and the block that finishes last subtracts C D^-1 (B x) at
+// the perforated cells, so the Schur-reduced operator is one launch.
 // Build with --fmad=false (products and sums round as the plain version's).
 
 #include <cuda_runtime.h>
+
+#include "wells.cuh"
 
 namespace {
 
@@ -108,16 +114,22 @@ __device__ __forceinline__ void row_apply(const Op& A, const double* x,
     }
 }
 
+// out = A x, then (W.nw > 0) out -= C D^-1 (B x): the well vector by the
+// extra block 0, the subtraction by the last block
 __global__ void matvec_kernel(Op A, const double* __restrict__ x,
-                              int p_only, double* __restrict__ out) {
-    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= A.nc) return;
-    int i = (int)(c % A.nx);
-    int j = (int)((c / A.nx) % A.ny);
-    int k = (int)(c / ((long long)A.nx * A.ny));
-    double y[3];
-    row_apply(A, x, p_only != 0, i, j, k, y);
-    for (int e = 0; e < 3; ++e) out[e * A.nc + c] = y[e];
+                              int p_only, double* out, opm_wells::Wells W) {
+    opm_wells::matvec_prologue(W, A.nc, x);
+    const int b = (int)blockIdx.x - opm_wells::prologue_blocks(W);
+    const long long c = (long long)b * blockDim.x + threadIdx.x;
+    if (c >= 0 && c < A.nc) {
+        int i = (int)(c % A.nx);
+        int j = (int)((c / A.nx) % A.ny);
+        int k = (int)(c / ((long long)A.nx * A.ny));
+        double y[3];
+        row_apply(A, x, p_only != 0, i, j, k, y);
+        for (int e = 0; e < 3; ++e) out[e * A.nc + c] = y[e];
+    }
+    opm_wells::matvec_epilogue(W, A.nc, out);
 }
 
 __global__ void smooth_kernel(Op A, const double* __restrict__ dinv,
@@ -165,13 +177,19 @@ Op make_op(int nx, int ny, int nz, long long nf, const double* diag,
 
 extern "C" {
 
+// wells: null, or a host pointer to opm_wells::Wells (x (3, nc)): the
+// reduced operator's well term in the same launch, its phases (wells.cuh
+// kPrologue | kEpilogue) given by well_phases
 int opm_block7_matvec(int nx, int ny, int nz, long long nf, int p_only,
                       const double* diag, const double* fL, const double* fR,
-                      const double* x, double* out, cudaStream_t stream) {
+                      const double* x, double* out, const void* wells,
+                      int well_phases, cudaStream_t stream) {
     Op A = make_op(nx, ny, nz, nf, diag, fL, fR);
     if (A.nc == 0) return 0;
-    int blocks = (int)((A.nc + kThreads - 1) / kThreads);
-    matvec_kernel<<<blocks, kThreads, 0, stream>>>(A, x, p_only, out);
+    const opm_wells::Wells W = opm_wells::from_host(wells, well_phases);
+    int blocks = (int)((A.nc + kThreads - 1) / kThreads)
+        + opm_wells::prologue_blocks(W);
+    matvec_kernel<<<blocks, kThreads, 0, stream>>>(A, x, p_only, out, W);
     return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 // Dual3: a float64 value with its tangents in three directions (the
 // primaries p, sw, x of a cell), so that each line of a plain formula is
-// written once and yields the value and the three Jacobian columns.
+// written once and yields the value and the three Jacobian columns. The
+// scalar forms at the end let a formula templated on its number type run
+// in plain double where no tangent is wanted.
 //
 // The rules are PyTorch's forward-mode formulas (derivatives.yaml), so the
 // tangents round as torch.func.jvp's do wherever the operation order is
@@ -21,12 +23,25 @@ struct Dual3 {
     double t[3];
 };
 
-__device__ __forceinline__ Dual3 constant(double v) {
+// a constant of the number type T (double, or Dual3 with no tangent)
+template <class T>
+__device__ __forceinline__ T constant(double v) {
+    return v;
+}
+
+template <>
+__device__ __forceinline__ Dual3 constant<Dual3>(double v) {
     return Dual3{v, {0.0, 0.0, 0.0}};
 }
 
 // the primary variable of direction k (tangent 1 there, 0 elsewhere)
-__device__ __forceinline__ Dual3 primary(double v, int k) {
+template <class T>
+__device__ __forceinline__ T primary(double v, int) {
+    return v;
+}
+
+template <>
+__device__ __forceinline__ Dual3 primary<Dual3>(double v, int k) {
     Dual3 r{v, {0.0, 0.0, 0.0}};
     r.t[k] = 1.0;
     return r;
@@ -139,6 +154,31 @@ __device__ __forceinline__ Dual3 chain2(double v, double dx, double dy,
     r.v = v;
     for (int k = 0; k < 3; ++k) r.t[k] = dx * qx.t[k] + dy * qy.t[k];
     return r;
+}
+
+// ---- the scalar forms: each is the value part of its Dual3 form above,
+// the same double expression, so a formula run in double gives the values
+// of its Dual3 run bit for bit (--fmad=false)
+
+__device__ __forceinline__ double value(double a) { return a; }
+
+__device__ __forceinline__ double value(const Dual3& a) { return a.v; }
+
+__device__ __forceinline__ double select(bool c, double a, double b) {
+    return c ? a : b;
+}
+
+__device__ __forceinline__ double maximum0(double a) {
+    return (isnan(a) || a > 0.0) ? a : 0.0;
+}
+
+__device__ __forceinline__ double chain1(double v, double, double) {
+    return v;
+}
+
+__device__ __forceinline__ double chain2(double v, double, double, double,
+                                         double) {
+    return v;
 }
 
 }  // namespace opm_dual

@@ -35,6 +35,9 @@
 // face order, a warp's neighbouring cells found their right-side faces far
 // apart, a 32-byte sector per lane; in the packed copy lane i of slot j
 // reads address base + 32 b + i.
+// The plain product optionally carries the reduced operator's well term
+// (K5, wells.cuh): the well vector by an extra block 0, the subtraction at
+// the perforated cells by the block that finishes last.
 // Build with --fmad=false (products and sums round as the plain version's).
 
 #include <cuda_runtime.h>
@@ -42,6 +45,7 @@
 #include <climits>
 
 #include "tpfa_face.cuh"
+#include "wells.cuh"
 
 namespace {
 
@@ -163,15 +167,14 @@ struct Sell {
 // the threads are the rows (an in-place update of the touched cells).
 // Folding the sign into the blocks is exact: (-a) u + (-b) w == -(a u + b
 // w) and y + (-t) == y - t, so the sums are the plain version's.
-__global__ void sell_apply_kernel(Sell g, int n_threads, long long nc,
-                                  const double* __restrict__ diag,
-                                  const double* base,
-                                  const double* __restrict__ x, int p_only,
-                                  const double* __restrict__ dinv,
-                                  const double* __restrict__ r,
-                                  double* out) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n_threads) return;
+__device__ __forceinline__ void sell_row(const Sell& g, int t, long long nc,
+                                         const double* __restrict__ diag,
+                                         const double* base,
+                                         const double* __restrict__ x,
+                                         int p_only,
+                                         const double* __restrict__ dinv,
+                                         const double* __restrict__ r,
+                                         double* out) {
     int row = t;
     long long c = t;
     if (g.row_of) {
@@ -222,6 +225,24 @@ __global__ void sell_apply_kernel(Sell g, int n_threads, long long nc,
         acc = acc + dinv[(3 * q + 2) * nc + c] * e2;
         out[q * nc + c] = xv(x, po, nc, q, c) + acc;
     }
+}
+
+// sell_row for each of the n_threads threads; with W.nw > 0 (the plain
+// product) out -= C D^-1 (B x): the well vector by the extra block 0, the
+// subtraction by the last block
+__global__ void sell_apply_kernel(Sell g, int n_threads, long long nc,
+                                  const double* __restrict__ diag,
+                                  const double* base,
+                                  const double* __restrict__ x, int p_only,
+                                  const double* __restrict__ dinv,
+                                  const double* __restrict__ r, double* out,
+                                  opm_wells::Wells W) {
+    opm_wells::matvec_prologue(W, nc, x);
+    const int b = (int)blockIdx.x - opm_wells::prologue_blocks(W);
+    const int t = b * (int)blockDim.x + (int)threadIdx.x;
+    if (t >= 0 && t < n_threads)
+        sell_row(g, t, nc, diag, base, x, p_only, dinv, r, out);
+    opm_wells::matvec_epilogue(W, nc, out);
 }
 
 // the pack: padded entry e (thread e) gets src[e] = f >= 0: +face_R[.][f],
@@ -290,17 +311,24 @@ int opm_faces_blocks(int n_rows, const int* rows, const int* ptr,
 // n_threads rows (row_of null) or cells (row_of set); blocks (9, nc) diag
 // and dinv; vectors (3, nc), x (nc,) when p_only; diag null: start each
 // row from base (3, nc), which may be out when the threads are the rows;
-// dinv null: the plain product
+// dinv null: the plain product, which with wells (a host pointer to
+// opm_wells::Wells, or null; x (3, nc)) carries the phases well_phases of
+// the reduced operator's well term (wells.cuh)
 int opm_faces_sell_apply(int n_threads, const int* rows, const int* row_of,
                          const int* chunk0, const int* ptr, const int* col,
                          const double* blk, long long nc, const double* diag,
                          const double* base, const double* x, int p_only,
                          const double* dinv, const double* r, double* out,
+                         const void* wells, int well_phases,
                          cudaStream_t stream) {
-    if (n_threads == 0) return 0;
+    const opm_wells::Wells W =
+        opm_wells::from_host(dinv ? nullptr : wells, well_phases);
+    if (n_threads == 0 && W.nw == 0) return 0;
     Sell g{rows, row_of, chunk0, ptr, col, blk};
-    sell_apply_kernel<<<blocks_for(n_threads), kThreads, 0, stream>>>(
-        g, n_threads, nc, diag, base, x, p_only, dinv, r, out);
+    const int blocks = (n_threads ? blocks_for(n_threads) : 1)
+        + opm_wells::prologue_blocks(W);
+    sell_apply_kernel<<<blocks, kThreads, 0, stream>>>(
+        g, n_threads, nc, diag, base, x, p_only, dinv, r, out, W);
     return (int)cudaGetLastError();
 }
 

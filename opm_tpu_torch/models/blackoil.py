@@ -249,7 +249,21 @@ _CELLS_SIGS = {
     + [cuda_lib.P] * 9,
     "opm_cells_assemble": [cuda_lib.P, cuda_lib.P, cuda_lib.L]
     + [cuda_lib.P] * 8 + [cuda_lib.D] + [cuda_lib.P] * 5,
+    "opm_cells_occupancy": [cuda_lib.P],
 }
+
+
+def cells_occupancy(device):
+    """K2's three kernels on a CUDA device: per entry (values, columns,
+    assemble) its threads per block, resident blocks per SM, registers per
+    thread and local memory per thread in bytes (spills)."""
+    lib = cuda_lib.load("cells", _CELLS_SIGS)
+    out = (ctypes.c_int * 12)()
+    with torch.cuda.device(device):
+        cuda_lib.check(lib.opm_cells_occupancy(out), "opm_cells_occupancy")
+    keys = ("threads", "blocks_per_sm", "registers", "local_bytes")
+    return {e: dict(zip(keys, out[4 * k:4 * k + 4]))
+            for k, e in enumerate(("values", "columns", "assemble"))}
 
 
 def _cells_lib(pack):
@@ -306,17 +320,16 @@ cells_values_cuda.launches = 0
 
 def cells_columns_cuda(pack, p, sw, x, hcstate, pvtnum, satnum):
     """K2's values entry with columns on the card; same contract as
-    cells_columns_plain."""
+    cells_columns_plain (the kernel writes the columns only)."""
     n, (hc, pvt, sat) = _cells_inputs(pack, p, sw, x, hcstate, pvtnum,
                                       satnum)
-    out = torch.empty((N_Q, n), dtype=torch.float64, device=p.device)
     cols = torch.empty((3, N_Q, n), dtype=torch.float64, device=p.device)
     if n:
         lib, meta = _cells_lib(pack)
         ptr = cuda_lib.ptr
         err = lib.opm_cells_eval(ptr(pack.tab), meta, n, ptr(p), ptr(sw),
                                  ptr(x), ptr(hc), ptr(pvt), ptr(sat),
-                                 ptr(out), ptr(cols),
+                                 cuda_lib.P(0), ptr(cols),
                                  cuda_lib.stream_ptr(p.device))
         cuda_lib.check(err, "opm_cells_eval")
         cells_columns_cuda.launches += 1
@@ -903,7 +916,7 @@ _FACES_SIGS = {
     + [_D, _I, _P, _P],
     # the operator over the sliced-ELL layout (models/linearize.py)
     "opm_faces_sell_apply": [_I] + [_P] * 6 + [cuda_lib.L] + [_P] * 3
-    + [_I] + [_P] * 4,
+    + [_I] + [_P] * 3 + [_P, _I, _P],
     "opm_faces_sell_pack": [cuda_lib.L, _P, cuda_lib.L] + [_P] * 4,
     # the face blocks of the assembly (models/linearize.py)
     "opm_faces_blocks": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L]

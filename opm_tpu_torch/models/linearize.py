@@ -37,6 +37,7 @@ grid the stencil faces, then the extra faces).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -427,8 +428,14 @@ def matvec_cells_plain(diag, face_L, face_R, v, dims):
 # ---------------------------------------------------------------------------
 # K4 (and the K6 smoothing step, precond.py): CUDA wrappers (csrc/block7.cu)
 
+# the parts of the well term a cell operator's launch runs (csrc/wells.cuh
+# kPrologue, kEpilogue)
+PROLOGUE, EPILOGUE = 1, 2
+WELL_TERM = PROLOGUE | EPILOGUE
+
+
 BLOCK7_SIGS = {
-    "opm_block7_matvec": [_I, _I, _I, _L, _I] + [_P] * 5 + [_P],
+    "opm_block7_matvec": [_I, _I, _I, _L, _I] + [_P] * 6 + [_I, _P],
     "opm_block7_smooth": [_I, _I, _I, _L, _I] + [_P] * 7 + [_P],
 }
 
@@ -464,8 +471,12 @@ def check_iterate(x, nc, dev):
                          "float64 (nc,) tensor")
 
 
-def matvec_cells_cuda(diag, face_L, face_R, v, dims):
-    """K4 on the card; same contract as matvec_cells_plain."""
+def matvec_cells_cuda(diag, face_L, face_R, v, dims, wells=None,
+                      phases=WELL_TERM):
+    """K4 on the card; same contract as matvec_cells_plain. With ``wells``
+    (a WellTerm of the same system) the launch carries the reduced
+    operator's well term, or the ``phases`` of it: with both the result is
+    reduced_matvec_plain's."""
     nc = diag.shape[-1]
     p_only = v.dim() == 1
     if p_only:
@@ -478,7 +489,8 @@ def matvec_cells_cuda(diag, face_L, face_R, v, dims):
     ptr = cuda_lib.ptr
     err = lib.opm_block7_matvec(nx, ny, nz, face_L.shape[1], int(p_only),
                                 ptr(diag), ptr(face_L), ptr(face_R), ptr(v),
-                                ptr(out), cuda_lib.stream_ptr(v.device))
+                                ptr(out), _well_arg(wells, v, nc), phases,
+                                cuda_lib.stream_ptr(v.device))
     cuda_lib.check(err, "opm_block7_matvec")
     matvec_cells_cuda.launches += 1
     return out
@@ -585,27 +597,31 @@ class FacesOperator:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
         return t.data_ptr()
 
-    def apply(self, x, base, dinv, r, out, in_place=False):
+    def apply(self, x, base, dinv, r, out, in_place=False, wells=None,
+              phases=0):
         nc = self.nc
         p_only = x.dim() == 1
         err = self.lib.opm_faces_sell_apply(
             *(self.by_row if in_place else self.by_cell), *self.layout,
             0 if base is not None else self.diag.data_ptr(), base,
             self.vec(x, (nc,) if p_only else (3, nc)), int(p_only), dinv, r,
-            out, self.stream)
+            out, _well_arg(wells, x, nc), phases, self.stream)
         cuda_lib.check(err, "opm_faces_sell_apply")
 
 
-def faces_matvec_cuda(op: FacesOperator, v, out=None):
+def faces_matvec_cuda(op: FacesOperator, v, out=None, wells=None,
+                      phases=0):
     """K4-faces on the card; the contract of faces_matvec_plain over the
     packed operator, except that ``out`` (the stencil product of an
-    embedded grid) is updated in place."""
+    embedded grid) is updated in place. With ``wells`` (a WellTerm of the
+    same system) the launch carries the ``phases`` of the reduced
+    operator's well term."""
     shape = (3, op.nc)
     y = torch.empty(shape, dtype=torch.float64, device=op.device) \
         if out is None else out
     yp = op.vec(y, shape)
     op.apply(v, None if out is None else yp, None, None, yp,
-             in_place=out is not None)
+             in_place=out is not None, wells=wells, phases=phases)
     faces_matvec_cuda.launches += 1
     return y
 
@@ -704,52 +720,121 @@ def schur_recover_plain(sys: BlockSystem, Dinv, x):
     return _dinv_apply(Dinv, sys.r_well - well_apply_B(sys, x))
 
 
-WELLS_SIGS = {
-    "opm_schur_matvec": [_I, _I] + [_P] * 5 + [_L, _P, _P, _P],
-    "opm_schur_recover": [_I, _I] + [_P] * 5 + [_L, _P, _P, _P, _P],
-    "opm_schur_rhs": [_I, _I] + [_P] * 5 + [_L, _P, _P, _P, _P],
-}
-# shared memory of one block: 4 words per perforation, 4 per well
-_K5_SMEM = 48 * 1024
+def reduced_matvec_plain(sys: BlockSystem, Dinv, v, dims):
+    """The Schur-reduced operator (A - C D^-1 B) v: the cell operator's
+    twins (matvec_cells), then schur_matvec_plain; what the fused operator
+    on the card is held to."""
+    return schur_matvec_plain(sys, Dinv, v,
+                              matvec_cells(sys, v, dims, twin=True))
 
 
-def _wells_args(sys: BlockSystem, Dinv, *vecs):
-    """The well arrays of K5's entries, checked: contiguous float64 blocks
-    and (3, nc) vectors on one device."""
-    nw, mp = sys.perf_cell.shape
-    nc = sys.nc
-    dev = sys.r_cell.device
-    if 8 * (4 * nw * mp + 4 * nw) > _K5_SMEM:
-        raise ValueError(f"K5: {nw * mp} perforations exceed one block's "
-                         "shared memory")
-    for t, shape in ((sys.wc, (nw, mp, 3, 3)), (sys.cw, (nw, mp, 3, 4)),
-                     (Dinv, (nw, 4, 4)), (sys.r_well, (nw, 4)),
-                     (sys.r_cell, (3, nc))) + tuple((v, (3, nc))
-                                                    for v in vecs):
-        if (t.dtype != torch.float64 or t.device != dev
-                or tuple(t.shape) != shape or not t.is_contiguous()):
+def run_lengths(sorted_cell):
+    """(n,) int32: at the first position of each run of equal values of
+    the sorted ``sorted_cell`` the run's length, elsewhere 0 (device ops,
+    no host read)."""
+    n = sorted_cell.numel()
+    idx = torch.arange(n, device=sorted_cell.device)
+    start = torch.ones(n, dtype=torch.bool, device=sorted_cell.device)
+    start[1:] = sorted_cell[1:] != sorted_cell[:-1]
+    # the next run's first position after each position, then the nearest
+    # one to its right: the end of the run holding it
+    nxt = torch.where(start, idx, n)
+    after = torch.cat([nxt[1:], nxt.new_full((1,), n)])
+    end = torch.flip(torch.cummin(torch.flip(after, [0]), 0).values, [0])
+    return torch.where(start, end - idx, 0).to(torch.int32).contiguous()
+
+
+class _WellsC(ctypes.Structure):
+    """opm_wells::Wells of csrc/wells.cuh, field for field."""
+
+    _fields_ = [("nw", ctypes.c_int), ("mp", ctypes.c_int),
+                ("phases", ctypes.c_int)] + [
+        (f, ctypes.c_void_p) for f in ("perf_cell", "wc", "cw", "dinv",
+                                        "order", "sorted_cell", "run_len",
+                                        "wf", "ct", "w4", "ticket")]
+
+
+class WellTerm:
+    """K5's arguments of one Newton system: the well arrays and D^-1,
+    checked once here (contiguous float64 blocks, int64 perforation
+    indices and (3, nc) / (nw, 4) residuals on the system's device), and
+    the workspace of the well term (the perforated cells in the order of
+    ``perf_order`` and the length of each cell's run at its first
+    position, B v per perforation, C w per position, the well vector, the
+    last-block ticket), made once. A launch passes ``arg``, the address
+    of the C structure (None without wells: no well term)."""
+
+    def __init__(self, sys: BlockSystem, Dinv):
+        nw, mp = sys.perf_cell.shape
+        nc = sys.nc
+        dev = sys.r_cell.device
+        for t, shape in ((sys.wc, (nw, mp, 3, 3)), (sys.cw, (nw, mp, 3, 4)),
+                         (Dinv, (nw, 4, 4)), (sys.r_well, (nw, 4)),
+                         (sys.r_cell, (3, nc))):
+            if (t.dtype != torch.float64 or t.device != dev
+                    or tuple(t.shape) != shape or not t.is_contiguous()):
+                raise ValueError(f"K5: expected a contiguous float64 {shape} "
+                                 f"tensor on {dev}, got {tuple(t.shape)} "
+                                 f"{t.dtype} on {t.device}")
+        for t in (sys.perf_cell, sys.perf_order):
+            if (t is None or t.dtype != torch.int64 or not t.is_contiguous()
+                    or t.device != dev or t.numel() != nw * mp):
+                raise ValueError("K5: perf_cell and perf_order must be "
+                                 f"contiguous int64 tensors of {nw * mp} "
+                                 f"perforations on {dev}")
+        self.sys, self.Dinv, self.nc, self.device = sys, Dinv, nc, dev
+        self.sorted_cell = sys.perf_cell.reshape(-1)[sys.perf_order]
+        self.run_len = run_lengths(self.sorted_cell)
+        self.wf = torch.empty(3 * nw * mp, dtype=torch.float64, device=dev)
+        self.ct = torch.empty_like(self.wf)
+        self.w4 = torch.empty((nw, 4), dtype=torch.float64, device=dev)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        ptrs = [t.data_ptr() for t in (sys.perf_cell, sys.wc, sys.cw, Dinv,
+                                       sys.perf_order, self.sorted_cell,
+                                       self.run_len, self.wf, self.ct,
+                                       self.w4, self.ticket)]
+        self.c = _WellsC(nw, mp, WELL_TERM, *ptrs)
+        self.arg = ctypes.addressof(self.c) if nw else None
+
+    def vec(self, t, shape):
+        """A vector's data pointer, after the check of its contract."""
+        if (tuple(t.shape) != shape or t.dtype != torch.float64
+                or t.device != self.device or not t.is_contiguous()):
             raise ValueError(f"K5: expected a contiguous float64 {shape} "
-                             f"tensor on {dev}, got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
-    for t in (sys.perf_cell, sys.perf_order):
-        if (t is None or t.dtype != torch.int64 or not t.is_contiguous()
-                or t.device != dev or t.numel() != nw * mp):
-            raise ValueError("K5: perf_cell and perf_order must be "
-                             f"contiguous int64 tensors of {nw * mp} "
-                             f"perforations on {dev}")
-    ptr = cuda_lib.ptr
-    return (nw, mp, ptr(sys.perf_cell), ptr(sys.wc), ptr(sys.cw), ptr(Dinv),
-            ptr(sys.perf_order), nc)
+                             f"tensor on {self.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        return t.data_ptr()
 
 
-def schur_matvec_cuda(sys: BlockSystem, Dinv, v, out):
-    """K5's reduced-operator entry on the card; same contract as
-    schur_matvec_plain, except that ``out`` is updated in place (only the
-    perforated cells' rows) and returned."""
-    args = _wells_args(sys, Dinv, v, out)
-    if args[0]:
+def _well_arg(wells, v, nc):
+    """A launch's well-term argument: the WellTerm's C structure (v must
+    be a (3, nc) vector of its device), or None."""
+    if wells is None or wells.arg is None:
+        return None
+    if v.shape != (3, nc) or wells.nc != nc or wells.device != v.device:
+        raise ValueError("K5: the well term needs a (3, nc) vector of its "
+                         "system's device")
+    return wells.arg
+
+
+WELLS_SIGS = {
+    "opm_schur_matvec": [_P, _L, _P, _P, _P],
+    "opm_schur_recover": [_P, _L, _P, _P, _P, _P],
+    "opm_schur_rhs": [_P, _L, _P, _P, _P, _P],
+}
+
+
+def schur_matvec_cuda(wt: WellTerm, v, out):
+    """K5's stand-alone reduced-operator entry on the card (one block); the
+    contract of schur_matvec_plain with the WellTerm's system and D^-1,
+    except that ``out`` is updated in place (only the perforated cells'
+    rows) and returned. The main path runs the same term inside the cell
+    operator's launches (reduced_matvec_cuda)."""
+    shape = (3, wt.nc)
+    vp, op = wt.vec(v, shape), wt.vec(out, shape)
+    if wt.arg is not None:
         lib = cuda_lib.load("wells", WELLS_SIGS)
-        err = lib.opm_schur_matvec(*args, cuda_lib.ptr(v), cuda_lib.ptr(out),
+        err = lib.opm_schur_matvec(wt.arg, wt.nc, vp, op,
                                    cuda_lib.stream_ptr(v.device))
         cuda_lib.check(err, "opm_schur_matvec")
         schur_matvec_cuda.launches += 1
@@ -759,15 +844,15 @@ def schur_matvec_cuda(sys: BlockSystem, Dinv, v, out):
 schur_matvec_cuda.launches = 0
 
 
-def schur_rhs_cuda(sys: BlockSystem, Dinv):
-    """K5's right-hand-side entry on the card; same contract as
-    schur_rhs_plain."""
-    args = _wells_args(sys, Dinv)
+def schur_rhs_cuda(wt: WellTerm):
+    """K5's right-hand-side entry on the card; the contract of
+    schur_rhs_plain with the WellTerm's system and D^-1."""
+    sys = wt.sys
     out = torch.empty_like(sys.r_cell)
     lib = cuda_lib.load("wells", WELLS_SIGS)
-    err = lib.opm_schur_rhs(*args, cuda_lib.ptr(sys.r_cell),
-                            cuda_lib.ptr(sys.r_well), cuda_lib.ptr(out),
-                            cuda_lib.stream_ptr(out.device))
+    ptr = cuda_lib.ptr
+    err = lib.opm_schur_rhs(wt.arg, wt.nc, ptr(sys.r_cell), ptr(sys.r_well),
+                            ptr(out), cuda_lib.stream_ptr(out.device))
     cuda_lib.check(err, "opm_schur_rhs")
     schur_rhs_cuda.launches += 1
     return out
@@ -776,14 +861,15 @@ def schur_rhs_cuda(sys: BlockSystem, Dinv):
 schur_rhs_cuda.launches = 0
 
 
-def schur_recover_cuda(sys: BlockSystem, Dinv, x):
-    """K5's recovery entry on the card; same contract as
-    schur_recover_plain."""
-    args = _wells_args(sys, Dinv, x)
+def schur_recover_cuda(wt: WellTerm, x):
+    """K5's recovery entry on the card; the contract of
+    schur_recover_plain with the WellTerm's system and D^-1."""
+    sys = wt.sys
+    xp = wt.vec(x, (3, wt.nc))
     xw = torch.empty_like(sys.r_well)
-    if args[0]:
+    if wt.arg is not None:
         lib = cuda_lib.load("wells", WELLS_SIGS)
-        err = lib.opm_schur_recover(*args, cuda_lib.ptr(x),
+        err = lib.opm_schur_recover(wt.arg, wt.nc, xp,
                                     cuda_lib.ptr(sys.r_well),
                                     cuda_lib.ptr(xw),
                                     cuda_lib.stream_ptr(x.device))
@@ -795,22 +881,54 @@ def schur_recover_cuda(sys: BlockSystem, Dinv, x):
 schur_recover_cuda.launches = 0
 
 
+def reduced_matvec_cuda(wt: WellTerm, v, dims):
+    """The Schur-reduced operator on the card, the contract of
+    reduced_matvec_plain: the cell operator's launches carry K5's well
+    term, its well vector in the first one's block 0 and the subtraction
+    at the perforated cells in the last one's last block (K4 on a
+    structured grid, K4-faces on a gather grid, K4 then K4-faces on an
+    embedded grid), so a reduced matvec is one launch on structured and
+    gather grids and two on embedded grids. Counts the reduced matvecs
+    that carry the well term."""
+    sys = wt.sys
+    ops = (sys.diag, sys.face_L, sys.face_R)
+    out = None
+    first = WELL_TERM
+    if dims is not None:
+        last = sys.faces is None
+        out = matvec_cells_cuda(*ops, v, tuple(dims), wells=wt,
+                                phases=WELL_TERM if last else PROLOGUE)
+        first = EPILOGUE
+    if sys.faces is not None:
+        out = faces_matvec_cuda(sys.packed, v, out, wells=wt, phases=first)
+    if wt.arg is not None:
+        reduced_matvec_cuda.launches += 1
+    return out
+
+
+reduced_matvec_cuda.launches = 0
+
+
 def schur_eliminate_wells(sys: BlockSystem, dims, *, twin=False):
     """Schur-eliminate the well unknowns (per-well dense D^-1 by the plain
     ``inv4x4``; reduced cell operator A - C D^-1 B). Returns
-    (reduced_matvec, rhs (3, nc), recover(x_cell) -> x_well (nw, 4)): the
-    cell operator by K4/K4-faces, the well terms by K5. ``twin``: all of
-    them by their plain twins on any device (the card's whole-solve
-    comparison)."""
+    (reduced_matvec, rhs (3, nc), recover(x_cell) -> x_well (nw, 4)): on
+    the card the cell operator by K4/K4-faces with K5's well term carried
+    by its launches, the right-hand side and the recovery by K5's entries,
+    all over one WellTerm (the well arrays checked once, the workspace
+    made once); ``twin``: all of them by their plain twins on any device
+    (the card's whole-solve comparison)."""
     from opm_tpu_torch.linalg.precond import inv4x4
 
     Dinv = inv4x4(sys.wd_diag).contiguous()
+    wt = None if twin else WellTerm(sys, Dinv)
 
     def k5(cuda_fn, plain_fn, *args):
         if twin:
             return plain_fn(sys, Dinv, *args)
-        return cuda_lib.dispatch(sys.r_cell, cuda_fn, plain_fn, sys, Dinv,
-                                 *args, what="K5")
+        return cuda_lib.dispatch(
+            sys.r_cell, lambda: cuda_fn(wt, *args),
+            lambda: plain_fn(sys, Dinv, *args), what="K5")
 
     rhs = k5(schur_rhs_cuda, schur_rhs_plain)
 
@@ -819,8 +937,7 @@ def schur_eliminate_wells(sys: BlockSystem, dims, *, twin=False):
                   x_cell.contiguous())
 
     def reduced_matvec(v_cell):
-        v_cell = v_cell.contiguous()
-        out_c = matvec_cells(sys, v_cell, dims, twin=twin)
-        return k5(schur_matvec_cuda, schur_matvec_plain, v_cell, out_c)
+        return k5(reduced_matvec_cuda, reduced_matvec_plain,
+                  v_cell.contiguous(), dims)
 
     return reduced_matvec, rhs, recover

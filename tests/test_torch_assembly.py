@@ -13,7 +13,10 @@ the JAX package:
   wells) against the reference's ``assemble`` on the toy SPE10-like deck,
   field by field, and K5's twin (the reduced operator, its right-hand side
   and the well recovery) against the reference's
-  ``schur_eliminate_wells``; on the toy Norne-like deck in both
+  ``schur_eliminate_wells``, and the plain composition the card's fused
+  reduced operator is held to (``reduced_matvec_plain`` over the prepared
+  well arguments ``WellTerm``, which raise on mismatched well arrays);
+  on the toy Norne-like deck in both
   representations (the face-list form of the face blocks: an embedded
   grid's extra faces, a gather grid's every face) the same comparisons
   are ``tests/test_torch_faces.py``'s ``test_assembly_matches_reference``
@@ -48,6 +51,7 @@ from opm_tpu.models.state import BlackoilState as RefState
 from opm_tpu.sim.blackoil import SimulatorFullyImplicitBlackoil as RefSim
 from opm_tpu.sim.testcases import spe10like_case as ref_spe10like_case
 from opm_tpu_torch.io.eclstate import load_case
+from opm_tpu_torch.linalg.precond import inv4x4
 from opm_tpu_torch.models import blackoil as mb
 from opm_tpu_torch.models import linearize
 from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
@@ -348,3 +352,60 @@ def test_spe10_schur_matches_reference(spe10):
     _scaled_close(rhs.numpy(), out["rhs"], 1e-12)
     _scaled_close(mv(spe10["v"]).numpy(), out["mv"], 1e-12)
     _scaled_close(rec(spe10["v"]).numpy(), out["rec"], 1e-12)
+
+
+def _port_system(sysd):
+    port = sysd["port"]
+    return linearize.assemble(port.model, sysd["state"], sysd["acc0"], DT,
+                              sysd["wd"], sysd["cdp"])
+
+
+def test_spe10_fused_composition_matches_reference(spe10):
+    """What the card's fused reduced operator is held to, the cell
+    operator's twins and then the well term (reduced_matvec_plain), over
+    the prepared well arguments (WellTerm, checked once, on CPU tensors),
+    against the reference's schur_eliminate_wells operator and right-hand
+    side (1e-12 of max); schur_eliminate_wells' CPU path gives the same
+    bits."""
+    sys = _port_system(spe10)
+    Dinv = inv4x4(sys.wd_diag).contiguous()
+    wt = linearize.WellTerm(sys, Dinv)
+    assert wt.arg is not None and wt.wf.numel() == 3 * sys.perf_cell.numel()
+    # the run of each perforated cell in perforation order: its length at
+    # its first position (the padded perforations share cell 0)
+    cells = sys.perf_cell.reshape(-1)[sys.perf_order].tolist()
+    runs = [0] * len(cells)
+    for i, c in enumerate(cells):
+        if i == 0 or cells[i - 1] != c:
+            runs[i] = cells[i:].count(c)
+    assert wt.run_len.tolist() == runs
+    dims = spe10["port"].model.op_dims
+    y = linearize.reduced_matvec_plain(wt.sys, wt.Dinv, spe10["v"], dims)
+    _scaled_close(y.numpy(), spe10["out"]["mv"], 1e-12)
+    _scaled_close(linearize.schur_rhs_plain(wt.sys, wt.Dinv).numpy(),
+                  spe10["out"]["rhs"], 1e-12)
+    mv, _, _ = linearize.schur_eliminate_wells(sys, dims)
+    assert torch.equal(mv(spe10["v"]), y)
+
+
+@pytest.mark.parametrize("bad", ["wc_shape", "dinv_shape", "perf_order",
+                                 "r_cell_dtype"])
+def test_well_term_rejects_mismatched_arrays(spe10, bad):
+    """The prepared well arguments raise on a system whose well arrays do
+    not match it (checked once per Newton system, not per call)."""
+    sys = _port_system(spe10)
+    Dinv = inv4x4(sys.wd_diag).contiguous()
+    if bad == "wc_shape":
+        sys = sys._replace(wc=sys.wc[:, :-1].contiguous())
+    elif bad == "dinv_shape":
+        Dinv = Dinv[:-1].contiguous()
+    elif bad == "perf_order":
+        sys = sys._replace(perf_order=sys.perf_order[:-1].contiguous())
+    else:
+        sys = sys._replace(r_cell=sys.r_cell.to(torch.float32))
+    with pytest.raises(ValueError, match="K5"):
+        linearize.WellTerm(sys, Dinv)
+    if bad != "dinv_shape":
+        with pytest.raises(ValueError, match="K5"):
+            linearize.schur_eliminate_wells(sys,
+                                            spe10["port"].model.op_dims)

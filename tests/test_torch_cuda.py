@@ -7,9 +7,12 @@ against its twins, K8's steps at an odd length and at the toy SPE10-like
 deck's, K7's two V-cycle legs on seeded stencils (a padded level, a
 padded level 0), the face-list kernels (K4-faces' pack included) and K10
 (its legs, and the coarsest sweeps of a hierarchy cut short) against
-their twins on the toy Norne-like deck, and the
+their twins on the toy Norne-like deck, the
 assembly kernels (K2, the K3 face blocks in both forms, K5) against their
-twins on the toy Norne-like deck in both representations.
+twins on the toy Norne-like deck in both representations, K2's three
+entries at kink cells with one and two PVT/SAT regions, and the
+Schur-reduced operator with K5's well term fused into the cell operator's
+last launch on structured, embedded and gather grids.
 chip_smoke.py holds every kernel against its plain version at the SPE1,
 SPE10-2 and full Norne-class shapes.
 
@@ -611,11 +614,151 @@ def test_assembly_kernels_match_twins_on_toy(dev, knob):
               "wd_diag"):
         assert _scaled(getattr(sys, f), getattr(tw, f)) <= 1e-12, f
     Dinv = inv4x4(sys.wd_diag).contiguous()
+    wt = lz.WellTerm(sys, Dinv)
     v = torch.as_tensor(rng.standard_normal((3, m.nc)), device=dev)
     out = torch.as_tensor(rng.standard_normal((3, m.nc)), device=dev)
-    assert _scaled(lz.schur_matvec_cuda(sys, Dinv, v, out.clone()),
+    assert _scaled(lz.schur_matvec_cuda(wt, v, out.clone()),
                    lz.schur_matvec_plain(sys, Dinv, v, out)) <= 1e-12
-    assert _scaled(lz.schur_rhs_cuda(sys, Dinv),
+    assert _scaled(lz.schur_rhs_cuda(wt),
                    lz.schur_rhs_plain(sys, Dinv)) <= 1e-12
-    assert _scaled(lz.schur_recover_cuda(sys, Dinv, v),
+    assert _scaled(lz.schur_recover_cuda(wt, v),
                    lz.schur_recover_plain(sys, Dinv, v)) <= 1e-12
+
+
+def _two_regions(props):
+    """``props`` with every per-region table doubled: region 1 is region
+    0 scaled by 1.05 (monotone tables stay monotone)."""
+    import dataclasses
+
+    def grow(obj):
+        kw = {f.name: torch.cat([t, t * 1.05]) for f in
+              dataclasses.fields(obj)
+              if isinstance(t := getattr(obj, f.name), torch.Tensor)
+              and t.dim() and t.shape[0] == 1}
+        return dataclasses.replace(obj, **kw)
+
+    kw = {f.name: grow(getattr(props, f.name))
+          for f in dataclasses.fields(props)
+          if dataclasses.is_dataclass(getattr(props, f.name))}
+    return dataclasses.replace(
+        props, surface_density=torch.cat([props.surface_density,
+                                          props.surface_density * 1.05]),
+        **kw)
+
+
+def _kinks(props, nc, seed, nreg):
+    """Primaries in all three hydrocarbon states and their regions; the
+    first cells of each region on its tables' kinks (PVTO nodes, p ==
+    p_bub(rs_sat(p)), the clamped saturation tables' ends, connate
+    water), as tests/test_torch_assembly.py's _kink_cells."""
+    rng = np.random.default_rng(seed)
+    hc = rng.integers(0, 3, nc).astype(np.int32)
+    p = rng.uniform(1.5e7, 4.0e7, nc)
+    sw = rng.uniform(0.15, 0.7, nc)
+    x = np.where(hc == 0, rng.uniform(0.0, 0.25, nc),
+                 np.where(hc == 1, rng.uniform(20.0, 120.0, nc),
+                          rng.uniform(0.0, 1e-4, nc)))
+    reg = rng.integers(0, nreg, nc)
+    lo, sf = props.oil_live, props.satfunc
+    i = 0
+    for r in range(nreg):
+        rs_n, pb_n = lo.rs_tab[r].cpu().numpy(), lo.pbub_tab[r].cpu().numpy()
+        sw_n, sg_n = sf.sw[r].cpu().numpy(), sf.sg[r].cpu().numpy()
+        k = len(rs_n)
+        for h, pp, s, xx in (
+                (1, pb_n[3 % k] + 2.0e6, 0.3, rs_n[3 % k]),
+                (1, pb_n[4 % k], 0.3, rs_n[4 % k]),
+                (0, pb_n[2 % k], 0.3, 0.1), (0, pb_n[5 % k], 0.25, 0.0),
+                (2, pb_n[3 % k], 0.3, 0.0),
+                (0, 2.0e7, sw_n[0], sg_n[-1]), (0, 2.0e7, sw_n[-1], 0.0),
+                (1, 3.0e7, sw_n[0] - 0.05, 60.0), (0, 2.0e7, 0.3, sg_n[0]),
+                (2, 2.0e7, sw_n[-1] + 0.1, 0.0),
+                (0, 2.5e7, float(sf.swco[r]), 0.2)):
+            hc[i], p[i], sw[i], x[i], reg[i] = h, pp, s, xx, r
+            i += 1
+    return p, sw, x, hc, reg
+
+
+@pytest.mark.parametrize("nreg", [1, 2])
+def test_k2_entries_bitwise_over_regions(dev, sims, nreg):
+    """K2's values entry (plain double) equals cells_values_plain bit for
+    bit, and its columns entry (Dual3, no value rows) and assembly entry
+    equal theirs within 1e-12 of each row's max, over all
+    three hydrocarbon states at the kink cells, with one PVT/SAT region
+    (SPE1) and with two."""
+    from opm_tpu_torch.models import blackoil as mb
+    props = sims[0].model.props
+    if nreg == 2:
+        props = _two_regions(props)
+    nc = 4000
+    p, sw, x, hc, reg = _kinks(props, nc, 21, nreg)
+    t = [torch.as_tensor(a, device=dev) for a in (p, sw, x, hc, reg, reg)]
+    assert set(hc.tolist()) == {0, 1, 2}
+    pack = props.cell_pack()
+    assert bool((pack.c_meta[3] == nreg))     # w_nreg
+    kv = mb.cells_values_cuda(pack, *t)
+    assert torch.equal(kv, mb.cells_values_plain(props, *t))
+    kc = mb.cells_columns_cuda(pack, *t)
+    assert kc.shape == (3, mb.N_Q, nc)
+    pc = mb.cells_columns_plain(props, *t)
+    d = (kc - pc).abs().amax(dim=2)
+    assert bool((d <= 1e-12 * pc.abs().amax(dim=2)).all())
+    acc0 = torch.as_tensor(np.random.default_rng(2).uniform(
+        0.5, 1.5, (3, nc)), device=dev)
+    pv = torch.full((nc,), 250.0, dtype=torch.float64, device=dev)
+    ka = mb.cells_assemble_cuda(pack, *t, acc0, pv, 86400.0)
+    pa = mb.cells_assemble_plain(props, *t, acc0, pv, 86400.0)
+    assert torch.equal(ka[0], pa[0]) and torch.equal(ka[2], pa[2])
+    for a, b in (ka[1].reshape(-1, nc), pa[1].reshape(-1, nc)), (ka[3],
+                                                                  pa[3]):
+        d = (a - b).abs().amax(dim=1)
+        assert bool((d <= 1e-12 * b.abs().amax(dim=1)).all())
+    occ = mb.cells_occupancy(dev)
+    assert all(o["blocks_per_sm"] >= 1 for o in occ.values())
+
+
+@pytest.mark.parametrize("grid", ["structured", "embedded", "gather"])
+def test_fused_reduced_operator(dev, grid):
+    """The Schur-reduced operator with K5's well term in the cell
+    operator's last launch equals the parent's pair (K4/K4-faces, then the
+    stand-alone well term) bit for bit over ten launches in a row (the
+    last-block ticket resets), and the twins' composition within 1e-12 of
+    max; one launch per reduced matvec on structured and gather grids,
+    two on embedded grids (K4, then K4-faces), none of the stand-alone
+    entry; K5's right-hand side and recovery against their twins."""
+    from opm_tpu_torch.linalg.precond import inv4x4
+    from opm_tpu_torch.models import linearize as lz
+    if grid == "structured":
+        sim, sys = _spe10_toy_system(dev)
+    else:
+        sim, _, sys = _norne_toy_system(dev, None if grid == "embedded"
+                                        else "0")
+    dims = sim.model.op_dims
+    Dinv = inv4x4(sys.wd_diag).contiguous()
+    wt = lz.WellTerm(sys, Dinv)
+    assert wt.arg is not None
+    v = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (3, sys.nc)), device=dev)
+    pair = lz.schur_matvec_cuda(wt, v, lz.matvec_cells(sys, v, dims))
+    twin = lz.reduced_matvec_plain(sys, Dinv, v, dims)
+
+    def launches():
+        return [f.launches for f in (lz.matvec_cells_cuda,
+                                     lz.faces_matvec_cuda,
+                                     lz.schur_matvec_cuda,
+                                     lz.reduced_matvec_cuda)]
+
+    n0 = launches()
+    outs = [lz.reduced_matvec_cuda(wt, v, dims) for _ in range(10)]
+    torch.cuda.synchronize()
+    k4, k4f, alone, fused = (b - a for a, b in zip(n0, launches()))
+    assert (k4 + k4f, alone, fused) == (20 if grid == "embedded" else 10,
+                                        0, 10)
+    for out in outs:
+        assert torch.equal(out, pair)
+    assert _scaled(outs[0], twin) <= 1e-12
+    assert int(wt.ticket) == 0
+    mv, rhs, rec = lz.schur_eliminate_wells(sys, dims)
+    assert torch.equal(mv(v), pair)
+    assert _scaled(rhs, lz.schur_rhs_plain(sys, Dinv)) <= 1e-12
+    assert _scaled(rec(v), lz.schur_recover_plain(sys, Dinv, v)) <= 1e-12

@@ -178,6 +178,20 @@ def test_schur_matches_reference(toy):
     _scaled(rec(toy["v"]).numpy(), toy["ref"]["rec"], 1e-12)
 
 
+def test_fused_composition_matches_reference(toy):
+    """The plain composition the card's fused reduced operator is held to
+    (the cell operator's twins, then the well term, over the prepared well
+    arguments on CPU tensors) against the reference's reduced operator and
+    right-hand side, in both representations (1e-12 of max)."""
+    sys = toy["sys"]
+    wt = linearize.WellTerm(sys, precond.inv4x4(sys.wd_diag).contiguous())
+    _scaled(linearize.reduced_matvec_plain(wt.sys, wt.Dinv, toy["v"],
+                                           toy["dims"]).numpy(),
+            toy["ref"]["mv"], 1e-12)
+    _scaled(linearize.schur_rhs_plain(wt.sys, wt.Dinv).numpy(),
+            toy["ref"]["rhs"], 1e-12)
+
+
 def test_pressure_system_matches_reference(toy):
     sys = toy["sys"]
     _, w, diag_p, off = precond.cpr_setup_plain(
