@@ -8,23 +8,27 @@ Phases (each prints a line of its own; any failure exits non-zero):
    and turns TF32 off for matmul and cuDNN;
 2. build: compiles the CUDA kernels (K1 tables.cu, K2 cells.cu, K3
    tpfa.cu, the K3 face blocks blocks.cu, K4/K6 block7.cu, K5 wells.cu,
-   K6 cpr.cu, K7 gmg.cu, K8 krylov.cu, K10 amg.cu, the face-list kernels
-   faces.cu), one nvcc process each, all started together, prints what
-   ptxas says of krylov.cu's, gmg.cu's and amg.cu's kernels (registers:
-   the cooperative grids of K8 and of K7's and K10's V-cycle legs must be
-   co-resident) and of cells.cu's, block7.cu's, faces.cu's and wells.cu's
-   (registers and spills of K2's entries and of the cell operators that
-   carry K5's well term), K2's resident blocks per SM and the float64
-   instructions of K2's kernels in the SASS (cuobjdump; the operations
-   term of K2's bounds), holds K8 against its twins at an odd length, and
-   JIT-compiles the Triton kernels (K9);
+   K6 cpr.cu, K7 gmg.cu, K8 krylov.cu, K9 newton.cu, K10 amg.cu, the
+   face-list kernels faces.cu), one nvcc process each, all started
+   together, prints what ptxas says of krylov.cu's, gmg.cu's and amg.cu's
+   kernels (registers: the cooperative grids of K8 and of K7's and K10's
+   V-cycle legs must be co-resident), of cells.cu's, block7.cu's,
+   faces.cu's and wells.cu's (registers and spills of K2's entries and of
+   the cell operators that carry K5's well term) and of newton.cu's (K9),
+   K2's resident blocks per SM and the float64 instructions of K2's
+   kernels in the SASS (cuobjdump; the operations term of K2's bounds),
+   and holds K8 against its twins at an odd length;
 3. kernel == plain on the card: (a) K1/K2/K3/K9 at SPE1's shapes (K3's
    tangent also at the main path's jacfwd batch, B = 3 nc + 4 nw, and the
    whole dense Jacobian through the kernels' forward-mode rules against
    the plain CPU path); (b) K1/K2/K3/K9 at SPE10 model 2's size
    (60x220x85 = 1.122M cells, the seeded SPE10-like deck), each timed
    against its plain version (CUDA events, warm, median of 20; K2's
-   values bit for bit); (c) the
+   values bit for bit; K9's update entry bit for bit against its twins'
+   composition in both call forms, its convergence row against the
+   reference's expression with equal flags, also with a NaN cell and with
+   no wells, over ten launches in a row, and each one device kernel per
+   call under the profiler); (c) the
    assembly kernels (K2's assembly entry, the K3 face blocks, K5: the
    Schur-reduced operator with the well term fused into the cell
    operator's last launch, ten launches in a row bit for bit against the
@@ -40,18 +44,25 @@ Phases (each prints a line of its own; any failure exits non-zero):
    (one V-cycle: exactly two launches and one float32 product) against
    the per-level twins, every level's right-hand side and correction
    held, with each leg's time, level 0's alone, the V-cycle's time and
-   bound and its device kernels (torch.profiler); then one SPE10-2
+   bound and its device kernels (torch.profiler), and the V-cycle from
+   the CPR apply's weights and residual (the down leg's right-hand side
+   entry, K6's weighted residual folded in) bit for bit the plain
+   weighted residual followed by the legs, with its time and bound; then one
+   SPE10-2
    Newton system solved with the kernels and again with the plain twins
    on the card;
 4. SPE1 end to end on the card through SimulatorFullyImplicitBlackoil
    (dense route), all report steps, held against
    data/spe1_reference_cpu.json (the JAX package's CPU run), with the
-   launch counters of K1/K3/K9 read over that run;
+   launch counters of K1/K3/K9 read over that run (K9: one update per
+   Newton, one convergence check per Newton and per converged substep);
 5. SPE10-2's first report step (20 days) end to end on the card through
    the CPR route, with the launch counters of K4/K6/K7/K8 read over that
    run (K8: two launches per BiCGStab iteration, two per solve; K7: two
    launches and one float32 product per V-cycle, two V-cycles per
-   iteration) and host-clock sections (each ended by a synchronize);
+   iteration; the down leg from the CPR apply's weighted residual, its
+   b entry never) and host-clock sections (each ended by
+   a synchronize);
 5b. the toy SPE10-like deck on the card against
    data/spe10like_toy_reference_cpu.json;
 6. the Norne-class corner-point field at full size (norne_like_deck:
@@ -62,7 +73,8 @@ Phases (each prints a line of its own; any failure exits non-zero):
    K3 face blocks in stencil form and as the embedded epilogue, or in
    face-list form on the gather grid, K5), the face-list kernels
    (K3-faces, K4-faces' pack into its sliced-ELL layout, matvec and
-   smoothing step, K6 cells and K6-faces, the masked K9 norms), K8 at the
+   smoothing step, K6 cells and K6-faces, K9's masked convergence
+   check), K8 at the
    gather grid's shapes, K10's value coarsening and its two V-cycle legs
    on G (K7's on E) against their plain versions, timed with bounds and
    yardsticks; one gather Newton system solved with the
@@ -103,7 +115,6 @@ JAX_PKG = "opm-simulators-legacy_tpu"
 # tolerances (kernel vs plain on the card)
 TOL_K1 = 1e-13       # relative, values and slopes
 TOL_K3 = 1e-12       # of max|div| (sum order)
-TOL_K9_UPD = 1e-14   # relative; hcstate exact
 TOL_K9_NORM = 1e-12  # relative
 TOL_K4 = 1e-12       # of max (same order of operations as the twin)
 TOL_K6_SETUP = 1e-13  # of max, per output
@@ -271,7 +282,7 @@ class Kernels:
         from opm_tpu_torch.linalg import precond as k6
         from opm_tpu_torch.models import blackoil as mb
         from opm_tpu_torch.models import linearize as k4
-        from opm_tpu_torch.solver import kernels_triton as k9
+        from opm_tpu_torch.solver import kernels_k9 as k9
         from opm_tpu_torch.utils import tables as k1
         P = "opm_tpu_torch"
         self.entries = [
@@ -284,26 +295,24 @@ class Kernels:
             ("K3 tpfa_div_tangent", "cuda", f"{P}/csrc/tpfa.cu",
              f"{JAX_PKG}/models/blackoil.py:298",
              mb.tpfa_div_tangent_cuda),
-            ("K9 update_pressure", "triton",
-             f"{P}/solver/kernels_triton.py",
-             f"{JAX_PKG}/solver/update.py:19", k9.update_pressure_triton),
-            ("K9 update_cells", "triton", f"{P}/solver/kernels_triton.py",
-             f"{JAX_PKG}/solver/update.py:19", k9.update_cells_triton),
-            ("K9 conv_norms", "triton", f"{P}/solver/kernels_triton.py",
-             f"{JAX_PKG}/models/blackoil.py:447", k9.conv_norms_triton),
+            ("K9 update", "cuda", f"{P}/csrc/newton.cu",
+             f"{JAX_PKG}/solver/update.py:19", k9.update_cuda),
+            ("K9 convergence", "cuda", f"{P}/csrc/newton.cu",
+             f"{JAX_PKG}/models/blackoil.py:447", k9.convergence_cuda),
             ("K4 block7_matvec", "cuda", f"{P}/csrc/block7.cu",
              f"{JAX_PKG}/models/linearize.py:559", k4.matvec_cells_cuda),
             ("K6 block7_smooth", "cuda", f"{P}/csrc/block7.cu",
              f"{JAX_PKG}/linalg/precond.py:388", k6.smooth_step_cuda),
             ("K6 cpr_setup", "cuda", f"{P}/csrc/cpr.cu",
              f"{JAX_PKG}/linalg/precond.py:174", k6.cpr_setup_cuda),
-            ("K6 pressure_rhs", "cuda", f"{P}/csrc/cpr.cu",
-             f"{JAX_PKG}/linalg/precond.py:391", k6.pressure_rhs_cuda),
             ("K7 gmg_vcycle_down", "cuda", f"{P}/csrc/gmg.cu",
              f"{JAX_PKG}/linalg/gmg.py:171,200,295-307",
              k7.vcycle_down_cuda),
             ("K7 gmg_vcycle_up", "cuda", f"{P}/csrc/gmg.cu",
              f"{JAX_PKG}/linalg/gmg.py:171,200,308-312", k7.vcycle_up_cuda),
+            ("K7 gmg_vcycle_down_rhs", "cuda", f"{P}/csrc/gmg.cu",
+             f"{JAX_PKG}/linalg/gmg.py:171,200,295-307 and "
+             "linalg/precond.py:391", k7.vcycle_down_rhs_cuda),
             ("K8 init", "cuda", f"{P}/csrc/krylov.cu",
              f"{JAX_PKG}/linalg/krylov.py:59", k8.init_cuda),
             ("K8 p_update", "cuda", f"{P}/csrc/krylov.cu",
@@ -324,15 +333,17 @@ class Kernels:
              f"{JAX_PKG}/linalg/precond.py:174", k6.cpr_setup_cells_cuda),
             ("K6-faces cpr_faces", "cuda", f"{P}/csrc/cpr.cu",
              f"{JAX_PKG}/linalg/precond.py:254", k6.cpr_faces_cuda),
-            ("K9 conv_norms_masked", "triton",
-             f"{P}/solver/kernels_triton.py",
+            ("K9 convergence_masked", "cuda", f"{P}/csrc/newton.cu",
              f"{JAX_PKG}/models/blackoil.py:452",
-             k9.conv_norms_masked_triton),
+             k9.convergence_masked_cuda),
             ("K10 amg_vcycle_down", "cuda", f"{P}/csrc/amg.cu",
              f"{JAX_PKG}/linalg/amg.py:27,37,264-279",
              k10.vcycle_down_cuda),
             ("K10 amg_vcycle_up", "cuda", f"{P}/csrc/amg.cu",
              f"{JAX_PKG}/linalg/amg.py:27,37,280-282", k10.vcycle_up_cuda),
+            ("K10 amg_vcycle_down_rhs", "cuda", f"{P}/csrc/amg.cu",
+             f"{JAX_PKG}/linalg/amg.py:27,37,264-279 and "
+             "linalg/precond.py:391", k10.vcycle_down_rhs_cuda),
             ("K10 amg_coarsen", "cuda", f"{P}/csrc/amg.cu",
              f"{JAX_PKG}/linalg/amg.py:222", k10.coarsen_cuda),
             ("K10 amg_ell_pack", "cuda", f"{P}/csrc/amg.cu",
@@ -367,12 +378,17 @@ class Kernels:
 
     # entries of the face-list path whose names share a prefix with the
     # structured kernels
-    FACE_GRIDS_ONLY = ("K6 cpr_setup_cells", "K9 conv_norms_masked")
+    FACE_GRIDS_ONLY = ("K6 cpr_setup_cells", "K9 convergence_masked")
+    # entries held against their plain versions but off the main path:
+    # the CPR apply's V-cycle forms its right-hand side in the down leg
+    # (the right-hand side entries), so the down legs' b entries never run
+    # there
+    OFF_MAIN = ("K7 gmg_vcycle_down", "K10 amg_vcycle_down")
     # the kernels each run must launch: the dense route (SPE1), and the
     # assembly and Schur elimination of every CPR run
     DENSE = ("K1 interp1", "K1 interp2", "K2 cells_values",
              "K2 cells_columns", "K3 tpfa_div", "K3 tpfa_div_tangent",
-             "K9 update_pressure", "K9 update_cells", "K9 conv_norms")
+             "K9 update", "K9 convergence")
     ASSEMBLY = ("K2 cells_values", "K2 cells_columns", "K2 cells_assemble",
                 "K5 schur_matvec fused", "K5 schur_rhs", "K5 schur_recover")
     # K2's entries and their kernels
@@ -380,12 +396,13 @@ class Kernels:
                   "K2 cells_columns": "cells_columns_kernel",
                   "K2 cells_assemble": "cells_assemble_kernel"}
 
-    def names(self, prefixes, face_grids=False):
+    def names(self, prefixes, face_grids=False, main_path=False):
         """The entries whose kernel family is in ``prefixes``: those of the
         structured routes, or with ``face_grids`` those of the grids with
-        a face list."""
+        a face list; with ``main_path`` only those a run launches."""
         return [e[0] for e in self.entries if e[0].split()[0] in prefixes
-                and (e[0] in self.FACE_GRIDS_ONLY) == face_grids]
+                and (e[0] in self.FACE_GRIDS_ONLY) == face_grids
+                and not (main_path and e[0] in self.OFF_MAIN)]
 
     def reset(self):
         from opm_tpu_torch.linalg import gmg as k7
@@ -457,13 +474,12 @@ def seeded_state(model, seed, dev):
 
 
 def compare_kernels(K, model, state, seed, label, timed, B):
-    """K1/K3/K9 against their plain versions on the same card inputs; B is
-    the K3 tangent batch."""
+    """K1/K2/K3/K9 against their plain versions on the same card inputs; B
+    is the K3 tangent batch."""
     import numpy as np
     import torch
 
     from opm_tpu_torch.models import blackoil as mb
-    from opm_tpu_torch.solver import kernels_triton as k9
     from opm_tpu_torch.utils import tables as k1
 
     props = model.props
@@ -577,41 +593,143 @@ def compare_kernels(K, model, state, seed, label, timed, B):
               lambda: mb.tpfa_div_tangent_plain(*args, *tan),
               (args[1:8], tan), 120 * nf * B)
 
-    # K9 update (seeded increment) and norms (the residual's shapes)
-    du = [torch.as_tensor(rng.standard_normal(nc) * s, device=dev)
-          for s in (2e6, 0.1, 0.05)]
-    prm = model.params
-    kp = k9.update_pressure_triton(p, du[0], prm.dp_max_rel)
-    pp = k9.update_pressure_plain(p, du[0], prm.dp_max_rel)
-    chk("K9 update_pressure", TOL_K9_UPD, [(kp, pp)])
-    rs0 = props.rs_sat(p, model.pvtnum)
-    rs1 = props.rs_sat(pp, model.pvtnum)
-    zero = torch.zeros_like(p)
-    uargs = (state.sw, state.x, state.hcstate, du[1], du[2], rs0, rs1, zero,
-             zero, prm.ds_max, prm.dr_max_rel, props.disgas, props.vapoil)
-    ku = k9.update_cells_triton(*uargs)
-    pu = k9.update_cells_plain(*uargs)
-    if not torch.equal(ku[2], pu[2]):
-        fail(f"{label}: K9 update_cells hcstate differs from plain")
-    chk("K9 update_cells", TOL_K9_UPD, [(ku[0], pu[0]), (ku[1], pu[1])])
-    time_pair("K9 update_pressure",
-              lambda: k9.update_pressure_triton(p, du[0], prm.dp_max_rel),
-              lambda: k9.update_pressure_plain(p, du[0], prm.dp_max_rel),
-              (p, du[0]), 4 * nc)
-    time_pair("K9 update_cells", lambda: k9.update_cells_triton(*uargs),
-              lambda: k9.update_cells_plain(*uargs), uargs[:9], 60 * nc)
-    R = torch.as_tensor(rng.standard_normal((3, nc)) + 1.0, device=dev) \
-        * model.pv * 1e-6
-    dt = 86400.0
+    # K9: the update entry and the convergence check
+    return compare_k9(K, model, state, q, seed, label,
+                      ("K9 update", "K9 convergence") if timed else ())
+
+
+def compare_k9(K, model, state, q, seed, label, timed=()):
+    """K9 on the card at the run's own shapes: the update entry (seeded
+    increments, omega 0.9; the state's own wells, or five seeded wells
+    where it has none) bit for bit against its twins' composition (K1's
+    rs_sat on the card) in the CPR route's call form ((3, nc) and (nw, 4)
+    increments) and the dense route's (views of one flat vector); the
+    convergence row (masked where the model has a padding mask) within
+    TOL_K9_NORM of the reference's expression with equal flags, on seeded
+    residuals, with no wells and with a NaN cell (finite cleared), over
+    ten launches in a row (the ticket's reset: the same bits each time).
+    For the rows named in ``timed``: times and bounds, and the device
+    kernels of one ``update_state`` or one ``BlackoilModel.convergence``
+    call under the profiler (one each). Returns those counts."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.models.blackoil import Residual
+    from opm_tpu_torch.solver import kernels_k9 as k9
+    from opm_tpu_torch.solver.update import update_state
+
+    rng = np.random.default_rng(seed + 2)
+    dev, nc, nw = model.device, model.nc, int(state.bhp.shape[0]) or 5
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def same_bits(x, y):
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        return torch.equal(x, y)
+
+    du_c = t(rng.standard_normal((3, nc)) * np.array([[2e6], [0.1], [0.05]]))
+    du_w = t(rng.standard_normal((nw, 4))
+             * np.array([1e-3, 1e-3, 1e-3, 1e6]))
+    st = state if state.bhp.shape[0] else state._replace(
+        bhp=t(rng.uniform(1e7, 3e7, nw)),
+        qs=t(rng.standard_normal((nw, 3)) * 1e-3),
+        control=t(np.array([0, 2, 0, 3, 2], np.int32)),
+        target=t(rng.uniform(1e-3, 1e-2, nw)))
+    out = {}
+    cpr = k9.update_args(model, st, du_c, du_w[:, 3], du_w[:, :3], 0.9)
+    flat = torch.cat([du_c.reshape(-1), du_w[:, 3],
+                      du_w[:, :3].reshape(-1)])
+    dense = k9.update_args(model, st, flat[:3 * nc].view(3, nc),
+                           flat[3 * nc:3 * nc + nw],
+                           flat[3 * nc + nw:].view(nw, 3), 0.9)
+    for form, a in (("CPR", cpr), ("dense", dense)):
+        ku, pu = k9.update_cuda(*a), k9.update_plain(*a)
+        for nm, x, y in zip(("p", "sw", "x", "hcstate", "bhp", "qs"),
+                            ku, pu):
+            K.note("K9 update", float((x.double() - y.double())
+                                      .abs().max()))
+            if not same_bits(x, y):
+                fail(f"{label}: K9 update ({form} form) {nm} is not "
+                     "bit for bit its twins' composition")
+    out["switched_cells"] = int((ku[3] != st.hcstate).sum())
+    if "K9 update" in timed:
+        name = "K9 update"
+        K.ms[name] = cuda_ms(lambda: k9.update_cuda(*cpr))
+        K.plain_ms[name] = cuda_ms(lambda: k9.update_plain(*cpr))
+        K.run_ms[name] = run_ms(lambda: k9.update_cuda(*cpr))
+        K.library_ms[name] = None
+        K.bound(name, (st.pressure, st.sw, st.x, st.hcstate, du_c),
+                ku[:4], 60 * nc)
+        kern = device_kernels(lambda: update_state(model, st, du_c, 0.9,
+                                                   du_w=du_w))
+        out["update_device_kernels"] = None if kern is None \
+            else len(kern)
+        out["update_host_ms"] = host_ms(
+            lambda: update_state(model, st, du_c, 0.9, du_w=du_w),
+            reps=50)
+
+    masked = model.conv_mask is not None
+    name = "K9 convergence_masked" if masked else "K9 convergence"
+    fn = k9.convergence_masked_cuda if masked else k9.convergence_cuda
+    mask = (model.conv_mask,) if masked else ()
+    R = t(rng.standard_normal((3, nc)) + 1.0) * model.pv * 1e-6
+    Rnan = R.clone()
+    Rnan[1, nc // 2] = float("nan")
     bq = q.b.contiguous()
-    kn = k9.conv_norms_triton(R, bq, model.pv, dt)
-    pn = k9.conv_norms_plain(R, q.b, model.pv, dt)
-    chk("K9 conv_norms", TOL_K9_NORM, zip(kn, pn))
-    time_pair("K9 conv_norms",
-              lambda: k9.conv_norms_triton(R, bq, model.pv, dt),
-              lambda: k9.conv_norms_plain(R, q.b, model.pv, dt),
-              (R, bq, model.pv), 18 * nc)
+    wf = t(rng.standard_normal((nw, 3)) * 1e-4)
+    wc = t(rng.standard_normal(nw) * 1e3)
+    ws, dt = model.k9_workspace(), 86400.0
+    tols = k9.conv_tols(model.params)
+    s = st
+    for case, RR, n in (("seeded", R, nw), ("no wells", R, 0),
+                        ("a NaN cell", Rnan, nw)):
+        a = (RR, bq, model.pv, dt, *mask, wf[:n], wc[:n],
+             s.control[:n].contiguous(), s.target[:n].contiguous(), tols)
+        rows = [fn(ws, *a) for _ in range(10)]
+        kr = rows[0]
+        if not all(torch.equal(r.view(torch.int64), kr.view(torch.int64))
+                   for r in rows[1:]):
+            fail(f"{label}: {name} ({case}) differs between ten launches")
+        pr = k9.convergence_plain(RR, bq, model.pv, dt,
+                                  model.conv_mask, wf[:n], wc[:n],
+                                  s.control[:n], s.target[:n], tols)
+        if not torch.equal(kr[8:], pr[8:]):
+            fail(f"{label}: {name} ({case}) flags {kr[8:].tolist()} "
+                 f"against the plain version's {pr[8:].tolist()}")
+        if not torch.equal(torch.isnan(kr), torch.isnan(pr)):
+            fail(f"{label}: {name} ({case}) NaN where the plain version "
+                 "has none, or the reverse")
+        fin = ~torch.isnan(pr)
+        e = rel_err(kr[fin], pr[fin])
+        K.note(name, float((kr[fin] - pr[fin]).abs().max()))
+        if not e <= TOL_K9_NORM:
+            fail(f"{label}: {name} ({case}) off by {e:.3e} relative")
+        if case == "a NaN cell" and float(kr[8]) != 0.0:
+            fail(f"{label}: a NaN residual left {name}'s finite flag set")
+        if case == "no wells" and (float(kr[6]) or float(kr[7])):
+            fail(f"{label}: {name} with no wells has well norms")
+    if name in timed:
+        a = (R, bq, model.pv, dt, *mask, wf, wc, s.control, s.target, tols)
+        K.ms[name] = cuda_ms(lambda: fn(ws, *a))
+        K.plain_ms[name] = cuda_ms(lambda: k9.convergence_plain(
+            R, bq, model.pv, dt, model.conv_mask, wf, wc, s.control,
+            s.target, tols))
+        K.run_ms[name] = run_ms(lambda: fn(ws, *a))
+        K.library_ms[name] = None
+        K.bound(name, (R, bq, model.pv, *mask), (), 18 * nc)
+        res = Residual(cell=R, well_flux=wf, well_ctrl=wc, b=bq)
+        kern = device_kernels(lambda: model.convergence(res, dt, s))
+        out["convergence_device_kernels"] = None if kern is None \
+            else len(kern)
+        out["convergence_host_ms"] = host_ms(
+            lambda: model.convergence(res, dt, s), reps=50)
+        for k in ("update_device_kernels", "convergence_device_kernels"):
+            if out.get(k) not in (None, 1):
+                fail(f"{label}: {k} = {out[k]}, not one")
     torch.cuda.synchronize()
+    return out
 
 
 def compare_jacobian(case, dev):
@@ -1009,15 +1127,9 @@ def compare_cpr_kernels(K, sim, amg, sys, seed, label, timed):
            (sys.diag, sys.face_L[0::3], sys.face_R[0::3]), ks,
            60 * nc + 10 * nf)
     dinv, w = ps[0], ps[1]
-    # K6 pressure residual and smoothing step (pressure-only and full
-    # iterate: the two steps of an apply)
+    # K6 smoothing step (pressure-only and full iterate: the two steps of
+    # an apply)
     r = rnd(3, nc)
-    kr = k6.pressure_rhs_cuda(w, r)
-    pr = k6.pressure_rhs_plain(w, r)
-    chk("K6 pressure_rhs", TOL_K6_SETUP, [(kr, pr)])
-    timing("K6 pressure_rhs", lambda: k6.pressure_rhs_cuda(w, r),
-           lambda: k6.pressure_rhs_plain(w, r), (w, r), kr, 5 * nc,
-           lambda: torch.linalg.vecdot(w, r, dim=0))
     xp = rnd(nc)
     for xx in (xp, x):
         kx = k6.smooth_step_cuda(*ops, dinv, xx, r, dims)
@@ -1030,7 +1142,8 @@ def compare_cpr_kernels(K, sim, amg, sys, seed, label, timed):
 
     # K7: the two legs on this system's hierarchy, then its V-cycle
     vals = amg.coarsen_values(ps[2], ps[3])
-    vc = compare_vcycle(K, k7, amg, vals, rnd(nc), label, TOL_K7, timed)
+    vc = compare_vcycle(K, k7, amg, vals, rnd(nc), label, TOL_K7, timed,
+                        (w.contiguous(), r))
 
     compare_k8(K, (3, nc), dev, seed, label, timed)
     torch.cuda.synchronize()
@@ -1103,23 +1216,32 @@ def vcycle_work(amg, vals):
     return down, up
 
 
-def compare_vcycle(K, mod, amg, vals, b, label, tol, timed, record=True):
+def compare_vcycle(K, mod, amg, vals, b, label, tol, timed, wr,
+                   record=True):
     """K7's or K10's two V-cycle legs (``mod``: linalg.gmg or linalg.amg)
     on one Newton system's hierarchy against their plain versions on the
     card: one V-cycle is exactly two launches plus, where the coarsest is
     inverted, one float32 product; it equals the per-level composition of
     the twins, and each level's right-hand side and correction in the
-    workspace the plain legs', within ``tol`` of max. When ``timed``:
-    returns the V-cycle's measurements (each leg, level 0 alone, the
-    product, the V-cycle, their bounds, the device kernels of one V-cycle,
-    the legs' grids and registers), and with ``record`` fills the legs'
-    rows."""
+    workspace the plain legs', within ``tol`` of max. The V-cycle from the
+    CPR apply's weights and residual ``wr`` = (w, rc) (the down leg's
+    right-hand side entry) is bit for bit the plain weighted residual
+    (pressure_rhs_plain on the card) followed by the legs, ten times in a
+    row, with the same launches but
+    the entry in place of the b one. When ``timed``: returns the V-cycle's
+    measurements (each leg, level 0 alone, the product, the V-cycle, their
+    bounds, the device kernels of one V-cycle, the legs' grids and
+    registers, the right-hand side entry against the pair it replaces),
+    and with ``record`` fills the legs' rows."""
     import torch
 
     from opm_tpu_torch.linalg import gmg as k7
+    from opm_tpu_torch.linalg import precond as k6
 
     prefix = "K7 gmg" if mod is k7 else "K10 amg"
     down, up = f"{prefix}_vcycle_down", f"{prefix}_vcycle_up"
+    rhs = f"{prefix}_vcycle_down_rhs"
+    w, rc = wr
 
     def counts():
         return (mod.vcycle_down_cuda.launches, mod.vcycle_up_cuda.launches,
@@ -1147,6 +1269,26 @@ def compare_vcycle(K, mod, amg, vals, b, label, tol, timed, record=True):
         + ([(ws.bc.double(), c.double())] if dense else []))
     chk(up, [(t, es[l]) for l, t in enumerate(ws.e) if t is not None]
         + [(x, xp), (x, amg.vcycle(vals, b, twin=True))])
+    # the right-hand side entry: K6's weighted residual folded into the
+    # down leg, bit for bit the plain residual (elementwise, so the same
+    # bits on the card) followed by the legs
+    pair = amg.vcycle(vals, k6.pressure_rhs_plain(w, rc)).clone()
+    n0 = counts() + (mod.vcycle_down_rhs_cuda.launches,)
+    fused = amg.vcycle(vals, None, w=w, rc=rc).clone()
+    per_f = tuple(a - c for a, c in zip(
+        counts() + (mod.vcycle_down_rhs_cuda.launches,), n0))
+    if per_f != (0, 1, int(dense), 1):
+        fail(f"{label}: one V-cycle from (w, r) ran {per_f} (down, up, "
+             "product, down from (w, r)) launches")
+    K.note(rhs, float((fused - pair).abs().max()))
+    if not torch.equal(fused, pair):
+        fail(f"{label}: {rhs}: the V-cycle from (w, r) is not bit for bit "
+             "the weighted residual followed by the legs")
+    for _ in range(10):
+        again = amg.vcycle(vals, None, w=w, rc=rc)
+    if not torch.equal(again, fused):
+        fail(f"{label}: {rhs}: ten V-cycles from (w, r) changed bits")
+    chk(rhs, [(fused, amg.vcycle(vals, None, w=w, rc=rc, twin=True))])
     if not timed:
         return None
     wd, wu = vcycle_work(amg, vals)
@@ -1154,17 +1296,37 @@ def compare_vcycle(K, mod, amg, vals, b, label, tol, timed, record=True):
              up_ms=cuda_ms(lambda: mod.vcycle_up_cuda(ws, b)),
              down_plain_ms=cuda_ms(lambda: amg.vcycle_down_plain(vals, b)),
              up_plain_ms=cuda_ms(lambda: amg.vcycle_up_plain(vals, bs, ec)))
-    bound = {leg: max(sum(w[0] for w in ws_) / HBM_BYTES_S,
-                      sum(w[1] for w in ws_) / F64_FLOP_S) * 1e3
+    bound = {leg: max(sum(x[0] for x in ws_) / HBM_BYTES_S,
+                      sum(x[1] for x in ws_) / F64_FLOP_S) * 1e3
              for leg, ws_ in (("down", wd), ("up", wu))}
     t.update(down_bound_ms=bound["down"], up_bound_ms=bound["up"])
+    # the right-hand side entry: the down leg's work plus w and rc read
+    # and level 0's b written (56 bytes and 5 operations a cell)
+    n_0 = rc.shape[1]
+    t.update(
+        down_rhs_ms=cuda_ms(lambda: mod.vcycle_down_rhs_cuda(ws, w, rc)),
+        down_rhs_run_ms=run_ms(lambda: mod.vcycle_down_rhs_cuda(ws, w, rc)),
+        down_run_ms=run_ms(lambda: mod.vcycle_down_cuda(ws, b)),
+        pair_run_ms=run_ms(lambda: mod.vcycle_down_cuda(
+            ws, k6.pressure_rhs_plain(w, rc))),
+        down_rhs_bound_ms=max(
+            (sum(x[0] for x in wd) + 56 * n_0) / HBM_BYTES_S,
+            (sum(x[1] for x in wd) + 5 * n_0) / F64_FLOP_S) * 1e3)
     if record:
         for name, leg, ws_ in ((down, "down", wd), (up, "up", wu)):
             K.ms[name] = t[f"{leg}_ms"]
             K.plain_ms[name] = t[f"{leg}_plain_ms"]
             K.library_ms[name] = None
-            K.bound_raw(name, sum(w[0] for w in ws_),
-                        sum(w[1] for w in ws_))
+            K.bound_raw(name, sum(x[0] for x in ws_),
+                        sum(x[1] for x in ws_))
+        K.run_ms[down] = t["down_run_ms"]
+        K.ms[rhs] = t["down_rhs_ms"]
+        K.run_ms[rhs] = t["down_rhs_run_ms"]
+        K.plain_ms[rhs] = cuda_ms(lambda: amg.vcycle_down_plain(
+            vals, k6.pressure_rhs_plain(w, rc)))
+        K.library_ms[rhs] = None
+        K.bound_raw(rhs, sum(x[0] for x in wd) + 56 * n_0,
+                    sum(x[1] for x in wd) + 5 * n_0)
     nlev = len(amg.levels)
     if nlev:
         t["level0"] = dict(
@@ -1177,9 +1339,12 @@ def compare_vcycle(K, mod, amg, vals, b, label, tol, timed, record=True):
         t["product_ms"] = cuda_ms(lambda: k7.coarsest_product(
             vals[-1], ws.bc, ws.ec))
         prod = nbytes(vals[-1], ws.bc, ws.ec) / HBM_BYTES_S * 1e3
-    kernels = device_kernels(lambda: amg.vcycle(vals, b))
+    kernels = device_kernels(lambda: amg.vcycle(vals, None, w=w, rc=rc))
     t.update(
         vcycle_ms=cuda_ms(lambda: amg.vcycle(vals, b)),
+        vcycle_rhs_ms=cuda_ms(lambda: amg.vcycle(vals, None, w=w, rc=rc)),
+        vcycle_rhs_host_ms=host_ms(
+            lambda: amg.vcycle(vals, None, w=w, rc=rc), reps=20),
         vcycle_bound_ms=bound["down"] + bound["up"] + prod,
         vcycle_plain_legs_ms=cuda_ms(lambda: amg._vcycle_legs_plain(vals,
                                                                      b)),
@@ -1207,6 +1372,14 @@ def log_vcycle(label, t):
         + (f"; level 0 alone: down {l0['down_ms']:.4f} (bound "
            f"{l0['down_bound_ms']:.4f}), up {l0['up_ms']:.4f} (bound "
            f"{l0['up_bound_ms']:.4f}) ms" if l0 else ""))
+    log(f"    from the CPR apply's (w, r): V-cycle {t['vcycle_rhs_ms']:.4f} "
+        f"ms (host clock {t['vcycle_rhs_host_ms']:.4f}); per launch in a run "
+        f"of 50: down leg from (w, r) {t['down_rhs_run_ms']:.4f} (bound "
+        f"{t['down_rhs_bound_ms']:.4f}), pressure_rhs_plain then the down "
+        "leg "
+        f"{t['pair_run_ms']:.4f}, the down leg alone "
+        f"{t['down_run_ms']:.4f} ms; one call of the entry "
+        f"{t['down_rhs_ms']:.4f} ms")
     kernels = t["device_kernels"]
     log(f"    launches per V-cycle {t['launches_per_vcycle']}; device "
         "kernels " + ("not measured" if kernels is None else
@@ -1351,20 +1524,38 @@ def check_reduced_launches(counts, label, model):
 
 
 def check_vcycle_launches(launches, rep, label, amg):
-    """Two launches per V-cycle (K7's or K10's down and up legs) and one
-    float32 coarsest product, two V-cycles per BiCGStab iteration."""
+    """Two launches per V-cycle (K7's or K10's down leg from the CPR
+    apply's weighted residual, and the up leg) and one float32 coarsest
+    product, two V-cycles per BiCGStab iteration; the down leg's b entry
+    never runs (a CPR apply is one launch shorter than K6's stand-alone
+    weighted residual and the b entry made it)."""
     from opm_tpu_torch.linalg import gmg as k7
     from opm_tpu_torch.linalg.amg import DeviceAmg
 
     prefix = "K10 amg" if isinstance(amg, DeviceAmg) else "K7 gmg"
-    n = (launches[f"{prefix}_vcycle_down"], launches[f"{prefix}_vcycle_up"],
-         k7.coarsest_product.calls)
+    n = (launches[f"{prefix}_vcycle_down_rhs"],
+         launches[f"{prefix}_vcycle_up"], k7.coarsest_product.calls)
+    off = launches[f"{prefix}_vcycle_down"]
     v = 2 * rep.linear_iterations
-    log(f"  {prefix} V-cycle launches (down, up, product): {n} over {v} "
-        f"V-cycles")
-    if n != (v, v, v):
-        fail(f"{label}: {prefix} launches {n} are not 2 kernels and 1 "
-             f"product per V-cycle ({v} V-cycles)")
+    log(f"  {prefix} V-cycle launches (down from (w, r), up, product): {n} "
+        f"over {v} V-cycles; the b entry's down leg: {off}")
+    if n != (v, v, v) or off != 0:
+        fail(f"{label}: {prefix} launches {n} and {off} are not 2 kernels "
+             f"and 1 product per V-cycle ({v} V-cycles) with the weighted "
+             "residual in the down leg")
+
+
+def check_k9_launches(launches, rep, label):
+    """One K9 update per Newton iteration and one convergence check per
+    Newton iteration and per converged substep (0 failed)."""
+    upd = launches["K9 update"]
+    conv = launches["K9 convergence"] + launches["K9 convergence_masked"]
+    log(f"  K9 launches: {upd} updates, {conv} convergence checks over "
+        f"{rep.newton_iterations} Newtons in {rep.substeps} substeps")
+    if upd != rep.newton_iterations or \
+            conv != rep.newton_iterations + rep.substeps:
+        fail(f"{label}: K9 launches ({upd}, {conv}) are not one per update "
+             "and one per convergence check")
 
 
 def solve_twice(sim, sys, tol, maxiter):
@@ -1452,7 +1643,6 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
     from opm_tpu_torch.linalg import precond as k6
     from opm_tpu_torch.models import blackoil as mb
     from opm_tpu_torch.models import linearize as k4
-    from opm_tpu_torch.solver import kernels_triton as k9
 
     model = sim.model
     fl, dims, amg = model.faces, model.op_dims, sim.solver.amg
@@ -1580,21 +1770,15 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
         ks = k6.cpr_setup_cuda(*ops, dims)
         ps = (dinv, w, diag_p, k6._pressure_off_for(amg, off, dims))
         chk("K6 cpr_setup", TOL_K6_SETUP, zip(ks, ps))
-        # the masked K9 norms on the padded cell axis
-        R = torch.as_tensor(rng.standard_normal((3, nc)) + 1.0,
-                            device=dev) * model.pv * 1e-6
-        bq = q.b.contiguous()
-        km = k9.conv_norms_masked_triton(R, bq, model.pv, dt,
-                                         model.conv_mask)
-        pm = k9.conv_norms_plain(R, bq, model.pv, dt, model.conv_mask)
-        chk("K9 conv_norms_masked", TOL_K9_NORM, zip(km, pm), how=rel_err)
-        if timed:
-            timing("K9 conv_norms_masked",
-                   lambda: k9.conv_norms_masked_triton(R, bq, model.pv, dt,
-                                                       model.conv_mask),
-                   lambda: k9.conv_norms_plain(R, bq, model.pv, dt,
-                                               model.conv_mask),
-                   (R, bq, model.pv, model.conv_mask), (), 22 * nc)
+    # K9 at the run's shapes and on its state: the update over the cell
+    # axis (the embedded grid's padded one, inert cells with pv = 0
+    # included), the convergence check masked on the embedded grid and
+    # unmasked on the gather grid (timed: the masked row only; the
+    # unmasked row's times are SPE10-2's)
+    masked = model.conv_mask is not None
+    extra["k9"] = compare_k9(
+        K, model, state, q, seed, label,
+        ("K9 convergence_masked",) if timed and masked else ())
 
     if isinstance(amg, k10.DeviceAmg):
         vk = amg.coarsen_values(diag_p, off)
@@ -1625,7 +1809,8 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
                    lambda: k10.ell_pack_plain(off, amg.ell[0]),
                    (off, amg.ell[0]["src"]), vk[0][1], 0)
         extra["vcycle"] = compare_vcycle(K, k10, amg, vk, rnd(nc), label,
-                                         TOL_K10_VCYCLE, timed)
+                                         TOL_K10_VCYCLE, timed,
+                                         (w.contiguous(), rnd(3, nc)))
         extra["widths"] = [int(v[1].shape[0]) for v in vp[:amg.n_levels]]
         extra["sizes"] = [int(v[0].shape[0]) for v in vp[:amg.n_levels]]
         if timed:
@@ -1639,7 +1824,9 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
         vals = amg.coarsen_values(diag_p, k6._pressure_off_for(amg, off,
                                                                dims))
         extra["vcycle"] = compare_vcycle(K, k7, amg, vals, rnd(nc), label,
-                                         TOL_K7, timed, record=False)
+                                         TOL_K7, timed,
+                                         (w.contiguous(), rnd(3, nc)),
+                                         record=False)
     torch.cuda.synchronize()
     return extra
 
@@ -1682,6 +1869,7 @@ def norne_first_step(K, sim, ref, label, names):
                                    if c))
     check_k8_launches(counts, rep, label)
     check_vcycle_launches(counts, rep, label, sim.solver.amg)
+    check_k9_launches(counts, rep, label)
     res["launches_per_reduced_matvec"] = check_reduced_launches(
         counts, label, sim.model)
     if counts["K4-faces pack"] != rep.newton_iterations:
@@ -1701,6 +1889,8 @@ def toy_run(K, sim, ref, label, names):
                       sim.report, label)
     check_vcycle_launches({e[0]: e[4].launches for e in K.entries},
                           sim.report, label, sim.solver.amg)
+    check_k9_launches({e[0]: e[4].launches for e in K.entries},
+                      sim.report, label)
     per = check_reduced_launches({e[0]: e[4].launches for e in K.entries},
                                  label, sim.model)
     counts = {e[0]: e[4].launches for e in K.entries if e[0] in names}
@@ -1794,7 +1984,6 @@ def main(argv=None):
     from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
     from opm_tpu_torch.sim.init import initial_state
     from opm_tpu_torch.sim.testcases import spe10like_case
-    from opm_tpu_torch.solver import kernels_triton as k9
     from opm_tpu_torch.tools.assembly_ab import parse_ptxas, sass_fp64
     from opm_tpu_torch.utils import cuda_lib
 
@@ -1817,22 +2006,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     cuda_lib.build_all(["tables", "cells", "tpfa", "blocks", "block7",
                         "wells", "cpr", "gmg", "amg", "faces", "krylov",
-                        "cornerpoint"])
+                        "newton", "cornerpoint"])
     K = Kernels()
-    tiny = torch.linspace(1.0, 2.0, 8, dtype=torch.float64, device=dev)
-    b3 = torch.stack([tiny, tiny, tiny]).contiguous()
-    k9.update_pressure_triton(tiny, tiny, 0.3)
-    k9.update_cells_triton(tiny, tiny, torch.zeros(8, dtype=torch.int32,
-                                                   device=dev),
-                           tiny, tiny, tiny, tiny, tiny, tiny, 0.2, 1e9,
-                           True, False)
-    k9.conv_norms_triton(b3, b3, tiny, 1.0)
-    torch.cuda.synchronize()
     results["build_s"] = time.perf_counter() - t0
-    log(f"build: {results['build_s']:.1f} s (11 nvcc sm_90a and the host "
-        "cornerpoint.cpp in parallel + Triton JIT of K9)")
+    log(f"build: {results['build_s']:.1f} s (12 nvcc sm_90a and the host "
+        "cornerpoint.cpp in parallel)")
     for src in ("krylov.cu", "gmg.cu", "amg.cu", "cells.cu", "block7.cu",
-                "faces.cu", "wells.cu"):
+                "faces.cu", "wells.cu", "newton.cu"):
         ptxas = cuda_lib.build_log.get(src)
         log(f"{src} -Xptxas -v: " + (json.dumps(parse_ptxas(ptxas))
             if ptxas is not None else "(library up to date, not rebuilt)"))
@@ -1861,7 +2041,8 @@ def main(argv=None):
     st1 = seeded_state(m1, args.seed, dev)
     # jacfwd folds every tangent column into one K3 tangent launch
     b_jac = 3 * m1.nc + 4 * len(sim_cmp.well_names)
-    compare_kernels(K, m1, st1, args.seed, "SPE1", timed=False, B=b_jac)
+    results["spe1_k9"] = compare_kernels(K, m1, st1, args.seed, "SPE1",
+                                         timed=False, B=b_jac)
     log(f"K1/K2/K3/K9 == plain at SPE1 shapes (300 cells, K3 tangent B = "
         f"{b_jac}): ok")
     q1 = m1.cell_quantities(st1)
@@ -1901,7 +2082,14 @@ def main(argv=None):
         f"{m10.trans.shape[0]} faces, {len(amg.levels)} GMG levels, "
         f"coarsest {amg.coarsest_n} cells")
     st10 = seeded_state(m10, args.seed, dev)
-    compare_kernels(K, m10, st10, args.seed, "SPE10-2", timed=True, B=3)
+    k9r = compare_kernels(K, m10, st10, args.seed, "SPE10-2", timed=True,
+                          B=3)
+    results["spe10_k9"] = k9r
+    log(f"  K9 at SPE10-2: one device kernel per update_state (profiler: "
+        f"{k9r['update_device_kernels']}) and per convergence check "
+        f"({k9r['convergence_device_kernels']}); host ms per call "
+        f"{k9r['update_host_ms']:.4f} and {k9r['convergence_host_ms']:.4f}; "
+        f"{k9r['switched_cells']} cells switched state")
     del st10
     log("K1/K2/K3/K9 == plain at SPE10-2 shapes (1.122M cells): ok")
 
@@ -1990,6 +2178,7 @@ def main(argv=None):
     dead = [n for n in K.DENSE if K.launches[n] <= 0]
     if dead:
         fail(f"kernels not launched by the SPE1 run: {dead}")
+    check_k9_launches(results["spe1"]["launches_all"], sim.report, "SPE1")
 
     # -- 5. SPE10-2 first report step through the CPR route --------------------
     solver = sim10.solver
@@ -2007,8 +2196,8 @@ def main(argv=None):
         return out
 
     amg.vcycle = timed_vcycle
-    new_names = K.names(("K4", "K6", "K7", "K8")) + list(K.ASSEMBLY) + [
-        "K3 face_blocks"]
+    new_names = K.names(("K4", "K6", "K7", "K8", "K9"), main_path=True) + \
+        list(K.ASSEMBLY) + ["K3 face_blocks"]
     K.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2051,7 +2240,8 @@ def main(argv=None):
     if rep.failed_substeps != 0 or not finite:
         fail("SPE10-2: failed substeps or a non-finite state")
     check_k8_launches(K.launches, rep, "SPE10-2")
-    check_vcycle_launches(K.launches, rep, "SPE10-2", amg)
+    check_vcycle_launches(res10["launches_all"], rep, "SPE10-2", amg)
+    check_k9_launches(res10["launches_all"], rep, "SPE10-2")
     res10["launches_per_reduced_matvec"] = check_reduced_launches(
         res10["launches_all"], "SPE10-2", m10)
     dead = [n for n in new_names if K.launches[n] <= 0]
@@ -2068,7 +2258,8 @@ def main(argv=None):
         **reft["deck_kwargs"]))
     results["spe10_toy"] = toy_run(
         K, simt, reft, "toy SPE10-like (2640 cells)",
-        list(K.ASSEMBLY) + ["K3 face_blocks"])
+        list(K.ASSEMBLY) + ["K3 face_blocks", "K9 update",
+                            "K9 convergence"])
 
     # -- 6. the Norne-class field at full size, both representations ----------
     from opm_tpu_torch.linalg.amg import DeviceAmg
@@ -2102,9 +2293,11 @@ def main(argv=None):
                           "K9"), face_grids=True) + K.names(
         ("K3-faces", "K4-faces", "K6-faces", "K10"))
     # every kernel of the two runs: the face-list path's and the
-    # assembly's (the stencil face blocks and K7 on the embedded grid)
-    new_names = face_names + list(K.ASSEMBLY) + ["K3 face_blocks"] + \
-        K.names(("K7",))
+    # assembly's (the stencil face blocks and K7 on the embedded grid), K9
+    new_names = [n for n in face_names if n not in K.OFF_MAIN] + \
+        list(K.ASSEMBLY) + ["K3 face_blocks", "K9 update",
+                            "K9 convergence"] + \
+        K.names(("K7",), main_path=True)
     for rname, simn in sims.items():
         init_n = initial_state(simn.grid, simn.props, casen,
                                len(simn.well_names))
@@ -2193,8 +2386,9 @@ def main(argv=None):
         results[f"norne_toy_{rname}"] = toy_run(
             K, simt, refn[rname], f"toy Norne-like {rname} "
             f"({simt.model.nc} cells)", list(K.ASSEMBLY)
-            + ["K3-faces face_blocks"]
-            + (["K3 face_blocks"] if knob is None else []))
+            + ["K3-faces face_blocks", "K9 update"]
+            + (["K3 face_blocks", "K9 convergence_masked"] if knob is None
+               else ["K9 convergence"]))
 
     kern = K.report()
     results.update(kern)

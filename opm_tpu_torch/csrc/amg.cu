@@ -19,7 +19,12 @@
 // The V-cycle (one pre- and one post-smoothing sweep, omega = 0.8):
 //
 //   down  for each level k = 0 .. nL-1 two phases, one thread per cell:
-//         the level's right-hand side (the previous level's residuals
+//         the level's right-hand side (at level 0 the input, or in the
+//         right-hand side entry the CPR apply's weighted pressure residual
+//         (w0 r0 + w1 r1) + w2 r2 of the cell, K6's pressure_rhs
+//         expression, written to the workspace for the second phase and
+//         the up leg: the sweep reads b at its own cell only, so it needs
+//         no barrier of its own; the previous level's residuals
 //         summed over the cell's children, by fine index) and the
 //         zero-start sweep x = 0 + 0.8 (b - A 0) / diag (diag = 1 where
 //         |diag| <= 1e-300) into the workspace; then the residual b - A x
@@ -164,18 +169,31 @@ __device__ __forceinline__ double aggregate_sum(const LevelRec& F,
     return acc;
 }
 
+// the CPR apply's weighted pressure residual at cell c of n0
+__device__ __forceinline__ double weighted_rhs(const double* w,
+                                              const double* rc, long long n0,
+                                              long long c) {
+    return (w[c] * rc[c] + w[n0 + c] * rc[n0 + c])
+           + w[2 * n0 + c] * rc[2 * n0 + c];
+}
+
 // down leg, level k, first phase: the level's right-hand side (level 0:
-// the input; the first level of a partial leg: the workspace's; else the
-// previous level's residuals summed by aggregate, written to the
-// workspace), then the zero-start sweep into the level's x
+// the input, or with w the weighted residual written into the input; the
+// first level of a partial leg: the workspace's; else the previous level's
+// residuals summed by aggregate, written to the workspace), then the
+// zero-start sweep into the level's x
 __device__ void presmooth_level(const LevelRec* T, int k, int first,
-                                const double* in, const double* r) {
+                                double* in, const double* w,
+                                const double* rc, const double* r) {
     const LevelRec& F = T[k];
     Ell A = ell_of(F);
     for (long long i = first_index(); i < A.n; i += grid_stride()) {
         const int c = (int)i;
         double bc;
-        if (k == 0) {
+        if (k == 0 && w) {
+            bc = weighted_rhs(w, rc, A.n, c);
+            in[c] = bc;
+        } else if (k == 0) {
             bc = in[c];
         } else if (k == first) {
             bc = F.b[c];
@@ -244,11 +262,18 @@ __device__ void prolong_level(const LevelRec& F, int k, const double* in,
 // levels lo .. hi-1 of the down leg (the whole leg: 0 .. nL), two phases
 // each (r: the residuals' scratch, n0 values), level hi's right-hand side,
 // then, when hi == nL and the coarsest is not inverted (dense == 0), its
-// sweeps
+// sweeps; with w the whole leg from the weighted residual (w, rc (3, n0)),
+// level 0's b formed into in (the workspace's) on the way
 __global__ void __launch_bounds__(kThreads, 2)
 amg_down(const LevelRec* T, int nL, int dense, int lo, int hi,
-         const double* in, double* r, float* bc) {
+         double* in, const double* w, const double* rc, double* r,
+         float* bc) {
     cg::grid_group grid = cg::this_grid();
+    if (w && nL == 0) {                // level 0 is the coarsest
+        for (long long c = first_index(); c < T[0].n; c += grid_stride())
+            in[c] = weighted_rhs(w, rc, T[0].n, c);
+        grid.sync();
+    }
     if (nL == 0 && dense) {            // the coarsest level alone
         for (long long c = first_index(); c < T[0].n; c += grid_stride())
             bc[c] = __double2float_rn(in[c]);
@@ -256,7 +281,7 @@ amg_down(const LevelRec* T, int nL, int dense, int lo, int hi,
     }
     for (int k = lo; k < hi; ++k) {
         if (k > lo) grid.sync();
-        presmooth_level(T, k, lo, in, r);
+        presmooth_level(T, k, lo, in, w, rc, r);
         grid.sync();
         residual_level(T[k], k == 0 ? in : T[k].b, r);
     }
@@ -377,10 +402,27 @@ int opm_amg_grid(long long work_down, long long work_up, int* out) {
 // right-hand side; r: n0 values of scratch; bc: the coarsest right-hand
 // side, float32
 int opm_amg_down(const void* table, int nL, int dense, int lo, int hi,
-                 const double* in, double* r, float* bc, int grid,
+                 double* in, double* r, float* bc, int grid,
                  cudaStream_t stream) {
     const LevelRec* T = static_cast<const LevelRec*>(table);
-    void* args[] = {&T, &nL, &dense, &lo, &hi, &in, &r, &bc};
+    const double* w = nullptr;
+    const double* rc = nullptr;
+    void* args[] = {&T, &nL, &dense, &lo, &hi, &in, &w, &rc, &r, &bc};
+    return (int)cudaLaunchCooperativeKernel((const void*)amg_down,
+                                            dim3(grid), dim3(kThreads),
+                                            args, 0, stream);
+}
+
+// the whole down leg from the CPR apply's weighted pressure residual: w,
+// rc (3, n0) the weights and the cell residual, b0 (n0) level 0's
+// right-hand side, written on the way (the up leg reads it)
+int opm_amg_down_rhs(const void* table, int nL, int dense, const double* w,
+                     const double* rc, double* b0, double* r, float* bc,
+                     int grid, cudaStream_t stream) {
+    const LevelRec* T = static_cast<const LevelRec*>(table);
+    int lo = 0, hi = nL;
+    double* in = b0;
+    void* args[] = {&T, &nL, &dense, &lo, &hi, &in, &w, &rc, &r, &bc};
     return (int)cudaLaunchCooperativeKernel((const void*)amg_down,
                                             dim3(grid), dim3(kThreads),
                                             args, 0, stream);

@@ -1,11 +1,12 @@
-// K6: the per-Newton CPR setup in one pass over the cells, and the
-// weighted pressure residual of each CPR apply, for Hopper; with K6-faces,
-// the pressure couplings over a face list.
+// K6: the per-Newton CPR setup in one pass over the cells, for Hopper;
+// with K6-faces, the pressure couplings over a face list.
 //
 // Replaces the JAX package's linalg/precond.py inv3x3_rows (:113-137),
-// quasi_impes_weights (:174-184), cpr_pressure_system (:207-263, the
-// structured branch and the face-list one, :245-262) and the restriction
-// rp = sum_i w_i r_i of make_cpr_cells (:391), which XLA fused on the TPU.
+// quasi_impes_weights (:174-184) and cpr_pressure_system (:207-263, the
+// structured branch and the face-list one, :245-262), which XLA fused on
+// the TPU. The restriction rp = sum_i w_i r_i of make_cpr_cells (:391) is
+// formed in the V-cycle's down leg (the right-hand side entries of gmg.cu
+// and amg.cu).
 //
 // Setup, per cell c with 3x3 diagonal block D_c (diag, (9, nc) row-major):
 //   dinv_c = D_c^-1 (closed form through 1/det),
@@ -156,16 +157,6 @@ __global__ void faces_kernel(long long n, long long f0, long long nfs,
     off[n + t] = -u;
 }
 
-__global__ void pressure_rhs_kernel(long long nc,
-                                    const double* __restrict__ w,
-                                    const double* __restrict__ r,
-                                    double* __restrict__ rp) {
-    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= nc) return;
-    rp[c] = (w[c] * r[c] + w[nc + c] * r[nc + c])
-            + w[2 * nc + c] * r[2 * nc + c];
-}
-
 }  // namespace
 
 extern "C" {
@@ -203,14 +194,6 @@ int opm_cpr_faces(long long n, long long f0, long long nfs, long long nc,
     int blocks = (int)((n + kThreads - 1) / kThreads);
     faces_kernel<<<blocks, kThreads, 0, stream>>>(n, f0, nfs, nc, c1, c2, w,
                                                   fL, fR, off);
-    return (int)cudaGetLastError();
-}
-
-int opm_cpr_pressure_rhs(long long nc, const double* w, const double* r,
-                         double* rp, cudaStream_t stream) {
-    if (nc == 0) return 0;
-    int blocks = (int)((nc + kThreads - 1) / kThreads);
-    pressure_rhs_kernel<<<blocks, kThreads, 0, stream>>>(nc, w, r, rp);
     return (int)cudaGetLastError();
 }
 

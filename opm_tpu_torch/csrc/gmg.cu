@@ -12,7 +12,12 @@
 // axis; an odd axis carries one ghost slab (diagonal 0, couplings 0). The
 // V-cycle (one pre- and one post-smoothing sweep, omega = 0.8) runs as
 //
-//   down  for each level l = 0 .. L-1, over the next level's cells: the
+//   down  (the right-hand side entry) first level 0's b, the CPR apply's
+//         weighted pressure residual (w0 r0 + w1 r1) + w2 r2 per cell (K6's
+//         pressure_rhs, linalg/precond.py:299-301, the same expression)
+//         into the workspace, then a grid barrier, since the zero-start
+//         sweep below reads b at neighbouring cells; then
+//         for each level l = 0 .. L-1, over the next level's cells: the
 //         pair sum along the level's axis of the residual b - A x of the
 //         zero-start sweep x = 0 + 0.8 (b - A 0) / d (d = 1 where |d| <=
 //         1e-300), the next level's ghost slab 0; x is evaluated where it
@@ -239,10 +244,18 @@ __device__ void prolong_level(const LevelRec* T, int l, const double* in,
     }
 }
 
-// levels lo .. hi-1 of the down leg (the whole leg: 0 .. L)
+// levels lo .. hi-1 of the down leg (the whole leg: 0 .. L); with w, the
+// whole leg from the weighted residual (w, rc (3, n0)), level 0's b formed
+// into in (the workspace's, n0 real cells) first
 __global__ void __launch_bounds__(kThreads, 2)
-gmg_down(const LevelRec* T, int L, int lo, int hi, const double* in,
-         float* bc) {
+gmg_down(const LevelRec* T, int L, int lo, int hi, double* in,
+         const double* w, const double* rc, long long n0, float* bc) {
+    if (w) {
+        for (long long c = first_index(); c < n0; c += grid_stride())
+            in[c] = (w[c] * rc[c] + w[n0 + c] * rc[n0 + c])
+                    + w[2 * n0 + c] * rc[2 * n0 + c];
+        cg::this_grid().sync();
+    }
     if (L == 0) {                      // the coarsest level alone
         const long long n = T[0].nz * T[0].ny * T[0].nx;
         for (long long c = first_index(); c < n; c += grid_stride())
@@ -321,10 +334,28 @@ int opm_gmg_grid(long long work_down, long long work_up, int* out) {
 
 // table: the L + 1 level records; levels lo .. hi-1; in: level 0's right-hand
 // side (the real cells); bc: the coarsest right-hand side, float32
-int opm_gmg_down(const void* table, int L, int lo, int hi, const double* in,
+int opm_gmg_down(const void* table, int L, int lo, int hi, double* in,
                  float* bc, int grid, cudaStream_t stream) {
     const LevelRec* T = static_cast<const LevelRec*>(table);
-    void* args[] = {&T, &L, &lo, &hi, &in, &bc};
+    const double* w = nullptr;
+    const double* rc = nullptr;
+    long long n0 = 0;
+    void* args[] = {&T, &L, &lo, &hi, &in, &w, &rc, &n0, &bc};
+    return (int)cudaLaunchCooperativeKernel((const void*)gmg_down,
+                                            dim3(grid), dim3(kThreads),
+                                            args, 0, stream);
+}
+
+// the whole down leg from the CPR apply's weighted pressure residual: w,
+// rc (3, n0) the weights and the cell residual, b0 (n0) level 0's
+// right-hand side, written first (the up leg reads it)
+int opm_gmg_down_rhs(const void* table, int L, const double* w,
+                     const double* rc, double* b0, long long n0, float* bc,
+                     int grid, cudaStream_t stream) {
+    const LevelRec* T = static_cast<const LevelRec*>(table);
+    int lo = 0, hi = L;
+    double* in = b0;
+    void* args[] = {&T, &L, &lo, &hi, &in, &w, &rc, &n0, &bc};
     return (int)cudaLaunchCooperativeKernel((const void*)gmg_down,
                                             dim3(grid), dim3(kThreads),
                                             args, 0, stream);

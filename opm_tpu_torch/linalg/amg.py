@@ -15,13 +15,16 @@ post-smoothing damped-Jacobi sweep with omega = 0.8) is kernel K10
 (``csrc/amg.cu``, the repository's former Pallas ``ell_spmv`` and
 ``jacobi_sweep``) in two cooperative launches: the down leg (per level the
 zero-start sweep into the workspace, then its residual restricted by
-aggregate) and the up leg (per level the prolongation by gather plus that
-sweep, then the post-smoothing sweep). The coarsest level (at most 256
-cells) is solved between them by its float32 dense inverse, formed once
-per Newton and applied as one matmul, as the reference does on every
-backend; a larger coarsest level gets 1 + 10 sweeps at the end of the
-down leg. The value coarsening is K10 too (one launch per level, plus one
-ELL pack).
+aggregate; in its right-hand side entry, which the CPR apply calls, level
+0's right-hand side is the weighted pressure residual of K6's
+``pressure_rhs``, formed by each cell's thread of the first phase and
+written to the workspace) and the up leg (per level the prolongation by
+gather plus that sweep, then the post-smoothing sweep). The coarsest
+level (at most 256 cells) is solved between them by its float32 dense
+inverse, formed once per Newton and applied as one matmul, as the
+reference does on every backend; a larger coarsest level gets 1 + 10
+sweeps at the end of the down leg. The value coarsening is K10 too (one
+launch per level, plus one ELL pack).
 Each kernel has its plain twins here, in the reference's order of
 operations: the per-level ones (their composition ``vcycle(...,
 twin=True)`` is the oracle) and the legs composed from them (the CPU
@@ -40,8 +43,9 @@ from typing import List
 import numpy as np
 import torch
 
-from opm_tpu_torch.linalg.gmg import (LevelValues, coarsest_product,
-                                     leg_grids)
+from opm_tpu_torch.linalg.gmg import (LevelValues, check_weighted,
+                                     coarsest_product, leg_grids,
+                                     pressure_rhs_plain)
 from opm_tpu_torch.utils import cuda_lib
 
 OMEGA = 0.8
@@ -253,6 +257,7 @@ _P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
 _SIGS = {
     "opm_amg_grid": [_L, _L, _P],
     "opm_amg_down": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "opm_amg_down_rhs": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "opm_amg_up": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "opm_amg_coarsen": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                         _P],
@@ -272,7 +277,8 @@ class Workspace:
     0 < k < nL its right-hand side ``b[k]`` and correction ``e[k]`` (the
     coarsest's too, and a second sweep buffer, when it is not inverted),
     per level k < nL its pre-smoothed iterate ``x[k]``, the residuals'
-    scratch ``r`` (n0,), the float32
+    scratch ``r`` (n0,), level 0's right-hand side ``b0`` (n0,) where the
+    right-hand side entry forms it, the float32
     coarsest right-hand side ``bc`` and correction ``ec`` when it is
     inverted, the V-cycle's output ``out`` (n0,), the table of level
     records on the device (csrc/amg.cu ``LevelRec``: 12 eight-byte fields
@@ -328,6 +334,7 @@ class Workspace:
         self.table = torch.tensor(recs, dtype=torch.int64).reshape(-1).to(dev)
         self.out = torch.empty(amg.n0, **f64)
         self.r = torch.empty(amg.n0, **f64)     # the down leg's residuals
+        self.b0 = torch.empty(amg.n0, **f64)
         self.vals = list(vals)          # the table's arrays stay alive
         sizes = [r[10] for r in recs]
         self.grid_down, self.grid_up, self.info = leg_grids(
@@ -372,8 +379,23 @@ def vcycle_up_cuda(ws, b, levels=None):
     return ws.out
 
 
+def vcycle_down_rhs_cuda(ws, w, rc):
+    """K10's down leg from the CPR apply's weights and cell residual (w, rc
+    (3, n0)): level 0's right-hand side, (w0 r0 + w1 r1) + w2 r2, formed
+    by each cell's thread of the leg's first phase into the workspace's
+    b0, then the whole leg. Returns bc."""
+    check_weighted(ws, w, rc, ws.n0)
+    cuda_lib.check(ws.lib.opm_amg_down_rhs(
+        ws.table.data_ptr(), ws.nL, int(ws.dense), w.data_ptr(),
+        rc.data_ptr(), ws.b0.data_ptr(), ws.r.data_ptr(), ws.bc.data_ptr(),
+        ws.grid_down, ws.stream), "opm_amg_down_rhs")
+    vcycle_down_rhs_cuda.launches += 1
+    return ws.bc
+
+
 vcycle_down_cuda.launches = 0
 vcycle_up_cuda.launches = 0
+vcycle_down_rhs_cuda.launches = 0
 
 
 def coarsen_cuda(diag, off, lv):
@@ -584,20 +606,30 @@ class DeviceAmg:
             vals.ws = Workspace(self, vals)
         return vals.ws
 
-    def _vcycle_cuda(self, vals, b):
+    def _vcycle_cuda(self, vals, b, w=None, rc=None):
         ws = self.workspace(vals)
-        vcycle_down_cuda(ws, b)
+        if w is None:
+            vcycle_down_cuda(ws, b)
+        else:
+            vcycle_down_rhs_cuda(ws, w, rc)
+            b = ws.b0
         if ws.dense:
             coarsest_product(vals[-1], ws.bc, ws.ec)
         return vcycle_up_cuda(ws, b)
 
-    def vcycle(self, vals, b, *, twin=False):
-        """One V-cycle on b (n0,) (pre = post = 1, one cycle): on the card
-        K10's two legs around the float32 coarsest product (the result is
-        the workspace's ``out``, valid until the next V-cycle on
-        ``vals``), on the CPU their plain versions; ``twin``: the per-level
-        composition of the plain twins on any device (the card's
-        oracle)."""
+    def vcycle(self, vals, b, *, w=None, rc=None, twin=False):
+        """One V-cycle on b (n0,), or with ``w`` and ``rc`` (3, n0) on the
+        CPR apply's weighted residual b = (w0 rc0 + w1 rc1) + w2 rc2 (pre =
+        post = 1, one cycle): on the card K10's two legs around the float32
+        coarsest product (the down leg's right-hand side entry forms b
+        itself; the result is the workspace's ``out``, valid until the next
+        V-cycle on ``vals``), on the CPU their plain versions; ``twin``:
+        the per-level composition of the plain twins on any device (the
+        card's oracle)."""
+        if w is not None:
+            if not twin and w.device.type == "cuda":
+                return self._vcycle_cuda(vals, None, w, rc)
+            b = pressure_rhs_plain(w, rc)
         b = b.contiguous()
         if twin:
             return self._vcycle_levels(vals, b)

@@ -15,7 +15,10 @@ caveat (ROADMAP Queue 3), kept so the linear iteration counts match.
 Kernel K7 (``csrc/gmg.cu``) is the level work of the V-cycle in two
 cooperative launches around the float32 coarsest product: the down leg
 (per level the pair-summed residual of the zero-start damped-Jacobi sweep,
-omega = 0.8, the next level's right-hand side) and the up leg (per level
+omega = 0.8, the next level's right-hand side; in its right-hand side
+entry, which the CPR apply calls, first level 0's right-hand side, the
+weighted pressure residual of K6's ``pressure_rhs``, into the workspace,
+and a grid barrier) and the up leg (per level
 the replicated coarse correction plus that sweep, then one sweep). The
 pre-smoothed iterate is evaluated from the level's right-hand side where
 it is needed, never stored. The per-level plain twins below follow the
@@ -130,9 +133,27 @@ _P, _I, _L = cuda_lib.P, cuda_lib.I, cuda_lib.L
 _SIGS = {
     "opm_gmg_grid": [_L, _L, _P],
     "opm_gmg_down": [_P, _I, _I, _I, _P, _P, _I, _P],
+    "opm_gmg_down_rhs": [_P, _I, _P, _P, _P, _L, _P, _I, _P],
     "opm_gmg_up": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
 }
 _grids: dict = {}
+
+
+def pressure_rhs_plain(w, r):
+    """The CPR apply's weighted pressure residual rp = sum_i w_i r_i (nc,)
+    (K6's ``pressure_rhs``; the V-cycles' right-hand side entries form it
+    in their down legs)."""
+    return (w[0] * r[0] + w[1] * r[1]) + w[2] * r[2]
+
+
+def check_weighted(ws, w, rc, n):
+    """w and rc: contiguous float64 (3, n) tensors on the workspace's
+    device."""
+    for t in (w, rc):
+        if (t.dtype != torch.float64 or t.device != ws.device
+                or not t.is_contiguous() or tuple(t.shape) != (3, n)):
+            raise ValueError("the weighted right-hand side needs contiguous "
+                             f"float64 (3, {n}) w and r on {ws.device}")
 
 
 class LevelValues(list):
@@ -164,8 +185,10 @@ def leg_grids(name, sigs, device, work_down, work_up):
 class Workspace:
     """K7's state for one set of level values on the card: per level l >= 1
     its right-hand side ``b[l]`` and correction ``e[l]`` (the ghost-padded
-    level shape), the coarsest right-hand side ``bc`` and correction
-    ``ec`` (float32, flat), the V-cycle's output ``out`` (nc,), the table of
+    level shape), level 0's right-hand side ``b0`` (nc,) where the
+    right-hand side entry forms it, the coarsest right-hand side ``bc``
+    and correction ``ec`` (float32, flat), the V-cycle's output ``out``
+    (nc,), the table of
     level records on the device (csrc/gmg.cu ``LevelRec``: 16 eight-byte
     fields each, the coarsest dims last) and both legs' grids. The level
     values are checked once, here; nothing is allocated per V-cycle, and
@@ -203,6 +226,7 @@ class Workspace:
         self.bc = torch.empty(n_c, dtype=torch.float32, device=dev)
         self.ec = torch.empty_like(self.bc)
         self.out = torch.empty(gmg.nc, **f64)
+        self.b0 = torch.empty(gmg.nc, **f64)
         self.vals = list(vals)          # the table's arrays stay alive
         # the down leg's work per level: the next level's cells; the up
         # leg's: the level's (level 0's real cells)
@@ -263,8 +287,22 @@ def vcycle_up_cuda(ws, b, levels=None):
     return ws.out
 
 
+def vcycle_down_rhs_cuda(ws, w, rc):
+    """K7's down leg from the CPR apply's weights and cell residual (w, rc
+    (3, nc)): level 0's right-hand side, (w0 r0 + w1 r1) + w2 r2, into the
+    workspace's b0 first, then the whole leg. Returns bc."""
+    check_weighted(ws, w, rc, ws.nc)
+    cuda_lib.check(ws.lib.opm_gmg_down_rhs(
+        ws.table.data_ptr(), ws.L, w.data_ptr(), rc.data_ptr(),
+        ws.b0.data_ptr(), ws.nc, ws.bc.data_ptr(), ws.grid_down, ws.stream),
+        "opm_gmg_down_rhs")
+    vcycle_down_rhs_cuda.launches += 1
+    return ws.bc
+
+
 vcycle_down_cuda.launches = 0
 vcycle_up_cuda.launches = 0
+vcycle_down_rhs_cuda.launches = 0
 
 
 def coarsest_product(Ainv, bc, ec):
@@ -511,18 +549,28 @@ class StructuredGmg:
             vals.ws = Workspace(self, vals)
         return vals.ws
 
-    def _vcycle_cuda(self, vals, b):
+    def _vcycle_cuda(self, vals, b, w=None, rc=None):
         ws = self.workspace(vals)
-        vcycle_down_cuda(ws, b)
+        if w is None:
+            vcycle_down_cuda(ws, b)
+        else:
+            vcycle_down_rhs_cuda(ws, w, rc)
+            b = ws.b0
         coarsest_product(vals[-1], ws.bc, ws.ec)
         return vcycle_up_cuda(ws, b)
 
-    def vcycle(self, vals, b, *, twin=False):
-        """One V-cycle on b (nc,): on the card K7's two legs around the
-        float32 coarsest product (the result is the workspace's ``out``,
-        valid until the next V-cycle on ``vals``), on the CPU their plain
-        versions; ``twin``: the per-level composition of the plain twins
-        on any device (the card's oracle)."""
+    def vcycle(self, vals, b, *, w=None, rc=None, twin=False):
+        """One V-cycle on b (nc,), or with ``w`` and ``rc`` (3, nc) on the
+        CPR apply's weighted residual b = (w0 rc0 + w1 rc1) + w2 rc2: on the
+        card K7's two legs around the float32 coarsest product (the down
+        leg's right-hand side entry forms b itself; the result is the
+        workspace's ``out``, valid until the next V-cycle on ``vals``), on
+        the CPU their plain versions; ``twin``: the per-level composition
+        of the plain twins on any device (the card's oracle)."""
+        if w is not None:
+            if not twin and w.device.type == "cuda":
+                return self._vcycle_cuda(vals, None, w, rc)
+            b = pressure_rhs_plain(w, rc)
         b = b.contiguous()
         if twin:
             x3 = self._vcycle3(vals, self._level0_rhs(b), 0)

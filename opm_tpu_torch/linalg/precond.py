@@ -13,19 +13,22 @@ one V-cycle with one pre- and one post-smoothing sweep, float64.
 Kernel K6 (``csrc/cpr.cu``, ``csrc/block7.cu``) does the per-Newton setup
 (block-Jacobi inverses, weights, pressure diagonal and stencil face
 couplings in one pass over the cells; on a gather grid the cell part,
-then K6-faces over the face list) and the apply: the weighted pressure
-residual and the smoothing step x <- x + D^-1 (r - A x) fused with K4's
-stencil, or with K4-faces (``csrc/faces.cu``) over a face list. Each has
-its plain twin here. The non-Schur ``make_cpr`` (and the
-``block_jacobi`` and ``cpr_weights`` selector only it needs), the
-red-black smoother, true-IMPES weights and the frozen preconditioner were
-measured TPU knobs and are not ported (ROADMAP).
+then K6-faces over the face list) and the apply's smoothing step x <- x +
+D^-1 (r - A x), fused with K4's stencil, or with K4-faces
+(``csrc/faces.cu``) over a face list. The apply's weighted pressure
+residual is formed in the V-cycle's down leg (the right-hand side entry
+of K7 and K10; ``pressure_rhs_plain`` is its plain form). Each K6 kernel
+has its plain twin here. The non-Schur
+``make_cpr`` (and the ``block_jacobi`` and ``cpr_weights`` selector only
+it needs), the red-black smoother, true-IMPES weights and the frozen
+preconditioner were measured TPU knobs and are not ported (ROADMAP).
 """
 
 from __future__ import annotations
 
 import torch
 
+from opm_tpu_torch.linalg.gmg import pressure_rhs_plain
 from opm_tpu_torch.models import linearize
 from opm_tpu_torch.models.blackoil import _dir_segments
 from opm_tpu_torch.utils import cuda_lib
@@ -194,7 +197,6 @@ CPR_SIGS = {
     "opm_cpr_setup": [_I, _I, _I, _L] + [_P] * 7 + [_P],
     "opm_cpr_setup_cells": [_L] + [_P] * 4 + [_P],
     "opm_cpr_faces": [_L, _L, _L, _L] + [_P] * 6 + [_P],
-    "opm_cpr_pressure_rhs": [_L, _P, _P, _P, _P],
 }
 
 
@@ -294,32 +296,7 @@ def cpr_setup(sys: linearize.BlockSystem, dims, amg, *, twin=False):
 
 
 # ---------------------------------------------------------------------------
-# K6 apply: the weighted pressure residual and the fused smoothing step
-
-def pressure_rhs_plain(w, r):
-    """rp = sum_i w_i r_i (nc,)."""
-    return (w[0] * r[0] + w[1] * r[1]) + w[2] * r[2]
-
-
-def pressure_rhs_cuda(w, r):
-    nc = w.shape[1]
-    for t in (w, r):
-        if (t.dtype != torch.float64 or not t.is_contiguous()
-                or t.shape != (3, nc) or t.device != w.device):
-            raise ValueError("K6 pressure_rhs: w and r must be contiguous "
-                             "float64 (3, nc) tensors on one device")
-    rp = torch.empty(nc, dtype=torch.float64, device=w.device)
-    lib = cuda_lib.load("cpr", CPR_SIGS)
-    ptr = cuda_lib.ptr
-    err = lib.opm_cpr_pressure_rhs(nc, ptr(w), ptr(r), ptr(rp),
-                                   cuda_lib.stream_ptr(w.device))
-    cuda_lib.check(err, "opm_cpr_pressure_rhs")
-    pressure_rhs_cuda.launches += 1
-    return rp
-
-
-pressure_rhs_cuda.launches = 0
-
+# K6 apply: the fused smoothing step
 
 def smooth_step_plain(diag, face_L, face_R, dinv, x, r, dims):
     """x + D^-1 (r - A x) for the cells-only stencil operator; x (3, nc),
@@ -402,13 +379,8 @@ def make_cpr_cells(sys: linearize.BlockSystem, amg, dims, *, twin=False):
 
     def apply(rc):
         rc = rc.contiguous()
-        if twin:
-            rp = pressure_rhs_plain(w, rc)
-        else:
-            rp = cuda_lib.dispatch(rc, pressure_rhs_cuda,
-                                   pressure_rhs_plain, w, rc,
-                                   what="K6 pressure_rhs")
-        xc = amg.vcycle(vals, rp, twin=twin)
+        # the weighted pressure residual is formed in the V-cycle's down leg
+        xc = amg.vcycle(vals, None, w=w, rc=rc, twin=twin)
         for _ in range(SMOOTHER_STEPS):
             xc = smooth_step(sys, dinv, xc, rc, dims, twin=twin)
         return xc

@@ -13,9 +13,10 @@ sets into the kernel's B, so the dense Newton route's ``torch.func.jacfwd``
 goes through the kernel. Faces outside the stencil (all faces of a gather
 grid, the stair-step fault and NNC "extra" faces of an embedded grid) go
 through K3-faces (``csrc/faces.cu``), a gather over each cell's incident
-faces (``FaceList``). The convergence norms are kernel K9
-(``solver/kernels_triton.py``), masked on embedded grids so the inert
-padding cells do not count.
+faces (``FaceList``). The convergence check is kernel K9's convergence
+entry (``solver/kernels_k9.py``, ``csrc/newton.cu``): one launch forms the
+MB/CNV norms (masked on embedded grids so the inert padding cells do not
+count), the well norms and both flags into the Newton loop's history row.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from opm_tpu_torch.models.state import (GAS, HC_GASOIL, HC_GASONLY,
 from opm_tpu_torch.props.pvt import reg_pick
 from opm_tpu_torch.utils import cuda_lib
 from opm_tpu_torch.wells import standard as stdwells
-from opm_tpu_torch.wells.wells import CTRL_BHP, WellSet
+from opm_tpu_torch.wells.wells import WellSet
 
 
 @dataclass
@@ -1129,40 +1130,27 @@ class BlackoilModel:
 
     # ------------------------------------------------------------------
     def convergence(self, res: Residual, dt, state: BlackoilState):
-        """MB/CNV norms (K9; padding cells masked out on embedded grids)
-        and the well norms. Returns a dict of tensors."""
-        from opm_tpu_torch.solver.kernels_triton import conv_norms
+        """MB/CNV norms (padding cells masked out on embedded grids), the
+        well norms and the two flags: K9's one launch on the card. Returns
+        a dict of views of the history row ``row`` = [mb(3), cnv(3),
+        well_flux, well_ctrl, finite, converged] (float64; the flags 1.0
+        or 0.0)."""
+        from opm_tpu_torch.solver import kernels_k9 as k9
 
-        cnv, mb, b_avg = conv_norms(res.cell, res.b, self.pv, dt,
-                                    self.conv_mask)
-        if res.well_flux.numel():
-            max_nw = torch.amax(torch.abs(res.well_flux), dim=0)
-            well_flux_norm = torch.amax(b_avg * max_nw)
-        else:
-            well_flux_norm = torch.zeros((), dtype=torch.float64,
-                                         device=self.device)
-        is_bhp = state.control == CTRL_BHP
-        if res.well_ctrl.numel():
-            ctrl_p = torch.where(is_bhp, torch.abs(res.well_ctrl), 0.0)
-            tgt_scale = torch.clamp(torch.abs(state.target), min=1e-8)
-            ctrl_r = torch.where(is_bhp, 0.0,
-                                 torch.abs(res.well_ctrl) / tgt_scale)
-            well_ctrl_norm = torch.amax(ctrl_p) / 1e5 + torch.amax(ctrl_r)
-        else:
-            well_ctrl_norm = torch.zeros_like(well_flux_norm)
-        p = self.params
-        converged = (torch.all(mb < p.tolerance_mb)
-                     & torch.all(cnv < p.tolerance_cnv)
-                     & (well_flux_norm < p.tolerance_wells)
-                     & (well_ctrl_norm < 1e-3))
-        finite = (torch.all(torch.isfinite(mb))
-                  & torch.all(torch.isfinite(cnv))
-                  & torch.isfinite(well_flux_norm)
-                  & torch.all(mb < p.max_residual_allowed)
-                  & torch.all(cnv < p.max_residual_allowed))
-        return dict(mb=mb, cnv=cnv, well_flux=well_flux_norm,
-                    well_ctrl=well_ctrl_norm, converged=converged,
-                    finite=finite)
+        row = k9.convergence_row(
+            self.k9_workspace() if self.device.type == "cuda" else None,
+            *k9.conv_args(self, res, dt, state))
+        mb, cnv, rest = row.split((3, 3, 4))
+        wf, wc, finite, converged = rest.unbind()
+        return dict(row=row, mb=mb, cnv=cnv, well_flux=wf, well_ctrl=wc,
+                    finite=finite, converged=converged)
+
+    def k9_workspace(self):
+        """K9's convergence workspace on the card (made on first use)."""
+        if getattr(self, "_k9_ws", None) is None:
+            from opm_tpu_torch.solver.kernels_k9 import Workspace
+            self._k9_ws = Workspace(self.nc, self.device)
+        return self._k9_ws
 
     # ------------------------------------------------------------------
     # flat vector <-> state (for the dense-Jacobian Newton)

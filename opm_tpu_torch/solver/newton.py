@@ -2,7 +2,8 @@
 
 Port of the JAX package's solver/newton.py. Per iteration the residual and
 the convergence norms, then the Newton increment by one of two routes,
-and the chopped update (K9):
+and the chopped update (K9's two entries: the convergence check and the
+update, one launch each on the card):
 
 * ``dense`` (the reference's route at most DENSE_LIMIT cells): the
   Jacobian by ``torch.func.jacfwd`` of the residual (through the K1 and
@@ -197,9 +198,7 @@ class NonlinearSolver:
         du_c = res.x
         du_w = recover(du_c)
         t0 = self._section("krylov", t0)
-        du = torch.cat([du_c[0], du_c[1], du_c[2], du_w[:, 3],
-                        du_w[:, :3].reshape(-1)])
-        new = update_state(model, state, omega * du)
+        new = update_state(model, state, du_c, omega, du_w=du_w)
         self._section("update", t0)
         return new, res.iterations, res.converged
 
@@ -211,8 +210,7 @@ class NonlinearSolver:
         nc = model.nc
         idx = 2 * nc + torch.arange(nc, device=J.device)
         J[idx, idx] += degenerate_x_mask(model, state) * model.pv / dt
-        du = omega * dense_solve(J, r)
-        return update_state(model, state, du)
+        return update_state(model, state, dense_solve(J, r), omega)
 
     # -- host loop ---------------------------------------------------------
     def step(self, state0: BlackoilState, dt: float, wd,
@@ -235,13 +233,8 @@ class NonlinearSolver:
         for it in range(self.max_iter + 1):
             t0 = time.perf_counter()
             res, conv, ctrl, tgt = self._assemble(state, acc0, dt, wd, cdp)
-            # one host pull per iteration: the history row + both flags
-            row = torch.cat([
-                conv["mb"], conv["cnv"], conv["well_flux"].reshape(1),
-                conv["well_ctrl"].reshape(1),
-                conv["finite"].reshape(1).to(torch.float64),
-                conv["converged"].reshape(1).to(torch.float64)]).cpu()
-            row = row.numpy()
+            # one host pull per iteration: K9's history row with both flags
+            row = conv["row"].cpu().numpy()
             finite, converged = bool(row[8]), bool(row[9])
             mb = row[:3]
             rep.convergence_history.append(row[:8])

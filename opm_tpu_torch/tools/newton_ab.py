@@ -1,0 +1,381 @@
+"""The Newton layer's update, convergence check and CPR apply on one card:
+an A/B of two trees in turns.
+
+    python3 -m opm_tpu_torch.tools.newton_ab --trees BASE,CHANGE
+        [--order ABBA] [--out newton_ab.json]
+
+One leg per letter of ``--order`` (A: the first tree, B: the second), each
+in a process of its own that imports ``opm_tpu_torch`` from its tree and
+builds that tree's kernels into its own ``build/``. A leg measures, at SPE10
+model 2's size (the seeded SPE10-like deck, 60x220x85 = 1.122M cells) and
+on the Norne-class field (``norne_like_case()``) in both representations
+(embedded E, gather G), from the first Newton system of the first report
+step:
+
+* ``BlackoilModel.convergence`` on the residual there, and the Newton
+  update as the CPR route calls it (``update_state`` on a seeded increment,
+  omega 0.9): host time per call (synced host clock around 50 calls in a
+  row), device time per call in a run of 50 (CUDA events), device kernels
+  per call and their device time (torch.profiler), and a digest of the
+  output (the update's bits compared across legs);
+* the K9 kernels one by one at these shapes (the tree's own entries: in a
+  tree with ``solver/kernels_triton.py`` its Triton launches, in one with
+  ``solver/kernels_k9.py`` the CUDA update and convergence entries), and
+  the weighted pressure residual of a CPR apply (K6 ``pressure_rhs`` then
+  the V-cycle's down leg, or the down leg from (w, r)), each one wrapper
+  call and per launch in a run of 50;
+* one CPR apply (``make_cpr_cells``) on a seeded residual: device kernels
+  per apply, host time per apply, device time per apply in a run of 50,
+  and a digest of its result (bits compared across legs);
+* at SPE10-2, report step 0 after a warm-up run of the same step: wall,
+  the Newton loop's synced sections (``update``, ``krylov``, ...), the
+  residual + convergence time, the counts and a digest of the state.
+
+Prints one JSON line per leg and the card's name and power limit; writes
+everything to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+SPE10 = dict(nx=60, ny=220, nz=85)
+OMEGA = 0.9
+RUN = 50
+
+
+def smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def two_ways(fn, reps=20, run=RUN, run_reps=5):
+    """(ms of one call, ms per call over ``run`` back-to-back calls):
+    CUDA events, medians of ``reps`` and ``run_reps``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    one, many = [], []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        one.append(s.elapsed_time(e))
+    for _ in range(run_reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(run):
+            fn()
+        e.record()
+        e.synchronize()
+        many.append(s.elapsed_time(e) / run)
+    return statistics.median(one), statistics.median(many)
+
+
+def host_per_call(fn, run=RUN, reps=5):
+    """Host-clock ms per call of ``run`` calls in a row, ended by a
+    synchronize; median of ``reps``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(run):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / run)
+    return statistics.median(times)
+
+
+def device_kernels(fn, reps=10):
+    """{"launches": device kernels per call, "us": their device time per
+    call, "kernels": {name: launches per call}} under torch.profiler (after
+    a warm call); None where no device event was recorded (not
+    measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+           and not ev.name.startswith("Memcpy")]
+    if not evs:
+        return None
+    by = {}
+    for ev in evs:
+        name = ev.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].split("::")[-1][:40]
+        by[name] = by.get(name, 0) + 1 / reps
+    return dict(launches=len(evs) / reps,
+                us=sum(ev.time_range.elapsed_us() for ev in evs) / reps,
+                kernels=by)
+
+
+def digest(*ts):
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def measure(fn, host=True):
+    one, run = two_ways(fn)
+    out = dict(one_call_ms=one, run_ms=run, device=device_kernels(fn))
+    if host:
+        out["host_ms"] = host_per_call(fn)
+    return out
+
+
+def _has(mod):
+    return importlib.util.find_spec(mod) is not None
+
+
+def _first_newton(sim, st0):
+    """The first Newton iterate of report step 0: (state, wd, acc0, dt,
+    cdp)."""
+    from opm_tpu_torch.models.blackoil import make_well_device_arrays
+    from opm_tpu_torch.sim.blackoil import init_well_state, report_step_wells
+    from opm_tpu_torch.solver.newton import connection_offsets
+
+    ws = report_step_wells(sim.schedule.report_steps[0], sim.grid,
+                           sim.well_names, sim.max_perf)
+    wd = make_well_device_arrays(ws, sim.grid.gravity, sim.device)
+    st = init_well_state(st0, ws, True)
+    dt = float(sim.ts.p.initial_dt)
+    return st, wd, sim.model.accumulation(st), dt, \
+        connection_offsets(sim.model, st, wd)
+
+
+def _update_fn(m, st, du_c, du_w):
+    """The CPR route's update as the tree's newton.py calls it."""
+    import torch
+
+    from opm_tpu_torch.solver.update import update_state
+    if _has("opm_tpu_torch.solver.kernels_k9"):
+        return lambda: update_state(m, st, du_c, OMEGA, du_w=du_w)
+    return lambda: update_state(m, st, OMEGA * torch.cat(
+        [du_c[0], du_c[1], du_c[2], du_w[:, 3], du_w[:, :3].reshape(-1)]))
+
+
+def _kernel_rows(m, st, res, dt, du_c, du_w, label):
+    """The tree's K9 entries one by one at these shapes."""
+    import torch
+    prm, props = m.params, m.props
+    out = {}
+    if _has("opm_tpu_torch.solver.kernels_k9"):
+        from opm_tpu_torch.solver import kernels_k9 as k9
+        ws = m.k9_workspace()
+        a = k9.conv_args(m, res, dt, st)
+        out["convergence"] = measure(lambda: k9.convergence_row(ws, *a),
+                                     host=False)
+        ua = k9.update_args(m, st, du_c, du_w[:, 3], du_w[:, :3], OMEGA)
+        out["update"] = measure(lambda: k9.update_cuda(*ua), host=False)
+        return out
+    from opm_tpu_torch.solver import kernels_triton as k9
+    bq = res.b.contiguous()
+    if m.conv_mask is None:
+        out["conv_norms"] = measure(lambda: k9.conv_norms_triton(
+            res.cell, bq, m.pv, dt), host=False)
+    else:
+        out["conv_norms_masked"] = measure(
+            lambda: k9.conv_norms_masked_triton(res.cell, bq, m.pv, dt,
+                                                m.conv_mask), host=False)
+    if label != "spe10":
+        return out
+    dp = (OMEGA * du_c[0]).contiguous()
+    out["update_pressure"] = measure(lambda: k9.update_pressure_triton(
+        st.pressure, dp, prm.dp_max_rel), host=False)
+    p1 = k9.update_pressure_triton(st.pressure, dp, prm.dp_max_rel)
+    rs0 = props.rs_sat(st.pressure, m.pvtnum)
+    rs1 = props.rs_sat(p1, m.pvtnum)
+    zero = torch.zeros_like(p1)
+    uargs = (st.sw, st.x, st.hcstate, (OMEGA * du_c[1]).contiguous(),
+             (OMEGA * du_c[2]).contiguous(), rs0, rs1, zero, zero,
+             prm.ds_max, prm.dr_max_rel, props.disgas, props.vapoil)
+    out["update_cells"] = measure(lambda: k9.update_cells_triton(*uargs),
+                                  host=False)
+    out["rs_sat"] = measure(lambda: props.rs_sat(p1, m.pvtnum), host=False)
+    return out
+
+
+def _cpr_rows(sim, sys_, rc):
+    """One CPR apply, and the weighted pressure residual with the V-cycle's
+    down leg (the parent's pair, or the down leg from (w, r))."""
+    import torch
+
+    from opm_tpu_torch.linalg import precond as k6
+    m, amg = sim.model, sim.solver.amg
+    dims = m.op_dims
+    M = k6.make_cpr_cells(sys_, amg, dims)
+    out = dict(apply=measure(lambda: M(rc)), apply_digest=digest(M(rc)))
+    dinv, w, diag_p, off = k6.cpr_setup(sys_, tuple(dims) if dims else None,
+                                        amg)
+    vals = amg.coarsen_values(diag_p, off)
+    mod = __import__("opm_tpu_torch.linalg." + (
+        "gmg" if dims is not None else "amg"), fromlist=["x"])
+    amg.vcycle(vals, k6.pressure_rhs_plain(w, rc))
+    ws = vals.ws
+    rp = k6.pressure_rhs_plain(w, rc)
+    out["down_b"] = measure(lambda: mod.vcycle_down_cuda(ws, rp), host=False)
+    if hasattr(mod, "vcycle_down_rhs_cuda"):
+        out["down_rhs"] = measure(
+            lambda: mod.vcycle_down_rhs_cuda(ws, w, rc), host=False)
+        out["vcycle_digest"] = digest(amg.vcycle(vals, None, w=w, rc=rc))
+    else:
+        out["pressure_rhs"] = measure(lambda: k6.pressure_rhs_cuda(w, rc),
+                                      host=False)
+
+        def pair():
+            mod.vcycle_down_cuda(ws, k6.pressure_rhs_cuda(w, rc))
+        out["pressure_rhs_then_down"] = measure(pair, host=False)
+        out["vcycle_digest"] = digest(amg.vcycle(
+            vals, k6.pressure_rhs_cuda(w, rc)))
+    torch.cuda.synchronize()
+    return out
+
+
+def _leg(tree):
+    import numpy as np
+    import torch
+    sys.path.insert(0, tree)
+    from opm_tpu_torch.models import linearize
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.sim.init import initial_state
+    from opm_tpu_torch.sim.testcases import norne_like_case, spe10like_case
+    from opm_tpu_torch.utils import cuda_lib
+
+    csrc = os.path.join(tree, "opm_tpu_torch", "csrc")
+    cuda_lib.build_all(sorted(f[:-3] for f in os.listdir(csrc)
+                              if f.endswith(".cu")))
+    out = dict(tree=tree, k9=("cuda" if _has(
+        "opm_tpu_torch.solver.kernels_k9") else "triton"))
+
+    def fresh(case, knob):
+        os.environ.pop("OPM_TPU_EMBED", None)
+        if knob is not None:
+            os.environ["OPM_TPU_EMBED"] = knob
+        sim = SimulatorFullyImplicitBlackoil(case)
+        return sim, initial_state(sim.grid, sim.props, case,
+                                  len(sim.well_names))
+
+    norne = norne_like_case()
+    for label, case, knob in (("spe10", spe10like_case(**SPE10), None),
+                              ("norne_embedded", norne, None),
+                              ("norne_gather", norne, "0")):
+        sim, init = fresh(case, knob)
+        m = sim.model
+        st, wd, acc0, dt, cdp = _first_newton(sim, init)
+        res = m.residual(st, acc0, dt, wd, cdp)
+        rng = np.random.default_rng(3)
+        nc, nw = m.nc, st.bhp.shape[0]
+        du_c = torch.as_tensor(rng.standard_normal((3, nc))
+                               * np.array([[2e6], [0.1], [0.05]]),
+                               device=m.device)
+        du_w = torch.as_tensor(rng.standard_normal((nw, 4))
+                               * np.array([1e-3, 1e-3, 1e-3, 1e6]),
+                               device=m.device)
+        upd = _update_fn(m, st, du_c, du_w)
+        new = upd()
+        r = dict(nc=nc, nw=nw,
+                 convergence=measure(lambda: m.convergence(res, dt, st)),
+                 convergence_row=[float(v) for v in torch.cat([
+                     torch.as_tensor(v, dtype=torch.float64,
+                                     device=m.device).reshape(-1)
+                     for k, v in m.convergence(res, dt, st).items()
+                     if k in ("mb", "cnv", "well_flux", "well_ctrl",
+                              "finite", "converged")]).cpu()],
+                 update=measure(upd),
+                 update_digest=digest(new.pressure, new.sw, new.x,
+                                      new.hcstate, new.bhp, new.qs),
+                 kernels=_kernel_rows(m, st, res, dt, du_c, du_w, label))
+        sys_ = linearize.assemble(m, st, acc0, dt, wd, cdp)
+        rc = torch.as_tensor(rng.standard_normal((3, nc)), device=m.device)
+        r["cpr"] = _cpr_rows(sim, sys_, rc)
+        del sys_, res, new
+        if label == "spe10":
+            sim.run(init, report_step_limit=1)          # warm-up
+            sim, init = fresh(case, knob)
+            sim.solver.timing = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fin = sim.run(init, report_step_limit=1)
+            torch.cuda.synchronize()
+            rep = sim.report
+            r.update(wall_s=time.perf_counter() - t0,
+                     state_digest=digest(fin.pressure, fin.sw, fin.x,
+                                         fin.hcstate, fin.bhp, fin.qs),
+                     sections_s=dict(sim.solver.timing),
+                     residual_convergence_s=rep.assemble_time,
+                     newtons=rep.newton_iterations,
+                     linear=rep.linear_iterations, substeps=rep.substeps,
+                     failed=rep.failed_substeps)
+        out[label] = r
+        del sim, init, st
+        torch.cuda.empty_cache()
+    os.environ.pop("OPM_TPU_EMBED", None)
+    print(json.dumps(out), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--trees", required=True,
+                    help="BASE,CHANGE: two repository roots (or one)")
+    ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--leg", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("newton_ab: no CUDA device visible")
+    if args.leg:
+        _leg(os.path.abspath(args.leg))
+        return 0
+    card = smi()
+    trees = [os.path.abspath(t) for t in args.trees.split(",")]
+    legs = []
+    for letter in args.order:
+        tree = trees["AB".index(letter)]
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--leg", tree],
+            capture_output=True, text=True, cwd=tree)
+        if proc.returncode != 0:
+            raise SystemExit(f"newton_ab: leg {letter} failed:\n"
+                             f"{proc.stderr[-4000:]}")
+        leg = json.loads(proc.stdout.strip().splitlines()[-1])
+        leg["leg"] = letter
+        legs.append(leg)
+        print(json.dumps(leg), flush=True)
+    res = dict(device=card, order=args.order, trees=trees, legs=legs)
+    print(card)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -212,3 +212,19 @@ def test_vcycle_sweeps_branch(setup):
     x = dp.vcycle(vp, torch.as_tensor(b))
     assert torch.equal(x, dp.vcycle(vp, torch.as_tensor(b), twin=True))
     assert _scaled(x.numpy(), dr.vcycle(vr, jnp.asarray(b))) <= 1e-12
+
+
+def test_vcycle_from_weighted_residual(setup):
+    """The V-cycle from the CPR apply's weights and cell residual (the
+    right-hand side the card's down leg forms in its first phase) equals
+    K6's pressure_rhs_plain followed by the V-cycle on its result, bit for
+    bit, through the legs' plain versions and through the per-level
+    twins."""
+    from opm_tpu_torch.linalg import precond
+    *_, dev_p, dev_r, vals_p, vals_r, rng = setup
+    w = torch.as_tensor(rng.uniform(0.2, 2.0, (3, dev_p.n0)))
+    rc = torch.as_tensor(rng.standard_normal((3, dev_p.n0)))
+    rp = precond.pressure_rhs_plain(w, rc)
+    for twin in (False, True):
+        assert torch.equal(dev_p.vcycle(vals_p, None, w=w, rc=rc, twin=twin),
+                           dev_p.vcycle(vals_p, rp, twin=twin))

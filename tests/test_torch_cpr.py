@@ -123,7 +123,8 @@ def toy():
     out = jax.jit(ref_all)(s_r, acc0_r, wd_r, cdp_r, jnp.asarray(v),
                            jnp.asarray(vw))
     out = jax.tree.map(np.asarray, out)
-    return dict(port=port, ref_amg=amg_r, s=s_p, acc0=acc0_p, wd=wd_p, cdp=cdp_p,
+    return dict(port=port, ref_amg=amg_r, ref_model=ref.model, s=s_p,
+                s_ref=s_r, acc0=acc0_p, wd=wd_p, cdp=cdp_p,
                 dims=dims, v=torch.from_numpy(v), vw=torch.from_numpy(vw),
                 ref=out)
 
@@ -269,3 +270,32 @@ def test_newton_increment_matches_reference(toy):
     for f in ("pressure", "sw", "x", "bhp", "qs"):
         _scaled(new[f] - old[f], np.asarray(getattr(rnew, f)) - old[f],
                 TOL_KRYLOV)
+
+
+def test_update_plain_matches_reference_on_toy(toy):
+    """K9's update twins composed from the CPR route's call form ((3, nc)
+    cell increments, the well recovery's (nw, 4) increments, omega 0.8
+    applied inside) against the reference's update_state on omega * du
+    over the toy deck's free-gas and undersaturated cells, with increments
+    large enough to chop and switch: hcstate exact, 1e-14 relative."""
+    from opm_tpu_torch.solver.update import update_state
+    port = toy["port"]
+    nc, nw = port.model.nc, toy["s"].bhp.shape[0]
+    rng = np.random.default_rng(9)
+    du_c = rng.standard_normal((3, nc)) * np.array([[5e6], [0.2], [0.2]])
+    hc = toy["s"].hcstate.numpy()
+    du_c[2] = np.where(hc == 1, du_c[2] * 200.0, du_c[2])
+    du_w = rng.standard_normal((nw, 4)) * np.array([1e-3, 1e-3, 1e-3, 1e6])
+    omega = 0.8
+    flat = np.concatenate([du_c.reshape(-1), du_w[:, 3],
+                           du_w[:, :3].reshape(-1)])
+    new_r = ref_update(toy["ref_model"], toy["s_ref"],
+                       jnp.asarray(omega * flat))
+    new_p = state_to_numpy(update_state(
+        port.model, toy["s"], torch.from_numpy(du_c), omega,
+        du_w=torch.from_numpy(du_w)))
+    assert np.array_equal(new_p["hcstate"], np.asarray(new_r.hcstate))
+    assert np.any(new_p["hcstate"] != hc)
+    for f in ("pressure", "sw", "x", "bhp", "qs"):
+        a, b = new_p[f], np.asarray(getattr(new_r, f))
+        assert np.all(np.abs(a - b) <= 1e-14 * np.abs(b) + 1e-300), f

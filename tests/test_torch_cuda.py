@@ -10,13 +10,20 @@ padded level 0), the face-list kernels (K4-faces' pack included) and K10
 their twins on the toy Norne-like deck, the
 assembly kernels (K2, the K3 face blocks in both forms, K5) against their
 twins on the toy Norne-like deck in both representations, K2's three
-entries at kink cells with one and two PVT/SAT regions, and the
+entries at kink cells with one and two PVT/SAT regions, the
 Schur-reduced operator with K5's well term fused into the cell operator's
-last launch on structured, embedded and gather grids.
+last launch on structured, embedded and gather grids, K9's update entry
+bit for bit against its twins' composition (all three hydrocarbon states,
+switching cells, one and two PVT regions, both call forms), K9's
+convergence row against its plain version (masked and unmasked, a NaN
+cell, no wells, ten launches in a row), and the V-cycle from the CPR
+apply's weighted residual (K6's pressure_rhs folded into the down leg)
+bit for bit the plain residual followed by the legs on all three grid
+kinds.
 chip_smoke.py holds every kernel against its plain version at the SPE1,
 SPE10-2 and full Norne-class shapes.
 
-Needs an NVIDIA GPU, nvcc and Triton; skipped without a card. This file
+Needs an NVIDIA GPU and nvcc; skipped without a card. This file
 imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -207,8 +214,8 @@ class _KernelVcycle:
     def __getattr__(self, name):
         return getattr(self.amg, name)
 
-    def vcycle(self, vals, b, twin=False):
-        return self.amg.vcycle(vals, b)
+    def vcycle(self, vals, b, w=None, rc=None, twin=False):
+        return self.amg.vcycle(vals, b, w=w, rc=rc)
 
 
 def test_cpr_solve_through_k7_matches_twins(dev):
@@ -412,10 +419,12 @@ def test_face_kernels_match_twins_on_toy(dev, knob):
 
 
 def _vcycle_launches(mod):
-    """(down, up, coarsest products) counted so far."""
+    """(down, up, coarsest products) counted so far; the down leg through
+    either entry (b, or the CPR apply's weighted residual)."""
     from opm_tpu_torch.linalg import gmg as k7
-    return (mod.vcycle_down_cuda.launches, mod.vcycle_up_cuda.launches,
-            k7.coarsest_product.calls)
+    return (mod.vcycle_down_cuda.launches
+            + mod.vcycle_down_rhs_cuda.launches,
+            mod.vcycle_up_cuda.launches, k7.coarsest_product.calls)
 
 
 def _no_allocation(vcycle, x):
@@ -762,3 +771,176 @@ def test_fused_reduced_operator(dev, grid):
     assert torch.equal(mv(v), pair)
     assert _scaled(rhs, lz.schur_rhs_plain(sys, Dinv)) <= 1e-12
     assert _scaled(rec(v), lz.schur_recover_plain(sys, Dinv, v)) <= 1e-12
+
+
+@pytest.mark.parametrize("nreg", [1, 2])
+def test_k9_update_bitwise_over_regions(dev, sims, nreg):
+    """K9's update entry equals its twins' composition (update_pressure_plain,
+    K1's rs_sat on the card, update_cells_plain, the well rows) bit for bit
+    in the CPR route's call form ((3, nc) and (nw, 4) increments) and the
+    dense route's (views of one flat vector), at kink cells in all three
+    hydrocarbon states (the first cells of each region untouched by the
+    increment: rs_sat at PVTO nodes), with cells switching state, one and
+    two PVT regions; three launches in a row repeat the bits, one launch
+    each; ``update_state`` is one launch."""
+    from opm_tpu_torch.solver import kernels_k9 as k9
+    from opm_tpu_torch.solver.update import update_state
+    props = sims[0].model.props
+    if nreg == 2:
+        props = _two_regions(props)
+    nc, nw = 4000, 5
+    p, sw, x, hc, reg = _kinks(props, nc, 23, nreg)
+    rng = np.random.default_rng(24)
+    du_c = np.stack([rng.standard_normal(nc) * 5e6,
+                     rng.standard_normal(nc) * 0.3,
+                     np.where(hc == 1, rng.standard_normal(nc) * 30.0,
+                              rng.standard_normal(nc) * 0.3)])
+    du_c[:, :11 * nreg] = 0.0
+    du_w = rng.standard_normal((nw, 4)) * np.array([1e-3, 1e-3, 1e-3, 1e6])
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    st = (t(p), t(sw), t(x), t(hc), t(rng.uniform(1e7, 3e7, nw)),
+          t(rng.standard_normal((nw, 3))))
+    rs = k9.rs_table(props, t(reg))
+    assert (rs.reg is not None) == (nreg == 2)
+    consts = k9.UpdateConsts(0.3, 0.2, 1e9, True, False)
+    dw = t(du_w)
+    flat = t(np.concatenate([du_c.reshape(-1), du_w[:, 3],
+                             du_w[:, :3].reshape(-1)]))
+    forms = ((t(du_c), dw[:, 3], dw[:, :3]),
+             (flat[:3 * nc].view(3, nc), flat[3 * nc:3 * nc + nw],
+              flat[3 * nc + nw:].view(nw, 3)))
+    for inc in forms:
+        args = (*st, *inc, 0.9, consts, rs)
+        n0 = k9.update_cuda.launches
+        outs = [k9.update_cuda(*args) for _ in range(3)]
+        assert k9.update_cuda.launches == n0 + 3
+        ref = k9.update_plain(*args)
+        for out in outs:
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b)
+    assert set(hc.tolist()) == {0, 1, 2}
+    assert int((outs[0][3] != st[3]).sum()) > 0
+    from opm_tpu_torch.sim.init import initial_state
+    s0 = sims[0]
+    m = s0.model
+    state = initial_state(s0.grid, s0.props, s0.case, nw)
+    state = state._replace(bhp=st[4], qs=st[5])
+    n0 = k9.update_cuda.launches
+    update_state(m, state, t(du_c[:, :m.nc]), 0.9, du_w=dw)
+    assert k9.update_cuda.launches == n0 + 1
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_k9_convergence_row(dev, sims, masked):
+    """K9's convergence row on 50,001 seeded cells (several blocks, each
+    thread over several cells) against its plain version on the card:
+    within 1e-12 relative (summation order) with the flags equal, on a
+    seeded residual, with a NaN cell (finite cleared in both) and with no
+    wells (both well norms 0); ten launches in a row give the same bits
+    (the last block resets its ticket); BlackoilModel.convergence is one
+    launch."""
+    from opm_tpu_torch.models.blackoil import Residual
+    from opm_tpu_torch.solver import kernels_k9 as k9
+    rng = np.random.default_rng(31)
+    nc, nw = 50001, 5
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    pv = t(rng.uniform(50.0, 500.0, nc))
+    R = t(rng.standard_normal((3, nc))) * pv * 1e-6
+    b = t(rng.uniform(0.5, 2.0, (3, nc)))
+    mask = t((rng.random(nc) > 0.3).astype(np.float64)) if masked else None
+    wf, wc = t(rng.standard_normal((nw, 3)) * 1e-4), t(
+        rng.standard_normal(nw) * 1e3)
+    ctrl = t(np.array([0, 2, 0, 3, 2], np.int32))
+    tgt = t(rng.uniform(1e-3, 1e-2, nw))
+    tols = k9.Tols(1e-5, 1e-2, 1e-4, 1e7)
+    ws = k9.Workspace(nc, dev)
+    # a model on "cuda" (no index) gets a workspace on the tensors' device
+    assert k9.Workspace(7, "cuda").device == dev
+    Rn = R.clone()
+    Rn[2, nc // 3] = float("nan")
+    fn = k9.convergence_masked_cuda if masked else k9.convergence_cuda
+    mk = (mask,) if masked else ()
+    for RR, n in ((R, nw), (Rn, nw), (R, 0)):
+        a = (RR, b, pv, 3600.0, *mk, wf[:n], wc[:n], ctrl[:n], tgt[:n],
+             tols)
+        n0 = fn.launches
+        rows = [fn(ws, *a) for _ in range(10)]
+        assert fn.launches == n0 + 10
+        # bit for bit, NaN included
+        assert all(torch.equal(r.view(torch.int64), rows[0].view(torch.int64))
+                   for r in rows[1:])
+        kr = rows[0]
+        pr = k9.convergence_plain(RR, b, pv, 3600.0, mask, wf[:n], wc[:n],
+                                  ctrl[:n], tgt[:n], tols)
+        assert torch.equal(kr[8:], pr[8:])
+        assert torch.equal(torch.isnan(kr), torch.isnan(pr))
+        ok = ~torch.isnan(pr)
+        assert _rel(kr[ok], pr[ok]) <= 1e-12
+        if RR is Rn:
+            assert float(kr[8]) == 0.0
+        if n == 0:
+            assert float(kr[6]) == 0.0 and float(kr[7]) == 0.0
+    m = sims[0].model
+    rng2 = np.random.default_rng(32)
+    res = Residual(cell=t(rng2.standard_normal((3, m.nc))) * m.pv * 1e-6,
+                   well_flux=wf, well_ctrl=wc,
+                   b=t(rng2.uniform(0.5, 2.0, (3, m.nc))))
+    from opm_tpu_torch.sim.init import initial_state
+    s0 = sims[0]
+    state = initial_state(s0.grid, s0.props, s0.case, nw)._replace(
+        control=ctrl, target=tgt)
+    n0 = k9.convergence_cuda.launches
+    conv = m.convergence(res, 3600.0, state)
+    assert k9.convergence_cuda.launches == n0 + 1
+    assert conv["mb"].data_ptr() == conv["row"].data_ptr()
+
+
+@pytest.mark.parametrize("grid", ["structured", "embedded", "gather"])
+def test_vcycle_from_weighted_residual(dev, grid):
+    """The V-cycle from the CPR apply's weights and cell residual (the down
+    leg's right-hand side entry: K6's weighted residual folded into K7's
+    down leg behind a grid barrier, or into K10's first phase) equals the
+    plain weighted residual (pressure_rhs_plain on the card) followed by
+    the legs, bit for bit, on the toy SPE10-like deck (structured GMG) and
+    the toy Norne-like deck (embedded: GMG; gather: AMG), ten times in a
+    row; one V-cycle launches the entry in place of the b entry, so a CPR
+    apply is two launches (its counters: no b entry)."""
+    from opm_tpu_torch.linalg import amg as k10
+    from opm_tpu_torch.linalg import gmg as k7
+    from opm_tpu_torch.linalg import precond as k6
+
+    if grid == "structured":
+        sim, sys = _spe10_toy_system(dev)
+    else:
+        sim, _, sys = _norne_toy_system(dev, None if grid == "embedded"
+                                        else "0")
+    m, amg = sim.model, sim.solver.amg
+    dims = None if m.op_dims is None else tuple(m.op_dims)
+    mod = k10 if isinstance(amg, k10.DeviceAmg) else k7
+    assert (mod is k10) == (grid == "gather")
+    _, w, diag_p, off = k6.cpr_setup(sys, dims, amg)
+    vals = amg.coarsen_values(diag_p, off)
+    rc = torch.as_tensor(np.random.default_rng(41).standard_normal(
+        (3, m.nc)), device=dev)
+
+    def counts():
+        return (mod.vcycle_down_cuda.launches,
+                mod.vcycle_down_rhs_cuda.launches,
+                mod.vcycle_up_cuda.launches)
+
+    pair = amg.vcycle(vals, k6.pressure_rhs_plain(w, rc)).clone()
+    n0 = counts()
+    fused = amg.vcycle(vals, None, w=w, rc=rc).clone()
+    assert tuple(a - c for a, c in zip(counts(), n0)) == (0, 1, 1)
+    assert torch.equal(fused, pair)
+    _no_allocation(lambda: amg.vcycle(vals, None, w=w, rc=rc), fused)
+    M = k6.make_cpr_cells(sys, amg, dims)
+    n0 = counts()
+    M(rc)
+    assert tuple(a - c for a, c in zip(counts(), n0)) == (0, 1, 1)

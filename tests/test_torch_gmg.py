@@ -209,3 +209,29 @@ def test_gmg_vcycle_legs(toy_grid, case):
         re_ = r._smooth(rd3, roffs, rx + ref_repeat2(
             re_[:c[0], :c[1], :c[2]], axis), rbk)
         _scaled(es[k].numpy(), re_, 1e-12)
+
+
+@pytest.mark.parametrize("case", ["toy_strength", "padded"])
+def test_gmg_vcycle_from_weighted_residual(toy_grid, case):
+    """The V-cycle from the CPR apply's weights and cell residual (the
+    right-hand side the card's down leg forms itself) equals K6's
+    pressure_rhs_plain followed by the V-cycle on its result, bit for bit,
+    through the legs' plain versions and through the per-level twins; the
+    weighted residual against the reference's CPR expression at 1e-15 of
+    max (the same three products and two sums)."""
+    from opm_tpu_torch.linalg import precond
+    dims = (15, 44, 4)
+    g = gmg.StructuredGmg(dims,
+                          toy_grid.trans if case == "toy_strength" else None)
+    _, diag, off = _poisson(dims, 3, shift=0.05)
+    vals = g.coarsen_values(torch.from_numpy(diag), torch.from_numpy(off))
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.uniform(0.2, 2.0, (3, g.nc)))
+    rc = torch.from_numpy(rng.standard_normal((3, g.nc)))
+    rp = precond.pressure_rhs_plain(w, rc)
+    wn, rn = w.numpy(), rc.numpy()
+    _scaled(rp.numpy(), (wn[0] * rn[0] + wn[1] * rn[1]) + wn[2] * rn[2],
+            1e-15)
+    for twin in (False, True):
+        assert torch.equal(g.vcycle(vals, None, w=w, rc=rc, twin=twin),
+                           g.vcycle(vals, rp, twin=twin))

@@ -28,6 +28,7 @@ from opm_tpu_torch.models import blackoil as mb
 from opm_tpu_torch.models.linearize import degenerate_x_mask
 from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
                                         report_step_wells)
+from opm_tpu_torch.solver import kernels_k9 as k9
 from opm_tpu_torch.solver.newton import connection_offsets
 from opm_tpu_torch.solver.update import update_state
 from opm_tpu_torch.utils.convert import (model_arrays_from_numpy,
@@ -220,6 +221,129 @@ def test_update_state(ref_run, port):
     assert len(set(sr["hcstate"])) > 1
     for f in ("pressure", "sw", "x", "bhp", "qs"):
         _rel_close(sp[f], sr[f], 1e-14)
+
+
+def test_update_plain_with_omega_matches_reference(ref_run, port):
+    """K9's update twins composed (``update_plain``: update_pressure_plain,
+    K1's rs_sat, update_cells_plain, the well rows) from the CPR route's
+    call form ((3, nc) cell increments, (nw, 4) well increments and omega
+    applied inside), and ``update_state``'s dense call form (a flat
+    increment and omega), against the reference's update_state on omega *
+    du: hcstate exact, 1e-14 relative."""
+    rsim, psim = ref_run[0], port[0]
+    rm, pm = rsim.model, psim.model
+    _, s, _, _, ps = _states(ref_run, 1)
+    rng = np.random.default_rng(5)
+    nc, nw = pm.nc, ps.bhp.shape[0]
+    du_c = np.stack([rng.standard_normal(nc) * 5e6,
+                     rng.standard_normal(nc) * 0.3,
+                     np.where(np.asarray(s.hcstate) == 1,
+                              rng.standard_normal(nc) * 30.0,
+                              rng.standard_normal(nc) * 0.3)])
+    du_w = rng.standard_normal((nw, 4)) * np.array([1e-3, 1e-3, 1e-3, 1e6])
+    omega = 0.7
+    flat = np.concatenate([du_c.reshape(-1), du_w[:, 3],
+                           du_w[:, :3].reshape(-1)])
+    sr = _np_state(ref_update(rm, s, jnp.asarray(omega * flat)))
+    dw = torch.as_tensor(du_w)
+    out = k9.update_plain(*k9.update_args(pm, ps, torch.as_tensor(du_c),
+                                          dw[:, 3], dw[:, :3], omega))
+    plain = dict(zip(("pressure", "sw", "x", "hcstate", "bhp", "qs"),
+                     (t.numpy() for t in out)))
+    cpr = state_to_numpy(update_state(pm, ps, torch.as_tensor(du_c), omega,
+                                      du_w=dw))
+    dense = state_to_numpy(update_state(pm, ps, torch.as_tensor(flat),
+                                        omega))
+    assert len(set(sr["hcstate"])) > 1
+    for sp in (plain, cpr, dense):
+        assert np.array_equal(sp["hcstate"], sr["hcstate"])
+        for f in ("pressure", "sw", "x", "bhp", "qs"):
+            _rel_close(sp[f], sr[f], 1e-14)
+
+
+def test_convergence_row_nan_cell_and_no_wells(ref_run, port):
+    """``convergence``'s row (K9's plain version on the CPU) against the
+    reference's convergence on a residual with a NaN cell (finite false in
+    both, so a diverging substep is chopped) and with the wells dropped
+    (nw = 0: both well norms 0); the dict's entries are views of the
+    row."""
+    rsim, wd_r, _ = ref_run
+    psim, wd_p = port
+    rm, pm = rsim.model, psim.model
+    s_prev, s, dt, ps_prev, ps = _states(ref_run, 0)
+    cdp_r = rsim.solver._cdp(s_prev, wd_r)
+    cdp_p = connection_offsets(pm, ps_prev, wd_p)
+    rr = rm.residual(s, rm.accumulation(s_prev), jnp.asarray(dt), wd_r,
+                     cdp_r)
+    rp = pm.residual(ps, pm.accumulation(ps_prev), dt, wd_p, cdp_p)
+    cell = rp.cell.clone()
+    cell[1, 7] = float("nan")
+    cases = [
+        (rr._replace(cell=rr.cell.at[1, 7].set(jnp.nan)), s,
+         rp._replace(cell=cell), ps),
+        (rr._replace(well_flux=rr.well_flux[:0], well_ctrl=rr.well_ctrl[:0]),
+         s._replace(control=s.control[:0], target=s.target[:0]),
+         rp._replace(well_flux=rp.well_flux[:0], well_ctrl=rp.well_ctrl[:0]),
+         ps._replace(control=ps.control[:0], target=ps.target[:0]))]
+    for k, (r_r, st_r, r_p, st_p) in enumerate(cases):
+        cr = rm.convergence(r_r, jnp.asarray(dt), st_r)
+        cp = pm.convergence(r_p, dt, st_p)
+        for f in ("converged", "finite"):
+            assert bool(cp[f]) == bool(cr[f]), (k, f)
+        for f in ("mb", "cnv", "well_flux", "well_ctrl"):
+            a, b = cp[f].numpy(), np.asarray(cr[f])
+            assert np.array_equal(np.isnan(a), np.isnan(b)), (k, f)
+            ok = ~np.isnan(b)
+            _rel_close(a[ok], b[ok])
+        assert cp["row"].shape == (10,)
+        assert cp["mb"].data_ptr() == cp["row"].data_ptr()
+    nan_case = pm.convergence(cases[0][2], dt, ps)
+    assert not bool(nan_case["finite"]) and not bool(nan_case["converged"])
+    assert float(cp["well_flux"]) == 0.0 and float(cp["well_ctrl"]) == 0.0
+
+
+def test_k9_wrappers_reject_bad_arguments(port):
+    """K9's card entries check their arguments before any launch: a wrong
+    dtype, shape or layout raises ValueError (on the CPU, before the
+    library is built)."""
+    import types
+    pm = port[0].model
+    nc = pm.nc
+    f64 = dict(dtype=torch.float64)
+    p = torch.full((nc,), 2e7, **f64)
+    hc = torch.zeros(nc, dtype=torch.int32)
+    bhp, qs = torch.zeros(2, **f64), torch.zeros((2, 3), **f64)
+    du_c, du_w = torch.zeros((3, nc), **f64), torch.zeros((2, 4), **f64)
+    consts, rs = k9.update_consts(pm), k9.rs_table(pm.props, pm.pvtnum)
+
+    def upd(**kw):
+        a = dict(p=p, sw=p, x=p, hc=hc, bhp=bhp, qs=qs, du_c=du_c,
+                 dbhp=du_w[:, 3], dqs=du_w[:, :3])
+        a.update(kw)
+        return k9.update_cuda(*a.values(), 0.9, consts, rs)
+
+    for bad in (dict(p=p.float()), dict(hc=hc.long()),
+                dict(du_c=du_c[:, :-1]), dict(du_c=du_c.T.contiguous().T),
+                dict(qs=qs.T), dict(dqs=du_w[:, :2]),
+                dict(dbhp=du_w[:, 3].float())):
+        with pytest.raises(ValueError):
+            upd(**bad)
+    ws = types.SimpleNamespace(nc=nc, device=torch.device("cpu"))
+    R = torch.zeros((3, nc), **f64)
+    ctrl, tgt = torch.zeros(2, dtype=torch.int32), torch.ones(2, **f64)
+    wf, wc = torch.zeros((2, 3), **f64), torch.zeros(2, **f64)
+    tols = k9.conv_tols(pm.params)
+    good = (R, R, pm.pv, 1.0, wf, wc, ctrl, tgt, tols)
+    for k, bad in ((0, R[:, :-1]), (1, R.float()), (2, pm.pv[:-1]),
+                   (4, wf[:, :2]), (5, wc[:1]), (6, ctrl.long()),
+                   (7, tgt.float())):
+        a = list(good)
+        a[k] = bad
+        with pytest.raises(ValueError):
+            k9.convergence_cuda(ws, *a)
+    with pytest.raises(ValueError):
+        k9.convergence_masked_cuda(ws, R, R, pm.pv, 1.0, pm.pv.float(), wf,
+                                   wc, ctrl, tgt, tols)
 
 
 @pytest.mark.parametrize("k", [0, 2])
