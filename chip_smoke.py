@@ -75,13 +75,18 @@ Phases (each prints a line of its own; any failure exits non-zero):
    (K3-faces, K4-faces' pack into its sliced-ELL layout, matvec and
    smoothing step, K6 cells and K6-faces, K9's masked convergence
    check), K8 at the
-   gather grid's shapes, K10's value coarsening and its two V-cycle legs
-   on G (K7's on E) against their plain versions, timed with bounds and
-   yardsticks; one gather Newton system solved with the
+   gather grid's shapes, K10's value refresh (one launch per
+   coarsen_values into the hierarchy's buffers: every level's values and
+   the float32 dense coarsest matrix bit for bit the per-level twins'
+   composition on CPU copies, ten refreshes allocating nothing, a V-cycle
+   after a refresh with other values equal to one on a hierarchy put on
+   the card afresh) and its two V-cycle legs on G (K7's on E) against
+   their plain versions, timed with bounds and yardsticks; one gather
+   Newton system solved with the
    kernels and with the twins; then the first report step (5 days) in each
    representation through SimulatorFullyImplicitBlackoil with no device
    argument, with its counts, wall time, sections and launch counters
-   (one K4-faces pack per Newton system),
+   (one K4-faces pack per Newton system, and on G one K10 refresh),
    each held to the JAX package's CPU run of the same representation
    (data/nornelike_full_reference_cpu.json) at the limits of phase 4, and
    the two to each other as closely as the reference's two runs agree;
@@ -102,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -121,7 +127,8 @@ TOL_K6_SETUP = 1e-13  # of max, per output
 TOL_K7 = 1e-12       # of max, each level's rhs and correction, a V-cycle
 TOL_K8_VEC = 1e-13   # of max (same elementwise operations)
 TOL_K8_DOT = 1e-12   # relative (block-tree vs library summation order)
-TOL_K10 = 1e-12      # of max, the value coarsening and the ELL pack
+TOL_K10 = 1e-12      # of max, the refresh vs the per-level twins on the card
+#                      (their index_add_ runs on atomics)
 # K2: the same operations in the same order as the plain formula
 # (--fmad=false): values relative; tangent columns and the assembly's
 # diag of each row's max (torch's jvp orders a few sums differently)
@@ -344,10 +351,8 @@ class Kernels:
             ("K10 amg_vcycle_down_rhs", "cuda", f"{P}/csrc/amg.cu",
              f"{JAX_PKG}/linalg/amg.py:27,37,264-279 and "
              "linalg/precond.py:391", k10.vcycle_down_rhs_cuda),
-            ("K10 amg_coarsen", "cuda", f"{P}/csrc/amg.cu",
-             f"{JAX_PKG}/linalg/amg.py:222", k10.coarsen_cuda),
-            ("K10 amg_ell_pack", "cuda", f"{P}/csrc/amg.cu",
-             f"{JAX_PKG}/linalg/amg.py:215", k10.ell_pack_cuda),
+            ("K10 amg_refresh", "cuda", f"{P}/csrc/amg.cu",
+             f"{JAX_PKG}/linalg/amg.py:206-243", k10.refresh_cuda),
             ("K2 cells_values", "cuda", f"{P}/csrc/cells.cu",
              f"{JAX_PKG}/models/blackoil.py:95", mb.cells_values_cuda),
             ("K2 cells_columns", "cuda", f"{P}/csrc/cells.cu",
@@ -1545,6 +1550,20 @@ def check_vcycle_launches(launches, rep, label, amg):
              "residual in the down leg")
 
 
+def check_refresh_launches(launches, rep, label, amg):
+    """One K10 refresh launch per Newton system on a gather grid (the
+    aggregation AMG's per-Newton values), none on the others."""
+    from opm_tpu_torch.linalg.amg import DeviceAmg
+
+    n = launches["K10 amg_refresh"]
+    want = rep.newton_iterations if isinstance(amg, DeviceAmg) else 0
+    log(f"  K10 refresh launches: {n} over {rep.newton_iterations} Newton "
+        "systems")
+    if n != want:
+        fail(f"{label}: {n} K10 refresh launches, not {want} (one per "
+             "Newton system of a gather grid)")
+
+
 def check_k9_launches(launches, rep, label):
     """One K9 update per Newton iteration and one convergence check per
     Newton iteration and per converged substep (0 failed)."""
@@ -1627,6 +1646,125 @@ def csr_of_level(diag, ell_vals, cols):
                      torch.cat([ar, cols.reshape(-1)])]),
         torch.cat([diag, ell_vals.reshape(-1)]), (n, n))
     return A.coalesce().to_sparse_csr()
+
+
+def compare_refresh(K, amg, diag_p, off, label, timed, rng):
+    """K10's value refresh on one Newton system of a gather grid: one
+    launch per ``coarsen_values``, which returns the hierarchy's own
+    LevelValues; every level's diag and ELL values and the float32 dense
+    coarsest matrix bit for bit the per-level composition of the twins on
+    CPU copies of the inputs (the CPU's index_add_ adds in index order, the
+    kernel's) and the refresh's plain version on the card, within TOL_K10
+    of max the per-level twins on the card (index_add_ with atomics); the
+    inverse (torch.linalg.inv_ex into the hierarchy's buffer) bit for bit
+    torch.linalg.inv of the same matrix, in its layout, and within 1e-5 of
+    max the CPU's; a V-cycle on the refreshed values bit for bit one on the
+    composition's values (moved to the card, with that inverse); ten
+    refreshes allocate nothing and keep the workspace's table; a
+    V-cycle after a refresh with other values equals one on a hierarchy
+    put on the card afresh. When ``timed``: the kernel's time (one call;
+    per launch in a run of 50), its bound, the plain
+    version's, and one ``coarsen_values`` (host clock, device kernels)."""
+    import torch
+
+    from opm_tpu_torch.linalg import amg as k10
+
+    name = "K10 amg_refresh"
+    R, nl = amg.refresh, amg.n_levels
+    n0 = k10.refresh_cuda.launches
+    vk = amg.coarsen_values(diag_p, off)
+    if k10.refresh_cuda.launches != n0 + 1 or vk is not R.vals:
+        fail(f"{label}: a refresh was not one launch into the hierarchy's "
+             "buffers")
+    hc = k10.DeviceAmg(amg.hierarchy, "cpu")
+    vc = hc.coarsen_values(diag_p.cpu(), off.cpu())
+    Rp = k10.Refresh(amg, diag_p.device)
+    k10.refresh_plain(Rp, diag_p, off)
+    vp = amg.coarsen_values(diag_p, off, twin=True)
+    pairs = [(a, c) for k in range(nl) for a, c in zip(vk[k], vc[k])]
+    plain = [(a, c) for k in range(nl) for a, c in zip(vk[k], Rp.vals[k])]
+    if R.dense is not None:
+        pairs.append((R.dense, k10.dense_coarsest(
+            *vc[nl - 1], hc.ell[-1]["cols"]).to(torch.float32)))
+        plain.append((R.dense, Rp.dense))
+
+    for a, c in pairs + plain:
+        K.note(name, float((a.cpu() - c.cpu()).abs().max()))
+        if not torch.equal(a.cpu(), c.cpu()):
+            fail(f"{label}: {name} is not bit for bit the per-level "
+                 "composition on the CPU and its plain version")
+    for k in range(nl):
+        for a, c in zip(vk[k], vp[k]):
+            e = scaled_err(a, c)
+            if not e <= TOL_K10:
+                fail(f"{label}: {name} differs from the per-level twins on "
+                     f"the card ({e:.3e} > {TOL_K10:g})")
+    inv_err, comp = None, [(d.to(off.device), e.to(off.device))
+                           for d, e in vc[:nl]]
+    if R.dense is not None:
+        inv_err = scaled_err(vk[-1].cpu(), vc[-1])
+        inv = torch.linalg.inv(R.dense)
+        if not (torch.equal(vk[-1], inv) and vk[-1].stride() == inv.stride()
+                and inv_err <= 1e-5 and scaled_err(vk[-1], vp[-1]) <= 1e-5):
+            fail(f"{label}: the float32 coarsest inverses differ")
+        if int(R.inv_info) != 0:
+            fail(f"{label}: the coarsest matrix is singular (inv_ex info "
+                 f"{int(R.inv_info)})")
+        comp.append(inv)
+    # a V-cycle on the refreshed values is the one on the composition's
+    # values (with the card's torch.linalg.inv), bit for bit
+    b = torch.as_tensor(rng.standard_normal(amg.n0), device=off.device)
+    if not torch.equal(amg.vcycle(vk, b), amg.vcycle(k10.LevelValues(comp),
+                                                      b)):
+        fail(f"{label}: a V-cycle on the refreshed values differs from one "
+             "on the per-level composition's")
+    table = vk.ws.table.clone()
+    gc.collect()        # earlier cyclic garbage, freed at any moment
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    for _ in range(10):
+        again = amg.coarsen_values(diag_p, off)
+    torch.cuda.synchronize()
+    if (torch.cuda.memory_allocated() != m0 or again is not vk
+            or not torch.equal(vk.ws.table, table)):
+        fail(f"{label}: ten refreshes allocated or moved the workspace")
+    # other values: the V-cycle on the overwritten buffers equals one on a
+    # hierarchy put on the card afresh
+    f = torch.as_tensor(rng.uniform(0.9, 1.1, off.shape), device=off.device)
+    d2, o2 = diag_p * 1.25, off * f
+    x2 = amg.vcycle(amg.coarsen_values(d2, o2), b).clone()
+    fresh = k10.DeviceAmg(amg.hierarchy, off.device)
+    if not torch.equal(x2, fresh.vcycle(fresh.coarsen_values(d2, o2), b)):
+        fail(f"{label}: a V-cycle after a second refresh differs from one "
+             "on fresh values")
+    del fresh, vp, comp
+    amg.coarsen_values(diag_p, off)
+    out = dict(levels=nl, grid=R.grid, **R.grid_info,
+               work=R.work, inverse_vs_cpu=inv_err)
+    if not timed:
+        return out
+    nbytes_moved = k10.refresh_bytes(
+        [e["cols"].shape[1] for e in amg.ell],
+        [e["cols"].shape[0] for e in amg.ell],
+        [e["slot"].numel() for e in amg.ell])
+    adds = sum(lv["n_fine"] + lv["n_coarse"] for lv in amg.levels) + sum(
+        e["slot"].numel() for e in amg.ell[:-1])
+    K.ms[name] = cuda_ms(lambda: k10.refresh_cuda(R, diag_p, off))
+    K.run_ms[name] = run_ms(lambda: k10.refresh_cuda(R, diag_p, off))
+    K.plain_ms[name] = cuda_ms(lambda: k10.refresh_plain(Rp, diag_p, off))
+    K.library_ms[name] = None
+    K.bound_raw(name, nbytes_moved, adds)
+    kernels = device_kernels(lambda: amg.coarsen_values(diag_p, off))
+    out.update(
+        bytes=nbytes_moved, adds=adds, ms=K.ms[name],
+        run_ms=K.run_ms[name], plain_ms=K.plain_ms[name],
+        bound_ms=K.bound_ms[name],
+        coarsen_values_host_ms=host_ms(
+            lambda: amg.coarsen_values(diag_p, off), reps=20),
+        device_kernels_per_coarsen_values=None if kernels is None
+        else len(kernels), device_kernels=kernels)
+    amg.coarsen_values(diag_p, off)
+    return out
 
 
 def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
@@ -1781,14 +1919,10 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
         ("K9 convergence_masked",) if timed and masked else ())
 
     if isinstance(amg, k10.DeviceAmg):
-        vk = amg.coarsen_values(diag_p, off)
-        vp = amg.coarsen_values(diag_p, off, twin=True)
-        for k in range(amg.n_levels):
-            chk("K10 amg_ell_pack", TOL_K10, [(vk[k][1], vp[k][1])])
-            chk("K10 amg_coarsen", TOL_K10, [(vk[k][0], vp[k][0])])
-        if scaled_err(vk[-1], vp[-1]) > 1e-5:
-            fail(f"{label}: the float32 coarsest inverses differ")
-        d, ev = vp[0]
+        extra["refresh"] = compare_refresh(K, amg, diag_p, off, label,
+                                           timed, rng)
+        vk = amg.refresh.vals
+        d, ev = vk[0]
         extra["level0"] = dict(n=d.shape[0], K=ev.shape[0],
                                nnz=int(off.numel()))
         if timed:
@@ -1797,22 +1931,11 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
             extra["level0_spmv_csr_ms"] = cuda_ms(
                 lambda: A0 @ xb.reshape(-1, 1))
             del A0
-            lv0 = amg.levels[0]
-            timing("K10 amg_coarsen",
-                   lambda: k10.coarsen_cuda(diag_p, off, lv0),
-                   lambda: k10.coarsen_plain(diag_p, off, lv0),
-                   (diag_p, off, lv0["child_ptr"], lv0["child_idx"],
-                    lv0["fold_ptr"], lv0["fold_idx"], lv0["ent_ptr"],
-                    lv0["ent_idx"]), vk[1], 2 * (nc + off.numel()))
-            timing("K10 amg_ell_pack",
-                   lambda: k10.ell_pack_cuda(off, amg.ell[0]),
-                   lambda: k10.ell_pack_plain(off, amg.ell[0]),
-                   (off, amg.ell[0]["src"]), vk[0][1], 0)
         extra["vcycle"] = compare_vcycle(K, k10, amg, vk, rnd(nc), label,
                                          TOL_K10_VCYCLE, timed,
                                          (w.contiguous(), rnd(3, nc)))
-        extra["widths"] = [int(v[1].shape[0]) for v in vp[:amg.n_levels]]
-        extra["sizes"] = [int(v[0].shape[0]) for v in vp[:amg.n_levels]]
+        extra["widths"] = [int(v[1].shape[0]) for v in vk[:amg.n_levels]]
+        extra["sizes"] = [int(v[0].shape[0]) for v in vk[:amg.n_levels]]
         if timed:
             extra.update(
                 coarsen_values_ms=cuda_ms(
@@ -1870,6 +1993,7 @@ def norne_first_step(K, sim, ref, label, names):
     check_k8_launches(counts, rep, label)
     check_vcycle_launches(counts, rep, label, sim.solver.amg)
     check_k9_launches(counts, rep, label)
+    check_refresh_launches(counts, rep, label, sim.solver.amg)
     res["launches_per_reduced_matvec"] = check_reduced_launches(
         counts, label, sim.model)
     if counts["K4-faces pack"] != rep.newton_iterations:
@@ -1891,6 +2015,8 @@ def toy_run(K, sim, ref, label, names):
                           sim.report, label, sim.solver.amg)
     check_k9_launches({e[0]: e[4].launches for e in K.entries},
                       sim.report, label)
+    check_refresh_launches({e[0]: e[4].launches for e in K.entries},
+                           sim.report, label, sim.solver.amg)
     per = check_reduced_launches({e[0]: e[4].launches for e in K.entries},
                                  label, sim.model)
     counts = {e[0]: e[4].launches for e in K.entries if e[0] in names}

@@ -1,14 +1,15 @@
 // K10: the aggregation-AMG level work of the CPR pressure stage on grids
 // with a face list, for Hopper: the V-cycle as two cooperative launches
 // (damped-Jacobi sweeps over ELL matrices, the residual restricted by
-// aggregate, the prolongation by gather), and the per-Newton Galerkin value
-// coarsening and ELL packing.
+// aggregate, the prolongation by gather), and the per-Newton value refresh
+// (every level's Galerkin values in ELL layout and the float32 dense
+// coarsest matrix) as one cooperative launch.
 //
 // Replaces the JAX package's linalg/amg.py ell_spmv (:27) and jacobi_sweep
 // (:37) (the repository's only Pallas kernels ever written, deleted after
 // they measured within noise of XLA's fusion of the same jnp forms), the
 // V-cycle's transfers segment_sum(r, agg) (:278) and e_c[agg] (:280), and
-// DeviceAmg.coarsen_values (:206-230).
+// DeviceAmg.coarsen_values (:206-243) up to its float32 inverse.
 //
 // Layout: a level of n cells has diag (n,) and ELL values (K, n) with
 // column ids cols (K, n) int32; K is the level's widest row (9 to 26 on the
@@ -47,16 +48,34 @@
 // Each leg is one cooperative launch with a grid barrier between levels,
 // a level's work a grid-stride loop; the levels' arrays, sizes and
 // workspace pointers are a table on the device (one record of eight-byte
-// fields per level, uploaded once per Newton by linalg/amg.py, which packs
-// the same order). Every sum runs in the plain version's order (ELL slots
-// ascending, then the diagonal term; children by fine index), one thread
-// per output: no atomics, and the grid's size changes no bit.
+// fields per level, uploaded once per set of level values, for the
+// refresh's once per hierarchy, by linalg/amg.py, which packs the same
+// order). Every sum runs in the plain version's order (ELL
+// slots ascending, then the diagonal term; children by fine index), one
+// thread per output: no atomics, and the grid's size changes no bit.
+//
+// The refresh writes into buffers the hierarchy owns (linalg/amg.py
+// Refresh), so its table too is uploaded once. Phase k (k = 0 .. nL-1) is
+// the coarsening step k -> k+1, one thread per output: at k = 0 also level
+// 0's diag copy and each ELL slot gathered from the face-order entries;
+// each coarse diagonal row (its children's diag, then the entries folded
+// into it) and each coarse entry, written straight into its slot of level
+// k+1's ELL array. Step k reads level k's ELL array at the entries' slots
+// (the host composed the merge maps with the ELL slot maps), so no
+// entry-order intermediate and no separate pack exist; the sums run
+// children by fine index and entries by entry index, the per-level
+// composition's order. A last phase writes the float32 dense coarsest
+// matrix; its inverse is one library call (torch.linalg.inv_ex), as the
+// reference leaves jnp.linalg.inv to XLA. Every phase runs over the whole
+// grid: finishing the small coarse phases in one block with block barriers
+// was slower on the Norne-class gather grid than the grid barriers it
+// saves (PERF.md).
 //
 // What bounds it on the card: at the Norne-class sizes (level 0: 75,566
 // cells, about 10 MB of values, in L2) the barriers (two per level in the
-// down leg, one in the up leg) and each phase's chain of dependent loads
-// (a row's gathers x[cols[k]]), not device memory; the value coarsening
-// and the pack are a thread per output over CSRs built once on the host.
+// down leg, one in the up leg, one per phase of the refresh) and each
+// phase's chain of dependent loads (a row's gathers x[cols[k]], a CSR's
+// pointer, index and value), not device memory.
 // Build with --fmad=false (products and sums round as the plain version's).
 
 #include <cooperative_groups.h>
@@ -318,42 +337,169 @@ amg_up(const LevelRec* T, int nL, int dense, int lo, int hi,
     }
 }
 
-__global__ void coarsen_kernel(int n_c, const int* __restrict__ cptr,
-                               const int* __restrict__ cidx,
-                               const double* __restrict__ diag,
-                               const int* __restrict__ fptr,
-                               const int* __restrict__ fidx,
-                               const double* __restrict__ off,
-                               double* __restrict__ diag_c, int nnz_c,
-                               const int* __restrict__ eptr,
-                               const int* __restrict__ eidx,
-                               double* __restrict__ off_c) {
-    int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < n_c) {
-        // segment_sum(diag, agg) + segment_sum(folded entries, row)
-        double s1 = 0.0, s2 = 0.0;
-        for (int e = cptr[t]; e < cptr[t + 1]; ++e) s1 = s1 + diag[cidx[e]];
-        for (int e = fptr[t]; e < fptr[t + 1]; ++e) s2 = s2 + off[fidx[e]];
-        diag_c[t] = s1 + s2;
-    }
-    if (t < nnz_c) {
-        double s = 0.0;
-        for (int e = eptr[t]; e < eptr[t + 1]; ++e) s = s + off[eidx[e]];
-        off_c[t] = s;
+// ---------------------------------------------------------------------------
+// the per-Newton value refresh: one cooperative launch, a phase per
+// coarsening step and a grid barrier between two phases
+
+// the refresh's first record: level 0's diag copy and ELL values with the
+// entry of each slot (src0, -1 at a padding slot, whose value stays 0), and
+// the coarsest level's values and column ids with its float32 dense matrix
+// (null when the coarsest is not inverted)
+struct RefreshHead {
+    const int* src0;
+    double* diag0;
+    double* vals0;
+    const double* diag_c;
+    const double* vals_c;
+    const int* cols_c;
+    float* dense;
+    long long n0, m0, n_c, K_c;
+};
+
+constexpr int kHeadFields = 11;
+static_assert(sizeof(RefreshHead) == kHeadFields * 8, "RefreshHead layout");
+
+// one coarsening step k -> k+1: level k's diag and ELL values (null at
+// k = 0, where they are the refresh's inputs diag0 and off0), the children
+// of each aggregate (CSR by aggregate, fine index ascending), the level-k
+// entries folded into each coarse diagonal row and those merged into each
+// coarse entry (CSRs by output, entry index ascending; each entry as its
+// position in level k's values: off0's face order at k = 0, its ELL slot
+// below), each coarse entry's ELL slot, and level k+1's diag and ELL values
+struct StepRec {
+    const double* diag;
+    const double* vals;
+    const int* cptr;
+    const int* cidx;
+    const int* fptr;
+    const int* fpos;
+    const int* eptr;
+    const int* epos;
+    const int* edst;
+    double* diag_c;
+    double* vals_c;
+    long long n_c, nnz_c;
+};
+
+static_assert(sizeof(StepRec) == 13 * 8, "StepRec layout");
+
+// sum over e = ptr[t] .. ptr[t+1]-1 of v[idx[e]], in that order
+__device__ __forceinline__ double csr_sum(const int* ptr, const int* idx,
+                                          const double* v, int t) {
+    double acc = 0.0;
+    for (int e = ptr[t]; e < ptr[t + 1]; ++e) acc = acc + v[idx[e]];
+    return acc;
+}
+
+// phase k, outputs first, first + stride, ...: at k = 0 level 0's diag
+// copy (n0) and ELL slots (m0); then, where there is a step k, its coarse
+// diagonal rows (segment sums of the children's diag plus those of the
+// folded entries) and its coarse entries, each into its ELL slot
+__device__ void refresh_phase(const RefreshHead& H, const StepRec* S, int k,
+                              int nL, const double* diag0,
+                              const double* off0, long long first,
+                              long long stride) {
+    const long long lead = k == 0 ? H.n0 + H.m0 : 0;
+    StepRec R{};
+    if (k < nL) R = S[k];
+    const double* dv = k == 0 ? diag0 : R.diag;
+    const double* ov = k == 0 ? off0 : R.vals;
+    const long long m = lead + R.n_c + R.nnz_c;
+    for (long long u = first; u < m; u += stride) {
+        if (u < lead) {
+            if (u < H.n0) {
+                H.diag0[u] = diag0[u];
+            } else {
+                const long long j = u - H.n0;
+                const int s = H.src0[j];
+                if (s >= 0) H.vals0[j] = off0[s];
+            }
+        } else if (u < lead + R.n_c) {
+            const int t = (int)(u - lead);
+            const double s1 = csr_sum(R.cptr, R.cidx, dv, t);
+            const double s2 = csr_sum(R.fptr, R.fpos, ov, t);
+            R.diag_c[t] = s1 + s2;
+        } else {
+            const int t = (int)(u - lead - R.n_c);
+            R.vals_c[R.edst[t]] = csr_sum(R.eptr, R.epos, ov, t);
+        }
     }
 }
 
-__global__ void ell_pack_kernel(long long m, const long long* __restrict__ src,
-                                const double* __restrict__ off,
-                                double* __restrict__ out) {
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= m) return;
-    long long s = src[t];
-    out[t] = s >= 0 ? off[s] : 0.0;
+// the float32 dense coarsest matrix, one thread per entry (r, c): the
+// diagonal value at (r, r), then each ELL slot k = 0, 1, ... of row r whose
+// column is c added in float64 (the padding self-loops add 0.0 at (r, r)),
+// rounded once
+__device__ void dense_phase(const RefreshHead& H, long long first,
+                            long long stride) {
+    const long long n = H.n_c;
+    for (long long u = first; u < n * n; u += stride) {
+        const int r = (int)(u / n);
+        const int c = (int)(u - r * n);
+        double acc = r == c ? H.diag_c[r] : 0.0;
+        for (int k = 0; k < H.K_c; ++k) {
+            const long long s = (long long)k * n + r;
+            if (H.cols_c[s] == c) acc = acc + H.vals_c[s];
+        }
+        H.dense[u] = __double2float_rn(acc);
+    }
+}
+
+// the phases over the grid, a grid barrier between two, then, when the
+// coarsest is inverted, the dense matrix
+__global__ void __launch_bounds__(kThreads, 2)
+amg_refresh(const long long* T, int nL, const double* diag0,
+            const double* off0) {
+    cg::grid_group grid = cg::this_grid();
+    const RefreshHead H = *reinterpret_cast<const RefreshHead*>(T);
+    const StepRec* S = reinterpret_cast<const StepRec*>(T + kHeadFields);
+    const int phases = nL > 0 ? nL : 1;
+    for (int k = 0; k < phases; ++k) {
+        if (k) grid.sync();
+        refresh_phase(H, S, k, nL, diag0, off0, first_index(),
+                      grid_stride());
+    }
+    if (H.dense) {
+        grid.sync();
+        dense_phase(H, first_index(), grid_stride());
+    }
 }
 
 inline int blocks_for(long long n) {
     return (int)((n + kThreads - 1) / kThreads);
+}
+
+// the device's SM count, or a CUDA error where it has no cooperative launch
+cudaError_t coop_sms(int* nsm) {
+    int dev = 0, coop = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                     dev);
+    if (err == cudaSuccess && !coop) err = cudaErrorCooperativeLaunchTooLarge;
+    return err;
+}
+
+// the cooperative grid of kernel k for work threads' worth on nsm SMs (at
+// most the co-resident blocks, at most what the work needs), with its
+// co-resident blocks per SM and registers per thread
+cudaError_t coop_grid(const void* k, long long work, int nsm, int* grid,
+                      int* nb, int* regs) {
+    cudaFuncAttributes fa;
+    cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(nb, k, kThreads, 0);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, k);
+    if (err != cudaSuccess) return err;
+    if (*nb < 1) return cudaErrorCooperativeLaunchTooLarge;
+    long long g = (long long)*nb * nsm;
+    long long need = blocks_for(work);
+    if (need < g) g = need;
+    *grid = (int)(g < 1 ? 1 : g);
+    *regs = fa.numRegs;
+    return cudaSuccess;
 }
 
 }  // namespace
@@ -361,40 +507,33 @@ inline int blocks_for(long long n) {
 extern "C" {
 
 // the grids of the two legs on the current device for legs whose largest
-// level has work_down and work_up threads' worth: out[0], out[1] the grids
-// (at most the co-resident blocks, at most what the work needs); out[2]
-// the SM count; out[3], out[4] co-resident blocks per SM of down and up;
-// out[5], out[6] their registers per thread
+// level has work_down and work_up threads' worth: out[0], out[1] the grids;
+// out[2] the SM count; out[3], out[4] co-resident blocks per SM of down and
+// up; out[5], out[6] their registers per thread
 int opm_amg_grid(long long work_down, long long work_up, int* out) {
-    int dev = 0, nsm = 0, coop = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    int nsm = 0;
+    cudaError_t err = coop_sms(&nsm);
     if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
-                                     dev);
+        err = coop_grid((const void*)amg_down, work_down, nsm, &out[0],
+                        &out[3], &out[5]);
     if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                     dev);
-    if (err != cudaSuccess) return (int)err;
-    if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const void* ks[2] = {(const void*)amg_down, (const void*)amg_up};
-    const long long work[2] = {work_down, work_up};
-    for (int i = 0; i < 2; ++i) {
-        int nb = 0;
-        cudaFuncAttributes fa;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, ks[i],
-                                                            kThreads, 0);
-        if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, ks[i]);
-        if (err != cudaSuccess) return (int)err;
-        if (nb < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-        long long g = (long long)nb * nsm;
-        long long need = blocks_for(work[i]);
-        if (need < g) g = need;
-        out[i] = (int)(g < 1 ? 1 : g);
-        out[3 + i] = nb;
-        out[5 + i] = fa.numRegs;
-    }
+        err = coop_grid((const void*)amg_up, work_up, nsm, &out[1], &out[4],
+                        &out[6]);
     out[2] = nsm;
-    return 0;
+    return (int)err;
+}
+
+// the refresh's grid for a largest phase of work outputs: out[0] the grid,
+// out[1] the SM count, out[2] co-resident blocks per SM, out[3] registers
+// per thread
+int opm_amg_refresh_grid(long long work, int* out) {
+    int nsm = 0;
+    cudaError_t err = coop_sms(&nsm);
+    if (err == cudaSuccess)
+        err = coop_grid((const void*)amg_refresh, work, nsm, &out[0],
+                        &out[2], &out[3]);
+    out[1] = nsm;
+    return (int)err;
 }
 
 // table: the nL + 1 level records; dense: the coarsest is solved by its
@@ -438,25 +577,16 @@ int opm_amg_up(const void* table, int nL, int dense, int lo, int hi,
                                             dim3(kThreads), args, 0, stream);
 }
 
-int opm_amg_coarsen(int n_c, const int* cptr, const int* cidx,
-                    const double* diag, const int* fptr, const int* fidx,
-                    const double* off, double* diag_c, int nnz_c,
-                    const int* eptr, const int* eidx, double* off_c,
-                    cudaStream_t stream) {
-    int m = n_c > nnz_c ? n_c : nnz_c;
-    if (m == 0) return 0;
-    coarsen_kernel<<<blocks_for(m), kThreads, 0, stream>>>(
-        n_c, cptr, cidx, diag, fptr, fidx, off, diag_c, nnz_c, eptr, eidx,
-        off_c);
-    return (int)cudaGetLastError();
-}
-
-int opm_amg_ell_pack(long long m, const long long* src, const double* off,
-                     double* out, cudaStream_t stream) {
-    if (m == 0) return 0;
-    ell_pack_kernel<<<blocks_for(m), kThreads, 0, stream>>>(m, src, off,
-                                                            out);
-    return (int)cudaGetLastError();
+// the refresh: table its head record, then one record per coarsening step
+// (linalg/amg.py packs the same order); diag0 (n0) and off0 (the level-0
+// entries in face order) the pressure system's values
+int opm_amg_refresh(const void* table, int nL, const double* diag0,
+                    const double* off0, int grid, cudaStream_t stream) {
+    const long long* T = static_cast<const long long*>(table);
+    void* args[] = {&T, &nL, &diag0, &off0};
+    return (int)cudaLaunchCooperativeKernel((const void*)amg_refresh,
+                                            dim3(grid), dim3(kThreads),
+                                            args, 0, stream);
 }
 
 }  // extern "C"

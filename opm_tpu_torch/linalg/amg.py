@@ -4,31 +4,38 @@ Port of the JAX package's linalg/amg.py. The hierarchy (pairwise
 aggregates from the static transmissibility graph, the coarse sparsity
 patterns and the merge maps) is built once per grid on the host, call for
 call as the reference builds it, so the aggregates are the reference's.
-Per Newton only the matrix values are re-coarsened on the card (Galerkin
-products of piecewise-constant aggregation collapse to entry merges) and
-packed in ELL layout, one (K, n) value array per level with K the level's
-widest row (9 at level 0 of the Norne-class gather grid, up to 26 below;
-padding slots are self-loops whose values stay 0).
+Per Newton only the matrix values are refreshed on the card (Galerkin
+products of piecewise-constant aggregation collapse to entry merges),
+each level's in ELL layout, one (K, n) value array per level with K the
+level's widest row (9 at level 0 of the Norne-class gather grid, up to 26
+below; padding slots are self-loops whose values stay 0), then the
+float32 inverse of the dense coarsest matrix.
+
+The refresh is kernel K10's ``opm_amg_refresh`` (``csrc/amg.cu``): one
+cooperative launch, a phase per coarsening step, writing every level's
+values and the float32 dense coarsest matrix into buffers the hierarchy
+owns (``Refresh``, made once with the V-cycle workspace over them); the
+inverse is one library call. Its values are valid until the next refresh
+of the same hierarchy.
 
 The V-cycle (the reference's CPU settings: one cycle, one pre- and one
-post-smoothing damped-Jacobi sweep with omega = 0.8) is kernel K10
-(``csrc/amg.cu``, the repository's former Pallas ``ell_spmv`` and
-``jacobi_sweep``) in two cooperative launches: the down leg (per level the
-zero-start sweep into the workspace, then its residual restricted by
-aggregate; in its right-hand side entry, which the CPR apply calls, level
-0's right-hand side is the weighted pressure residual of K6's
-``pressure_rhs``, formed by each cell's thread of the first phase and
-written to the workspace) and the up leg (per level the prolongation by
-gather plus that sweep, then the post-smoothing sweep). The coarsest
-level (at most 256 cells) is solved between them by its float32 dense
-inverse, formed once per Newton and applied as one matmul, as the
+post-smoothing damped-Jacobi sweep with omega = 0.8) is K10 too, the
+repository's former Pallas ``ell_spmv`` and ``jacobi_sweep``, in two
+cooperative launches: the down leg (per level the zero-start sweep into
+the workspace, then its residual restricted by aggregate; in its
+right-hand side entry, which the CPR apply calls, level 0's right-hand
+side is the weighted pressure residual of K6's ``pressure_rhs``, formed by
+each cell's thread of the first phase and written to the workspace) and
+the up leg (per level the prolongation by gather plus that sweep, then the
+post-smoothing sweep). The coarsest level (at most 256 cells) is solved
+between them by its float32 dense inverse, applied as one matmul, as the
 reference does on every backend; a larger coarsest level gets 1 + 10
-sweeps at the end of the down leg. The value coarsening is K10 too (one
-launch per level, plus one ELL pack).
+sweeps at the end of the down leg.
 Each kernel has its plain twins here, in the reference's order of
 operations: the per-level ones (their composition ``vcycle(...,
-twin=True)`` is the oracle) and the legs composed from them (the CPU
-path).
+twin=True)`` and ``coarsen_values(..., twin=True)`` is the oracle and the
+CPU path of the refresh) and those composed from them (the legs' CPU
+path, the refresh's plain version).
 
 Every sum of a kernel is a gather over a CSR built once on the host in the
 order the reference's segment sums run (children by fine index, entries by
@@ -37,6 +44,7 @@ entry index): one thread per output, no atomics.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import List
 
@@ -177,6 +185,12 @@ def build_hierarchy(nc, face_cells, trans, *, coarsest=128,
                         coarsest_n=n)
 
 
+def _at(slot, entries):
+    """The entries' positions in their level's values: the entry index
+    itself at level 0 (``slot`` None: face order), its ELL slot below."""
+    return entries if slot is None else slot[entries]
+
+
 def csr_by(keys, n):
     """(ptr (n+1,), idx): the positions of ``keys`` grouped by key value,
     each group in ascending position (the order of a sequential segment
@@ -250,6 +264,57 @@ def ell_pack_plain(off, ell):
         .index_put_((ell["slot"],), off).reshape(K, n)
 
 
+def dense_coarsest(diag, ell_vals, cols):
+    """The dense (n, n) matrix of one level's diag and ELL values (the
+    reference's: the diagonal set, then every slot added at (row, column)
+    in float64)."""
+    K, n = cols.shape
+    ar = torch.arange(n, device=diag.device)
+    A = torch.zeros((n, n), dtype=diag.dtype, device=diag.device)
+    A[ar, ar] = diag
+    return A.index_put_((ar.repeat(K), cols.reshape(-1)),
+                        ell_vals.reshape(-1), accumulate=True)
+
+
+def _csr_sum(ptr, idx, v):
+    """Per output t the sum of v[idx[e]] over e = ptr[t] .. ptr[t+1]-1, in
+    that order (the kernel's ``csr_sum``; the +0.0 of an exhausted row
+    changes no bit of a sum that starts from +0.0)."""
+    ptr = ptr.long()
+    lens = ptr[1:] - ptr[:-1]
+    acc = torch.zeros(lens.numel(), dtype=v.dtype, device=v.device)
+    idx = idx.long()
+    for j in range(int(lens.max()) if lens.numel() else 0):
+        has = lens > j
+        acc = acc + torch.where(has, v[idx[torch.where(has, ptr[:-1] + j,
+                                                       0)]], 0.0)
+    return acc
+
+
+def refresh_plain(R, diag0, off0):
+    """K10's refresh in plain torch, the kernel's gathers in its order over
+    the same composed maps, into the buffers of ``R`` (a ``Refresh``):
+    every level's diag and ELL values (padding slots untouched) and the
+    float32 dense coarsest matrix; not the inverse. Equals the per-level
+    composition (``coarsen_values(..., twin=True)``) bit for bit where
+    index_add_ adds in index order, as on the CPU."""
+    amg = R.amg
+    R.diag[0].copy_(diag0)
+    src = amg.ell[0]["src"].long()
+    has = src >= 0
+    R.ell[0].view(-1)[has] = off0[src[has]]
+    for k, lv in enumerate(amg.levels):
+        dv = diag0 if k == 0 else R.diag[k]
+        ov = off0 if k == 0 else R.ell[k].view(-1)
+        R.diag[k + 1].copy_(_csr_sum(lv["child_ptr"], lv["child_idx"], dv)
+                            + _csr_sum(lv["fold_ptr"], lv["fold_pos"], ov))
+        R.ell[k + 1].view(-1)[lv["ent_dst"].long()] = _csr_sum(
+            lv["ent_ptr"], lv["ent_pos"], ov)
+    if R.dense is not None:
+        R.dense.copy_(dense_coarsest(R.diag[-1], R.ell[-1],
+                                     amg.ell[-1]["cols"]))
+
+
 # ---------------------------------------------------------------------------
 # K10 CUDA wrappers (csrc/amg.cu)
 
@@ -259,9 +324,8 @@ _SIGS = {
     "opm_amg_down": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "opm_amg_down_rhs": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "opm_amg_up": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    "opm_amg_coarsen": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                        _P],
-    "opm_amg_ell_pack": [_L, _P, _P, _P, _P],
+    "opm_amg_refresh_grid": [_L, _P],
+    "opm_amg_refresh": [_P, _I, _P, _P, _I, _P],
 }
 
 
@@ -273,7 +337,8 @@ def _f64(*ts):
 
 
 class Workspace:
-    """K10's state for one Newton's level values on the card: per level
+    """K10's state for one set of level values on the card (the
+    hierarchy's refreshed values: made once per hierarchy): per level
     0 < k < nL its right-hand side ``b[k]`` and correction ``e[k]`` (the
     coarsest's too, and a second sweep buffer, when it is not inverted),
     per level k < nL its pre-smoothed iterate ``x[k]``, the residuals'
@@ -340,7 +405,6 @@ class Workspace:
         self.grid_down, self.grid_up, self.info = leg_grids(
             "amg", _SIGS, dev, max(sizes), max(sizes[:-1] or sizes))
         self.lib = cuda_lib.load("amg", _SIGS)
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_rhs(ws, b):
@@ -359,8 +423,8 @@ def vcycle_down_cuda(ws, b, levels=None):
     _check_rhs(ws, b)
     cuda_lib.check(ws.lib.opm_amg_down(
         ws.table.data_ptr(), ws.nL, int(ws.dense), lo, hi, b.data_ptr(),
-        ws.r.data_ptr(), ws.bc.data_ptr(), ws.grid_down, ws.stream),
-        "opm_amg_down")
+        ws.r.data_ptr(), ws.bc.data_ptr(), ws.grid_down,
+        cuda_lib.stream_ptr(ws.device)), "opm_amg_down")
     vcycle_down_cuda.launches += 1
     return ws.bc
 
@@ -373,8 +437,8 @@ def vcycle_up_cuda(ws, b, levels=None):
     _check_rhs(ws, b)
     cuda_lib.check(ws.lib.opm_amg_up(
         ws.table.data_ptr(), ws.nL, int(ws.dense), lo, hi, b.data_ptr(),
-        ws.ec.data_ptr(), ws.out.data_ptr(), ws.grid_up, ws.stream),
-        "opm_amg_up")
+        ws.ec.data_ptr(), ws.out.data_ptr(), ws.grid_up,
+        cuda_lib.stream_ptr(ws.device)), "opm_amg_up")
     vcycle_up_cuda.launches += 1
     return ws.out
 
@@ -388,7 +452,7 @@ def vcycle_down_rhs_cuda(ws, w, rc):
     cuda_lib.check(ws.lib.opm_amg_down_rhs(
         ws.table.data_ptr(), ws.nL, int(ws.dense), w.data_ptr(),
         rc.data_ptr(), ws.b0.data_ptr(), ws.r.data_ptr(), ws.bc.data_ptr(),
-        ws.grid_down, ws.stream), "opm_amg_down_rhs")
+        ws.grid_down, cuda_lib.stream_ptr(ws.device)), "opm_amg_down_rhs")
     vcycle_down_rhs_cuda.launches += 1
     return ws.bc
 
@@ -398,58 +462,136 @@ vcycle_up_cuda.launches = 0
 vcycle_down_rhs_cuda.launches = 0
 
 
-def coarsen_cuda(diag, off, lv):
-    """K10 value coarsening on the card; same contract as coarsen_plain."""
-    _f64(diag, off)
-    n_c, nnz_c = lv["n_coarse"], lv["nnz_coarse"]
-    dev = diag.device
-    diag_c = torch.empty(n_c, dtype=torch.float64, device=dev)
-    off_c = torch.empty(nnz_c, dtype=torch.float64, device=dev)
-    lib = cuda_lib.load("amg", _SIGS)
-    ptr = cuda_lib.ptr
-    err = lib.opm_amg_coarsen(
-        n_c, ptr(lv["child_ptr"]), ptr(lv["child_idx"]), ptr(diag),
-        ptr(lv["fold_ptr"]), ptr(lv["fold_idx"]), ptr(off), ptr(diag_c),
-        nnz_c, ptr(lv["ent_ptr"]), ptr(lv["ent_idx"]), ptr(off_c),
-        cuda_lib.stream_ptr(dev))
-    cuda_lib.check(err, "opm_amg_coarsen")
-    coarsen_cuda.launches += 1
-    return diag_c, off_c
+class Refresh:
+    """The per-Newton refresh's outputs for one hierarchy on one device,
+    allocated once: per level its diag (n,) and ELL values (K, n) (zeroed
+    once: the padding slots are never written), and where the coarsest is
+    inverted its float32 dense matrix, inverse (column-major) and the
+    inverse's info; ``vals`` the LevelValues over them (views that the
+    next refresh overwrites). On a CUDA device also the V-cycle workspace
+    over them (``vals.ws``) and the kernel's table (csrc/amg.cu
+    ``RefreshHead``, then one ``StepRec`` per coarsening step), uploaded
+    here once, with its grid and each phase's outputs ``work``."""
+
+    def __init__(self, amg, device):
+        dev = torch.device(device)
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.amg, self.n0, self.nnz0 = amg, amg.n0, amg.nnz0
+        self.nL = len(amg.levels)
+        self.diag = [torch.empty(e["cols"].shape[1], **f64) for e in amg.ell]
+        self.ell = [torch.zeros(tuple(e["cols"].shape), **f64)
+                    for e in amg.ell]
+        self.dense = self.inv = self.inv_info = None
+        self.vals = LevelValues(zip(self.diag, self.ell))
+        if amg.coarsest_n <= DENSE_COARSEST:
+            n_c = amg.coarsest_n
+            self.dense = torch.empty((n_c, n_c), dtype=torch.float32,
+                                     device=dev)
+            # column-major, the layout torch.linalg.inv returns: the
+            # coarsest product then sums as on the per-level composition
+            self.inv = torch.empty_like(self.dense).mT
+            self.inv_info = torch.empty((), dtype=torch.int32, device=dev)
+            self.vals.append(self.inv)
+        self.device = self.diag[0].device
+        if dev.type == "cuda":
+            self._bind(dev)
+
+    def _bind(self, dev):
+        """The card's part: the kernel's table and grid, and the
+        V-cycle workspace over the buffers."""
+        amg = self.amg
+        e0, ec = amg.ell[0], amg.ell[-1]
+        K_c, n_c = ec["cols"].shape
+        recs = [e0["src"].data_ptr(), self.diag[0].data_ptr(),
+                self.ell[0].data_ptr(), self.diag[-1].data_ptr(),
+                self.ell[-1].data_ptr(), ec["cols32"].data_ptr(),
+                self.dense.data_ptr() if self.dense is not None else 0,
+                self.n0, e0["cols"].numel(), n_c, K_c]
+        work = [self.n0 + e0["cols"].numel()] + [0] * max(self.nL - 1, 0)
+        for k, lv in enumerate(amg.levels):
+            recs += [0 if k == 0 else self.diag[k].data_ptr(),
+                     0 if k == 0 else self.ell[k].data_ptr()]
+            recs += [lv[f].data_ptr() for f in (
+                "child_ptr", "child_idx", "fold_ptr", "fold_pos", "ent_ptr",
+                "ent_pos", "ent_dst")]
+            recs += [self.diag[k + 1].data_ptr(),
+                     self.ell[k + 1].data_ptr(), lv["n_coarse"],
+                     lv["nnz_coarse"]]
+            work[k] += lv["n_coarse"] + lv["nnz_coarse"]
+        self.table = torch.tensor(recs, dtype=torch.int64).to(dev)
+        self.lib = cuda_lib.load("amg", _SIGS)
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            cuda_lib.check(self.lib.opm_amg_refresh_grid(
+                max(work + [n_c * n_c if self.dense is not None else 0]),
+                out), "opm_amg_refresh_grid")
+        self.grid = out[0]
+        self.grid_info = dict(sms=out[1], blocks_per_sm=out[2],
+                              registers=out[3])
+        self.work = work
+        self.vals.ws = Workspace(amg, self.vals)
 
 
-coarsen_cuda.launches = 0
+def refresh_cuda(R, diag0, off0):
+    """K10's per-Newton value refresh on the card, one launch into the
+    buffers of ``R`` (the hierarchy's ``Refresh``): every level's diag and
+    ELL values and the float32 dense coarsest matrix from the pressure
+    system's diag0 (n0,) and off0 (the level-0 entries in face order), on
+    the current stream. Returns ``R.vals``, whose inverse is not formed
+    here."""
+    for t, n in ((diag0, R.n0), (off0, R.nnz0)):
+        if (t.dtype != torch.float64 or not t.is_contiguous()
+                or t.device != R.device or tuple(t.shape) != (n,)):
+            raise ValueError("K10: the refresh needs contiguous float64 "
+                             f"diag0 ({R.n0},) and off0 ({R.nnz0},) on "
+                             f"{R.device}")
+    cuda_lib.check(R.lib.opm_amg_refresh(
+        R.table.data_ptr(), R.nL, diag0.data_ptr(), off0.data_ptr(), R.grid,
+        cuda_lib.stream_ptr(R.device)),
+        "opm_amg_refresh")
+    refresh_cuda.launches += 1
+    return R.vals
 
 
-def ell_pack_cuda(off, ell):
-    """K10 ELL pack on the card; same contract as ell_pack_plain."""
-    _f64(off)
-    K, n = ell["cols"].shape
-    out = torch.empty((K, n), dtype=torch.float64, device=off.device)
-    lib = cuda_lib.load("amg", _SIGS)
-    ptr = cuda_lib.ptr
-    err = lib.opm_amg_ell_pack(K * n, ptr(ell["src"]), ptr(off), ptr(out),
-                               cuda_lib.stream_ptr(off.device))
-    cuda_lib.check(err, "opm_amg_ell_pack")
-    ell_pack_cuda.launches += 1
-    return out
+refresh_cuda.launches = 0
 
 
-ell_pack_cuda.launches = 0
-
+def refresh_bytes(sizes, widths, entries):
+    """The bytes K10's value refresh must move on a hierarchy whose levels
+    have ``sizes`` cells, ELL ``widths`` and ``entries`` off-diagonal
+    entries (level 0 first), each input read once and each output written
+    once: diag0 and off0 (float64), the int32 maps (level 0's slot
+    entries; per coarsening step the children and their CSR pointers,
+    each fine entry once as a folded or merged position, the two CSRs'
+    pointers and each coarse entry's slot; the coarsest's column ids) and
+    the outputs (every level's diag and entries, level 0's copy included,
+    and the float32 dense coarsest matrix where it is inverted)."""
+    ns, Ks, nnz = sizes, widths, entries
+    b = 8 * (ns[0] + nnz[0]) + 4 * Ks[0] * ns[0]
+    for k in range(len(ns) - 1):
+        b += 4 * (2 * (ns[k + 1] + 1) + ns[k] + nnz[k]
+                  + (nnz[k + 1] + 1) + nnz[k + 1])
+    b += sum(8 * (n + z) for n, z in zip(ns, nnz))
+    if ns[-1] <= DENSE_COARSEST:
+        b += 4 * Ks[-1] * ns[-1] + 4 * ns[-1] ** 2
+    return b
 
 # ---------------------------------------------------------------------------
 
 class DeviceAmg:
     """The hierarchy's index arrays on one device and the per-Newton work:
-    ``coarsen_values`` (K10 coarsening and packing, then the float32
-    coarsest inverse) and ``vcycle`` (K10's two legs)."""
+    ``coarsen_values`` (on the card K10's refresh into the hierarchy's
+    ``Refresh``, then the float32 coarsest inverse) and ``vcycle`` (K10's
+    two legs)."""
 
     wants_canonical_faces = False
 
     def __init__(self, h: AmgHierarchy, device):
         dev = torch.device(device)
         self.device = dev
+        self.hierarchy = h
         self.n0 = h.nc
+        self.nnz0 = len(h.rows0)
         self.coarsest_n = h.coarsest_n
 
         def t(a, dtype=torch.long):
@@ -458,16 +600,22 @@ class DeviceAmg:
 
         def ell_of(n, rows, cols):
             cols_ell, slot = pack_ell(n, rows, cols)
-            src = np.full(cols_ell.size, -1, dtype=np.int64)
-            src[slot] = np.arange(len(slot))
             return dict(cols=t(cols_ell), cols32=t(cols_ell, torch.int32),
-                        slot=t(slot), src=t(src))
+                        slot=t(slot)), slot
 
-        # self.ell[k]: level k's ELL layout; self.levels[k]: the coarsening
-        # step k -> k + 1 (with level k's ELL and aggregates for the
-        # V-cycle kernels)
-        self.ell = [ell_of(h.nc, h.rows0, h.cols0)]
+        # self.ell[k]: level k's ELL layout (level 0's with the entry of
+        # each slot, -1 at padding); self.levels[k]: the coarsening step
+        # k -> k + 1 (with level k's ELL and aggregates for the V-cycle
+        # kernels, and the refresh's gather CSRs: each summed entry as its
+        # position in level k's values, off0's face order at k = 0 and its
+        # ELL slot below, each coarse entry's ELL slot at level k + 1)
+        e0, slot0 = ell_of(h.nc, h.rows0, h.cols0)
+        src = np.full(e0["cols"].numel(), -1, dtype=np.int64)
+        src[slot0] = np.arange(len(slot0))
+        e0["src"] = t(src, torch.int32)
+        self.ell = [e0]
         self.levels = []
+        fine_slot = None        # level k's entry -> its ELL slot (k >= 1)
         for lv in h.levels:
             n_c = lv.n_coarse
             cptr, cidx = csr_by(lv.agg, n_c)
@@ -475,6 +623,7 @@ class DeviceAmg:
             fptr, fsel = csr_by(lv.off_diag_row[diag_e], n_c)
             kept = np.nonzero(~lv.off_is_diag)[0]
             eptr, esel = csr_by(lv.off_to_coarse[kept], len(lv.rows_c))
+            ell_c, slot_c = ell_of(n_c, lv.rows_c, lv.cols_c)
             self.levels.append(dict(
                 n_fine=lv.n_fine, n_coarse=n_c, nnz_coarse=len(lv.rows_c),
                 agg=t(lv.agg), agg32=t(lv.agg, torch.int32),
@@ -484,12 +633,15 @@ class DeviceAmg:
                 child_ptr=t(cptr, torch.int32),
                 child_idx=t(cidx, torch.int32),
                 fold_ptr=t(fptr, torch.int32),
-                fold_idx=t(diag_e[fsel], torch.int32),
+                fold_pos=t(_at(fine_slot, diag_e[fsel]), torch.int32),
                 ent_ptr=t(eptr, torch.int32),
-                ent_idx=t(kept[esel], torch.int32)))
-            self.ell.append(ell_of(n_c, lv.rows_c, lv.cols_c))
+                ent_pos=t(_at(fine_slot, kept[esel]), torch.int32),
+                ent_dst=t(slot_c, torch.int32)))
+            self.ell.append(ell_c)
+            fine_slot = slot_c
         for k, lv in enumerate(self.levels):
             lv.update(cols=self.ell[k]["cols"], cols32=self.ell[k]["cols32"])
+        self.refresh = Refresh(self, dev) if dev.type == "cuda" else None
 
     @property
     def n_levels(self):
@@ -499,25 +651,41 @@ class DeviceAmg:
     def coarsen_values(self, diag0, off0, *, twin=False):
         """Per-Newton Galerkin value coarsening: per level (diag, ell_vals
         (K, n)), level 0 first, then the float32 inverse of the dense
-        coarsest matrix when it has at most DENSE_COARSEST cells.
-        ``twin``: the plain twins on any device."""
+        coarsest matrix when it has at most DENSE_COARSEST cells. On the
+        card K10's refresh into the hierarchy's buffers and the inverse
+        into its buffer: the same ``Refresh.vals`` every call (its
+        workspace made once), valid until the next refresh; on the CPU,
+        and with ``twin`` on any device, the per-level composition of the
+        plain twins in fresh tensors. A singular coarsest matrix raises on
+        the CPU (torch.linalg.inv); on the card the inverse is
+        torch.linalg.inv_ex, which leaves the host unsynced and, like the
+        reference's jnp.linalg.inv, gives non-finite values with no error
+        (its info in ``refresh.inv_info``)."""
+        diag0, off0 = diag0.contiguous(), off0.contiguous()
         if twin:
-            coarsen, pack = coarsen_plain, ell_pack_plain
-        else:
-            def coarsen(d, o, lv):
-                return cuda_lib.dispatch(d, coarsen_cuda, coarsen_plain, d,
-                                         o, lv, what="K10 coarsen")
+            return self._coarsen_levels(diag0, off0)
+        return cuda_lib.dispatch(diag0, self._refresh, self._coarsen_levels,
+                                 diag0, off0, what="K10 refresh")
 
-            def pack(o, ell):
-                return cuda_lib.dispatch(o, ell_pack_cuda, ell_pack_plain,
-                                         o, ell, what="K10 ell_pack")
+    def _refresh(self, diag0, off0):
+        R = self.refresh
+        if R is None:
+            raise ValueError(f"K10: this hierarchy was put on {self.device}, "
+                             "not on the card")
+        refresh_cuda(R, diag0, off0)
+        if R.dense is not None:
+            torch.linalg.inv_ex(R.dense, out=(R.inv, R.inv_info))
+        return R.vals
+
+    def _coarsen_levels(self, diag, off):
+        """The per-level composition of coarsen_plain, ell_pack_plain and
+        invert_coarsest."""
         vals = LevelValues()
-        diag, off = diag0.contiguous(), off0.contiguous()
         for k in range(self.n_levels):
-            vals.append((diag, pack(off, self.ell[k])))
+            vals.append((diag, ell_pack_plain(off, self.ell[k])))
             if k == len(self.levels):
                 break
-            diag, off = coarsen(diag, off, self.levels[k])
+            diag, off = coarsen_plain(diag, off, self.levels[k])
         if self.coarsest_n <= DENSE_COARSEST:
             vals.append(self.invert_coarsest(*vals[-1], self.ell[-1]))
         return vals
@@ -526,13 +694,8 @@ class DeviceAmg:
     def invert_coarsest(diag, ell_vals, ell):
         """float32 inverse of the dense coarsest matrix (the reference's
         jnp.linalg.inv(A.astype(float32)))."""
-        K, n = ell["cols"].shape
-        ar = torch.arange(n, device=diag.device)
-        A = torch.zeros((n, n), dtype=diag.dtype, device=diag.device)
-        A[ar, ar] = diag
-        A.index_put_((ar.repeat(K), ell["cols"].reshape(-1)),
-                     ell_vals.reshape(-1), accumulate=True)
-        return torch.linalg.inv(A.to(torch.float32))
+        return torch.linalg.inv(dense_coarsest(diag, ell_vals, ell["cols"])
+                                .to(torch.float32))
 
     # ------------------------------------------------------------------
     def _coarsest_plain(self, vals, k, bk):

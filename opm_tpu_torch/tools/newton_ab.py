@@ -27,9 +27,23 @@ step:
 * one CPR apply (``make_cpr_cells``) on a seeded residual: device kernels
   per apply, host time per apply, device time per apply in a run of 50,
   and a digest of its result (bits compared across legs);
-* at SPE10-2, report step 0 after a warm-up run of the same step: wall,
-  the Newton loop's synced sections (``update``, ``krylov``, ...), the
-  residual + convergence time, the counts and a digest of the state.
+* on G, the aggregation AMG's per-Newton value refresh
+  (``DeviceAmg.coarsen_values`` on the first Newton system's pressure
+  values, and the refresh followed by the first V-cycle on its values,
+  which in a tree before the hierarchy-owned buffers builds the V-cycle
+  workspace): host time per call, device kernels, host-to-device copies
+  and device time per call, the refresh's bound (``linalg/amg.py``
+  ``refresh_bytes`` of the levels' sizes at 3.35 TB/s, computed with
+  this tool's tree), and digests of every level's values and of the inverse;
+* the per-Newton pressure-stage work that no hand kernel does (plain
+  torch on the card): K5's well-block inverses (``inv4x4``) everywhere,
+  and at SPE10-2 and on E K7's value coarsening (``coarsen_values``
+  whole), its dense coarsest matrix and its float32 inverse alone: host
+  time per call and device kernels per call;
+* at SPE10-2 and on G, report step 0 after a warm-up run of the same
+  step: wall, the Newton loop's synced sections (``update``,
+  ``cpr_setup``, ``krylov``, ...), the residual + convergence time, the
+  counts and a digest of the state.
 
 Prints one JSON line per leg and the card's name and power limit; writes
 everything to --out.
@@ -49,6 +63,7 @@ import time
 SPE10 = dict(nx=60, ny=220, nz=85)
 OMEGA = 0.9
 RUN = 50
+HBM_BYTES_S = 3.35e12    # NVIDIA H100 SXM data sheet
 
 
 def smi():
@@ -104,9 +119,9 @@ def host_per_call(fn, run=RUN, reps=5):
 
 def device_kernels(fn, reps=10):
     """{"launches": device kernels per call, "us": their device time per
-    call, "kernels": {name: launches per call}} under torch.profiler (after
-    a warm call); None where no device event was recorded (not
-    measured)."""
+    call, "kernels": {name: launches per call}, "copies_h2d":
+    host-to-device copies per call} under torch.profiler (after a warm
+    call); None where no device event was recorded (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -118,8 +133,8 @@ def device_kernels(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
-           and not ev.name.startswith("Memcpy")]
+    dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    evs = [ev for ev in dev if not ev.name.startswith("Memcpy")]
     if not evs:
         return None
     by = {}
@@ -129,7 +144,8 @@ def device_kernels(fn, reps=10):
         by[name] = by.get(name, 0) + 1 / reps
     return dict(launches=len(evs) / reps,
                 us=sum(ev.time_range.elapsed_us() for ev in evs) / reps,
-                kernels=by)
+                kernels=by, copies_h2d=sum(
+                    "HtoD" in ev.name for ev in dev) / reps)
 
 
 def digest(*ts):
@@ -256,6 +272,51 @@ def _cpr_rows(sim, sys_, rc):
     return out
 
 
+def _refresh_rows(sim, sys_, rc):
+    """The aggregation AMG's value refresh on the first Newton system: one
+    ``coarsen_values``, and one with the first V-cycle on its values."""
+    import torch
+
+    from opm_tpu_torch.linalg import precond as k6
+    amg = sim.solver.amg
+    _, w, diag_p, off = k6.cpr_setup(sys_, None, amg)
+    vals = amg.coarsen_values(diag_p, off)
+    nl = amg.n_levels
+    out = dict(
+        refresh=measure(lambda: amg.coarsen_values(diag_p, off)),
+        refresh_vcycle=measure(lambda: amg.vcycle(
+            amg.coarsen_values(diag_p, off), None, w=w, rc=rc)),
+        levels_digest=digest(*[t for lv in vals[:nl] for t in lv]),
+        inverse_digest=digest(vals[nl]) if len(vals) > nl else None,
+        sizes=[int(e["cols"].shape[1]) for e in amg.ell],
+        widths=[int(e["cols"].shape[0]) for e in amg.ell],
+        entries=[int(e["slot"].numel()) for e in amg.ell])
+    torch.cuda.synchronize()
+    return out
+
+
+def _plain_rows(sim, sys_):
+    """Per-Newton pressure-stage work that no hand kernel does: K5's
+    well-block inverses, and on a structured hierarchy K7's value
+    coarsening with its dense coarsest matrix and float32 inverse."""
+    from opm_tpu_torch.linalg import precond as k6
+    m, amg = sim.model, sim.solver.amg
+    out = dict(inv4x4=measure(lambda: k6.inv4x4(sys_.wd_diag)))
+    if m.op_dims is None:
+        return out
+    _, _, diag_p, off = k6.cpr_setup(sys_, tuple(m.op_dims), amg)
+    vals = amg.coarsen_values(diag_p, off)
+    L = len(amg.levels)
+    dc, oc = amg._coarsen_level(*vals[L - 1], amg.levels[-1].axis)
+    A = amg._dense_coarsest(dc, oc)
+    out.update(
+        levels=L, coarsest_n=amg.coarsest_n,
+        gmg_coarsen_values=measure(lambda: amg.coarsen_values(diag_p, off)),
+        gmg_dense_coarsest=measure(lambda: amg._dense_coarsest(dc, oc)),
+        gmg_invert_coarsest=measure(lambda: amg.invert_coarsest(A)))
+    return out
+
+
 def _leg(tree):
     import numpy as np
     import torch
@@ -313,8 +374,11 @@ def _leg(tree):
         sys_ = linearize.assemble(m, st, acc0, dt, wd, cdp)
         rc = torch.as_tensor(rng.standard_normal((3, nc)), device=m.device)
         r["cpr"] = _cpr_rows(sim, sys_, rc)
+        r["plain"] = _plain_rows(sim, sys_)
+        if label == "norne_gather":
+            r["refresh"] = _refresh_rows(sim, sys_, rc)
         del sys_, res, new
-        if label == "spe10":
+        if label in ("spe10", "norne_gather"):
             sim.run(init, report_step_limit=1)          # warm-up
             sim, init = fresh(case, knob)
             sim.solver.timing = {}
@@ -338,9 +402,18 @@ def _leg(tree):
     print(json.dumps(out), flush=True)
 
 
+def _bound(r):
+    """The refresh's bytes and bound, from a leg's level sizes (the same
+    for every tree)."""
+    if r:
+        from opm_tpu_torch.linalg.amg import refresh_bytes
+        r["bytes"] = refresh_bytes(r["sizes"], r["widths"], r["entries"])
+        r["bound_ms"] = r["bytes"] / HBM_BYTES_S * 1e3
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--trees", required=True,
+    ap.add_argument("--trees",
                     help="BASE,CHANGE: two repository roots (or one)")
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--out", default=None)
@@ -352,6 +425,8 @@ def main(argv=None):
     if args.leg:
         _leg(os.path.abspath(args.leg))
         return 0
+    if not args.trees:
+        ap.error("--trees is required")
     card = smi()
     trees = [os.path.abspath(t) for t in args.trees.split(",")]
     legs = []
@@ -365,6 +440,7 @@ def main(argv=None):
                              f"{proc.stderr[-4000:]}")
         leg = json.loads(proc.stdout.strip().splitlines()[-1])
         leg["leg"] = letter
+        _bound(leg.get("norne_gather", {}).get("refresh"))
         legs.append(leg)
         print(json.dumps(leg), flush=True)
     res = dict(device=card, order=args.order, trees=trees, legs=legs)

@@ -6,7 +6,10 @@ in float64.
 The hierarchy is host numpy on both sides and must be identical: every
 level's aggregates, coarse entries and merge maps, and the ELL packing.
 The value coarsening (K10's twin) is held to 1e-12 relative (summation
-order of the segment sums), the level operations ell_spmv and
+order of the segment sums); the refresh's plain version (the kernel's
+gathers over the composed maps, into the hierarchy's buffers) to the
+per-level composition bit for bit and to the reference as the twin is;
+the level operations ell_spmv and
 jacobi_sweep to 1e-12 of max, and one whole V-cycle to 1e-6 of max: its
 coarsest level is solved by a float32 inverse on both sides (LAPACK's and
 XLA's float32 inverses differ in the last bits; the inverse itself is held
@@ -49,6 +52,17 @@ def _scaled(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
+def _pressure_values(g, rows0, rng):
+    """An M-matrix-like pressure system from ``rng`` (negative couplings,
+    dominant diag): (diag0, off0) as tensors."""
+    t = np.asarray(g.trans) / np.asarray(g.trans).max()
+    off0 = -np.concatenate([t, t]) * (1.0 + 0.1 * rng.random(2 * len(t)))
+    diag0 = np.zeros(g.nc)
+    np.add.at(diag0, rows0, -off0)
+    diag0 += 1e-3 * rng.random(g.nc)
+    return torch.as_tensor(diag0), torch.as_tensor(off0)
+
+
 @pytest.fixture(scope="module")
 def setup():
     g = _gather_grid()
@@ -56,19 +70,14 @@ def setup():
     hp = amg.build_hierarchy(g.nc, g.face_cells, g.trans)
     hr = ramg.build_hierarchy(g.nc, np.asarray(g.face_cells),
                               np.asarray(g.trans))
-    # an M-matrix-like pressure system: negative couplings, dominant diag
     rng = np.random.default_rng(3)
-    t = np.asarray(g.trans) / np.asarray(g.trans).max()
-    off0 = -np.concatenate([t, t]) * (1.0 + 0.1 * rng.random(2 * len(t)))
-    diag0 = np.zeros(g.nc)
-    np.add.at(diag0, hp.rows0, -off0)
-    diag0 += 1e-3 * rng.random(g.nc)
+    diag0, off0 = _pressure_values(g, hp.rows0, rng)
     dev_p = hp.device("cpu")
     dev_r = hr.device()
-    vals_p = dev_p.coarsen_values(torch.as_tensor(diag0),
-                                  torch.as_tensor(off0))
-    vals_r = dev_r.coarsen_values(jnp.asarray(diag0), jnp.asarray(off0))
-    return g, hp, hr, dev_p, dev_r, vals_p, vals_r, rng
+    vals_p = dev_p.coarsen_values(diag0, off0)
+    vals_r = dev_r.coarsen_values(jnp.asarray(diag0.numpy()),
+                                  jnp.asarray(off0.numpy()))
+    return g, hp, hr, (diag0, off0), dev_p, dev_r, vals_p, vals_r, rng
 
 
 def test_hierarchy_identical(setup):
@@ -110,6 +119,77 @@ def test_coarsen_values(setup):
             tol = 1e-12 * np.abs(b) + 1e-14 * np.abs(b).max()
             assert np.all(np.abs(a - b) <= tol), k
     assert _scaled(vals_p[-1].numpy(), vals_r[-1]) <= TOL_F32_INV
+
+
+def _refreshed(dev_p, diag0, off0, R=None):
+    """refresh_plain of (diag0, off0) into R (a fresh Refresh on the CPU
+    when None), the inverse formed as the card forms it."""
+    if R is None:
+        R = amg.Refresh(dev_p, "cpu")
+    amg.refresh_plain(R, diag0, off0)
+    torch.linalg.inv_ex(R.dense, out=(R.inv, R.inv_info))
+    return R
+
+
+def test_refresh_plain_is_the_composition(setup):
+    """K10's refresh in plain torch (the kernel's gathers over the composed
+    maps: level k's entries read at their ELL slots, each coarse entry
+    written into its slot) writes every level's values into the
+    hierarchy's layout bit for bit as the per-level composition of the
+    twins, the float32 dense coarsest matrix bit for bit as
+    invert_coarsest forms it, and inv_ex into the buffers gives
+    torch.linalg.inv's bits in its layout (a V-cycle on the buffers equals
+    one on the composition); ``vals`` are views of the buffers."""
+    _, _, _, (diag0, off0), dev_p, _, vals_p, _, _ = setup
+    R = _refreshed(dev_p, diag0, off0)
+    nl = dev_p.n_levels
+    assert len(R.vals) == nl + 1 and R.vals[-1] is R.inv
+    for k in range(nl):
+        assert R.vals[k][0] is R.diag[k] and R.vals[k][1] is R.ell[k]
+        assert torch.equal(R.diag[k], vals_p[k][0]), k
+        assert torch.equal(R.ell[k], vals_p[k][1]), k
+    A = amg.dense_coarsest(*vals_p[nl - 1], dev_p.ell[-1]["cols"])
+    assert torch.equal(R.dense, A.to(torch.float32))
+    assert torch.equal(R.inv, vals_p[-1]) and int(R.inv_info) == 0
+    # the inverse's layout too: the coarsest product sums in its order
+    assert R.inv.stride() == vals_p[-1].stride()
+    b = torch.as_tensor(np.random.default_rng(8).standard_normal(dev_p.n0))
+    assert torch.equal(dev_p.vcycle(R.vals, b), dev_p.vcycle(vals_p, b))
+
+
+def test_refresh_plain_matches_reference(setup):
+    """The refresh's values against the JAX package's coarsen_values at the
+    twin's tolerances: every level 1e-12 relative, the float32 inverse
+    1e-5 of max."""
+    _, _, _, (diag0, off0), dev_p, _, _, vals_r, _ = setup
+    R = _refreshed(dev_p, diag0, off0)
+    for k in range(dev_p.n_levels):
+        for a, b in zip(R.vals[k], vals_r[k]):
+            a, b = a.numpy(), np.asarray(b)
+            tol = 1e-12 * np.abs(b) + 1e-14 * np.abs(b).max()
+            assert np.all(np.abs(a - b) <= tol), k
+    assert _scaled(R.inv.numpy(), vals_r[-1]) <= TOL_F32_INV
+
+
+def test_refresh_padding_stays_zero(setup):
+    """Two refreshes into the same buffers with other seeded values: the
+    padding slots (self-loops) stay 0 and the second refresh leaves no
+    value of the first: it equals the per-level composition of its own
+    inputs bit for bit."""
+    g, hp, _, _, dev_p, *_ = setup
+    R = None
+    for seed in (11, 12):
+        d, o = _pressure_values(g, hp.rows0, np.random.default_rng(seed))
+        R = _refreshed(dev_p, d, o, R)
+        vals = dev_p.coarsen_values(d, o)
+        for k, e in enumerate(dev_p.ell):
+            K, n = e["cols"].shape
+            pad = torch.ones(K * n, dtype=torch.bool)
+            pad[e["slot"]] = False
+            assert not R.ell[k].reshape(-1)[pad].any(), (seed, k)
+            assert torch.equal(R.ell[k], vals[k][1])
+            assert torch.equal(R.diag[k], vals[k][0])
+        assert torch.equal(R.inv, vals[-1])
 
 
 def test_ell_spmv_and_sweep(setup):

@@ -29,6 +29,7 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import gc
 import os
 
 import numpy as np
@@ -439,35 +440,74 @@ def _no_allocation(vcycle, x):
 
 
 def test_k10_matches_twins_on_toy(dev):
-    """K10 on the toy Norne-like deck's gather grid (4176 cells): the value
-    coarsening and ELL packing of every level against their plain twins on
-    the card (1e-12 of max); one V-cycle through the two legs (exactly two
-    K10 launches and one float32 product) against the per-level
-    composition of the twins, and every level's right-hand side and
-    correction in the workspace against the legs' twins, within 1e-6 of
-    max (the twins' restriction is an index_add with atomics on the card,
-    which can round the float32 coarsest right-hand side the other way);
-    ten more V-cycles allocate nothing and repeat the bits. A hierarchy cut
-    at two levels (a coarsest level of more than DENSE_COARSEST cells,
-    solved by 1 + 10 sweeps in the down leg): two launches, no product, and
-    the V-cycle within 1e-10 of max of the twins' (all float64; the
-    atomics' order alone)."""
+    """K10 on the toy Norne-like deck's gather grid (4176 cells): one
+    ``coarsen_values`` is one ``refresh_cuda`` launch into the hierarchy's
+    buffers (the same LevelValues every call); every level's diag and ELL
+    values and the float32 dense coarsest matrix bit for bit the per-level
+    composition of the twins on CPU copies of the inputs (the CPU's
+    index_add_ adds in index order, the kernel's order) and within 1e-12
+    of max the twins on the card (index_add_ with atomics), the inverse
+    bit for bit torch.linalg.inv of the same matrix (inv_ex's info 0) and
+    within 1e-5 of max the CPU's; ten refreshes allocate nothing and leave the workspace's table
+    as it was; a V-cycle after a refresh with other values equals one on
+    a hierarchy put on the card afresh. One V-cycle through the two legs
+    (exactly two K10 launches and one float32 product) against the
+    per-level composition of the twins, and every level's right-hand side
+    and correction in the workspace against the legs' twins, within 1e-6
+    of max (the twins' restriction is an index_add with atomics on the
+    card, which can round the float32 coarsest right-hand side the other
+    way); ten more V-cycles allocate nothing and repeat the bits. A
+    hierarchy cut at two levels (a coarsest level of more than
+    DENSE_COARSEST cells, solved by 1 + 10 sweeps in the down leg): two
+    launches, no product, and the V-cycle within 1e-10 of max of the
+    twins' (all float64; the atomics' order alone)."""
     from opm_tpu_torch.linalg import amg as k10
     from opm_tpu_torch.linalg import precond as k6
 
     sim, _, sys = _norne_toy_system(dev, "0")
     amg = sim.solver.amg
-    assert isinstance(amg, k10.DeviceAmg) and amg.n_levels >= 4
-    _, _, diag_p, off = k6.cpr_setup_plain(sys.diag, sys.face_L, sys.face_R,
-                                           None, sys.faces)
-    n0 = k10.coarsen_cuda.launches
+    nl = amg.n_levels
+    assert isinstance(amg, k10.DeviceAmg) and nl >= 4
+    diag_p, off = k6.cpr_setup_plain(sys.diag, sys.face_L, sys.face_R, None,
+                                     sys.faces)[2:]
+    n0 = k10.refresh_cuda.launches
     vk = amg.coarsen_values(diag_p, off)
-    assert k10.coarsen_cuda.launches == n0 + amg.n_levels - 1
-    vp = amg.coarsen_values(diag_p, off, twin=True)
-    for (dk, ek), (dp, ep) in zip(vk[:amg.n_levels], vp[:amg.n_levels]):
-        assert _scaled(dk, dp) <= 1e-12 and _scaled(ek, ep) <= 1e-12
+    assert k10.refresh_cuda.launches == n0 + 1 and vk is amg.refresh.vals
+    R = amg.refresh
+    hc = k10.DeviceAmg(amg.hierarchy, "cpu")
+    vc = hc.coarsen_values(diag_p.cpu(), off.cpu())
+    for (dk, ek), (dc, ec) in zip(vk[:nl], vc[:nl]):
+        assert torch.equal(dk.cpu(), dc) and torch.equal(ek.cpu(), ec)
+    assert torch.equal(R.dense.cpu(), k10.dense_coarsest(
+        *vc[nl - 1], hc.ell[-1]["cols"]).to(torch.float32))
+    inv = torch.linalg.inv(R.dense)
+    assert torch.equal(vk[-1], inv) and vk[-1].stride() == inv.stride()
+    assert int(R.inv_info) == 0
+    assert _scaled(vk[-1].cpu(), vc[-1]) <= 1e-5
+    # a V-cycle on the refreshed values is the one on the composition's
+    # values with the card's torch.linalg.inv, bit for bit
+    comp = k10.LevelValues([(d.to(dev), e.to(dev)) for d, e in vc[:nl]]
+                           + [inv])
     rng = np.random.default_rng(5)
     b = torch.as_tensor(rng.standard_normal(amg.n0), device=dev)
+    assert torch.equal(amg.vcycle(vk, b), amg.vcycle(comp, b))
+    vp = amg.coarsen_values(diag_p, off, twin=True)
+    for (dk, ek), (dp, ep) in zip(vk[:nl], vp[:nl]):
+        assert _scaled(dk, dp) <= 1e-12 and _scaled(ek, ep) <= 1e-12
+    table = vk.ws.table.clone()
+    gc.collect()        # earlier cyclic garbage, freed at any moment
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    assert all(amg.coarsen_values(diag_p, off) is vk for _ in range(10))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == m0
+    assert torch.equal(vk.ws.table, table)
+    f = torch.as_tensor(rng.uniform(0.9, 1.1, off.shape), device=dev)
+    x2 = amg.vcycle(amg.coarsen_values(diag_p * 1.25, off * f), b).clone()
+    fresh = k10.DeviceAmg(amg.hierarchy, dev)
+    assert torch.equal(x2, fresh.vcycle(fresh.coarsen_values(
+        diag_p * 1.25, off * f), b))
+    assert amg.coarsen_values(diag_p, off) is vk
     n0 = _vcycle_launches(k10)
     x = amg.vcycle(vk, b).clone()
     assert tuple(a - c for a, c in zip(_vcycle_launches(k10), n0)) == \
@@ -477,7 +517,7 @@ def test_k10_matches_twins_on_toy(dev):
     bs, bc = amg.vcycle_down_plain(vk, b)
     _, es = amg.vcycle_up_plain(vk, bs, vk[-1] @ bc)
     assert _scaled(ws.bc.double(), bc.double()) <= 1e-6
-    for k in range(1, amg.n_levels - 1):
+    for k in range(1, nl - 1):
         assert _scaled(ws.b[k], bs[k]) <= 1e-6
         assert _scaled(ws.e[k], es[k]) <= 1e-6
     _no_allocation(lambda: amg.vcycle(vk, b), x)
