@@ -40,7 +40,17 @@ Phases (each prints a line of its own; any failure exits non-zero):
    steps also run twice for equal bits and checked to allocate nothing), timed
    at SPE10-2 with each one's bound and, where one PyTorch call computes
    the same function, that call's time, and one whole assembly through
-   the kernels against one through their twins; K7's two V-cycle legs
+   the kernels against one through their twins; D^-1 formed in K5's
+   right-hand-side launch against the plain inv4x4 on the card (bit for
+   bit, or within TOL_DINV of each block's max) with the right-hand side
+   unchanged; K7's value refresh (one launch per coarsen_values into the
+   hierarchy's buffers: every level and the float32 dense coarsest matrix
+   bit for bit the per-level composition on CPU copies, inv_ex's info 0,
+   the kernel making no allocator request and ten refreshes no net
+   allocation, a V-cycle after a refresh with other
+   values equal to one on freshly composed values; SPE1's hierarchy has
+   no level, SPE10-2's twelve) with its time, bound and device kernels
+   per coarsen_values; K7's two V-cycle legs
    (one V-cycle: exactly two launches and one float32 product) against
    the per-level twins, every level's right-hand side and correction
    held, with each leg's time, level 0's alone, the V-cycle's time and
@@ -61,8 +71,9 @@ Phases (each prints a line of its own; any failure exits non-zero):
    run (K8: two launches per BiCGStab iteration, two per solve; K7: two
    launches and one float32 product per V-cycle, two V-cycles per
    iteration; the down leg from the CPR apply's weighted residual, its
-   b entry never) and host-clock sections (each ended by
-   a synchronize);
+   b entry never; one K7 refresh and one K5 right-hand side forming D^-1
+   per Newton system, no plain inv4x4 on the card) and host-clock
+   sections (each ended by a synchronize);
 5b. the toy SPE10-like deck on the card against
    data/spe10like_toy_reference_cpu.json;
 6. the Norne-class corner-point field at full size (norne_like_deck:
@@ -81,12 +92,15 @@ Phases (each prints a line of its own; any failure exits non-zero):
    composition on CPU copies, ten refreshes allocating nothing, a V-cycle
    after a refresh with other values equal to one on a hierarchy put on
    the card afresh) and its two V-cycle legs on G (K7's on E) against
-   their plain versions, timed with bounds and yardsticks; one gather
+   their plain versions, timed with bounds and yardsticks (on E K7's
+   refresh held as at SPE10-2); one gather
    Newton system solved with the
    kernels and with the twins; then the first report step (5 days) in each
    representation through SimulatorFullyImplicitBlackoil with no device
    argument, with its counts, wall time, sections and launch counters
-   (one K4-faces pack per Newton system, and on G one K10 refresh),
+   (one K4-faces pack per Newton system, one K10 refresh on G and one K7
+   refresh on E, D^-1 by K5's right-hand side and never by the plain
+   inv4x4 on the card),
    each held to the JAX package's CPU run of the same representation
    (data/nornelike_full_reference_cpu.json) at the limits of phase 4, and
    the two to each other as closely as the reference's two runs agree;
@@ -139,6 +153,9 @@ TOL_K2_TAN = 1e-12
 # each field's max
 TOL_BLOCKS = 1e-12
 TOL_K5 = 1e-12
+# D^-1 formed in K5's right-hand-side launch against the plain inv4x4 on
+# the card, of each block's max, where the bits differ
+TOL_DINV = 1e-14
 # a whole AMG V-cycle and each level's right-hand side and correction of
 # its legs: the coarsest level is solved in float32, and the twin's
 # restriction (an index_add with atomics on the card) sums in another
@@ -162,6 +179,9 @@ TOL_LINEAR = 0.02    # linear iterations per report step (roundoff order)
 # peak, the bound's two rates for these float64 kernels
 HBM_BYTES_S = 3.35e12
 F64_FLOP_S = 34e12
+# float32 outside the tensor cores (TF32 is off): the float32 coarsest
+# inverses' operations term
+F32_FLOP_S = 67e12
 # float64 instructions per second: the peak counts a DFMA as two
 # operations; built with --fmad=false every DADD and DMUL is one
 # instruction of one operation, issued at half that rate
@@ -267,6 +287,24 @@ def run_ms(fn, run=50, reps=5):
     return statistics.median(times)
 
 
+def allocations(fn, reps=10):
+    """The caching allocator's requests per call of fn over ``reps`` warm
+    calls (``allocation.all.allocated``, which counts every request, a
+    block served from the cache too), and whether the memory allocated
+    after them is what it was before (no net allocation)."""
+    import torch
+    fn()
+    gc.collect()        # earlier cyclic garbage, freed at any moment
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    a0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    a1 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    return (a1 - a0) / reps, torch.cuda.memory_allocated() == m0
+
+
 def nbytes(*ts):
     import torch
     n = 0
@@ -276,6 +314,42 @@ def nbytes(*ts):
         elif isinstance(t, (tuple, list)):
             n += nbytes(*t)
     return n
+
+
+class RhsInverses:
+    """K5's right-hand-side launches that formed D^-1 (the ``inverses``
+    count of ``schur_rhs_cuda``), read and reset as a wrapper's
+    ``launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.inverses
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.inverses = n
+
+
+@contextlib.contextmanager
+def plain_inv4x4_on_card():
+    """Counts the plain ``inv4x4`` calls on CUDA tensors inside the block
+    (the main path forms D^-1 in K5's right-hand-side launch instead):
+    yields a one-element list."""
+    from opm_tpu_torch.linalg import precond
+    plain, calls = precond.inv4x4, [0]
+
+    def counted(m):
+        calls[0] += m.device.type == "cuda"
+        return plain(m)
+
+    precond.inv4x4 = counted
+    try:
+        yield calls
+    finally:
+        precond.inv4x4 = plain
 
 
 class Kernels:
@@ -320,6 +394,8 @@ class Kernels:
             ("K7 gmg_vcycle_down_rhs", "cuda", f"{P}/csrc/gmg.cu",
              f"{JAX_PKG}/linalg/gmg.py:171,200,295-307 and "
              "linalg/precond.py:391", k7.vcycle_down_rhs_cuda),
+            ("K7 gmg_refresh", "cuda", f"{P}/csrc/gmg.cu",
+             f"{JAX_PKG}/linalg/gmg.py:209-293", k7.refresh_cuda),
             ("K8 init", "cuda", f"{P}/csrc/krylov.cu",
              f"{JAX_PKG}/linalg/krylov.py:59", k8.init_cuda),
             ("K8 p_update", "cuda", f"{P}/csrc/krylov.cu",
@@ -372,6 +448,9 @@ class Kernels:
              f"{JAX_PKG}/models/linearize.py:638", k4.schur_rhs_cuda),
             ("K5 schur_recover", "cuda", f"{P}/csrc/wells.cu",
              f"{JAX_PKG}/models/linearize.py:640", k4.schur_recover_cuda),
+            ("K5 inv4x4 in schur_rhs", "cuda", f"{P}/csrc/wells.cuh",
+             f"{JAX_PKG}/linalg/precond.py:42",
+             RhsInverses(k4.schur_rhs_cuda)),
         ]
         self.err = {e[0]: 0.0 for e in self.entries}
         self.ms, self.plain_ms, self.library_ms = {}, {}, {}
@@ -395,7 +474,8 @@ class Kernels:
              "K2 cells_columns", "K3 tpfa_div", "K3 tpfa_div_tangent",
              "K9 update", "K9 convergence")
     ASSEMBLY = ("K2 cells_values", "K2 cells_columns", "K2 cells_assemble",
-                "K5 schur_matvec fused", "K5 schur_rhs", "K5 schur_recover")
+                "K5 schur_matvec fused", "K5 schur_rhs", "K5 schur_recover",
+                "K5 inv4x4 in schur_rhs")
     # K2's entries and their kernels
     K2_KERNELS = {"K2 cells_values": "cells_values_kernel",
                   "K2 cells_columns": "cells_columns_kernel",
@@ -1022,6 +1102,53 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
            + 8 * (3 * npf + 4 * nw), 0, table,
            instr=ws["schur_recover_kernel"] * 256)
 
+    # D^-1 formed by the right-hand side's launch (the main path): bit for
+    # bit the plain inv4x4 on the card, or within TOL_DINV of each block's
+    # max; the right-hand side then bit for bit the one from the given D^-1
+    # (or within TOL_K5 of max where D^-1's bits differ)
+    name = "K5 inv4x4 in schur_rhs"
+    wt_f = lz.WellTerm(sys)
+    n0 = lz.schur_rhs_cuda.inverses
+    rhs_f = lz.schur_rhs_cuda(wt_f)
+    if lz.schur_rhs_cuda.inverses != n0 + 1:
+        fail(f"{label}: {name}: the launch did not form D^-1")
+    same = torch.equal(wt_f.Dinv, Dinv)
+    e = row_scaled_err(wt_f.Dinv.reshape(nw, 16), Dinv.reshape(nw, 16))
+    K.note(name, float((wt_f.Dinv - Dinv).abs().max()) if nw else 0.0)
+    extra["dinv"] = dict(bits_equal=same, of_block_max=e, wells=nw)
+    if not (same or e <= TOL_DINV):
+        fail(f"{label}: {name} differs from the plain inv4x4 ({e:.3e} of a "
+             f"block's max > {TOL_DINV:g})")
+    rhs_g = lz.schur_rhs_cuda(wt)
+    if same and not torch.equal(rhs_f, rhs_g):
+        fail(f"{label}: the right-hand side from the formed D^-1 is not bit "
+             "for bit the one from the given D^-1")
+    check(name, TOL_K5, [(rhs_f, lz.schur_rhs_plain(sys, Dinv))], scaled_err)
+    if timed:
+        def forming():
+            wt_f.formed = False         # the launch forms D^-1 again
+            return lz.schur_rhs_cuda(wt_f)
+
+        rhs_b = (nbytes(sys.cw, sys.perf_cell, sys.perf_order, sys.r_well)
+                 + 2 * nbytes(sys.r_cell))
+        inv_t = dict(ms=cuda_ms(forming), run_ms=run_ms(forming),
+                     given_ms=cuda_ms(lambda: lz.schur_rhs_cuda(wt)),
+                     given_run_ms=run_ms(lambda: lz.schur_rhs_cuda(wt)),
+                     plain_inv4x4_ms=cuda_ms(lambda: inv4x4(sys.wd_diag)),
+                     plain_ms=cuda_ms(lambda: lz.schur_rhs_plain(
+                         sys, inv4x4(sys.wd_diag))))
+        extra["dinv"].update(inv_t)
+        if table:
+            K.ms[name], K.run_ms[name] = inv_t["ms"], inv_t["run_ms"]
+            K.plain_ms[name] = inv_t["plain_ms"]
+            K.library_ms[name] = None
+            # the right-hand side's bytes, the well blocks read and D^-1
+            # written
+            K.bound_instr(name, rhs_b + 2 * nbytes(sys.wd_diag),
+                          ws["schur_rhs_kernel"] * 256
+                          * (-(-nc // 2048) + 1))
+    del wt_f, rhs_f, rhs_g
+
     # one whole assembly through the kernels and through their twins
     args = (model, st, ctx["acc0"], dt, ctx["wd"], ctx["cdp"])
     tw = lz.assemble(*args, twin=True)
@@ -1145,10 +1272,14 @@ def compare_cpr_kernels(K, sim, amg, sys, seed, label, timed):
            lambda: k6.smooth_step_plain(*ops, dinv, x, r, dims),
            (ops, dinv, x, r), kx, 18 * nc + 36 * nf + 24 * nc)
 
-    # K7: the two legs on this system's hierarchy, then its V-cycle
+    # K7: the value refresh, then the two legs on this system's hierarchy
+    # and its V-cycle
+    rf = compare_k7_refresh(K, amg, ps[2], ps[3], label, timed, rng)
     vals = amg.coarsen_values(ps[2], ps[3])
     vc = compare_vcycle(K, k7, amg, vals, rnd(nc), label, TOL_K7, timed,
                         (w.contiguous(), r))
+    if vc is not None:
+        vc["refresh"] = rf
 
     compare_k8(K, (3, nc), dev, seed, label, timed)
     torch.cuda.synchronize()
@@ -1392,6 +1523,24 @@ def log_vcycle(label, t):
         + f"; grid {t['grid']}")
 
 
+def log_k7_refresh(label, t):
+    """One K7 refresh's measurements, as compare_k7_refresh returned
+    them."""
+    kernels = t["device_kernels_per_coarsen_values"]
+    log(f"  K7 refresh on {label} ({t['levels']} levels, coarsest "
+        f"{t['coarsest_n']}): kernel {t['kernel_ms']:.4f} ms, "
+        f"{t['kernel_run_ms']:.4f} per launch in a run of 50 (bound "
+        f"{t['bound_ms']:.4f}, {t['bytes'] / 1e6:.1f} MB; plain "
+        f"{t['plain_ms']:.4f}); coarsen_values {t['coarsen_values_ms']:.4f} "
+        f"ms (host clock {t['coarsen_values_host_ms']:.4f}; per-level "
+        f"composition {t['coarsen_values_twin_ms']:.4f}), "
+        + ("device kernels not measured" if kernels is None else
+           f"{kernels} device kernels")
+        + f"; inverse {t['inverse_ms']:.4f} ms (bound "
+        f"{t['inverse_bound_ms']:.4f}); grid {t['grid']} ({t['sms']} SMs x "
+        f"{t['blocks_per_sm']}, {t['registers']} registers)")
+
+
 def compare_k8(K, shape, dev, seed, label, timed):
     """K8's steps against their twins on seeded vectors of ``shape`` (a
     solve's (3, nc)), each step from the same vectors and scalars: vectors
@@ -1550,18 +1699,28 @@ def check_vcycle_launches(launches, rep, label, amg):
              "residual in the down leg")
 
 
-def check_refresh_launches(launches, rep, label, amg):
-    """One K10 refresh launch per Newton system on a gather grid (the
-    aggregation AMG's per-Newton values), none on the others."""
+def check_refresh_launches(launches, rep, label, amg, plain_inv4x4):
+    """One value refresh launch per Newton system, K10's on a gather grid
+    (the aggregation AMG) and K7's on the others (the structured GMG), and
+    none of the other; one K5 right-hand-side launch per Newton system that
+    forms D^-1, and no plain ``inv4x4`` on the card (``plain_inv4x4``
+    calls counted over the run)."""
     from opm_tpu_torch.linalg.amg import DeviceAmg
 
-    n = launches["K10 amg_refresh"]
-    want = rep.newton_iterations if isinstance(amg, DeviceAmg) else 0
-    log(f"  K10 refresh launches: {n} over {rep.newton_iterations} Newton "
-        "systems")
+    n = (launches["K10 amg_refresh"], launches["K7 gmg_refresh"])
+    newtons = rep.newton_iterations
+    want = (newtons, 0) if isinstance(amg, DeviceAmg) else (0, newtons)
+    inv = launches["K5 inv4x4 in schur_rhs"]
+    log(f"  refresh launches (K10, K7): {n} over {newtons} Newton systems; "
+        f"D^-1 formed by {inv} right-hand-side launches, {plain_inv4x4} "
+        "plain inv4x4 calls on the card")
     if n != want:
-        fail(f"{label}: {n} K10 refresh launches, not {want} (one per "
-             "Newton system of a gather grid)")
+        fail(f"{label}: refresh launches (K10, K7) {n}, not {want} (one per "
+             "Newton system)")
+    if inv != newtons or plain_inv4x4:
+        fail(f"{label}: D^-1 was formed by {inv} right-hand-side launches "
+             f"over {newtons} Newton systems and {plain_inv4x4} plain inv4x4 "
+             "calls on the card")
 
 
 def check_k9_launches(launches, rep, label):
@@ -1648,6 +1807,135 @@ def csr_of_level(diag, ell_vals, cols):
     return A.coalesce().to_sparse_csr()
 
 
+def inverse_bound_ms(n):
+    """The least time of a float32 (n, n) inverse: 2 n^3 operations at the
+    float32 peak, or the matrix read and the inverse written once."""
+    return max(2 * n ** 3 / F32_FLOP_S, 8 * n * n / HBM_BYTES_S) * 1e3
+
+
+def k7_refresh_adds(gmg):
+    """The float64 additions of K7's refresh on ``gmg``: per coarsening
+    step three per coarse diagonal entry and one per coupling of a face
+    across the coarsened axis (a pair sum; along it a face is copied)."""
+    from opm_tpu_torch.linalg.gmg import _face_shape
+    import numpy as np
+
+    adds = 0
+    for p, lv in enumerate(gmg.levels):
+        real = (gmg.levels[p + 1].dims if p + 1 < len(gmg.levels)
+                else gmg.coarse_dims)
+        adds += 3 * int(np.prod(real)) + 2 * sum(
+            int(np.prod(_face_shape(real, b))) for b in range(3)
+            if b != lv.axis)
+    return adds
+
+
+def compare_k7_refresh(K, amg, diag_p, off, label, timed, rng):
+    """K7's value refresh on one Newton system's pressure values of a
+    structured hierarchy: one launch per ``coarsen_values``, which returns
+    the hierarchy's own LevelValues; every level and the float32 dense
+    coarsest matrix bit for bit the per-level composition on CPU copies of
+    the inputs and the refresh's plain version (``refresh_plain``, into a
+    second set of buffers on the card); the inverse (inv_ex into the
+    hierarchy's buffer) bit for bit torch.linalg.inv of the same matrix,
+    in its layout, info 0, and within 1e-5 of max the CPU's; the kernel
+    makes no allocator request, ten refreshes (the inverse's pivots are
+    requested from the cache) leave the memory allocated as it was and keep
+    the workspace's table and the refresh's; a V-cycle after a refresh with other values equals one on
+    the per-level composition of those values on the card. Returns the
+    hierarchy's grid and one ``coarsen_values``' host ms, device time and
+    device kernels; when ``timed`` also the kernel's time (one call; per
+    launch in a run of 50), its bound and the plain version's, into the
+    table."""
+    import torch
+
+    from opm_tpu_torch.linalg import gmg as k7
+
+    name = "K7 gmg_refresh"
+    dev = off.device
+    diag_p, off = diag_p.contiguous(), off.contiguous()
+    n0 = k7.refresh_cuda.launches
+    vk = amg.coarsen_values(diag_p, off)
+    R = amg.refresh(dev)
+    if k7.refresh_cuda.launches != n0 + 1 or vk is not R.vals:
+        fail(f"{label}: a K7 refresh was not one launch into the "
+             "hierarchy's buffers")
+    levels, A = amg.compose(diag_p.cpu(), off.cpu())
+    Rp = k7.Refresh(amg, dev)
+    k7.refresh_plain(Rp, diag_p, off)
+    pairs = [(R.dense, A.to(torch.float32)), (R.dense, Rp.dense)]
+    for (dk, ok), (dc, oc), (dp, op) in zip(vk[:-1], levels, Rp.vals[:-1]):
+        pairs += [(dk, dc), (dk, dp)]
+        for (kL, kR), (cL, cR), (pL, pR) in zip(ok, oc, op):
+            pairs += [(kL, cL), (kR, cR), (kL, pL), (kR, pR)]
+    for a, c in pairs:
+        a, c = a.cpu(), c.cpu()
+        K.note(name, float((a - c).abs().max()) if c.numel() else 0.0)
+        if not torch.equal(a, c):
+            fail(f"{label}: {name} is not bit for bit the per-level "
+                 "composition on the CPU and its plain version")
+    inv = torch.linalg.inv(R.dense)
+    inv_err = scaled_err(vk[-1].cpu(), torch.linalg.inv(A.to(torch.float32)))
+    if not (torch.equal(vk[-1], inv) and vk[-1].stride() == inv.stride()
+            and inv_err <= 1e-5):
+        fail(f"{label}: K7's float32 coarsest inverses differ")
+    if int(R.inv_info) != 0:
+        fail(f"{label}: the coarsest matrix is singular (inv_ex info "
+             f"{int(R.inv_info)})")
+    b = torch.as_tensor(rng.standard_normal(amg.nc), device=dev)
+    x = amg.vcycle(vk, b).clone()
+    tables = (vk.ws.table.clone(), R.table.clone())
+    kernel_allocs, _ = allocations(lambda: k7.refresh_cuda(R, diag_p, off))
+    refresh_allocs, no_net = allocations(
+        lambda: amg.coarsen_values(diag_p, off))
+    if (kernel_allocs != 0 or not no_net
+            or amg.coarsen_values(diag_p, off) is not vk
+            or not torch.equal(vk.ws.table, tables[0])
+            or not torch.equal(R.table, tables[1])
+            or not torch.equal(amg.vcycle(vk, b), x)):
+        fail(f"{label}: the K7 refresh kernel allocated, ten refreshes left "
+             "memory allocated, moved the workspace or changed a V-cycle")
+    f = torch.as_tensor(rng.uniform(0.9, 1.1, off.shape), device=dev)
+    d2, o2 = diag_p * 1.25, off * f
+    x2 = amg.vcycle(amg.coarsen_values(d2, o2), b).clone()
+    fresh = amg.coarsen_values(d2, o2, twin=True)
+    if not torch.equal(x2, amg.vcycle(fresh, b)):
+        fail(f"{label}: a V-cycle after a second K7 refresh differs from one "
+             "on freshly composed values")
+    del fresh, levels, A
+    amg.coarsen_values(diag_p, off)
+    nbytes_moved = k7.refresh_bytes(amg)
+    kernels = device_kernels(lambda: amg.coarsen_values(diag_p, off))
+    out = dict(levels=len(amg.levels), coarsest_n=amg.coarsest_n,
+               grid=R.grid, **R.grid_info, work=R.work,
+               inverse_vs_cpu=inv_err, bytes=nbytes_moved,
+               allocations_per_kernel=kernel_allocs,
+               allocations_per_coarsen_values=refresh_allocs,
+               bound_ms=nbytes_moved / HBM_BYTES_S * 1e3,
+               kernel_ms=cuda_ms(lambda: k7.refresh_cuda(R, diag_p, off)),
+               kernel_run_ms=run_ms(lambda: k7.refresh_cuda(R, diag_p,
+                                                            off)),
+               plain_ms=cuda_ms(lambda: k7.refresh_plain(Rp, diag_p, off)),
+               coarsen_values_ms=cuda_ms(
+                   lambda: amg.coarsen_values(diag_p, off)),
+               coarsen_values_host_ms=host_ms(
+                   lambda: amg.coarsen_values(diag_p, off), reps=20),
+               coarsen_values_twin_ms=cuda_ms(
+                   lambda: amg.coarsen_values(diag_p, off, twin=True)),
+               inverse_ms=cuda_ms(R.invert),
+               inverse_bound_ms=inverse_bound_ms(amg.coarsest_n),
+               device_kernels_per_coarsen_values=None if kernels is None
+               else len(kernels), device_kernels=kernels)
+    if timed:
+        K.ms[name], K.run_ms[name] = out["kernel_ms"], out["kernel_run_ms"]
+        K.plain_ms[name] = out["plain_ms"]
+        K.library_ms[name] = None
+        K.bound_raw(name, nbytes_moved, k7_refresh_adds(amg))
+    del Rp
+    amg.coarsen_values(diag_p, off)
+    return out
+
+
 def compare_refresh(K, amg, diag_p, off, label, timed, rng):
     """K10's value refresh on one Newton system of a gather grid: one
     launch per ``coarsen_values``, which returns the hierarchy's own
@@ -1659,8 +1947,9 @@ def compare_refresh(K, amg, diag_p, off, label, timed, rng):
     inverse (torch.linalg.inv_ex into the hierarchy's buffer) bit for bit
     torch.linalg.inv of the same matrix, in its layout, and within 1e-5 of
     max the CPU's; a V-cycle on the refreshed values bit for bit one on the
-    composition's values (moved to the card, with that inverse); ten
-    refreshes allocate nothing and keep the workspace's table; a
+    composition's values (moved to the card, with that inverse); the
+    kernel makes no allocator request and ten refreshes leave the memory
+    allocated as it was and keep the workspace's table; a
     V-cycle after a refresh with other values equals one on a hierarchy
     put on the card afresh. When ``timed``: the kernel's time (one call;
     per launch in a run of 50), its bound, the plain
@@ -1719,15 +2008,14 @@ def compare_refresh(K, amg, diag_p, off, label, timed, rng):
         fail(f"{label}: a V-cycle on the refreshed values differs from one "
              "on the per-level composition's")
     table = vk.ws.table.clone()
-    gc.collect()        # earlier cyclic garbage, freed at any moment
-    torch.cuda.synchronize()
-    m0 = torch.cuda.memory_allocated()
-    for _ in range(10):
-        again = amg.coarsen_values(diag_p, off)
-    torch.cuda.synchronize()
-    if (torch.cuda.memory_allocated() != m0 or again is not vk
+    kernel_allocs, _ = allocations(lambda: k10.refresh_cuda(R, diag_p, off))
+    refresh_allocs, no_net = allocations(
+        lambda: amg.coarsen_values(diag_p, off))
+    if (kernel_allocs != 0 or not no_net
+            or amg.coarsen_values(diag_p, off) is not vk
             or not torch.equal(vk.ws.table, table)):
-        fail(f"{label}: ten refreshes allocated or moved the workspace")
+        fail(f"{label}: the refresh kernel allocated, or ten refreshes left "
+             "memory allocated or moved the workspace")
     # other values: the V-cycle on the overwritten buffers equals one on a
     # hierarchy put on the card afresh
     f = torch.as_tensor(rng.uniform(0.9, 1.1, off.shape), device=off.device)
@@ -1740,7 +2028,9 @@ def compare_refresh(K, amg, diag_p, off, label, timed, rng):
     del fresh, vp, comp
     amg.coarsen_values(diag_p, off)
     out = dict(levels=nl, grid=R.grid, **R.grid_info,
-               work=R.work, inverse_vs_cpu=inv_err)
+               work=R.work, inverse_vs_cpu=inv_err,
+               allocations_per_kernel=kernel_allocs,
+               allocations_per_coarsen_values=refresh_allocs)
     if not timed:
         return out
     nbytes_moved = k10.refresh_bytes(
@@ -1759,6 +2049,9 @@ def compare_refresh(K, amg, diag_p, off, label, timed, rng):
         bytes=nbytes_moved, adds=adds, ms=K.ms[name],
         run_ms=K.run_ms[name], plain_ms=K.plain_ms[name],
         bound_ms=K.bound_ms[name],
+        inverse_ms=None if R.dense is None else cuda_ms(R.invert),
+        inverse_bound_ms=None if R.dense is None
+        else inverse_bound_ms(amg.coarsest_n),
         coarsen_values_host_ms=host_ms(
             lambda: amg.coarsen_values(diag_p, off), reps=20),
         device_kernels_per_coarsen_values=None if kernels is None
@@ -1944,8 +2237,10 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
                     lambda: amg.coarsen_values(diag_p, off, twin=True)))
     else:
         # K7 on the embedded grid's hierarchy (its stencil faces)
-        vals = amg.coarsen_values(diag_p, k6._pressure_off_for(amg, off,
-                                                               dims))
+        off_s = k6._pressure_off_for(amg, off, dims)
+        extra["refresh"] = compare_k7_refresh(K, amg, diag_p, off_s, label,
+                                              False, rng)
+        vals = amg.coarsen_values(diag_p, off_s)
         extra["vcycle"] = compare_vcycle(K, k7, amg, vals, rnd(nc), label,
                                          TOL_K7, timed,
                                          (w.contiguous(), rnd(3, nc)),
@@ -1970,8 +2265,9 @@ def norne_first_step(K, sim, ref, label, names):
     t_init = time.perf_counter() - t0
     sim.solver.timing = {}
     K.reset()
-    res = run_vs_fixture(sim, ref, f"{label} first report step (5 d)",
-                         state=st0, report_step_limit=1)
+    with plain_inv4x4_on_card() as plain_inv:
+        res = run_vs_fixture(sim, ref, f"{label} first report step (5 d)",
+                             state=st0, report_step_limit=1)
     K.read(names)
     counts = {e[0]: e[4].launches for e in K.entries}
     rep = sim.report
@@ -1993,7 +2289,7 @@ def norne_first_step(K, sim, ref, label, names):
     check_k8_launches(counts, rep, label)
     check_vcycle_launches(counts, rep, label, sim.solver.amg)
     check_k9_launches(counts, rep, label)
-    check_refresh_launches(counts, rep, label, sim.solver.amg)
+    check_refresh_launches(counts, rep, label, sim.solver.amg, plain_inv[0])
     res["launches_per_reduced_matvec"] = check_reduced_launches(
         counts, label, sim.model)
     if counts["K4-faces pack"] != rep.newton_iterations:
@@ -2008,7 +2304,8 @@ def toy_run(K, sim, ref, label, names):
     assembly's) was not launched."""
     sim.solver.timing = {}
     K.reset()
-    res = run_vs_fixture(sim, ref, label)
+    with plain_inv4x4_on_card() as plain_inv:
+        res = run_vs_fixture(sim, ref, label)
     check_k8_launches({e[0]: e[4].launches for e in K.entries},
                       sim.report, label)
     check_vcycle_launches({e[0]: e[4].launches for e in K.entries},
@@ -2016,7 +2313,7 @@ def toy_run(K, sim, ref, label, names):
     check_k9_launches({e[0]: e[4].launches for e in K.entries},
                       sim.report, label)
     check_refresh_launches({e[0]: e[4].launches for e in K.entries},
-                           sim.report, label, sim.solver.amg)
+                           sim.report, label, sim.solver.amg, plain_inv[0])
     per = check_reduced_launches({e[0]: e[4].launches for e in K.entries},
                                  label, sim.model)
     counts = {e[0]: e[4].launches for e in K.entries if e[0] in names}
@@ -2268,6 +2565,7 @@ def main(argv=None):
                f"{run:.4f} ms"))
     results["run_ms"] = dict(K.run_ms)
     log_vcycle("SPE10-2", vc)
+    log_k7_refresh("SPE10-2", vc["refresh"])
     # the production solve; then ten iterations of the recurrence at an
     # unreachable tolerance, a longer path for the roundoff to travel
     # (recorded: kernels and twins sum their dot products in other orders)
@@ -2327,8 +2625,9 @@ def main(argv=None):
     K.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state = sim10.run(init10, report_step_limit=1)
-    torch.cuda.synchronize()
+    with plain_inv4x4_on_card() as plain_inv:
+        state = sim10.run(init10, report_step_limit=1)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     K.read(new_names)
     amg.vcycle = plain_vcycle
@@ -2368,6 +2667,8 @@ def main(argv=None):
     check_k8_launches(K.launches, rep, "SPE10-2")
     check_vcycle_launches(res10["launches_all"], rep, "SPE10-2", amg)
     check_k9_launches(res10["launches_all"], rep, "SPE10-2")
+    check_refresh_launches(res10["launches_all"], rep, "SPE10-2", amg,
+                           plain_inv[0])
     res10["launches_per_reduced_matvec"] = check_reduced_launches(
         res10["launches_all"], "SPE10-2", m10)
     dead = [n for n in new_names if K.launches[n] <= 0]
@@ -2440,6 +2741,8 @@ def main(argv=None):
         log(f"face-list kernels == plain on the Norne-class {rname} first "
             f"Newton system: ok {json.dumps(extra)}")
         log_vcycle(f"Norne-class {rname}", extra["vcycle"])
+        if rname == "embedded":
+            log_k7_refresh(f"Norne-class {rname}", extra["refresh"])
         if rname == "gather":
             compare_k8(K, (3, simn.model.nc), dev, args.seed,
                        "Norne-class gather", timed=False)

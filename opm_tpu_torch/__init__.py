@@ -2,10 +2,11 @@
 
 Pure PyTorch on tensors (float64 throughout, an explicit ``device``
 argument everywhere, no global default dtype or device), with hand-written
-Hopper kernels for the hot loops of the main path (``csrc/`` for CUDA C++,
-Triton beside the module that launches it). Each kernel has a plain PyTorch
-twin in the same module; the twin runs for CPU tensors and is the kernel's
-oracle on the card. The package imports neither jax nor opm_tpu.
+Hopper kernels for the hot loops of the main path, all CUDA C++ in
+``csrc/`` (built with nvcc at first use on the card, loaded with ctypes;
+no Triton). Each kernel has a plain PyTorch twin in the module that
+launches it; the twin runs for CPU tensors and is the kernel's oracle on
+the card. The package imports neither jax nor opm_tpu.
 """
 
 __version__ = "0.1.0"

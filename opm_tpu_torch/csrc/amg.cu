@@ -81,6 +81,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "coop.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -465,43 +467,6 @@ amg_refresh(const long long* T, int nL, const double* diag0,
     }
 }
 
-inline int blocks_for(long long n) {
-    return (int)((n + kThreads - 1) / kThreads);
-}
-
-// the device's SM count, or a CUDA error where it has no cooperative launch
-cudaError_t coop_sms(int* nsm) {
-    int dev = 0, coop = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(nsm, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                     dev);
-    if (err == cudaSuccess && !coop) err = cudaErrorCooperativeLaunchTooLarge;
-    return err;
-}
-
-// the cooperative grid of kernel k for work threads' worth on nsm SMs (at
-// most the co-resident blocks, at most what the work needs), with its
-// co-resident blocks per SM and registers per thread
-cudaError_t coop_grid(const void* k, long long work, int nsm, int* grid,
-                      int* nb, int* regs) {
-    cudaFuncAttributes fa;
-    cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(nb, k, kThreads, 0);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, k);
-    if (err != cudaSuccess) return err;
-    if (*nb < 1) return cudaErrorCooperativeLaunchTooLarge;
-    long long g = (long long)*nb * nsm;
-    long long need = blocks_for(work);
-    if (need < g) g = need;
-    *grid = (int)(g < 1 ? 1 : g);
-    *regs = fa.numRegs;
-    return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -512,13 +477,13 @@ extern "C" {
 // up; out[5], out[6] their registers per thread
 int opm_amg_grid(long long work_down, long long work_up, int* out) {
     int nsm = 0;
-    cudaError_t err = coop_sms(&nsm);
+    cudaError_t err = opm_coop::coop_sms(&nsm);
     if (err == cudaSuccess)
-        err = coop_grid((const void*)amg_down, work_down, nsm, &out[0],
-                        &out[3], &out[5]);
+        err = opm_coop::coop_grid((const void*)amg_down, kThreads, work_down,
+                                  nsm, &out[0], &out[3], &out[5]);
     if (err == cudaSuccess)
-        err = coop_grid((const void*)amg_up, work_up, nsm, &out[1], &out[4],
-                        &out[6]);
+        err = opm_coop::coop_grid((const void*)amg_up, kThreads, work_up,
+                                  nsm, &out[1], &out[4], &out[6]);
     out[2] = nsm;
     return (int)err;
 }
@@ -528,10 +493,10 @@ int opm_amg_grid(long long work_down, long long work_up, int* out) {
 // per thread
 int opm_amg_refresh_grid(long long work, int* out) {
     int nsm = 0;
-    cudaError_t err = coop_sms(&nsm);
+    cudaError_t err = opm_coop::coop_sms(&nsm);
     if (err == cudaSuccess)
-        err = coop_grid((const void*)amg_refresh, work, nsm, &out[0],
-                        &out[2], &out[3]);
+        err = opm_coop::coop_grid((const void*)amg_refresh, kThreads, work,
+                                  nsm, &out[0], &out[2], &out[3]);
     out[1] = nsm;
     return (int)err;
 }

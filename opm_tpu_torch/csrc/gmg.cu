@@ -1,4 +1,5 @@
-// K7: the structured-GMG V-cycle for Hopper, as two cooperative launches.
+// K7: the structured-GMG V-cycle for Hopper, as two cooperative launches,
+// and its per-Newton value refresh, as one.
 //
 // Replaces the JAX package's linalg/gmg.py StructuredGmg._matvec (:171),
 // _smooth (:200) and the level work of _vcycle3 (:295-312): the damped
@@ -47,11 +48,33 @@
 // 1.122M cells (NVIDIA H100 80GB HBM3, chip_smoke.py): level 0 runs at
 // 27-31% of its byte bound (each x costs 8 loads and a division at 7
 // cells a row; 124 registers, 2 blocks per SM) and a coarse level ~7 us.
+//
+// The per-Newton value refresh (replaces StructuredGmg._coarsen_level
+// :209, _pad_level :232, coarsen_values :244-274 and _dense_coarsest
+// :276-293, jnp code that XLA fused on the TPU) is one cooperative launch
+// more, writing into buffers the hierarchy owns (linalg/gmg.py Refresh,
+// made once with the V-cycle workspace over them and this launch's table
+// of phase records): phase 0 copies the pressure system's diag0 and face
+// couplings (grid face order: x-faces, y-faces, z-faces, a_LR then a_RL)
+// into level 0's arrays, phase l forms level l from level l-1 along
+// level l-1's axis, and the last phase forms the coarsest level straight
+// into the float32 dense coarsest matrix (its diagonal, plus 1.0 where
+// |d| <= 1e-300, and aL at (lo, hi), aR at (hi, lo)); a grid barrier
+// between two phases. One thread per output, a real cell's diagonal or a
+// real face's pair (aL, aR), never a ghost slab: the buffers are zeroed
+// once and the ghost slabs stay 0. The sums are the plain version's: the
+// pair sums as torch's sum reduces them (from +0.0), then + aL + aR of the
+// even fine face on the diagonal. What bounds it: the bytes of level 0
+// (its copy and the first coarsening read and write every coupling) and
+// the barriers of the coarse levels.
+//
 // Build with --fmad=false (products and sums round as the plain
 // version's).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "coop.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -289,7 +312,176 @@ gmg_up(const LevelRec* T, int L, int lo, int hi, const double* in,
     }
 }
 
-long long blocks_for(long long n) { return (n + kThreads - 1) / kThreads; }
+// ---------------------------------------------------------------------------
+// the per-Newton value refresh
+
+// one phase of the refresh: its source level (null at phase 0, whose
+// source is the inputs diag0 and off0), its destination level (null at
+// the last phase, whose destination is the dense coarsest matrix), the
+// source's (ghost-padded) dims, the axis coarsened (-1 at phase 0: a
+// copy), the destination's (ghost-padded) dims and the dims of the real
+// outputs
+struct PhaseRec {
+    const double* sd;
+    const double* saL[3];   // z, y, x
+    const double* saR[3];
+    double* dd;
+    double* daL[3];
+    double* daR[3];
+    long long sz, sy, sx;
+    long long axis;
+    long long qz, qy, qx;
+    long long rz, ry, rx;
+};
+
+static_assert(sizeof(PhaseRec) == 24 * 8, "PhaseRec layout");
+
+// flat index of (k, j, i) in an array of dims (*, ny, nx)
+__device__ __forceinline__ long long at(int k, int j, int i, int ny,
+                                        int nx) {
+    return ((long long)k * ny + j) * nx + i;
+}
+
+// the flat index of (k, j, i) in the face array of axis b of a level of
+// dims (nz, ny, nx): that array has one entry fewer along b
+__device__ __forceinline__ long long face_at(int b, int k, int j, int i,
+                                             int ny, int nx) {
+    return at(k, j, i, b == 1 ? ny - 1 : ny, b == 2 ? nx - 1 : nx);
+}
+
+// a pair sum as torch's sum over a dim of two reduces it
+__device__ __forceinline__ double pair(double x0, double x1) {
+    return (0.0 + x0) + x1;
+}
+
+// a level's three face arrays (or three counts), z, y, x, picked by a
+// runtime axis with selects: an indexed array would live in local memory
+template <class T>
+struct Axes {
+    T z, y, x;
+    __device__ __forceinline__ T operator()(int b) const {
+        return b == 0 ? z : b == 1 ? y : x;
+    }
+};
+
+// phase p's outputs first, first + stride, ...: the real cells' diagonal,
+// then per axis z, y, x the real faces' (aL, aR)
+__device__ void refresh_phase(const PhaseRec& P, bool first,
+                              const double* diag0, const double* off0,
+                              float* dense, long long first_out,
+                              long long stride) {
+    const int rz = (int)P.rz, ry = (int)P.ry, rx = (int)P.rx;
+    const long long ncell = (long long)rz * ry * rx;
+    const Axes<long long> nface{(long long)(rz - 1) * ry * rx,
+                                (long long)rz * (ry - 1) * rx,
+                                (long long)rz * ry * (rx - 1)};
+    const double* sd = P.sd;
+    Axes<const double*> sL{P.saL[0], P.saL[1], P.saL[2]};
+    Axes<const double*> sR{P.saR[0], P.saR[1], P.saR[2]};
+    if (first) {       // the inputs, in grid face order: x, y, z faces
+        const long long nf = nface.z + nface.y + nface.x;
+        sd = diag0;
+        sL = Axes<const double*>{off0 + nface.x + nface.y, off0 + nface.x,
+                                 off0};
+        sR = Axes<const double*>{sL.z + nf, sL.y + nf, sL.x + nf};
+    }
+    double* const dd = P.dd;
+    const Axes<double*> dL{P.daL[0], P.daL[1], P.daL[2]};
+    const Axes<double*> dR{P.daR[0], P.daR[1], P.daR[2]};
+    const int a = (int)P.axis;
+    const int sy = (int)P.sy, sx = (int)P.sx;
+    const int qy = (int)P.qy, qx = (int)P.qx;
+    const long long n = ncell + nface.z + nface.y + nface.x;
+    const long long n_c = ncell;              // the dense matrix's order
+    for (long long u = first_out; u < n; u += stride) {
+        int b = -1;                           // -1: a diagonal entry
+        long long v = u - ncell;
+        if (v < 0) {
+            v = u;
+        } else if (v < nface.z) {
+            b = 0;
+        } else if ((v -= nface.z) < nface.y) {
+            b = 1;
+        } else {
+            v -= nface.y;
+            b = 2;
+        }
+        // a level's arrays hold fewer than 2^31 entries
+        const int ey = b == 1 ? ry - 1 : ry, ex = b == 2 ? rx - 1 : rx;
+        const int vi = (int)v;
+        const int i = vi % ex;
+        const int j = (vi / ex) % ey;
+        const int k = vi / (ex * ey);
+        // the two fine cells (or faces) of a coarse one along a
+        int k0 = k, j0 = j, i0 = i, k1 = k, j1 = j, i1 = i;
+        if (a == 0) { k0 = 2 * k; k1 = k0 + 1; }
+        if (a == 1) { j0 = 2 * j; j1 = j0 + 1; }
+        if (a == 2) { i0 = 2 * i; i1 = i0 + 1; }
+        if (b < 0) {
+            double d;
+            if (a < 0) {
+                d = sd[at(k, j, i, sy, sx)];
+            } else {
+                const long long f = face_at(a, k0, j0, i0, sy, sx);
+                d = pair(sd[at(k0, j0, i0, sy, sx)],
+                         sd[at(k1, j1, i1, sy, sx)]);
+                d = d + sL(a)[f];
+                d = d + sR(a)[f];
+            }
+            if (dd) {
+                dd[at(k, j, i, qy, qx)] = d;
+            } else {
+                const long long r = at(k, j, i, ry, rx);
+                dense[r * n_c + r] = __double2float_rn(
+                    d + (fabs(d) > 1e-300 ? 0.0 : 1.0));
+            }
+            continue;
+        }
+        const double* const fL = sL(b);
+        const double* const fR = sR(b);
+        double vL, vR;
+        if (a < 0) {
+            const long long f = face_at(b, k, j, i, sy, sx);
+            vL = fL[f];
+            vR = fR[f];
+        } else if (b == a) {       // the odd fine face between two pairs
+            const long long f = face_at(b, k1, j1, i1, sy, sx);
+            vL = fL[f];
+            vR = fR[f];
+        } else {
+            const long long f0 = face_at(b, k0, j0, i0, sy, sx);
+            const long long f1 = face_at(b, k1, j1, i1, sy, sx);
+            vL = pair(fL[f0], fL[f1]);
+            vR = pair(fR[f0], fR[f1]);
+        }
+        if (dd) {
+            const long long f = face_at(b, k, j, i, qy, qx);
+            dL(b)[f] = vL;
+            dR(b)[f] = vR;
+        } else {
+            // the coarse cell lo and its next cell hi along b; the plain
+            // version accumulates onto 0.0 and adds the 0.0 off the
+            // regularised diagonal
+            const long long lo = at(k, j, i, ry, rx);
+            const long long hi = lo + (b == 0 ? (long long)ry * rx
+                                       : b == 1 ? rx : 1);
+            dense[lo * n_c + hi] = __double2float_rn(vL + 0.0);
+            dense[hi * n_c + lo] = __double2float_rn(vR + 0.0);
+        }
+    }
+}
+
+// phases 0 .. L over the grid, a grid barrier between two
+__global__ void __launch_bounds__(kThreads)
+gmg_refresh(const PhaseRec* T, int L, const double* diag0,
+            const double* off0, float* dense) {
+    cg::grid_group grid = cg::this_grid();
+    for (int p = 0; p <= L; ++p) {
+        if (p) grid.sync();
+        refresh_phase(T[p], p == 0, diag0, off0, dense, first_index(),
+                      grid_stride());
+    }
+}
 
 }  // namespace
 
@@ -301,35 +493,16 @@ extern "C" {
 // count; out[3], out[4] co-resident blocks per SM of down and up; out[5],
 // out[6] their registers per thread
 int opm_gmg_grid(long long work_down, long long work_up, int* out) {
-    int dev = 0, nsm = 0, coop = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    int nsm = 0;
+    cudaError_t err = opm_coop::coop_sms(&nsm);
     if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
-                                     dev);
+        err = opm_coop::coop_grid((const void*)gmg_down, kThreads, work_down,
+                                  nsm, &out[0], &out[3], &out[5]);
     if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                     dev);
-    if (err != cudaSuccess) return (int)err;
-    if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const void* ks[2] = {(const void*)gmg_down, (const void*)gmg_up};
-    const long long work[2] = {work_down, work_up};
-    for (int i = 0; i < 2; ++i) {
-        int nb = 0;
-        cudaFuncAttributes fa;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, ks[i],
-                                                            kThreads, 0);
-        if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, ks[i]);
-        if (err != cudaSuccess) return (int)err;
-        if (nb < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-        long long g = (long long)nb * nsm;
-        long long need = blocks_for(work[i]);
-        if (need < g) g = need;
-        out[i] = (int)(g < 1 ? 1 : g);
-        out[3 + i] = nb;
-        out[5 + i] = fa.numRegs;
-    }
+        err = opm_coop::coop_grid((const void*)gmg_up, kThreads, work_up,
+                                  nsm, &out[1], &out[4], &out[6]);
     out[2] = nsm;
-    return 0;
+    return (int)err;
 }
 
 // table: the L + 1 level records; levels lo .. hi-1; in: level 0's right-hand
@@ -357,6 +530,34 @@ int opm_gmg_down_rhs(const void* table, int L, const double* w,
     double* in = b0;
     void* args[] = {&T, &L, &lo, &hi, &in, &w, &rc, &n0, &bc};
     return (int)cudaLaunchCooperativeKernel((const void*)gmg_down,
+                                            dim3(grid), dim3(kThreads),
+                                            args, 0, stream);
+}
+
+// the refresh's grid for a largest phase of work outputs: out[0] the grid
+// (at most the co-resident blocks, at most what the work needs), out[1]
+// the SM count, out[2] co-resident blocks per SM, out[3] registers per
+// thread
+int opm_gmg_refresh_grid(long long work, int* out) {
+    int nsm = 0;
+    cudaError_t err = opm_coop::coop_sms(&nsm);
+    if (err == cudaSuccess)
+        err = opm_coop::coop_grid((const void*)gmg_refresh, kThreads, work,
+                                  nsm, &out[0], &out[2], &out[3]);
+    out[1] = nsm;
+    return (int)err;
+}
+
+// the refresh: table the L + 1 phase records (linalg/gmg.py packs the
+// same order); diag0 (nc) and off0 (2 nf, grid face order) the pressure
+// system's values; dense the float32 (n_c, n_c) coarsest matrix, whose
+// entries off the stencil stay as they are (zero)
+int opm_gmg_refresh(const void* table, int L, const double* diag0,
+                    const double* off0, float* dense, int grid,
+                    cudaStream_t stream) {
+    const PhaseRec* T = static_cast<const PhaseRec*>(table);
+    void* args[] = {&T, &L, &diag0, &off0, &dense};
+    return (int)cudaLaunchCooperativeKernel((const void*)gmg_refresh,
                                             dim3(grid), dim3(kThreads),
                                             args, 0, stream);
 }

@@ -5,9 +5,11 @@
 // Replaces the JAX package's models/linearize.py well_apply_B (:596),
 // well_apply_C (:607) and the closures of schur_eliminate_wells
 // (:617-662), which XLA fused on the TPU into small gathers, einsums and
-// a scatter-add. D^-1 (the per-well regularised 4x4 inverses,
-// linalg/precond.py inv4x4 :42) is formed once per Newton by the plain
-// version and read here.
+// a scatter-add, and the per-well regularised 4x4 inverses D^-1
+// (linalg/precond.py inv4x4 :42), which the right-hand side's launch forms
+// once per Newton system (wells.cuh inv4x4, one thread per well of its
+// block 0) before its own use; the recovery and the reduced operator read
+// them from the workspace.
 //
 // What bounds it on the card: launch latency. The well arrays are a few
 // hundred perforations (a few tens of KB); the work is O(npf) against the
@@ -61,16 +63,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out (3, nc) = r_cell - C D^-1 r_well: with wells an extra block 0 forms
-// D^-1 r_well and C w per perforated cell, the other blocks copy
-// kCellsPerBlock cells each, the last one rewrites the perforated cells
+// D^-1 r_well and C w per perforated cell (first, with wd, D^-1 itself
+// into W.dinv, which dinv points to: one thread per well, which then reads
+// back only its own well's block), the other blocks copy kCellsPerBlock
+// cells each, the last one rewrites the perforated cells
 __global__ void __launch_bounds__(kThreads)
     schur_rhs_kernel(Wells W, long long nc,
                      const double* __restrict__ r_cell,
-                     const double* __restrict__ r_well, double* out) {
+                     const double* __restrict__ r_well,
+                     const double* __restrict__ wd, double* dinv,
+                     double* out) {
     const int shift = W.nw != 0 ? 1 : 0;
     if (shift && blockIdx.x == 0) {
-        for (int w = threadIdx.x; w < W.nw; w += blockDim.x)
+        for (int w = threadIdx.x; w < W.nw; w += blockDim.x) {
+            if (wd) opm_wells::inv4x4(wd + 16 * w, dinv + 16 * w);
             opm_wells::dinv_apply(W, w, r_well + 4 * w, W.w4 + 4 * w);
+        }
         __syncthreads();
         opm_wells::cell_terms(W);
     }
@@ -107,15 +115,18 @@ int opm_schur_recover(const void* wells, long long nc, const double* x,
     return (int)cudaGetLastError();
 }
 
-// wells may be null (no wells: out = r_cell)
+// wells may be null (no wells: out = r_cell); wd (nw, 4, 4) the well
+// blocks, or null where the workspace's D^-1 is formed already: with wd the
+// launch forms D^-1 into the workspace's dinv (the same address) first
 int opm_schur_rhs(const void* wells, long long nc, const double* r_cell,
-                  const double* r_well, double* out, cudaStream_t stream) {
+                  const double* r_well, const double* wd, double* dinv,
+                  double* out, cudaStream_t stream) {
     if (nc == 0) return 0;
     const Wells W = opm_wells::from_host(wells);
     const long long blocks = (nc + kCellsPerBlock - 1) / kCellsPerBlock
         + (W.nw != 0 ? 1 : 0);
-    schur_rhs_kernel<<<(int)blocks, kThreads, 0, stream>>>(W, nc, r_cell,
-                                                           r_well, out);
+    schur_rhs_kernel<<<(int)blocks, kThreads, 0, stream>>>(
+        W, nc, r_cell, r_well, wd, dinv, out);
     return (int)cudaGetLastError();
 }
 

@@ -132,6 +132,93 @@ __device__ __forceinline__ void well_sums(const Wells& W, int w,
     b[3] = 0.0;
 }
 
+// ---------------------------------------------------------------------------
+// D^-1 of one well's 4x4 block: linalg/precond.py inv4x4's operations in
+// their order (the reference's linalg/precond.py:42-110): max-abs row then
+// column equilibration, the 1e-10 shift in the equilibrated metric, 2x2
+// block elimination with relative determinant floors, the unscaling.
+
+constexpr double kTiny = 1e-300;
+
+// torch.maximum and torch.amax: NaN wins
+__device__ __forceinline__ double max_nan(double a, double b) {
+    return (a != a || b != b) ? a + b : (a > b ? a : b);
+}
+
+// torch.clamp(x, min=kTiny): NaN stays
+__device__ __forceinline__ double clamp_tiny(double x) {
+    return x < kTiny ? kTiny : x;
+}
+
+// x0 y0 + x1 y1 as the card's batched 2x2 product (torch.matmul, a
+// cuBLAS GEMM) rounds it: each product fused onto a sum that starts from
+// +0.0
+__device__ __forceinline__ double dot2(double x0, double y0, double x1,
+                                       double y1) {
+    return __fma_rn(x1, y1, __fma_rn(x0, y0, 0.0));
+}
+
+struct M2 {
+    double a, b, c, d;     // [[a, b], [c, d]]
+};
+
+__device__ __forceinline__ M2 mul2(const M2& x, const M2& y) {
+    return M2{dot2(x.a, y.a, x.b, y.c), dot2(x.a, y.b, x.b, y.d),
+              dot2(x.c, y.a, x.d, y.c), dot2(x.c, y.b, x.d, y.d)};
+}
+
+__device__ __forceinline__ M2 neg2(const M2& x) {
+    return M2{-x.a, -x.b, -x.c, -x.d};
+}
+
+// the 2x2 inverse with its determinant floored at 1e-10 of the larger
+// product (at least kTiny), keeping its sign
+__device__ __forceinline__ M2 inv2(const M2& x) {
+    const double ad = x.a * x.d, bc = x.b * x.c;
+    double det = ad - bc;
+    const double floor = clamp_tiny(1e-10 * max_nan(fabs(ad), fabs(bc)));
+    if (!(fabs(det) >= floor)) det = det < 0 ? -floor : floor;
+    return M2{x.d / det, -x.b / det, -x.c / det, x.a / det};
+}
+
+// out (4x4, row-major) = D^-1 of m (4x4, row-major)
+__device__ __forceinline__ void inv4x4(const double* m, double* out) {
+    double e[4][4], r[4], c[4];
+    for (int i = 0; i < 4; ++i) {
+        double mx = fabs(m[4 * i]);
+        for (int j = 1; j < 4; ++j) mx = max_nan(mx, fabs(m[4 * i + j]));
+        r[i] = clamp_tiny(mx);
+        for (int j = 0; j < 4; ++j) e[i][j] = m[4 * i + j] / r[i];
+    }
+    for (int j = 0; j < 4; ++j) {
+        double mx = fabs(e[0][j]);
+        for (int i = 1; i < 4; ++i) mx = max_nan(mx, fabs(e[i][j]));
+        c[j] = clamp_tiny(mx);
+    }
+    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j)
+            e[i][j] = e[i][j] / c[j] + (i == j ? 1e-10 : 0.0);
+    const M2 A{e[0][0], e[0][1], e[1][0], e[1][1]};
+    const M2 B{e[0][2], e[0][3], e[1][2], e[1][3]};
+    const M2 C{e[2][0], e[2][1], e[3][0], e[3][1]};
+    const M2 D{e[2][2], e[2][3], e[3][2], e[3][3]};
+    const M2 Ai = inv2(A);
+    const M2 CAB = mul2(mul2(C, Ai), B);
+    const M2 Si = inv2(M2{D.a - CAB.a, D.b - CAB.b, D.c - CAB.c, D.d - CAB.d});
+    const M2 T = mul2(mul2(mul2(mul2(Ai, B), Si), C), Ai);
+    const M2 TL{Ai.a + T.a, Ai.b + T.b, Ai.c + T.c, Ai.d + T.d};
+    const M2 TR = mul2(mul2(neg2(Ai), B), Si);
+    const M2 BL = mul2(mul2(neg2(Si), C), Ai);
+    const M2 blk[2][2] = {{TL, TR}, {BL, Si}};
+    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) {
+            const M2& q = blk[i / 2][j / 2];
+            const double v = (i & 1) ? ((j & 1) ? q.d : q.c)
+                                     : ((j & 1) ? q.b : q.a);
+            out[4 * i + j] = v / c[i] / r[j];
+        }
+}
+
 // y = dinv[w] b (4-vectors)
 __device__ __forceinline__ void dinv_apply(const Wells& W, int w,
                                            const double b[4], double* y) {

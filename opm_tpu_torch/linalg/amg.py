@@ -51,9 +51,9 @@ from typing import List
 import numpy as np
 import torch
 
-from opm_tpu_torch.linalg.gmg import (LevelValues, check_weighted,
-                                     coarsest_product, leg_grids,
-                                     pressure_rhs_plain)
+from opm_tpu_torch.linalg.gmg import (CoarsestInverse, LevelValues,
+                                     check_weighted, coarsest_product,
+                                     leg_grids, pressure_rhs_plain)
 from opm_tpu_torch.utils import cuda_lib
 
 OMEGA = 0.8
@@ -462,12 +462,12 @@ vcycle_up_cuda.launches = 0
 vcycle_down_rhs_cuda.launches = 0
 
 
-class Refresh:
+class Refresh(CoarsestInverse):
     """The per-Newton refresh's outputs for one hierarchy on one device,
     allocated once: per level its diag (n,) and ELL values (K, n) (zeroed
     once: the padding slots are never written), and where the coarsest is
-    inverted its float32 dense matrix, inverse (column-major) and the
-    inverse's info; ``vals`` the LevelValues over them (views that the
+    inverted its dense matrix, inverse and info (``CoarsestInverse``);
+    ``vals`` the LevelValues over them (views that the
     next refresh overwrites). On a CUDA device also the V-cycle workspace
     over them (``vals.ws``) and the kernel's table (csrc/amg.cu
     ``RefreshHead``, then one ``StepRec`` per coarsening step), uploaded
@@ -481,16 +481,10 @@ class Refresh:
         self.diag = [torch.empty(e["cols"].shape[1], **f64) for e in amg.ell]
         self.ell = [torch.zeros(tuple(e["cols"].shape), **f64)
                     for e in amg.ell]
-        self.dense = self.inv = self.inv_info = None
         self.vals = LevelValues(zip(self.diag, self.ell))
-        if amg.coarsest_n <= DENSE_COARSEST:
-            n_c = amg.coarsest_n
-            self.dense = torch.empty((n_c, n_c), dtype=torch.float32,
-                                     device=dev)
-            # column-major, the layout torch.linalg.inv returns: the
-            # coarsest product then sums as on the per-level composition
-            self.inv = torch.empty_like(self.dense).mT
-            self.inv_info = torch.empty((), dtype=torch.int32, device=dev)
+        n_c = amg.coarsest_n
+        super().__init__(n_c if n_c <= DENSE_COARSEST else None, dev)
+        if self.dense is not None:
             self.vals.append(self.inv)
         self.device = self.diag[0].device
         if dev.type == "cuda":
@@ -673,8 +667,7 @@ class DeviceAmg:
             raise ValueError(f"K10: this hierarchy was put on {self.device}, "
                              "not on the card")
         refresh_cuda(R, diag0, off0)
-        if R.dense is not None:
-            torch.linalg.inv_ex(R.dense, out=(R.inv, R.inv_info))
+        R.invert()
         return R.vals
 
     def _coarsen_levels(self, diag, off):

@@ -4,9 +4,9 @@ Port of the JAX package's linalg/gmg.py (``StructuredGmg``). On a
 fully-active cartesian grid the TPFA pressure operator is a 7-point
 stencil; levels semicoarsen by 2 along one axis (the strongest coupling
 first, chosen once on the host from the transmissibilities), Galerkin
-values coarsen by pair sums (once per Newton, plain torch), an odd axis
-gets one ghost slab (diagonal 0, couplings 0), and the coarsest level
-(at most ``coarsest`` cells) is solved by a precomputed dense inverse.
+values coarsen by pair sums (once per Newton), an odd axis gets one ghost
+slab (diagonal 0, couplings 0), and the coarsest level (at most
+``coarsest`` cells) is solved by a precomputed dense inverse.
 
 The inverse is float32 and applied in float32 on every backend, as the
 reference does (``jnp.linalg.inv(A.astype(float32))``): a known reference
@@ -27,6 +27,14 @@ reference's slice arithmetic; ``vcycle_down_plain`` and
 their per-level composition ``vcycle(..., twin=True)`` is the oracle.
 Arrays stay in their padded level shape through the cycle; a ghost slab
 has zero couplings, so it never reaches a real cell.
+
+The per-Newton value coarsening is K7's refresh (``opm_gmg_refresh``):
+one cooperative launch, a phase per level and the last one the float32
+dense coarsest matrix, into buffers the hierarchy owns (``Refresh``, made
+once per device with the V-cycle workspace over them); the inverse is one
+library call (``torch.linalg.inv_ex``, no host sync). Its values are
+valid until the next refresh of the same hierarchy. ``compose`` is the
+per-level composition (the CPU path, the oracle, ``refresh_plain``).
 """
 
 from __future__ import annotations
@@ -135,6 +143,8 @@ _SIGS = {
     "opm_gmg_down": [_P, _I, _I, _I, _P, _P, _I, _P],
     "opm_gmg_down_rhs": [_P, _I, _P, _P, _P, _L, _P, _I, _P],
     "opm_gmg_up": [_P, _I, _I, _I, _P, _P, _P, _I, _P],
+    "opm_gmg_refresh_grid": [_L, _P],
+    "opm_gmg_refresh": [_P, _I, _P, _P, _P, _I, _P],
 }
 _grids: dict = {}
 
@@ -207,8 +217,7 @@ class Workspace:
         self.b, self.e = [None], [None]
         for l, lv in enumerate(gmg.levels):
             d3, offs = vals[l]
-            shape = list(lv.dims)
-            shape[lv.axis] += int(lv.pad)
+            shape = gmg.level_shape(lv)
             _check_level(d3, offs, shape, dev)
             if l > 0:
                 self.b.append(torch.empty(shape, **f64))
@@ -235,7 +244,6 @@ class Workspace:
         self.grid_down, self.grid_up, self.info = leg_grids(
             "gmg", _SIGS, dev, max(nxt[1:] or nxt), max(own[:-1] or own))
         self.lib = cuda_lib.load("gmg", _SIGS)
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_level(d3, offs, shape, dev):
@@ -269,7 +277,7 @@ def vcycle_down_cuda(ws, b, levels=None):
     _check_rhs(ws, b)
     cuda_lib.check(ws.lib.opm_gmg_down(
         ws.table.data_ptr(), ws.L, lo, hi, b.data_ptr(), ws.bc.data_ptr(),
-        ws.grid_down, ws.stream), "opm_gmg_down")
+        ws.grid_down, cuda_lib.stream_ptr(ws.device)), "opm_gmg_down")
     vcycle_down_cuda.launches += 1
     return ws.bc
 
@@ -282,7 +290,8 @@ def vcycle_up_cuda(ws, b, levels=None):
     _check_rhs(ws, b)
     cuda_lib.check(ws.lib.opm_gmg_up(
         ws.table.data_ptr(), ws.L, lo, hi, b.data_ptr(), ws.ec.data_ptr(),
-        ws.out.data_ptr(), ws.grid_up, ws.stream), "opm_gmg_up")
+        ws.out.data_ptr(), ws.grid_up, cuda_lib.stream_ptr(ws.device)),
+        "opm_gmg_up")
     vcycle_up_cuda.launches += 1
     return ws.out
 
@@ -294,8 +303,8 @@ def vcycle_down_rhs_cuda(ws, w, rc):
     check_weighted(ws, w, rc, ws.nc)
     cuda_lib.check(ws.lib.opm_gmg_down_rhs(
         ws.table.data_ptr(), ws.L, w.data_ptr(), rc.data_ptr(),
-        ws.b0.data_ptr(), ws.nc, ws.bc.data_ptr(), ws.grid_down, ws.stream),
-        "opm_gmg_down_rhs")
+        ws.b0.data_ptr(), ws.nc, ws.bc.data_ptr(), ws.grid_down,
+        cuda_lib.stream_ptr(ws.device)), "opm_gmg_down_rhs")
     vcycle_down_rhs_cuda.launches += 1
     return ws.bc
 
@@ -315,6 +324,169 @@ def coarsest_product(Ainv, bc, ec):
 
 
 coarsest_product.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: the per-Newton value refresh on the card (csrc/gmg.cu)
+
+def _face_shape(shape, ax):
+    """A level's face array along ``ax``: one shorter along it."""
+    s = list(shape)
+    s[ax] = max(s[ax] - 1, 0)
+    return s
+
+
+class CoarsestInverse:
+    """The coarsest level's float32 dense matrix ``dense`` (n, n), zeroed
+    once, its inverse ``inv`` (column-major, the layout torch.linalg.inv
+    returns, so the coarsest product sums as on the per-level
+    composition) and the inverse's int32 ``inv_info``, allocated once on
+    one device; all three None where n is None (a coarsest level solved
+    by sweeps). The base of K7's and K10's refresh buffers."""
+
+    def __init__(self, n, device):
+        self.dense = self.inv = self.inv_info = None
+        if n is not None:
+            self.dense = torch.zeros((n, n), dtype=torch.float32,
+                                     device=device)
+            self.inv = torch.empty_like(self.dense).mT
+            self.inv_info = torch.empty((), dtype=torch.int32, device=device)
+
+    def invert(self):
+        """The float32 inverse of the dense matrix into its buffer, on the
+        caller's stream and without a host sync (torch.linalg.inv_ex: a
+        singular matrix gives non-finite values and a nonzero info, as
+        the reference's jnp.linalg.inv gives no error)."""
+        if self.dense is not None:
+            torch.linalg.inv_ex(self.dense, out=(self.inv, self.inv_info))
+
+
+class Refresh(CoarsestInverse):
+    """The value refresh's outputs for one hierarchy on one device,
+    allocated and zeroed once (a padded level's ghost slabs are never
+    written again): per level its padded diag3 and six face arrays, and
+    the coarsest's dense matrix (only its diagonal and stencil positions
+    are written), inverse and info (``CoarsestInverse``); ``vals`` the
+    LevelValues over them, which the next refresh overwrites. On a CUDA
+    device also the V-cycle workspace over them (``vals.ws``) and the
+    kernel's table (csrc/gmg.cu ``PhaseRec``, one per phase), uploaded here
+    once, with its grid and each phase's outputs ``work``."""
+
+    def __init__(self, gmg, device):
+        dev = torch.device(device)
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.gmg, self.nc = gmg, gmg.nc
+        self.nf = sum(int(np.prod(_face_shape(gmg.dims, ax)))
+                      for ax in range(3))
+        self.vals = LevelValues()
+        for lv in gmg.levels:
+            shape = gmg.level_shape(lv)
+            self.vals.append((torch.zeros(shape, **f64), tuple(
+                (torch.zeros(_face_shape(shape, ax), **f64),
+                 torch.zeros(_face_shape(shape, ax), **f64))
+                for ax in range(3))))
+        super().__init__(gmg.coarsest_n, dev)
+        self.vals.append(self.inv)
+        self.device = self.dense.device
+        if dev.type == "cuda":
+            self._bind(dev)
+
+    def records(self):
+        """The kernel's phase records (csrc/gmg.cu ``PhaseRec``: 24
+        eight-byte fields each) over these buffers, and each phase's
+        outputs."""
+        g, L = self.gmg, len(self.gmg.levels)
+
+        def ptrs(level):
+            if level is None:
+                return [0] * 7
+            d3, offs = level
+            return ([d3.data_ptr()] + [o[0].data_ptr() for o in offs]
+                    + [o[1].data_ptr() for o in offs])
+
+        recs, work = [], []
+        for p in range(L + 1):
+            src = list(g.dims) if p == 0 else g.level_shape(g.levels[p - 1])
+            # the real outputs: the level's dims (level 0's: the grid's)
+            real = list(g.levels[p].dims if p < L else g.coarse_dims)
+            dst = g.level_shape(g.levels[p]) if p < L else real
+            recs.append(ptrs(None if p == 0 else self.vals[p - 1])
+                        + ptrs(self.vals[p] if p < L else None)
+                        + src + [-1 if p == 0 else g.levels[p - 1].axis]
+                        + dst + real)
+            work.append(int(np.prod(real)) + sum(
+                int(np.prod(_face_shape(real, ax))) for ax in range(3)))
+        return recs, work
+
+    def _bind(self, dev):
+        """The card's part: the kernel's table and grid, and the V-cycle
+        workspace over the buffers."""
+        recs, work = self.records()
+        self.table = torch.tensor(recs, dtype=torch.int64).reshape(-1).to(dev)
+        self.lib = cuda_lib.load("gmg", _SIGS)
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            cuda_lib.check(self.lib.opm_gmg_refresh_grid(max(work), out),
+                           "opm_gmg_refresh_grid")
+        self.grid = out[0]
+        self.grid_info = dict(sms=out[1], blocks_per_sm=out[2],
+                              registers=out[3])
+        self.work = work
+        self.vals.ws = Workspace(self.gmg, self.vals)
+
+
+def refresh_cuda(R, diag0, off0):
+    """K7's per-Newton value refresh on the card, one launch into the
+    buffers of ``R`` (the hierarchy's ``Refresh``): every level's values
+    and the float32 dense coarsest matrix from the pressure system's diag0
+    (nc,) and off0 (2 nf,) = [a_LR | a_RL] in grid face order, on the
+    current stream. Returns ``R.vals``, whose inverse is not formed
+    here."""
+    for t, n in ((diag0, R.nc), (off0, 2 * R.nf)):
+        if (t.dtype != torch.float64 or not t.is_contiguous()
+                or t.device != R.device or tuple(t.shape) != (n,)):
+            raise ValueError("K7: the refresh needs contiguous float64 "
+                             f"diag0 ({R.nc},) and off0 ({2 * R.nf},) on "
+                             f"{R.device}")
+    cuda_lib.check(R.lib.opm_gmg_refresh(
+        R.table.data_ptr(), len(R.gmg.levels), diag0.data_ptr(),
+        off0.data_ptr(), R.dense.data_ptr(), R.grid,
+        cuda_lib.stream_ptr(R.device)), "opm_gmg_refresh")
+    refresh_cuda.launches += 1
+    return R.vals
+
+
+refresh_cuda.launches = 0
+
+
+def refresh_plain(R, diag0, off0):
+    """The per-level composition (``coarsen_values(..., twin=True)``'s
+    levels and dense coarsest matrix) copied into the buffers of ``R`` on
+    any device; not the inverse. What the kernel is held to."""
+    levels, A = R.gmg.compose(diag0.contiguous(), off0.contiguous())
+    for (d3, offs), (bd, boffs) in zip(levels, R.vals):
+        bd.copy_(d3)
+        for (aL, aR), (bL, bR) in zip(offs, boffs):
+            bL.copy_(aL)
+            bR.copy_(aR)
+    R.dense.copy_(A.to(torch.float32))
+
+
+def refresh_bytes(gmg):
+    """The bytes K7's value refresh must move on ``gmg``, each input read
+    once and each output written once: the inputs diag0 and off0 (level
+    0's real cells' diagonal and both couplings of each real face,
+    float64), every level's values written (level 0's copy included), and
+    the float32 dense coarsest matrix's written entries (its diagonal and
+    two per face). A coarser level read back by the next phase is the
+    kernel's choice, not the function's, and is not counted."""
+    def entries(dims):
+        return int(np.prod(dims)) + 2 * sum(
+            int(np.prod(_face_shape(dims, ax))) for ax in range(3))
+
+    return 8 * entries(gmg.dims) \
+        + sum(8 * entries(lv.dims) for lv in gmg.levels) \
+        + 4 * entries(gmg.coarse_dims)
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +529,7 @@ class StructuredGmg:
                 st = self._host_coarsen_strength(st, a)
         self.coarse_dims = tuple(d)
         self.coarsest_n = int(np.prod(d))
+        self._refreshes = {}
 
     @staticmethod
     def _host_strength(dims, trans):
@@ -422,11 +595,11 @@ class StructuredGmg:
                 tuple((_pad_axis(bL, a, 1), _pad_axis(bR, a, 1))
                       for bL, bR in offs))
 
-    def coarsen_values(self, diag0, off0, *, twin=False):
-        """diag0 (nc,), off0 (2 nf,) = [a_LR | a_RL] in grid face order.
-        Returns per-level (diag3, offs), contiguous, then the float32
-        inverse of the dense coarsest matrix (plain torch on every device;
-        ``twin`` is accepted for the AMG's interface)."""
+    def compose(self, diag0, off0):
+        """The per-level composition of the value coarsening: diag0 (nc,),
+        off0 (2 nf,) = [a_LR | a_RL] in grid face order. Returns (levels,
+        A): per level (diag3, offs), contiguous and ghost-padded, and the
+        float64 dense coarsest matrix."""
         nz, ny, nx = self.dims
         nfx = (nx - 1) * ny * nz
         nfy = nx * (ny - 1) * nz
@@ -442,17 +615,59 @@ class StructuredGmg:
         aRz, aRy, aRx = split(aRf)
         diag3 = diag0.reshape(nz, ny, nx)
         offs = ((aLz, aRz), (aLy, aRy), (aLx, aRx))
-        vals = LevelValues()
+        levels = []
         for lv in self.levels:
             if lv.pad:
                 diag3, offs = self._pad_level(diag3, offs, lv.axis)
             diag3 = diag3.contiguous()
             offs = tuple((aL.contiguous(), aR.contiguous())
                          for aL, aR in offs)
-            vals.append((diag3, offs))
+            levels.append((diag3, offs))
             diag3, offs = self._coarsen_level(diag3, offs, lv.axis)
-        vals.append(self.invert_coarsest(self._dense_coarsest(diag3, offs)))
+        return levels, self._dense_coarsest(diag3, offs)
+
+    def coarsen_values(self, diag0, off0, *, twin=False):
+        """diag0 (nc,), off0 (2 nf,) = [a_LR | a_RL] in grid face order.
+        Returns per level (diag3, offs), contiguous and ghost-padded, then
+        the float32 inverse of the dense coarsest matrix. On the card K7's
+        refresh into the hierarchy's buffers (one launch) and the inverse
+        into its buffer (torch.linalg.inv_ex, no host sync): the same
+        ``Refresh.vals`` every call, its workspace made once, valid until
+        the next refresh of this hierarchy on that device (two alive at
+        once alias). On the CPU, and with ``twin`` on any device, the
+        per-level composition in fresh tensors (torch.linalg.inv: a
+        singular coarsest matrix raises)."""
+        diag0, off0 = diag0.contiguous(), off0.contiguous()
+        if twin:
+            return self._coarsen_levels(diag0, off0)
+        return cuda_lib.dispatch(diag0, self._refresh, self._coarsen_levels,
+                                 diag0, off0, what="K7 refresh")
+
+    def _coarsen_levels(self, diag0, off0):
+        levels, A = self.compose(diag0, off0)
+        vals = LevelValues(levels)
+        vals.append(self.invert_coarsest(A))
         return vals
+
+    def refresh(self, device):
+        """The hierarchy's ``Refresh`` on ``device``, made on first use."""
+        dev = torch.device(device)
+        if dev not in self._refreshes:
+            self._refreshes[dev] = Refresh(self, dev)
+        return self._refreshes[dev]
+
+    def _refresh(self, diag0, off0):
+        R = self.refresh(diag0.device)
+        refresh_cuda(R, diag0, off0)
+        R.invert()
+        return R.vals
+
+    def level_shape(self, lv):
+        """A level's array shape: its dims, one ghost slab more along its
+        axis when that is odd."""
+        shape = list(lv.dims)
+        shape[lv.axis] += int(lv.pad)
+        return shape
 
     @staticmethod
     def invert_coarsest(A):

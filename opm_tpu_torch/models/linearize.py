@@ -762,15 +762,24 @@ class WellTerm:
     ``perf_order`` and the length of each cell's run at its first
     position, B v per perforation, C w per position, the well vector, the
     last-block ticket), made once. A launch passes ``arg``, the address
-    of the C structure (None without wells: no well term)."""
+    of the C structure (None without wells: no well term).
 
-    def __init__(self, sys: BlockSystem, Dinv):
+    ``Dinv`` None (the main path on the card): ``Dinv`` is a buffer that
+    K5's right-hand-side launch (schur_rhs_cuda) fills from the system's
+    well blocks before its own use; every other K5 entry raises until then
+    (``formed``)."""
+
+    def __init__(self, sys: BlockSystem, Dinv=None):
         nw, mp = sys.perf_cell.shape
         nc = sys.nc
         dev = sys.r_cell.device
+        formed = Dinv is not None
+        if not formed:
+            Dinv = torch.empty((nw, 4, 4), dtype=torch.float64, device=dev)
         for t, shape in ((sys.wc, (nw, mp, 3, 3)), (sys.cw, (nw, mp, 3, 4)),
                          (Dinv, (nw, 4, 4)), (sys.r_well, (nw, 4)),
-                         (sys.r_cell, (3, nc))):
+                         (sys.r_cell, (3, nc))) + (
+                () if formed else ((sys.wd_diag, (nw, 4, 4)),)):
             if (t.dtype != torch.float64 or t.device != dev
                     or tuple(t.shape) != shape or not t.is_contiguous()):
                 raise ValueError(f"K5: expected a contiguous float64 {shape} "
@@ -783,6 +792,7 @@ class WellTerm:
                                  f"contiguous int64 tensors of {nw * mp} "
                                  f"perforations on {dev}")
         self.sys, self.Dinv, self.nc, self.device = sys, Dinv, nc, dev
+        self.formed = formed
         self.sorted_cell = sys.perf_cell.reshape(-1)[sys.perf_order]
         self.run_len = run_lengths(self.sorted_cell)
         self.wf = torch.empty(3 * nw * mp, dtype=torch.float64, device=dev)
@@ -795,6 +805,13 @@ class WellTerm:
                                        self.w4, self.ticket)]
         self.c = _WellsC(nw, mp, WELL_TERM, *ptrs)
         self.arg = ctypes.addressof(self.c) if nw else None
+
+    def check_formed(self):
+        """Raise unless D^-1 is in place (given, or formed by the
+        right-hand side's launch)."""
+        if not self.formed and self.arg is not None:
+            raise ValueError("K5: D^-1 is formed by the right-hand side's "
+                             "launch (schur_rhs_cuda); run it first")
 
     def vec(self, t, shape):
         """A vector's data pointer, after the check of its contract."""
@@ -814,13 +831,14 @@ def _well_arg(wells, v, nc):
     if v.shape != (3, nc) or wells.nc != nc or wells.device != v.device:
         raise ValueError("K5: the well term needs a (3, nc) vector of its "
                          "system's device")
+    wells.check_formed()
     return wells.arg
 
 
 WELLS_SIGS = {
     "opm_schur_matvec": [_P, _L, _P, _P, _P],
     "opm_schur_recover": [_P, _L, _P, _P, _P, _P],
-    "opm_schur_rhs": [_P, _L, _P, _P, _P, _P],
+    "opm_schur_rhs": [_P, _L, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -832,6 +850,7 @@ def schur_matvec_cuda(wt: WellTerm, v, out):
     operator's launches (reduced_matvec_cuda)."""
     shape = (3, wt.nc)
     vp, op = wt.vec(v, shape), wt.vec(out, shape)
+    wt.check_formed()
     if wt.arg is not None:
         lib = cuda_lib.load("wells", WELLS_SIGS)
         err = lib.opm_schur_matvec(wt.arg, wt.nc, vp, op,
@@ -846,19 +865,28 @@ schur_matvec_cuda.launches = 0
 
 def schur_rhs_cuda(wt: WellTerm):
     """K5's right-hand-side entry on the card; the contract of
-    schur_rhs_plain with the WellTerm's system and D^-1."""
+    schur_rhs_plain with the WellTerm's system and D^-1. Where the
+    WellTerm was made without D^-1, the first launch forms it into
+    ``wt.Dinv`` from the system's well blocks (the contract of the plain
+    ``inv4x4``) before its own use; ``inverses`` counts those launches."""
     sys = wt.sys
     out = torch.empty_like(sys.r_cell)
     lib = cuda_lib.load("wells", WELLS_SIGS)
     ptr = cuda_lib.ptr
-    err = lib.opm_schur_rhs(wt.arg, wt.nc, ptr(sys.r_cell), ptr(sys.r_well),
-                            ptr(out), cuda_lib.stream_ptr(out.device))
+    form = not wt.formed and wt.arg is not None
+    err = lib.opm_schur_rhs(
+        wt.arg, wt.nc, ptr(sys.r_cell), ptr(sys.r_well),
+        ptr(sys.wd_diag) if form else None, ptr(wt.Dinv) if form else None,
+        ptr(out), cuda_lib.stream_ptr(out.device))
     cuda_lib.check(err, "opm_schur_rhs")
+    wt.formed = True
     schur_rhs_cuda.launches += 1
+    schur_rhs_cuda.inverses += int(form)
     return out
 
 
 schur_rhs_cuda.launches = 0
+schur_rhs_cuda.inverses = 0
 
 
 def schur_recover_cuda(wt: WellTerm, x):
@@ -866,6 +894,7 @@ def schur_recover_cuda(wt: WellTerm, x):
     schur_recover_plain with the WellTerm's system and D^-1."""
     sys = wt.sys
     xp = wt.vec(x, (3, wt.nc))
+    wt.check_formed()
     xw = torch.empty_like(sys.r_well)
     if wt.arg is not None:
         lib = cuda_lib.load("wells", WELLS_SIGS)
@@ -891,6 +920,7 @@ def reduced_matvec_cuda(wt: WellTerm, v, dims):
     gather grids and two on embedded grids. Counts the reduced matvecs
     that carry the well term."""
     sys = wt.sys
+    wt.check_formed()
     ops = (sys.diag, sys.face_L, sys.face_R)
     out = None
     first = WELL_TERM
@@ -910,17 +940,19 @@ reduced_matvec_cuda.launches = 0
 
 
 def schur_eliminate_wells(sys: BlockSystem, dims, *, twin=False):
-    """Schur-eliminate the well unknowns (per-well dense D^-1 by the plain
-    ``inv4x4``; reduced cell operator A - C D^-1 B). Returns
-    (reduced_matvec, rhs (3, nc), recover(x_cell) -> x_well (nw, 4)): on
-    the card the cell operator by K4/K4-faces with K5's well term carried
-    by its launches, the right-hand side and the recovery by K5's entries,
-    all over one WellTerm (the well arrays checked once, the workspace
-    made once); ``twin``: all of them by their plain twins on any device
-    (the card's whole-solve comparison)."""
+    """Schur-eliminate the well unknowns (per-well dense D^-1; reduced cell
+    operator A - C D^-1 B). Returns (reduced_matvec, rhs (3, nc),
+    recover(x_cell) -> x_well (nw, 4)): on the card the right-hand side's
+    K5 launch forms D^-1 first, the cell operator by K4/K4-faces with K5's
+    well term carried by its launches, the recovery by K5's entry, all
+    over one WellTerm (the well arrays checked once, the workspace made
+    once); on the CPU, and with ``twin`` on any device, D^-1 by the plain
+    ``inv4x4`` and everything by the plain twins (``twin``: the card's
+    whole-solve comparison)."""
     from opm_tpu_torch.linalg.precond import inv4x4
 
-    Dinv = inv4x4(sys.wd_diag).contiguous()
+    on_card = not twin and sys.r_cell.device.type == "cuda"
+    Dinv = None if on_card else inv4x4(sys.wd_diag).contiguous()
     wt = None if twin else WellTerm(sys, Dinv)
 
     def k5(cuda_fn, plain_fn, *args):

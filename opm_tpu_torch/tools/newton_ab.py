@@ -35,15 +35,28 @@ step:
   and device time per call, the refresh's bound (``linalg/amg.py``
   ``refresh_bytes`` of the levels' sizes at 3.35 TB/s, computed with
   this tool's tree), and digests of every level's values and of the inverse;
-* the per-Newton pressure-stage work that no hand kernel does (plain
-  torch on the card): K5's well-block inverses (``inv4x4``) everywhere,
-  and at SPE10-2 and on E K7's value coarsening (``coarsen_values``
-  whole), its dense coarsest matrix and its float32 inverse alone: host
-  time per call and device kernels per call;
-* at SPE10-2 and on G, report step 0 after a warm-up run of the same
-  step: wall, the Newton loop's synced sections (``update``,
-  ``cpr_setup``, ``krylov``, ...), the residual + convergence time, the
-  counts and a digest of the state.
+* at SPE10-2 and on E, K7's value refresh (``StructuredGmg.coarsen_values``
+  on the first Newton system's pressure values: the parent's plain torch
+  composition, or the refresh launch into the hierarchy's buffers and the
+  inverse; and one followed by the first V-cycle on its values): host time
+  per call, device kernels, host-to-device copies and device time per
+  call, digests of every level and of the inverse, in a tree with the
+  kernel the kernel alone, and its bound (``linalg/gmg.py``
+  ``refresh_bytes`` of the level dims at 3.35 TB/s, computed with this
+  tool's tree);
+* everywhere, the Schur elimination's per-Newton setup
+  (``schur_eliminate_wells``: D^-1, the WellTerm and the right-hand side;
+  the parent's plain ``inv4x4`` then K5's launch, or K5's launch forming
+  D^-1): host time, device kernels and device time per call, digests of
+  the right-hand side and of D^-1;
+* the plain torch pieces of the parent's pressure-stage work on the card:
+  K5's ``inv4x4`` everywhere, and at SPE10-2 and on E K7's dense coarsest
+  matrix and its float32 inverse alone: host time per call and device
+  kernels per call;
+* at SPE10-2, E and G, report step 0 after a warm-up run of the same
+  step: wall, the Newton loop's synced sections (``assembly``,
+  ``cpr_setup``, ``krylov``, ``update``), the residual + convergence time,
+  the counts and a digest of the state.
 
 Prints one JSON line per leg and the card's name and power limit; writes
 everything to --out.
@@ -296,9 +309,9 @@ def _refresh_rows(sim, sys_, rc):
 
 
 def _plain_rows(sim, sys_):
-    """Per-Newton pressure-stage work that no hand kernel does: K5's
-    well-block inverses, and on a structured hierarchy K7's value
-    coarsening with its dense coarsest matrix and float32 inverse."""
+    """The plain torch pieces of the parent's per-Newton pressure-stage
+    work on the card: K5's well-block inverses (``inv4x4``), and on a
+    structured hierarchy K7's dense coarsest matrix and float32 inverse."""
     from opm_tpu_torch.linalg import precond as k6
     m, amg = sim.model, sim.solver.amg
     out = dict(inv4x4=measure(lambda: k6.inv4x4(sys_.wd_diag)))
@@ -311,10 +324,61 @@ def _plain_rows(sim, sys_):
     A = amg._dense_coarsest(dc, oc)
     out.update(
         levels=L, coarsest_n=amg.coarsest_n,
-        gmg_coarsen_values=measure(lambda: amg.coarsen_values(diag_p, off)),
         gmg_dense_coarsest=measure(lambda: amg._dense_coarsest(dc, oc)),
         gmg_invert_coarsest=measure(lambda: amg.invert_coarsest(A)))
     return out
+
+
+def _k7_rows(sim, sys_, rc):
+    """K7's per-Newton value refresh on the first Newton system: one
+    ``coarsen_values`` (the parent's plain torch, or the refresh launch and
+    the inverse), one followed by the first V-cycle on its values (the
+    parent builds the V-cycle workspace there), digests of every level and
+    of the inverse, the level dims for the bound, and in a tree with the
+    refresh kernel that kernel alone."""
+    import torch
+
+    from opm_tpu_torch.linalg import gmg as k7
+    from opm_tpu_torch.linalg import precond as k6
+    amg = sim.solver.amg
+    _, w, diag_p, off = k6.cpr_setup(sys_, tuple(sim.model.op_dims), amg)
+    diag_p, off = diag_p.contiguous(), off.contiguous()
+    vals = amg.coarsen_values(diag_p, off)
+    out = dict(
+        refresh=measure(lambda: amg.coarsen_values(diag_p, off)),
+        refresh_vcycle=measure(lambda: amg.vcycle(
+            amg.coarsen_values(diag_p, off), None, w=w, rc=rc)),
+        levels_digest=digest(*[t for d3, offs in vals[:-1]
+                               for t in (d3,) + sum(offs, ())]),
+        inverse_digest=digest(vals[-1]),
+        level_dims=[list(lv.dims) for lv in amg.levels],
+        coarse_dims=list(amg.coarse_dims))
+    if hasattr(k7, "refresh_cuda"):
+        R = amg.refresh(off.device)
+        out["kernel"] = measure(lambda: k7.refresh_cuda(R, diag_p, off),
+                                host=False)
+    torch.cuda.synchronize()
+    return out
+
+
+def _rhs_rows(sim, sys_):
+    """The Schur elimination's per-Newton setup on the card (D^-1, the
+    WellTerm and the right-hand side: the parent's plain inv4x4 then K5's
+    launch, or K5's launch forming D^-1), with digests of the right-hand
+    side and of D^-1."""
+    from opm_tpu_torch.linalg import precond as k6
+    from opm_tpu_torch.models import linearize as lz
+    dims = sim.model.op_dims
+    _, rhs, _ = lz.schur_eliminate_wells(sys_, dims)
+    if hasattr(lz.schur_rhs_cuda, "inverses"):
+        wt = lz.WellTerm(sys_)
+        lz.schur_rhs_cuda(wt)
+        dinv = wt.Dinv
+    else:
+        dinv = k6.inv4x4(sys_.wd_diag)
+    return dict(schur_eliminate=measure(
+        lambda: lz.schur_eliminate_wells(sys_, dims)),
+        rhs_digest=digest(rhs), dinv_digest=digest(dinv))
 
 
 def _leg(tree):
@@ -375,26 +439,29 @@ def _leg(tree):
         rc = torch.as_tensor(rng.standard_normal((3, nc)), device=m.device)
         r["cpr"] = _cpr_rows(sim, sys_, rc)
         r["plain"] = _plain_rows(sim, sys_)
+        r["rhs"] = _rhs_rows(sim, sys_)
         if label == "norne_gather":
             r["refresh"] = _refresh_rows(sim, sys_, rc)
+        else:
+            r["k7_refresh"] = _k7_rows(sim, sys_, rc)
         del sys_, res, new
-        if label in ("spe10", "norne_gather"):
-            sim.run(init, report_step_limit=1)          # warm-up
-            sim, init = fresh(case, knob)
-            sim.solver.timing = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fin = sim.run(init, report_step_limit=1)
-            torch.cuda.synchronize()
-            rep = sim.report
-            r.update(wall_s=time.perf_counter() - t0,
-                     state_digest=digest(fin.pressure, fin.sw, fin.x,
-                                         fin.hcstate, fin.bhp, fin.qs),
-                     sections_s=dict(sim.solver.timing),
-                     residual_convergence_s=rep.assemble_time,
-                     newtons=rep.newton_iterations,
-                     linear=rep.linear_iterations, substeps=rep.substeps,
-                     failed=rep.failed_substeps)
+        # report step 0 after a warm-up run of it
+        sim.run(init, report_step_limit=1)          # warm-up
+        sim, init = fresh(case, knob)
+        sim.solver.timing = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin = sim.run(init, report_step_limit=1)
+        torch.cuda.synchronize()
+        rep = sim.report
+        r.update(wall_s=time.perf_counter() - t0,
+                 state_digest=digest(fin.pressure, fin.sw, fin.x,
+                                     fin.hcstate, fin.bhp, fin.qs),
+                 sections_s=dict(sim.solver.timing),
+                 residual_convergence_s=rep.assemble_time,
+                 newtons=rep.newton_iterations,
+                 linear=rep.linear_iterations, substeps=rep.substeps,
+                 failed=rep.failed_substeps)
         out[label] = r
         del sim, init, st
         torch.cuda.empty_cache()
@@ -402,13 +469,23 @@ def _leg(tree):
     print(json.dumps(out), flush=True)
 
 
-def _bound(r):
-    """The refresh's bytes and bound, from a leg's level sizes (the same
-    for every tree)."""
-    if r:
+def _bound(r, k7=False):
+    """A refresh's bytes and bound, from a leg's level sizes (the same for
+    every tree; K10's, or with ``k7`` K7's)."""
+    if not r:
+        return
+    if k7:
+        from types import SimpleNamespace
+
+        from opm_tpu_torch.linalg.gmg import refresh_bytes
+        r["bytes"] = refresh_bytes(SimpleNamespace(
+            dims=(r["level_dims"] or [r["coarse_dims"]])[0],
+            levels=[SimpleNamespace(dims=d) for d in r["level_dims"]],
+            coarse_dims=r["coarse_dims"]))
+    else:
         from opm_tpu_torch.linalg.amg import refresh_bytes
         r["bytes"] = refresh_bytes(r["sizes"], r["widths"], r["entries"])
-        r["bound_ms"] = r["bytes"] / HBM_BYTES_S * 1e3
+    r["bound_ms"] = r["bytes"] / HBM_BYTES_S * 1e3
 
 
 def main(argv=None):
@@ -441,6 +518,8 @@ def main(argv=None):
         leg = json.loads(proc.stdout.strip().splitlines()[-1])
         leg["leg"] = letter
         _bound(leg.get("norne_gather", {}).get("refresh"))
+        for label in ("spe10", "norne_embedded"):
+            _bound(leg.get(label, {}).get("k7_refresh"), k7=True)
         legs.append(leg)
         print(json.dumps(leg), flush=True)
     res = dict(device=card, order=args.order, trees=trees, legs=legs)

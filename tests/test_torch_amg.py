@@ -127,7 +127,7 @@ def _refreshed(dev_p, diag0, off0, R=None):
     if R is None:
         R = amg.Refresh(dev_p, "cpu")
     amg.refresh_plain(R, diag0, off0)
-    torch.linalg.inv_ex(R.dense, out=(R.inv, R.inv_info))
+    R.invert()
     return R
 
 

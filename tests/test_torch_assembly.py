@@ -409,3 +409,26 @@ def test_well_term_rejects_mismatched_arrays(spe10, bad):
         with pytest.raises(ValueError, match="K5"):
             linearize.schur_eliminate_wells(sys,
                                             spe10["port"].model.op_dims)
+
+
+def test_well_term_without_dinv_waits_for_the_rhs(spe10):
+    """A WellTerm made without D^-1 (the card's main path, where K5's
+    right-hand-side launch forms it) holds a (nw, 4, 4) buffer and checks
+    the well blocks it is formed from; every other K5 entry raises before
+    the right-hand side has run (checked before any launch, so on CPU
+    tensors too)."""
+    sys = _port_system(spe10)
+    wt = linearize.WellTerm(sys)
+    assert wt.arg is not None and not wt.formed
+    assert tuple(wt.Dinv.shape) == tuple(sys.wd_diag.shape)
+    v = torch.zeros((3, sys.nc), dtype=torch.float64)
+    dims = spe10["port"].model.op_dims
+    for call in (lambda: linearize.schur_matvec_cuda(wt, v, v.clone()),
+                 lambda: linearize.schur_recover_cuda(wt, v),
+                 lambda: linearize.reduced_matvec_cuda(wt, v, dims)):
+        with pytest.raises(ValueError, match="right-hand side"):
+            call()
+    with pytest.raises(ValueError, match="K5"):
+        linearize.WellTerm(sys._replace(
+            wd_diag=sys.wd_diag[:, :3].contiguous()))
+    assert linearize.WellTerm(sys, wt.Dinv).formed

@@ -5,14 +5,18 @@ own, a CPR solve through the kernels against their twins and one with
 only the V-cycle through K7, BiCGStab with no preconditioner through K8
 against its twins, K8's steps at an odd length and at the toy SPE10-like
 deck's, K7's two V-cycle legs on seeded stencils (a padded level, a
-padded level 0), the face-list kernels (K4-faces' pack included) and K10
+padded level 0) and its value refresh (one launch into the hierarchy's
+buffers, bit for bit the per-level composition), the face-list kernels
+(K4-faces' pack included) and K10
 (its legs, and the coarsest sweeps of a hierarchy cut short) against
 their twins on the toy Norne-like deck, the
 assembly kernels (K2, the K3 face blocks in both forms, K5) against their
 twins on the toy Norne-like deck in both representations, K2's three
 entries at kink cells with one and two PVT/SAT regions, the
 Schur-reduced operator with K5's well term fused into the cell operator's
-last launch on structured, embedded and gather grids, K9's update entry
+last launch on structured, embedded and gather grids, D^-1 formed in K5's
+right-hand-side launch bit for bit the plain inv4x4 (a rank-deficient
+well block included), K9's update entry
 bit for bit against its twins' composition (all three hydrocarbon states,
 switching cells, one and two PVT regions, both call forms), K9's
 convergence row against its plain version (masked and unmasked, a NaN
@@ -583,6 +587,110 @@ def test_k7_legs_match_twins(dev, case):
         assert _scaled(ws.b[lv], bs[lv]) <= 1e-12
         assert _scaled(ws.e[lv], es[lv]) <= 1e-12
     _no_allocation(lambda: g.vcycle(vals, b), x)
+
+
+@pytest.mark.parametrize("case", ["strength", "padded"])
+def test_k7_refresh_matches_twins(dev, case):
+    """K7's value refresh on seeded stencils of the toy SPE10-like dims
+    (levels by strength; by argmax, with a padded level): one
+    ``coarsen_values`` is one ``refresh_cuda`` launch into the hierarchy's
+    buffers (the same LevelValues every call); every level and the
+    float32 dense coarsest matrix bit for bit the per-level composition on
+    CPU copies of the inputs, the inverse bit for bit torch.linalg.inv of
+    the same matrix in its layout, inv_ex's info 0; ten launches of the
+    kernel make no allocator request, ten refreshes (the inverse's pivots
+    come from the cache) leave the memory allocated as it was and the
+    workspace's table and the refresh's own as they were; a V-cycle after a second refresh with other values equals one on
+    freshly composed values (the per-level composition on the card)."""
+    from opm_tpu_torch.linalg import gmg as k7
+
+    dims = (15, 44, 4)
+    diag, off, t = _stencil(dims, 3)
+    g = k7.StructuredGmg(dims, t if case == "strength" else None)
+    assert (case != "padded") or any(lv.pad for lv in g.levels)
+    d0 = torch.as_tensor(diag, device=dev)
+    o0 = torch.as_tensor(off, device=dev)
+    n0 = k7.refresh_cuda.launches
+    vk = g.coarsen_values(d0, o0)
+    R = g.refresh(dev)
+    assert k7.refresh_cuda.launches == n0 + 1 and vk is R.vals
+    levels, A = g.compose(d0.cpu(), o0.cpu())
+    for (dk, ok), (dc, oc) in zip(vk[:-1], levels):
+        assert torch.equal(dk.cpu(), dc)
+        for (kL, kR), (cL, cR) in zip(ok, oc):
+            assert torch.equal(kL.cpu(), cL) and torch.equal(kR.cpu(), cR)
+    assert torch.equal(R.dense.cpu(), A.to(torch.float32))
+    inv = torch.linalg.inv(R.dense)
+    assert torch.equal(vk[-1], inv) and vk[-1].stride() == inv.stride()
+    assert int(R.inv_info) == 0
+    b = torch.as_tensor(np.random.default_rng(4).standard_normal(g.nc),
+                        device=dev)
+    x = g.vcycle(vk, b).clone()
+    tables = (vk.ws.table.clone(), R.table.clone())
+    gc.collect()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    assert all(k7.refresh_cuda(R, d0, o0) is vk for _ in range(10))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats().get("allocation.all.allocated", 0) == a0
+    m0 = torch.cuda.memory_allocated()
+    assert all(g.coarsen_values(d0, o0) is vk for _ in range(10))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == m0
+    assert torch.equal(vk.ws.table, tables[0])
+    assert torch.equal(R.table, tables[1])
+    assert torch.equal(g.vcycle(vk, b), x)
+    f = torch.as_tensor(np.random.default_rng(5).uniform(0.9, 1.1, off.shape),
+                        device=dev)
+    d2, o2 = d0 * 1.25, o0 * f
+    x2 = g.vcycle(g.coarsen_values(d2, o2), b).clone()
+    fresh = g.coarsen_values(d2, o2, twin=True)
+    assert fresh is not vk
+    assert torch.equal(x2, g.vcycle(fresh, b))
+
+
+def test_k5_rhs_forms_dinv(dev):
+    """K5's right-hand-side launch forms D^-1 itself (a WellTerm made
+    without one, the main path): on the toy SPE10-like deck's well blocks,
+    with the first two replaced by tests/test_torch_linalg.py's healthy
+    and rank-deficient blocks, D^-1 bit for bit the plain inv4x4 on the
+    card (cuBLAS's batched 2x2 products fuse each multiply-add, as the
+    kernel's do); the right-hand side bit for bit the one from a WellTerm
+    given that D^-1; one launch, counted once as forming D^-1; the
+    recovery and the reduced operator from the formed D^-1 equal those
+    from the given one."""
+    from opm_tpu_torch.linalg.precond import inv4x4
+    from opm_tpu_torch.models import linearize as lz
+
+    sim, sys = _spe10_toy_system(dev)
+    rng = np.random.default_rng(7)
+    healthy = np.eye(4) + 0.1 * rng.normal(size=(4, 4))
+    healthy[:, 3] *= 1e-7
+    healthy[3] = [0.0, -1.0, 0.0, 0.0]
+    v = np.array([219.0, 42.3, 1.02, -1.6e-7])
+    sick = np.stack([0.001 * v, -0.0008 * v, v,
+                     np.array([0.0, -1.0, 0.0, 0.0])])
+    wd = sys.wd_diag.clone()
+    assert wd.shape[0] >= 2
+    wd[0] = torch.as_tensor(healthy, device=dev)
+    wd[1] = torch.as_tensor(sick, device=dev)
+    for s in (sys, sys._replace(wd_diag=wd)):
+        D = inv4x4(s.wd_diag).contiguous()
+        given = lz.WellTerm(s, D)
+        wt = lz.WellTerm(s)
+        n0 = (lz.schur_rhs_cuda.launches, lz.schur_rhs_cuda.inverses)
+        rhs = lz.schur_rhs_cuda(wt)
+        assert (lz.schur_rhs_cuda.launches - n0[0],
+                lz.schur_rhs_cuda.inverses - n0[1]) == (1, 1)
+        assert wt.formed and torch.equal(wt.Dinv, D)
+        assert torch.equal(rhs, lz.schur_rhs_cuda(given))
+        assert lz.schur_rhs_cuda.inverses - n0[1] == 1
+        x = torch.as_tensor(rng.standard_normal((3, s.nc)), device=dev)
+        assert torch.equal(lz.schur_recover_cuda(wt, x),
+                           lz.schur_recover_cuda(given, x))
+        dims = sim.model.op_dims
+        assert torch.equal(lz.reduced_matvec_cuda(wt, x, dims),
+                           lz.reduced_matvec_cuda(given, x, dims))
 
 
 @pytest.mark.parametrize("knob", [None, "0"], ids=["embedded", "gather"])

@@ -3,7 +3,9 @@ on grids of its own: the toy SPE10-like grid (15x44x4, levels ordered by
 transmissibility strength) and the same dims without transmissibilities
 (levels by argmax, whose 44 -> 22 -> 11 coarsening pads a level), both
 with a seeded 7-point pressure stencil, and a 2-D Poisson problem as a
-BiCGStab preconditioner (tests/test_linalg.py:224 in port form).
+BiCGStab preconditioner (tests/test_linalg.py:224 in port form); K7's
+refresh buffers (``Refresh``) filled by the refresh's plain version on
+both grids.
 
 Tolerances: the level list exactly; Galerkin values and each level's
 operations (damped-Jacobi sweep, residual restriction with the next
@@ -235,3 +237,53 @@ def test_gmg_vcycle_from_weighted_residual(toy_grid, case):
     for twin in (False, True):
         assert torch.equal(g.vcycle(vals, None, w=w, rc=rc, twin=twin),
                            g.vcycle(vals, rp, twin=twin))
+
+
+@pytest.mark.parametrize("case", ["toy_strength", "padded"])
+def test_gmg_refresh_plain_into_buffers(toy_grid, case):
+    """K7's refresh buffers (``Refresh``: every level's padded values and
+    the float32 dense coarsest matrix, allocated and zeroed once) filled by
+    ``refresh_plain``: bit for bit the per-level composition
+    (``coarsen_values`` on the CPU), whose dense matrix is the float32
+    cast of ``_dense_coarsest``; against the JAX package's coarsen_values
+    at 1e-12 of max for the levels and 1e-5 for the float32 inverse formed
+    into the buffer (``Refresh.invert``, info 0); over two refreshes with
+    other seeded values every ghost slab stays 0 and the buffers stay the
+    same tensors."""
+    dims = (15, 44, 4)
+    trans = toy_grid.trans if case == "toy_strength" else None
+    g = gmg.StructuredGmg(dims, trans)
+    r = RefGmg(dims, trans)
+    R = gmg.Refresh(g, "cpu")
+    bufs = [t for d3, offs in R.vals[:-1] for t in (d3,) + sum(offs, ())]
+    for shift in (0.05, 0.2):
+        _, diag, off = _poisson(dims, 3 if shift < 0.1 else 4, shift=shift)
+        d0, o0 = torch.from_numpy(diag), torch.from_numpy(off)
+        gmg.refresh_plain(R, d0, o0)
+        R.invert()
+        assert int(R.inv_info) == 0
+        vals = g.coarsen_values(d0, o0)
+        levels, A = g.compose(d0, o0)
+        assert torch.equal(R.dense, A.to(torch.float32))
+        assert torch.equal(R.inv, vals[-1])
+        rvals = r.coarsen_values(jnp.asarray(diag), jnp.asarray(off))
+        for k, ((d3, offs), (bd, boffs), (rd3, roffs)) in enumerate(
+                zip(vals[:-1], R.vals[:-1], rvals[:-1])):
+            assert torch.equal(bd, d3)
+            _scaled(bd.numpy(), rd3, 1e-12)
+            for (aL, aR), (bL, bR), (raL, raR) in zip(offs, boffs, roffs):
+                assert torch.equal(bL, aL) and torch.equal(bR, aR)
+                _scaled(bL.numpy(), raL, 1e-12)
+                _scaled(bR.numpy(), raR, 1e-12)
+            lv = g.levels[k]
+            if lv.pad:           # the ghost slab along the level's axis
+                ghost = [slice(None)] * 3
+                ghost[lv.axis] = slice(-1, None)
+                ghost = tuple(ghost)
+                assert not bd[ghost].any()
+                for bL, bR in boffs:
+                    assert not bL[ghost].any() and not bR[ghost].any()
+        _scaled(R.inv.numpy(), rvals[-1], 1e-5)
+    assert case != "padded" or any(lv.pad for lv in g.levels)
+    assert [t for d3, offs in R.vals[:-1]
+            for t in (d3,) + sum(offs, ())] == bufs
