@@ -6,7 +6,8 @@ Phases (each prints a line of its own; any failure exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit (nvidia-smi)
    and turns TF32 off for matmul and cuDNN;
-2. build: compiles the CUDA kernels (K1 tables.cu, K2 cells.cu, K3
+2. build: compiles the CUDA kernels (K1 tables.cu and its column march
+   equil.cu, K2 cells.cu, K3
    tpfa.cu, the K3 face blocks blocks.cu, K4/K6 block7.cu, K5 wells.cu,
    K6 cpr.cu, K7 gmg.cu, K8 krylov.cu, K9 newton.cu, K10 amg.cu, the
    face-list kernels faces.cu), one nvcc process each, all started
@@ -61,10 +62,24 @@ Phases (each prints a line of its own; any failure exits non-zero):
    SPE10-2
    Newton system solved with the kernels and again with the plain twins
    on the card;
+3d. K1's EQUIL column march (equil.cu) on every deck this script builds
+   (SPE1, SPE10-2, the toys, the Norne-class field in both
+   representations) and on SPE1 with PBVD in place of RSVD, SPE1CASE2_2P
+   (dead oil, no DISGAS, no gas) and SPE9: each region's three columns
+   bit for bit the twin's on the card (not on the toys: the twin takes
+   about 10 s a region on the card), the kernel's call under the sync
+   debug mode "error" (no host read), its ms a launch and the twin's;
+   one initial_state per deck with one march a region and at most 7 K1
+   lookups a region (synced host clock); SPE1's region gives the
+   kernel's row of the kernels line; at SPE10-2 and on the Norne-class
+   field also the time from the parsed deck to the end of the first
+   report step (the simulator's construction, initial_state and the
+   step, each timed alone);
 4. SPE1 end to end on the card through SimulatorFullyImplicitBlackoil
    (dense route), all report steps, held against
    data/spe1_reference_cpu.json (the JAX package's CPU run), with the
-   launch counters of K1/K3/K9 read over that run (K9: one update per
+   launch counters of K1 (its lookups and column march)/K3/K9 read over
+   that run (K9: one update per
    Newton, one convergence check per Newton and per converged substep);
 5. SPE10-2's first report step (20 days) end to end on the card through
    the CPR route, with the launch counters of K4/K6/K7/K8 read over that
@@ -363,6 +378,7 @@ class Kernels:
         from opm_tpu_torch.linalg import precond as k6
         from opm_tpu_torch.models import blackoil as mb
         from opm_tpu_torch.models import linearize as k4
+        from opm_tpu_torch.sim import init as equil
         from opm_tpu_torch.solver import kernels_k9 as k9
         from opm_tpu_torch.utils import tables as k1
         P = "opm_tpu_torch"
@@ -371,6 +387,9 @@ class Kernels:
              f"{JAX_PKG}/utils/tables.py:97", k1.interp1_cuda),
             ("K1 interp2", "cuda", f"{P}/csrc/tables.cu",
              f"{JAX_PKG}/utils/tables.py:217", k1.interp2_cuda),
+            ("K1 equil_march", "cuda", f"{P}/csrc/equil.cu",
+             f"{JAX_PKG}/sim/init.py:46-76,108-131",
+             equil.equil_columns_cuda),
             ("K3 tpfa_div", "cuda", f"{P}/csrc/tpfa.cu",
              f"{JAX_PKG}/models/blackoil.py:176", mb.tpfa_div_cuda),
             ("K3 tpfa_div_tangent", "cuda", f"{P}/csrc/tpfa.cu",
@@ -468,9 +487,11 @@ class Kernels:
     # (the right-hand side entries), so the down legs' b entries never run
     # there
     OFF_MAIN = ("K7 gmg_vcycle_down", "K10 amg_vcycle_down")
-    # the kernels each run must launch: the dense route (SPE1), and the
-    # assembly and Schur elimination of every CPR run
-    DENSE = ("K1 interp1", "K1 interp2", "K2 cells_values",
+    # the kernels each run must launch: the dense route (SPE1; its K1
+    # lookups are the initial state's onto the cells and its column
+    # march: K1 interp2 runs on no path since the march took its lookups),
+    # and the assembly and Schur elimination of every CPR run
+    DENSE = ("K1 interp1", "K1 equil_march", "K2 cells_values",
              "K2 cells_columns", "K3 tpfa_div", "K3 tpfa_div_tangent",
              "K9 update", "K9 convergence")
     ASSEMBLY = ("K2 cells_values", "K2 cells_columns", "K2 cells_assemble",
@@ -858,6 +879,128 @@ def compare_jacobian(case, dev):
     err = float((Jg - Jc).abs().max()) / float(Jc.abs().max())
     return (err, tpfa_div_tangent_cuda.launches - n0,
             cells_columns_cuda.launches - n2)
+
+
+# ---------------------------------------------------------------------------
+# 3d: K1's EQUIL column march
+
+# float64 operations (add, sub, mul, div) of one K1 lookup's value, of one
+# density evaluation of water and of gas, of the live (PVTO) and dead
+# (PVDO) oil FVF, and of a midpoint step's own arithmetic (csrc/equil.cu)
+OPS_LOOK1 = 9
+OPS_WATER = 9
+OPS_GAS = 4 + OPS_LOOK1
+OPS_OIL_B = {True: OPS_LOOK1 + 1 + 3 + 3 + 16, False: OPS_LOOK1}
+OPS_STEP = 8
+
+
+def equil_work(args):
+    """(bytes, float64 operations) of one column march on these inputs:
+    the staged tables, the depth grid and the RSVD/PBVD column read once
+    and the three columns written once; the operations of the density
+    evaluations this march makes (2 nz - 1 a column: the anchor and two a
+    step) and of its steps and anchors."""
+    import ctypes
+
+    from opm_tpu_torch.sim import init as equil
+    from opm_tpu_torch.utils import cuda_lib
+    props, z, _, _, _, mode, vz, _ = args
+    pack = props.cell_pack()
+    lib = cuda_lib.load("equil", equil._EQUIL_SIGS)
+    nz, nv = z.shape[0], (vz.shape[0] if mode else 0)
+    staged = lib.opm_equil_smem_bytes(
+        ctypes.cast(pack.c_meta, ctypes.c_void_p), nz, nv)
+    nbytes_moved = staged + 6 * 8 + 3 * nz * 8
+    live = props.oil_live is not None
+    rs_sat = OPS_LOOK1 if live else 0
+    rs = 0 if not props.disgas else \
+        (OPS_LOOK1 + rs_sat if mode else rs_sat)
+    oil = rs + OPS_OIL_B[live] + 4
+    evals = 2 * nz - 1
+    flops = evals * (oil + OPS_WATER + OPS_GAS) + 3 * (nz - 1) * OPS_STEP \
+        + 3 * 3 + 2 * (OPS_LOOK1 + 1)
+    return nbytes_moved, flops
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """torch.cuda.set_sync_debug_mode("error") inside the block: any
+    synchronising call (a host read) raises."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def check_equil(K, label, sim, main=False, twin=True):
+    """K1's column march on ``sim``'s deck: each EQUIL region's columns
+    from the kernel (its call under the sync debug mode "error") bit for
+    bit its twin's on the card (with ``twin``: the twin takes about 10 s
+    a region there), the kernel's ms a launch (CUDA events, median of 20
+    warm runs) and the twin's (synced host clock, one call); then one
+    initial_state (synced host clock) with the launches it makes: one
+    march a region and at most 7 K1 lookups a region, each batched over
+    the region's cells. With ``main``, the kernel's row of the kernels
+    line takes this deck's times and bound. Returns (the initial state,
+    the record)."""
+    import torch
+
+    from opm_tpu_torch.sim import init as equil
+    from opm_tpu_torch.utils import tables as k1
+    regions = equil.equil_regions(sim.grid, sim.case)
+    rows = []
+    for rec, cells, rsvd, pbvd in regions:
+        args = equil.march_args(sim.grid, sim.props, rec, cells, rsvd, pbvd)
+        equil.equil_columns_cuda(*args)         # builds the CellPack, loads
+        torch.cuda.synchronize()
+        with no_host_sync():
+            cols = equil.equil_columns_cuda(*args)
+        same = twin_ms = None
+        if twin:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = equil.equil_columns_plain(*args)
+            torch.cuda.synchronize()
+            twin_ms = (time.perf_counter() - t0) * 1e3
+            same = torch.equal(cols, plain)
+            K.note("K1 equil_march", float((cols - plain).abs().max()))
+        ms = cuda_ms(lambda: equil.equil_columns_cuda(*args))
+        nbytes_moved, flops = equil_work(args)
+        rows.append(dict(nz=args[1].shape[0], mode=args[5], cells=len(cells),
+                         ms=ms, twin_ms=twin_ms, bitwise=same,
+                         bytes=nbytes_moved, flops=flops))
+        if twin and not same:
+            fail(f"{label}: the column march differs from its twin on the "
+                 "card")
+        if main and not rows[1:]:
+            K.ms["K1 equil_march"] = ms
+            K.plain_ms["K1 equil_march"] = twin_ms
+            K.bound_raw("K1 equil_march", nbytes_moved, flops)
+    counted = (k1.interp1_cuda, k1.interp2_cuda, equil.equil_columns_cuda)
+    before = [f.launches for f in counted]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = equil.initial_state(sim.grid, sim.props, sim.case,
+                             len(sim.well_names))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = [f.launches - b for f, b in zip(counted, before)]
+    res = dict(regions=rows, initial_state_s=init_s, k1_interp1=n[0],
+               k1_interp2=n[1], marches=n[2])
+    log(f"{label}: EQUIL column march"
+        + (" == twin bit for bit on the card" if twin else "")
+        + f" in {len(rows)} region(s); kernel "
+        + ", ".join(f"{r['ms']:.4f}" for r in rows) + " ms"
+        + (", twin " + ", ".join(f"{r['twin_ms']:.1f}" for r in rows)
+           + " ms" if twin else "")
+        + f"; initial_state {init_s:.3f} s with {n[2]} march(es), {n[0]} + "
+        f"{n[1]} K1 lookups")
+    if n[2] != len(regions) or n[0] + n[1] > 7 * len(regions):
+        fail(f"{label}: initial_state made {n[2]} marches and {n[0] + n[1]} "
+             f"K1 lookups for {len(regions)} EQUIL region(s)")
+    return st, res
 
 
 # ---------------------------------------------------------------------------
@@ -2400,13 +2543,12 @@ def main(argv=None):
         raise SystemExit("chip_smoke: no CUDA device visible")
     sys.path.insert(0, ROOT)
 
-    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.io.eclstate import load_case, load_case_string
     from opm_tpu_torch.linalg import kernels_k8 as k8
     from opm_tpu_torch.linalg.gmg import StructuredGmg
     from opm_tpu_torch.models import blackoil as mb
     from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
-    from opm_tpu_torch.sim.init import initial_state
-    from opm_tpu_torch.sim.testcases import spe10like_case
+    from opm_tpu_torch.sim.testcases import spe1_pbvd_deck, spe10like_case
     from opm_tpu_torch.tools.assembly_ab import parse_ptxas, sass_fp64
     from opm_tpu_torch.utils import cuda_lib
 
@@ -2427,12 +2569,12 @@ def main(argv=None):
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_lib.build_all(["tables", "cells", "tpfa", "blocks", "block7",
-                        "wells", "cpr", "gmg", "amg", "faces", "krylov",
-                        "newton", "cornerpoint"])
+    cuda_lib.build_all(["tables", "equil", "cells", "tpfa", "blocks",
+                        "block7", "wells", "cpr", "gmg", "amg", "faces",
+                        "krylov", "newton", "cornerpoint"])
     K = Kernels()
     results["build_s"] = time.perf_counter() - t0
-    log(f"build: {results['build_s']:.1f} s (12 nvcc sm_90a and the host "
+    log(f"build: {results['build_s']:.1f} s (13 nvcc sm_90a and the host "
         "cornerpoint.cpp in parallel)")
     for src in ("krylov.cu", "gmg.cu", "amg.cu", "cells.cu", "block7.cu",
                 "faces.cu", "wells.cu", "newton.cu"):
@@ -2494,11 +2636,14 @@ def main(argv=None):
     # -- 3b. K1/K3/K9 == plain at SPE10-2 shapes --------------------------------
     t0 = time.perf_counter()
     case10 = spe10like_case(nx=60, ny=220, nz=85)
+    t1 = time.perf_counter()
     sim10 = SimulatorFullyImplicitBlackoil(case10)     # the default: cuda
     m10 = sim10.model
     if m10.device.type != "cuda" or sim10.solver.linear_solver != "cpr":
         fail("SPE10-2 did not default to the card's CPR route")
     results["spe10_setup_s"] = time.perf_counter() - t0
+    # from the parsed deck: the simulator's construction alone
+    results["spe10_construct_s"] = time.perf_counter() - t1
     amg = sim10.solver.amg
     log(f"SPE10-2 setup (deck parse, grid, props, GMG levels on the host): "
         f"{results['spe10_setup_s']:.1f} s, {m10.nc} cells, "
@@ -2517,8 +2662,8 @@ def main(argv=None):
     log("K1/K2/K3/K9 == plain at SPE10-2 shapes (1.122M cells): ok")
 
     # -- 3c. K4/K6/K7/K8 == plain on real assembled systems ---------------------
-    init1 = initial_state(sim_cmp.grid, sim_cmp.props, case1,
-                          len(sim_cmp.well_names))
+    eq = results["equil"] = {}
+    init1, eq["SPE1"] = check_equil(K, "SPE1", sim_cmp, main=True)
     sys1, ctx1 = first_newton_system(sim_cmp, init1)
     compare_assembly_kernels(K, sim_cmp, sys1, ctx1, args.seed, "SPE1",
                              timed=False)
@@ -2527,12 +2672,8 @@ def main(argv=None):
                                                   sim_cmp.grid.trans),
                         sys1, args.seed, "SPE1", timed=False)
     log("K4/K6/K8 == plain on SPE1's first Newton system: ok")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    init10 = initial_state(sim10.grid, sim10.props, case10,
-                           len(sim10.well_names))
-    torch.cuda.synchronize()
-    results["spe10_initial_state_s"] = time.perf_counter() - t0
+    init10, eq["SPE10-2"] = check_equil(K, "SPE10-2", sim10)
+    results["spe10_initial_state_s"] = eq["SPE10-2"]["initial_state_s"]
     t0 = time.perf_counter()
     sys10, ctx10 = first_newton_system(sim10, init10)
     torch.cuda.synchronize()
@@ -2587,6 +2728,20 @@ def main(argv=None):
     del sys10, sys1
     torch.cuda.empty_cache()
     log("K4/K6/K7/K8 == plain at SPE1 and SPE10-2 (1.122M cells): ok")
+
+    # -- 3d. K1's column march on the decks of the other branches --------------
+    # SPE1 with PBVD, dead oil with no DISGAS and no gas (SPE1CASE2_2P),
+    # SPE9 (9000 cells, RSVD)
+    with open(os.path.join(ROOT, "data", "SPE1CASE2.DATA")) as f:
+        spe1_text = f.read()
+    for name, case in (
+            ("SPE1 PBVD", load_case_string(spe1_pbvd_deck(spe1_text))),
+            ("SPE1CASE2_2P", load_case(os.path.join(ROOT, "data",
+                                                    "SPE1CASE2_2P.DATA"))),
+            ("SPE9", load_case(os.path.join(ROOT, "data", "SPE9.DATA")))):
+        _, eq[name] = check_equil(K, name, SimulatorFullyImplicitBlackoil(
+            case))
+    torch.cuda.empty_cache()
 
     # -- 4. SPE1 end to end -----------------------------------------------------
     with open(os.path.join(ROOT, "data", "spe1_reference_cpu.json")) as f:
@@ -2643,6 +2798,11 @@ def main(argv=None):
         / max(rep.newton_iterations, 1),
         substeps=rep.substeps, failed=rep.failed_substeps,
         residual_s=rep.assemble_time, sections_s=sec, vcycles=vtime[1],
+        # the run_deck user's time: the simulator's construction from the
+        # parsed deck, initial_state and the first report step, each
+        # timed alone (synced host clock)
+        deck_to_first_step_s=results["spe10_construct_s"]
+        + results["spe10_initial_state_s"] + wall,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches={n: K.launches[n] for n in new_names},
         # every counter over this run (K1/K3/K9 run here too)
@@ -2683,6 +2843,8 @@ def main(argv=None):
         reft = json.load(f)
     simt = SimulatorFullyImplicitBlackoil(spe10like_case(
         **reft["deck_kwargs"]))
+    _, eq["toy SPE10-like"] = check_equil(K, "toy SPE10-like", simt,
+                                          twin=False)
     results["spe10_toy"] = toy_run(
         K, simt, reft, "toy SPE10-like (2640 cells)",
         list(K.ASSEMBLY) + ["K3 face_blocks", "K9 update",
@@ -2726,8 +2888,8 @@ def main(argv=None):
                             "K9 convergence"] + \
         K.names(("K7",), main_path=True)
     for rname, simn in sims.items():
-        init_n = initial_state(simn.grid, simn.props, casen,
-                               len(simn.well_names))
+        init_n, eq[f"Norne {rname}"] = check_equil(K, f"Norne-class {rname}",
+                                                   simn)
         sysn, ctxn = first_newton_system(simn, init_n)
         stn, dtn = ctxn["state"], ctxn["dt"]
         asm = compare_assembly_kernels(K, simn, sysn, ctxn, args.seed,
@@ -2776,6 +2938,9 @@ def main(argv=None):
     for rname, simn in sims.items():
         runs[rname] = norne_first_step(K, simn, reff[rname],
                                        f"Norne-class {rname}", new_names)
+        runs[rname]["deck_to_first_step_s"] = (
+            results[f"norne_{rname}_setup_s"]
+            + runs[rname]["initial_state_s"] + runs[rname]["wall_s"])
         results[f"norne_{rname}_run"] = runs[rname]
     for n in new_names:
         K.launches[n] = sum(r["launches_all"][n] for r in runs.values())
@@ -2812,6 +2977,8 @@ def main(argv=None):
         with embed_knob(knob):
             simt = SimulatorFullyImplicitBlackoil(norne_like_case(
                 **refn["deck_kwargs"]))
+        _, eq[f"toy Norne-like {rname}"] = check_equil(
+            K, f"toy Norne-like {rname}", simt, twin=False)
         results[f"norne_toy_{rname}"] = toy_run(
             K, simt, refn[rname], f"toy Norne-like {rname} "
             f"({simt.model.nc} cells)", list(K.ASSEMBLY)
@@ -2819,6 +2986,14 @@ def main(argv=None):
             + (["K3 face_blocks", "K9 convergence_masked"] if knob is None
                else ["K9 convergence"]))
 
+    log("EQUIL: initial_state s (K1 march ms a region, twin ms): " + "; ".join(
+        f"{n} {r['initial_state_s']:.3f} (" + ", ".join(
+            f"{g['ms']:.3f}, {g['twin_ms'] or 0:.0f}" for g in r["regions"])
+        + ")" for n, r in eq.items()))
+    log("from a parsed deck to the end of the first report step (s): "
+        f"SPE10-2 {results['spe10_cpr']['deck_to_first_step_s']:.2f}, "
+        + ", ".join(f"Norne-class {r} {runs[r]['deck_to_first_step_s']:.2f}"
+                    for r in runs))
     kern = K.report()
     results.update(kern)
     if args.out:

@@ -42,12 +42,14 @@
 // differently).
 //
 // The tables arrive as one float64 buffer and a host array of offsets
-// (Layout; built once per case by props/blackoil.py CellPack).
+// (Layout in pack.cuh; built once per case by props/blackoil.py
+// CellPack).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "dual3.cuh"
+#include "pack.cuh"
 #include "tables.cuh"
 
 namespace {
@@ -60,6 +62,10 @@ using opm_dual::maximum0;
 using opm_dual::primary;
 using opm_dual::select;
 using opm_dual::value;
+using opm_pack::kMeta;
+using opm_pack::Layout;
+using opm_pack::layout_of;
+using opm_pack::row_of;
 using opm_tables::Coord1;
 using opm_tables::coord1;
 
@@ -85,29 +91,11 @@ using opm_tables::coord1;
 constexpr int kValThreads = OPM_K2_VAL_THREADS;
 constexpr int kDualThreads = OPM_K2_DUAL_THREADS;
 
-// Offsets (in doubles) into the table buffer; the order of the host array
-// (props/blackoil.py CellPack.META).
-struct Layout {
-    int live, disgas, rock;
-    int w_nreg, w_pref, w_bref, w_comp, w_muref, w_visc;
-    int od_nreg, od_n, od_x, od_y;
-    int ol_nreg, ol_nrec, ol_ndp, ol_rs, ol_pbub, ol_dp, ol_grid;
-    int g_nreg, g_n, g_x, g_y;
-    int s_nreg, s_nw, s_sw, s_wc, s_ng, s_sg, s_gc, s_swco;
-    int r_nreg, r_pref, r_comp;
-    int d_nreg, d_sd;
-};
-constexpr int kMeta = sizeof(Layout) / sizeof(int);
-
 // the CellQuantities rows (models/blackoil.py q_rows)
 enum Row {
     R_PW = 0, R_PO = 1, R_PG = 2, R_B = 3, R_MOB = 6, R_RHO = 9, R_RS = 12,
     R_RV = 13, R_SAT = 14, R_PVM = 17, N_ROWS = 18
 };
-
-__device__ __forceinline__ int row_of(int nreg, long long r) {
-    return nreg == 1 ? 0 : (int)r;
-}
 
 // a 1-D table column at the query q (value and chained tangent)
 template <class T>
@@ -369,13 +357,6 @@ __global__ void __launch_bounds__(OPM_K2_DUAL_THREADS, OPM_K2_DUAL_MINB)
     AssembleSink s{fv, fc, r_cell, diag, acc0, in.n, c, pv[c] / dt,
                    in.hc[c], 0.0, 0.0, {}};
     load_eval<Dual3>(L, tab, in, c, s);
-}
-
-Layout layout_of(const int* meta) {
-    Layout L;
-    int* dst = reinterpret_cast<int*>(&L);
-    for (int k = 0; k < kMeta; ++k) dst[k] = meta[k];
-    return L;
 }
 
 inline int blocks_for(long long n, int threads) {

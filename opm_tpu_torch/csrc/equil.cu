@@ -1,0 +1,304 @@
+// K1 in EQUIL's column march: the three hydrostatic phase-pressure
+// columns of one equilibration region in one launch, for Hopper.
+//
+// Replaces the JAX package's sim/init.py _integrate_column (:46-76: two
+// masked lax.scans from the anchor) with the densities rho_o, rho_w and
+// rho_g (:108-124) and the anchors of the water and gas columns
+// (:126-131), whose PVT lookups are K1's (utils/tables.py interp :97,
+// interp2 :237). Run as separate one-query K1 launches, one column costs
+// 3999 density evaluations, each four lookups (RSVD or PBVD, rs_sat,
+// p_bub, the PVTO pair) and about ten more tiny operations: some 20,000
+// launches and 100,000 small operations per region, and host reads.
+//
+// What bounds it on the card: latency. A column is a chain of dependent
+// midpoint steps, each two density evaluations (binary searches in tiny
+// tables, float64 divisions); its bytes (the columns written once, 48 KB
+// at 2000 points) are nothing. Design: one block per region; the region's
+// PVT rows (pvt0's row of each table in props/blackoil.py CellPack's
+// buffer), the RSVD or PBVD column and the depth grid are staged in
+// shared memory; K1's lookups are tables.cuh's device functions, so the
+// segment and the interpolation are K1's. The down and up legs of a
+// column depend only on its anchor, so they run at once, each on lane 0
+// of a warp of its own (four warps: no divergence inside a warp): first
+// the oil column's two legs; then one thread forms the water and gas
+// anchors from the oil column at the WOC and the GOC; then water down and
+// up and gas down and up on four warps. Nothing is read back by the host.
+//
+// Arithmetic is the plain version's (sim/init.py equil_columns_plain) in
+// its order: p + (rho(p, z) * 0.5) * dz, lookups as v + 0 * x, divisions
+// as divisions, built with --fmad=false, so the columns equal it bit for
+// bit. Only the steps the reference's masked scans take are evaluated.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "pack.cuh"
+#include "tables.cuh"
+
+namespace {
+
+using opm_pack::kMeta;
+using opm_pack::Layout;
+using opm_pack::layout_of;
+using opm_pack::row_of;
+using opm_tables::Coord1;
+using opm_tables::coord1;
+
+constexpr int kLegs = 4;              // warps; lane 0 of each marches a leg
+constexpr int kThreads = 32 * kLegs;
+
+// the dissolved-gas column of the region: none (saturated), RSVD, PBVD
+enum Mode { VD_NONE = 0, VD_RSVD = 1, VD_PBVD = 2 };
+enum Phase { OIL = 0, WATER = 1, GAS = 2 };
+
+// the region's record and its scalar PVT (EQUIL, PVTW and DENSITY rows)
+struct Region {
+    double g;
+    double datum_z, datum_p, woc_z, woc_pc, goc_z, goc_pc;
+    int pvt0, disgas, mode;
+};
+
+// pvt0's table rows in shared memory, the region's scalars in registers
+struct Tables {
+    const double* z;                  // depth grid (nz)
+    const double *vz, *vv;            // RSVD/PBVD depths and values (nv)
+    const double *rs, *pbub, *dp;     // PVTO: rs (nrec), p_bub, dp (ndp)
+    const double* ib;                 // PVTO inv_b grid (nrec, ndp)
+    const double *ox, *oy;            // PVDO p and inv_b (on)
+    const double *gx, *gy;            // PVDG p and inv_b (gn)
+    int nz, nv, nrec, ndp, on, gn, live;
+    double sdw, sdo, sdg, w_pref, w_comp, w_bref;
+};
+
+// value of a 1-D table column at x (K1's lookup; the slope is not used)
+__device__ __forceinline__ double look1(const double* xs, const double* ys,
+                                        int n, double x, int clamp) {
+    Coord1 c = coord1(xs, n, x, clamp);
+    double v, s;
+    opm_tables::interp1(c, ys, &v, &s);
+    return v;
+}
+
+// torch.minimum and torch.maximum(d, 0) on values
+__device__ __forceinline__ double minimum(double a, double b) {
+    return isnan(a) ? a : (isnan(b) ? b : (b < a ? b : a));
+}
+
+__device__ __forceinline__ double maximum0(double d) {
+    return (isnan(d) || d > 0.0) ? d : 0.0;
+}
+
+// saturated rs at p (props.rs_sat with DISGAS: PVTO's curve, else 0)
+__device__ __forceinline__ double rs_sat(const Tables& T, double p) {
+    return T.live ? look1(T.pbub, T.rs, T.nrec, p, 0) : 0.0;
+}
+
+// inverse oil FVF at (p, rs): PVTO over (rs, p - p_bub(rs)), or PVDO
+__device__ __forceinline__ double oil_b(const Tables& T, double p,
+                                        double rs) {
+    if (!T.live) return look1(T.ox, T.oy, T.on, p, 0);
+    const double dp = maximum0(p - look1(T.rs, T.pbub, T.nrec, rs, 0));
+    const Coord1 cx = coord1(T.rs, T.nrec, rs, 0);
+    const Coord1 cy = coord1(T.dp, T.ndp, dp, 0);
+    double v, dx, dy;
+    opm_tables::interp2(cx, cy, T.ib, T.ndp, &v, &dx, &dy);
+    return v;
+}
+
+// dp/dz = rho * g of a phase at (p, depth zz): the plain version's rho_o,
+// rho_w, rho_g
+__device__ double dpdz(const Tables& T, const Region& R, int phase,
+                       double p, double zz) {
+    if (phase == WATER) {
+        const double x = T.w_comp * (p - T.w_pref);
+        const double b = ((1.0 + x) + (0.5 * x) * x) / T.w_bref;
+        return (T.sdw * b) * R.g;
+    }
+    if (phase == GAS)
+        return ((T.sdg + 0.0 * T.sdo) * look1(T.gx, T.gy, T.gn, p, 0)) *
+               R.g;
+    double rs = 0.0;
+    if (R.disgas) {
+        if (R.mode == VD_RSVD)
+            rs = minimum(look1(T.vz, T.vv, T.nv, zz, 1), rs_sat(T, p));
+        else if (R.mode == VD_PBVD)
+            rs = rs_sat(T, minimum(look1(T.vz, T.vv, T.nv, zz, 1), p));
+        else
+            rs = rs_sat(T, p);
+    }
+    return ((T.sdo + rs * T.sdg) * oil_b(T, p, rs)) * R.g;
+}
+
+// One leg of a column from its anchor (z0, p0): down (dir > 0, i > i0)
+// or up (i < i0); the down leg also writes the anchor point. i0 is
+// numpy.searchsorted(z, z0) (left side) clipped to [0, nz - 1].
+__device__ void march(const Tables& T, const Region& R, int phase,
+                      double z0, double p0, int dir,
+                      double* __restrict__ out) {
+    const double* z = T.z;
+    const int n = T.nz;
+    int lo = 0, hi = n;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (z[mid] < z0) lo = mid + 1; else hi = mid;
+    }
+    const int i0 = lo < n - 1 ? lo : n - 1;
+    const double p_at = p0 + dpdz(T, R, phase, p0, z0) * (z[i0] - z0);
+    double p = p_at;
+    if (dir > 0) {
+        out[i0] = p_at;
+        for (int i = i0 + 1; i < n; ++i) {
+            const double dz = z[i] - z[i - 1];
+            const double p_mid =
+                p + (dpdz(T, R, phase, p, z[i - 1]) * 0.5) * dz;
+            p = p + dpdz(T, R, phase, p_mid, z[i - 1] + 0.5 * dz) * dz;
+            out[i] = p;
+        }
+    } else {
+        for (int i = i0 - 1; i >= 0; --i) {
+            const double dz = z[i + 1] - z[i];
+            const double p_mid =
+                p - (dpdz(T, R, phase, p, z[i + 1]) * 0.5) * dz;
+            p = p - dpdz(T, R, phase, p_mid, z[i + 1] - 0.5 * dz) * dz;
+            out[i] = p;
+        }
+    }
+}
+
+__device__ __forceinline__ void stage(double* dst, const double* src,
+                                      int n) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = src[j];
+}
+
+// tab: CellPack's buffer; z (nz); vz, vv (nv) or null; out (3, nz): the
+// oil, water and gas pressure columns
+__global__ void __launch_bounds__(kThreads)
+    equil_march_kernel(Layout L, const double* __restrict__ tab,
+                       const double* __restrict__ z, int nz,
+                       const double* __restrict__ vz,
+                       const double* __restrict__ vv, int nv, Region R,
+                       double* __restrict__ out) {
+    extern __shared__ double smem[];
+    __shared__ double anchor[2];
+    const long long r = R.pvt0;
+    Tables T = {};
+    T.nz = nz;
+    T.nv = nv;
+    T.live = L.live;
+    double* s = smem;
+    T.z = s;
+    stage(s, z, nz);
+    s += nz;
+    T.vz = s;
+    stage(s, vz, R.mode != VD_NONE ? nv : 0);
+    s += nv;
+    T.vv = s;
+    stage(s, vv, R.mode != VD_NONE ? nv : 0);
+    s += nv;
+    if (L.live) {
+        const int ro = row_of(L.ol_nreg, r);
+        T.nrec = L.ol_nrec;
+        T.ndp = L.ol_ndp;
+        T.rs = s;
+        stage(s, tab + L.ol_rs + ro * L.ol_nrec, L.ol_nrec);
+        s += L.ol_nrec;
+        T.pbub = s;
+        stage(s, tab + L.ol_pbub + ro * L.ol_nrec, L.ol_nrec);
+        s += L.ol_nrec;
+        T.dp = s;
+        stage(s, tab + L.ol_dp + ro * L.ol_ndp, L.ol_ndp);
+        s += L.ol_ndp;
+        // grid 0 (inv_b) of the (nreg, 2, nrec, ndp) pair
+        T.ib = s;
+        stage(s, tab + L.ol_grid + (long long)ro * 2 * L.ol_nrec * L.ol_ndp,
+              L.ol_nrec * L.ol_ndp);
+        s += L.ol_nrec * L.ol_ndp;
+    } else {
+        const int rd = row_of(L.od_nreg, r);
+        T.on = L.od_n;
+        T.ox = s;
+        stage(s, tab + L.od_x + rd * L.od_n, L.od_n);
+        s += L.od_n;
+        T.oy = s;
+        stage(s, tab + L.od_y + rd * 2 * L.od_n, L.od_n);
+        s += L.od_n;
+    }
+    const int rg = row_of(L.g_nreg, r);
+    T.gn = L.g_n;
+    T.gx = s;
+    stage(s, tab + L.g_x + rg * L.g_n, L.g_n);
+    s += L.g_n;
+    T.gy = s;
+    stage(s, tab + L.g_y + rg * 2 * L.g_n, L.g_n);
+    const int rw = row_of(L.w_nreg, r);
+    T.w_pref = tab[L.w_pref + rw];
+    T.w_comp = tab[L.w_comp + rw];
+    T.w_bref = tab[L.w_bref + rw];
+    const int rden = row_of(L.d_nreg, r);
+    T.sdw = tab[L.d_sd + 3 * rden];
+    T.sdo = tab[L.d_sd + 3 * rden + 1];
+    T.sdg = tab[L.d_sd + 3 * rden + 2];
+    __syncthreads();
+
+    const int leg = threadIdx.x >> 5;
+    const bool lead = (threadIdx.x & 31) == 0;
+    // the oil column's two legs from the datum
+    if (lead && leg < 2)
+        march(T, R, OIL, R.datum_z, R.datum_p, leg == 0 ? 1 : -1, out);
+    __syncthreads();
+    // the water column's anchor: po at the WOC less the WOC's capillary
+    // pressure; the gas column's: po at the GOC plus the GOC's (K1's
+    // lookup over the grid, linear extrapolation)
+    if (threadIdx.x == 0) {
+        anchor[0] = look1(T.z, out, nz, R.woc_z, 0) - R.woc_pc;
+        anchor[1] = look1(T.z, out, nz, R.goc_z, 0) + R.goc_pc;
+    }
+    __syncthreads();
+    if (lead) {
+        const int phase = leg < 2 ? WATER : GAS;
+        march(T, R, phase, phase == WATER ? R.woc_z : R.goc_z,
+              anchor[phase == WATER ? 0 : 1], (leg & 1) ? -1 : 1,
+              out + (long long)phase * nz);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+int opm_equil_meta_len() { return kMeta; }
+
+// The shared-memory bytes one launch stages: the depth grid, the
+// RSVD/PBVD column and pvt0's PVT rows.
+long long opm_equil_smem_bytes(const int* meta, int nz, int nv) {
+    const Layout L = layout_of(meta);
+    long long n = nz + 2LL * nv + 2LL * L.g_n;
+    n += L.live ? 2LL * L.ol_nrec + L.ol_ndp + (long long)L.ol_nrec * L.ol_ndp
+                : 2LL * L.od_n;
+    return n * (long long)sizeof(double);
+}
+
+// tab, meta: CellPack's buffer and offsets; z (nz) float64, ascending;
+// vz, vv (nv) float64, or null with mode 0; out (3, nz) float64
+int opm_equil_march(const double* tab, const int* meta, const double* z,
+                    int nz, const double* vz, const double* vv, int nv,
+                    int mode, int disgas, int pvt0, double g,
+                    double datum_z, double datum_p, double woc_z,
+                    double woc_pc, double goc_z, double goc_pc, double* out,
+                    cudaStream_t stream) {
+    const Layout L = layout_of(meta);
+    const Region R{g, datum_z, datum_p, woc_z, woc_pc, goc_z, goc_pc, pvt0,
+                   disgas, mode};
+    const size_t smem = (size_t)opm_equil_smem_bytes(meta, nz, nv);
+    if (smem > 48 * 1024) {
+        int err = (int)cudaFuncSetAttribute(
+            equil_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err) return err;
+    }
+    equil_march_kernel<<<1, kThreads, smem, stream>>>(L, tab, z, nz, vz, vv,
+                                                      nv, R, out);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -5,20 +5,27 @@ hydrostatic phase-pressure columns from the datum (a fixed-step midpoint
 march on a 2000-point depth grid), RSVD/PBVD dissolved-gas columns,
 capillary-pressure inversion for the saturation profile (sharp contacts
 when the capillary curves are flat), and explicit PRESSURE/SWAT/SGAS/RS
-init. The column lookups onto the cells go through K1 on the model's
-device. SWATINIT and the RVVD/PDVD wet-gas columns are not ported yet
-(ROADMAP Queue 1 item 3).
+init. On the card the three columns of a region are one launch of K1's
+column march (``csrc/equil.cu``, ``equil_columns_cuda``); on the CPU its
+plain twin ``equil_columns_plain`` runs. The column lookups onto the cells
+go through K1 on the model's device. SWATINIT and the RVVD/PDVD wet-gas
+columns are not ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from opm_tpu_torch.models.state import BlackoilState, init_hcstate
-from opm_tpu_torch.utils.tables import interp
+from opm_tpu_torch.models.state import GAS, OIL, BlackoilState, init_hcstate
+from opm_tpu_torch.utils import cuda_lib
+from opm_tpu_torch.utils.tables import interp, lookup1_plain, lookup2_plain
 
 _NZ = 2000  # column resolution
+# the dissolved-gas column of a region (csrc/equil.cu Mode)
+_MODES = {None: 0, "rsvd": 1, "pbvd": 2}
 
 
 def _linspace(start, stop, num, device):
@@ -57,7 +64,8 @@ def _integrate_column(z_grid, z0, p0, rho_fn):
     zc = z_grid.cpu().numpy()
     i0 = int(np.clip(np.searchsorted(zc, z0), 0, n - 1))
     z0t = torch.tensor(z0, dtype=torch.float64, device=z_grid.device)
-    p0t = torch.tensor(p0, dtype=torch.float64, device=z_grid.device)
+    p0t = torch.as_tensor(p0, dtype=torch.float64,
+                          device=z_grid.device).reshape(())
     p_at = p0t + rho_fn(p0t, z0t) * (z_grid[i0] - z0t)
     out = [None] * n
     out[i0] = p_at
@@ -76,69 +84,222 @@ def _integrate_column(z_grid, z0, p0, rho_fn):
     return torch.stack(out)
 
 
+def _row(t, pvt0):
+    """Region pvt0's row of a per-region table (the row every region takes
+    when the table has one), kept as a one-row table."""
+    return t[:1] if t.shape[0] == 1 else t[pvt0:pvt0 + 1]
+
+
+def _look1(xs, ys, x, clamp=0):
+    """Column 0 of a one-row 1-D table at the 0-d query x, K1's plain
+    lookup."""
+    return lookup1_plain(xs, ys, x.reshape(1), None, clamp)[0][0, 0]
+
+
+def equil_columns_plain(props, z, g, pvt0, rec, mode=None, vz=None,
+                        vv=None):
+    """The oil, water and gas pressure columns (3, nz) of one EQUIL region
+    over the depth grid z: the reference's three _integrate_column marches
+    with its densities rho_o, rho_w and rho_g at PVT region pvt0, water
+    anchored at the WOC and gas at the GOC on the oil column. ``mode`` is
+    the region's dissolved-gas column, None (saturated), "rsvd" or "pbvd",
+    with its depths vz and values vv. Plain torch on either device, through
+    K1's plain lookups: the kernel's twin."""
+    sd = props.surface_density[pvt0]
+    live, dead, gas = props.oil_live, props.oil_dead, props.gas_dead
+
+    def rs_sat(p):
+        if live is None:
+            return torch.zeros_like(p)
+        return _look1(_row(live.pbub_tab, pvt0), _row(live._rs_col, pvt0), p)
+
+    def oil_b(p, rs):
+        if live is None:
+            return _look1(_row(dead.p, pvt0), _row(dead.cols, pvt0), p)
+        pb = _look1(_row(live.rs_tab, pvt0), _row(live._pbub_col, pvt0), rs)
+        dp = torch.maximum(p - pb, torch.zeros_like(p))
+        return lookup2_plain(_row(live.rs_tab, pvt0), _row(live.dp_grid, pvt0),
+                             _row(live.grids, pvt0), rs.reshape(1),
+                             dp.reshape(1), None, 0, 0)[0][0, 0]
+
+    def rho_o(p, zz):
+        if not props.disgas:
+            rs = torch.zeros_like(p)
+        elif mode == "rsvd":
+            rs = torch.minimum(_look1(vz[None], vv[None, None], zz, 1),
+                               rs_sat(p))
+        elif mode == "pbvd":
+            rs = rs_sat(torch.minimum(_look1(vz[None], vv[None, None], zz, 1),
+                                      p))
+        else:
+            rs = rs_sat(p)
+        return (sd[OIL] + rs * sd[GAS]) * oil_b(p, rs) * g
+
+    def rho_w(p, zz):
+        return props.rho_water(p, pvt0) * g     # PVTW: no table lookup
+
+    def rho_g(p, zz):
+        rv = torch.zeros_like(p)
+        return (sd[GAS] + rv * sd[OIL]) * _look1(
+            _row(gas.p, pvt0), _row(gas.cols, pvt0), p) * g
+
+    def at(zz):
+        return torch.tensor(zz, dtype=torch.float64, device=z.device)
+
+    po = _integrate_column(z, rec.datum_depth, rec.datum_pressure, rho_o)
+    # water anchored at the WOC, gas at the GOC (K1's lookup over the grid)
+    po_woc = _look1(z[None], po[None, None], at(rec.woc_depth))
+    pw = _integrate_column(z, rec.woc_depth, po_woc - rec.woc_pc, rho_w)
+    po_goc = _look1(z[None], po[None, None], at(rec.goc_depth))
+    pg = _integrate_column(z, rec.goc_depth, po_goc + rec.goc_pc, rho_g)
+    return torch.stack([po, pw, pg])
+
+
+_EQUIL_SIGS = {
+    "opm_equil_meta_len": ([], cuda_lib.I),
+    "opm_equil_smem_bytes": ([cuda_lib.P, cuda_lib.I, cuda_lib.I],
+                             cuda_lib.L),
+    "opm_equil_march": [cuda_lib.P, cuda_lib.P, cuda_lib.P, cuda_lib.I,
+                        cuda_lib.P, cuda_lib.P, cuda_lib.I, cuda_lib.I,
+                        cuda_lib.I, cuda_lib.I, cuda_lib.D, cuda_lib.D,
+                        cuda_lib.D, cuda_lib.D, cuda_lib.D, cuda_lib.D,
+                        cuda_lib.D, cuda_lib.P, cuda_lib.P],
+}
+# the shared memory one block may take on an H100
+_SMEM_LIMIT = 227 * 1024
+
+
+def equil_columns_cuda(props, z, g, pvt0, rec, mode=None, vz=None,
+                       vv=None):
+    """K1's column march on the card: one launch writes the (3, nz)
+    columns of ``equil_columns_plain`` (same contract), with no host
+    read."""
+    dev = z.device
+    if mode not in _MODES:
+        raise ValueError(f"equil_columns_cuda: unknown mode {mode!r}")
+    pack = props.cell_pack()
+    if pack.tab.device != dev:
+        raise ValueError(f"equil_columns_cuda: the tables are on "
+                         f"{pack.tab.device}, the grid on {dev}")
+    ts = [(z, "z")] + ([(vz, "vz"), (vv, "vv")] if mode else [])
+    for t, nm in ts:
+        if (t.dtype != torch.float64 or t.device != dev or t.dim() != 1
+                or not t.is_contiguous()):
+            raise ValueError(f"equil_columns_cuda: {nm} must be a "
+                             f"contiguous float64 (n,) tensor on {dev}")
+    nz = z.shape[0]
+    nv = vz.shape[0] if mode else 0
+    if nz < 2 or (mode and (nv < 2 or vv.shape != vz.shape)):
+        raise ValueError("equil_columns_cuda: bad grid or column shapes")
+    # pvt0's row of each table, as the twin indexes it: a table with one
+    # region serves every region, the surface densities are indexed as they
+    # stand
+    nregs = dict(zip(pack.META, pack.meta))
+    for key in ("w_nreg", "g_nreg", "d_nreg",
+                "ol_nreg" if nregs["live"] else "od_nreg"):
+        n = nregs[key]
+        if not (0 <= pvt0 < n or (n == 1 and key != "d_nreg")):
+            raise ValueError(f"equil_columns_cuda: PVT region {pvt0} "
+                             f"outside the tables ({key} {n})")
+    lib = cuda_lib.load("equil", _EQUIL_SIGS)
+    if lib.opm_equil_meta_len() != len(pack.meta):
+        raise RuntimeError("K1 column march: the table layout of "
+                           "props/blackoil.py CellPack and csrc/pack.cuh "
+                           "disagree")
+    meta = ctypes.cast(pack.c_meta, ctypes.c_void_p)
+    if lib.opm_equil_smem_bytes(meta, nz, nv) > _SMEM_LIMIT:
+        raise ValueError("equil_columns_cuda: the grid and tables exceed "
+                         "shared memory")
+    out = torch.empty((3, nz), dtype=torch.float64, device=dev)
+    err = lib.opm_equil_march(
+        cuda_lib.ptr(pack.tab), meta, cuda_lib.ptr(z), nz,
+        cuda_lib.ptr(vz) if mode else None,
+        cuda_lib.ptr(vv) if mode else None, nv, _MODES[mode],
+        int(bool(props.disgas)), int(pvt0), float(g),
+        float(rec.datum_depth), float(rec.datum_pressure),
+        float(rec.woc_depth), float(rec.woc_pc), float(rec.goc_depth),
+        float(rec.goc_pc), cuda_lib.ptr(out), cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "opm_equil_march")
+    equil_columns_cuda.launches += 1
+    return out
+
+
+equil_columns_cuda.launches = 0
+
+
+def equil_columns(props, z, g, pvt0, rec, mode=None, vz=None, vv=None):
+    """The (3, nz) oil, water and gas pressure columns of one EQUIL region:
+    K1's column march on a CUDA grid, its plain twin on the CPU."""
+    return cuda_lib.dispatch(z, equil_columns_cuda, equil_columns_plain,
+                             props, z, g, pvt0, rec, mode, vz, vv,
+                             what="K1 EQUIL column march")
+
+
+def march_args(grid, props, rec, cells, rsvd=None, pbvd=None):
+    """The arguments of ``equil_columns`` for the EQUIL region ``rec`` over
+    its active ``cells``: (props, z, g, pvt0, rec, mode, vz, vv), with the
+    depth grid z from 1 m above to 1 m below the cells and the contacts
+    (``_NZ`` points), pvt0 the region's most frequent PVT region and its
+    RSVD or PBVD column."""
+    dev = props.device
+    depth = np.asarray(grid.depth)[cells]
+    reg_pvt = np.asarray(grid.pvtnum)[cells]
+    pvt0 = int(np.bincount(reg_pvt).argmax()) if len(reg_pvt) else 0
+    zmin = min(depth.min(), rec.datum_depth, rec.woc_depth,
+               rec.goc_depth) - 1.0
+    zmax = max(depth.max(), rec.datum_depth, rec.woc_depth,
+               rec.goc_depth) + 1.0
+    z = _linspace(float(zmin), float(zmax), _NZ, dev)
+    mode, vd = (("rsvd", rsvd) if rsvd is not None
+                else ("pbvd", pbvd) if pbvd is not None else (None, None))
+    vz = vv = None
+    if mode:
+        vz, vv = (torch.as_tensor(np.ascontiguousarray(vd[:, k]),
+                                  dtype=torch.float64, device=dev)
+                  for k in (0, 1))
+    return props, z, grid.gravity, pvt0, rec, mode, vz, vv
+
+
+def equil_regions(grid, case):
+    """(rec, cells, rsvd, pbvd) of each EQUIL region that has cells."""
+    sol = case.solution
+    eql = np.asarray(grid.eqlnum)
+    out = []
+    for ireg, rec in enumerate(sol.equil):
+        idx = np.nonzero(eql == ireg)[0]
+        if len(idx) == 0:
+            continue
+        if (ireg < len(sol.rvvd) and sol.rvvd[ireg] is not None) or \
+                (ireg < len(sol.pdvd) and sol.pdvd[ireg] is not None):
+            raise NotImplementedError(
+                "RVVD/PDVD are not ported yet (ROADMAP Queue 1 item 3)")
+        out.append((rec, idx,
+                    sol.rsvd[ireg] if ireg < len(sol.rsvd) else None,
+                    sol.pbvd[ireg] if ireg < len(sol.pbvd) else None))
+    return out
+
+
 def equilibrate_region(grid, props, rec, cells, rsvd=None, pbvd=None):
     """Phase pressures + saturations + rs/rv for the active cells of one
     equilibration region. Returns tensors over ``cells``."""
     dev = props.device
-    g = grid.gravity
     depth_np = np.asarray(grid.depth)[cells]
-    reg_pvt_np = np.asarray(grid.pvtnum)[cells]
-    pvt0 = int(np.bincount(reg_pvt_np).argmax()) if len(reg_pvt_np) else 0
-    reg_pvt = torch.as_tensor(reg_pvt_np, dtype=torch.long, device=dev)
+    reg_pvt = torch.as_tensor(np.asarray(grid.pvtnum)[cells],
+                              dtype=torch.long, device=dev)
     reg_sat = torch.as_tensor(np.asarray(grid.satnum)[cells],
                               dtype=torch.long, device=dev)
-
-    zmin = min(depth_np.min(), rec.datum_depth, rec.woc_depth,
-               rec.goc_depth) - 1.0
-    zmax = max(depth_np.max(), rec.datum_depth, rec.woc_depth,
-               rec.goc_depth) + 1.0
-    z = _linspace(float(zmin), float(zmax), _NZ, dev)
+    args = march_args(grid, props, rec, cells, rsvd, pbvd)
+    z = args[1]
+    cols = equil_columns(*args)
 
     def tab(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
                                device=dev)
 
-    rs_of_z = pb_of_z = None
-    if rsvd is not None:
-        rsvd_z, rsvd_v = tab(rsvd[:, 0]), tab(rsvd[:, 1])
-        rs_of_z = lambda zz: interp(rsvd_z, rsvd_v, zz,  # noqa: E731
-                                    extrap="clamp")
-    if pbvd is not None:
-        pbvd_z, pbvd_v = tab(pbvd[:, 0]), tab(pbvd[:, 1])
-        pb_of_z = lambda zz: interp(pbvd_z, pbvd_v, zz,  # noqa: E731
-                                    extrap="clamp")
-
-    def rho_o(p, zz):
-        if not props.disgas:
-            return props.rho_oil(p, torch.zeros_like(p), pvt0) * g
-        if rs_of_z is not None:
-            rs = torch.minimum(rs_of_z(zz), props.rs_sat(p, pvt0))
-        elif pb_of_z is not None:
-            rs = props.rs_sat(torch.minimum(pb_of_z(zz), p), pvt0)
-        else:
-            rs = props.rs_sat(p, pvt0)
-        return props.rho_oil(p, rs, pvt0) * g
-
-    def rho_w(p, zz):
-        return props.rho_water(p, pvt0) * g
-
-    def rho_g(p, zz):
-        return props.rho_gas(p, torch.zeros_like(p), pvt0) * g
-
-    po = _integrate_column(z, rec.datum_depth, rec.datum_pressure, rho_o)
-    woc = torch.tensor(rec.woc_depth, dtype=torch.float64, device=dev)
-    goc = torch.tensor(rec.goc_depth, dtype=torch.float64, device=dev)
-    po_woc = interp(z, po, woc)
-    pw = _integrate_column(z, rec.woc_depth,
-                           float(po_woc - rec.woc_pc), rho_w)
-    po_goc = interp(z, po, goc)
-    pg = _integrate_column(z, rec.goc_depth,
-                           float(po_goc + rec.goc_pc), rho_g)
-
     zc = tab(depth_np)
-    po_c = interp(z, po, zc)
-    pw_c = interp(z, pw, zc)
-    pg_c = interp(z, pg, zc)
+    po_c = interp(z, cols[0], zc)
+    pw_c = interp(z, cols[1], zc)
+    pg_c = interp(z, cols[2], zc)
 
     sf = props.satfunc
     swco = (sf.swco[reg_sat] if sf is not None
@@ -199,17 +360,7 @@ def initial_state(grid, props, case, nw: int) -> BlackoilState:
     elif sol.equil:
         z = torch.zeros(nc, dtype=torch.float64, device=dev)
         p, sw, sg, rs, rv = (z.clone() for _ in range(5))
-        eql = np.asarray(grid.eqlnum)
-        for ireg, rec in enumerate(sol.equil):
-            idx = np.nonzero(eql == ireg)[0]
-            if len(idx) == 0:
-                continue
-            if (ireg < len(sol.rvvd) and sol.rvvd[ireg] is not None) or \
-                    (ireg < len(sol.pdvd) and sol.pdvd[ireg] is not None):
-                raise NotImplementedError(
-                    "RVVD/PDVD are not ported yet (ROADMAP Queue 1 item 3)")
-            rsvd = sol.rsvd[ireg] if ireg < len(sol.rsvd) else None
-            pbvd = sol.pbvd[ireg] if ireg < len(sol.pbvd) else None
+        for rec, idx, rsvd, pbvd in equil_regions(grid, case):
             out = equilibrate_region(grid, props, rec, idx, rsvd=rsvd,
                                      pbvd=pbvd)
             ti = torch.as_tensor(idx, dtype=torch.long, device=dev)

@@ -1,5 +1,6 @@
 """Synthetic test decks (port of the JAX package's sim/testcases.py: the
-SPE10-like and the Norne-like generators so far)."""
+SPE10-like and the Norne-like generators so far), and SPE1 with PBVD in
+place of RSVD."""
 
 from __future__ import annotations
 
@@ -347,3 +348,18 @@ END
 
 def norne_like_case(**kw) -> EclipseCase:
     return load_case_string(norne_like_deck(**kw))
+
+
+# SPE1's RSVD table (data/SPE1CASE2.DATA) and a PBVD table of the bubble
+# point that rs gives through SPE1's PVTO table: rs 1.270 Mscf/stb is the
+# node at 4014.7 psia
+SPE1_RSVD = "RSVD\n   8300 1.270\n   8450 1.270 /"
+SPE1_PBVD = "PBVD\n   8300 4014.7\n   8450 4014.7 /"
+
+
+def spe1_pbvd_deck(spe1_text: str) -> str:
+    """SPE1's deck text with PBVD in place of RSVD (the EQUIL branch of a
+    bubble-point column, which no deck of the repository has)."""
+    if SPE1_RSVD not in spe1_text:
+        raise ValueError("SPE1's RSVD table not found in the deck text")
+    return spe1_text.replace(SPE1_RSVD, SPE1_PBVD)

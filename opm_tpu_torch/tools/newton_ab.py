@@ -1,8 +1,8 @@
-"""The Newton layer's update, convergence check and CPR apply on one card:
-an A/B of two trees in turns.
+"""The Newton layer's update, convergence check and CPR apply on one card,
+or the initial state: an A/B of two trees in turns.
 
     python3 -m opm_tpu_torch.tools.newton_ab --trees BASE,CHANGE
-        [--order ABBA] [--out newton_ab.json]
+        [--order ABBA] [--part newton|initial_state] [--out newton_ab.json]
 
 One leg per letter of ``--order`` (A: the first tree, B: the second), each
 in a process of its own that imports ``opm_tpu_torch`` from its tree and
@@ -57,6 +57,18 @@ step:
   step: wall, the Newton loop's synced sections (``assembly``,
   ``cpr_setup``, ``krylov``, ``update``), the residual + convergence time,
   the counts and a digest of the state.
+
+With ``--part initial_state`` a leg measures instead ``initial_state``
+(EQUIL) on SPE1, SPE9, SPE10 model 2's size and the Norne-class field in
+both representations: the simulator's construction from the parsed deck
+(host clock), the seconds per call over 5 calls in a row (synced host
+clock, each ended by a synchronize), device kernels per call and their
+device time (torch.profiler, one call after a warm one), the launches of
+K1's lookups and of its column march per call (the tree's counters, where
+it has them), and a digest of the state (pressure, sw, x, hcstate); then
+the time from the parsed deck to the end of the first report step (a
+fresh simulator, its ``run`` computing the initial state; synced host
+clock) with that step's counts and a digest of its state.
 
 Prints one JSON line per leg and the card's name and power limit; writes
 everything to --out.
@@ -469,6 +481,79 @@ def _leg(tree):
     print(json.dumps(out), flush=True)
 
 
+def _init_leg(tree):
+    """--part initial_state: one leg over the decks (module docstring)."""
+    import torch
+    sys.path.insert(0, tree)
+    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.sim import init
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.sim.testcases import norne_like_case, spe10like_case
+    from opm_tpu_torch.utils import cuda_lib
+    from opm_tpu_torch.utils import tables as k1
+
+    csrc = os.path.join(tree, "opm_tpu_torch", "csrc")
+    cuda_lib.build_all(sorted(f[:-3] for f in os.listdir(csrc)
+                              if f.endswith(".cu")))
+    counters = [f for f in (k1.interp1_cuda, k1.interp2_cuda,
+                            getattr(init, "equil_columns_cuda", None)) if f]
+    data = os.path.join(tree, "data")
+    norne = norne_like_case()
+    out = dict(tree=tree)
+    for label, case, knob in (
+            ("spe1", load_case(os.path.join(data, "SPE1CASE2.DATA")), None),
+            ("spe9", load_case(os.path.join(data, "SPE9.DATA")), None),
+            ("spe10", spe10like_case(**SPE10), None),
+            ("norne_embedded", norne, None), ("norne_gather", norne, "0")):
+        os.environ.pop("OPM_TPU_EMBED", None)
+        if knob is not None:
+            os.environ["OPM_TPU_EMBED"] = knob
+        t0 = time.perf_counter()
+        sim = SimulatorFullyImplicitBlackoil(case)
+        construct = time.perf_counter() - t0
+
+        def call():
+            return init.initial_state(sim.grid, sim.props, case,
+                                      len(sim.well_names))
+        st = call()
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(5):
+            before = [f.launches for f in counters]
+            t0 = time.perf_counter()
+            st = call()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = [f.launches - b for f, b in zip(counters, before)]
+        out[label] = dict(
+            nc=sim.grid.nc, construct_s=construct, seconds=secs,
+            median_s=statistics.median(secs),
+            device=device_kernels(call, reps=1),
+            k1_launches=dict(zip(("interp1", "interp2", "equil_march"),
+                                 launches)),
+            state_digest=digest(st.pressure, st.sw, st.x, st.hcstate))
+        del sim, st
+        torch.cuda.empty_cache()
+        # the run_deck user's time: a fresh simulator from the parsed deck
+        # through the first report step, initial_state included
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = SimulatorFullyImplicitBlackoil(case)
+        fin = sim.run(report_step_limit=1)
+        torch.cuda.synchronize()
+        rep = sim.report
+        out[label].update(
+            deck_to_first_step_s=time.perf_counter() - t0,
+            first_step=[rep.substeps, rep.newton_iterations,
+                        rep.linear_iterations, rep.failed_substeps],
+            first_step_digest=digest(fin.pressure, fin.sw, fin.x,
+                                     fin.hcstate, fin.bhp, fin.qs))
+        del sim, fin
+        torch.cuda.empty_cache()
+    os.environ.pop("OPM_TPU_EMBED", None)
+    print(json.dumps(out), flush=True)
+
+
 def _bound(r, k7=False):
     """A refresh's bytes and bound, from a leg's level sizes (the same for
     every tree; K10's, or with ``k7`` K7's)."""
@@ -494,13 +579,16 @@ def main(argv=None):
                     help="BASE,CHANGE: two repository roots (or one)")
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--part", default="newton",
+                    choices=("newton", "initial_state"))
     ap.add_argument("--leg", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("newton_ab: no CUDA device visible")
     if args.leg:
-        _leg(os.path.abspath(args.leg))
+        (_init_leg if args.part == "initial_state" else _leg)(
+            os.path.abspath(args.leg))
         return 0
     if not args.trees:
         ap.error("--trees is required")
@@ -510,7 +598,8 @@ def main(argv=None):
     for letter in args.order:
         tree = trees["AB".index(letter)]
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--leg", tree],
+            [sys.executable, os.path.abspath(__file__), "--leg", tree,
+             "--part", args.part],
             capture_output=True, text=True, cwd=tree)
         if proc.returncode != 0:
             raise SystemExit(f"newton_ab: leg {letter} failed:\n"
@@ -522,7 +611,8 @@ def main(argv=None):
             _bound(leg.get(label, {}).get("k7_refresh"), k7=True)
         legs.append(leg)
         print(json.dumps(leg), flush=True)
-    res = dict(device=card, order=args.order, trees=trees, legs=legs)
+    res = dict(device=card, order=args.order, part=args.part, trees=trees,
+               legs=legs)
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

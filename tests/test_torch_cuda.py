@@ -23,7 +23,10 @@ convergence row against its plain version (masked and unmasked, a NaN
 cell, no wells, ten launches in a row), and the V-cycle from the CPR
 apply's weighted residual (K6's pressure_rhs folded into the down leg)
 bit for bit the plain residual followed by the legs on all three grid
-kinds.
+kinds, and K1's EQUIL column march bit for bit its twin on SPE1, SPE1
+with PBVD, SPE1CASE2_2P and the toy SPE10-like deck (no host read in its
+call, one march and at most 7 K1 lookups a region in initial_state, the
+state bit for bit the one through the twin).
 chip_smoke.py holds every kernel against its plain version at the SPE1,
 SPE10-2 and full Norne-class shapes.
 
@@ -1092,3 +1095,56 @@ def test_vcycle_from_weighted_residual(dev, grid):
     n0 = counts()
     M(rc)
     assert tuple(a - c for a, c in zip(counts(), n0)) == (0, 1, 1)
+
+
+# K1's EQUIL column march (csrc/equil.cu): SPE1 (live oil, RSVD), SPE1
+# with PBVD in place of RSVD (the same bubble point, 4014.7 psia), dead oil
+# with no DISGAS and no gas (SPE1CASE2_2P) and the toy SPE10-like deck
+def _equil_deck(name):
+    from opm_tpu_torch.io.eclstate import load_case, load_case_string
+    from opm_tpu_torch.sim.testcases import spe1_pbvd_deck, spe10like_case
+    if name == "spe10_toy":
+        return spe10like_case(nx=15, ny=44, nz=4, tsteps="3*1")
+    if name == "spe1_2p":
+        return load_case(os.path.join(ROOT, "data", "SPE1CASE2_2P.DATA"))
+    with open(SPE1) as f:
+        text = f.read()
+    return load_case_string(text if name == "spe1" else spe1_pbvd_deck(text))
+
+
+@pytest.mark.parametrize("deck", ["spe1", "spe1_pbvd", "spe1_2p",
+                                  "spe10_toy"])
+def test_equil_march_matches_twin(dev, deck, monkeypatch):
+    """The kernel's columns bit for bit the twin's on the card, the call
+    making no host read; one march and at most 7 K1 lookups a region in
+    initial_state, whose state is bit for bit the one through the twin."""
+    from opm_tpu_torch.sim import init
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.utils import tables as k1
+    sim = SimulatorFullyImplicitBlackoil(_equil_deck(deck), device=dev)
+    regions = init.equil_regions(sim.grid, sim.case)
+    assert len(regions) == 1
+    for rec, cells, rsvd, pbvd in regions:
+        args = init.march_args(sim.grid, sim.props, rec, cells, rsvd, pbvd)
+        init.equil_columns_cuda(*args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cols = init.equil_columns_cuda(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        twin = init.equil_columns_plain(*args)
+        assert cols.shape == (3, init._NZ)
+        assert torch.equal(cols, twin)
+    counted = (k1.interp1_cuda, k1.interp2_cuda, init.equil_columns_cuda)
+    before = [f.launches for f in counted]
+    st = init.initial_state(sim.grid, sim.props, sim.case,
+                            len(sim.well_names))
+    n = [f.launches - b for f, b in zip(counted, before)]
+    assert n[2] == len(regions)
+    assert n[0] + n[1] <= 7 * len(regions)
+    monkeypatch.setattr(init, "equil_columns_cuda", init.equil_columns_plain)
+    st_twin = init.initial_state(sim.grid, sim.props, sim.case,
+                                 len(sim.well_names))
+    for f in ("pressure", "sw", "x", "hcstate"):
+        assert torch.equal(getattr(st, f), getattr(st_twin, f)), f
