@@ -15,21 +15,25 @@ Phases (each prints a line of its own; any failure exits non-zero):
    kernels (registers: the cooperative grids of K8 and of K7's and K10's
    V-cycle legs must be co-resident), of cells.cu's, block7.cu's,
    faces.cu's and wells.cu's (registers and spills of K2's entries and of
-   the cell operators that carry K5's well term) and of newton.cu's (K9),
-   K2's resident blocks per SM and the float64 instructions of K2's
-   kernels in the SASS (cuobjdump; the operations term of K2's bounds),
+   the cell operators that carry K5's well term), of newton.cu's (K9) and
+   of tpfa.cu's (K3: the tile march's registers set how many blocks an SM
+   holds), K2's resident blocks per SM and the float64 instructions of
+   K2's, K3's and the face blocks' kernels in the SASS (cuobjdump; the
+   operations term of K2's bounds),
    and holds K8 against its twins at an odd length;
 3. kernel == plain on the card: (a) K1/K2/K3/K9 at SPE1's shapes (K3's
-   tangent also at the main path's jacfwd batch, B = 3 nc + 4 nw, and the
-   whole dense Jacobian through the kernels' forward-mode rules against
-   the plain CPU path); (b) K1/K2/K3/K9 at SPE10 model 2's size
+   divergence bit for bit; its tangent also at the main path's jacfwd
+   batch, B = 3 nc + 4 nw, timed there with its bound, and the whole dense
+   Jacobian through the kernels' forward-mode rules against the plain CPU
+   path); (b) K1/K2/K3/K9 at SPE10 model 2's size
    (60x220x85 = 1.122M cells, the seeded SPE10-like deck), each timed
    against its plain version (CUDA events, warm, median of 20; K2's
    values bit for bit; K9's update entry bit for bit against its twins'
    composition in both call forms, its convergence row against the
    reference's expression with equal flags, also with a NaN cell and with
    no wells, over ten launches in a row, and each one device kernel per
-   call under the profiler); (c) the
+   call under the profiler; K3's divergence bit for bit and per launch
+   in a run of 50); (c) the
    assembly kernels (K2's assembly entry, the K3 face blocks, K5: the
    Schur-reduced operator with the well term fused into the cell
    operator's last launch, ten launches in a row bit for bit against the
@@ -97,7 +101,10 @@ Phases (each prints a line of its own; any failure exits non-zero):
    structured GMG) and gather (OPM_TPU_EMBED=0: 75,566 cells, aggregation
    AMG). On the first Newton system of each, the assembly kernels (K2, the
    K3 face blocks in stencil form and as the embedded epilogue, or in
-   face-list form on the gather grid, K5), the face-list kernels
+   face-list form on the gather grid, the face-list form bit for bit its
+   twin run on CPU copies of the inputs (the twin's index_add_ on the
+   card adds in no fixed order) and on G per launch in a run of 50; K5),
+   K3's divergence over E's stencil bit for bit, the face-list kernels
    (K3-faces, K4-faces' pack into its sliced-ELL layout, matvec and
    smoothing step, K6 cells and K6-faces, K9's masked convergence
    check), K8 at the
@@ -149,7 +156,7 @@ JAX_PKG = "opm-simulators-legacy_tpu"
 
 # tolerances (kernel vs plain on the card)
 TOL_K1 = 1e-13       # relative, values and slopes
-TOL_K3 = 1e-12       # of max|div| (sum order)
+TOL_K3 = 1e-12       # of max|div|: faces_div, the tangent (sum order)
 TOL_K9_NORM = 1e-12  # relative
 TOL_K4 = 1e-12       # of max (same order of operations as the twin)
 TOL_K6_SETUP = 1e-13  # of max, per output
@@ -680,10 +687,10 @@ def compare_kernels(K, model, state, seed, label, timed, B):
     nf = model.trans.shape[0]
     kd = mb.tpfa_div_cuda(*args)
     pd = mb.tpfa_div_plain(*args)
-    e3 = scaled_err(kd, pd)
     K.note("K3 tpfa_div", float((kd - pd).abs().max()))
-    if not e3 <= TOL_K3:
-        fail(f"{label}: K3 tpfa_div off by {e3:.3e} of max|div|")
+    if not torch.equal(kd, pd):
+        fail(f"{label}: K3 tpfa_div is not bit for bit its plain version's "
+             f"({scaled_err(kd, pd):.3e} of max|div|)")
     tan = [torch.as_tensor(rng.standard_normal((B,) + a.shape), device=dev)
            * a.abs().mean() for a in (p3, rho, bmob, rsv, rvv)]
     kt = mb.tpfa_div_tangent_cuda(*args, *tan)
@@ -694,6 +701,8 @@ def compare_kernels(K, model, state, seed, label, timed, B):
         fail(f"{label}: K3 tangent (B = {B}) off by {e3t:.3e} of max|ddiv|")
     time_pair("K3 tpfa_div", lambda: mb.tpfa_div_cuda(*args),
               lambda: mb.tpfa_div_plain(*args), args[1:8], 80 * nf)
+    if timed:
+        K.run_ms["K3 tpfa_div"] = run_ms(lambda: mb.tpfa_div_cuda(*args))
     time_pair("K3 tpfa_div_tangent",
               lambda: mb.tpfa_div_tangent_cuda(*args, *tan),
               lambda: mb.tpfa_div_tangent_plain(*args, *tan),
@@ -1154,6 +1163,22 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
               [(kl[0], pl[0]), (kl[1], pl[1]),
                (kl[2][:, f0:], pl[2][:, f0:]),
                (kl[3][:, f0:], pl[3][:, f0:])], row_scaled_err)
+        # bit for bit the twin in its own order: its index_add_ on the
+        # card adds in no fixed order, on the CPU in index order, which is
+        # the kernel's row order
+        cpu = lambda t: t.detach().cpu()  # noqa: E731
+        fl_cpu = mb.FaceList(sim.grid.face_cells, nc, f0, "cpu")
+        r_c, d_c = cpu(r_s).clone(), cpu(d_s).clone()
+        fL_c = torch.zeros((9, nf), dtype=torch.float64)
+        fR_c = torch.zeros_like(fL_c)
+        lz.faces_blocks_plain(fl_cpu, cpu(fv), cpu(fc), cpu(model.depth),
+                              cpu(model.trans), model.gravity, r_c, d_c,
+                              fL_c, fR_c)
+        if not all(torch.equal(cpu(a), b) for a, b in
+                   zip(kl, (r_c, d_c, fL_c, fR_c))):
+            fail(f"{label}: the K3-faces face blocks are not bit for bit "
+                 "their plain version's on CPU copies of the inputs")
+        del r_c, d_c, fL_c, fR_c
         rk, dk = r_s.clone(), d_s.clone()
         rp, dp_ = r_s.clone(), d_s.clone()
         fLk, fRk = kl[2], kl[3]
@@ -1171,6 +1196,11 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
                                              model.trans, model.gravity, rp,
                                              dp_, fLk, fRk),
                moved, 250 * fl.n, timed and dims is None)
+        if timed and dims is None:
+            K.run_ms["K3-faces face_blocks"] = run_ms(
+                lambda: lz.faces_blocks_cuda(fl, fv, fc, model.depth,
+                                             model.trans, model.gravity, rk,
+                                             dk, fLk, fRk))
         del kl, pl
 
     # K5 on the system's well blocks, over its prepared arguments
@@ -2253,6 +2283,13 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
     if dims is not None:
         base = mb.tpfa_div_cuda(dims, *fargs[:6], model.trans_stencil,
                                 model.gravity)
+        pbase = mb.tpfa_div_plain(dims, *fargs[:6], model.trans_stencil,
+                                  model.gravity)
+        K.note("K3 tpfa_div", float((base - pbase).abs().max()))
+        if not torch.equal(base, pbase):
+            fail(f"{label}: K3 tpfa_div over the stencil is not bit for "
+                 "bit its plain version's")
+        del pbase
     kd = mb.faces_div_cuda(fl, *fargs,
                            out=None if base is None else base.clone())
     pd = mb.faces_div_plain(fl, *fargs, out=base)
@@ -2577,14 +2614,14 @@ def main(argv=None):
     log(f"build: {results['build_s']:.1f} s (13 nvcc sm_90a and the host "
         "cornerpoint.cpp in parallel)")
     for src in ("krylov.cu", "gmg.cu", "amg.cu", "cells.cu", "block7.cu",
-                "faces.cu", "wells.cu", "newton.cu"):
+                "faces.cu", "wells.cu", "newton.cu", "tpfa.cu"):
         ptxas = cuda_lib.build_log.get(src)
         log(f"{src} -Xptxas -v: " + (json.dumps(parse_ptxas(ptxas))
             if ptxas is not None else "(library up to date, not rebuilt)"))
         results.setdefault("ptxas", {})[src] = parse_ptxas(ptxas)
     # the float64 instructions per thread of K2's and K5's kernels (and of
     # the cell operators that carry K5's well term) in the SASS
-    for name in ("cells", "block7", "faces", "wells"):
+    for name in ("cells", "block7", "faces", "wells", "tpfa"):
         counts = sass_fp64(os.path.join(cuda_lib.BUILD_DIR,
                                         f"lib{name}.so"))
         K.sass[name] = {k: c["main"] for k, c in counts.items()}
@@ -2619,10 +2656,18 @@ def main(argv=None):
           for a in a1[1:6]]
     jac_ms = (cuda_ms(lambda: mb.tpfa_div_tangent_cuda(*a1, *t1)),
               cuda_ms(lambda: mb.tpfa_div_tangent_plain(*a1, *t1)))
-    log(f"  K3 tangent at SPE1, B = {b_jac}: kernel {jac_ms[0]:.4f} ms   "
-        f"plain {jac_ms[1]:.4f} ms")
+    # the bound at this shape, as the SPE10-2 row's: inputs and the B
+    # tangent divergences once, 120 operations a face and tangent set
+    nf1 = m1.trans.shape[0]
+    jac_bound = max(nbytes(a1[1:8], t1) / HBM_BYTES_S
+                    + 8 * 3 * m1.nc * b_jac / HBM_BYTES_S,
+                    120 * nf1 * b_jac / F64_FLOP_S) * 1e3
+    log(f"  K3 tangent at SPE1 (the main path's shape), B = {b_jac}: kernel "
+        f"{jac_ms[0]:.4f} ms   plain {jac_ms[1]:.4f} ms   bound "
+        f"{jac_bound:.4f} ms")
     results["spe1_k3_tangent_ms"] = dict(B=b_jac, ms=jac_ms[0],
-                                         plain_ms=jac_ms[1])
+                                         plain_ms=jac_ms[1],
+                                         bound_ms=jac_bound)
     ejac, n_tan, n_col = compare_jacobian(case1, dev)
     log(f"SPE1 Jacobian (jacfwd through the forward-mode rules of K2 and K3; "
         f"K2 column launches: {n_col}, K3 tangent launches: {n_tan}) vs "
@@ -2924,11 +2969,15 @@ def main(argv=None):
         torch.cuda.empty_cache()
     for n in face_names:
         lib = K.library_ms.get(n)
+        run = K.run_ms.get(n)
         log(f"  {n:22s} kernel {K.ms[n]:9.4f} ms   plain "
             f"{K.plain_ms[n]:9.4f} ms   bound {K.bound_ms[n]:8.4f} ms "
             f"({K.bound_by[n]})   library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}   "
-            f"max_abs_err {K.err[n]:.3e}")
+            f"max_abs_err {K.err[n]:.3e}"
+            + ("" if run is None else f"   per launch in a run of 50 "
+               f"{run:.4f} ms"))
+    results["run_ms"] = dict(K.run_ms)
     with open(os.path.join(ROOT, "data",
                            "nornelike_full_reference_cpu.json")) as f:
         reff = json.load(f)

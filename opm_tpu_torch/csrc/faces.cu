@@ -23,18 +23,34 @@
 //
 // What bounds it on the card: memory traffic. The divergence reads per
 // face the 11 quantities of both cells, its transmissibility and the two
-// depths; the operator per face its 18 block entries (face_R for the left
-// row, face_L for the right row) and the neighbour's 3 values. Design:
-// gather form, one thread per row, each face's flux or block product
-// computed by the row's thread with the plain version's arithmetic and
-// summed in registers in the CSR order, so the result equals the plain
-// version on the CPU bit for bit; no atomics. A row may start from a base
-// (the structured kernel's result on an embedded grid, updated in place).
+// depths; the face blocks also the 33 tangent columns of both cells, and
+// write 18 block entries; the operator per face its 18 block entries
+// (face_R for the left row, face_L for the right row) and the neighbour's
+// 3 values. Design of the divergence and the operator: gather form, one
+// thread per row, each face's flux or block product computed by the row's
+// thread with the plain version's arithmetic and summed in registers in
+// the CSR order, so the result equals the plain version on the CPU bit
+// for bit; no atomics. A row may start from a base (the structured
+// kernel's result on an embedded grid, updated in place).
 // The operator (K4-faces, with the smoothing step) reads its blocks from a
 // sliced-ELL copy packed once per Newton system (sell_pack_kernel): read in
 // face order, a warp's neighbouring cells found their right-side faces far
 // apart, a 32-byte sector per lane; in the packed copy lane i of slot j
 // reads address base + 32 b + i.
+// The face blocks run a face phase, then a row phase (two launches): a
+// thread per face evaluates its flux and both blocks once (six tangent
+// evaluations) and writes them in face order; then a thread per row and
+// sum adds what the row's faces wrote, in the CSR order. The blocks
+// face_L / face_R are outputs anyway, so the row phase re-reads a value a
+// visit from face arrays (the flux from a (3, n) scratch) instead of
+// gathering the neighbour's 44 input rows and evaluating the face again.
+// The stencil form (blocks.cu) makes the other trade: at SPE10-2's 3.3M
+// faces the blocks and flux re-read would be 560 MB from device memory;
+// on G they are 36 MB, near the 50 MB L2. Measured on an H100 on G: one
+// cooperative launch with a grid barrier between the phases was no
+// faster than two launches; three threads a face (one a primary column)
+// were no faster than one; a thread a row instead of a thread a sum was
+// slower, and so were face records of 21 values read whole by the row.
 // The plain product optionally carries the reduced operator's well term
 // (K5, wells.cuh): the well vector by an extra block 0, the subtraction at
 // the perforated cells by the block that finishes last.
@@ -90,46 +106,73 @@ __global__ void faces_div_kernel(Csr g, long long nc, Cells q,
     for (int e = 0; e < 3; ++e) div[e * nc + c] = acc[e];
 }
 
-// r_cell (3, nc) and diag (9, nc) updated in place over the CSR's rows;
-// face_L / face_R (9, nf) written at the list's faces (global indices)
-__global__ void faces_blocks_kernel(Csr g, long long nc, long long nf,
-                                    const double* __restrict__ fv,
-                                    const double* __restrict__ fc,
-                                    const double* __restrict__ depth,
-                                    const double* __restrict__ trans,
-                                    double gr, double* __restrict__ r_cell,
-                                    double* __restrict__ diag,
-                                    double* __restrict__ fL,
-                                    double* __restrict__ fR) {
-    int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= g.n_rows) return;
-    long long c = g.rows ? g.rows[t] : t;
+// The face blocks in two phases. The face phase, a thread per face i of
+// the list (global index first + i, cells c1[i], c2[i]): the face's flux
+// and both blocks once, written at the face to face_L / face_R (9, nf)
+// and the flux to a scratch (3, n), all in face order. The row phase, a
+// thread per CSR row and one of its 12 sums (3 of r_cell, 9 of diag): the
+// row's faces in the CSR order, r += flux, d += face_L as the left cell
+// and r += (-flux), d += (-face_R) as the right cell. Each sum has the
+// operations and order of the one-pass design, so the same bits.
+struct ListFaces {
+    long long first, n, nf;
+    const int* c1;
+    const int* c2;
+};
+
+__global__ void faces_blocks_face_kernel(ListFaces lf, long long nc,
+                                         const double* __restrict__ fv,
+                                         const double* __restrict__ fc,
+                                         const double* __restrict__ depth,
+                                         const double* __restrict__ trans,
+                                         double gr,
+                                         double* __restrict__ flux,
+                                         double* __restrict__ fL,
+                                         double* __restrict__ fR) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= lf.n) return;
     const Cells q{fv, fv + 3 * nc, fv + 6 * nc, fv + 9 * nc, fv + 10 * nc};
-    double r[3], d[9], flux[3], bl[9], br[9];
-    for (int e = 0; e < 3; ++e) r[e] = r_cell[e * nc + c];
-    for (int b = 0; b < 9; ++b) d[b] = diag[b * nc + c];
-    for (int k = g.ptr[t]; k < g.ptr[t + 1]; ++k) {
-        int s = g.ent[k];
-        long long o = g.nbr[k];
-        if (s >= 0) {
-            face_blocks(q, fc, nc, c, o, trans[s], gr, depth[c] - depth[o],
-                        flux, bl, br);
-            for (int e = 0; e < 3; ++e) r[e] = r[e] + flux[e];
-            for (int b = 0; b < 9; ++b) {
-                fL[b * nf + s] = bl[b];
-                fR[b * nf + s] = br[b];
-                d[b] = d[b] + bl[b];
-            }
-        } else {
-            long long f = -(long long)s - 1;
-            face_blocks(q, fc, nc, o, c, trans[f], gr, depth[o] - depth[c],
-                        flux, nullptr, br);
-            for (int e = 0; e < 3; ++e) r[e] = r[e] + (-flux[e]);
-            for (int b = 0; b < 9; ++b) d[b] = d[b] + (-br[b]);
-        }
+    const long long f = lf.first + i;
+    const long long L = lf.c1[i], R = lf.c2[i];
+    double fl[3], bl[9], br[9];
+    face_blocks(q, fc, nc, L, R, trans[f], gr, depth[L] - depth[R], fl, bl,
+                br);
+    for (int e = 0; e < 3; ++e) flux[e * lf.n + i] = fl[e];
+    for (int b = 0; b < 9; ++b) {
+        fL[b * lf.nf + f] = bl[b];
+        fR[b * lf.nf + f] = br[b];
     }
-    for (int e = 0; e < 3; ++e) r_cell[e * nc + c] = r[e];
-    for (int b = 0; b < 9; ++b) diag[b * nc + c] = d[b];
+}
+
+// idx = v n_rows + t: sum v of row t (v < 3: r_cell row v; else diag row
+// v - 3), updated in place
+__global__ void faces_blocks_row_kernel(Csr g, ListFaces lf, long long nc,
+                                        const double* __restrict__ flux,
+                                        const double* __restrict__ fL,
+                                        const double* __restrict__ fR,
+                                        double* __restrict__ r_cell,
+                                        double* __restrict__ diag) {
+    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= 12LL * g.n_rows) return;
+    const int v = (int)(idx / g.n_rows);
+    const int t = (int)(idx - (long long)v * g.n_rows);
+    const long long c = g.rows ? g.rows[t] : t;
+    const bool is_r = v < 3;
+    double* out = is_r ? r_cell + v * nc : diag + (v - 3) * nc;
+    // the left and right values of this sum: flux row v (by list index
+    // f - first), or face_L / face_R row v - 3 (by face index f)
+    const double* lv = is_r ? flux + v * lf.n : fL + (v - 3) * lf.nf;
+    const double* rv = is_r ? lv : fR + (v - 3) * lf.nf;
+    const long long off = is_r ? lf.first : 0;
+    double acc = out[c];
+    for (int k = g.ptr[t]; k < g.ptr[t + 1]; ++k) {
+        const int s = g.ent[k];
+        if (s >= 0)
+            acc = acc + lv[s - off];
+        else
+            acc = acc + (-rv[-(long long)s - 1 - off]);
+    }
+    out[c] = acc;
 }
 
 __device__ __forceinline__ double xv(const double* x, bool p_only,
@@ -291,19 +334,26 @@ int opm_faces_div(int n_rows, const int* rows, const int* ptr,
     return (int)cudaGetLastError();
 }
 
-// the face blocks of the CSR's faces from the face inputs fv (11, nc) and
-// their tangent columns fc (3, 11, nc): r_cell and diag updated in place,
-// face_L / face_R (9, nf) written at the faces
+// the face blocks of the list's n faces (global indices first.., cells c1,
+// c2) from the face inputs fv (11, nc) and their tangent columns fc (3,
+// 11, nc): face_L / face_R (9, nf) written at the faces and flux (3, n) a
+// scratch (the face phase), then r_cell and diag updated in place over
+// the CSR's rows (the row phase): two launches
 int opm_faces_blocks(int n_rows, const int* rows, const int* ptr,
-                     const int* ent, const int* nbr, long long nc,
+                     const int* ent, const int* nbr, long long first,
+                     long long n, const int* c1, const int* c2, long long nc,
                      long long nf, const double* fv, const double* fc,
                      const double* depth, const double* trans, double g,
-                     double* r_cell, double* diag, double* fL, double* fR,
-                     cudaStream_t stream) {
-    if (n_rows == 0) return 0;
+                     double* flux, double* r_cell, double* diag, double* fL,
+                     double* fR, cudaStream_t stream) {
+    if (n == 0) return 0;
     Csr csr{n_rows, rows, ptr, ent, nbr};
-    faces_blocks_kernel<<<blocks_for(n_rows), kThreads, 0, stream>>>(
-        csr, nc, nf, fv, fc, depth, trans, g, r_cell, diag, fL, fR);
+    ListFaces lf{first, n, nf, c1, c2};
+    faces_blocks_face_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+        lf, nc, fv, fc, depth, trans, g, flux, fL, fR);
+    faces_blocks_row_kernel<<<blocks_for(12LL * n_rows), kThreads, 0,
+                              stream>>>(csr, lf, nc, flux, fL, fR, r_cell,
+                                        diag);
     return (int)cudaGetLastError();
 }
 

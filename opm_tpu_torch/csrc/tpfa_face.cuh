@@ -27,27 +27,48 @@ struct Face {
     double rs_up, rv_up;
 };
 
+// One cell's face inputs read from the (3, nc) / (nc,) arrays where they
+// are used (as loads of device memory, in the arithmetic's order).
+struct CellAt {
+    Cells q;
+    long long nc, c;
+    __device__ double p(int ph) const { return q.p[ph * nc + c]; }
+    __device__ double rho(int ph) const { return q.rho[ph * nc + c]; }
+    __device__ double bmob(int ph) const { return q.bmob[ph * nc + c]; }
+    __device__ double rs() const { return q.rs[c]; }
+    __device__ double rv() const { return q.rv[c]; }
+};
+
+// The face flux from its left (l) and right (r) cells' inputs, any types
+// with CellAt's accessors: the one copy of the flux's arithmetic, which
+// every K3 kernel evaluates.
+template <typename SideL, typename SideR>
+__device__ __forceinline__ void face_flux(const SideL& l, const SideR& r,
+                                          double T, double g, double dz,
+                                          Face* f, double flux[3]) {
+    double F[3];
+    for (int ph = 0; ph < 3; ++ph) {
+        double rho_face = 0.5 * (l.rho(ph) + r.rho(ph));
+        double dphi = (l.p(ph) - r.p(ph)) - rho_face * g * dz;
+        bool up = dphi >= 0.0;
+        f->dphi[ph] = dphi;
+        f->up[ph] = up ? 1.0 : 0.0;
+        f->bm[ph] = up ? l.bmob(ph) : r.bmob(ph);
+        f->vf[ph] = T * dphi;
+        F[ph] = f->bm[ph] * f->vf[ph];
+    }
+    f->rs_up = f->up[1] != 0.0 ? l.rs() : r.rs();
+    f->rv_up = f->up[2] != 0.0 ? l.rv() : r.rv();
+    flux[0] = F[0];
+    flux[1] = F[1] + f->rv_up * f->bm[2] * f->vf[2];
+    flux[2] = F[2] + f->rs_up * f->bm[1] * f->vf[1];
+}
+
 __device__ __forceinline__ void face_primal(const Cells& q, long long nc,
                                             long long L, long long R,
                                             double T, double g, double dz,
                                             Face* f, double flux[3]) {
-    double F[3];
-    for (int ph = 0; ph < 3; ++ph) {
-        double rho_face = 0.5 * (q.rho[ph * nc + L] + q.rho[ph * nc + R]);
-        double dphi = (q.p[ph * nc + L] - q.p[ph * nc + R])
-                      - rho_face * g * dz;
-        bool up = dphi >= 0.0;
-        f->dphi[ph] = dphi;
-        f->up[ph] = up ? 1.0 : 0.0;
-        f->bm[ph] = up ? q.bmob[ph * nc + L] : q.bmob[ph * nc + R];
-        f->vf[ph] = T * dphi;
-        F[ph] = f->bm[ph] * f->vf[ph];
-    }
-    f->rs_up = f->up[1] != 0.0 ? q.rs[L] : q.rs[R];
-    f->rv_up = f->up[2] != 0.0 ? q.rv[L] : q.rv[R];
-    flux[0] = F[0];
-    flux[1] = F[1] + f->rv_up * f->bm[2] * f->vf[2];
-    flux[2] = F[2] + f->rs_up * f->bm[1] * f->vf[1];
+    face_flux(CellAt{q, nc, L}, CellAt{q, nc, R}, T, g, dz, f, flux);
 }
 
 // One side's tangents of the face inputs.

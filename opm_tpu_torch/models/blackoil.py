@@ -606,9 +606,62 @@ def tpfa_div_tangent_plain(dims, p3, rho, bmob, rs, rv, depth, trans,
 
 _P, _I, _D = cuda_lib.P, cuda_lib.I, cuda_lib.D
 _SIGS = {
-    "opm_tpfa_div": [_I, _I, _I] + [_P] * 7 + [_D, _P, _P],
+    "opm_tpfa_div": [_I] * 9 + [_P] * 7 + [_D, _P, _P],
+    "opm_tpfa_div_occupancy": [_I, _I, _P],
     "opm_tpfa_div_tangent": [_I, _I, _I, _I] + [_P] * 12 + [_D, _P, _P],
 }
+
+# the forward entry's tile: a warp along i, 8 rows along j; its shared
+# memory: two planes of the cells' 12 values (p3, rho3, bmob3, rs, rv,
+# depth), the x and y faces' fluxes
+DIV_TILE_X, DIV_TILE_Y = 32, 8
+DIV_SMEM = 8 * (2 * 12 + 2 * 3) * DIV_TILE_X * DIV_TILE_Y
+
+
+class DivTiles(NamedTuple):
+    """The forward K3 kernel's launch geometry (csrc/tpfa.cu): blocks of
+    (tx, ty) threads over (i, j) tiles stepping by tx - 2 and ty - 2 (the
+    first and last column and row of threads are halo),
+    ``tiles_x * tiles_y`` tiles, each marched over ``runs`` runs of
+    ``zrun`` z planes; ``smem`` bytes of shared memory a block."""
+
+    tx: int
+    ty: int
+    tiles_x: int
+    tiles_y: int
+    zrun: int
+    runs: int
+    smem: int
+
+
+def div_tiles(dims, resident) -> DivTiles:
+    """The tiles of an (nx, ny, nz) grid, its z planes cut into as many
+    runs as fill ``resident`` blocks (the card's SMs times the kernel's
+    blocks per SM) once, at most nz."""
+    nx, ny, nz = dims
+    tiles_x = -(-nx // (DIV_TILE_X - 2))
+    tiles_y = -(-ny // (DIV_TILE_Y - 2))
+    runs = max(1, min(nz, resident // (tiles_x * tiles_y)))
+    zrun = -(-nz // runs)
+    return DivTiles(DIV_TILE_X, DIV_TILE_Y, tiles_x, tiles_y, zrun,
+                    -(-nz // zrun), DIV_SMEM)
+
+
+_div_resident = {}
+
+
+def _resident_blocks(lib, dev):
+    """SMs times the forward kernel's resident blocks per SM on ``dev``
+    (asked once per device)."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _div_resident:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(key):
+            cuda_lib.check(lib.opm_tpfa_div_occupancy(
+                DIV_TILE_Y, DIV_SMEM, ctypes.cast(out, ctypes.c_void_p)),
+                "opm_tpfa_div_occupancy")
+        _div_resident[key] = out[0] * out[1]
+    return _div_resident[key]
 
 
 def _check_cells(tensors, dev, nc):
@@ -643,12 +696,17 @@ def tpfa_div_cuda(dims, p3, rho, bmob, rs, rv, depth, trans, gravity):
     nc = nx * ny * nz
     dev = p3.device
     _check_primal(dims, p3, rho, bmob, rs, rv, depth, trans)
+    if 3 * nc + 3 >= 2 ** 31:
+        raise ValueError(f"K3: {nc} cells exceed the kernel's 32-bit "
+                         "indices")
     div = torch.empty((3, nc), dtype=torch.float64, device=dev)
     lib = cuda_lib.load("tpfa", _SIGS)
+    g = div_tiles(dims, _resident_blocks(lib, dev))
     ptr = cuda_lib.ptr
-    err = lib.opm_tpfa_div(nx, ny, nz, ptr(p3), ptr(rho), ptr(bmob),
-                           ptr(rs), ptr(rv), ptr(depth), ptr(trans),
-                           float(gravity), ptr(div),
+    err = lib.opm_tpfa_div(nx, ny, nz, g.ty, g.tiles_x, g.tiles_y, g.zrun,
+                           g.runs, g.smem, ptr(p3), ptr(rho),
+                           ptr(bmob), ptr(rs), ptr(rv), ptr(depth),
+                           ptr(trans), float(gravity), ptr(div),
                            cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "opm_tpfa_div")
     tpfa_div_cuda.launches += 1
@@ -920,8 +978,9 @@ _FACES_SIGS = {
     + [_I] + [_P] * 3 + [_P, _I, _P],
     "opm_faces_sell_pack": [cuda_lib.L, _P, cuda_lib.L] + [_P] * 4,
     # the face blocks of the assembly (models/linearize.py)
-    "opm_faces_blocks": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L]
-    + [_P] * 4 + [_D] + [_P] * 5,
+    "opm_faces_blocks": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L, _P, _P,
+                         cuda_lib.L, cuda_lib.L] + [_P] * 4 + [_D]
+    + [_P] * 6,
 }
 
 

@@ -373,12 +373,14 @@ def faces_blocks_cuda(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
     if nf != fl.first + fl.n:
         raise ValueError("K3-faces face blocks: trans must span every face "
                          "of the grid")
+    flux = torch.empty((3, fl.n), dtype=torch.float64, device=fv.device)
     lib = cuda_lib.load("faces", _FACES_SIGS)
     ptr = cuda_lib.ptr
     err = lib.opm_faces_blocks(
-        *csr_args(fl.touched), nc, nf, ptr(fv), ptr(fc), ptr(depth),
-        ptr(trans), float(gravity), ptr(r_cell), ptr(diag), ptr(face_L),
-        ptr(face_R), cuda_lib.stream_ptr(fv.device))
+        *csr_args(fl.touched), fl.first, fl.n, ptr(fl.c1_32), ptr(fl.c2_32),
+        nc, nf, ptr(fv), ptr(fc), ptr(depth), ptr(trans), float(gravity),
+        ptr(flux), ptr(r_cell), ptr(diag), ptr(face_L), ptr(face_R),
+        cuda_lib.stream_ptr(fv.device))
     cuda_lib.check(err, "opm_faces_blocks")
     faces_blocks_cuda.launches += 1
 

@@ -1,4 +1,4 @@
-"""The assembly kernels K2 and K5 on one card: an A/B of two trees, and a
+"""The assembly kernels K2, K3 and K5 on one card: an A/B of two trees, and a
 sweep of K2's block size and launch bounds.
 
     python3 -m opm_tpu_torch.tools.assembly_ab --trees BASE,CHANGE
@@ -9,14 +9,20 @@ sweep of K2's block size and launch bounds.
 the second), each in a process of its own that imports ``opm_tpu_torch``
 from its tree and builds that tree's kernels into its own ``build/``, so
 two versions of the package are compared in turns on the same card. A leg
-reports, for ``cells.cu``, ``wells.cu``, ``block7.cu`` and ``faces.cu``,
-ptxas's registers and spills per kernel and the float64 instructions per
-kernel in the SASS (``cuobjdump -sass``: DADD, DMUL, DFMA, DSETP, DMNMX and
+reports, for ``cells.cu``, ``wells.cu``, ``block7.cu``, ``faces.cu`` and
+``tpfa.cu``, ptxas's registers and spills per kernel and the float64
+instructions per kernel in the SASS (``cuobjdump -sass``: DADD, DMUL,
+DFMA, DSETP, DMNMX and
 the MUFU.RCP64H of the divisions, in the kernel's main body and in the
 division's slow-path subroutine); then at SPE10 model 2's size (the
 seeded SPE10-like deck, 60x220x85 = 1.122M cells) and on the Norne-class
 field (``norne_like_deck()``) in both representations: K2's three entries
-on a seeded state in every hydrocarbon state, and the Schur-reduced
+on a seeded state in every hydrocarbon state, K3 on that state's face
+inputs (``tpfa_div`` over a structured stencil: SPE10-2's and the
+embedded grid's; the face-list face blocks on the embedded grid's extra
+faces and the gather grid's faces: one call and per launch in a run of
+50, wrapper launches and device kernels a call, a digest, bit equality
+with the twin), and the Schur-reduced
 operator, K5's right-hand side and recovery on the first Newton system,
 each timed two ways (CUDA events: one wrapper call, median of 20; and per
 launch over a run of 50 back-to-back calls, median of 5), with the device
@@ -262,6 +268,66 @@ def k2_times(pack, a, acc0, pv, dt):
     return out
 
 
+def k3_times(sim, fv, fc, r0, d0):
+    """K3 on one seeded state's face inputs (K2's assembly entry): the
+    structured divergence (tpfa_div) over a structured grid's stencil and
+    the face-list face blocks over a face list, each timed two ways, with
+    its wrapper launches and device kernels a call (torch.profiler), a
+    digest of its outputs and whether they equal the twin's bit for bit
+    (tpfa_div's twin on the card; the face blocks' on CPU copies, since
+    its index_add_ on the card adds in no fixed order)."""
+    import torch
+
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize as lz
+
+    m = sim.model
+    out = {}
+    q = (fv[0:3], fv[3:6], fv[6:9], fv[9], fv[10])
+    if m.structured:
+        args = (m.dims, *q, m.depth, m.trans_stencil, m.gravity)
+        n0 = mb.tpfa_div_cuda.launches
+        d = mb.tpfa_div_cuda(*args)
+        out["tpfa_div"] = dict(
+            launches=mb.tpfa_div_cuda.launches - n0,
+            times=two_ways(lambda: mb.tpfa_div_cuda(*args)),
+            device_us=device_us(lambda: mb.tpfa_div_cuda(*args)),
+            digest=digest(d),
+            bits_equal_twin=bool(torch.equal(d, mb.tpfa_div_plain(*args))))
+        del d
+    fl = m.faces
+    if fl is None:
+        return out
+    nf = m.trans.shape[0]
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    fl_cpu = mb.FaceList(sim.grid.face_cells, m.nc, fl.first, "cpu")
+
+    def run(fn, lead, dev_of, *a):
+        r, d = dev_of(r0).clone(), dev_of(d0).clone()
+        fL = torch.zeros((9, nf), dtype=torch.float64, device=r.device)
+        fR = torch.zeros_like(fL)
+        fn(lead, *a, r, d, fL, fR)
+        return r, d, fL, fR
+
+    inputs = (fv, fc, m.depth, m.trans, m.gravity)
+    twin = run(lz.faces_blocks_plain, fl_cpu, cpu,
+               *[cpu(t) if torch.is_tensor(t) else t for t in inputs])
+    n0 = lz.faces_blocks_cuda.launches
+    k = run(lz.faces_blocks_cuda, fl, lambda t: t, *inputs)
+    launches = lz.faces_blocks_cuda.launches - n0
+    rk, dk, fLk, fRk = run(lz.faces_blocks_cuda, fl, lambda t: t, *inputs)
+
+    def call():
+        # in place on persistent buffers (r and d grow, finite)
+        lz.faces_blocks_cuda(fl, *inputs, rk, dk, fLk, fRk)
+
+    out["face_blocks"] = dict(
+        launches=launches, times=two_ways(call), device_us=device_us(call),
+        digest=digest(*k), bits_equal_twin=all(
+            bool(torch.equal(cpu(a), b)) for a, b in zip(k, twin)))
+    return out
+
+
 def _first_system(sim, st0):
     from opm_tpu_torch.models import linearize
     from opm_tpu_torch.models.blackoil import make_well_device_arrays
@@ -323,15 +389,23 @@ def k5_times(sim, sys_):
     return out
 
 
+REPORTED = ("cells", "wells", "block7", "faces", "tpfa")
+
+
 def _build_report(tree):
     """Build every kernel of the tree; ptxas per kernel and SASS float64
-    counts for the assembly's and the reduced operator's sources."""
+    counts for the assembly's and the reduced operator's sources (rebuilt
+    even where the tree's libraries are up to date, for ptxas's report)."""
     from opm_tpu_torch.utils import cuda_lib
     csrc = os.path.join(tree, "opm_tpu_torch", "csrc")
     names = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
+    for n in REPORTED:
+        lib = os.path.join(cuda_lib.BUILD_DIR, f"lib{n}.so")
+        if os.path.exists(lib):
+            os.remove(lib)
     libs = dict(zip(names, cuda_lib.build_all(names)))
     rep = {}
-    for n in ("cells", "wells", "block7", "faces"):
+    for n in REPORTED:
         rep[n] = dict(ptxas=parse_ptxas(cuda_lib.build_log.get(n + ".cu")),
                       sass=sass_fp64(libs[n]))
     return rep
@@ -340,6 +414,7 @@ def _build_report(tree):
 def _leg(tree):
     import torch
     sys.path.insert(0, tree)
+    from opm_tpu_torch.models import blackoil as mb
     from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
     from opm_tpu_torch.sim.init import initial_state
     from opm_tpu_torch.sim.testcases import norne_like_case, spe10like_case
@@ -362,8 +437,10 @@ def _leg(tree):
         m = sim.model
         a = seeded_state(m)
         acc0 = torch.zeros((3, m.nc), dtype=torch.float64, device=m.device)
-        res = dict(nc=m.nc, k2=k2_times(m.props.cell_pack(), a, acc0, m.pv,
-                                        86400.0))
+        pack = m.props.cell_pack()
+        res = dict(nc=m.nc, k2=k2_times(pack, a, acc0, m.pv, 86400.0))
+        res["k3"] = k3_times(sim, *mb.cells_assemble_cuda(pack, *a, acc0,
+                                                          m.pv, 86400.0))
         del a, acc0
         sys_ = _first_system(sim, init)
         nw, mp = sys_.perf_cell.shape

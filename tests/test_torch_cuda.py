@@ -1148,3 +1148,97 @@ def test_equil_march_matches_twin(dev, deck, monkeypatch):
                                  len(sim.well_names))
     for f in ("pressure", "sw", "x", "hcstate"):
         assert torch.equal(getattr(st, f), getattr(st_twin, f)), f
+
+
+def _k3_inputs(dev, dims, seed):
+    """Seeded face inputs of a structured grid: both upwind directions
+    in every phase, rs and rv cross terms."""
+    from opm_tpu_torch.models.blackoil import _dir_segments
+    rng = np.random.default_rng(seed)
+    nc = dims[0] * dims[1] * dims[2]
+    nf = sum(n for _, _, n in _dir_segments(dims))
+
+    def t(*shape, scale=1.0, shift=0.0, pos=False):
+        a = rng.standard_normal(shape)
+        return torch.as_tensor(shift + scale * (np.abs(a) if pos else a),
+                               device=dev)
+
+    return (t(3, nc, scale=1e5, shift=2e7), t(3, nc, scale=100.0,
+                                               shift=700.0),
+            t(3, nc, pos=True), t(nc, scale=50.0, pos=True),
+            t(nc, scale=1e-4, pos=True), t(nc, scale=10.0, shift=2500.0),
+            t(nf, scale=1e-12, pos=True))
+
+
+# K3's structured divergence (the tile march): bit for bit its twin at
+# ragged shapes (one column or row, tiles cut at the grid's ends, runs of
+# one plane, SPE1's and the toy SPE10-like deck's), one launch a call
+@pytest.mark.parametrize("dims", [(1, 1, 1), (1, 9, 1), (9, 1, 1),
+                                  (1, 1, 7), (10, 10, 3), (15, 44, 4),
+                                  (33, 9, 7), (62, 15, 5), (31, 7, 13)],
+                         ids=lambda d: "x".join(map(str, d)))
+def test_tpfa_div_bitwise(dev, dims):
+    from opm_tpu_torch.models import blackoil as mb
+    a = _k3_inputs(dev, dims, sum(dims))
+    n0 = mb.tpfa_div_cuda.launches
+    kd = mb.tpfa_div_cuda(dims, *a, 9.80665)
+    assert mb.tpfa_div_cuda.launches == n0 + 1
+    assert torch.equal(kd, mb.tpfa_div_plain(dims, *a, 9.80665))
+
+
+# K3-faces' face blocks (a face phase, then a row phase): bit for bit the
+# twin on CPU copies of the same inputs (on the card its index_add_ adds
+# in no fixed order), on the toy Norne-like deck in both representations
+# (the embedded grid's in-place epilogue over the touched rows, the
+# gather grid's every cell) and on seeded face lists with rows of uneven
+# length; one wrapper launch a call
+@pytest.mark.parametrize("case", ["toy_embedded", "toy_gather",
+                                  "seeded_gather", "seeded_epilogue"])
+def test_faces_blocks_bitwise(dev, case):
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize as lz
+    rng = np.random.default_rng(23)
+    if case.startswith("toy"):
+        sim, st, _ = _norne_toy_system(dev, None if case == "toy_embedded"
+                                       else "0")
+        m = sim.model
+        st = st._replace(pressure=st.pressure + torch.as_tensor(
+            rng.standard_normal(m.nc) * 2.0e4, device=dev))
+        fv, fc, r0, d0 = mb.cells_assemble_plain(
+            m.props, st.pressure, st.sw, st.x, st.hcstate, m.pvtnum,
+            m.satnum, m.accumulation(st) * 0.999, m.pv, 86400.0)
+        face_cells, nc, first = sim.grid.face_cells, m.nc, m.faces.first
+        depth, trans, g = m.depth, m.trans, m.gravity
+    else:
+        nc, n = 3000, 9000
+        first = 0 if case == "seeded_gather" else 400
+        fcs = rng.integers(0, nc, (2 * n, 2))
+        fcs = fcs[fcs[:, 0] != fcs[:, 1]][:n]
+        face_cells = np.concatenate([np.tile([[0, 1]], (first, 1)), fcs])
+        fv, fc, r0, d0, depth = (
+            torch.as_tensor(rng.standard_normal(s), device=dev)
+            for s in ((11, nc), (3, 11, nc), (3, nc), (9, nc), (nc,)))
+        fv[:3] = 2e7 + 1e5 * fv[:3]
+        fv[3:6] = 700.0 + 100.0 * fv[3:6]
+        fv[6:] = fv[6:].abs()
+        depth = 2500.0 + 10.0 * depth
+        trans = torch.as_tensor(np.abs(rng.standard_normal(len(face_cells)))
+                                * 1e-12, device=dev)
+        g = 9.80665
+    fl = mb.FaceList(face_cells, nc, first, dev)
+    fl_cpu = mb.FaceList(face_cells, nc, first, "cpu")
+    nf = trans.shape[0]
+
+    def run(fn, lead, on):
+        r, d = r0.to(on).clone(), d0.to(on).clone()
+        fL = torch.zeros((9, nf), dtype=torch.float64, device=on)
+        fR = torch.zeros_like(fL)
+        fn(lead, fv.to(on), fc.to(on), depth.to(on), trans.to(on), g, r, d,
+           fL, fR)
+        return [x.cpu() for x in (r, d, fL, fR)]
+
+    n0 = lz.faces_blocks_cuda.launches
+    k = run(lz.faces_blocks_cuda, fl, dev)
+    assert lz.faces_blocks_cuda.launches == n0 + 1
+    for x, y in zip(k, run(lz.faces_blocks_plain, fl_cpu, "cpu")):
+        assert torch.equal(x, y)

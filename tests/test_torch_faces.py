@@ -45,7 +45,9 @@ from opm_tpu.sim.blackoil import SimulatorFullyImplicitBlackoil as RefSim
 from opm_tpu.sim.testcases import norne_like_case as ref_norne_like_case
 from opm_tpu_torch.linalg import precond
 from opm_tpu_torch.models import linearize
-from opm_tpu_torch.models.blackoil import SELL_PAD, make_well_device_arrays
+from opm_tpu_torch.models.blackoil import (SELL_PAD, cells_assemble_plain,
+                                          faces_flux_plain,
+                                          make_well_device_arrays)
 from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
                                         init_well_state, report_step_wells)
 from opm_tpu_torch.sim.init import initial_state
@@ -153,6 +155,50 @@ def test_face_fluxes_and_divergence(toy):
     _scaled(m.flux_divergence(q).numpy(), toy["ref"]["div"], 1e-12)
     # the divergence through the K3-faces twin is the fluxes' scatter
     assert float(flux.abs().max()) > 0.0
+
+
+def test_face_blocks_rows_after_faces(toy):
+    """The face-list face blocks in the card kernel's order: each face's
+    flux and blocks once (the face phase), then each row of the cells the
+    faces touch adds its faces in the CSR's order, r += flux and d +=
+    face_L as the left cell, r += (-flux) and d += (-face_R) as the right
+    cell (the row phase, emulated here in numpy), equal bit for bit to
+    faces_blocks_plain's index_add_ (left cells, then right cells)."""
+    m, s = toy["port"].model, toy["s"]
+    fl = m.faces
+    fv, fc, r0, d0 = cells_assemble_plain(
+        m.props, s.pressure, s.sw, s.x, s.hcstate, m.pvtnum, m.satnum,
+        toy["acc0"], m.pv, DT)
+    nf = m.trans.shape[0]
+    r, d = r0.clone(), d0.clone()
+    fL = torch.zeros((9, nf), dtype=torch.float64)
+    fR = torch.zeros_like(fL)
+    linearize.faces_blocks_plain(fl, fv, fc, m.depth, m.trans, m.gravity, r,
+                                 d, fL, fR)
+    flux = faces_flux_plain(fl, fv[0:3], fv[3:6], fv[6:9], fv[9], fv[10],
+                            m.depth, m.trans, m.gravity).numpy()
+    L, R = fL.numpy(), fR.numpy()
+    csr = fl.touched
+    ptr, ent = csr.ptr.numpy().astype(np.int64), csr.ent.numpy()
+    cell = (np.arange(csr.n_rows) if csr.rows is None
+            else csr.rows.numpy().astype(np.int64))
+    re, de = r0.numpy()[:, cell], d0.numpy()[:, cell]
+    lens = np.diff(ptr)
+    assert lens.min() >= 1 and lens.max() > lens.min()
+    for j in range(int(lens.max())):
+        k = np.nonzero(lens > j)[0]
+        e = ent[ptr[k] + j].astype(np.int64)
+        left = e >= 0
+        f = np.where(left, e, -e - 1)
+        i = f - fl.first
+        re[:, k] = re[:, k] + np.where(left, flux[:, i], -flux[:, i])
+        de[:, k] = de[:, k] + np.where(left, L[:, f], -R[:, f])
+    assert np.array_equal(re, r.numpy()[:, cell])
+    assert np.array_equal(de, d.numpy()[:, cell])
+    rest = np.ones(m.nc, dtype=bool)
+    rest[cell] = False
+    assert np.array_equal(r.numpy()[:, rest], r0.numpy()[:, rest])
+    assert np.array_equal(d.numpy()[:, rest], d0.numpy()[:, rest])
 
 
 @pytest.mark.parametrize("field", ["r_cell", "r_well", "diag", "face_L",
