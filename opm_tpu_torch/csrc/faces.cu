@@ -31,7 +31,15 @@
 // thread with the plain version's arithmetic and summed in registers in
 // the CSR order, so the result equals the plain version on the CPU bit
 // for bit; no atomics. A row may start from a base (the structured
-// kernel's result on an embedded grid, updated in place).
+// kernel's result on an embedded grid, updated in place). The divergence
+// keeps this form, each face's flux evaluated by both of its rows. As a
+// face phase (each flux once into a (3, n) scratch) and a row phase, as
+// the face blocks below, it took 4.8-5.3 us of device time on an H100 on
+// E's epilogue against 7.3-7.4 (its 7,578 rows underfill the card) but
+// 7.9-19.2 on G against 11.1 (the scratch's write and gathered re-read
+// cost more than a second evaluation of a flux, about 30 operations),
+// and one call, host-bound, was no faster on either grid; one cooperative
+// launch was no better (opm_tpu_torch/tools/assembly_ab.py, PERF.md §6).
 // The operator (K4-faces, with the smoothing step) reads its blocks from a
 // sliced-ELL copy packed once per Newton system (sell_pack_kernel): read in
 // face order, a warp's neighbouring cells found their right-side faces far

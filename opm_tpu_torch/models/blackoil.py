@@ -608,7 +608,8 @@ _P, _I, _D = cuda_lib.P, cuda_lib.I, cuda_lib.D
 _SIGS = {
     "opm_tpfa_div": [_I] * 9 + [_P] * 7 + [_D, _P, _P],
     "opm_tpfa_div_occupancy": [_I, _I, _P],
-    "opm_tpfa_div_tangent": [_I, _I, _I, _I] + [_P] * 12 + [_D, _P, _P],
+    "opm_tpfa_div_tangent": [_I] * 12 + [_P] * 12 + [_D, _P, _P],
+    "opm_tpfa_tangent_occupancy": [_I, _I, _I, _P],
 }
 
 # the forward entry's tile: a warp along i, 8 rows along j; its shared
@@ -647,21 +648,93 @@ def div_tiles(dims, resident) -> DivTiles:
                     -(-nz // zrun), DIV_SMEM)
 
 
-_div_resident = {}
+# the tangent entry's march: the forward's tile, its plane buffers also
+# carrying a tangent set's 11 rows
+TAN_MARCH_SMEM = 8 * (2 * (12 + 11) + 2 * 3) * DIV_TILE_X * DIV_TILE_Y
+
+
+class TangentGeometry(NamedTuple):
+    """The K3 tangent kernel's launch (csrc/tpfa.cu): ``whole``, one block
+    of ``block`` = (nx, ny, 3 nz) threads is the whole grid and ``grid``
+    = (chunks, 1, 1) blocks take ``dirs`` tangent sets each (the last one
+    the rest); otherwise the forward's tile march, blocks ``block`` =
+    (32, 8) over ``grid`` = (tiles, runs, B), one tangent set a block,
+    ``tiles_x`` tiles along i and runs of ``zrun`` z planes; ``smem``
+    bytes of shared memory a block."""
+
+    whole: bool
+    block: tuple
+    grid: tuple
+    dirs: int
+    tiles_x: int
+    zrun: int
+    smem: int
+
+
+def tangent_kernel(dims):
+    """(whole, threads, smem) of the tangent kernel an (nx, ny, nz) grid
+    takes: the whole-grid one where 3 threads a cell fit a block's 1024
+    and 3 nz blockDim.z's 64 (31 doubles of shared memory a cell), else
+    the march (the forward's 32 x 8 tile)."""
+    nx, ny, nz = dims
+    nc = nx * ny * nz
+    if 3 * nc <= 1024 and 3 * nz <= 64:
+        return True, 3 * nc, 8 * 31 * nc
+    return False, DIV_TILE_X * DIV_TILE_Y, TAN_MARCH_SMEM
+
+
+def tangent_geometry(dims, B, resident) -> TangentGeometry:
+    """The tangent kernel's launch for B tangent sets on an (nx, ny, nz)
+    grid, ``resident`` the card's SMs times the blocks an SM holds of the
+    geometry's kernel: the whole grid a block, with the sets cut into
+    chunks that fill ``resident`` blocks once; else div_tiles' tiles and
+    runs with the sets as the grid's third axis, the runs filling
+    ``resident`` blocks about four times (on an H100 at SPE10-2's B = 3
+    faster than one wave of whole-depth runs or eight of short ones)."""
+    nx, ny, nz = dims
+    whole, _, smem = tangent_kernel(dims)
+    if whole:
+        chunks = max(1, min(B, resident))
+        dirs = -(-B // chunks)
+        return TangentGeometry(True, (nx, ny, 3 * nz), (-(-B // dirs), 1, 1),
+                               dirs, 1, nz, smem)
+    t = div_tiles(dims, max(1, 4 * resident // max(B, 1)))
+    return TangentGeometry(False, (t.tx, t.ty),
+                           (t.tiles_x * t.tiles_y, t.runs, B), 1, t.tiles_x,
+                           t.zrun, smem)
+
+
+_resident = {}
+_tangent_geoms = {}
+
+
+def _occupancy(lib, dev, key, query):
+    """SMs times resident blocks per SM of a kernel on ``dev``, asked once
+    per device and ``key`` (``query(out)`` fills the SM count and the
+    blocks per SM)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if (idx, key) not in _resident:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(idx):
+            cuda_lib.check(query(ctypes.cast(out, ctypes.c_void_p)),
+                           "K3 occupancy")
+        _resident[idx, key] = out[0] * out[1]
+    return _resident[idx, key]
 
 
 def _resident_blocks(lib, dev):
-    """SMs times the forward kernel's resident blocks per SM on ``dev``
-    (asked once per device)."""
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
-    if key not in _div_resident:
-        out = (ctypes.c_int * 2)()
-        with torch.cuda.device(key):
-            cuda_lib.check(lib.opm_tpfa_div_occupancy(
-                DIV_TILE_Y, DIV_SMEM, ctypes.cast(out, ctypes.c_void_p)),
-                "opm_tpfa_div_occupancy")
-        _div_resident[key] = out[0] * out[1]
-    return _div_resident[key]
+    """SMs times the forward kernel's resident blocks per SM on ``dev``."""
+    return _occupancy(lib, dev, "div", lambda out: lib.opm_tpfa_div_occupancy(
+        DIV_TILE_Y, DIV_SMEM, out))
+
+
+def _tangent_resident(lib, dev, dims):
+    """SMs times the tangent kernel's resident blocks per SM on ``dev``, for
+    the kernel ``dims`` takes."""
+    whole, threads, smem = tangent_kernel(dims)
+    return _occupancy(lib, dev, ("tangent", whole, threads, smem),
+                      lambda out: lib.opm_tpfa_tangent_occupancy(
+                          int(whole), threads, smem, out))
 
 
 def _check_cells(tensors, dev, nc):
@@ -730,14 +803,24 @@ def tpfa_div_tangent_cuda(dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
             or dbmob.shape != (B, 3, nc) or drs.shape != (B, nc)
             or drv.shape != (B, nc)):
         raise ValueError("K3 tangent: tangents must be (B, 3, nc)/(B, nc)")
+    if 3 * nc * B + 3 >= 2 ** 31 or B > 65535:
+        raise ValueError(f"K3 tangent: {B} sets of {nc} cells exceed the "
+                         "kernel's 32-bit indices or its grid")
     ddiv = torch.empty((B, 3, nc), dtype=torch.float64, device=dev)
     if B:
         lib = cuda_lib.load("tpfa", _SIGS)
+        key = (dev.index, tuple(dims), B)
+        g = _tangent_geoms.get(key)
+        if g is None:
+            g = _tangent_geoms[key] = tangent_geometry(
+                dims, B, _tangent_resident(lib, dev, dims))
         ptr = cuda_lib.ptr
         err = lib.opm_tpfa_div_tangent(
-            nx, ny, nz, B, ptr(p3), ptr(rho), ptr(bmob), ptr(rs), ptr(rv),
-            ptr(dp3), ptr(drho), ptr(dbmob), ptr(drs), ptr(drv), ptr(depth),
-            ptr(trans), float(gravity), ptr(ddiv), cuda_lib.stream_ptr(dev))
+            nx, ny, nz, B, int(g.whole), g.block[1], g.grid[0], g.grid[1],
+            g.dirs, g.tiles_x, g.zrun, g.smem, ptr(p3), ptr(rho), ptr(bmob),
+            ptr(rs), ptr(rv), ptr(dp3), ptr(drho), ptr(dbmob), ptr(drs),
+            ptr(drv), ptr(depth), ptr(trans), float(gravity), ptr(ddiv),
+            cuda_lib.stream_ptr(dev))
         cuda_lib.check(err, "opm_tpfa_div_tangent")
         tpfa_div_tangent_cuda.launches += 1
     return ddiv

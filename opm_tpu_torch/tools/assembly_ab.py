@@ -33,6 +33,15 @@ compared across legs); and SPE10-2's
 report step 0 after a warm-up run of the same step: wall, the Newton
 loop's synced sections, the counts and a digest of the final state.
 
+Before those, a leg runs SPE1's dense route: K3's tangent at the jacfwd
+batch B = 3 nc + 4 nw = 908 (seeded and all-ones tangents: launches a
+call, digests, bit equality with the twin; timed two ways with its device
+kernels a call) and a digest of the first Newton iteration's dense
+Jacobian on the card; at SPE10-2 also the tangent at B = 3, and on both
+Norne-class grids K3-faces' divergence (the embedded grid's in-place
+epilogue, the gather grid's every cell; bit equality with the twin on CPU
+copies).
+
 ``--sweep`` builds ``csrc/cells.cu`` of this tree with each pair of block
 size and ``__launch_bounds__`` minimum blocks per SM (the values entry's,
 the Dual3 entries') of ``SWEEP``, and times K2's three entries at SPE10-2's
@@ -268,14 +277,90 @@ def k2_times(pack, a, acc0, pv, dt):
     return out
 
 
+def tangent_times(args, B, seed=0):
+    """K3's tangent entry at B tangent sets over the structured face inputs
+    ``args`` (dims, p3, rho, bmob, rs, rv, depth, trans, gravity): with
+    seeded normal tangents and with all-ones ones, the wrapper launches a
+    call, a digest and bit equality with the twin (on the card); the
+    all-ones call timed two ways and its device kernels a call."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.models import blackoil as mb
+
+    rng = np.random.default_rng(seed)
+    out = dict(B=B)
+    for kind in ("seeded", "ones"):
+        if kind == "ones":
+            tan = [torch.ones((B,) + a.shape, dtype=torch.float64,
+                              device=a.device) for a in args[1:6]]
+        else:
+            tan = [torch.as_tensor(rng.standard_normal((B,) + a.shape),
+                                   device=a.device) * a.abs().mean()
+                   for a in args[1:6]]
+        n0 = mb.tpfa_div_tangent_cuda.launches
+        d = mb.tpfa_div_tangent_cuda(*args, *tan)
+        out[kind] = dict(
+            launches=mb.tpfa_div_tangent_cuda.launches - n0,
+            digest=digest(d), bits_equal_twin=bool(torch.equal(
+                d, mb.tpfa_div_tangent_plain(*args, *tan))))
+        del d
+    out["times"] = two_ways(lambda: mb.tpfa_div_tangent_cuda(*args, *tan))
+    out["device_us"] = device_us(
+        lambda: mb.tpfa_div_tangent_cuda(*args, *tan))
+    return out
+
+
+def faces_div_times(sim, q):
+    """K3-faces' divergence over the grid's face list on the face inputs
+    ``q`` (p3, rho, bmob, rs, rv): from zeros on a gather grid, in place
+    over the touched rows after the stencil's tpfa_div on an embedded grid;
+    the wrapper launches a call, a digest and bit equality with the twin
+    on CPU copies (its index_add_ on the card adds in no fixed order),
+    timed two ways (in place on one buffer on the embedded grid) with its
+    device kernels a call."""
+    import torch
+
+    from opm_tpu_torch.models import blackoil as mb
+
+    def cpu(t):
+        return t.detach().cpu() if torch.is_tensor(t) else t
+
+    m, fl = sim.model, sim.model.faces
+    args = (*q, m.depth, m.trans, m.gravity)
+    base = None
+    if m.structured:
+        base = mb.tpfa_div_cuda(m.dims, *q, m.depth, m.trans_stencil,
+                                m.gravity)
+    n0 = mb.faces_div_cuda.launches
+    d = mb.faces_div_cuda(fl, *args, out=None if base is None
+                          else base.clone())
+    launches = mb.faces_div_cuda.launches - n0
+    fl_cpu = mb.FaceList(sim.grid.face_cells, m.nc, fl.first, "cpu")
+    twin = mb.faces_div_plain(fl_cpu, *[cpu(a) for a in args],
+                              out=None if base is None else cpu(base))
+    buf = None if base is None else base.clone()
+
+    def call():
+        mb.faces_div_cuda(fl, *args, out=buf)
+
+    return dict(
+        faces=fl.n, rows=(fl.full if base is None else fl.touched).n_rows,
+        launches=launches, digest=digest(d),
+        bits_equal_twin=bool(torch.equal(cpu(d), twin)),
+        times=two_ways(call), device_us=device_us(call))
+
+
 def k3_times(sim, fv, fc, r0, d0):
     """K3 on one seeded state's face inputs (K2's assembly entry): the
     structured divergence (tpfa_div) over a structured grid's stencil and
-    the face-list face blocks over a face list, each timed two ways, with
-    its wrapper launches and device kernels a call (torch.profiler), a
-    digest of its outputs and whether they equal the twin's bit for bit
-    (tpfa_div's twin on the card; the face blocks' on CPU copies, since
-    its index_add_ on the card adds in no fixed order)."""
+    its tangent at B = 3 (SPE10-2's row), the face-list divergence and the
+    face-list face blocks over a face list, each timed two ways, with its
+    wrapper launches and device kernels a call (torch.profiler), a digest
+    of its outputs and whether they equal the twin's bit for bit
+    (tpfa_div's and the tangent's twins on the card; the face-list ones'
+    on CPU copies, since their index_add_ on the card adds in no fixed
+    order)."""
     import torch
 
     from opm_tpu_torch.models import blackoil as mb
@@ -295,9 +380,12 @@ def k3_times(sim, fv, fc, r0, d0):
             digest=digest(d),
             bits_equal_twin=bool(torch.equal(d, mb.tpfa_div_plain(*args))))
         del d
+        if m.faces is None:
+            out["tangent"] = tangent_times(args, 3)
     fl = m.faces
     if fl is None:
         return out
+    out["faces_div"] = faces_div_times(sim, q)
     nf = m.trans.shape[0]
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     fl_cpu = mb.FaceList(sim.grid.face_cells, m.nc, fl.first, "cpu")
@@ -325,6 +413,55 @@ def k3_times(sim, fv, fc, r0, d0):
         launches=launches, times=two_ways(call), device_us=device_us(call),
         digest=digest(*k), bits_equal_twin=all(
             bool(torch.equal(cpu(a), b)) for a, b in zip(k, twin)))
+    return out
+
+
+def spe1_times(tree):
+    """SPE1's dense route (10x10x3, two wells): K3's tangent at the
+    jacfwd batch B = 3 nc + 4 nw (908) on a seeded state's face inputs,
+    and a digest of the first Newton iteration's dense Jacobian and
+    residual on the card (torch.func.jacfwd through K2's and K3's
+    forward-mode rules) with the tangent launches it took."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.models.blackoil import (make_well_device_arrays,
+                                               tpfa_div_tangent_cuda)
+    from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
+                                            init_well_state,
+                                            report_step_wells)
+    from opm_tpu_torch.sim.init import initial_state
+    from opm_tpu_torch.solver.newton import connection_offsets
+    from opm_tpu_torch.utils.convert import state_from_numpy
+
+    case = load_case(os.path.join(tree, "data", "SPE1CASE2.DATA"))
+    sim = SimulatorFullyImplicitBlackoil(case)
+    m = sim.model
+    p, sw, x, hc = (t.cpu().numpy() for t in seeded_state(m)[:4])
+    q = m.cell_quantities(state_from_numpy(dict(
+        pressure=p, sw=sw, x=x, hcstate=hc, bhp=np.zeros(0),
+        qs=np.zeros((0, 3)), control=np.zeros(0), target=np.zeros(0)),
+        m.device))
+    args = (m.dims, torch.stack([q.pw, q.po, q.pg]).contiguous(),
+            q.rho.contiguous(), (q.b * q.mob).contiguous(),
+            q.rs.contiguous(), q.rv.contiguous(), m.depth, m.trans,
+            m.gravity)
+    B = 3 * m.nc + 4 * len(sim.well_names)
+    out = dict(tangent=tangent_times(args, B))
+    ws = report_step_wells(sim.schedule.report_steps[0], sim.grid,
+                           sim.well_names, sim.max_perf)
+    wd = make_well_device_arrays(ws, sim.grid.gravity, m.device)
+    st = init_well_state(initial_state(sim.grid, sim.props, case, ws.nw),
+                         ws, True)
+    acc0 = m.accumulation(st)
+    cdp = connection_offsets(m, st, wd)
+    n0 = tpfa_div_tangent_cuda.launches
+    J, r = sim.solver.jacobian(st, acc0, 86400.0, wd, cdp)
+    out["jacobian"] = dict(
+        shape=list(J.shape), digest=digest(J, r),
+        tangent_launches=tpfa_div_tangent_cuda.launches - n0,
+        finite=bool(torch.isfinite(J).all()))
     return out
 
 
@@ -420,6 +557,7 @@ def _leg(tree):
     from opm_tpu_torch.sim.testcases import norne_like_case, spe10like_case
 
     out = dict(tree=tree, build=_build_report(tree))
+    out["spe1"] = spe1_times(tree)
 
     def fresh(case, knob):
         os.environ.pop("OPM_TPU_EMBED", None)

@@ -26,7 +26,10 @@ bit for bit the plain residual followed by the legs on all three grid
 kinds, and K1's EQUIL column march bit for bit its twin on SPE1, SPE1
 with PBVD, SPE1CASE2_2P and the toy SPE10-like deck (no host read in its
 call, one march and at most 7 K1 lookups a region in initial_state, the
-state bit for bit the one through the twin).
+state bit for bit the one through the twin), and K3's tangent entry
+bit for bit its twin in both launch geometries (SPE1's jacfwd batch and
+ragged tile-march shapes) and K3-faces' divergence bit for bit its twin
+on CPU copies on the toy Norne-like deck and seeded face lists.
 chip_smoke.py holds every kernel against its plain version at the SPE1,
 SPE10-2 and full Norne-class shapes.
 
@@ -1242,3 +1245,78 @@ def test_faces_blocks_bitwise(dev, case):
     assert lz.faces_blocks_cuda.launches == n0 + 1
     for x, y in zip(k, run(lz.faces_blocks_plain, fl_cpu, "cpu")):
         assert torch.equal(x, y)
+
+
+# K3's tangent entry (the whole grid a block on small grids, the tile
+# march with a block per tangent set otherwise): bit for bit its twin, at
+# SPE1's jacfwd batch B = 3 nc + 4 nw = 908 with seeded and all-ones
+# tangents, and at ragged march shapes; one launch a call
+@pytest.mark.parametrize("dims,B,tangents", [
+    ((10, 10, 3), 908, "seeded"), ((10, 10, 3), 908, "ones"),
+    ((1, 1, 1), 1, "seeded"), ((7, 1, 1), 7, "seeded"),
+    ((1, 1, 21), 5, "seeded"), ((15, 44, 4), 3, "seeded"),
+    ((33, 9, 7), 2, "seeded"), ((1, 1, 30), 1, "seeded"),
+    ((62, 15, 5), 3, "seeded")],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_tpfa_div_tangent_bitwise(dev, dims, B, tangents):
+    from opm_tpu_torch.models import blackoil as mb
+    a = _k3_inputs(dev, dims, B + sum(dims))
+    rng = np.random.default_rng(B)
+    if tangents == "ones":
+        tan = [torch.ones((B,) + x.shape, dtype=torch.float64, device=dev)
+               for x in a[:5]]
+    else:
+        tan = [torch.as_tensor(rng.standard_normal((B,) + x.shape),
+                               device=dev) * x.abs().mean() for x in a[:5]]
+    n0 = mb.tpfa_div_tangent_cuda.launches
+    kt = mb.tpfa_div_tangent_cuda(dims, *a, 9.80665, *tan)
+    assert mb.tpfa_div_tangent_cuda.launches == n0 + 1
+    assert torch.equal(kt, mb.tpfa_div_tangent_plain(dims, *a, 9.80665,
+                                                     *tan))
+
+
+# K3-faces' divergence: bit for bit the twin on CPU copies of the same
+# inputs (on the card its index_add_ adds in no fixed order), on the toy
+# Norne-like deck in both representations (the embedded grid's in-place
+# epilogue over the touched rows after the stencil's tpfa_div, the gather
+# grid's every cell) and on seeded face lists; one launch a call
+@pytest.mark.parametrize("case", ["toy_embedded", "toy_gather",
+                                  "seeded_gather", "seeded_epilogue"])
+def test_faces_div_bitwise(dev, case):
+    from opm_tpu_torch.models import blackoil as mb
+    rng = np.random.default_rng(29)
+    if case.startswith("toy"):
+        sim, st, _ = _norne_toy_system(dev, None if case == "toy_embedded"
+                                       else "0")
+        m = sim.model
+        st = st._replace(pressure=st.pressure + torch.as_tensor(
+            rng.standard_normal(m.nc) * 2.0e4, device=dev))
+        q = m.cell_quantities(st)
+        args = (torch.stack([q.pw, q.po, q.pg]).contiguous(),
+                q.rho.contiguous(), (q.b * q.mob).contiguous(),
+                q.rs.contiguous(), q.rv.contiguous(), m.depth, m.trans,
+                m.gravity)
+        face_cells, nc, first = sim.grid.face_cells, m.nc, m.faces.first
+        base = None if m.op_dims is None else mb.tpfa_div_cuda(
+            m.op_dims, *args[:6], m.trans_stencil, m.gravity)
+    else:
+        nc, n = 3000, 9000
+        first = 0 if case == "seeded_gather" else 400
+        fcs = rng.integers(0, nc, (2 * n, 2))
+        fcs = fcs[fcs[:, 0] != fcs[:, 1]][:n]
+        face_cells = np.concatenate([np.tile([[0, 1]], (first, 1)), fcs])
+        args = _k3_inputs(dev, (nc, 1, 1), 31)[:6] + (torch.as_tensor(
+            np.abs(rng.standard_normal(len(face_cells))) * 1e-12,
+            device=dev), 9.80665)
+        base = None if first == 0 else torch.as_tensor(
+            rng.standard_normal((3, nc)), device=dev)
+    fl = mb.FaceList(face_cells, nc, first, dev)
+    fl_cpu = mb.FaceList(face_cells, nc, first, "cpu")
+    cpu = [x.cpu() if torch.is_tensor(x) else x for x in args]
+    twin = mb.faces_div_plain(fl_cpu, *cpu,
+                              out=None if base is None else base.cpu())
+    n0 = mb.faces_div_cuda.launches
+    kd = mb.faces_div_cuda(fl, *args,
+                           out=None if base is None else base.clone())
+    assert mb.faces_div_cuda.launches == n0 + 1
+    assert torch.equal(kd.cpu(), twin)

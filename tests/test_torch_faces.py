@@ -46,8 +46,9 @@ from opm_tpu.sim.testcases import norne_like_case as ref_norne_like_case
 from opm_tpu_torch.linalg import precond
 from opm_tpu_torch.models import linearize
 from opm_tpu_torch.models.blackoil import (SELL_PAD, cells_assemble_plain,
-                                          faces_flux_plain,
-                                          make_well_device_arrays)
+                                          faces_div_plain, faces_flux_plain,
+                                          make_well_device_arrays,
+                                          tpfa_div_plain)
 from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
                                         init_well_state, report_step_wells)
 from opm_tpu_torch.sim.init import initial_state
@@ -199,6 +200,49 @@ def test_face_blocks_rows_after_faces(toy):
     rest[cell] = False
     assert np.array_equal(r.numpy()[:, rest], r0.numpy()[:, rest])
     assert np.array_equal(d.numpy()[:, rest], d0.numpy()[:, rest])
+
+
+def test_faces_div_rows_after_faces(toy):
+    """K3-faces' divergence in the card kernel's order: each row of the
+    list's CSR adds its faces' fluxes in the CSR's order, flux as the left
+    cell and (-flux) as the right cell (emulated here in numpy from the
+    fluxes in face order), from 0.0 on every cell of the gather grid and
+    from the structured divergence on the embedded grid's touched rows,
+    equal bit for bit to faces_div_plain's index_add_ (left cells, then
+    right cells): the order in which the card's sums are held to the
+    twin's on CPU copies."""
+    m, s = toy["port"].model, toy["s"]
+    fl = m.faces
+    q = m.cell_quantities(s)
+    args = (torch.stack([q.pw, q.po, q.pg]).contiguous(), q.rho.contiguous(),
+            (q.b * q.mob).contiguous(), q.rs.contiguous(), q.rv.contiguous(),
+            m.depth)
+    if m.op_dims is None:
+        base, csr = None, fl.full
+        start = np.zeros((3, m.nc))
+    else:
+        base = tpfa_div_plain(m.op_dims, *args, m.trans_stencil, m.gravity)
+        csr = fl.touched
+        start = base.numpy()
+    plain = faces_div_plain(fl, *args, m.trans, m.gravity, out=base).numpy()
+    flux = faces_flux_plain(fl, *args, m.trans, m.gravity).numpy()
+    ptr, ent = csr.ptr.numpy().astype(np.int64), csr.ent.numpy()
+    cell = (np.arange(csr.n_rows) if csr.rows is None
+            else csr.rows.numpy().astype(np.int64))
+    assert (csr.rows is None) == (m.op_dims is None)
+    acc = start[:, cell].copy()
+    lens = np.diff(ptr)
+    assert lens.max() > lens.min()
+    for j in range(int(lens.max())):
+        k = np.nonzero(lens > j)[0]
+        e = ent[ptr[k] + j].astype(np.int64)
+        left = e >= 0
+        i = np.where(left, e, -e - 1) - fl.first
+        acc[:, k] = acc[:, k] + np.where(left, flux[:, i], -flux[:, i])
+    assert np.array_equal(acc, plain[:, cell])
+    rest = np.ones(m.nc, dtype=bool)
+    rest[cell] = False
+    assert np.array_equal(plain[:, rest], start[:, rest])
 
 
 @pytest.mark.parametrize("field", ["r_cell", "r_well", "diag", "face_L",

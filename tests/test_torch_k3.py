@@ -10,14 +10,23 @@ faces). For each grid every cell is an output
 of exactly one (tile, run); every face is evaluated by the block that
 owns its left cell, and again only by the one block whose halo holds its
 left cell (the halo column's +x, the halo row's +y and a run's first -z
-faces); every face an output cell sums is evaluated in its block. No
-arrays, no kernel: the kernel's bits are held on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+faces); every face an output cell sums is evaluated in its block.
+
+The same for the tangent entry's geometry (tangent_geometry, csrc/tpfa.cu
+tpfa_tangent_whole_kernel and tpfa_tangent_march_kernel) at B tangent
+sets: the whole-grid block's thread (i, j, z) is cell (i, j, z mod nz),
+its face in direction z div nz as the left cell and its output component
+z div nz, and the blocks' chunks of sets cover every set once; the march
+is the forward's thread map with a block per set. No arrays, no kernel:
+the kernels' bits are held on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
 import numpy as np
 import pytest
 
-from opm_tpu_torch.models.blackoil import _dir_segments, div_tiles
+from opm_tpu_torch.models.blackoil import (TAN_MARCH_SMEM, DivTiles,
+                                          _dir_segments, div_tiles,
+                                          tangent_geometry)
 
 # an H100's 132 SMs times 2 or 3 resident blocks, and one block
 RESIDENT = (264, 396, 1)
@@ -128,3 +137,91 @@ def test_div_tiles_cover_every_cell_and_face(dims, resident):
     if dims == (60, 220, 85) and resident == 396:
         assert (g.tiles_x, g.tiles_y, g.zrun, g.runs) == (2, 37, 17, 5)
         assert twice / nf < 0.2
+
+
+def _whole_work(dims):
+    """(output (component, cell) pairs as 3 c + r, faces evaluated) of the
+    whole-grid tangent block, mirroring its thread map."""
+    nx, ny, nz = dims
+    area = nx * ny
+    nfx = (nx - 1) * ny * nz
+    nfy = nx * (ny - 1) * nz
+    i, j, z = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(3 * nz),
+                          indexing="ij")
+    r = np.where(z >= 2 * nz, 2, np.where(z >= nz, 1, 0))
+    k = z - r * nz
+    c = k * area + j * nx + i
+    has = np.where(r == 0, i + 1 < nx, np.where(r == 1, j + 1 < ny,
+                                                k + 1 < nz))
+    fi = np.where(r == 0, (k * ny + j) * (nx - 1) + i,
+                  np.where(r == 1, nfx + (k * (ny - 1) + j) * nx + i,
+                           nfx + nfy + c))
+    return (3 * c + r).ravel(), fi[has]
+
+
+# an H100's 132 SMs times one block (the whole-grid kernel) or two (the
+# march), and one block
+TAN_RESIDENT = (132, 264, 1)
+
+
+@pytest.mark.parametrize("resident", TAN_RESIDENT)
+@pytest.mark.parametrize("B", (1, 3, 7, 908))
+@pytest.mark.parametrize("dims", DIMS, ids=lambda d: "x".join(map(str, d)))
+def test_tangent_geometry_covers_sets_cells_and_faces(dims, B, resident):
+    nx, ny, nz = dims
+    nc = nx * ny * nz
+    nf = sum(n for _, _, n in _dir_segments(dims))
+    g = tangent_geometry(dims, B, resident)
+    assert g.whole == (dims in ((1, 1, 1), (1, 7, 1), (7, 1, 1),
+                                (10, 10, 3)))
+    bx, by, bz = (tuple(g.block) + (1,))[:3]
+    gx, gy, gz = g.grid
+    # the launch within CUDA's limits and the 227 KB of shared memory a
+    # block may opt in to
+    assert bx * by * bz <= 1024 and bz <= 64
+    assert 0 < gx < 2 ** 31 and 0 < gy <= 65535 and 0 < gz <= 65535
+    assert g.smem <= 232448
+    if g.whole:
+        assert g.block == (nx, ny, 3 * nz) and (gy, gz) == (1, 1)
+        assert g.smem == 8 * 31 * nc
+        # every set in exactly one block's chunk, no chunk empty, the
+        # chunks within the resident blocks
+        sets = np.zeros(B, dtype=np.int64)
+        for x in range(gx):
+            lo, hi = x * g.dirs, min(B, (x + 1) * g.dirs)
+            assert lo < hi
+            sets[lo:hi] += 1
+        assert (sets == 1).all()
+        assert gx <= max(1, min(B, resident))
+        outs, faces = _whole_work(dims)
+        # every (cell, component) an output of the block, every face
+        # evaluated once there (the block owns them all)
+        assert np.array_equal(np.sort(outs), np.arange(3 * nc))
+        assert np.array_equal(np.sort(faces), np.arange(nf))
+        return
+    # the march: the forward's thread map, a block per set
+    assert g.block == (32, 8) and gz == B and g.dirs == 1
+    assert g.smem == TAN_MARCH_SMEM == 8 * (2 * 23 + 6) * 256
+    t = DivTiles(32, 8, g.tiles_x, gx // g.tiles_x, g.zrun, gy, g.smem)
+    assert t.tiles_x * t.tiles_y == gx
+    assert (gy - 1) * g.zrun < nz <= gy * g.zrun
+    assert gx * gy * B <= max(4 * resident, gx * B)
+    owner = np.zeros(nc, dtype=np.int64)
+    own = np.zeros(nf, dtype=np.int64)
+    evals = np.zeros(nf, dtype=np.int64)
+    for r in range(gy):
+        for y in range(t.tiles_y):
+            for x in range(t.tiles_x):
+                cells, f_own, f_halo = _block_work(t, dims, x, y, r)
+                np.add.at(owner, cells, 1)
+                np.add.at(own, f_own, 1)
+                mine = np.concatenate([f_own, f_halo])
+                np.add.at(evals, mine, 1)
+                assert len(np.unique(mine)) == len(mine)
+                assert np.isin(_faces_of(dims, cells), mine).all()
+    # per set (each block one set, every set a grid slice): every cell an
+    # output once, every face's tangent evaluated by its owner and at most
+    # once more as halo
+    assert (owner == 1).all()
+    assert (own == 1).all()
+    assert ((evals == 1) | (evals == 2)).all()
