@@ -109,7 +109,11 @@ Phases (each prints a line of its own; any failure exits non-zero):
    (K3-faces bit for bit its twin on CPU copies, timed per launch in a
    run of 50 on both grids; K4-faces' pack into its sliced-ELL layout,
    matvec and smoothing step, K6 cells and K6-faces, K9's masked
-   convergence check), K8 at the
+   convergence check; on G the main path's K6 as the first phases of
+   K10's refresh launch, run into buffers filled with NaN, bit for bit
+   the twin and the pair with no allocator request, timed one call, in a
+   run of 50, on the device (queued behind a spin kernel) and on the host
+   beside the pair and the parent's pressure setup), K8 at the
    gather grid's shapes, K10's value refresh (one launch per
    coarsen_values into the hierarchy's buffers: every level's values and
    the float32 dense coarsest matrix bit for bit the per-level twins'
@@ -122,14 +126,17 @@ Phases (each prints a line of its own; any failure exits non-zero):
    kernels and with the twins; then the first report step (5 days) in each
    representation through SimulatorFullyImplicitBlackoil with no device
    argument, with its counts, wall time, sections and launch counters
-   (one K4-faces pack per Newton system, one K10 refresh on G and one K7
-   refresh on E, D^-1 by K5's right-hand side and never by the plain
-   inv4x4 on the card),
+   (one K4-faces pack per Newton system; the pressure setup one launch a
+   Newton on G, K10's refresh with K6 in it, and two on E, K6 and K7's
+   refresh; D^-1 by K5's right-hand side and never by the plain inv4x4
+   on the card),
    each held to the JAX package's CPU run of the same representation
    (data/nornelike_full_reference_cpu.json) at the limits of phase 4, and
    the two to each other as closely as the reference's two runs agree;
 7. the toy Norne-like deck in both representations against
-   data/nornelike_toy_reference_cpu.json.
+   data/nornelike_toy_reference_cpu.json (first K6 in K10's refresh
+   against the twin and the pair on the gather deck's first Newton
+   system).
 
 Phases 4 to 7 read the launch counters over each run (and print the
 synced Newton sections) and fail if a kernel of that run's path was not
@@ -443,6 +450,9 @@ class Kernels:
              f"{JAX_PKG}/linalg/precond.py:174", k6.cpr_setup_cells_cuda),
             ("K6-faces cpr_faces", "cuda", f"{P}/csrc/cpr.cu",
              f"{JAX_PKG}/linalg/precond.py:254", k6.cpr_faces_cuda),
+            ("K6 cpr_setup in amg_refresh", "cuda", f"{P}/csrc/amg.cu",
+             f"{JAX_PKG}/linalg/precond.py:113,174,254 and "
+             "linalg/amg.py:206-243", k10.refresh_setup_cuda),
             ("K9 convergence_masked", "cuda", f"{P}/csrc/newton.cu",
              f"{JAX_PKG}/models/blackoil.py:452",
              k9.convergence_masked_cuda),
@@ -489,12 +499,17 @@ class Kernels:
 
     # entries of the face-list path whose names share a prefix with the
     # structured kernels
-    FACE_GRIDS_ONLY = ("K6 cpr_setup_cells", "K9 convergence_masked")
+    FACE_GRIDS_ONLY = ("K6 cpr_setup_cells", "K6 cpr_setup in amg_refresh",
+                       "K9 convergence_masked")
     # entries held against their plain versions but off the main path:
     # the CPR apply's V-cycle forms its right-hand side in the down leg
     # (the right-hand side entries), so the down legs' b entries never run
-    # there
-    OFF_MAIN = ("K7 gmg_vcycle_down", "K10 amg_vcycle_down")
+    # there; on a gather grid K6 runs as the first phases of K10's refresh
+    # (one launch a Newton), so neither the former pair (K6's cell part,
+    # then K6-faces) nor the refresh alone runs
+    OFF_MAIN = ("K7 gmg_vcycle_down", "K10 amg_vcycle_down",
+                "K6 cpr_setup_cells", "K6-faces cpr_faces",
+                "K10 amg_refresh")
     # the kernels each run must launch: the dense route (SPE1; its K1
     # lookups are the initial state's onto the cells and its column
     # march: K1 interp2 runs on no path since the march took its lookups),
@@ -1431,6 +1446,18 @@ def compare_cpr_kernels(K, sim, amg, sys, seed, label, timed):
     ks = k6.cpr_setup_cuda(*ops, dims)
     ps = k6.cpr_setup_plain(*ops, dims)
     chk("K6 cpr_setup", TOL_K6_SETUP, zip(ks, ps))
+    # on the main path into the hierarchy's buffers (filled with NaN
+    # first, so that a value it fails to write shows), with no allocator
+    # request
+    for t in amg.setup_out(dev).tensors():
+        t.fill_(float("nan"))
+    ko = k6.cpr_setup(sys, dims, amg)
+    if any(a is not b for a, b in zip(ko, amg.setup_out(dev).tensors())) \
+            or not all(torch.equal(a, b) for a, b in zip(ko, ks)) \
+            or allocations(lambda: k6.cpr_setup(sys, dims, amg))[0] != 0:
+        fail(f"{label}: K6's setup is not one launch into the hierarchy's "
+             "buffers, bit for bit the fresh one's, with no allocator "
+             "request")
     timing("K6 cpr_setup", lambda: k6.cpr_setup_cuda(*ops, dims),
            lambda: k6.cpr_setup_plain(*ops, dims),
            (sys.diag, sys.face_L[0::3], sys.face_R[0::3]), ks,
@@ -1876,28 +1903,39 @@ def check_vcycle_launches(launches, rep, label, amg):
              "residual in the down leg")
 
 
+SETUP_NAMES = ("K6 cpr_setup in amg_refresh", "K10 amg_refresh",
+               "K7 gmg_refresh", "K6 cpr_setup", "K6 cpr_setup_cells",
+               "K6-faces cpr_faces")
+
+
 def check_refresh_launches(launches, rep, label, amg, plain_inv4x4):
-    """One value refresh launch per Newton system, K10's on a gather grid
-    (the aggregation AMG) and K7's on the others (the structured GMG), and
-    none of the other; one K5 right-hand-side launch per Newton system that
-    forms D^-1, and no plain ``inv4x4`` on the card (``plain_inv4x4``
-    calls counted over the run)."""
+    """The pressure setup's launches per Newton system (SETUP_NAMES): on a
+    gather grid (the aggregation AMG) one, K10's refresh with K6 as its
+    first phases; on the others (the structured GMG) two, K6's setup and
+    K7's refresh; no other of them. One K5 right-hand-side launch per
+    Newton system that forms D^-1, and no plain ``inv4x4`` on the card
+    (``plain_inv4x4`` calls counted over the run). Returns the pressure
+    setup's launches per Newton system."""
     from opm_tpu_torch.linalg.amg import DeviceAmg
 
-    n = (launches["K10 amg_refresh"], launches["K7 gmg_refresh"])
+    n = tuple(launches[k] for k in SETUP_NAMES)
     newtons = rep.newton_iterations
-    want = (newtons, 0) if isinstance(amg, DeviceAmg) else (0, newtons)
+    main = (("K6 cpr_setup in amg_refresh",) if isinstance(amg, DeviceAmg)
+            else ("K7 gmg_refresh", "K6 cpr_setup"))
+    want = tuple(newtons if k in main else 0 for k in SETUP_NAMES)
     inv = launches["K5 inv4x4 in schur_rhs"]
-    log(f"  refresh launches (K10, K7): {n} over {newtons} Newton systems; "
-        f"D^-1 formed by {inv} right-hand-side launches, {plain_inv4x4} "
-        "plain inv4x4 calls on the card")
+    per = sum(n) / max(newtons, 1)
+    log(f"  pressure setup launches ({', '.join(SETUP_NAMES)}): {n} over "
+        f"{newtons} Newton systems ({per:g} a Newton); D^-1 formed by {inv} "
+        f"right-hand-side launches, {plain_inv4x4} plain inv4x4 calls on "
+        "the card")
     if n != want:
-        fail(f"{label}: refresh launches (K10, K7) {n}, not {want} (one per "
-             "Newton system)")
+        fail(f"{label}: pressure setup launches {n}, not {want}")
     if inv != newtons or plain_inv4x4:
         fail(f"{label}: D^-1 was formed by {inv} right-hand-side launches "
              f"over {newtons} Newton systems and {plain_inv4x4} plain inv4x4 "
              "calls on the card")
+    return per
 
 
 def check_k9_launches(launches, rep, label):
@@ -2237,6 +2275,171 @@ def compare_refresh(K, amg, diag_p, off, label, timed, rng):
     return out
 
 
+def device_ms(fn, run=20, reps=5):
+    """Device ms per call of fn: ``run`` calls enqueued behind a spin
+    kernel that holds the stream (torch.cuda._sleep) while the host
+    enqueues them, CUDA events around the run, so the calls run back to
+    back on the card whatever their host time; median of ``reps``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)       # some 25 ms at 2 GHz
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(run):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / run)
+    return statistics.median(times)
+
+
+def poison_refresh(amg, R):
+    """NaN into every value that K10's refresh with K6 as its first phases
+    writes into ``R`` (the setup's outputs, every level's diag, the ELL
+    slots the refresh fills, the dense coarsest matrix and its inverse),
+    so that a value the launch fails to write shows; the padding slots,
+    which no refresh writes, keep their zeros."""
+    import torch
+    nan = float("nan")
+    for t in (*R.setup.tensors(), *R.diag):
+        t.fill_(nan)
+    src = amg.ell[0]["src"]
+    R.ell[0].view(-1)[src >= 0] = nan
+    for k, lv in enumerate(amg.levels):
+        R.ell[k + 1].view(-1)[lv["ent_dst"].long()] = nan
+    if R.dense is not None:
+        R.dense.fill_(nan)
+        R.inv.fill_(nan)
+    torch.cuda.synchronize()
+
+
+def compare_k6_fused(K, amg, sys, label, timed):
+    """K6 on a gather grid's face list as the main path runs it: its cell
+    part, then a thread per face, as the first phases of K10's refresh
+    launch, into the hierarchy's buffers filled with NaN beforehand
+    (``poison_refresh``). Its outputs bit for bit (``torch.equal``) the
+    twin's (``cpr_setup_plain``) and the former pair's (K6's cell part,
+    then K6-faces, into fresh tensors); its levels, dense matrix and
+    inverse bit for bit the refresh's plain version from the twin; no
+    allocator request. When ``timed``: its ms (one call, per launch in a
+    run of 50) and device ms per call (``device_ms``), bound and plain ms;
+    beside them the pair, the pair and the refresh launch, the parent's
+    pressure setup (the pair, the refresh, the inverse) and the main
+    path's (``pressure_setup``): one call, in a run of 50, device ms, host
+    ms (synced) and the host's own ms per call (``enqueue_ms``)."""
+    import torch
+
+    from opm_tpu_torch.linalg import amg as k10
+    from opm_tpu_torch.linalg import precond as k6
+    from opm_tpu_torch.tools.newton_ab import enqueue_ms
+
+    fl, dev = sys.faces, sys.diag.device
+    ops = (sys.diag, sys.face_L, sys.face_R)
+    n_fused = "K6 cpr_setup in amg_refresh"
+    twin = k6.cpr_setup_plain(*ops, None, fl)
+
+    def pair():
+        cells = k6.cpr_setup_cells_cuda(ops[0])
+        return (*cells, k6.cpr_faces_cuda(fl, cells[1], *ops[1:]))
+
+    def same(name, got, want, what):
+        for a, b in zip(got, want):
+            K.note(name, float((a - b).abs().max()) if b.numel() else 0.0)
+            if not torch.equal(a, b):
+                fail(f"{label}: {name} is not bit for bit {what}")
+
+    R = amg.card_refresh(dev)
+    out = R.setup
+    pr = pair()
+    same("K6 cpr_setup_cells", pr[:3], twin[:3], "the twin's")
+    same("K6-faces cpr_faces", pr[3:], twin[3:], "the twin's")
+    Rp = k10.Refresh(amg, dev)
+    k6.cpr_setup_refresh_plain(Rp, fl, *ops)
+    Rp.invert()
+    poison_refresh(amg, R)
+    n0 = k10.refresh_setup_cuda.launches
+    dinv, w, vals = k6.cpr_setup_refresh_cuda(amg, fl, *ops)
+    if k10.refresh_setup_cuda.launches != n0 + 1 or vals is not R.vals \
+            or dinv is not out.dinv or w is not out.w:
+        fail(f"{label}: {n_fused} was not one launch into the hierarchy's "
+             "buffers")
+    same(n_fused, out.tensors(), twin, "the twin's")
+    same(n_fused, out.tensors(), pr, "the former pair's")
+    nl = amg.n_levels
+    same(n_fused, [t for k in range(nl) for t in vals[k]]
+         + ([R.dense, vals[-1]] if R.dense is not None else []),
+         [t for k in range(nl) for t in Rp.vals[k]]
+         + ([Rp.dense, Rp.vals[-1]] if R.dense is not None else []),
+         "the refresh's plain version's from the twin")
+    # cpr_setup on the card: the same launch, its outputs the buffers
+    poison_refresh(amg, R)
+    po = k6.cpr_setup(sys, None, amg)
+    if any(a is not b for a, b in zip(po, out.tensors())):
+        fail(f"{label}: cpr_setup did not write the hierarchy's buffers")
+    same(n_fused, po, twin, "the twin's")
+    R.invert()
+    allocs = dict(
+        fused=allocations(lambda: k10.refresh_setup_cuda(R, fl, *ops)),
+        main=allocations(lambda: k6.pressure_setup(sys, None, amg)))
+    if allocs["fused"][0] != 0:
+        fail(f"{label}: {n_fused} made allocator requests {allocs}")
+    res = dict(allocations_per_call={k: v[0] for k, v in allocs.items()},
+               grid_setup=R.grid_setup, **{f"setup_{k}": v for k, v in
+                                          R.grid_setup_info.items()})
+    if not timed:
+        return res
+    nc, n = ops[0].shape[1], fl.n
+    b_pair = nbytes((ops[0], ops[1][0::3], ops[2][0::3], fl.c1_32,
+                     fl.c2_32), twin)
+    flops = 60 * nc + 12 * n
+    b_ref = k10.refresh_bytes([e["cols"].shape[1] for e in amg.ell],
+                              [e["cols"].shape[0] for e in amg.ell],
+                              [e["slot"].numel() for e in amg.ell])
+    adds = sum(lv["n_fine"] + lv["n_coarse"] for lv in amg.levels) + sum(
+        e["slot"].numel() for e in amg.ell[:-1])
+    fused = lambda: k10.refresh_setup_cuda(R, fl, *ops)  # noqa: E731
+    K.ms[n_fused] = cuda_ms(fused)
+    K.run_ms[n_fused] = run_ms(fused)
+    K.plain_ms[n_fused] = cuda_ms(
+        lambda: k6.cpr_setup_refresh_plain(Rp, fl, *ops))
+    K.library_ms[n_fused] = None
+    # w, diag_p and off stay in the launch: their reads by the face phase
+    # and the refresh are not counted
+    b_fused = b_pair + b_ref - 8 * (amg.n0 + amg.nnz0)
+    K.bound_raw(n_fused, b_fused, flops + adds)
+    res[f"{n_fused} device_ms"] = device_ms(fused)
+    # the pair's two kernels alone
+    res["K6 cpr_setup_cells device_ms"] = device_ms(
+        lambda: k6.cpr_setup_cells_cuda(ops[0]))
+    res["K6-faces cpr_faces device_ms"] = device_ms(
+        lambda: k6.cpr_faces_cuda(fl, pr[1], *ops[1:]))
+
+    def parent():
+        _, _, dp, off = pair()
+        k10.refresh_cuda(R, dp, off)
+        R.invert()
+
+    calls = dict(pair=pair, fused=fused,
+                 pair_refresh=lambda: k10.refresh_cuda(R, *pair()[2:]),
+                 parent_pressure_setup=parent,
+                 pressure_setup=lambda: k6.pressure_setup(sys, None, amg))
+    for k, fn in calls.items():
+        res[k] = dict(ms=cuda_ms(fn), run_ms=run_ms(fn),
+                      device_ms=device_ms(fn), host_ms=host_ms(fn, reps=20),
+                      enqueue_ms=enqueue_ms(fn))
+    res.update(bytes_fused=b_fused)
+    log(f"  {label}: K6 per call in ms (one call / in a run of 50 / device "
+        "/ host synced / host's own): " + "; ".join(
+            f"{k} {v['ms']:.4f} / {v['run_ms']:.4f} / {v['device_ms']:.4f} "
+            f"/ {v['host_ms']:.4f} / {v['enqueue_ms']:.4f}"
+            for k, v in res.items() if isinstance(v, dict) and "ms" in v))
+    return res
+
+
 def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
     """The face-list kernels (and K10 on a gather grid) against their plain
     versions on one assembled system of a grid with a face list; timed
@@ -2386,6 +2589,7 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
             zip(kc, (dinv, w, diag_p)))
         ko = k6.cpr_faces_cuda(fl, w, sys.face_L, sys.face_R)
         chk("K6-faces cpr_faces", TOL_K6_SETUP, [(ko, off)])
+        extra["k6_fused"] = compare_k6_fused(K, amg, sys, label, timed)
         if timed:
             timing("K6 cpr_setup_cells",
                    lambda: k6.cpr_setup_cells_cuda(sys.diag),
@@ -2489,7 +2693,8 @@ def norne_first_step(K, sim, ref, label, names):
     check_k8_launches(counts, rep, label)
     check_vcycle_launches(counts, rep, label, sim.solver.amg)
     check_k9_launches(counts, rep, label)
-    check_refresh_launches(counts, rep, label, sim.solver.amg, plain_inv[0])
+    res["pressure_setup_launches_per_newton"] = check_refresh_launches(
+        counts, rep, label, sim.solver.amg, plain_inv[0])
     res["launches_per_reduced_matvec"] = check_reduced_launches(
         counts, label, sim.model)
     if counts["K4-faces pack"] != rep.newton_iterations:
@@ -3055,8 +3260,15 @@ def main(argv=None):
         with embed_knob(knob):
             simt = SimulatorFullyImplicitBlackoil(norne_like_case(
                 **refn["deck_kwargs"]))
-        _, eq[f"toy Norne-like {rname}"] = check_equil(
+        init_t, eq[f"toy Norne-like {rname}"] = check_equil(
             K, f"toy Norne-like {rname}", simt, twin=False)
+        if knob is not None:
+            results["norne_toy_gather_k6"] = compare_k6_fused(
+                K, simt.solver.amg, first_newton_system(simt, init_t)[0],
+                "toy Norne-like gather", timed=False)
+            log("K6 in K10's refresh == its twin and the former pair on the "
+                "toy Norne-like gather deck's first Newton system: ok")
+        del init_t
         results[f"norne_toy_{rname}"] = toy_run(
             K, simt, refn[rname], f"toy Norne-like {rname} "
             f"({simt.model.nc} cells)", list(K.ASSEMBLY)

@@ -71,6 +71,17 @@
 // was slower on the Norne-class gather grid than the grid barriers it
 // saves (PERF.md).
 //
+// The refresh's entry with K6 (amg_refresh_setup): the CPR setup on the
+// face list as its first phases over the grid (cpr_cell.cuh, as csrc/
+// cpr.cu's pair: a thread per cell forms its D^-1, weights and pressure
+// diagonal, a grid barrier, a thread per face its two couplings from the
+// weights of its cells; into buffers the hierarchy owns), a grid barrier,
+// then the refresh's phases from that pressure system. A Newton's pressure
+// setup on a gather grid is then one launch and the inverse, where it was
+// three launches (K6's cell part, K6-faces, the refresh) and the inverse.
+// The setup walked a thread per cell over the list's incidence CSR in one
+// phase measured slower here (PERF.md).
+//
 // What bounds it on the card: at the Norne-class sizes (level 0: 75,566
 // cells, about 10 MB of values, in L2) the barriers (two per level in the
 // down leg, one in the up leg, one per phase of the refresh) and each
@@ -82,6 +93,7 @@
 #include <cuda_runtime.h>
 
 #include "coop.cuh"
+#include "cpr_cell.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -449,10 +461,10 @@ __device__ void dense_phase(const RefreshHead& H, long long first,
 
 // the phases over the grid, a grid barrier between two, then, when the
 // coarsest is inverted, the dense matrix
-__global__ void __launch_bounds__(kThreads, 2)
-amg_refresh(const long long* T, int nL, const double* diag0,
-            const double* off0) {
-    cg::grid_group grid = cg::this_grid();
+__device__ __forceinline__ void refresh_phases(cg::grid_group& grid,
+                                               const long long* T, int nL,
+                                               const double* diag0,
+                                               const double* off0) {
     const RefreshHead H = *reinterpret_cast<const RefreshHead*>(T);
     const StepRec* S = reinterpret_cast<const StepRec*>(T + kHeadFields);
     const int phases = nL > 0 ? nL : 1;
@@ -465,6 +477,47 @@ amg_refresh(const long long* T, int nL, const double* diag0,
         grid.sync();
         dense_phase(H, first_index(), grid_stride());
     }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+amg_refresh(const long long* T, int nL, const double* diag0,
+            const double* off0) {
+    cg::grid_group grid = cg::this_grid();
+    refresh_phases(grid, T, nL, diag0, off0);
+}
+
+// K6's setup on the face list (csrc/cpr.cu's setup_cells and faces_kernel)
+// as the refresh's first phases: its arguments, the level-0 matrix diag_p
+// and off (face order) the outputs that the refresh then reads
+struct FaceSetup {
+    const int* c1;
+    const int* c2;
+    const double* diag;
+    const double* fL;
+    const double* fR;
+    double* dinv;
+    double* w;
+    double* diag_p;
+    double* off;
+    long long nc, n, f0, nfs;
+};
+
+// the setup's cell part (a thread per cell), a grid barrier, its face part
+// (a thread per face, from the weights of its two cells), a grid barrier,
+// then the refresh's phases from its diag_p and off
+__global__ void __launch_bounds__(kThreads, 2)
+amg_refresh_setup(const long long* T, int nL, FaceSetup P) {
+    cg::grid_group grid = cg::this_grid();
+    for (long long c = first_index(); c < P.nc; c += grid_stride()) {
+        double wc[3];
+        opm_cpr::setup_cell(P.nc, c, P.diag, P.dinv, P.w, P.diag_p, wc);
+    }
+    grid.sync();
+    for (long long t = first_index(); t < P.n; t += grid_stride())
+        opm_cpr::face_couplings(t, P.n, P.f0, P.nfs, P.nc, P.c1, P.c2, P.w,
+                                P.fL, P.fR, P.off);
+    grid.sync();
+    refresh_phases(grid, T, nL, P.diag_p, P.off);
 }
 
 }  // namespace
@@ -490,13 +543,14 @@ int opm_amg_grid(long long work_down, long long work_up, int* out) {
 
 // the refresh's grid for a largest phase of work outputs: out[0] the grid,
 // out[1] the SM count, out[2] co-resident blocks per SM, out[3] registers
-// per thread
-int opm_amg_refresh_grid(long long work, int* out) {
+// per thread; setup: of the refresh with K6's setup as its first phase
+int opm_amg_refresh_grid(long long work, int setup, int* out) {
     int nsm = 0;
     cudaError_t err = opm_coop::coop_sms(&nsm);
     if (err == cudaSuccess)
-        err = opm_coop::coop_grid((const void*)amg_refresh, kThreads, work,
-                                  nsm, &out[0], &out[2], &out[3]);
+        err = opm_coop::coop_grid(
+            setup ? (const void*)amg_refresh_setup : (const void*)amg_refresh,
+            kThreads, work, nsm, &out[0], &out[2], &out[3]);
     out[1] = nsm;
     return (int)err;
 }
@@ -550,6 +604,24 @@ int opm_amg_refresh(const void* table, int nL, const double* diag0,
     const long long* T = static_cast<const long long*>(table);
     void* args[] = {&T, &nL, &diag0, &off0};
     return (int)cudaLaunchCooperativeKernel((const void*)amg_refresh,
+                                            dim3(grid), dim3(kThreads),
+                                            args, 0, stream);
+}
+
+// the refresh with K6's setup on the face list as its first phases: the
+// setup's arguments (the face list's cells c1, c2 (n) of faces f0 .. f0 + n
+// of the face arrays, row stride nfs), then the refresh's from diag_p and
+// off
+int opm_amg_refresh_setup(const void* table, int nL, long long nc,
+                          long long n, long long f0, long long nfs,
+                          const int* c1, const int* c2, const double* diag,
+                          const double* fL, const double* fR, double* dinv,
+                          double* w, double* diag_p, double* off, int grid,
+                          cudaStream_t stream) {
+    const long long* T = static_cast<const long long*>(table);
+    FaceSetup P{c1, c2, diag, fL, fR, dinv, w, diag_p, off, nc, n, f0, nfs};
+    void* args[] = {&T, &nL, &P};
+    return (int)cudaLaunchCooperativeKernel((const void*)amg_refresh_setup,
                                             dim3(grid), dim3(kThreads),
                                             args, 0, stream);
 }

@@ -23,57 +23,33 @@
 // structured GMG drops them from the pressure system, precond.py
 // _pressure_off_for), and off then holds the stencil faces only.
 //
-// On a grid with a face list the cell part runs alone (setup_cells) and
-// K6-faces gives each face its couplings from the weights of its two cells
-// (one thread per face, no atomics).
+// On a grid with a face list the main path runs K6 inside K10's value
+// refresh (amg.cu amg_refresh_setup: the cell part, a grid barrier, a
+// thread per face, a grid barrier, the refresh), one launch a Newton. Here
+// are its stand-alone forms: the cell part (setup_cells) then K6-faces, a
+// thread per face gathering the weights of its two cells (faces_kernel,
+// cpr_cell.cuh face_couplings). A one-launch walk of a thread per cell over
+// the list's incidence CSR (the stencil form's pattern: each cell writes
+// the couplings of its own faces from its weights in registers) was
+// slower on the Norne-class gather grid (17.3 against the pair's 9.2 us
+// of device time, PERF.md) and was not kept: the faces come in grid face
+// order, so the pair's loads are mostly coalesced, while at each step of
+// the walk the threads of a warp load faces of different directions.
 //
 // What bounds it on the card: memory traffic. Per cell it reads 9 diagonal
-// entries and 3 entries of each of its <= 6 face blocks' pressure columns,
-// and writes 9 + 3 + 1 values and <= 6 face values.
+// entries and 3 entries of each of its face blocks' pressure columns (<= 6
+// on a stencil), and writes 9 + 3 + 1 values and one value per face.
 // Build with --fmad=false (products and sums round as the plain version's).
 
 #include <cuda_runtime.h>
+
+#include "cpr_cell.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// dinv, w and diag_p of cell c; returns its weights
-__device__ __forceinline__ void setup_cell(long long nc, long long c,
-                                           const double* __restrict__ diag,
-                                           double* __restrict__ dinv,
-                                           double* __restrict__ w,
-                                           double* __restrict__ diag_p,
-                                           double wc[3]) {
-    double a = diag[0 * nc + c], b = diag[1 * nc + c], cc = diag[2 * nc + c];
-    double d = diag[3 * nc + c], e = diag[4 * nc + c], f = diag[5 * nc + c];
-    double g = diag[6 * nc + c], h = diag[7 * nc + c], i = diag[8 * nc + c];
-    double A = e * i - f * h;
-    double B = -(d * i - f * g);
-    double C = d * h - e * g;
-    double det = a * A + b * B + cc * C;
-    det = fabs(det) > 1e-300 ? det : 1.0;
-    double inv_det = 1.0 / det;
-    dinv[0 * nc + c] = A * inv_det;
-    dinv[1 * nc + c] = -(b * i - cc * h) * inv_det;
-    dinv[2 * nc + c] = (b * f - cc * e) * inv_det;
-    dinv[3 * nc + c] = B * inv_det;
-    dinv[4 * nc + c] = (a * i - cc * g) * inv_det;
-    dinv[5 * nc + c] = -(a * f - cc * d) * inv_det;
-    dinv[6 * nc + c] = C * inv_det;
-    dinv[7 * nc + c] = -(a * h - b * g) * inv_det;
-    dinv[8 * nc + c] = (a * e - b * d) * inv_det;
-    double w0 = A / det;
-    double w1 = -(b * i - cc * h) / det;
-    double w2 = (b * f - cc * e) / det;
-    w[c] = w0;
-    w[nc + c] = w1;
-    w[2 * nc + c] = w2;
-    diag_p[c] = (w0 * a + w1 * d) + w2 * g;
-    wc[0] = w0;
-    wc[1] = w1;
-    wc[2] = w2;
-}
+using opm_cpr::setup_cell;
 
 __global__ void setup_kernel(int nx, int ny, int nz, long long nc,
                              long long nf, long long nfs, long long ofs_y,
@@ -145,16 +121,7 @@ __global__ void faces_kernel(long long n, long long f0, long long nfs,
                              double* __restrict__ off) {
     long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= n) return;
-    long long f = f0 + t;
-    long long L = c1[t], R = c2[t];
-    double s = w[L] * fR[0 * nfs + f];
-    s = s + w[nc + L] * fR[3 * nfs + f];
-    s = s + w[2 * nc + L] * fR[6 * nfs + f];
-    off[t] = s;
-    double u = w[R] * fL[0 * nfs + f];
-    u = u + w[nc + R] * fL[3 * nfs + f];
-    u = u + w[2 * nc + R] * fL[6 * nfs + f];
-    off[n + t] = -u;
+    opm_cpr::face_couplings(t, n, f0, nfs, nc, c1, c2, w, fL, fR, off);
 }
 
 }  // namespace

@@ -52,8 +52,9 @@ import numpy as np
 import torch
 
 from opm_tpu_torch.linalg.gmg import (CoarsestInverse, LevelValues,
-                                     check_weighted, coarsest_product,
-                                     leg_grids, pressure_rhs_plain)
+                                     SetupOut, check_weighted,
+                                     coarsest_product, leg_grids,
+                                     pressure_rhs_plain)
 from opm_tpu_torch.utils import cuda_lib
 
 OMEGA = 0.8
@@ -324,8 +325,9 @@ _SIGS = {
     "opm_amg_down": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "opm_amg_down_rhs": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "opm_amg_up": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    "opm_amg_refresh_grid": [_L, _P],
+    "opm_amg_refresh_grid": [_L, _I, _P],
     "opm_amg_refresh": [_P, _I, _P, _P, _I, _P],
+    "opm_amg_refresh_setup": [_P, _I, _L, _L, _L, _L] + [_P] * 9 + [_I, _P],
 }
 
 
@@ -468,10 +470,13 @@ class Refresh(CoarsestInverse):
     once: the padding slots are never written), and where the coarsest is
     inverted its dense matrix, inverse and info (``CoarsestInverse``);
     ``vals`` the LevelValues over them (views that the
-    next refresh overwrites). On a CUDA device also the V-cycle workspace
-    over them (``vals.ws``) and the kernel's table (csrc/amg.cu
+    next refresh overwrites); the CPR setup's outputs (``setup``, a
+    ``SetupOut``: off over every face). On a CUDA device also the V-cycle
+    workspace over them (``vals.ws``) and the kernel's table (csrc/amg.cu
     ``RefreshHead``, then one ``StepRec`` per coarsening step), uploaded
-    here once, with its grid and each phase's outputs ``work``."""
+    here once, with its grids (``grid``; ``grid_setup``, of the launch
+    with K6's setup as its first phases) and each phase's outputs
+    ``work``."""
 
     def __init__(self, amg, device):
         dev = torch.device(device)
@@ -487,6 +492,7 @@ class Refresh(CoarsestInverse):
         if self.dense is not None:
             self.vals.append(self.inv)
         self.device = self.diag[0].device
+        self.setup = SetupOut(self.n0, self.nnz0, dev)
         if dev.type == "cuda":
             self._bind(dev)
 
@@ -514,14 +520,18 @@ class Refresh(CoarsestInverse):
             work[k] += lv["n_coarse"] + lv["nnz_coarse"]
         self.table = torch.tensor(recs, dtype=torch.int64).to(dev)
         self.lib = cuda_lib.load("amg", _SIGS)
-        out = (ctypes.c_int * 4)()
-        with torch.cuda.device(dev):
-            cuda_lib.check(self.lib.opm_amg_refresh_grid(
-                max(work + [n_c * n_c if self.dense is not None else 0]),
-                out), "opm_amg_refresh_grid")
-        self.grid = out[0]
-        self.grid_info = dict(sms=out[1], blocks_per_sm=out[2],
-                              registers=out[3])
+        most = max(work + [n_c * n_c if self.dense is not None else 0])
+        grids = []
+        for setup in (0, 1):
+            out = (ctypes.c_int * 4)()
+            with torch.cuda.device(dev):
+                cuda_lib.check(self.lib.opm_amg_refresh_grid(most, setup,
+                                                             out),
+                               "opm_amg_refresh_grid")
+            grids.append((out[0], dict(sms=out[1], blocks_per_sm=out[2],
+                                       registers=out[3])))
+        (self.grid, self.grid_info), (self.grid_setup,
+                                      self.grid_setup_info) = grids
         self.work = work
         self.vals.ws = Workspace(amg, self.vals)
 
@@ -548,6 +558,28 @@ def refresh_cuda(R, diag0, off0):
 
 
 refresh_cuda.launches = 0
+
+
+def refresh_setup_cuda(R, fl, diag, face_L, face_R):
+    """K10's refresh with K6's setup on the face list ``fl`` as its first
+    phases, one cooperative launch: the setup's dinv, w, diag_p and off
+    (``linalg/precond.py`` ``cpr_setup_plain``'s: the cell part, a grid
+    barrier, the face list's couplings) into ``R.setup``, a grid barrier,
+    then the refresh from that diag_p and off into the buffers of ``R``,
+    on the current stream. Returns ``R.vals``, whose inverse is not formed
+    here. The arguments are checked by the caller
+    (``precond._face_refresh``)."""
+    S, ptr = R.setup, cuda_lib.ptr
+    cuda_lib.check(R.lib.opm_amg_refresh_setup(
+        R.table.data_ptr(), R.nL, R.n0, fl.n, fl.first, face_L.shape[1],
+        ptr(fl.c1_32), ptr(fl.c2_32), ptr(diag), ptr(face_L), ptr(face_R),
+        ptr(S.dinv), ptr(S.w), ptr(S.diag_p), ptr(S.off), R.grid_setup,
+        cuda_lib.stream_ptr(R.device)), "opm_amg_refresh_setup")
+    refresh_setup_cuda.launches += 1
+    return R.vals
+
+
+refresh_setup_cuda.launches = 0
 
 
 def refresh_bytes(sizes, widths, entries):
@@ -661,11 +693,23 @@ class DeviceAmg:
         return cuda_lib.dispatch(diag0, self._refresh, self._coarsen_levels,
                                  diag0, off0, what="K10 refresh")
 
-    def _refresh(self, diag0, off0):
+    def card_refresh(self, device=None):
+        """The hierarchy's ``Refresh`` (on the card it was put on; raises
+        where that is not ``device`` or not a card)."""
         R = self.refresh
-        if R is None:
+        if R is None or (device is not None
+                         and torch.device(device) != R.device):
             raise ValueError(f"K10: this hierarchy was put on {self.device}, "
-                             "not on the card")
+                             f"not on the card {device}")
+        return R
+
+    def setup_out(self, device):
+        """The CPR setup's outputs on the card ``device`` (the
+        ``Refresh``'s ``SetupOut``)."""
+        return self.card_refresh(device).setup
+
+    def _refresh(self, diag0, off0):
+        R = self.card_refresh(diag0.device)
         refresh_cuda(R, diag0, off0)
         R.invert()
         return R.vals

@@ -361,16 +361,35 @@ class CoarsestInverse:
             torch.linalg.inv_ex(self.dense, out=(self.inv, self.inv_info))
 
 
+class SetupOut:
+    """The per-Newton CPR setup's outputs (K6, ``linalg/precond.py``) for
+    one pressure hierarchy on one device, allocated once with its refresh's
+    buffers: dinv (9, n), w (3, n), diag_p (n,) and off (m,), the level-0
+    couplings in face order. Every setup of that hierarchy overwrites
+    them: a setup's outputs are valid until the next one."""
+
+    def __init__(self, n, m, device):
+        f64 = dict(dtype=torch.float64, device=device)
+        self.dinv = torch.empty((9, n), **f64)
+        self.w = torch.empty((3, n), **f64)
+        self.diag_p = torch.empty(n, **f64)
+        self.off = torch.empty(m, **f64)
+
+    def tensors(self):
+        return self.dinv, self.w, self.diag_p, self.off
+
+
 class Refresh(CoarsestInverse):
     """The value refresh's outputs for one hierarchy on one device,
     allocated and zeroed once (a padded level's ghost slabs are never
     written again): per level its padded diag3 and six face arrays, and
     the coarsest's dense matrix (only its diagonal and stencil positions
     are written), inverse and info (``CoarsestInverse``); ``vals`` the
-    LevelValues over them, which the next refresh overwrites. On a CUDA
-    device also the V-cycle workspace over them (``vals.ws``) and the
-    kernel's table (csrc/gmg.cu ``PhaseRec``, one per phase), uploaded here
-    once, with its grid and each phase's outputs ``work``."""
+    LevelValues over them, which the next refresh overwrites; the CPR
+    setup's outputs over the stencil faces (``setup``, a ``SetupOut``). On
+    a CUDA device also the V-cycle workspace over them (``vals.ws``) and
+    the kernel's table (csrc/gmg.cu ``PhaseRec``, one per phase), uploaded
+    here once, with its grid and each phase's outputs ``work``."""
 
     def __init__(self, gmg, device):
         dev = torch.device(device)
@@ -388,6 +407,7 @@ class Refresh(CoarsestInverse):
         super().__init__(gmg.coarsest_n, dev)
         self.vals.append(self.inv)
         self.device = self.dense.device
+        self.setup = SetupOut(self.nc, 2 * self.nf, dev)
         if dev.type == "cuda":
             self._bind(dev)
 
@@ -655,6 +675,11 @@ class StructuredGmg:
         if dev not in self._refreshes:
             self._refreshes[dev] = Refresh(self, dev)
         return self._refreshes[dev]
+
+    def setup_out(self, device):
+        """The CPR setup's outputs on ``device`` (its ``Refresh``'s
+        ``SetupOut``, made on first use)."""
+        return self.refresh(device).setup
 
     def _refresh(self, diag0, off0):
         R = self.refresh(diag0.device)

@@ -11,10 +11,13 @@ system. The settings are the reference's CPU ones: two smoothing steps,
 one V-cycle with one pre- and one post-smoothing sweep, float64.
 
 Kernel K6 (``csrc/cpr.cu``, ``csrc/block7.cu``) does the per-Newton setup
-(block-Jacobi inverses, weights, pressure diagonal and stencil face
-couplings in one pass over the cells; on a gather grid the cell part,
-then K6-faces over the face list) and the apply's smoothing step x <- x +
-D^-1 (r - A x), fused with K4's stencil, or with K4-faces
+(block-Jacobi inverses, weights, pressure diagonal and face couplings: in
+one pass over the cells, a thread per cell, over the stencil of a
+structured grid; on a gather grid the cell part, then K6-faces a thread
+per face, which the main path runs as the first phases of K10's value
+refresh, ``cpr_setup_refresh_cuda``) into buffers the pressure hierarchy
+owns (``gmg.SetupOut``), and the apply's smoothing
+step x <- x + D^-1 (r - A x), fused with K4's stencil, or with K4-faces
 (``csrc/faces.cu``) over a face list. The apply's weighted pressure
 residual is formed in the V-cycle's down leg (the right-hand side entry
 of K7 and K10; ``pressure_rhs_plain`` is its plain form). Each K6 kernel
@@ -28,7 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from opm_tpu_torch.linalg.gmg import pressure_rhs_plain
+from opm_tpu_torch.linalg import amg as k10
+from opm_tpu_torch.linalg.gmg import SetupOut, pressure_rhs_plain
 from opm_tpu_torch.models import linearize
 from opm_tpu_torch.models.blackoil import _dir_segments
 from opm_tpu_torch.utils import cuda_lib
@@ -200,23 +204,23 @@ CPR_SIGS = {
 }
 
 
-def _setup_outputs(diag):
-    nc = diag.shape[1]
-    dev = diag.device
-    return (torch.empty_like(diag),
-            torch.empty((3, nc), dtype=torch.float64, device=dev),
-            torch.empty(nc, dtype=torch.float64, device=dev))
-
-
-def cpr_setup_cuda(diag, face_L, face_R, dims):
+def cpr_setup_cuda(diag, face_L, face_R, dims, out=None):
     """K6 setup on a structured grid on the card: cpr_setup_plain's dinv,
     w and diag_p, and off over the stencil faces only (an embedded grid's
-    extra faces are what _pressure_off_for drops for the GMG)."""
+    extra faces are what _pressure_off_for drops for the GMG), into the
+    tensors of ``out`` (a ``gmg.SetupOut``: the hierarchy's, which the
+    next setup overwrites) or fresh ones."""
     linearize.check_block_operator(diag, face_L, face_R, dims)
     nx, ny, nz = dims
+    nc = nx * ny * nz
     nf = (nx - 1) * ny * nz + nx * (ny - 1) * nz + nx * ny * (nz - 1)
-    dinv, w, diag_p = _setup_outputs(diag)
-    off = torch.empty(2 * nf, dtype=torch.float64, device=diag.device)
+    if out is None:
+        out = SetupOut(nc, 2 * nf, diag.device)
+    elif (out.diag_p.shape != (nc,) or out.off.shape != (2 * nf,)
+          or out.off.device != diag.device):
+        raise ValueError(f"K6: the setup's buffers are not for {nc} cells "
+                         f"and {2 * nf} couplings on {diag.device}")
+    dinv, w, diag_p, off = out.tensors()
     lib = cuda_lib.load("cpr", CPR_SIGS)
     ptr = cuda_lib.ptr
     err = lib.opm_cpr_setup(nx, ny, nz, face_L.shape[1], ptr(diag),
@@ -237,7 +241,7 @@ def cpr_setup_cells_cuda(diag):
             or diag.dim() != 2 or diag.shape[0] != 9):
         raise ValueError("K6 setup: diag must be a contiguous float64 "
                          "(9, nc) tensor")
-    dinv, w, diag_p = _setup_outputs(diag)
+    dinv, w, diag_p, _ = SetupOut(diag.shape[1], 0, diag.device).tensors()
     lib = cuda_lib.load("cpr", CPR_SIGS)
     ptr = cuda_lib.ptr
     err = lib.opm_cpr_setup_cells(diag.shape[1], ptr(diag), ptr(dinv),
@@ -275,24 +279,83 @@ def cpr_faces_cuda(fl, w, face_L, face_R):
 cpr_faces_cuda.launches = 0
 
 
+def _face_refresh(amg, fl, diag, face_L, face_R):
+    """The hierarchy's ``Refresh`` on the blocks' card, checked for K6 as
+    the first phases of its refresh on the face list ``fl``."""
+    linearize.check_block_operator(diag, face_L, face_R, None)
+    if (face_L.shape[1] < fl.first + fl.n
+            or fl.c1_32.device != diag.device):
+        raise ValueError("K6 on a face list: the list must be on the "
+                         "blocks' device, and the face arrays hold every "
+                         "face of the list")
+    R = amg.card_refresh(diag.device)
+    if R.n0 != diag.shape[1] or R.nnz0 != 2 * fl.n:
+        raise ValueError("K6 in K10's refresh: the hierarchy is not the "
+                         "face list's")
+    return R
+
+
+def cpr_setup_refresh_cuda(amg, fl, diag, face_L, face_R):
+    """K6 on a face list as the first phases of K10's value refresh (one
+    cooperative launch, ``amg.refresh_setup_cuda``), then the float32
+    coarsest inverse: (dinv, w, vals), the setup's outputs in the
+    hierarchy's ``SetupOut`` and its refreshed ``Refresh.vals``, valid
+    until the next setup of that hierarchy."""
+    R = _face_refresh(amg, fl, diag, face_L, face_R)
+    vals = k10.refresh_setup_cuda(R, fl, diag, face_L, face_R)
+    R.invert()
+    return R.setup.dinv, R.setup.w, vals
+
+
+def cpr_setup_refresh_plain(R, fl, diag, face_L, face_R):
+    """The plain version of ``k10.refresh_setup_cuda`` (K10's refresh with
+    K6 on the face list as its first phases), into the buffers of ``R`` (a
+    ``k10.Refresh`` on any device): cpr_setup_plain (the cell part, then
+    the face list's couplings) copied into ``R.setup``, then
+    ``k10.refresh_plain`` from its diag_p and off; not the inverse.
+    Returns ``R.vals``."""
+    S = R.setup
+    for dst, src in zip(S.tensors(), cpr_setup_plain(diag, face_L, face_R,
+                                                     None, fl)):
+        dst.copy_(src)
+    k10.refresh_plain(R, S.diag_p, S.off)
+    return R.vals
+
+
 def cpr_setup(sys: linearize.BlockSystem, dims, amg, *, twin=False):
     """The per-Newton setup (dinv, w, diag_p, off as the pressure
-    hierarchy takes it): K6 on a structured grid (off over the stencil:
-    the structured GMG drops an embedded grid's extra faces); K6's cell
-    part and K6-faces on a gather grid; the plain twin for CPU tensors or
-    when ``twin``."""
+    hierarchy takes it): on the card K6 on a structured grid (off over the
+    stencil: the structured GMG drops an embedded grid's extra faces), and
+    on a gather grid the main path's launch, K6 as the first phases of
+    K10's refresh (which refreshes the hierarchy's values too), into the
+    hierarchy's ``SetupOut`` (valid until its next setup); the plain twin,
+    in fresh tensors, for CPU tensors or when ``twin``. The CPR
+    preconditioner runs ``pressure_setup``."""
     ops = (sys.diag, sys.face_L, sys.face_R)
-    dev = sys.diag.device.type
-    if twin or dev == "cpu":
+    dev = sys.diag.device
+    if twin or dev.type == "cpu":
         dinv, w, diag_p, off = cpr_setup_plain(*ops, dims, sys.faces)
         return dinv, w, diag_p, _pressure_off_for(amg, off, dims)
-    if dev != "cuda":
-        raise RuntimeError(f"no K6 kernel for device {sys.diag.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"no K6 kernel for device {dev}")
     if dims is not None:
-        return cpr_setup_cuda(*ops, tuple(dims))
-    dinv, w, diag_p = cpr_setup_cells_cuda(sys.diag)
-    return dinv, w, diag_p, cpr_faces_cuda(sys.faces, w, sys.face_L,
-                                           sys.face_R)
+        return cpr_setup_cuda(*ops, tuple(dims), amg.setup_out(dev))
+    R = _face_refresh(amg, sys.faces, *ops)
+    k10.refresh_setup_cuda(R, sys.faces, *ops)
+    return R.setup.tensors()
+
+
+def pressure_setup(sys: linearize.BlockSystem, dims, amg, *, twin=False):
+    """The per-Newton CPR setup and the pressure hierarchy's value refresh:
+    (dinv, w, vals). On the card on a gather grid one launch (K6 as the
+    first phases of K10's refresh: ``cpr_setup_refresh_cuda``) and the
+    coarsest inverse; otherwise ``cpr_setup``, then the hierarchy's
+    ``coarsen_values``."""
+    if not twin and dims is None and sys.diag.device.type == "cuda":
+        return cpr_setup_refresh_cuda(amg, sys.faces, sys.diag, sys.face_L,
+                                      sys.face_R)
+    dinv, w, diag_p, off = cpr_setup(sys, dims, amg, twin=twin)
+    return dinv, w, amg.coarsen_values(diag_p, off, twin=twin)
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +437,7 @@ def make_cpr_cells(sys: linearize.BlockSystem, amg, dims, *, twin=False):
     ``twin``: every step by its plain twin on any device (the card's
     whole-solve comparison)."""
     dims = tuple(dims) if dims is not None else None
-    dinv, w, diag_p, off = cpr_setup(sys, dims, amg, twin=twin)
-    vals = amg.coarsen_values(diag_p, off, twin=twin)
+    dinv, w, vals = pressure_setup(sys, dims, amg, twin=twin)
 
     def apply(rc):
         rc = rc.contiguous()

@@ -2,7 +2,8 @@
 or the initial state: an A/B of two trees in turns.
 
     python3 -m opm_tpu_torch.tools.newton_ab --trees BASE,CHANGE
-        [--order ABBA] [--part newton|initial_state] [--out newton_ab.json]
+        [--order ABBA] [--part newton|initial_state|cpr_setup]
+        [--out newton_ab.json]
 
 One leg per letter of ``--order`` (A: the first tree, B: the second), each
 in a process of its own that imports ``opm_tpu_torch`` from its tree and
@@ -69,6 +70,21 @@ it has them), and a digest of the state (pressure, sw, x, hcstate); then
 the time from the parsed deck to the end of the first report step (a
 fresh simulator, its ``run`` computing the initial state; synced host
 clock) with that step's counts and a digest of its state.
+
+With ``--part cpr_setup`` a leg measures instead the per-Newton CPR
+setup on the first Newton system of the Norne-class field's first report
+step in both representations (E: K6 on the stencil, then K7's refresh; G:
+K6 on the face list, then K10's refresh): each form the tree has (the
+main path's K6 (on G in a tree with the refresh form, that launch: K6
+as the refresh's first phases); K6 and the refresh launch; with the
+inverse as ``make_cpr_cells`` runs them; on G also K6's cell part then
+K6-faces, alone, with the refresh and with the inverse, and K6 as the
+refresh's first phases, with and without the inverse): one call and per call
+in a run of 50 (CUDA events), host ms per call over 50 (synchronized at
+the end) and per call over 20 not synchronized (the host's own time),
+device kernels and their device time per call (torch.profiler), the
+caching allocator's requests per call, and a digest of the outputs (dinv,
+w, and diag_p and off or every level's values and the inverse).
 
 Prints one JSON line per leg and the card's name and power limit; writes
 everything to --out.
@@ -139,6 +155,24 @@ def host_per_call(fn, run=RUN, reps=5):
             fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / run)
+    return statistics.median(times)
+
+
+def enqueue_ms(fn, run=20, reps=5):
+    """Host-clock ms per call of ``run`` calls in a row, not synchronized:
+    the host's own time per call while the card runs behind (20 calls stay
+    well inside the launch queue); median of ``reps``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(run):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / run)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -271,8 +305,10 @@ def _cpr_rows(sim, sys_, rc):
     dims = m.op_dims
     M = k6.make_cpr_cells(sys_, amg, dims)
     out = dict(apply=measure(lambda: M(rc)), apply_digest=digest(M(rc)))
-    dinv, w, diag_p, off = k6.cpr_setup(sys_, tuple(dims) if dims else None,
-                                        amg)
+    # a copy: M's setup lives in the hierarchy's buffers, which the next
+    # setup overwrites
+    dinv, w, diag_p, off = [t.clone() for t in k6.cpr_setup(
+        sys_, tuple(dims) if dims else None, amg)]
     vals = amg.coarsen_values(diag_p, off)
     mod = __import__("opm_tpu_torch.linalg." + (
         "gmg" if dims is not None else "amg"), fromlist=["x"])
@@ -391,6 +427,134 @@ def _rhs_rows(sim, sys_):
     return dict(schur_eliminate=measure(
         lambda: lz.schur_eliminate_wells(sys_, dims)),
         rhs_digest=digest(rhs), dinv_digest=digest(dinv))
+
+
+def alloc_requests(fn, reps=10):
+    """The caching allocator's requests per call of fn over ``reps`` warm
+    calls (``allocation.all.allocated``: every request, one served from
+    the cache too)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    a1 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    return (a1 - a0) / reps
+
+
+def _setup_forms(sim, sys_):
+    """--part cpr_setup: the forms of the per-Newton CPR setup this tree
+    has on one Newton system, each a function returning the tensors to
+    digest. ``k6``: the tree's K6 on the main path (``cpr_setup``);
+    ``k6_refresh``: that and the value refresh launch (no inverse);
+    ``pressure``: the main path's setup and refresh with the inverse (as
+    ``make_cpr_cells`` runs them). On a gather grid also, where the tree
+    has them: ``pair`` (K6's cell part, then K6-faces), alone, with the
+    refresh launch (``pair_refresh``) and with the inverse too
+    (``pair_refresh_inv``), and ``fused`` (K6 as the refresh's first
+    phases; ``fused_inv`` with the inverse)."""
+    from opm_tpu_torch.linalg import amg as k10
+    from opm_tpu_torch.linalg import gmg as k7
+    from opm_tpu_torch.linalg import precond as k6
+    amg, dims = sim.solver.amg, sim.model.op_dims
+    dims = tuple(dims) if dims is not None else None
+    ops = (sys_.diag, sys_.face_L, sys_.face_R)
+    fl = sys_.faces
+    gather = dims is None
+    R = amg.refresh if gather else amg.refresh(sys_.diag.device)
+    kr = k10 if gather else k7
+
+    def levels(vals):
+        nl = len(vals) - 1
+        if gather:
+            return [t for lv in vals[:nl] for t in lv] + [vals[nl]]
+        return [t for d3, offs in vals[:-1]
+                for t in (d3,) + sum(offs, ())] + [vals[-1]]
+
+    def k6_main():
+        return list(k6.cpr_setup(sys_, dims, amg))
+
+    def k6_refresh():
+        dinv, w, dp, off = k6.cpr_setup(sys_, dims, amg)
+        return [dinv, w] + levels(kr.refresh_cuda(R, dp, off))[:-1]
+
+    def pressure():
+        if hasattr(k6, "pressure_setup"):
+            dinv, w, vals = k6.pressure_setup(sys_, dims, amg)
+        else:
+            dinv, w, dp, off = k6.cpr_setup(sys_, dims, amg)
+            vals = amg.coarsen_values(dp, off)
+        return [dinv, w] + levels(vals)
+
+    forms = dict(k6=k6_main, k6_refresh=k6_refresh, pressure=pressure)
+    if not gather:
+        return forms
+
+    def pair():
+        dinv, w, dp = k6.cpr_setup_cells_cuda(ops[0])
+        return [dinv, w, dp, k6.cpr_faces_cuda(fl, w, ops[1], ops[2])]
+
+    def pair_refresh():
+        dinv, w, dp, off = pair()
+        return [dinv, w] + levels(k10.refresh_cuda(R, dp, off))[:-1]
+
+    def pair_refresh_inv():
+        t = pair_refresh()
+        R.invert()
+        return t + [R.vals[-1]]
+
+    forms.update(pair=pair, pair_refresh=pair_refresh,
+                 pair_refresh_inv=pair_refresh_inv)
+    if hasattr(k10, "refresh_setup_cuda"):
+        def fused():
+            vals = k10.refresh_setup_cuda(R, fl, *ops)
+            return [R.setup.dinv, R.setup.w] + levels(vals)[:-1]
+        forms["fused"] = fused
+        forms["fused_inv"] = lambda: (
+            lambda d, w, v: [d, w] + levels(v))(
+                *k6.cpr_setup_refresh_cuda(amg, fl, *ops))
+    return forms
+
+
+def _setup_leg(tree):
+    """--part cpr_setup: one leg over E and G (module docstring)."""
+    import torch
+    sys.path.insert(0, tree)
+    from opm_tpu_torch.models import linearize
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.sim.init import initial_state
+    from opm_tpu_torch.sim.testcases import norne_like_case
+    from opm_tpu_torch.utils import cuda_lib
+
+    csrc = os.path.join(tree, "opm_tpu_torch", "csrc")
+    cuda_lib.build_all(sorted(f[:-3] for f in os.listdir(csrc)
+                              if f.endswith(".cu")))
+    norne = norne_like_case()
+    out = dict(tree=tree)
+    for label, knob in (("norne_embedded", None), ("norne_gather", "0")):
+        os.environ.pop("OPM_TPU_EMBED", None)
+        if knob is not None:
+            os.environ["OPM_TPU_EMBED"] = knob
+        sim = SimulatorFullyImplicitBlackoil(norne)
+        init = initial_state(sim.grid, sim.props, norne,
+                             len(sim.well_names))
+        st, wd, acc0, dt, cdp = _first_newton(sim, init)
+        sys_ = linearize.assemble(sim.model, st, acc0, dt, wd, cdp)
+        r = dict(nc=sim.model.nc, faces=int(sim.model.trans.shape[0]))
+        for name, fn in _setup_forms(sim, sys_).items():
+            row = measure(fn)
+            row["enqueue_ms"] = enqueue_ms(fn)
+            row["alloc_requests"] = alloc_requests(fn)
+            row["digest"] = digest(*fn())
+            r[name] = row
+        torch.cuda.synchronize()
+        out[label] = r
+        del sim, init, st, sys_
+        torch.cuda.empty_cache()
+    os.environ.pop("OPM_TPU_EMBED", None)
+    print(json.dumps(out), flush=True)
 
 
 def _leg(tree):
@@ -580,15 +744,15 @@ def main(argv=None):
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--out", default=None)
     ap.add_argument("--part", default="newton",
-                    choices=("newton", "initial_state"))
+                    choices=("newton", "initial_state", "cpr_setup"))
     ap.add_argument("--leg", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("newton_ab: no CUDA device visible")
     if args.leg:
-        (_init_leg if args.part == "initial_state" else _leg)(
-            os.path.abspath(args.leg))
+        dict(initial_state=_init_leg, cpr_setup=_setup_leg).get(
+            args.part, _leg)(os.path.abspath(args.leg))
         return 0
     if not args.trees:
         ap.error("--trees is required")

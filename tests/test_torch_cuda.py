@@ -29,7 +29,10 @@ call, one march and at most 7 K1 lookups a region in initial_state, the
 state bit for bit the one through the twin), and K3's tangent entry
 bit for bit its twin in both launch geometries (SPE1's jacfwd batch and
 ragged tile-march shapes) and K3-faces' divergence bit for bit its twin
-on CPU copies on the toy Norne-like deck and seeded face lists.
+on CPU copies on the toy Norne-like deck and seeded face lists, and K6
+on a face list (its list launch, and as the first phase of K10's
+refresh) bit for bit its twin and the former pair of kernels, with no
+allocator request.
 chip_smoke.py holds every kernel against its plain version at the SPE1,
 SPE10-2 and full Norne-class shapes.
 
@@ -1320,3 +1323,108 @@ def test_faces_div_bitwise(dev, case):
                            out=None if base is None else base.clone())
     assert mb.faces_div_cuda.launches == n0 + 1
     assert torch.equal(kd.cpu(), twin)
+
+
+def _poison_refresh(damg, R):
+    """NaN into every value the refresh with K6 as its first phases writes
+    (the padding slots, which no refresh writes, keep their zeros)."""
+    nan = float("nan")
+    for t in (*R.setup.tensors(), *R.diag):
+        t.fill_(nan)
+    R.ell[0].view(-1)[damg.ell[0]["src"] >= 0] = nan
+    for k, lv in enumerate(damg.levels):
+        R.ell[k + 1].view(-1)[lv["ent_dst"].long()] = nan
+    if R.dense is not None:
+        R.dense.fill_(nan)
+        R.inv.fill_(nan)
+
+
+@pytest.mark.parametrize("case", ["toy_gather", "seeded"])
+def test_k6_refresh_setup_bitwise(dev, case):
+    """K6 on a face list as the first phases of K10's refresh launch, into
+    the hierarchy's buffers filled with NaN beforehand: its outputs bit
+    for bit the twin (``cpr_setup_plain``) and the former pair of kernels
+    (the cell part, then K6-faces), its levels, dense matrix and inverse
+    bit for bit the refresh's plain version from the twin's diag_p and
+    off; ``cpr_setup`` on the card the same launch into the same buffers;
+    no allocator request."""
+    from opm_tpu_torch.linalg import amg as k10
+    from opm_tpu_torch.linalg import precond as k6
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize
+    rng = np.random.default_rng(37)
+    if case == "toy_gather":
+        sim, _, sys = _norne_toy_system(dev, "0")
+        fl, ops = sys.faces, (sys.diag, sys.face_L, sys.face_R)
+        damg = sim.solver.amg
+    else:
+        nc, n = 3000, 9000
+        fcs = rng.integers(1, nc, (2 * n, 2))
+        fcs = fcs[fcs[:, 0] != fcs[:, 1]][:n]
+        fl = mb.FaceList(fcs, nc, 0, dev)
+        damg = k10.build_hierarchy(nc, fcs, np.abs(rng.standard_normal(
+            len(fcs)))).device(dev)
+        diag = rng.standard_normal((9, nc))
+        diag[[0, 4, 8]] += 4.0
+        ops = tuple(torch.as_tensor(a, device=dev) for a in (
+            diag, rng.standard_normal((9, len(fcs))),
+            rng.standard_normal((9, len(fcs)))))
+        sys = linearize.BlockSystem(None, None, *ops, None, None, None, None,
+                                    None, fl)
+    twin = k6.cpr_setup_plain(*ops, None, fl)
+    cells = k6.cpr_setup_cells_cuda(ops[0])
+    pair = (*cells, k6.cpr_faces_cuda(fl, cells[1], ops[1], ops[2]))
+    for a, b in zip(pair, twin):
+        assert torch.equal(a, b)
+    R = damg.card_refresh(dev)
+    Rp = k10.Refresh(damg, dev)
+    k10.refresh_plain(Rp, twin[2], twin[3])
+    _poison_refresh(damg, R)
+    n0 = k10.refresh_setup_cuda.launches
+    dinv, w, vals = k6.cpr_setup_refresh_cuda(damg, fl, *ops)
+    assert k10.refresh_setup_cuda.launches == n0 + 1 and vals is R.vals
+    assert dinv is R.setup.dinv and w is R.setup.w
+    for a, b in zip(R.setup.tensors(), twin):
+        assert torch.equal(a, b)
+    for k in range(damg.n_levels):
+        for a, b in zip(vals[k], Rp.vals[k]):
+            assert torch.equal(a, b), k
+    if R.dense is not None:
+        assert torch.equal(R.dense, Rp.dense)
+        assert torch.equal(vals[-1], torch.linalg.inv(R.dense))
+    _poison_refresh(damg, R)
+    got = k6.cpr_setup(sys, None, damg)
+    assert k10.refresh_setup_cuda.launches == n0 + 2
+    assert [t.data_ptr() for t in got] == [t.data_ptr()
+                                           for t in R.setup.tensors()]
+    for a, b in zip(got, twin):
+        assert torch.equal(a, b)
+    gc.collect()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(5):
+        k10.refresh_setup_cuda(R, fl, *ops)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == a0
+    if damg is None:
+        return
+    # the refresh form against the refresh's plain version from the twin
+    R = damg.card_refresh(dev)
+    Rp = k10.Refresh(damg, dev)
+    k10.refresh_plain(Rp, twin[2], twin[3])
+    n0 = k10.refresh_setup_cuda.launches
+    dinv, w, vals = k6.cpr_setup_refresh_cuda(damg, fl, *ops)
+    assert k10.refresh_setup_cuda.launches == n0 + 1 and vals is R.vals
+    for a, b in zip((dinv, w, R.setup.diag_p, R.setup.off), twin):
+        assert torch.equal(a, b)
+    for k in range(damg.n_levels):
+        for a, b in zip(vals[k], Rp.vals[k]):
+            assert torch.equal(a, b), k
+    if R.dense is not None:
+        assert torch.equal(R.dense, Rp.dense)
+        assert torch.equal(vals[-1], torch.linalg.inv(R.dense))
+    a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(5):
+        k10.refresh_setup_cuda(R, fl, *ops)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == a0
