@@ -7,7 +7,7 @@ Phases (each prints a line of its own; any failure exits non-zero):
 1. device: needs CUDA; prints the card's name and power limit (nvidia-smi)
    and turns TF32 off for matmul and cuDNN;
 2. build: compiles the CUDA kernels (K1 tables.cu and its column march
-   equil.cu, K2 cells.cu, K3
+   and EQUIL's cell pass equil.cu, K2 cells.cu, K3
    tpfa.cu, the K3 face blocks blocks.cu, K4/K6 block7.cu, K5 wells.cu,
    K6 cpr.cu, K7 gmg.cu, K8 krylov.cu, K9 newton.cu, K10 amg.cu, the
    face-list kernels faces.cu), one nvcc process each, all started
@@ -17,7 +17,8 @@ Phases (each prints a line of its own; any failure exits non-zero):
    faces.cu's and wells.cu's (registers and spills of K2's entries and of
    the cell operators that carry K5's well term), of newton.cu's (K9) and
    of tpfa.cu's (K3: the tile march's registers set how many blocks an SM
-   holds), K2's resident blocks per SM and the float64 instructions of
+   holds) and of equil.cu's (the march and the cell pass), K2's resident
+   blocks per SM and the float64 instructions of
    K2's, K3's and the face blocks' kernels in the SASS (cuobjdump; the
    operations term of K2's bounds),
    and holds K8 against its twins at an odd length;
@@ -67,16 +68,21 @@ Phases (each prints a line of its own; any failure exits non-zero):
    SPE10-2
    Newton system solved with the kernels and again with the plain twins
    on the card;
-3d. K1's EQUIL column march (equil.cu) on every deck this script builds
-   (SPE1, SPE10-2, the toys, the Norne-class field in both
-   representations) and on SPE1 with PBVD in place of RSVD, SPE1CASE2_2P
-   (dead oil, no DISGAS, no gas) and SPE9: each region's three columns
-   bit for bit the twin's on the card (not on the toys: the twin takes
-   about 10 s a region on the card), the kernel's call under the sync
-   debug mode "error" (no host read), its ms a launch and the twin's;
-   one initial_state per deck with one march a region and at most 7 K1
-   lookups a region (synced host clock); SPE1's region gives the
-   kernel's row of the kernels line; at SPE10-2 and on the Norne-class
+3d. K1's EQUIL column march and EQUIL's cell pass (equil.cu) on every
+   deck this script builds (SPE1, SPE10-2, the toys, the Norne-class
+   field in both representations) and on SPE1 with PBVD in place of
+   RSVD, SPE1CASE2_2P (dead oil, no DISGAS, no gas) and SPE9: each
+   region's three columns bit for bit the twin's on the card (not on the
+   toys: the twin takes about 10 s a region on the card), the kernel's
+   call under the sync debug mode "error" (no host read), its ms a launch
+   and the twin's; the cell pass over those columns into arrays of NaN,
+   its call under the sync debug mode "error", bit for bit its twin on
+   the region's cells and no other cell written, its ms and the twin's;
+   one initial_state per deck (synced host clock) that fails unless it
+   makes one march and one cell pass a region and no K1 lookup; SPE1's
+   region gives the march's row of the kernels line, SPE10-2's the cell
+   pass's (also per launch in a run of 50 and on the device, queued
+   behind a spin kernel); at SPE10-2 and on the Norne-class
    field also the time from the parsed deck to the end of the first
    report step (the simulator's construction, initial_state and the
    step, each timed alone);
@@ -104,12 +110,16 @@ Phases (each prints a line of its own; any failure exits non-zero):
    K3 face blocks in stencil form and as the embedded epilogue, or in
    face-list form on the gather grid, the face-list form bit for bit its
    twin run on CPU copies of the inputs (the twin's index_add_ on the
-   card adds in no fixed order) and on G per launch in a run of 50; K5),
+   card adds in no fixed order) and on G per launch in a run of 50, the
+   K4-faces copy its row phase writes (into a buffer of NaN) bit for bit
+   the pack's twin, and the assembly's face-list part (the face blocks
+   and K4-faces' operator over that copy) timed one call, in a run of 50
+   and on the device; K5),
    K3's divergence over E's stencil bit for bit, the face-list kernels
    (K3-faces bit for bit its twin on CPU copies, timed per launch in a
-   run of 50 on both grids; K4-faces' pack into its sliced-ELL layout,
-   matvec and smoothing step, K6 cells and K6-faces, K9's masked
-   convergence check; on G the main path's K6 as the first phases of
+   run of 50 on both grids; K4-faces: the system's sliced-ELL copy bit
+   for bit the pack's twin, matvec and smoothing step, K6 cells and
+   K6-faces, K9's masked convergence check; on G the main path's K6 as the first phases of
    K10's refresh launch, run into buffers filled with NaN, bit for bit
    the twin and the pair with no allocator request, timed one call, in a
    run of 50, on the device (queued behind a spin kernel) and on the host
@@ -126,7 +136,9 @@ Phases (each prints a line of its own; any failure exits non-zero):
    kernels and with the twins; then the first report step (5 days) in each
    representation through SimulatorFullyImplicitBlackoil with no device
    argument, with its counts, wall time, sections and launch counters
-   (one K4-faces pack per Newton system; the pressure setup one launch a
+   (the face blocks writing K4-faces' copy once per Newton system, also
+   on the toy decks of phase 7; the
+   pressure setup one launch a
    Newton on G, K10's refresh with K6 in it, and two on E, K6 and K7's
    refresh; D^-1 by K5's right-hand side and never by the plain inv4x4
    on the card),
@@ -405,6 +417,9 @@ class Kernels:
             ("K1 equil_march", "cuda", f"{P}/csrc/equil.cu",
              f"{JAX_PKG}/sim/init.py:46-76,108-131",
              equil.equil_columns_cuda),
+            ("K1 equil_cells", "cuda", f"{P}/csrc/equil.cu",
+             f"{JAX_PKG}/sim/init.py:133-172 and utils/tables.py:97",
+             equil.equil_cells_cuda),
             ("K3 tpfa_div", "cuda", f"{P}/csrc/tpfa.cu",
              f"{JAX_PKG}/models/blackoil.py:176", mb.tpfa_div_cuda),
             ("K3 tpfa_div_tangent", "cuda", f"{P}/csrc/tpfa.cu",
@@ -444,8 +459,6 @@ class Kernels:
              f"{JAX_PKG}/models/linearize.py:474", k4.faces_matvec_cuda),
             ("K4-faces smooth", "cuda", f"{P}/csrc/faces.cu",
              f"{JAX_PKG}/linalg/precond.py:402", k4.faces_smooth_cuda),
-            ("K4-faces pack", "cuda", f"{P}/csrc/faces.cu",
-             f"{JAX_PKG}/models/linearize.py:474-482", k4.faces_pack_cuda),
             ("K6 cpr_setup_cells", "cuda", f"{P}/csrc/cpr.cu",
              f"{JAX_PKG}/linalg/precond.py:174", k6.cpr_setup_cells_cuda),
             ("K6-faces cpr_faces", "cuda", f"{P}/csrc/cpr.cu",
@@ -506,15 +519,17 @@ class Kernels:
     # (the right-hand side entries), so the down legs' b entries never run
     # there; on a gather grid K6 runs as the first phases of K10's refresh
     # (one launch a Newton), so neither the former pair (K6's cell part,
-    # then K6-faces) nor the refresh alone runs
+    # then K6-faces) nor the refresh alone runs; EQUIL's cell pass does the
+    # initial state's lookups onto the cells, so K1 interp1 runs on no
+    # EQUIL deck
     OFF_MAIN = ("K7 gmg_vcycle_down", "K10 amg_vcycle_down",
                 "K6 cpr_setup_cells", "K6-faces cpr_faces",
-                "K10 amg_refresh")
-    # the kernels each run must launch: the dense route (SPE1; its K1
-    # lookups are the initial state's onto the cells and its column
-    # march: K1 interp2 runs on no path since the march took its lookups),
-    # and the assembly and Schur elimination of every CPR run
-    DENSE = ("K1 interp1", "K1 equil_march", "K2 cells_values",
+                "K10 amg_refresh", "K1 interp1")
+    # the kernels each run must launch: the dense route (SPE1; its initial
+    # state is K1's column march and EQUIL's cell pass: K1 interp1 and
+    # interp2 run on no path of an EQUIL deck), and the assembly and Schur
+    # elimination of every CPR run
+    DENSE = ("K1 equil_march", "K1 equil_cells", "K2 cells_values",
              "K2 cells_columns", "K3 tpfa_div", "K3 tpfa_div_tangent",
              "K9 update", "K9 convergence")
     ASSEMBLY = ("K2 cells_values", "K2 cells_columns", "K2 cells_assemble",
@@ -635,7 +650,7 @@ def compare_kernels(K, model, state, seed, label, timed, B):
     # K1 1-D: the PVTO saturated curve (linear) and the SWOF columns (clamp)
     lo = props.oil_live
     sf = props.satfunc
-    for xs, ys, xq, clamp in ((lo.pbub_tab, lo._rs_col, p, 0),
+    for xs, ys, xq, clamp in ((lo.pbub_tab, lo.rs_col, p, 0),
                               (sf.sw, sf.w_cols, sw, 1)):
         kv = k1.interp1_cuda(xs, ys, xq, None, clamp)
         pv = k1.lookup1_plain(xs, ys, xq, None, clamp)
@@ -962,22 +977,67 @@ def no_host_sync():
         torch.cuda.set_sync_debug_mode(0)
 
 
-def check_equil(K, label, sim, main=False, twin=True):
-    """K1's column march on ``sim``'s deck: each EQUIL region's columns
-    from the kernel (its call under the sync debug mode "error") bit for
-    bit its twin's on the card (with ``twin``: the twin takes about 10 s
-    a region there), the kernel's ms a launch (CUDA events, median of 20
-    warm runs) and the twin's (synced host clock, one call); then one
-    initial_state (synced host clock) with the launches it makes: one
-    march a region and at most 7 K1 lookups a region, each batched over
-    the region's cells. With ``main``, the kernel's row of the kernels
-    line takes this deck's times and bound. Returns (the initial state,
-    the record)."""
+@contextlib.contextmanager
+def nan_empty():
+    """torch.empty filling its float64 tensors with NaN inside the block:
+    a kernel's output buffer holds NaN wherever the kernel does not
+    write."""
+    import torch
+    empty = torch.empty
+
+    def filled(*a, **k):
+        t = empty(*a, **k)
+        return t.fill_(float("nan")) if t.dtype == torch.float64 else t
+
+    torch.empty = filled
+    try:
+        yield
+    finally:
+        torch.empty = empty
+
+
+def equil_cells_work(args, n):
+    """(bytes, float64 operations) of one cell pass over a region of n
+    cells: the depth grid and the columns (and the RSVD/PBVD column) read
+    once, a cell's index, depth and two region numbers read and its five
+    values written; per cell the operations of the three column lookups,
+    the capillary inversions the deck has, sg's clip, rs_sat and the
+    RSVD/PBVD interpolation (the per-region tables stay in the cache)."""
+    props, z, _, _, _, mode, vz, _ = args
+    nz, nv = z.shape[0], (vz.shape[0] if mode else 0)
+    nbytes_moved = 8 * (4 * nz + 2 * nv) + n * (4 + 8 + 4 + 4 + 5 * 8)
+    sf = props.satfunc
+    ops = 3 * OPS_LOOK1 + 3
+    if sf is not None:
+        ops += (OPS_LOOK1 + 2) * (sf.pcow_range > 1e-9) \
+            + (OPS_LOOK1 + 1) * (sf.pcgo_range > 1e-9)
+    if props.disgas and props.oil_live is not None:
+        ops += OPS_LOOK1 + (5 + 1 if mode else 0)
+    return nbytes_moved, ops * n
+
+
+def check_equil(K, label, sim, main=False, twin=True, cells_row=False):
+    """K1's column march and EQUIL's cell pass on ``sim``'s deck: each
+    EQUIL region's columns from the kernel (its call under the sync debug
+    mode "error": no host read) bit for bit its twin's on the card (with
+    ``twin``: the twin takes about 10 s a region there), the kernel's ms a
+    launch (CUDA events, median of 20 warm runs) and the twin's (synced
+    host clock, one call); then the cell pass over the kernel's columns,
+    into arrays of NaN, under the sync debug mode "error", bit for bit its
+    twin's on the region's cells and no other cell written, with its ms
+    and its twin's; then one initial_state (synced host clock) with the
+    launches it makes: one march and one cell pass a region and no K1
+    lookup. With ``main``, the march's row of the kernels line takes this
+    deck's times and bound; with ``cells_row`` the cell pass's row (one
+    call, per launch in a run of 50 and on the device). Returns (the
+    initial state, the record)."""
     import torch
 
     from opm_tpu_torch.sim import init as equil
     from opm_tpu_torch.utils import tables as k1
     regions = equil.equil_regions(sim.grid, sim.case)
+    cell_data = equil.equil_cell_data(sim.grid, sim.model.device)
+    nc = sim.grid.nc
     rows = []
     for rec, cells, rsvd, pbvd in regions:
         args = equil.march_args(sim.grid, sim.props, rec, cells, rsvd, pbvd)
@@ -996,17 +1056,57 @@ def check_equil(K, label, sim, main=False, twin=True):
             K.note("K1 equil_march", float((cols - plain).abs().max()))
         ms = cuda_ms(lambda: equil.equil_columns_cuda(*args))
         nbytes_moved, flops = equil_work(args)
+        # the cell pass over the kernel's columns
+        ti = torch.as_tensor(cells, dtype=torch.int32, device=cols.device)
+        kout = torch.full((5, nc), float("nan"), dtype=torch.float64,
+                          device=cols.device)
+        pout = kout.clone()
+        equil.equil_cells_cuda(args, cols, ti, cell_data, kout.clone())
+        torch.cuda.synchronize()
+        with no_host_sync():
+            equil.equil_cells_cuda(args, cols, ti, cell_data, kout)
+        equil.equil_cells_plain(args, cols, ti, cell_data, pout)
+        idx = ti.long()
+        cells_same = bool(torch.equal(kout[:, idx], pout[:, idx]))
+        rest = torch.ones(nc, dtype=torch.bool, device=cols.device)
+        rest[idx] = False
+        untouched = bool(torch.isnan(kout[:, rest]).all())
+        K.note("K1 equil_cells",
+               float((kout[:, idx] - pout[:, idx]).abs().max()))
+        c_ms = cuda_ms(lambda: equil.equil_cells_cuda(args, cols, ti,
+                                                      cell_data, kout))
+        c_plain = cuda_ms(lambda: equil.equil_cells_plain(args, cols, ti,
+                                                          cell_data, pout))
+        c_bytes, c_flops = equil_cells_work(args, len(cells))
         rows.append(dict(nz=args[1].shape[0], mode=args[5], cells=len(cells),
                          ms=ms, twin_ms=twin_ms, bitwise=same,
-                         bytes=nbytes_moved, flops=flops))
+                         bytes=nbytes_moved, flops=flops,
+                         cell_pass=dict(ms=c_ms, plain_ms=c_plain,
+                                        bitwise=cells_same,
+                                        bytes=c_bytes, flops=c_flops)))
         if twin and not same:
             fail(f"{label}: the column march differs from its twin on the "
                  "card")
+        if not (cells_same and untouched):
+            fail(f"{label}: the cell pass differs from its twin on the card "
+                 f"(region's cells equal: {cells_same}; other cells left "
+                 f"alone: {untouched})")
         if main and not rows[1:]:
             K.ms["K1 equil_march"] = ms
             K.plain_ms["K1 equil_march"] = twin_ms
             K.bound_raw("K1 equil_march", nbytes_moved, flops)
-    counted = (k1.interp1_cuda, k1.interp2_cuda, equil.equil_columns_cuda)
+        if cells_row and not rows[1:]:
+            def fn():
+                equil.equil_cells_cuda(args, cols, ti, cell_data, kout)
+            K.ms["K1 equil_cells"] = c_ms
+            K.plain_ms["K1 equil_cells"] = c_plain
+            K.library_ms["K1 equil_cells"] = None
+            K.run_ms["K1 equil_cells"] = run_ms(fn)
+            rows[0]["cell_pass"]["device_ms"] = device_ms(fn)
+            K.bound_raw("K1 equil_cells", c_bytes, c_flops)
+        del kout, pout
+    counted = (k1.interp1_cuda, k1.interp2_cuda, equil.equil_columns_cuda,
+               equil.equil_cells_cuda)
     before = [f.launches for f in counted]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1016,18 +1116,23 @@ def check_equil(K, label, sim, main=False, twin=True):
     init_s = time.perf_counter() - t0
     n = [f.launches - b for f, b in zip(counted, before)]
     res = dict(regions=rows, initial_state_s=init_s, k1_interp1=n[0],
-               k1_interp2=n[1], marches=n[2])
+               k1_interp2=n[1], marches=n[2], cell_passes=n[3])
     log(f"{label}: EQUIL column march"
         + (" == twin bit for bit on the card" if twin else "")
         + f" in {len(rows)} region(s); kernel "
         + ", ".join(f"{r['ms']:.4f}" for r in rows) + " ms"
         + (", twin " + ", ".join(f"{r['twin_ms']:.1f}" for r in rows)
            + " ms" if twin else "")
-        + f"; initial_state {init_s:.3f} s with {n[2]} march(es), {n[0]} + "
-        f"{n[1]} K1 lookups")
-    if n[2] != len(regions) or n[0] + n[1] > 7 * len(regions):
-        fail(f"{label}: initial_state made {n[2]} marches and {n[0] + n[1]} "
-             f"K1 lookups for {len(regions)} EQUIL region(s)")
+        + "; cell pass == twin bit for bit, kernel "
+        + ", ".join(f"{r['cell_pass']['ms']:.4f}" for r in rows)
+        + " ms, twin "
+        + ", ".join(f"{r['cell_pass']['plain_ms']:.4f}" for r in rows)
+        + f" ms; initial_state {init_s:.3f} s with {n[2]} march(es), "
+        f"{n[3]} cell pass(es), {n[0]} + {n[1]} K1 lookups")
+    if n[0] or n[1] or n[2] != len(regions) or n[3] != len(regions):
+        fail(f"{label}: initial_state made {n[2]} marches, {n[3]} cell "
+             f"passes and {n[0] + n[1]} K1 lookups for {len(regions)} EQUIL "
+             "region(s)")
     return st, res
 
 
@@ -1142,9 +1247,9 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
     def run_blocks(fn, lead, r, d):
         fL = torch.zeros((9, nf), dtype=torch.float64, device=dev)
         fR = torch.zeros_like(fL)
-        fn(lead, fv, fc, model.depth, model.trans, model.gravity, r, d, fL,
-           fR)
-        return r, d, fL, fR
+        blk = fn(lead, fv, fc, model.depth, model.trans, model.gravity, r,
+                 d, fL, fR)
+        return r, d, fL, fR, blk
 
     nf_s = 0
     if dims is not None:
@@ -1175,7 +1280,10 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
     else:
         r_s, d_s = r0, d0
     if fl is not None:
-        kl = run_blocks(lz.faces_blocks_cuda, fl, r_s.clone(), d_s.clone())
+        # the packed copy the row phase writes, into a buffer of NaN
+        with nan_empty():
+            kl = run_blocks(lz.faces_blocks_cuda, fl, r_s.clone(),
+                            d_s.clone())
         pl = run_blocks(lz.faces_blocks_plain, fl, r_s.clone(), d_s.clone())
         f0 = fl.first
         check("K3-faces face_blocks", TOL_BLOCKS,
@@ -1190,36 +1298,63 @@ def compare_assembly_kernels(K, sim, sys, ctx, seed, label, timed):
         r_c, d_c = cpu(r_s).clone(), cpu(d_s).clone()
         fL_c = torch.zeros((9, nf), dtype=torch.float64)
         fR_c = torch.zeros_like(fL_c)
-        lz.faces_blocks_plain(fl_cpu, cpu(fv), cpu(fc), cpu(model.depth),
-                              cpu(model.trans), model.gravity, r_c, d_c,
-                              fL_c, fR_c)
+        blk_c = lz.faces_blocks_packed_plain(
+            fl_cpu, cpu(fv), cpu(fc), cpu(model.depth), cpu(model.trans),
+            model.gravity, r_c, d_c, fL_c, fR_c)
         if not all(torch.equal(cpu(a), b) for a, b in
-                   zip(kl, (r_c, d_c, fL_c, fR_c))):
-            fail(f"{label}: the K3-faces face blocks are not bit for bit "
-                 "their plain version's on CPU copies of the inputs")
-        del r_c, d_c, fL_c, fR_c
+                   zip(kl, (r_c, d_c, fL_c, fR_c, blk_c))):
+            fail(f"{label}: the K3-faces face blocks (with K4-faces' "
+                 "packed copy) are not bit for bit their plain version's "
+                 "on CPU copies of the inputs")
+        # the copy: bit for bit the pack's twin of the kernel's blocks
+        pk = lz.faces_pack_plain(fl.sell, kl[2], kl[3])
+        K.note("K3-faces face_blocks", float((kl[4] - pk).abs().max()))
+        if not torch.equal(kl[4], pk):
+            fail(f"{label}: the face blocks' packed copy differs from the "
+                 "pack's twin on the card")
+        del r_c, d_c, fL_c, fR_c, blk_c, pk
         rk, dk = r_s.clone(), d_s.clone()
         rp, dp_ = r_s.clone(), d_s.clone()
         fLk, fRk = kl[2], kl[3]
         csr = fl.touched
         rows = csr.n_rows
         # the rows' fv and fc, r and d read and written, the list's trans
-        # and blocks, the CSR
+        # and blocks, the CSR, K4-faces' copy written and its slices read
         moved = (8 * (44 + 2 * 12) * rows + 8 * (1 + 18) * fl.n
-                 + nbytes(csr.ptr, csr.ent, csr.nbr) + 8 * rows)
+                 + nbytes(csr.ptr, csr.ent, csr.nbr) + 8 * rows
+                 + nbytes(kl[4], fl.sell.chunk0))
         timing("K3-faces face_blocks",
                lambda: lz.faces_blocks_cuda(fl, fv, fc, model.depth,
                                             model.trans, model.gravity, rk,
                                             dk, fLk, fRk),
-               lambda: lz.faces_blocks_plain(fl, fv, fc, model.depth,
-                                             model.trans, model.gravity, rp,
-                                             dp_, fLk, fRk),
+               lambda: lz.faces_blocks_packed_plain(
+                   fl, fv, fc, model.depth, model.trans, model.gravity, rp,
+                   dp_, fLk, fRk),
                moved, 250 * fl.n, timed and dims is None)
         if timed and dims is None:
             K.run_ms["K3-faces face_blocks"] = run_ms(
                 lambda: lz.faces_blocks_cuda(fl, fv, fc, model.depth,
                                              model.trans, model.gravity, rk,
                                              dk, fLk, fRk))
+
+        def main_form():
+            # the assembly's face-list part: the face blocks, their row
+            # phase writing the copy, and K4-faces' operator over it
+            blk = lz.faces_blocks_cuda(fl, fv, fc, model.depth, model.trans,
+                                       model.gravity, rk, dk, fLk, fRk)
+            return lz.FacesOperator(fl, dk, fLk, fRk, blk)
+
+        if timed:
+            # the face blocks on the device (queued behind a spin kernel),
+            # and with the operator's constructor: one call, in a run, on
+            # the device
+            extra.setdefault("K3-faces face_blocks", {}).update(
+                device_ms=device_ms(lambda: lz.faces_blocks_cuda(
+                    fl, fv, fc, model.depth, model.trans, model.gravity, rk,
+                    dk, fLk, fRk)),
+                with_operator_ms=cuda_ms(main_form),
+                with_operator_run_ms=run_ms(main_form),
+                with_operator_device_ms=device_ms(main_form))
         del kl, pl
 
     # K5 on the system's well blocks, over its prepared arguments
@@ -2516,13 +2651,15 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
     xp = rnd(nc)
     r = rnd(3, nc)
     dinv, w, diag_p, off = k6.cpr_setup_plain(*ops, dims, fl)
-    # K4-faces: the pack (into the layout the system's operator holds),
+    # K4-faces: the system's copy (written by the assembly's face blocks),
     # the plain product and the fused smoothing step
     op, sell = sys.packed, fl.sell
-    kblk = k4.faces_pack_cuda(sell, sys.face_L, sys.face_R)
-    chk("K4-faces pack", TOL_K4, [
-        (kblk, k4.faces_pack_plain(sell, sys.face_L, sys.face_R)),
-        (op.blk, kblk)])
+    pblk = k4.faces_pack_plain(sell, sys.face_L, sys.face_R)
+    K.note("K3-faces face_blocks", float((op.blk - pblk).abs().max()))
+    if not torch.equal(op.blk, pblk):
+        fail(f"{label}: K4-faces' copy in the system (the face blocks') is "
+             "not bit for bit the pack's twin")
+    del pblk
     kb = None if dims is None else k4.matvec_cells_cuda(*ops, x, dims)
     ky = k4.faces_matvec_cuda(op, x, None if kb is None else kb.clone())
     py = k4.faces_matvec_plain(fl, *ops, x, kb)
@@ -2553,8 +2690,6 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
                 op, x, kb.clone())),
             faces_smooth=cuda_ms(lambda: k4.faces_smooth_cuda(
                 op, dinv, x, r, kb)),
-            faces_pack=cuda_ms(lambda: k4.faces_pack_cuda(
-                sell, sys.face_L, sys.face_R)),
             clone=cuda_ms(lambda: kb.clone()))
     elif timed:
         nb = (fargs[:6], model.trans, csr, kd)
@@ -2576,10 +2711,6 @@ def compare_face_kernels(K, sim, sys, state, dt, seed, label, timed):
                lambda: k4.faces_smooth_cuda(op, dinv, x, r),
                lambda: k4.faces_smooth_plain(fl, *ops, dinv, x, r),
                (ops, dinv, x, r, csr), ky, 18 * nc + 36 * nfl + 24 * nc)
-        timing("K4-faces pack",
-               lambda: k4.faces_pack_cuda(sell, sys.face_L, sys.face_R),
-               lambda: k4.faces_pack_plain(sell, sys.face_L, sys.face_R),
-               (sys.face_L, sys.face_R, sell.src), kblk, 0)
         extra["faces_csr_entries"] = n_ent
 
     # K6: the cell part and K6-faces (gather), or the stencil setup
@@ -2697,10 +2828,18 @@ def norne_first_step(K, sim, ref, label, names):
         counts, rep, label, sim.solver.amg, plain_inv[0])
     res["launches_per_reduced_matvec"] = check_reduced_launches(
         counts, label, sim.model)
-    if counts["K4-faces pack"] != rep.newton_iterations:
-        fail(f"{label}: {counts['K4-faces pack']} K4-faces packs in "
-             f"{rep.newton_iterations} Newton systems")
+    check_copy_launches(counts, rep, label)
     return res
+
+
+def check_copy_launches(counts, rep, label):
+    """K4-faces' copy of each Newton system written by the face blocks'
+    row phase: one face-block launch a Newton, and no other launch writes
+    it (the operator takes only that copy)."""
+    if counts["K3-faces face_blocks"] != rep.newton_iterations:
+        fail(f"{label}: {counts['K3-faces face_blocks']} face blocks' row "
+             f"phases writing K4-faces' copy in {rep.newton_iterations} "
+             "Newton systems")
 
 
 def toy_run(K, sim, ref, label, names):
@@ -2721,6 +2860,9 @@ def toy_run(K, sim, ref, label, names):
                            sim.report, label, sim.solver.amg, plain_inv[0])
     per = check_reduced_launches({e[0]: e[4].launches for e in K.entries},
                                  label, sim.model)
+    if sim.model.faces is not None:
+        check_copy_launches({e[0]: e[4].launches for e in K.entries},
+                            sim.report, label)
     counts = {e[0]: e[4].launches for e in K.entries if e[0] in names}
     res.update(sections_s=dict(sim.solver.timing), launches=counts,
                launches_per_reduced_matvec=per)
@@ -2839,7 +2981,7 @@ def main(argv=None):
     log(f"build: {results['build_s']:.1f} s (13 nvcc sm_90a and the host "
         "cornerpoint.cpp in parallel)")
     for src in ("krylov.cu", "gmg.cu", "amg.cu", "cells.cu", "block7.cu",
-                "faces.cu", "wells.cu", "newton.cu", "tpfa.cu"):
+                "faces.cu", "wells.cu", "newton.cu", "tpfa.cu", "equil.cu"):
         ptxas = cuda_lib.build_log.get(src)
         log(f"{src} -Xptxas -v: " + (json.dumps(parse_ptxas(ptxas))
             if ptxas is not None else "(library up to date, not rebuilt)"))
@@ -2951,7 +3093,8 @@ def main(argv=None):
                                                   sim_cmp.grid.trans),
                         sys1, args.seed, "SPE1", timed=False)
     log("K4/K6/K8 == plain on SPE1's first Newton system: ok")
-    init10, eq["SPE10-2"] = check_equil(K, "SPE10-2", sim10)
+    init10, eq["SPE10-2"] = check_equil(K, "SPE10-2", sim10,
+                                        cells_row=True)
     results["spe10_initial_state_s"] = eq["SPE10-2"]["initial_state_s"]
     t0 = time.perf_counter()
     sys10, ctx10 = first_newton_system(sim10, init10)

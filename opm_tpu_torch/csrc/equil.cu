@@ -28,6 +28,24 @@
 // its order: p + (rho(p, z) * 0.5) * dz, lookups as v + 0 * x, divisions
 // as divisions, built with --fmad=false, so the columns equal it bit for
 // bit. Only the steps the reference's masked scans take are evaluated.
+//
+// The cell pass (equil_cells_kernel) replaces the rest of the reference's
+// equilibrate_region (:133-187): the columns' lookups onto the cells
+// (interp :134-136), sw from pcow (:146) and sg from pcgo (:149-157) by
+// K1's clamped lookups, rs_sat at each cell's PVT region and the RSVD /
+// PBVD column (:159-172). Run as torch operations, that was 4-6 K1
+// launches a region, two host reads (whether each capillary curve is
+// flat), about a dozen elementwise passes and five scatters into the
+// state. What bounds it: memory traffic, a cell's depth and two region
+// numbers read (16 B, gathered through the region's cell list) and five
+// values written (40 B, scattered); the lookups are a few binary searches
+// in tables that stay in L1. Design: a grid-strided thread per cell of
+// the region; each block stages the depth grid and the three columns
+// (4 nz doubles, 64 KB at 2000 points) and the RSVD/PBVD column in shared
+// memory once; the per-region saturation and PVT tables are read through
+// the cache. The values go straight into the state's (nc,) rows. Every
+// formula is the plain version's (sim/init.py equil_cells_plain) in its
+// order, so the outputs equal it bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -262,6 +280,115 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// numpy.interp's formula at x (the plain version's np_interp): the
+// segment j with xp[j] <= x < xp[j+1] clipped to [0, n-2], slope (fp[j+1]
+// - fp[j]) / (xp[j+1] - xp[j]) times (x - xp[j]) plus fp[j], the end values
+// at and beyond the ends
+__device__ __forceinline__ double np_interp(const double* xp,
+                                            const double* fp, int n,
+                                            double x) {
+    if (n == 1) return fp[0];
+    const int j = opm_tables::segment_of(xp, n, x);
+    const double slope = (fp[j + 1] - fp[j]) / (xp[j + 1] - xp[j]);
+    double out = slope * (x - xp[j]) + fp[j];
+    if (x >= xp[n - 1]) out = fp[n - 1];
+    if (x < xp[0]) out = fp[0];
+    return out;
+}
+
+// the cell pass's region: its contacts and switches, and the per-region
+// tables ((nreg, n) rows; a table with one region serves every region)
+struct CellRegion {
+    double woc_z, goc_z;
+    int mode, disgas, inv_w, inv_g;    // sw from pcow, sg from pcgo
+    const double *pcow_neg, *sw, *pcgo, *sg, *swco;
+    int s_nreg, nw, ng;
+    const double *pbub, *rs;           // null: rs_sat is 0
+    int o_nreg, nrec;
+};
+
+constexpr int kCellThreads = 256;
+
+// The region's n cells cells[k]: p, sw, sg, rs, rv at cell c written to
+// out[q nc + c], q = 0..4. z (nz), cols (3, nz): the march's depth grid
+// and columns; vz, vv (nv): the RSVD/PBVD column.
+__global__ void __launch_bounds__(kCellThreads)
+    equil_cells_kernel(const double* __restrict__ z, int nz,
+                       const double* __restrict__ cols,
+                       const double* __restrict__ vz,
+                       const double* __restrict__ vv, int nv, CellRegion R,
+                       const int* __restrict__ cells, long long n,
+                       const double* __restrict__ depth,
+                       const int* __restrict__ pvtnum,
+                       const int* __restrict__ satnum, long long nc,
+                       double* __restrict__ out) {
+    extern __shared__ double smem[];
+    double* Z = smem;
+    double* C = Z + nz;
+    double* VZ = C + 3 * nz;
+    double* VV = VZ + nv;
+    stage(Z, z, nz);
+    stage(C, cols, 3 * nz);
+    stage(VZ, vz, R.mode != VD_NONE ? nv : 0);
+    stage(VV, vv, R.mode != VD_NONE ? nv : 0);
+    __syncthreads();
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         k < n; k += stride) {
+        const long long c = cells[k];
+        const double zc = depth[c];
+        // the three columns at the cell's depth (K1's linear lookup)
+        const Coord1 cz = coord1(Z, nz, zc, 0);
+        double po, pw, pg, s;
+        opm_tables::interp1(cz, C, &po, &s);
+        opm_tables::interp1(cz, C + nz, &pw, &s);
+        opm_tables::interp1(cz, C + 2 * nz, &pg, &s);
+        const int rsat = row_of(R.s_nreg, satnum[c]);
+        const double swco = R.swco[rsat];
+        double sw, sg;
+        if (R.inv_w)
+            sw = look1(R.pcow_neg + (long long)rsat * R.nw,
+                       R.sw + (long long)rsat * R.nw, R.nw, -(po - pw), 1);
+        else
+            sw = zc > R.woc_z ? 1.0 : swco;
+        if (R.inv_g) {
+            sg = look1(R.pcgo + (long long)rsat * R.ng,
+                       R.sg + (long long)rsat * R.ng, R.ng, pg - po, 1);
+            sg = zc < R.goc_z ? sg : 0.0;
+        } else {
+            sg = zc < R.goc_z ? 1.0 - swco : 0.0;
+        }
+        // torch.clamp(sg, min=0), then torch.minimum with 1 - sw
+        if (!isnan(sg) && sg < 0.0) sg = 0.0;
+        sg = minimum(sg, 1.0 - sw);
+        double rs = 0.0;
+        if (R.disgas) {
+            const double* pb_x = nullptr;
+            const double* rs_y = nullptr;
+            if (R.pbub) {
+                const long long ro = row_of(R.o_nreg, pvtnum[c]);
+                pb_x = R.pbub + ro * R.nrec;
+                rs_y = R.rs + ro * R.nrec;
+            }
+            const double rssat =
+                R.pbub ? look1(pb_x, rs_y, R.nrec, po, 0) : 0.0;
+            if (R.mode == VD_RSVD) {
+                rs = minimum(np_interp(VZ, VV, nv, zc), rssat);
+            } else if (R.mode == VD_PBVD) {
+                const double pb = minimum(np_interp(VZ, VV, nv, zc), po);
+                rs = R.pbub ? look1(pb_x, rs_y, R.nrec, pb, 0) : 0.0;
+            } else {
+                rs = rssat;
+            }
+        }
+        out[c] = po;
+        out[nc + c] = sw;
+        out[2 * nc + c] = sg;
+        out[3 * nc + c] = rs;
+        out[4 * nc + c] = 0.0;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -298,6 +425,52 @@ int opm_equil_march(const double* tab, const int* meta, const double* z,
     }
     equil_march_kernel<<<1, kThreads, smem, stream>>>(L, tab, z, nz, vz, vv,
                                                       nv, R, out);
+    return (int)cudaGetLastError();
+}
+
+// The cell pass of one region: z (nz) and cols (3, nz) the march's grid
+// and columns; vz, vv (nv) or null with mode 0; pcow, pcgo: 1 where the
+// deck's curve is not flat; the saturation tables pcow_neg, sw (nreg, nw),
+// pcgo, sg (nreg, ng) and swco (nreg); PVTO's pbub and rs
+// (o_nreg, nrec), or null (rs_sat 0); cells (n) int32, the region's cells;
+// depth (nc) float64, pvtnum and satnum (nc) int32; out (5, nc) float64:
+// p, sw, sg, rs, rv written at the region's cells. One launch: a grid
+// strided over the cells, as many blocks as fit on the card at once.
+int opm_equil_cells(const double* z, int nz, const double* cols,
+                    const double* vz, const double* vv, int nv, int mode,
+                    int disgas, int pcow, int pcgo, double woc_z,
+                    double goc_z, const double* pcow_neg, const double* sw,
+                    const double* pcgo_x, const double* sg,
+                    const double* swco, int s_nreg, int nw, int ng,
+                    const double* pbub, const double* rs, int o_nreg,
+                    int nrec, const int* cells, long long n,
+                    const double* depth, const int* pvtnum,
+                    const int* satnum, long long nc, double* out,
+                    cudaStream_t stream) {
+    if (n == 0) return 0;
+    const CellRegion R{woc_z, goc_z, mode, disgas, pcow, pcgo, pcow_neg,
+                       sw, pcgo_x, sg, swco, s_nreg, nw, ng, pbub, rs,
+                       o_nreg, nrec};
+    const size_t smem = (size_t)(4LL * nz + 2LL * nv) * sizeof(double);
+    int err = (int)cudaFuncSetAttribute(
+        equil_cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err) return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    err = (int)cudaGetDevice(&dev);
+    if (!err)
+        err = (int)cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!err)
+        err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, equil_cells_kernel, kCellThreads, smem);
+    if (err) return err;
+    const long long need = (n + kCellThreads - 1) / kCellThreads;
+    const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    const int blocks = (int)(need < fit ? need : fit);
+    equil_cells_kernel<<<blocks, kCellThreads, smem, stream>>>(
+        z, nz, cols, vz, vv, nv, R, cells, n, depth, pvtnum, satnum, nc,
+        out);
     return (int)cudaGetLastError();
 }
 

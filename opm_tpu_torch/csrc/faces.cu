@@ -41,14 +41,18 @@
 // and one call, host-bound, was no faster on either grid; one cooperative
 // launch was no better (opm_tpu_torch/tools/assembly_ab.py, PERF.md §6).
 // The operator (K4-faces, with the smoothing step) reads its blocks from a
-// sliced-ELL copy packed once per Newton system (sell_pack_kernel): read in
+// sliced-ELL copy written once per Newton system by the face blocks' row
+// phase: read in
 // face order, a warp's neighbouring cells found their right-side faces far
 // apart, a 32-byte sector per lane; in the packed copy lane i of slot j
 // reads address base + 32 b + i.
 // The face blocks run a face phase, then a row phase (two launches): a
 // thread per face evaluates its flux and both blocks once (six tangent
 // evaluations) and writes them in face order; then a thread per row and
-// sum adds what the row's faces wrote, in the CSR order. The blocks
+// sum adds what the row's faces wrote, in the CSR order, and a block
+// entry's thread also writes the other block of each face it visits,
+// signed, into the operator's sliced-ELL copy (the layout's rows are
+// this CSR's, so the pack is no launch of its own). The blocks
 // face_L / face_R are outputs anyway, so the row phase re-reads a value a
 // visit from face arrays (the flux from a (3, n) scratch) instead of
 // gathering the neighbour's 44 input rows and evaluating the face again.
@@ -65,8 +69,6 @@
 // Build with --fmad=false (products and sums round as the plain version's).
 
 #include <cuda_runtime.h>
-
-#include <climits>
 
 #include "tpfa_face.cuh"
 #include "wells.cuh"
@@ -152,35 +154,85 @@ __global__ void faces_blocks_face_kernel(ListFaces lf, long long nc,
     }
 }
 
-// idx = v n_rows + t: sum v of row t (v < 3: r_cell row v; else diag row
-// v - 3), updated in place
+// The operator's sliced-ELL layout (built once per grid on the host from
+// the cell CSR of the rows the faces touch, filled once per Newton system):
+// the rows in slices of 32, one warp; slice s holds chunk0[s+1] -
+// chunk0[s] slots, its longest row. Slot j of row t (lane i = t % 32 of
+// slice s) is entry e = 32 ch + i, ch = chunk0[s] + j, with the neighbour
+// cell col[e] and the signed block entry b (row 3 eq + var) at blk[288 ch
+// + 32 b + i] (sell_first, sell_blk: the only addressing of the layout on
+// the card): +face_R for a face where the row's cell is the left cell,
+// -face_L where it is the right cell, in the CSR's order. Lane i of a
+// warp reads base + 32 b + i: coalesced. Pads (slots past a row's length,
+// and every slot of a lane that holds no row) are 0 in blk and read by no
+// thread. On a gather grid row t is cell t (rows and row_of null); on an
+// embedded grid the rows are the cells the extra faces touch, rows[t] the
+// cell of row t and row_of[c] the row of cell c (-1: none).
+
+// entry e of slot 0 of row t; slot j is entry e + 32 j
+__device__ __forceinline__ long long sell_first(const int* chunk0, int t) {
+    return 32LL * chunk0[t >> 5] + (t & 31);
+}
+
+// block entry b of entry e in blk
+__device__ __forceinline__ long long sell_blk(long long e, int b) {
+    return 288 * (e >> 5) + 32 * b + (e & 31);
+}
+
+// idx = v n32 + t (n32: n_rows rounded up to a slice of 32): sum v of
+// row t (v < 3: r_cell row v; else diag row v - 3), updated in place.
+// Thread (v >= 3, t) also writes block entry b = v - 3 of row t's slots
+// in the sliced-ELL copy blk (the layout above): the CSR's k-th entry of
+// the row is slot k - ptr[t], +face_R[b][f] for ent = f >= 0 and
+// -face_L[b][f] for ent = -f-1, and the slots past the row's length up
+// to its slice's width get 0, also on the lanes of the last slice that
+// hold no row; lanes of a warp are consecutive rows of one slice, so each
+// slot's writes are coalesced.
 __global__ void faces_blocks_row_kernel(Csr g, ListFaces lf, long long nc,
+                                        int n32,
                                         const double* __restrict__ flux,
                                         const double* __restrict__ fL,
                                         const double* __restrict__ fR,
                                         double* __restrict__ r_cell,
-                                        double* __restrict__ diag) {
+                                        double* __restrict__ diag,
+                                        const int* __restrict__ chunk0,
+                                        double* __restrict__ blk) {
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= 12LL * g.n_rows) return;
-    const int v = (int)(idx / g.n_rows);
-    const int t = (int)(idx - (long long)v * g.n_rows);
-    const long long c = g.rows ? g.rows[t] : t;
+    if (idx >= 12LL * n32) return;
+    const int v = (int)(idx / n32);
+    const int t = (int)(idx - (long long)v * n32);
     const bool is_r = v < 3;
-    double* out = is_r ? r_cell + v * nc : diag + (v - 3) * nc;
-    // the left and right values of this sum: flux row v (by list index
-    // f - first), or face_L / face_R row v - 3 (by face index f)
-    const double* lv = is_r ? flux + v * lf.n : fL + (v - 3) * lf.nf;
-    const double* rv = is_r ? lv : fR + (v - 3) * lf.nf;
-    const long long off = is_r ? lf.first : 0;
-    double acc = out[c];
-    for (int k = g.ptr[t]; k < g.ptr[t + 1]; ++k) {
-        const int s = g.ent[k];
-        if (s >= 0)
-            acc = acc + lv[s - off];
-        else
-            acc = acc + (-rv[-(long long)s - 1 - off]);
+    if (is_r && t >= g.n_rows) return;
+    const int b = v - 3;
+    const long long slot0 = is_r ? 0 : sell_first(chunk0, t);
+    const int width = is_r ? 0 : chunk0[(t >> 5) + 1] - chunk0[t >> 5];
+    int len = 0;
+    if (t < g.n_rows) {
+        const long long c = g.rows ? g.rows[t] : t;
+        double* out = is_r ? r_cell + v * nc : diag + b * nc;
+        // the left and right values of this sum: flux row v (by list
+        // index f - first), or face_L / face_R row b (by face index f)
+        const double* lv = is_r ? flux + v * lf.n : fL + b * lf.nf;
+        const double* rv = is_r ? lv : fR + b * lf.nf;
+        const long long off = is_r ? lf.first : 0;
+        const int k0 = g.ptr[t];
+        len = g.ptr[t + 1] - k0;
+        double acc = out[c];
+        for (int j = 0; j < len; ++j) {
+            const int s = g.ent[k0 + j];
+            if (s >= 0) {
+                acc = acc + lv[s - off];
+                if (!is_r) blk[sell_blk(slot0 + 32LL * j, b)] = rv[s];
+            } else {
+                const long long f = -(long long)s - 1;
+                acc = acc + (-rv[f - off]);
+                if (!is_r) blk[sell_blk(slot0 + 32LL * j, b)] = -lv[f];
+            }
+        }
+        out[c] = acc;
     }
-    out[c] = acc;
+    for (int j = len; j < width; ++j)
+        blk[sell_blk(slot0 + 32LL * j, b)] = 0.0;
 }
 
 __device__ __forceinline__ double xv(const double* x, bool p_only,
@@ -189,19 +241,6 @@ __device__ __forceinline__ double xv(const double* x, bool p_only,
     return x[comp * nc + c];
 }
 
-// The operator's sliced-ELL layout (built once per grid on the host from
-// the cell CSR of the rows the faces touch, packed once per Newton system):
-// the rows in slices of 32, one warp; slice s holds chunk0[s+1] -
-// chunk0[s] slots, its longest row. Slot j of row t (lane i = t % 32 of
-// slice s) is entry e = 32 ch + i, ch = chunk0[s] + j, with the neighbour
-// cell col[e] and the signed block entry b (row 3 eq + var) at blk[288 ch
-// + 32 b + i]: +face_R for a face where the row's cell is the left cell,
-// -face_L where it is the right cell, in the CSR's order. Lane i of a
-// warp reads base + 32 b + i: coalesced. Pads (slots past a row's length)
-// are storage only: no thread reads them. On a gather grid row t is cell
-// t (rows and row_of null); on an embedded grid the rows are the cells the
-// extra faces touch, rows[t] the cell of row t and row_of[c] the row of
-// cell c (-1: none).
 struct Sell {
     const int* rows;
     const int* row_of;
@@ -248,12 +287,11 @@ __device__ __forceinline__ void sell_row(const Sell& g, int t, long long nc,
         for (int e = 0; e < 3; ++e) y[e] = base[e * nc + c];
     }
     const int len = row >= 0 ? g.ptr[row + 1] - g.ptr[row] : 0;
-    const int lane = row & 31;
-    const long long ch0 = row >= 0 ? g.chunk0[row >> 5] : 0;
+    const long long slot0 = row >= 0 ? sell_first(g.chunk0, row) : 0;
     for (int j = 0; j < len; ++j) {
-        const long long ch = ch0 + j;
-        const long long o = g.col[32 * ch + lane];
-        const double* b = g.blk + 288 * ch + lane;
+        const long long e = slot0 + 32LL * j;
+        const long long o = g.col[e];
+        const double* b = g.blk + sell_blk(e, 0);
         const double v0 = xv(x, po, nc, 0, o), v1 = xv(x, po, nc, 1, o),
                      v2 = xv(x, po, nc, 2, o);
         for (int i = 0; i < 3; ++i) {
@@ -296,28 +334,6 @@ __global__ void sell_apply_kernel(Sell g, int n_threads, long long nc,
     opm_wells::matvec_epilogue(W, nc, out);
 }
 
-// the pack: padded entry e (thread e) gets src[e] = f >= 0: +face_R[.][f],
-// src[e] = -f-1: -face_L[.][f], src[e] = INT_MIN (a pad): 0; consecutive
-// threads write consecutive addresses of each block entry
-__global__ void sell_pack_kernel(long long n_pad, const int* __restrict__ src,
-                                 long long nf,
-                                 const double* __restrict__ fL,
-                                 const double* __restrict__ fR,
-                                 double* __restrict__ blk) {
-    long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= n_pad) return;
-    const int sv = src[e];
-    double* o = blk + 288 * (e >> 5) + (e & 31);
-    if (sv == INT_MIN) {
-        for (int b = 0; b < 9; ++b) o[32 * b] = 0.0;
-    } else if (sv >= 0) {
-        for (int b = 0; b < 9; ++b) o[32 * b] = fR[b * nf + sv];
-    } else {
-        const long long f = -(long long)sv - 1;
-        for (int b = 0; b < 9; ++b) o[32 * b] = -fL[b * nf + f];
-    }
-}
-
 inline int blocks_for(long long n) {
     return (int)((n + kThreads - 1) / kThreads);
 }
@@ -346,22 +362,26 @@ int opm_faces_div(int n_rows, const int* rows, const int* ptr,
 // c2) from the face inputs fv (11, nc) and their tangent columns fc (3,
 // 11, nc): face_L / face_R (9, nf) written at the faces and flux (3, n) a
 // scratch (the face phase), then r_cell and diag updated in place over
-// the CSR's rows (the row phase): two launches
+// the CSR's rows and the signed off-diagonal blocks written into blk
+// (288 n_chunks,), the sliced-ELL layout of the same CSR with slices
+// chunk0 (the row phase): two launches
 int opm_faces_blocks(int n_rows, const int* rows, const int* ptr,
                      const int* ent, const int* nbr, long long first,
                      long long n, const int* c1, const int* c2, long long nc,
                      long long nf, const double* fv, const double* fc,
                      const double* depth, const double* trans, double g,
                      double* flux, double* r_cell, double* diag, double* fL,
-                     double* fR, cudaStream_t stream) {
+                     double* fR, const int* chunk0, double* blk,
+                     cudaStream_t stream) {
     if (n == 0) return 0;
     Csr csr{n_rows, rows, ptr, ent, nbr};
     ListFaces lf{first, n, nf, c1, c2};
+    const int n32 = (n_rows + 31) / 32 * 32;
     faces_blocks_face_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
         lf, nc, fv, fc, depth, trans, g, flux, fL, fR);
-    faces_blocks_row_kernel<<<blocks_for(12LL * n_rows), kThreads, 0,
-                              stream>>>(csr, lf, nc, flux, fL, fR, r_cell,
-                                        diag);
+    faces_blocks_row_kernel<<<blocks_for(12LL * n32), kThreads, 0,
+                              stream>>>(csr, lf, nc, n32, flux, fL, fR,
+                                        r_cell, diag, chunk0, blk);
     return (int)cudaGetLastError();
 }
 
@@ -387,17 +407,6 @@ int opm_faces_sell_apply(int n_threads, const int* rows, const int* row_of,
         + opm_wells::prologue_blocks(W);
     sell_apply_kernel<<<blocks, kThreads, 0, stream>>>(
         g, n_threads, nc, diag, base, x, p_only, dinv, r, out, W);
-    return (int)cudaGetLastError();
-}
-
-// the signed face blocks (9, nf) face_L / face_R packed into the layout's
-// n_pad = 32 n_chunks entries: blk (288 n_chunks,)
-int opm_faces_sell_pack(long long n_pad, const int* src, long long nf,
-                        const double* fL, const double* fR, double* blk,
-                        cudaStream_t stream) {
-    if (n_pad == 0) return 0;
-    sell_pack_kernel<<<blocks_for(n_pad), kThreads, 0, stream>>>(
-        n_pad, src, nf, fL, fR, blk);
     return (int)cudaGetLastError();
 }
 

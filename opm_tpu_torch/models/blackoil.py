@@ -1059,11 +1059,11 @@ _FACES_SIGS = {
     # the operator over the sliced-ELL layout (models/linearize.py)
     "opm_faces_sell_apply": [_I] + [_P] * 6 + [cuda_lib.L] + [_P] * 3
     + [_I] + [_P] * 3 + [_P, _I, _P],
-    "opm_faces_sell_pack": [cuda_lib.L, _P, cuda_lib.L] + [_P] * 4,
-    # the face blocks of the assembly (models/linearize.py)
+    # the face blocks of the assembly, with the operator's packed copy
+    # (models/linearize.py)
     "opm_faces_blocks": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L, _P, _P,
                          cuda_lib.L, cuda_lib.L] + [_P] * 4 + [_D]
-    + [_P] * 6,
+    + [_P] * 8,
 }
 
 

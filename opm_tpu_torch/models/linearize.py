@@ -27,8 +27,8 @@ over the 7-point stencil, with ``matvec_cells_plain`` as its twin, and
 K4-faces (``csrc/faces.cu``) over a face list: a gather grid's faces, or an
 embedded grid's extra faces after K4 (``faces_matvec_plain`` its twin).
 K4-faces reads the face blocks from a sliced-ELL copy in row order
-(``FacesOperator``: packed once per system on the card, a
-``BlockSystem.packed`` field that is None on the CPU). The
+(``FacesOperator``, a ``BlockSystem.packed`` field that is None on the
+CPU), which the face-list face blocks' row phase writes on the card. The
 3x3 block families are stored as (9, n) tensors, row-major over
 (equation, variable): row 3*i+j is dF_i/du_j, the reference's nine flat
 arrays stacked; face blocks follow the grid's face order (on an embedded
@@ -134,13 +134,16 @@ def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
         else:
             cuda_lib.dispatch(fv, face_blocks_cuda, face_blocks_plain, dims,
                               *fargs, what="K3 face blocks")
+    # (the face list's, with K4-faces' packed copy on the card)
     fl = model.faces
+    blk = None
     if fl is not None:
         if twin:
             faces_blocks_plain(fl, *fargs)
         else:
-            cuda_lib.dispatch(fv, faces_blocks_cuda, faces_blocks_plain, fl,
-                              *fargs, what="K3-faces face blocks")
+            blk = cuda_lib.dispatch(fv, faces_blocks_cuda,
+                                    faces_blocks_plain, fl, *fargs,
+                                    what="K3-faces face blocks")
 
     # ---- wells: perforation-local fluxes and their exact derivatives
     nw, mp = wd["perf_cell"].shape
@@ -218,10 +221,9 @@ def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
     cw = (cw * wd["open"][:, None, None, None]).contiguous()
     wc = (wc * wd["open"][:, None, None, None]).contiguous()
     diag = diag.contiguous()
-    # K4-faces' operator, packed once per system on the card
-    packed = (FacesOperator(fl, diag, face_L, face_R)
-              if fl is not None and not twin and dev.type == "cuda"
-              else None)
+    # K4-faces' operator over the copy the face blocks wrote, on the card
+    packed = (FacesOperator(fl, diag, face_L, face_R, blk)
+              if blk is not None else None)
     return BlockSystem(r_cell=r_cell, r_well=r_well, diag=diag,
                        face_L=face_L, face_R=face_R, cw=cw, wc=wc,
                        wd_diag=wd_diag, perf_cell=pc, perf_mask=mask,
@@ -315,6 +317,16 @@ def faces_blocks_plain(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
     face_R[:, fl.first:] = fR
 
 
+def faces_blocks_packed_plain(fl: FaceList, fv, fc, depth, trans, gravity,
+                              r_cell, diag, face_L, face_R):
+    """faces_blocks_plain, then K4-faces' sliced-ELL copy of the blocks it
+    wrote (faces_pack_plain): the oracle of faces_blocks_cuda; returns the
+    copy."""
+    faces_blocks_plain(fl, fv, fc, depth, trans, gravity, r_cell, diag,
+                       face_L, face_R)
+    return faces_pack_plain(fl.sell, face_L, face_R)
+
+
 def _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
                        face_R):
     dev = fv.device
@@ -365,7 +377,12 @@ def faces_blocks_cuda(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
                       diag, face_L, face_R):
     """K3 face blocks, face-list form, on the card (over the rows of the
     cells the list's faces touch: every cell of a gather grid, an embedded
-    grid's epilogue); same contract as faces_blocks_plain."""
+    grid's epilogue); same contract as faces_blocks_packed_plain: the row
+    phase also writes the signed off-diagonal blocks into the list's
+    sliced-ELL layout (K4-faces' operator), returned as a fresh
+    (288 n_chunks,) tensor. The assembly's CPU path runs
+    faces_blocks_plain, which writes no copy (the operator runs only on
+    the card)."""
     nc = diag.shape[-1]
     nf = trans.shape[0]
     _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
@@ -374,15 +391,19 @@ def faces_blocks_cuda(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
         raise ValueError("K3-faces face blocks: trans must span every face "
                          "of the grid")
     flux = torch.empty((3, fl.n), dtype=torch.float64, device=fv.device)
+    sell = fl.sell
+    blk = torch.empty(288 * sell.n_chunks, dtype=torch.float64,
+                      device=fv.device)
     lib = cuda_lib.load("faces", _FACES_SIGS)
     ptr = cuda_lib.ptr
     err = lib.opm_faces_blocks(
         *csr_args(fl.touched), fl.first, fl.n, ptr(fl.c1_32), ptr(fl.c2_32),
         nc, nf, ptr(fv), ptr(fc), ptr(depth), ptr(trans), float(gravity),
         ptr(flux), ptr(r_cell), ptr(diag), ptr(face_L), ptr(face_R),
-        cuda_lib.stream_ptr(fv.device))
+        ptr(sell.chunk0), ptr(blk), cuda_lib.stream_ptr(fv.device))
     cuda_lib.check(err, "opm_faces_blocks")
     faces_blocks_cuda.launches += 1
+    return blk
 
 
 faces_blocks_cuda.launches = 0
@@ -531,7 +552,8 @@ def faces_smooth_plain(fl: FaceList, diag, face_L, face_R, dinv, x, r,
 def faces_pack_plain(sell: SellLayout, face_L, face_R):
     """The signed face blocks in the sliced-ELL layout (a torch gather):
     (288 n_chunks,), padded entry e's block entry b at 288 (e // 32) +
-    32 b + e % 32; pads 0."""
+    32 b + e % 32; pads 0. The reference of the copy that
+    faces_blocks_cuda's row phase writes."""
     src = sell.src.long()
     pad = src == SELL_PAD
     left = src >= 0
@@ -541,34 +563,17 @@ def faces_pack_plain(sell: SellLayout, face_L, face_R):
     return vals.reshape(9, -1, 32).permute(1, 0, 2).reshape(-1)
 
 
-def faces_pack_cuda(sell: SellLayout, face_L, face_R):
-    """K4-faces' pack on the card; same contract as faces_pack_plain."""
-    nf = face_L.shape[1]
-    blk = torch.empty(288 * sell.n_chunks, dtype=torch.float64,
-                      device=face_L.device)
-    lib = cuda_lib.load("faces", _FACES_SIGS)
-    ptr = cuda_lib.ptr
-    err = lib.opm_faces_sell_pack(32 * sell.n_chunks, ptr(sell.src), nf,
-                                  ptr(face_L), ptr(face_R), ptr(blk),
-                                  cuda_lib.stream_ptr(face_L.device))
-    cuda_lib.check(err, "opm_faces_sell_pack")
-    faces_pack_cuda.launches += 1
-    return blk
-
-
-faces_pack_cuda.launches = 0
-
-
 class FacesOperator:
     """K4-faces' operator of one Newton system on the card: the face
     list's sliced-ELL layout (``FaceList.sell``) with the signed face
-    blocks packed into it (one pack launch), beside the diagonal. The
-    blocks are checked here, once; a call checks only its vectors and
-    passes the cached pointers. A launch runs a thread per row of the
-    layout for an in-place update (only the rows the faces touch change),
-    else a thread per cell."""
+    blocks in it, ``blk`` as the face blocks' row phase wrote it
+    (``faces_blocks_cuda``), beside the diagonal. The blocks are checked
+    here, once; a call checks only its vectors and passes the cached
+    pointers. A launch runs a thread per row of the layout for an in-place
+    update (only the rows the faces touch change), else a thread per
+    cell."""
 
-    def __init__(self, fl: FaceList, diag, face_L, face_R):
+    def __init__(self, fl: FaceList, diag, face_L, face_R, blk):
         check_block_operator(diag, face_L, face_R, None)
         sell = fl.sell
         if sell.nc != diag.shape[1]:
@@ -577,7 +582,12 @@ class FacesOperator:
         self.nc = diag.shape[1]
         self.device = diag.device
         self.diag = diag
-        self.blk = faces_pack_cuda(sell, face_L, face_R)
+        if (blk.shape != (288 * sell.n_chunks,)
+                or blk.dtype != torch.float64 or blk.device != diag.device
+                or not blk.is_contiguous()):
+            raise ValueError("K4-faces: the packed blocks do not fit the "
+                             "layout")
+        self.blk = blk
         self.lib = cuda_lib.load("faces", _FACES_SIGS)
         self.stream = cuda_lib.stream_ptr(diag.device)
         self.layout = (sell.chunk0.data_ptr(), sell.ptr.data_ptr(),

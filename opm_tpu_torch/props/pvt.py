@@ -108,8 +108,9 @@ class LiveOilPVT:
     grids: torch.Tensor       # (nreg, 2, nrec, ndp): inv_b, inv_bmu
 
     def __post_init__(self):
-        # single-column (nreg, 1, nrec) views for the K1 lookups
-        self._rs_col = self.rs_tab[:, None, :].contiguous()
+        # single-column (nreg, 1, nrec) tables for the K1 lookups: rs
+        # (rs_sat's values, also EQUIL's and K9's) and the bubble pressure
+        self.rs_col = self.rs_tab[:, None, :].contiguous()
         self._pbub_col = self.pbub_tab[:, None, :].contiguous()
 
     @classmethod
@@ -188,7 +189,7 @@ class LiveOilPVT:
 
     def rs_sat(self, p, reg):
         """Saturated (maximum) dissolved gas-oil ratio at pressure p."""
-        return lookup1(self.pbub_tab, self._rs_col, p, reg=reg)[0]
+        return lookup1(self.pbub_tab, self.rs_col, p, reg=reg)[0]
 
     def p_bub(self, rs, reg):
         return lookup1(self.rs_tab, self._pbub_col, rs, reg=reg)[0]

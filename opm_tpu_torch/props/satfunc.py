@@ -9,7 +9,10 @@ family 2). Three-phase oil relperm uses the ECLIPSE default model:
 Capillary sign conventions: pcow = po - pw (SWOF col 4), pcgo = pg - po
 (SGOF col 4). The three water-axis curves (krw, krow, pcow) are one K1
 lookup with three columns, the gas-axis curves (krg, krog, pcgo) another,
-both with clamped extrapolation.
+both with clamped extrapolation. EQUIL's capillary inversions read the
+tables prepared once here from the deck's arrays: the negated pcow
+curve and the pcgo curve as abscissae over the saturation axes, and
+whether each curve is flat (its largest magnitude).
 """
 
 from __future__ import annotations
@@ -32,6 +35,13 @@ class SatFuncFamily1:
     sg: torch.Tensor        # (nreg, m)
     g_cols: torch.Tensor    # (nreg, 3, m): krg, krog, pcgo
     swco: torch.Tensor      # (nreg,) connate water
+    # EQUIL's inversions sw(pcow) and sg(pcgo) as K1 tables: the
+    # abscissae (nreg, n) -pcow (pcow is non-increasing in sw) and pcgo,
+    # the values sw and sg (one column each); max |pcow| and max |pcgo|
+    pcow_neg: torch.Tensor
+    pcgo_x: torch.Tensor
+    pcow_range: float
+    pcgo_range: float
 
     @property
     def pcow(self):
@@ -65,7 +75,11 @@ class SatFuncFamily1:
             w_cols=_t(np.moveaxis(swof[..., 1:], -1, 1), device),
             sg=_t(sgof[..., 0], device),
             g_cols=_t(np.moveaxis(sgof[..., 1:], -1, 1), device),
-            swco=_t(swof[:, 0, 0], device))
+            swco=_t(swof[:, 0, 0], device),
+            pcow_neg=_t(-swof[..., 3], device),
+            pcgo_x=_t(sgof[..., 3], device),
+            pcow_range=float(np.abs(swof[..., 3]).max()),
+            pcgo_range=float(np.abs(sgof[..., 3]).max()))
 
     @classmethod
     def from_case(cls, case, device):
@@ -102,14 +116,3 @@ class SatFuncFamily1:
         krg = torch.where(sg > 0.0, krg, 0.0)
         krw = torch.where(sw > 0.0, krw, 0.0)
         return krw, kro, krg, pcow, pcgo
-
-    def pcow_inverse(self, pc, reg):
-        """sw(pcow) — equilibration capillary inversion; pcow is
-        non-increasing in sw, so interpolate on the negated curve."""
-        return lookup1((-self.pcow).contiguous(), self.sw[:, None].contiguous(),
-                       -pc, extrap="clamp", reg=reg)[0]
-
-    def sg_of_pcgo(self, pc, reg):
-        """sg(pcgo) for the increasing gas capillary curve."""
-        return lookup1(self.pcgo.contiguous(), self.sg[:, None].contiguous(),
-                       pc, extrap="clamp", reg=reg)[0]

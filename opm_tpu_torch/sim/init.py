@@ -5,11 +5,14 @@ hydrostatic phase-pressure columns from the datum (a fixed-step midpoint
 march on a 2000-point depth grid), RSVD/PBVD dissolved-gas columns,
 capillary-pressure inversion for the saturation profile (sharp contacts
 when the capillary curves are flat), and explicit PRESSURE/SWAT/SGAS/RS
-init. On the card the three columns of a region are one launch of K1's
-column march (``csrc/equil.cu``, ``equil_columns_cuda``); on the CPU its
-plain twin ``equil_columns_plain`` runs. The column lookups onto the cells
-go through K1 on the model's device. SWATINIT and the RVVD/PDVD wet-gas
-columns are not ported yet (ROADMAP Queue 1 item 3).
+init. On the card a region is two launches of ``csrc/equil.cu``: K1's
+column march (``equil_columns_cuda``: the three columns), then the cell
+pass (``equil_cells_cuda``: the columns' K1 lookups onto the region's
+cells, the capillary inversions, rs_sat and RSVD/PBVD, written straight
+into the initial state's arrays), with no host read; on the CPU their
+plain twins ``equil_columns_plain`` and ``equil_cells_plain`` run.
+SWATINIT and the RVVD/PDVD wet-gas columns are not ported yet (ROADMAP
+Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from opm_tpu_torch.models.state import GAS, OIL, BlackoilState, init_hcstate
 from opm_tpu_torch.utils import cuda_lib
-from opm_tpu_torch.utils.tables import interp, lookup1_plain, lookup2_plain
+from opm_tpu_torch.utils.tables import lookup1_plain, lookup2_plain
 
 _NZ = 2000  # column resolution
 # the dissolved-gas column of a region (csrc/equil.cu Mode)
@@ -40,14 +43,11 @@ def _linspace(start, stop, num, device):
 
 def np_interp(xp, fp, x):
     """numpy.interp's formula (slope * (x - xp[j]) + fp[j], end values
-    beyond the ends) on tensors, for the deck's RSVD/PBVD columns."""
-    xp = torch.as_tensor(np.ascontiguousarray(xp), dtype=torch.float64,
-                         device=x.device)
-    fp = torch.as_tensor(np.ascontiguousarray(fp), dtype=torch.float64,
-                         device=x.device)
+    beyond the ends) on tensors, for the deck's RSVD/PBVD columns: xp, fp
+    (n,) float64 on x's device."""
     n = xp.shape[0]
     if n == 1:
-        return torch.full_like(x, float(fp[0]))
+        return fp[:1].expand(x.shape)
     j = (torch.searchsorted(xp, x, right=True) - 1).clamp(0, n - 2)
     slope = (fp[j + 1] - fp[j]) / (xp[j + 1] - xp[j])
     out = slope * (x - xp[j]) + fp[j]
@@ -111,7 +111,7 @@ def equil_columns_plain(props, z, g, pvt0, rec, mode=None, vz=None,
     def rs_sat(p):
         if live is None:
             return torch.zeros_like(p)
-        return _look1(_row(live.pbub_tab, pvt0), _row(live._rs_col, pvt0), p)
+        return _look1(_row(live.pbub_tab, pvt0), _row(live.rs_col, pvt0), p)
 
     def oil_b(p, rs):
         if live is None:
@@ -164,6 +164,12 @@ _EQUIL_SIGS = {
                         cuda_lib.I, cuda_lib.I, cuda_lib.D, cuda_lib.D,
                         cuda_lib.D, cuda_lib.D, cuda_lib.D, cuda_lib.D,
                         cuda_lib.D, cuda_lib.P, cuda_lib.P],
+    # the cell pass (equil_cells_cuda)
+    "opm_equil_cells": [cuda_lib.P, cuda_lib.I, cuda_lib.P, cuda_lib.P,
+                        cuda_lib.P] + [cuda_lib.I] * 5
+    + [cuda_lib.D] * 2 + [cuda_lib.P] * 5 + [cuda_lib.I] * 3
+    + [cuda_lib.P] * 2 + [cuda_lib.I] * 2 + [cuda_lib.P, cuda_lib.L]
+    + [cuda_lib.P] * 3 + [cuda_lib.L, cuda_lib.P, cuda_lib.P],
 }
 # the shared memory one block may take on an H100
 _SMEM_LIMIT = 227 * 1024
@@ -279,58 +285,162 @@ def equil_regions(grid, case):
     return out
 
 
-def equilibrate_region(grid, props, rec, cells, rsvd=None, pbvd=None):
-    """Phase pressures + saturations + rs/rv for the active cells of one
-    equilibration region. Returns tensors over ``cells``."""
-    dev = props.device
-    depth_np = np.asarray(grid.depth)[cells]
-    reg_pvt = torch.as_tensor(np.asarray(grid.pvtnum)[cells],
-                              dtype=torch.long, device=dev)
-    reg_sat = torch.as_tensor(np.asarray(grid.satnum)[cells],
-                              dtype=torch.long, device=dev)
-    args = march_args(grid, props, rec, cells, rsvd, pbvd)
-    z = args[1]
-    cols = equil_columns(*args)
+def equil_cell_data(grid, device):
+    """The cells' depth (float64) and PVT and SAT region numbers (int32)
+    over the whole grid on ``device``: what the cell pass reads at a
+    region's cells."""
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+    return (t(grid.depth, torch.float64), t(grid.pvtnum, torch.int32),
+            t(grid.satnum, torch.int32))
 
-    def tab(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
-                               device=dev)
 
-    zc = tab(depth_np)
-    po_c = interp(z, cols[0], zc)
-    pw_c = interp(z, cols[1], zc)
-    pg_c = interp(z, cols[2], zc)
+def _look(xs, ys, x, reg, clamp):
+    """Column 0 of a per-region 1-D table at the queries x (K1's plain
+    lookup; reg picks each query's row where the table has several)."""
+    return lookup1_plain(xs, ys, x, reg if xs.shape[0] > 1 else None,
+                         clamp)[0][0]
+
+
+def equil_cells_plain(args, cols, cells, cell_data, out):
+    """The cell side of one EQUIL region: the columns ``cols`` (3, nz) of
+    the march over its depth grid onto the region's ``cells`` (int32), the
+    capillary inversions (sw from pcow where the deck's pcow is not flat,
+    else a sharp WOC; sg from pcgo above the GOC), the saturated rs at
+    each cell's PVT region and the RSVD/PBVD column; p, sw, sg, rs and rv
+    written at the cells into the rows of ``out`` (5, nc). ``args`` are
+    the region's ``march_args``, ``cell_data`` the grid's
+    ``equil_cell_data``. Plain torch on either device through K1's plain
+    lookups: the kernel's twin."""
+    props, z, _, _, rec, mode, vz, vv = args
+    depth, pvtnum, satnum = cell_data
+    idx = cells.long()
+    zc = depth[idx]
+    reg_pvt, reg_sat = pvtnum[idx].long(), satnum[idx].long()
+    po_c, pw_c, pg_c = lookup1_plain(z[None], cols[None], zc, None, 0)[0]
 
     sf = props.satfunc
     swco = (sf.swco[reg_sat] if sf is not None
             else torch.zeros_like(zc))
-    pcow_range = float(sf.pcow.abs().max()) if sf is not None else 0.0
-    pcgo_range = float(sf.pcgo.abs().max()) if sf is not None else 0.0
-    if sf is not None and pcow_range > 1e-9:
-        sw = sf.pcow_inverse(po_c - pw_c, reg_sat)
+    if sf is not None and sf.pcow_range > 1e-9:
+        # sw(pcow): pcow is non-increasing in sw, so the negated curve
+        sw = _look(sf.pcow_neg, sf.sw[:, None], -(po_c - pw_c), reg_sat, 1)
     else:
         sw = torch.where(zc > rec.woc_depth, 1.0, swco)
-    if sf is not None and pcgo_range > 1e-9:
-        sg = sf.sg_of_pcgo(pg_c - po_c, reg_sat)
+    if sf is not None and sf.pcgo_range > 1e-9:
+        sg = _look(sf.pcgo_x, sf.sg[:, None], pg_c - po_c, reg_sat, 1)
         sg = torch.where(zc < rec.goc_depth, sg, 0.0)
     else:
         sg = torch.where(zc < rec.goc_depth, 1.0 - swco, 0.0)
     sg = torch.minimum(torch.clamp(sg, min=0.0), 1.0 - sw)
 
-    rssat_c = props.rs_sat(po_c, reg_pvt)
+    lo = props.oil_live
+
+    def rs_sat(p):
+        if props.disgas and lo is not None:
+            return _look(lo.pbub_tab, lo.rs_col, p, reg_pvt, 0)
+        return torch.zeros_like(p)
+
+    rssat_c = rs_sat(po_c)
     if props.disgas:
-        if rsvd is not None:
-            rs_c = torch.minimum(np_interp(rsvd[:, 0], rsvd[:, 1], zc),
-                                 rssat_c)
-        elif pbvd is not None:
-            pb = np_interp(pbvd[:, 0], pbvd[:, 1], zc)
-            rs_c = props.rs_sat(torch.minimum(pb, po_c), reg_pvt)
+        if mode == "rsvd":
+            rs_c = torch.minimum(np_interp(vz, vv, zc), rssat_c)
+        elif mode == "pbvd":
+            pb = np_interp(vz, vv, zc)
+            rs_c = rs_sat(torch.minimum(pb, po_c))
         else:
             rs_c = rssat_c
     else:
         rs_c = torch.zeros_like(zc)
     rv_c = torch.zeros_like(zc)
-    return po_c, sw, sg, rs_c, rv_c
+    out[:, idx] = torch.stack([po_c, sw, sg, rs_c, rv_c])
+
+
+def equil_cells_cuda(args, cols, cells, cell_data, out):
+    """The cell pass on the card: one launch writes what
+    ``equil_cells_plain`` writes (same contract), with no host read."""
+    props, z, _, _, rec, mode, vz, vv = args
+    depth, pvtnum, satnum = cell_data
+    dev = z.device
+    nz, nc = z.shape[0], depth.shape[0]
+    nv = vz.shape[0] if mode else 0
+    if mode not in _MODES:
+        raise ValueError(f"equil_cells_cuda: unknown mode {mode!r}")
+    for t, nm, shape in ((z, "z", (nz,)), (cols, "cols", (3, nz)),
+                         (depth, "depth", (nc,)), (out, "out", (5, nc)),
+                         *([(vz, "vz", (nv,)), (vv, "vv", (nv,))]
+                           if mode else [])):
+        if (t.dtype != torch.float64 or t.device != dev
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"equil_cells_cuda: {nm} must be a contiguous "
+                             f"float64 {shape} tensor on {dev}")
+    for t, nm in ((pvtnum, "pvtnum"), (satnum, "satnum"), (cells, "cells")):
+        if (t.dtype != torch.int32 or t.device != dev or t.dim() != 1
+                or not t.is_contiguous()):
+            raise ValueError(f"equil_cells_cuda: {nm} must be a contiguous "
+                             f"int32 (n,) tensor on {dev}")
+    if pvtnum.shape != (nc,) or satnum.shape != (nc,):
+        raise ValueError("equil_cells_cuda: the region numbers do not "
+                         "span the grid")
+    if 8 * (4 * nz + 2 * nv) > _SMEM_LIMIT:
+        raise ValueError("equil_cells_cuda: the columns exceed shared "
+                         "memory")
+    sf, lo = props.satfunc, props.oil_live
+    if sf is None:
+        raise NotImplementedError("EQUIL's cell pass without SWOF/SGOF is "
+                                  "not ported (ROADMAP Queue 1 item 2)")
+    live = bool(props.disgas) and lo is not None
+    tabs = [(sf.pcow_neg, "pcow_neg"), (sf.sw, "sw"), (sf.pcgo_x, "pcgo_x"),
+            (sf.sg, "sg"), (sf.swco, "swco")]
+    o_tabs = ([(lo.pbub_tab, "pbub_tab"), (lo.rs_tab, "rs_tab")] if live
+              else [(None, "")] * 2)
+    for t, nm in tabs + o_tabs:
+        if t is not None and (t.dtype != torch.float64 or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError(f"equil_cells_cuda: the table {nm} is not a "
+                             f"contiguous float64 tensor on {dev}")
+    o_dims = tuple(lo.rs_tab.shape) if live else (0, 0)
+
+    def p(t):
+        return None if t is None else cuda_lib.ptr(t)
+
+    lib = cuda_lib.load("equil", _EQUIL_SIGS)
+    err = lib.opm_equil_cells(
+        p(z), nz, p(cols), p(vz) if mode else None, p(vv) if mode else None,
+        nv, _MODES[mode], int(bool(props.disgas)),
+        int(sf.pcow_range > 1e-9), int(sf.pcgo_range > 1e-9),
+        float(rec.woc_depth), float(rec.goc_depth),
+        *(p(t) for t, _ in tabs), sf.sw.shape[0], sf.sw.shape[1],
+        sf.sg.shape[1], *(p(t) for t, _ in o_tabs), *o_dims, p(cells),
+        cells.shape[0], p(depth), p(pvtnum), p(satnum), nc, p(out),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, "opm_equil_cells")
+    equil_cells_cuda.launches += 1
+
+
+equil_cells_cuda.launches = 0
+
+
+def equil_cells(args, cols, cells, cell_data, out):
+    """The cell side of one EQUIL region into ``out`` (5, nc): the cell
+    pass on a CUDA grid, its plain twin on the CPU."""
+    return cuda_lib.dispatch(args[1], equil_cells_cuda, equil_cells_plain,
+                             args, cols, cells, cell_data, out,
+                             what="K1 EQUIL cell pass")
+
+
+def equilibrate_region(grid, props, rec, cells, rsvd=None, pbvd=None):
+    """Phase pressures + saturations + rs/rv for the active cells of one
+    equilibration region: the column march, then the cell pass. Returns
+    tensors over ``cells``."""
+    dev = props.device
+    args = march_args(grid, props, rec, cells, rsvd, pbvd)
+    ti = torch.as_tensor(cells, dtype=torch.int32, device=dev)
+    out = torch.zeros((5, grid.nc), dtype=torch.float64, device=dev)
+    equil_cells(args, equil_columns(*args), ti, equil_cell_data(grid, dev),
+                out)
+    return tuple(out[:, ti.long()])
 
 
 def initial_state(grid, props, case, nw: int) -> BlackoilState:
@@ -358,14 +468,16 @@ def initial_state(grid, props, case, nw: int) -> BlackoilState:
             props.rs_sat(p, pvtnum)
         rv = torch.zeros(nc, dtype=torch.float64, device=dev)
     elif sol.equil:
-        z = torch.zeros(nc, dtype=torch.float64, device=dev)
-        p, sw, sg, rs, rv = (z.clone() for _ in range(5))
-        for rec, idx, rsvd, pbvd in equil_regions(grid, case):
-            out = equilibrate_region(grid, props, rec, idx, rsvd=rsvd,
-                                     pbvd=pbvd)
-            ti = torch.as_tensor(idx, dtype=torch.long, device=dev)
-            for dst, src in zip((p, sw, sg, rs, rv), out):
-                dst[ti] = src
+        # every region's inputs first (the host-to-device copies), then a
+        # march and a cell pass a region writing into out's rows
+        cell_data = equil_cell_data(grid, dev)
+        regions = [(march_args(grid, props, rec, idx, rsvd, pbvd),
+                    torch.as_tensor(idx, dtype=torch.int32, device=dev))
+                   for rec, idx, rsvd, pbvd in equil_regions(grid, case)]
+        out = torch.zeros((5, nc), dtype=torch.float64, device=dev)
+        for args, ti in regions:
+            equil_cells(args, equil_columns(*args), ti, cell_data, out)
+        p, sw, sg, rs, rv = out
     else:
         raise ValueError("deck has neither EQUIL nor explicit initial state")
 

@@ -108,7 +108,7 @@ def rs_table(props, pvtnum) -> Optional[RsTable]:
     lo = props.oil_live
     if not (props.disgas and lo is not None):
         return None
-    return RsTable(lo.pbub_tab, lo._rs_col,
+    return RsTable(lo.pbub_tab, lo.rs_col,
                    pvtnum if lo.pbub_tab.shape[0] > 1 else None)
 
 

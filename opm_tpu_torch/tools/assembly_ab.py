@@ -2,7 +2,7 @@
 sweep of K2's block size and launch bounds.
 
     python3 -m opm_tpu_torch.tools.assembly_ab --trees BASE,CHANGE
-        [--order ABBA] [--out assembly_ab.json]
+        [--order ABBA] [--part all|faces] [--out assembly_ab.json]
     python3 -m opm_tpu_torch.tools.assembly_ab --sweep [--out sweep.json]
 
 ``--trees`` runs one leg per letter of ``--order`` (A: the first tree, B:
@@ -41,6 +41,22 @@ Jacobian on the card; at SPE10-2 also the tangent at B = 3, and on both
 Norne-class grids K3-faces' divergence (the embedded grid's in-place
 epilogue, the gather grid's every cell; bit equality with the twin on CPU
 copies).
+
+``--part faces`` runs, per leg, only the face-list face blocks with
+K4-faces' packed operator as the assembly makes them on the Norne-class
+field's embedded (E) and gather (G) grids, on the first Newton system's
+face inputs: in a tree whose face blocks write the packed copy
+(``faces_blocks_cuda`` returns it) that call and the operator over its
+copy; in an older tree the face blocks, then the operator's pack launch
+(``faces_pack_cuda``, which the fused copy replaced). Per grid: one call
+and per call in a run of 50 (CUDA events), device time by kernel
+(torch.profiler), the host's own time per call (20 calls not
+synchronized), the caching allocator's requests per call, the face blocks'
+and the pack's wrapper launches per call, whether the copy equals
+``faces_pack_plain`` of the blocks bit for bit, digests of the outputs and
+of one K4-faces product over the copy; then the first report step after a
+warm-up run of the same step: counts, the face blocks' and the pack's
+launches per Newton and a digest of the state.
 
 ``--sweep`` builds ``csrc/cells.cu`` of this tree with each pair of block
 size and ``__launch_bounds__`` minimum blocks per SM (the values entry's,
@@ -607,6 +623,141 @@ def _leg(tree):
     print(json.dumps(out), flush=True)
 
 
+def enqueue_ms(fn, run=20, reps=5):
+    """Host-clock ms per call of ``run`` calls in a row, not synchronized:
+    the host's own time per call while the card runs behind; median of
+    ``reps``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(run):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / run)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def alloc_requests(fn, reps=10):
+    """The caching allocator's requests per call of fn (warm)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    a1 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    return (a1 - a0) / reps
+
+
+def _faces_leg(tree):
+    """--part faces: one leg (module docstring)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, tree)
+    from opm_tpu_torch.models import linearize as lz
+    from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
+                                            init_well_state,
+                                            report_step_wells)
+    from opm_tpu_torch.sim.init import initial_state
+    from opm_tpu_torch.sim.testcases import norne_like_case
+    from opm_tpu_torch.utils import cuda_lib
+
+    csrc = os.path.join(tree, "opm_tpu_torch", "csrc")
+    cuda_lib.build_all(sorted(f[:-3] for f in os.listdir(csrc)
+                              if f.endswith(".cu")))
+    norne = norne_like_case()
+    out = dict(tree=tree)
+    for label, knob in (("norne_embedded", None), ("norne_gather", "0")):
+        os.environ.pop("OPM_TPU_EMBED", None)
+        if knob is not None:
+            os.environ["OPM_TPU_EMBED"] = knob
+        sim = SimulatorFullyImplicitBlackoil(norne)
+        init = initial_state(sim.grid, sim.props, norne,
+                             len(sim.well_names))
+        m = sim.model
+        fl = m.faces
+        # the first Newton system's face inputs (K2's assembly entry)
+        ws = report_step_wells(sim.schedule.report_steps[0], sim.grid,
+                               sim.well_names, sim.max_perf)
+        s1 = init_well_state(init, ws, True)
+        fv, fc, r0, d0 = lz.cell_assembly(
+            m.props, s1.pressure, s1.sw, s1.x, s1.hcstate, m.pvtnum,
+            m.satnum, m.accumulation(s1), m.pv,
+            float(sim.ts.p.initial_dt))
+        nf = m.trans.shape[0]
+        inputs = (fv, fc, m.depth, m.trans, m.gravity)
+        r, d = r0.clone(), d0.clone()
+        fL = torch.zeros((9, nf), dtype=torch.float64, device=m.device)
+        fR = torch.zeros_like(fL)
+
+        def main_form():
+            # what the assembly runs: the face blocks, then the operator
+            # over the copy they wrote (an older tree's packs its own)
+            blk = lz.faces_blocks_cuda(fl, *inputs, r, d, fL, fR)
+            return lz.FacesOperator(fl, d, fL, fR,
+                                    *(() if blk is None else (blk,)))
+
+        pack = getattr(lz, "faces_pack_cuda", None)
+
+        def counts():
+            return (lz.faces_blocks_cuda.launches,
+                    0 if pack is None else pack.launches)
+
+        r.copy_(r0)
+        d.copy_(d0)
+        n0 = counts()
+        op = main_form()
+        launches = [a - b for a, b in zip(counts(), n0)]
+        v = torch.as_tensor(np.random.default_rng(5).standard_normal(
+            (3, m.nc)), device=m.device)
+        y = lz.faces_matvec_cuda(op, v, None if m.op_dims is None
+                                 else lz.matvec_cells_cuda(
+                                     d, fL, fR, v, m.op_dims))
+        res = dict(
+            nc=m.nc, n_faces=fl.n, n_chunks=fl.sell.n_chunks,
+            launches_per_call=dict(face_blocks=launches[0],
+                                   pack=launches[1]),
+            bits_equal_pack_plain=bool(torch.equal(
+                op.blk, lz.faces_pack_plain(fl.sell, fL, fR))),
+            digest=dict(blocks=digest(r, d, fL, fR), blk=digest(op.blk),
+                        matvec=digest(y)),
+            times=two_ways(main_form), device_us=device_us(main_form),
+            host_own_ms=enqueue_ms(main_form),
+            alloc_requests=alloc_requests(main_form))
+        del op, y
+        # the first report step, after a warm-up run of it
+        sim.run(init, report_step_limit=1)
+        sim = SimulatorFullyImplicitBlackoil(norne)
+        init = initial_state(sim.grid, sim.props, norne,
+                             len(sim.well_names))
+        n0 = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin = sim.run(init, report_step_limit=1)
+        torch.cuda.synchronize()
+        rep = sim.report
+        n = [a - b for a, b in zip(counts(), n0)]
+        res.update(
+            wall_s=time.perf_counter() - t0,
+            counts=[rep.substeps, rep.newton_iterations,
+                    rep.linear_iterations, rep.failed_substeps],
+            launches_per_newton=dict(
+                face_blocks=n[0] / rep.newton_iterations,
+                pack=n[1] / rep.newton_iterations),
+            state_digest=digest(fin.pressure, fin.sw, fin.x, fin.bhp,
+                                fin.qs))
+        out[label] = res
+        del sim, init, fin
+        torch.cuda.empty_cache()
+    os.environ.pop("OPM_TPU_EMBED", None)
+    print(json.dumps(out), flush=True)
+
+
 def _sweep():
     import torch
 
@@ -660,6 +811,7 @@ def main(argv=None):
     ap.add_argument("--trees", help="BASE,CHANGE: two repository roots")
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--part", default="all", choices=("all", "faces"))
     ap.add_argument("--out", default=None)
     ap.add_argument("--leg", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -667,7 +819,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("assembly_ab: no CUDA device visible")
     if args.leg:
-        _leg(os.path.abspath(args.leg))
+        (_faces_leg if args.part == "faces" else _leg)(
+            os.path.abspath(args.leg))
         return 0
     card = smi()
     if args.sweep:
@@ -678,7 +831,8 @@ def main(argv=None):
         for letter in args.order:
             tree = trees["AB".index(letter)]
             proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--leg", tree],
+                [sys.executable, os.path.abspath(__file__), "--leg", tree,
+                 "--part", args.part],
                 capture_output=True, text=True, cwd=tree)
             if proc.returncode != 0:
                 raise SystemExit(f"assembly_ab: leg {letter} failed:\n"
@@ -687,7 +841,8 @@ def main(argv=None):
             leg["leg"] = letter
             legs.append(leg)
             print(json.dumps(leg), flush=True)
-        res = dict(device=card, order=args.order, trees=trees, legs=legs)
+        res = dict(device=card, order=args.order, part=args.part,
+                   trees=trees, legs=legs)
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

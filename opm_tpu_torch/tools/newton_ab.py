@@ -60,16 +60,18 @@ step:
   the counts and a digest of the state.
 
 With ``--part initial_state`` a leg measures instead ``initial_state``
-(EQUIL) on SPE1, SPE9, SPE10 model 2's size and the Norne-class field in
-both representations: the simulator's construction from the parsed deck
-(host clock), the seconds per call over 5 calls in a row (synced host
-clock, each ended by a synchronize), device kernels per call and their
-device time (torch.profiler, one call after a warm one), the launches of
-K1's lookups and of its column march per call (the tree's counters, where
-it has them), and a digest of the state (pressure, sw, x, hcstate); then
-the time from the parsed deck to the end of the first report step (a
-fresh simulator, its ``run`` computing the initial state; synced host
-clock) with that step's counts and a digest of its state.
+(EQUIL) on SPE1, SPE1 with PBVD in place of RSVD, SPE1CASE2_2P, SPE9,
+SPE10 model 2's size and the Norne-class field in both representations:
+the simulator's construction from the parsed deck (host clock), the
+seconds per call over 5 calls in a row (synced host clock, each ended by
+a synchronize), device kernels per call, their device time in all and by
+kernel, and the device-to-host copies per call (torch.profiler, one call
+after a warm one), the launches of K1's lookups, of its column march and
+of the cell pass per call (the tree's counters, where it has them), and a
+digest of the state (pressure, sw, x, hcstate); then, but for the two
+SPE1 variants, the time from the parsed deck to the end of the first
+report step (a fresh simulator, its ``run`` computing the initial state;
+synced host clock) with that step's counts and a digest of its state.
 
 With ``--part cpr_setup`` a leg measures instead the per-Newton CPR
 setup on the first Newton system of the Norne-class field's first report
@@ -178,8 +180,9 @@ def enqueue_ms(fn, run=20, reps=5):
 
 def device_kernels(fn, reps=10):
     """{"launches": device kernels per call, "us": their device time per
-    call, "kernels": {name: launches per call}, "copies_h2d":
-    host-to-device copies per call} under torch.profiler (after a warm
+    call, "kernels": {name: launches per call}, "kernel_us": {name: device
+    us per call}, "copies_h2d", "copies_d2h": host-to-device and
+    device-to-host copies per call} under torch.profiler (after a warm
     call); None where no device event was recorded (not measured)."""
     import torch
     from torch.autograd import DeviceType
@@ -196,15 +199,17 @@ def device_kernels(fn, reps=10):
     evs = [ev for ev in dev if not ev.name.startswith("Memcpy")]
     if not evs:
         return None
-    by = {}
+    by, us = {}, {}
     for ev in evs:
         name = ev.name.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].split("<")[0].split("::")[-1][:40]
         by[name] = by.get(name, 0) + 1 / reps
+        us[name] = us.get(name, 0.0) + ev.time_range.elapsed_us() / reps
     return dict(launches=len(evs) / reps,
                 us=sum(ev.time_range.elapsed_us() for ev in evs) / reps,
-                kernels=by, copies_h2d=sum(
-                    "HtoD" in ev.name for ev in dev) / reps)
+                kernels=by, kernel_us=us, copies_h2d=sum(
+                    "HtoD" in ev.name for ev in dev) / reps,
+                copies_d2h=sum("DtoH" in ev.name for ev in dev) / reps)
 
 
 def digest(*ts):
@@ -649,23 +654,32 @@ def _init_leg(tree):
     """--part initial_state: one leg over the decks (module docstring)."""
     import torch
     sys.path.insert(0, tree)
-    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.io.eclstate import load_case, load_case_string
     from opm_tpu_torch.sim import init
     from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
-    from opm_tpu_torch.sim.testcases import norne_like_case, spe10like_case
+    from opm_tpu_torch.sim.testcases import (norne_like_case,
+                                             spe1_pbvd_deck, spe10like_case)
     from opm_tpu_torch.utils import cuda_lib
     from opm_tpu_torch.utils import tables as k1
 
     csrc = os.path.join(tree, "opm_tpu_torch", "csrc")
     cuda_lib.build_all(sorted(f[:-3] for f in os.listdir(csrc)
                               if f.endswith(".cu")))
-    counters = [f for f in (k1.interp1_cuda, k1.interp2_cuda,
-                            getattr(init, "equil_columns_cuda", None)) if f]
+    names = ("interp1", "interp2", "equil_march", "equil_cells")
+    counters = [k1.interp1_cuda, k1.interp2_cuda,
+                getattr(init, "equil_columns_cuda", None),
+                getattr(init, "equil_cells_cuda", None)]
     data = os.path.join(tree, "data")
+    with open(os.path.join(data, "SPE1CASE2.DATA")) as f:
+        spe1_text = f.read()
     norne = norne_like_case()
     out = dict(tree=tree)
     for label, case, knob in (
             ("spe1", load_case(os.path.join(data, "SPE1CASE2.DATA")), None),
+            ("spe1_pbvd", load_case_string(spe1_pbvd_deck(spe1_text)),
+             None),
+            ("spe1_2p", load_case(os.path.join(data, "SPE1CASE2_2P.DATA")),
+             None),
             ("spe9", load_case(os.path.join(data, "SPE9.DATA")), None),
             ("spe10", spe10like_case(**SPE10), None),
             ("norne_embedded", norne, None), ("norne_gather", norne, "0")):
@@ -683,21 +697,23 @@ def _init_leg(tree):
         torch.cuda.synchronize()
         secs = []
         for _ in range(5):
-            before = [f.launches for f in counters]
+            before = [f and f.launches for f in counters]
             t0 = time.perf_counter()
             st = call()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-        launches = [f.launches - b for f, b in zip(counters, before)]
+        launches = [f and f.launches - b for f, b in zip(counters, before)]
         out[label] = dict(
             nc=sim.grid.nc, construct_s=construct, seconds=secs,
             median_s=statistics.median(secs),
             device=device_kernels(call, reps=1),
-            k1_launches=dict(zip(("interp1", "interp2", "equil_march"),
-                                 launches)),
+            regions=len(init.equil_regions(sim.grid, case)),
+            k1_launches=dict(zip(names, launches)),
             state_digest=digest(st.pressure, st.sw, st.x, st.hcstate))
         del sim, st
         torch.cuda.empty_cache()
+        if label in ("spe1_pbvd", "spe1_2p"):
+            continue        # EQUIL variants: the initial state alone
         # the run_deck user's time: a fresh simulator from the parsed deck
         # through the first report step, initial_state included
         torch.cuda.synchronize()

@@ -26,7 +26,12 @@ bit for bit the plain residual followed by the legs on all three grid
 kinds, and K1's EQUIL column march bit for bit its twin on SPE1, SPE1
 with PBVD, SPE1CASE2_2P and the toy SPE10-like deck (no host read in its
 call, one march and at most 7 K1 lookups a region in initial_state, the
-state bit for bit the one through the twin), and K3's tangent entry
+state bit for bit the one through the twin), EQUIL's cell pass bit for
+bit its twin on those decks, the toy Norne-like deck and SPE9 (into
+arrays of NaN, no host read in its call; initial_state one march and one
+cell pass a region and no K1 lookup), the face-list face blocks' packed
+copy for K4-faces (written into NaN) bit for bit the pack's twin, and
+K3's tangent entry
 bit for bit its twin in both launch geometries (SPE1's jacfwd batch and
 ragged tile-march shapes) and K3-faces' divergence bit for bit its twin
 on CPU copies on the toy Norne-like deck and seeded face lists, and K6
@@ -376,13 +381,13 @@ def _scaled(a, b):
 
 @pytest.mark.parametrize("knob", [None, "0"], ids=["embedded", "gather"])
 def test_face_kernels_match_twins_on_toy(dev, knob):
-    """K3-faces, K4-faces (the pack into its sliced-ELL layout, bit for
-    bit; matvec, on the embedded grid both in place over the touched rows
-    and from the diagonal by cell, and the fused smoothing step, full and
-    pressure-only iterates) and, on the gather grid, K6's cell part and
-    K6-faces against their plain twins on the card, on the toy Norne-like
-    deck's first Newton system: 1e-12 of max (the kernels sum in the twins'
-    scatter order)."""
+    """K3-faces, K4-faces (its sliced-ELL copy, written by the assembly's
+    face blocks, bit for bit the pack's twin; matvec, on the embedded grid
+    both in place over the touched rows and from the diagonal by cell, and
+    the fused smoothing step, full and pressure-only iterates) and, on the
+    gather grid, K6's cell part and K6-faces against their plain twins on
+    the card, on the toy Norne-like deck's first Newton system: 1e-12 of
+    max (the kernels sum in the twins' scatter order)."""
     from opm_tpu_torch.linalg import precond as k6
     from opm_tpu_torch.models import blackoil as mb
     from opm_tpu_torch.models import linearize as k4
@@ -1108,11 +1113,16 @@ def test_vcycle_from_weighted_residual(dev, grid):
 # with no DISGAS and no gas (SPE1CASE2_2P) and the toy SPE10-like deck
 def _equil_deck(name):
     from opm_tpu_torch.io.eclstate import load_case, load_case_string
-    from opm_tpu_torch.sim.testcases import spe1_pbvd_deck, spe10like_case
+    from opm_tpu_torch.sim.testcases import (norne_like_case, spe1_pbvd_deck,
+                                             spe10like_case)
     if name == "spe10_toy":
         return spe10like_case(nx=15, ny=44, nz=4, tsteps="3*1")
-    if name == "spe1_2p":
-        return load_case(os.path.join(ROOT, "data", "SPE1CASE2_2P.DATA"))
+    if name == "norne_toy":
+        return norne_like_case(nx=12, ny=24, nz=22, tsteps="1")
+    if name in ("spe1_2p", "spe9"):
+        return load_case(os.path.join(
+            ROOT, "data", "SPE1CASE2_2P.DATA" if name == "spe1_2p"
+            else "SPE9.DATA"))
     with open(SPE1) as f:
         text = f.read()
     return load_case_string(text if name == "spe1" else spe1_pbvd_deck(text))
@@ -1156,6 +1166,58 @@ def test_equil_march_matches_twin(dev, deck, monkeypatch):
         assert torch.equal(getattr(st, f), getattr(st_twin, f)), f
 
 
+# EQUIL's cell pass (csrc/equil.cu): on the EQUIL decks above, the toy
+# Norne-like deck (capillary pressure in SWOF and SGOF: both inversions)
+# and SPE9 (an RSVD column and both inversions), written into arrays of
+# NaN: the region's cells bit for bit the twin's, every other cell left
+# alone, the call making no host read; initial_state makes one march and
+# one cell pass a region and no K1 lookup, and its state is bit for bit
+# the one through the cell pass's twin
+@pytest.mark.parametrize("deck", ["spe1", "spe1_pbvd", "spe1_2p",
+                                  "spe10_toy", "norne_toy", "spe9"])
+def test_equil_cells_match_twin(dev, deck, monkeypatch):
+    from opm_tpu_torch.sim import init
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.utils import tables as k1
+    sim = SimulatorFullyImplicitBlackoil(_equil_deck(deck), device=dev)
+    grid = sim.grid
+    regions = init.equil_regions(grid, sim.case)
+    cd = init.equil_cell_data(grid, dev)
+    nan = float("nan")
+    for rec, cells, rsvd, pbvd in regions:
+        args = init.march_args(grid, sim.props, rec, cells, rsvd, pbvd)
+        cols = init.equil_columns_cuda(*args)
+        ti = torch.as_tensor(cells, dtype=torch.int32, device=dev)
+        kout = torch.full((5, grid.nc), nan, dtype=torch.float64, device=dev)
+        pout = kout.clone()
+        init.equil_cells_cuda(args, cols, ti, cd, kout.clone())
+        torch.cuda.synchronize()
+        n0 = init.equil_cells_cuda.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            init.equil_cells_cuda(args, cols, ti, cd, kout)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert init.equil_cells_cuda.launches == n0 + 1
+        init.equil_cells_plain(args, cols, ti, cd, pout)
+        idx = ti.long()
+        assert torch.equal(kout[:, idx], pout[:, idx])
+        rest = torch.ones(grid.nc, dtype=torch.bool, device=dev)
+        rest[idx] = False
+        assert bool(torch.isnan(kout[:, rest]).all())
+    counted = (k1.interp1_cuda, k1.interp2_cuda, init.equil_columns_cuda,
+               init.equil_cells_cuda)
+    before = [f.launches for f in counted]
+    st = init.initial_state(grid, sim.props, sim.case, len(sim.well_names))
+    n = [f.launches - b for f, b in zip(counted, before)]
+    assert n == [0, 0, len(regions), len(regions)]
+    monkeypatch.setattr(init, "equil_cells_cuda", init.equil_cells_plain)
+    st_twin = init.initial_state(grid, sim.props, sim.case,
+                                 len(sim.well_names))
+    for f in ("pressure", "sw", "x", "hcstate"):
+        assert torch.equal(getattr(st, f), getattr(st_twin, f)), f
+
+
 def _k3_inputs(dev, dims, seed):
     """Seeded face inputs of a structured grid: both upwind directions
     in every phase, rs and rv cross terms."""
@@ -1192,12 +1254,14 @@ def test_tpfa_div_bitwise(dev, dims):
     assert torch.equal(kd, mb.tpfa_div_plain(dims, *a, 9.80665))
 
 
-# K3-faces' face blocks (a face phase, then a row phase): bit for bit the
-# twin on CPU copies of the same inputs (on the card its index_add_ adds
-# in no fixed order), on the toy Norne-like deck in both representations
-# (the embedded grid's in-place epilogue over the touched rows, the
-# gather grid's every cell) and on seeded face lists with rows of uneven
-# length; one wrapper launch a call
+# K3-faces' face blocks (a face phase, then a row phase that also writes
+# K4-faces' packed copy): bit for bit the twin (faces_blocks_packed_plain)
+# on CPU copies of the same inputs (on the card its index_add_ adds in no
+# fixed order), the copy, written into NaN, bit for bit faces_pack_plain
+# of the blocks, on the toy Norne-like deck in both representations (the
+# embedded grid's in-place epilogue over the touched rows, the gather
+# grid's every cell) and on seeded face lists with rows of uneven length;
+# one wrapper launch a call
 @pytest.mark.parametrize("case", ["toy_embedded", "toy_gather",
                                   "seeded_gather", "seeded_epilogue"])
 def test_faces_blocks_bitwise(dev, case):
@@ -1239,14 +1303,27 @@ def test_faces_blocks_bitwise(dev, case):
         r, d = r0.to(on).clone(), d0.to(on).clone()
         fL = torch.zeros((9, nf), dtype=torch.float64, device=on)
         fR = torch.zeros_like(fL)
-        fn(lead, fv.to(on), fc.to(on), depth.to(on), trans.to(on), g, r, d,
-           fL, fR)
-        return [x.cpu() for x in (r, d, fL, fR)]
+        blk = fn(lead, fv.to(on), fc.to(on), depth.to(on), trans.to(on), g,
+                 r, d, fL, fR)
+        return [x.cpu() for x in (r, d, fL, fR, blk)]
+
+    # the packed copy the row phase writes into a buffer of NaN: every
+    # slot written (the pads with 0), bit for bit the pack's
+    empty = torch.empty
+
+    def nan_empty(*a, **k):
+        return empty(*a, **k).fill_(float("nan"))
 
     n0 = lz.faces_blocks_cuda.launches
-    k = run(lz.faces_blocks_cuda, fl, dev)
+    torch.empty = nan_empty
+    try:
+        k = run(lz.faces_blocks_cuda, fl, dev)
+    finally:
+        torch.empty = empty
     assert lz.faces_blocks_cuda.launches == n0 + 1
-    for x, y in zip(k, run(lz.faces_blocks_plain, fl_cpu, "cpu")):
+    assert k[4].shape == (288 * fl.sell.n_chunks,)
+    assert torch.equal(k[4], lz.faces_pack_plain(fl_cpu.sell, k[2], k[3]))
+    for x, y in zip(k, run(lz.faces_blocks_packed_plain, fl_cpu, "cpu")):
         assert torch.equal(x, y)
 
 

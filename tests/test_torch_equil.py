@@ -2,14 +2,18 @@
 (``sim/init.py`` ``equil_columns_plain``, the oracle of the kernel in
 ``csrc/equil.cu``) and ``equilibrate_region`` against the JAX package's
 march, on SPE1 (live oil, RSVD), SPE1 with PBVD in place of RSVD (the
-bubble point its RSVD gives through PVTO, ``testcases.spe1_pbvd_deck``), SPE1CASE2_2P (dead oil, no DISGAS, no gas) and the
-toy SPE10-like deck.
+bubble point its RSVD gives through PVTO, ``testcases.spe1_pbvd_deck``),
+SPE1CASE2_2P (dead oil, no DISGAS, no gas), the toy SPE10-like deck and
+the toy Norne-like deck (capillary pressure in
+SWOF and SGOF: both inversions of the cell pass, ``equil_cells_plain``,
+the oracle of the cell pass kernel in ``csrc/equil.cu``).
 
 - Eager identity: the reference's march run op by op under
   ``jax.disable_jit()`` (its two masked scans as Python loops) gives the
   three columns, recorded from its ``_integrate_column``, and its
   region outputs; the twin and ``equilibrate_region`` equal them bit for
-  bit on the same grid. The reference's eager march takes 50-60 s a
+  bit on the same grid (``equilibrate_region`` is the column march, then
+  the cell pass's twin). The reference's eager march takes 50-60 s a
   region on a 200-point grid on a CPU (``tools/equil_jit_eager.py``: its
   lookups are segment-sum masks of some hundreds of primitives, and its
   scans evaluate every step both ways), so this check runs on a depth
@@ -23,6 +27,12 @@ toy SPE10-like deck.
   by ``tests/test_torch_spe1.py::test_initial_state_identical``). SPE9's
   jitted march departs from its eager one (ROADMAP Queue 3), so SPE9 is
   held to neither here.
+
+- ``equilibrate_region`` reads nothing back from the tensors once its
+  columns are marched (the capillary curves' ranges come from the props,
+  taken from the deck's tables): with the column march replaced by its
+  recorded result, every Tensor method that reads values to the host
+  raises.
 
 The grids are cut by setting ``_NZ`` of both modules at run time.
 """
@@ -42,7 +52,8 @@ from opm_tpu_torch.grid.grid import build_grid
 from opm_tpu_torch.io.eclstate import load_case_string
 from opm_tpu_torch.props.blackoil import BlackoilProps
 from opm_tpu_torch.sim import init as port_init
-from opm_tpu_torch.sim.testcases import spe1_pbvd_deck, spe10like_deck
+from opm_tpu_torch.sim.testcases import (norne_like_deck, spe1_pbvd_deck,
+                                         spe10like_deck)
 
 torch.set_num_threads(2)
 
@@ -63,10 +74,12 @@ def _deck(name):
         return spe1_pbvd_deck(_read("SPE1CASE2.DATA"))
     if name == "spe1_2p":
         return _read("SPE1CASE2_2P.DATA")
+    if name == "norne_toy":
+        return norne_like_deck(nx=12, ny=24, nz=22, tsteps="1")
     return spe10like_deck(nx=15, ny=44, nz=4, tsteps="3*1")
 
 
-DECKS = ("spe1", "spe1_pbvd", "spe1_2p", "spe10_toy")
+DECKS = ("spe1", "spe1_pbvd", "spe1_2p", "spe10_toy", "norne_toy")
 
 
 def _region(case, grid):
@@ -169,3 +182,37 @@ def assert_within_1e13_of_jit(r, p, what):
 def test_spe1_within_1e13_of_reference_jit(runs, what):
     assert_within_1e13_of_jit(runs["spe1"]["jit"], runs["spe1"]["port"],
                               what)
+
+
+# the Tensor methods that read values back to the host
+_READS = ("item", "tolist", "numpy", "cpu", "__float__", "__int__",
+          "__bool__", "__index__")
+
+
+@pytest.mark.parametrize("deck", ["spe1", "norne_toy"])
+def test_equilibrate_region_reads_nothing_back(deck, monkeypatch):
+    case = load_case_string(_deck(deck))
+    grid = build_grid(case)
+    props = BlackoilProps.from_case(case, "cpu")
+    sf = props.satfunc
+    assert isinstance(sf.pcow_range, float)
+    assert isinstance(sf.pcgo_range, float)
+    assert (sf.pcow_range > 1e-9) == (deck == "norne_toy")
+    rec, cells, rsvd, pbvd = _region(case, grid)
+    monkeypatch.setattr(port_init, "_NZ", NZ_EAGER)
+    args = port_init.march_args(grid, props, rec, cells, rsvd, pbvd)
+    cols = port_init.equil_columns_plain(*args)
+    want = port_init.equilibrate_region(grid, props, rec, cells, rsvd=rsvd,
+                                        pbvd=pbvd)
+    monkeypatch.setattr(port_init, "equil_columns", lambda *a: cols)
+
+    def read(*a, **k):
+        raise AssertionError("a host read inside equilibrate_region")
+
+    with monkeypatch.context() as mp:
+        for name in _READS:
+            mp.setattr(torch.Tensor, name, read)
+        got = port_init.equilibrate_region(grid, props, rec, cells,
+                                           rsvd=rsvd, pbvd=pbvd)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

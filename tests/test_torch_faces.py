@@ -27,7 +27,11 @@ K4-faces' sliced-ELL layout (the operator the card's kernel reads): the
 pack's twin, read back slot by slot in plain torch as the kernel reads
 it, gives faces_matvec_plain and faces_smooth_plain bit for bit
 (``torch.equal``), with a full and a pressure-only iterate, on both
-representations; pads hold NaN in that check, so no sum touches one."""
+representations; pads hold NaN in that check, so no sum touches one. The
+copy the card's face blocks write in their row phase
+(``faces_blocks_packed_plain``, its twin) equals the pack's, slot by slot
+as the row phase writes it, and the operator read from it holds to the
+reference's gather matvec (1e-12 of max)."""
 
 import os
 
@@ -117,6 +121,8 @@ def toy(request):
                     conv=rmodel.convergence(res, dt, state), sys=sys,
                     rhs=rhs, mv=mv(v), rec=rec(v),
                     full=rlin.matvec(sys, v, vw, dims=dims), w=w,
+                    cells_only=rlin.matvec(sys, v, jnp.zeros_like(vw),
+                                           dims=dims)[0],
                     diag_p=diag_p, off=off,
                     off_h=rprecond._pressure_off_for(amg_r, off, dims))
 
@@ -426,3 +432,67 @@ def test_sell_operator_matches_face_list(toy, iterate):
     assert torch.equal(
         _sell_apply(fl, blk, sys.diag, x, dinv, r, base),
         linearize.faces_smooth_plain(fl, *ops, dinv, x, r, base))
+
+
+def test_packed_blocks_from_row_phase(toy):
+    """The face blocks with K4-faces' copy (``faces_blocks_packed_plain``,
+    the CPU path and the card kernel's oracle): sums and blocks those of
+    faces_blocks_plain, the copy faces_pack_plain's of its blocks, bit for
+    bit; the row phase's writes emulated in numpy (the thread of block
+    entry b and row t writes the CSR's k-th entry of the row at slot
+    k - ptr[t]: +face_R of the face where the row's cell is the left cell,
+    -face_L where it is the right one; then 0 up to its slice's width, and
+    0 in every slot of the last slice's lanes that hold no row) give the
+    same copy; the operator read from it holds to the reference's gather
+    matvec (1e-12 of max)."""
+    m, s = toy["port"].model, toy["s"]
+    fl, dims = m.faces, toy["dims"]
+    fv, fc, r0, d0 = cells_assemble_plain(
+        m.props, s.pressure, s.sw, s.x, s.hcstate, m.pvtnum, m.satnum,
+        toy["acc0"], m.pv, DT)
+    nf = m.trans.shape[0]
+
+    def run(fn):
+        r, d = r0.clone(), d0.clone()
+        fL = torch.zeros((9, nf), dtype=torch.float64)
+        fR = torch.zeros_like(fL)
+        blk = fn(fl, fv, fc, m.depth, m.trans, m.gravity, r, d, fL, fR)
+        return r, d, fL, fR, blk
+
+    *plain, none = run(linearize.faces_blocks_plain)
+    *packed, blk = run(linearize.faces_blocks_packed_plain)
+    assert none is None
+    for a, b in zip(packed, plain):
+        assert torch.equal(a, b)
+    assert torch.equal(blk, linearize.faces_pack_plain(fl.sell, plain[2],
+                                                       plain[3]))
+    sell = fl.sell
+    ptr = sell.ptr.numpy().astype(np.int64)
+    ent = fl.touched.ent.numpy().astype(np.int64)
+    chunk0 = sell.chunk0.numpy().astype(np.int64)
+    L, R = plain[2].numpy(), plain[3].numpy()
+    emu = np.full(288 * sell.n_chunks, np.nan)
+    n32 = -(-sell.n_rows // 32) * 32
+    for t in range(n32):
+        lo, hi = (ptr[t], ptr[t + 1]) if t < sell.n_rows else (0, 0)
+        width = chunk0[t // 32 + 1] - chunk0[t // 32]
+        base = 288 * chunk0[t // 32] + t % 32 + 32 * np.arange(9)
+        for j in range(width):
+            k = lo + j
+            if k >= hi:
+                val = np.zeros(9)
+            elif ent[k] >= 0:
+                val = R[:, ent[k]]
+            else:
+                val = -L[:, -ent[k] - 1]
+            emu[base + 288 * j] = val
+    assert np.array_equal(emu, blk.numpy())
+    sys, v = toy["sys"], toy["v"]
+    f = fl.first
+    assert torch.equal(sys.face_L[:, f:], plain[2][:, f:])
+    assert torch.equal(sys.face_R[:, f:], plain[3][:, f:])
+    base = None if dims is None else linearize.matvec_cells_plain(
+        sys.diag, sys.face_L, sys.face_R, v, dims)
+    y = _sell_apply(fl, blk, sys.diag, v, base=base,
+                    in_place=base is not None)
+    _scaled(y.numpy(), toy["ref"]["cells_only"], 1e-12)
