@@ -92,6 +92,19 @@ Phases (each prints a line of its own; any failure exits non-zero):
    launch counters of K1 (its lookups and column march)/K3/K9 read over
    that run (K9: one update per
    Newton, one convergence check per Newton and per converged substep);
+4b. SPE3 (data/SPE3.DATA: wet gas PVTG, VAPOIL, RVVD), the only deck
+   through the wet-gas branches: EQUIL's march and cell pass bit for bit
+   their twins with RVVD and with PDVD in its place; K2's three entries
+   and K9's update with SPE3's tables against their twins at SPE3's 324
+   cells and at 1.122M seeded cells (K9's increments switching cells
+   GASOIL <-> GASONLY both ways), timed there into the wet-gas rows of
+   the kernels line; SPE3's first dense Jacobian on the card against the
+   plain CPU path; then the whole 720-day schedule on the card held per
+   report step to data/spe3_reference_cpu.json (counts equal, FPR,
+   FOPR/FGPR/FGIR within their limits or the reference's own roundoff
+   spread the fixture records), the deck's own checks (all GASONLY at
+   t = 0 with 0 < rv < rv_sat, condensate dropping out, the gas balance)
+   and the launch counters of its kernels over the run;
 5. SPE10-2's first report step (20 days) end to end on the card through
    the CPR route, with the launch counters of K4/K6/K7/K8 read over that
    run (K8: two launches per BiCGStab iteration, two per solve; K7: two
@@ -501,6 +514,27 @@ class Kernels:
             ("K5 inv4x4 in schur_rhs", "cuda", f"{P}/csrc/wells.cuh",
              f"{JAX_PKG}/linalg/precond.py:42",
              RhsInverses(k4.schur_rhs_cuda)),
+            # the wet-gas (PVTG, VAPOIL, RVVD/PDVD) branches of K2, K9 and
+            # EQUIL's kernels: the same launches as the rows above, timed
+            # with SPE3's tables and counted over SPE3's run
+            ("K2 cells_values wet gas", "cuda", f"{P}/csrc/cells.cu",
+             f"{JAX_PKG}/models/blackoil.py:95-147 and props/pvt.py:245-346",
+             mb.cells_values_cuda),
+            ("K2 cells_columns wet gas", "cuda", f"{P}/csrc/cells.cu",
+             f"{JAX_PKG}/models/linearize.py:175 and props/pvt.py:245-346",
+             mb.cells_columns_cuda),
+            ("K2 cells_assemble wet gas", "cuda", f"{P}/csrc/cells.cu",
+             f"{JAX_PKG}/models/linearize.py:141 and props/pvt.py:245-346",
+             mb.cells_assemble_cuda),
+            ("K9 update VAPOIL", "cuda", f"{P}/csrc/newton.cu",
+             f"{JAX_PKG}/solver/update.py:90-135", k9.update_cuda),
+            ("K1 equil_march wet gas", "cuda", f"{P}/csrc/equil.cu",
+             f"{JAX_PKG}/sim/init.py:46-76,108-124",
+             equil.equil_columns_cuda),
+            ("K1 equil_cells RVVD", "cuda", f"{P}/csrc/equil.cu",
+             f"{JAX_PKG}/sim/init.py:174-183", equil.equil_cells_cuda),
+            ("K1 equil_cells PDVD", "cuda", f"{P}/csrc/equil.cu",
+             f"{JAX_PKG}/sim/init.py:184-188", equil.equil_cells_cuda),
         ]
         self.err = {e[0]: 0.0 for e in self.entries}
         self.ms, self.plain_ms, self.library_ms = {}, {}, {}
@@ -535,17 +569,32 @@ class Kernels:
     ASSEMBLY = ("K2 cells_values", "K2 cells_columns", "K2 cells_assemble",
                 "K5 schur_matvec fused", "K5 schur_rhs", "K5 schur_recover",
                 "K5 inv4x4 in schur_rhs")
+    # the kernels SPE3's run (dense route, wet gas) must launch, by their
+    # wet-gas rows
+    SPE3 = ("K1 equil_march wet gas", "K1 equil_cells RVVD",
+            "K2 cells_values wet gas", "K2 cells_columns wet gas",
+            "K3 tpfa_div", "K3 tpfa_div_tangent", "K9 update VAPOIL",
+            "K9 convergence")
     # K2's entries and their kernels
     K2_KERNELS = {"K2 cells_values": "cells_values_kernel",
                   "K2 cells_columns": "cells_columns_kernel",
                   "K2 cells_assemble": "cells_assemble_kernel"}
+    K2_KERNELS.update({f"{k} wet gas": v for k, v in K2_KERNELS.items()})
+
+    # the wet-gas rows (phase 4b)
+    WET_GAS = ("K2 cells_values wet gas", "K2 cells_columns wet gas",
+               "K2 cells_assemble wet gas", "K9 update VAPOIL",
+               "K1 equil_march wet gas", "K1 equil_cells RVVD",
+               "K1 equil_cells PDVD")
 
     def names(self, prefixes, face_grids=False, main_path=False):
         """The entries whose kernel family is in ``prefixes``: those of the
         structured routes, or with ``face_grids`` those of the grids with
-        a face list; with ``main_path`` only those a run launches."""
+        a face list; with ``main_path`` only those a run launches (the
+        wet-gas rows are named by WET_GAS alone)."""
         return [e[0] for e in self.entries if e[0].split()[0] in prefixes
                 and (e[0] in self.FACE_GRIDS_ONLY) == face_grids
+                and e[0] not in self.WET_GAS
                 and not (main_path and e[0] in self.OFF_MAIN)]
 
     def reset(self):
@@ -881,8 +930,8 @@ def compare_k9(K, model, state, q, seed, label, timed=()):
     return out
 
 
-def compare_jacobian(case, dev):
-    """The dense Jacobian of SPE1's first Newton iteration on the card
+def compare_jacobian(case, dev, label="SPE1"):
+    """The dense Jacobian of a deck's first Newton iteration on the card
     (torch.func.jacfwd through K1 and K3, the main path's own tangent
     batch) against the plain path on the CPU, from one initial state.
     Returns (relative error, K3 tangent launches and K2 column launches
@@ -918,7 +967,7 @@ def compare_jacobian(case, dev):
         out.append(J.cpu())
     Jg, Jc = out
     if not bool(torch.isfinite(Jg).all()):
-        fail("SPE1 Jacobian on the card is not finite")
+        fail(f"{label} Jacobian on the card is not finite")
     err = float((Jg - Jc).abs().max()) / float(Jc.abs().max())
     return (err, tpfa_div_tangent_cuda.launches - n0,
             cells_columns_cuda.launches - n2)
@@ -934,6 +983,9 @@ OPS_LOOK1 = 9
 OPS_WATER = 9
 OPS_GAS = 4 + OPS_LOOK1
 OPS_OIL_B = {True: OPS_LOOK1 + 1 + 3 + 3 + 16, False: OPS_LOOK1}
+# PVTG's gas: rv_sat(p) under VAPOIL, then b over (p, max(rv_sat(p) - rv,
+# 0)): two 1-D lookups, the difference and the bilinear value
+OPS_WET_GAS = 4 + 2 * OPS_LOOK1 + 1 + 3 + 3 + 16
 OPS_STEP = 8
 
 
@@ -947,7 +999,7 @@ def equil_work(args):
 
     from opm_tpu_torch.sim import init as equil
     from opm_tpu_torch.utils import cuda_lib
-    props, z, _, _, _, mode, vz, _ = args
+    props, z, _, _, _, mode, vz = args[:7]
     pack = props.cell_pack()
     lib = cuda_lib.load("equil", equil._EQUIL_SIGS)
     nz, nv = z.shape[0], (vz.shape[0] if mode else 0)
@@ -960,7 +1012,8 @@ def equil_work(args):
         (OPS_LOOK1 + rs_sat if mode else rs_sat)
     oil = rs + OPS_OIL_B[live] + 4
     evals = 2 * nz - 1
-    flops = evals * (oil + OPS_WATER + OPS_GAS) + 3 * (nz - 1) * OPS_STEP \
+    gas = OPS_WET_GAS if props.gas_wet is not None else OPS_GAS
+    flops = evals * (oil + OPS_WATER + gas) + 3 * (nz - 1) * OPS_STEP \
         + 3 * 3 + 2 * (OPS_LOOK1 + 1)
     return nbytes_moved, flops
 
@@ -998,14 +1051,17 @@ def nan_empty():
 
 def equil_cells_work(args, n):
     """(bytes, float64 operations) of one cell pass over a region of n
-    cells: the depth grid and the columns (and the RSVD/PBVD column) read
-    once, a cell's index, depth and two region numbers read and its five
-    values written; per cell the operations of the three column lookups,
-    the capillary inversions the deck has, sg's clip, rs_sat and the
-    RSVD/PBVD interpolation (the per-region tables stay in the cache)."""
-    props, z, _, _, _, mode, vz, _ = args
+    cells: the depth grid and the columns (and the RSVD/PBVD and RVVD/PDVD
+    columns) read once, a cell's index, depth and two region numbers read
+    and its five values written; per cell the operations of the three
+    column lookups, the capillary inversions the deck has, sg's clip,
+    rs_sat and the RSVD/PBVD interpolation, rv_sat and the RVVD/PDVD
+    interpolation (the per-region tables stay in the cache)."""
+    props, z, _, _, _, mode, vz, _, vmode, wz, _ = args
     nz, nv = z.shape[0], (vz.shape[0] if mode else 0)
-    nbytes_moved = 8 * (4 * nz + 2 * nv) + n * (4 + 8 + 4 + 4 + 5 * 8)
+    nw = wz.shape[0] if vmode else 0
+    nbytes_moved = 8 * (4 * nz + 2 * nv + 2 * nw) \
+        + n * (4 + 8 + 4 + 4 + 5 * 8)
     sf = props.satfunc
     ops = 3 * OPS_LOOK1 + 3
     if sf is not None:
@@ -1013,10 +1069,13 @@ def equil_cells_work(args, n):
             + (OPS_LOOK1 + 1) * (sf.pcgo_range > 1e-9)
     if props.disgas and props.oil_live is not None:
         ops += OPS_LOOK1 + (5 + 1 if mode else 0)
+    if props.rv_gas is not None:
+        ops += OPS_LOOK1 + (5 + 1 if vmode else 0) \
+            + (OPS_LOOK1 if vmode == "pdvd" else 0)
     return nbytes_moved, ops * n
 
 
-def check_equil(K, label, sim, main=False, twin=True, cells_row=False):
+def check_equil(K, label, sim, march_row=None, twin=True, cells_row=None):
     """K1's column march and EQUIL's cell pass on ``sim``'s deck: each
     EQUIL region's columns from the kernel (its call under the sync debug
     mode "error": no host read) bit for bit its twin's on the card (with
@@ -1027,9 +1086,9 @@ def check_equil(K, label, sim, main=False, twin=True, cells_row=False):
     twin's on the region's cells and no other cell written, with its ms
     and its twin's; then one initial_state (synced host clock) with the
     launches it makes: one march and one cell pass a region and no K1
-    lookup. With ``main``, the march's row of the kernels line takes this
-    deck's times and bound; with ``cells_row`` the cell pass's row (one
-    call, per launch in a run of 50 and on the device). Returns (the
+    lookup. ``march_row`` names the march's row of the kernels line that
+    takes this deck's times and bound, ``cells_row`` the cell pass's row
+    (one call, per launch in a run of 50 and on the device). Returns (the
     initial state, the record)."""
     import torch
 
@@ -1039,8 +1098,8 @@ def check_equil(K, label, sim, main=False, twin=True, cells_row=False):
     cell_data = equil.equil_cell_data(sim.grid, sim.model.device)
     nc = sim.grid.nc
     rows = []
-    for rec, cells, rsvd, pbvd in regions:
-        args = equil.march_args(sim.grid, sim.props, rec, cells, rsvd, pbvd)
+    for rec, cells, vd in regions:
+        args = equil.march_args(sim.grid, sim.props, rec, cells, **vd)
         equil.equil_columns_cuda(*args)         # builds the CellPack, loads
         torch.cuda.synchronize()
         with no_host_sync():
@@ -1078,7 +1137,8 @@ def check_equil(K, label, sim, main=False, twin=True, cells_row=False):
         c_plain = cuda_ms(lambda: equil.equil_cells_plain(args, cols, ti,
                                                           cell_data, pout))
         c_bytes, c_flops = equil_cells_work(args, len(cells))
-        rows.append(dict(nz=args[1].shape[0], mode=args[5], cells=len(cells),
+        rows.append(dict(nz=args[1].shape[0], mode=args[5], vmode=args[8],
+                         cells=len(cells),
                          ms=ms, twin_ms=twin_ms, bitwise=same,
                          bytes=nbytes_moved, flops=flops,
                          cell_pass=dict(ms=c_ms, plain_ms=c_plain,
@@ -1091,19 +1151,19 @@ def check_equil(K, label, sim, main=False, twin=True, cells_row=False):
             fail(f"{label}: the cell pass differs from its twin on the card "
                  f"(region's cells equal: {cells_same}; other cells left "
                  f"alone: {untouched})")
-        if main and not rows[1:]:
-            K.ms["K1 equil_march"] = ms
-            K.plain_ms["K1 equil_march"] = twin_ms
-            K.bound_raw("K1 equil_march", nbytes_moved, flops)
+        if march_row and not rows[1:]:
+            K.ms[march_row] = ms
+            K.plain_ms[march_row] = twin_ms
+            K.bound_raw(march_row, nbytes_moved, flops)
         if cells_row and not rows[1:]:
             def fn():
                 equil.equil_cells_cuda(args, cols, ti, cell_data, kout)
-            K.ms["K1 equil_cells"] = c_ms
-            K.plain_ms["K1 equil_cells"] = c_plain
-            K.library_ms["K1 equil_cells"] = None
-            K.run_ms["K1 equil_cells"] = run_ms(fn)
+            K.ms[cells_row] = c_ms
+            K.plain_ms[cells_row] = c_plain
+            K.library_ms[cells_row] = None
+            K.run_ms[cells_row] = run_ms(fn)
             rows[0]["cell_pass"]["device_ms"] = device_ms(fn)
-            K.bound_raw("K1 equil_cells", c_bytes, c_flops)
+            K.bound_raw(cells_row, c_bytes, c_flops)
         del kout, pout
     counted = (k1.interp1_cuda, k1.interp2_cuda, equil.equil_columns_cuda,
                equil.equil_cells_cuda)
@@ -2876,6 +2936,367 @@ def toy_run(K, sim, ref, label, names):
 
 
 # ---------------------------------------------------------------------------
+# 4b: SPE3, the gas-condensate deck (wet gas, VAPOIL, RVVD/PDVD)
+
+# the cells of SPE10 model 2 (60 x 220 x 85): the wet-gas kernels' checks
+# and times at the main path's widest cell count, with SPE3's tables
+N_WIDE = 60 * 220 * 85
+
+
+def seeded_wet_state(props, n, seed, dev):
+    """(p, sw, x, hcstate) of n cells made from the seed with numpy for
+    SPE3's tables: every hydrocarbon state, pressures across PVTG's records
+    and beyond its ends, rv below rv_sat and, in every tenth GASONLY cell,
+    at it (drv = 0)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    hc = rng.integers(0, 3, n).astype(np.int32)
+    p = rng.uniform(2.0e6, 2.8e7, n)
+    sw = rng.uniform(0.16, 0.3, n)
+    rvs = props.rv_sat(torch.as_tensor(p, device=dev), 0).cpu().numpy()
+    rv = np.where(np.arange(n) % 10 == 0, rvs, rvs * rng.uniform(0.3, 1.0, n))
+    x = np.where(hc == 0, rng.uniform(0.0, 0.8, n),
+                 np.where(hc == 1, rng.uniform(0.0, 50.0, n), rv))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return t(p), t(sw), t(x), t(hc)
+
+
+def compare_wet_k2(K, props, n, seed, dev, label, timed):
+    """K2's three entries with SPE3's tables (PVTG's gas, rv = rv_sat under
+    VAPOIL) against their plain versions on the card at n seeded cells:
+    the values and the assembly's face inputs and r_cell bit for bit, the
+    tangent columns and the diag within TOL_K2_TAN of each row's max; with
+    ``timed`` their wet-gas rows' times and bounds."""
+    import torch
+
+    from opm_tpu_torch.models import blackoil as mb
+    pack = props.cell_pack()
+    p, sw, x, hc = seeded_wet_state(props, n, seed, dev)
+    reg = torch.zeros(n, dtype=torch.int64, device=dev)
+    a2 = (p, sw, x, hc, reg, reg)
+    kq, pq = mb.cells_values_cuda(pack, *a2), mb.cells_values_plain(props,
+                                                                    *a2)
+    K.note("K2 cells_values wet gas", float((kq - pq).abs().max()))
+    if not torch.equal(kq, pq):
+        fail(f"{label}: K2 cells_values with wet gas are not bit for bit "
+             f"the plain version's ({rel_err(kq, pq):.3e})")
+    kc, pc = mb.cells_columns_cuda(pack, *a2), mb.cells_columns_plain(props,
+                                                                      *a2)
+    K.note("K2 cells_columns wet gas", float((kc - pc).abs().max()))
+    e = row_scaled_err(kc, pc)
+    if not e <= TOL_K2_TAN:
+        fail(f"{label}: K2 cells_columns with wet gas off by {e:.3e} of a "
+             f"row's max (> {TOL_K2_TAN:g})")
+    rng = torch.Generator(device="cpu").manual_seed(seed)
+    acc0 = torch.rand((3, n), generator=rng, dtype=torch.float64).to(dev)
+    pv = torch.rand(n, generator=rng, dtype=torch.float64).to(dev) * 1e3
+    a3 = a2 + (acc0, pv, 86400.0)
+    ka, pa = mb.cells_assemble_cuda(pack, *a3), mb.cells_assemble_plain(
+        props, *a3)
+    K.note("K2 cells_assemble wet gas",
+           max(float((a - b).abs().max()) for a, b in zip(ka, pa)))
+    if not (torch.equal(ka[0], pa[0]) and torch.equal(ka[2], pa[2])):
+        fail(f"{label}: K2 cells_assemble's face inputs or r_cell with wet "
+             "gas are not bit for bit the plain version's")
+    for a, b in (ka[1], pa[1]), (ka[3], pa[3]):
+        e = row_scaled_err(a, b)
+        if not e <= TOL_K2_TAN:
+            fail(f"{label}: K2 cells_assemble with wet gas off by {e:.3e} "
+                 f"of a row's max (> {TOL_K2_TAN:g})")
+    if timed:
+        ins = (a2[:3], hc, reg, reg, pack.tab)
+        for name, kfn, pfn, outs, more in (
+                ("K2 cells_values wet gas",
+                 lambda: mb.cells_values_cuda(pack, *a2),
+                 lambda: mb.cells_values_plain(props, *a2), kq, ()),
+                ("K2 cells_columns wet gas",
+                 lambda: mb.cells_columns_cuda(pack, *a2),
+                 lambda: mb.cells_columns_plain(props, *a2), kc, ()),
+                ("K2 cells_assemble wet gas",
+                 lambda: mb.cells_assemble_cuda(pack, *a3),
+                 lambda: mb.cells_assemble_plain(props, *a3), ka,
+                 (acc0, pv))):
+            K.ms[name] = cuda_ms(kfn)
+            K.plain_ms[name] = cuda_ms(pfn)
+            K.run_ms[name] = run_ms(kfn)
+            K.library_ms[name] = None
+            K.bound_instr(name, nbytes(ins, more, outs),
+                          K.sass["cells"][K.K2_KERNELS[name]] * n)
+    torch.cuda.synchronize()
+
+
+def compare_wet_k9(K, props, n, seed, dev, label, timed):
+    """K9's update under VAPOIL (rv_sat of PVTG at the old and the new
+    pressure) bit for bit against its twins' composition at n seeded cells
+    in GASOIL and GASONLY: GASOIL cells near so = 0 and GASONLY cells at
+    rv_sat, increments that switch cells both ways; with ``timed`` the
+    VAPOIL row's times and bound. Returns the switches (GASOIL -> GASONLY,
+    GASONLY -> GASOIL)."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.solver import kernels_k9 as k9
+    rng = np.random.default_rng(seed + 3)
+    p = rng.uniform(1.2e7, 2.4e7, n)
+    hc = np.where(rng.random(n) < 0.5, 0, 2).astype(np.int32)
+    sw = np.full(n, 0.16)
+    rvs = props.rv_sat(torch.as_tensor(p, device=dev), 0).cpu().numpy()
+    x = np.where(hc == 0, 0.84 - rng.uniform(0.0, 1e-3, n),
+                 np.where(rng.random(n) < 0.5, rvs, rvs * 0.99))
+    du = np.stack([rng.uniform(-1e6, 2e6, n), np.zeros(n),
+                   np.where(hc == 0, -rng.uniform(0.0, 2e-3, n),
+                            rng.standard_normal(n) * 1e-8)])
+    nw = 2
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    consts = k9.UpdateConsts(0.3, 0.2, 1e9, bool(props.disgas),
+                             bool(props.vapoil))
+    rv = k9.rv_table(props, None)
+    if rv is None:
+        fail(f"{label}: no rv_sat table for K9 (VAPOIL and PVTG expected)")
+    du_w = t(rng.standard_normal((nw, 4)) * np.array([1e-3] * 3 + [1e6]))
+    a = (t(p), t(sw), t(x), t(hc), t(rng.uniform(1e7, 2e7, nw)),
+         t(rng.standard_normal((nw, 3))), t(du), du_w[:, 3], du_w[:, :3],
+         0.9, consts, k9.rs_table(props, None), rv)
+    ku, pu = k9.update_cuda(*a), k9.update_plain(*a)
+    for nm, x_, y_ in zip(("p", "sw", "x", "hcstate", "bhp", "qs"), ku, pu):
+        K.note("K9 update VAPOIL", float((x_.double() - y_.double())
+                                         .abs().max()))
+        if x_.dtype == torch.float64:
+            x_, y_ = x_.view(torch.int64), y_.view(torch.int64)
+        if not torch.equal(x_, y_):
+            fail(f"{label}: K9 update with VAPOIL: {nm} is not bit for bit "
+                 "its twins' composition")
+    h0, h1 = a[3], ku[3]
+    sw_ = (int(((h0 == 0) & (h1 == 2)).sum()), int(((h0 == 2) & (h1 == 0))
+                                                  .sum()))
+    if min(sw_) <= 0:
+        fail(f"{label}: the seeded update switched {sw_} cells (GASOIL -> "
+             "GASONLY, GASONLY -> GASOIL); both directions wanted")
+    if timed:
+        name = "K9 update VAPOIL"
+        K.ms[name] = cuda_ms(lambda: k9.update_cuda(*a))
+        K.plain_ms[name] = cuda_ms(lambda: k9.update_plain(*a))
+        K.run_ms[name] = run_ms(lambda: k9.update_cuda(*a))
+        K.library_ms[name] = None
+        K.bound(name, a[:4] + (a[6],), ku[:4], 80 * n)
+    torch.cuda.synchronize()
+    return sw_
+
+
+def compare_wet_equil_cells(K, sims, n, seed, dev, timed):
+    """EQUIL's cell pass with RVVD and with PDVD over n seeded cells (the
+    depths of SPE3's column, one PVT and SAT region) from the kernel's
+    columns of each deck's region, into arrays of NaN: bit for bit its twin
+    on the card; with ``timed`` the RVVD and PDVD rows' times and
+    bounds."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.sim import init as equil
+    rng = np.random.default_rng(seed + 4)
+    for vmode, sim in sims.items():
+        rec, cells, vd = equil.equil_regions(sim.grid, sim.case)[0]
+        args = equil.march_args(sim.grid, sim.props, rec, cells, **vd)
+        if args[8] != vmode:
+            fail(f"SPE3 {vmode}: the region's column is {args[8]}")
+        cols = equil.equil_columns_cuda(*args)
+        z = args[1].cpu().numpy()
+        depth = torch.as_tensor(rng.uniform(z[1], z[-2], n), device=dev)
+        zero = torch.zeros(n, dtype=torch.int32, device=dev)
+        cd = (depth, zero, zero)
+        ti = torch.arange(n, dtype=torch.int32, device=dev)
+        kout = torch.full((5, n), float("nan"), dtype=torch.float64,
+                          device=dev)
+        pout = kout.clone()
+        equil.equil_cells_cuda(args, cols, ti, cd, kout)
+        equil.equil_cells_plain(args, cols, ti, cd, pout)
+        name = f"K1 equil_cells {vmode.upper()}"
+        K.note(name, float((kout - pout).abs().max()))
+        if not torch.equal(kout, pout):
+            fail(f"SPE3 {vmode} at {n} cells: the cell pass differs from "
+                 "its twin on the card")
+        if not bool((kout[4] > 0).all()):
+            fail(f"SPE3 {vmode}: the cell pass left rv <= 0")
+        if timed:
+            def fn():
+                equil.equil_cells_cuda(args, cols, ti, cd, kout)
+            K.ms[name] = cuda_ms(fn)
+            K.plain_ms[name] = cuda_ms(lambda: equil.equil_cells_plain(
+                args, cols, ti, cd, pout))
+            K.run_ms[name] = run_ms(fn)
+            K.library_ms[name] = None
+            K.bound_raw(name, *equil_cells_work(args, n))
+    torch.cuda.synchronize()
+
+
+def spe3_kernels(K, dev, seed, results):
+    """Phase 4b's kernel checks: SPE3's EQUIL (RVVD, and PDVD in its place)
+    bit for bit, K2's entries and K9 with wet gas at SPE3's 324 cells and at
+    1.122M seeded cells with SPE3's tables (timed there), and SPE3's first
+    dense Jacobian through K2's and K3's forward-mode rules against the
+    plain CPU path. Returns the two simulators (RVVD, PDVD)."""
+    from opm_tpu_torch.io.eclstate import load_case_string
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.sim.testcases import spe3_pdvd_deck
+    with open(os.path.join(ROOT, "data", "SPE3.DATA")) as f:
+        text = f.read()
+    cases = {"rvvd": load_case_string(text),
+             "pdvd": load_case_string(spe3_pdvd_deck(text))}
+    sims = {k: SimulatorFullyImplicitBlackoil(c) for k, c in cases.items()}
+    eq = results.setdefault("equil", {})
+    _, eq["SPE3"] = check_equil(K, "SPE3", sims["rvvd"],
+                                march_row="K1 equil_march wet gas")
+    _, eq["SPE3 PDVD"] = check_equil(K, "SPE3 PDVD", sims["pdvd"])
+    props = sims["rvvd"].props
+    out = {}
+    for n, label, timed in ((sims["rvvd"].model.nc, "SPE3", False),
+                            (N_WIDE, "SPE3 tables at 1.122M cells", True)):
+        compare_wet_k2(K, props, n, seed, dev, label, timed)
+        out[f"k9_switches_{n}"] = compare_wet_k9(K, props, n, seed, dev,
+                                                 label, timed)
+        compare_wet_equil_cells(K, sims, n, seed, dev, timed)
+        log(f"{label}: K2's entries, K9's update (switched GASOIL -> "
+            f"GASONLY, GASONLY -> GASOIL: {out[f'k9_switches_{n}']}) and "
+            "EQUIL's cell pass with RVVD and PDVD == plain on the card: ok")
+    ejac, n_tan, n_col = compare_jacobian(cases["rvvd"], dev, "SPE3")
+    out["jacobian_rel"] = ejac
+    log(f"SPE3 Jacobian (jacfwd through K2's and K3's forward-mode rules; "
+        f"K2 column launches: {n_col}, K3 tangent launches: {n_tan}) vs "
+        f"the plain CPU path: {ejac:.3e} of max|J|")
+    if not ejac <= TOL_JAC or n_tan < 1 or n_col < 1:
+        fail(f"SPE3 Jacobian on the card off by {ejac:.3e} of max|J| "
+             f"(> {TOL_JAC:g}) or not through K2 and K3")
+    for name in ("K2 cells_values wet gas", "K2 cells_columns wet gas",
+                 "K2 cells_assemble wet gas", "K9 update VAPOIL",
+                 "K1 equil_cells RVVD", "K1 equil_cells PDVD"):
+        log(f"  {name:26s} kernel {K.ms[name]:9.4f} ms   plain "
+            f"{K.plain_ms[name]:9.4f} ms   bound {K.bound_ms[name]:8.4f} ms "
+            f"({K.bound_by[name]})   per launch in a run of 50 "
+            f"{K.run_ms[name]:.4f} ms   max_abs_err {K.err[name]:.3e}")
+    results["spe3_kernels"] = out
+    return sims
+
+
+def spe3_run(K, ref):
+    """SPE3's whole schedule (720 days: depletion, dry-gas reinjection,
+    blowdown) on the card through SimulatorFullyImplicitBlackoil with no
+    device argument, the launch counters of its kernels over the run
+    (EQUIL's included), held per report step to the JAX package's CPU run
+    (data/spe3_reference_cpu.json): substeps, Newtons and failed substeps
+    equal, FPR within TOL_FPR, FOPR, FGPR and FGIR within TOL_RATE (a rate
+    the reference has at 0 within TOL_RATE of that vector's maximum), or
+    within the reference's own roundoff spread at that step where that is
+    wider (the fixture's ``spread``: the reference's runs with one-ulp
+    changes of sw and x after every Newton update depart from its own run
+    by up to 1.7e-2 in FOPR; ROADMAP Queue 3); and
+    the deck's own checks (tests/test_spe3.py): every cell GASONLY at t = 0
+    with 0 < rv < rv_sat, condensate dropping out (GASOIL cells), and the
+    gas balance (the fluid in place's decline against the produced less
+    the injected gas) within 1e-3."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.sim.blackoil import (DAY,
+                                            SimulatorFullyImplicitBlackoil,
+                                            fluid_in_place)
+    from opm_tpu_torch.sim.init import initial_state
+    case = load_case(os.path.join(ROOT, "data", "SPE3.DATA"))
+    sim = SimulatorFullyImplicitBlackoil(case)
+    m = sim.model
+    # the state at t = 0 and its fluid in place, for the deck's own checks
+    st0 = initial_state(sim.grid, sim.props, case, len(sim.well_names))
+    rvs0 = sim.props.rv_sat(st0.pressure, m.pvtnum)
+    gasonly0 = bool((st0.hcstate == 2).all())
+    rv_ok0 = bool(((st0.x > 0) & (st0.x < rvs0)).all())
+    fip0 = fluid_in_place(m, st0)
+    gasoil, failed = [], []
+    sim.events.event("report_step_completed").add(
+        lambda s, step: (gasoil.append(int((s.hcstate == 0).sum())),
+                         failed.append(sim.report.failed_substeps)))
+    K.reset()
+    t0 = time.perf_counter()
+    state = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {e[0]: e[4].launches for e in K.entries}
+    # the wet-gas rows take this run's counts; the rows they share a
+    # launch with (K3, K9's check) keep SPE1's
+    K.launches.update({n: launches[n] for n in K.SPE3 if n in K.WET_GAS})
+    failed = failed[1:] + [sim.report.failed_substeps]
+    failed = [b - a for a, b in zip([0] + failed[:-1], failed)]
+    rep, rows, steps = sim.report, sim.summary.rows, sim._step_timing
+    refs = ref["report_steps"]
+    if len(rows) != len(refs):
+        fail(f"SPE3 ran {len(rows)} report steps, the reference "
+             f"{len(refs)}")
+    counts = [((s[3], s[4], f), (r["substeps"], r["newtons"], r["failed"]))
+              for s, f, r in zip(steps, failed, refs)]
+    off = [(k, c, rc) for k, (c, rc) in enumerate(counts) if c != rc]
+    lim = dict(FPR=TOL_FPR, FOPR=TOL_RATE, FGPR=TOL_RATE, FGIR=TOL_RATE)
+    scale = {k: max(abs(r[k]) for r in refs) for k in lim}
+    worst = {k: 0.0 for k in lim}
+    outside, in_spread = [], []
+    for i, (row, r) in enumerate(zip(rows, refs)):
+        for k in lim:
+            e = (abs(row[k] - r[k]) / abs(r[k]) if r[k] != 0.0
+                 else abs(row[k]) / scale[k])
+            worst[k] = max(worst[k], e)
+            if e > lim[k]:
+                (in_spread if e <= r["spread"][k] else outside).append(
+                    (i, k, e, r["spread"][k]))
+    fip1 = fluid_in_place(m, state)
+    t = np.array([r["time"] for r in rows]) * DAY
+    dt = np.diff(np.concatenate([[0.0], t]))
+    net = sum((r["FGPR"] - r["FGIR"]) * d for r, d in zip(rows, dt))
+    gas_balance = abs(net - (fip0[2] - fip1[2])) / abs(fip0[2] - fip1[2])
+    res = dict(wall_s=wall, newtons=rep.newton_iterations,
+               substeps=rep.substeps, failed=rep.failed_substeps,
+               worst_rel=worst, count_diffs=off, outside=outside,
+               within_reference_spread=in_spread,
+               gasoil_cells=gasoil, gas_balance_rel=gas_balance,
+               launches={n: launches[n] for n in K.SPE3},
+               launches_all=launches)
+    log(f"SPE3 end to end on the card (720 days, {len(rows)} report steps, "
+        f"dense route): {wall:.1f} s, {rep.newton_iterations} Newtons, "
+        f"{rep.substeps} substeps, {rep.failed_substeps} failed "
+        f"(reference {ref['total_newtons']} / {ref['total_substeps']} / "
+        f"{ref['failed_substeps']})")
+    log("  worst relative summary error: "
+        + ", ".join(f"{k}={v:.2e}" for k, v in worst.items())
+        + f"; gas balance {gas_balance:.2e}; GASOIL cells per step "
+        f"{gasoil}")
+    log("  launches: " + ", ".join(f"{n}={launches[n]}" for n in K.SPE3))
+    if off:
+        log(f"  report steps with other counts (index, port, ref): {off}")
+    if in_spread:
+        log("  beyond the limits but within the reference's own roundoff "
+            f"spread (step, vector, rel, spread): {in_spread}")
+    if outside:
+        log("  summary values outside their limits and the reference's "
+            f"spread (step, vector, rel, spread): {outside}")
+    if not (gasonly0 and rv_ok0):
+        fail("SPE3: the initial state is not all GASONLY with 0 < rv < "
+             "rv_sat")
+    if max(gasoil) <= 0:
+        fail("SPE3: no condensate dropped out (no GASOIL cell)")
+    if not gas_balance <= 1e-3:
+        fail(f"SPE3: the gas balance is off by {gas_balance:.2e}")
+    if off or outside:
+        fail("SPE3: counts or summary vectors differ from the reference")
+    dead = [n for n in K.SPE3 if launches[n] <= 0]
+    if dead:
+        fail(f"kernels not launched by the SPE3 run: {dead}")
+    check_k9_launches(launches, rep, "SPE3")
+    return res
+
+
+# ---------------------------------------------------------------------------
 def run_vs_fixture(sim, ref, label, state=None, report_step_limit=None):
     """Run ``sim`` and hold each report step to the fixture: Newton and
     substep counts, 0 failed, linear iterations within TOL_LINEAR (when
@@ -3084,7 +3505,8 @@ def main(argv=None):
 
     # -- 3c. K4/K6/K7/K8 == plain on real assembled systems ---------------------
     eq = results["equil"] = {}
-    init1, eq["SPE1"] = check_equil(K, "SPE1", sim_cmp, main=True)
+    init1, eq["SPE1"] = check_equil(K, "SPE1", sim_cmp,
+                                    march_row="K1 equil_march")
     sys1, ctx1 = first_newton_system(sim_cmp, init1)
     compare_assembly_kernels(K, sim_cmp, sys1, ctx1, args.seed, "SPE1",
                              timed=False)
@@ -3094,7 +3516,7 @@ def main(argv=None):
                         sys1, args.seed, "SPE1", timed=False)
     log("K4/K6/K8 == plain on SPE1's first Newton system: ok")
     init10, eq["SPE10-2"] = check_equil(K, "SPE10-2", sim10,
-                                        cells_row=True)
+                                        cells_row="K1 equil_cells")
     results["spe10_initial_state_s"] = eq["SPE10-2"]["initial_state_s"]
     t0 = time.perf_counter()
     sys10, ctx10 = first_newton_system(sim10, init10)
@@ -3180,6 +3602,13 @@ def main(argv=None):
     if dead:
         fail(f"kernels not launched by the SPE1 run: {dead}")
     check_k9_launches(results["spe1"]["launches_all"], sim.report, "SPE1")
+
+    # -- 4b. SPE3 (wet gas, VAPOIL, RVVD/PDVD): kernels, then end to end -----
+    spe3_kernels(K, dev, args.seed, results)
+    torch.cuda.empty_cache()
+    with open(os.path.join(ROOT, "data", "spe3_reference_cpu.json")) as f:
+        ref3 = json.load(f)
+    results["spe3"] = spe3_run(K, ref3)
 
     # -- 5. SPE10-2 first report step through the CPR route --------------------
     solver = sim10.solver

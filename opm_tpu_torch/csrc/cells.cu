@@ -2,7 +2,9 @@
 // tangent columns (in p, sw, x), one thread per cell, for Hopper.
 //
 // Replaces the JAX package's models/blackoil.py compute_cell_quantities
-// (:95-147) and accumulation_from_q (:165), and the tangent columns that
+// (:95-147, with the wet-gas PVTG branch and rv_sat under VAPOIL of
+// props/blackoil.py :47-131) and accumulation_from_q (:165), and the
+// tangent columns that
 // linearize.assemble seeds by jax.linearize with all-ones per primary
 // (models/linearize.py:141-161, 175-187); on the TPU XLA fused them into
 // the assembly's elementwise passes.
@@ -144,7 +146,17 @@ __device__ __forceinline__ void eval_cell(const Layout& L,
     } else if (L.disgas) {
         RS = col1(coord1(pb_tab, L.ol_nrec, value(P), 0), rs_tab, P);
     }
-    const T RV = select(is_rv, X, zero);
+    // vaporized oil: rv = x (undersaturated gas) or, under VAPOIL, PVTG's
+    // saturated curve at the oil pressure
+    T RV = zero;
+    const int rgw = L.wet ? row_of(L.gw_nreg, rp) : 0;
+    const double* pg_tab = tab + L.gw_pg + rgw * L.gw_nrec;
+    const double* rvs_tab = tab + L.gw_rv + rgw * L.gw_nrec;
+    if (is_rv) {
+        RV = X;
+    } else if (L.vapoil) {
+        RV = col1(coord1(pg_tab, L.gw_nrec, value(P), 0), rvs_tab, P);
+    }
     out.row(R_RS, RS);
     out.row(R_RV, RV);
 
@@ -222,12 +234,32 @@ __device__ __forceinline__ void eval_cell(const Layout& L,
     out.row(R_MOB + 1, KRO / MUO);
     out.row(R_RHO + 1, (sdo + RS * sdg) * BO);
 
-    // gas (PVDG, or the inert placeholder of a two-phase deck)
-    const int rg = row_of(L.g_nreg, rp);
-    const Coord1 cgp = coord1(tab + L.g_x + rg * L.g_n, L.g_n, value(PG), 0);
-    const double* gy = tab + L.g_y + rg * 2 * L.g_n;
-    const T BG = col1(cgp, gy, PG);
-    const T MUG = BG / col1(cgp, gy + L.g_n, PG);
+    // gas: PVTG over (pg, drv = max(rv_sat(pg) - rv, 0)) with rv_sat at
+    // the gas pressure, or PVDG over pg (or the inert placeholder of a
+    // two-phase deck)
+    T BG, MUG;
+    if (L.wet) {
+        const Coord1 cx = coord1(pg_tab, L.gw_nrec, value(PG), 0);
+        const T DRV = maximum0(col1(cx, rvs_tab, PG) - RV);
+        const Coord1 cy = coord1(tab + L.gw_drv + rgw * L.gw_nd, L.gw_nd,
+                                 value(DRV), 0);
+        const int nn = L.gw_nrec * L.gw_nd;
+        const double* grid = tab + L.gw_grid + rgw * 2 * nn;
+        double v, dx, dy;
+        opm_tables::interp2(cx, cy, grid, L.gw_nd, &v, &dx, &dy);
+        const T IB = chain2(v, dx, dy, PG, DRV);
+        opm_tables::interp2(cx, cy, grid + nn, L.gw_nd, &v, &dx, &dy);
+        const T IBM = chain2(v, dx, dy, PG, DRV);
+        BG = IB;
+        MUG = IB / IBM;
+    } else {
+        const int rg = row_of(L.g_nreg, rp);
+        const Coord1 cgp = coord1(tab + L.g_x + rg * L.g_n, L.g_n, value(PG),
+                                  0);
+        const double* gy = tab + L.g_y + rg * 2 * L.g_n;
+        BG = col1(cgp, gy, PG);
+        MUG = BG / col1(cgp, gy + L.g_n, PG);
+    }
     out.row(R_B + 2, BG);
     out.row(R_MOB + 2, KRG / MUG);
     out.row(R_RHO + 2, (sdg + RV * sdo) * BG);

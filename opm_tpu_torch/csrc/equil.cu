@@ -3,7 +3,8 @@
 //
 // Replaces the JAX package's sim/init.py _integrate_column (:46-76: two
 // masked lax.scans from the anchor) with the densities rho_o, rho_w and
-// rho_g (:108-124) and the anchors of the water and gas columns
+// rho_g (:108-124; rho_g with rv = rv_sat(p) under VAPOIL, the wet gas b
+// of PVTG at drv = 0) and the anchors of the water and gas columns
 // (:126-131), whose PVT lookups are K1's (utils/tables.py interp :97,
 // interp2 :237). Run as separate one-query K1 launches, one column costs
 // 3999 density evaluations, each four lookups (RSVD or PBVD, rs_sat,
@@ -33,7 +34,9 @@
 // equilibrate_region (:133-187): the columns' lookups onto the cells
 // (interp :134-136), sw from pcow (:146) and sg from pcgo (:149-157) by
 // K1's clamped lookups, rs_sat at each cell's PVT region and the RSVD /
-// PBVD column (:159-172). Run as torch operations, that was 4-6 K1
+// PBVD column (:159-172), and under VAPOIL rv from the RVVD column capped
+// by rv_sat(pg), from PDVD as rv_sat(min(pd, pg)), or rv_sat(pg)
+// (:174-190). Run as torch operations, that was 4-6 K1
 // launches a region, two host reads (whether each capillary curve is
 // flat), about a dozen elementwise passes and five scatters into the
 // state. What bounds it: memory traffic, a cell's depth and two region
@@ -41,8 +44,9 @@
 // values written (40 B, scattered); the lookups are a few binary searches
 // in tables that stay in L1. Design: a grid-strided thread per cell of
 // the region; each block stages the depth grid and the three columns
-// (4 nz doubles, 64 KB at 2000 points) and the RSVD/PBVD column in shared
-// memory once; the per-region saturation and PVT tables are read through
+// (4 nz doubles, 64 KB at 2000 points), the RSVD/PBVD and the RVVD/PDVD
+// columns in shared memory once; the per-region saturation and PVT tables
+// are read through
 // the cache. The values go straight into the state's (nc,) rows. Every
 // formula is the plain version's (sim/init.py equil_cells_plain) in its
 // order, so the outputs equal it bit for bit.
@@ -65,8 +69,10 @@ using opm_tables::coord1;
 constexpr int kLegs = 4;              // warps; lane 0 of each marches a leg
 constexpr int kThreads = 32 * kLegs;
 
-// the dissolved-gas column of the region: none (saturated), RSVD, PBVD
+// the dissolved-gas column of the region: none (saturated), RSVD, PBVD;
+// the vaporized-oil column: none (saturated), RVVD, PDVD
 enum Mode { VD_NONE = 0, VD_RSVD = 1, VD_PBVD = 2 };
+enum VapMode { VV_NONE = 0, VV_RVVD = 1, VV_PDVD = 2 };
 enum Phase { OIL = 0, WATER = 1, GAS = 2 };
 
 // the region's record and its scalar PVT (EQUIL, PVTW and DENSITY rows)
@@ -84,7 +90,10 @@ struct Tables {
     const double* ib;                 // PVTO inv_b grid (nrec, ndp)
     const double *ox, *oy;            // PVDO p and inv_b (on)
     const double *gx, *gy;            // PVDG p and inv_b (gn)
+    const double *gpg, *grv, *gdrv;   // PVTG: pg, rv_sat (gnrec), drv (gnd)
+    const double* gib;                // PVTG inv_b grid (gnrec, gnd)
     int nz, nv, nrec, ndp, on, gn, live;
+    int wet, vapoil, gnrec, gnd;
     double sdw, sdo, sdg, w_pref, w_comp, w_bref;
 };
 
@@ -123,6 +132,17 @@ __device__ __forceinline__ double oil_b(const Tables& T, double p,
     return v;
 }
 
+// inverse gas FVF at (p, rv): PVTG over (p, max(rv_sat(p) - rv, 0))
+__device__ __forceinline__ double wet_gas_b(const Tables& T, double p,
+                                            double rv) {
+    const double drv = maximum0(look1(T.gpg, T.grv, T.gnrec, p, 0) - rv);
+    const Coord1 cx = coord1(T.gpg, T.gnrec, p, 0);
+    const Coord1 cy = coord1(T.gdrv, T.gnd, drv, 0);
+    double v, dx, dy;
+    opm_tables::interp2(cx, cy, T.gib, T.gnd, &v, &dx, &dy);
+    return v;
+}
+
 // dp/dz = rho * g of a phase at (p, depth zz): the plain version's rho_o,
 // rho_w, rho_g
 __device__ double dpdz(const Tables& T, const Region& R, int phase,
@@ -132,9 +152,14 @@ __device__ double dpdz(const Tables& T, const Region& R, int phase,
         const double b = ((1.0 + x) + (0.5 * x) * x) / T.w_bref;
         return (T.sdw * b) * R.g;
     }
-    if (phase == GAS)
-        return ((T.sdg + 0.0 * T.sdo) * look1(T.gx, T.gy, T.gn, p, 0)) *
-               R.g;
+    if (phase == GAS) {
+        if (!T.wet)
+            return ((T.sdg + 0.0 * T.sdo) * look1(T.gx, T.gy, T.gn, p, 0)) *
+                   R.g;
+        const double rv =
+            T.vapoil ? look1(T.gpg, T.grv, T.gnrec, p, 0) : 0.0;
+        return ((T.sdg + rv * T.sdo) * wet_gas_b(T, p, rv)) * R.g;
+    }
     double rs = 0.0;
     if (R.disgas) {
         if (R.mode == VD_RSVD)
@@ -241,13 +266,34 @@ __global__ void __launch_bounds__(kThreads)
         stage(s, tab + L.od_y + rd * 2 * L.od_n, L.od_n);
         s += L.od_n;
     }
-    const int rg = row_of(L.g_nreg, r);
-    T.gn = L.g_n;
-    T.gx = s;
-    stage(s, tab + L.g_x + rg * L.g_n, L.g_n);
-    s += L.g_n;
-    T.gy = s;
-    stage(s, tab + L.g_y + rg * 2 * L.g_n, L.g_n);
+    T.wet = L.wet;
+    T.vapoil = L.vapoil;
+    if (L.wet) {
+        const int rg = row_of(L.gw_nreg, r);
+        T.gnrec = L.gw_nrec;
+        T.gnd = L.gw_nd;
+        T.gpg = s;
+        stage(s, tab + L.gw_pg + rg * L.gw_nrec, L.gw_nrec);
+        s += L.gw_nrec;
+        T.grv = s;
+        stage(s, tab + L.gw_rv + rg * L.gw_nrec, L.gw_nrec);
+        s += L.gw_nrec;
+        T.gdrv = s;
+        stage(s, tab + L.gw_drv + rg * L.gw_nd, L.gw_nd);
+        s += L.gw_nd;
+        // grid 0 (inv_b) of the (nreg, 2, nrec, nd) pair
+        T.gib = s;
+        stage(s, tab + L.gw_grid + (long long)rg * 2 * L.gw_nrec * L.gw_nd,
+              L.gw_nrec * L.gw_nd);
+    } else {
+        const int rg = row_of(L.g_nreg, r);
+        T.gn = L.g_n;
+        T.gx = s;
+        stage(s, tab + L.g_x + rg * L.g_n, L.g_n);
+        s += L.g_n;
+        T.gy = s;
+        stage(s, tab + L.g_y + rg * 2 * L.g_n, L.g_n);
+    }
     const int rw = row_of(L.w_nreg, r);
     T.w_pref = tab[L.w_pref + rw];
     T.w_comp = tab[L.w_comp + rw];
@@ -305,18 +351,24 @@ struct CellRegion {
     int s_nreg, nw, ng;
     const double *pbub, *rs;           // null: rs_sat is 0
     int o_nreg, nrec;
+    int vmode, vapoil;                 // the RVVD/PDVD column; rv_sat != 0
+    const double *gpg, *grv;           // PVTG: pg, rv_sat (g_nreg, g_nrec)
+    int g_nreg, g_nrec;
 };
 
 constexpr int kCellThreads = 256;
 
 // The region's n cells cells[k]: p, sw, sg, rs, rv at cell c written to
 // out[q nc + c], q = 0..4. z (nz), cols (3, nz): the march's depth grid
-// and columns; vz, vv (nv): the RSVD/PBVD column.
+// and columns; vz, vv (nv): the RSVD/PBVD column; wz, wv (nvw): the
+// RVVD/PDVD column.
 __global__ void __launch_bounds__(kCellThreads)
     equil_cells_kernel(const double* __restrict__ z, int nz,
                        const double* __restrict__ cols,
                        const double* __restrict__ vz,
-                       const double* __restrict__ vv, int nv, CellRegion R,
+                       const double* __restrict__ vv, int nv,
+                       const double* __restrict__ wz,
+                       const double* __restrict__ wv, int nvw, CellRegion R,
                        const int* __restrict__ cells, long long n,
                        const double* __restrict__ depth,
                        const int* __restrict__ pvtnum,
@@ -327,10 +379,14 @@ __global__ void __launch_bounds__(kCellThreads)
     double* C = Z + nz;
     double* VZ = C + 3 * nz;
     double* VV = VZ + nv;
+    double* WZ = VV + nv;
+    double* WV = WZ + nvw;
     stage(Z, z, nz);
     stage(C, cols, 3 * nz);
     stage(VZ, vz, R.mode != VD_NONE ? nv : 0);
     stage(VV, vv, R.mode != VD_NONE ? nv : 0);
+    stage(WZ, wz, R.vmode != VV_NONE ? nvw : 0);
+    stage(WV, wv, R.vmode != VV_NONE ? nvw : 0);
     __syncthreads();
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -381,11 +437,26 @@ __global__ void __launch_bounds__(kCellThreads)
                 rs = rssat;
             }
         }
+        double rv = 0.0;
+        if (R.vapoil) {
+            const long long rg = row_of(R.g_nreg, pvtnum[c]);
+            const double* pg_x = R.gpg + rg * R.g_nrec;
+            const double* rv_y = R.grv + rg * R.g_nrec;
+            const double rvsat = look1(pg_x, rv_y, R.g_nrec, pg, 0);
+            if (R.vmode == VV_RVVD) {
+                rv = minimum(np_interp(WZ, WV, nvw, zc), rvsat);
+            } else if (R.vmode == VV_PDVD) {
+                const double pd = minimum(np_interp(WZ, WV, nvw, zc), pg);
+                rv = look1(pg_x, rv_y, R.g_nrec, pd, 0);
+            } else {
+                rv = rvsat;
+            }
+        }
         out[c] = po;
         out[nc + c] = sw;
         out[2 * nc + c] = sg;
         out[3 * nc + c] = rs;
-        out[4 * nc + c] = 0.0;
+        out[4 * nc + c] = rv;
     }
 }
 
@@ -399,7 +470,9 @@ int opm_equil_meta_len() { return kMeta; }
 // RSVD/PBVD column and pvt0's PVT rows.
 long long opm_equil_smem_bytes(const int* meta, int nz, int nv) {
     const Layout L = layout_of(meta);
-    long long n = nz + 2LL * nv + 2LL * L.g_n;
+    long long n = nz + 2LL * nv;
+    n += L.wet ? 2LL * L.gw_nrec + L.gw_nd + (long long)L.gw_nrec * L.gw_nd
+               : 2LL * L.g_n;
     n += L.live ? 2LL * L.ol_nrec + L.ol_ndp + (long long)L.ol_nrec * L.ol_ndp
                 : 2LL * L.od_n;
     return n * (long long)sizeof(double);
@@ -432,7 +505,9 @@ int opm_equil_march(const double* tab, const int* meta, const double* z,
 // and columns; vz, vv (nv) or null with mode 0; pcow, pcgo: 1 where the
 // deck's curve is not flat; the saturation tables pcow_neg, sw (nreg, nw),
 // pcgo, sg (nreg, ng) and swco (nreg); PVTO's pbub and rs
-// (o_nreg, nrec), or null (rs_sat 0); cells (n) int32, the region's cells;
+// (o_nreg, nrec), or null (rs_sat 0); wz, wv (nvw) the RVVD/PDVD column,
+// or null with vmode 0; vapoil: rv from PVTG's pg and rv_sat (g_nreg,
+// g_nrec), else rv 0; cells (n) int32, the region's cells;
 // depth (nc) float64, pvtnum and satnum (nc) int32; out (5, nc) float64:
 // p, sw, sg, rs, rv written at the region's cells. One launch: a grid
 // strided over the cells, as many blocks as fit on the card at once.
@@ -443,15 +518,20 @@ int opm_equil_cells(const double* z, int nz, const double* cols,
                     const double* pcgo_x, const double* sg,
                     const double* swco, int s_nreg, int nw, int ng,
                     const double* pbub, const double* rs, int o_nreg,
-                    int nrec, const int* cells, long long n,
+                    int nrec, const double* wz, const double* wv, int nvw,
+                    int vmode, int vapoil, const double* gpg,
+                    const double* grv, int g_nreg, int g_nrec,
+                    const int* cells, long long n,
                     const double* depth, const int* pvtnum,
                     const int* satnum, long long nc, double* out,
                     cudaStream_t stream) {
     if (n == 0) return 0;
     const CellRegion R{woc_z, goc_z, mode, disgas, pcow, pcgo, pcow_neg,
                        sw, pcgo_x, sg, swco, s_nreg, nw, ng, pbub, rs,
-                       o_nreg, nrec};
-    const size_t smem = (size_t)(4LL * nz + 2LL * nv) * sizeof(double);
+                       o_nreg, nrec, vmode, vapoil, gpg, grv, g_nreg,
+                       g_nrec};
+    const size_t smem =
+        (size_t)(4LL * nz + 2LL * nv + 2LL * nvw) * sizeof(double);
     int err = (int)cudaFuncSetAttribute(
         equil_cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -469,8 +549,8 @@ int opm_equil_cells(const double* z, int nz, const double* cols,
     const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
     const int blocks = (int)(need < fit ? need : fit);
     equil_cells_kernel<<<blocks, kCellThreads, smem, stream>>>(
-        z, nz, cols, vz, vv, nv, R, cells, n, depth, pvtnum, satnum, nc,
-        out);
+        z, nz, cols, vz, vv, nv, wz, wv, nvw, R, cells, n, depth, pvtnum,
+        satnum, nc, out);
     return (int)cudaGetLastError();
 }
 

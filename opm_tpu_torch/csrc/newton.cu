@@ -12,16 +12,18 @@
 //          cell increments (a (3, nc) array: the CPR route's du_c, or the
 //          first 3 nc values of the dense route's flat du), applies omega
 //          to each increment (one product, as omega * du), chops the
-//          pressure, looks up rs_sat at the old and the new pressure on
-//          the cell's PVT region row (tables.cuh's coord1/interp1: K1's
-//          device code, which K2 shares), takes rv_sat as 0 (VAPOIL is not
-//          ported), scales and renormalises the saturations, chops rs/rv,
+//          pressure, looks up rs_sat (PVTO's curve, under DISGAS) and
+//          rv_sat (PVTG's curve, under VAPOIL) at the old and the new
+//          pressure on the cell's PVT region row (tables.cuh's
+//          coord1/interp1: K1's device code, which K2 shares; a ratio
+//          without its table is 0), scales and renormalises the
+//          saturations, chops rs/rv,
 //          switches the state and writes p, sw, x and hcstate. One extra
 //          block does the well rows: the bhp chop and qs. Every product,
 //          sum and IEEE division in the plain version's order (build with
 //          --fmad=false), so every output equals the twins' composition
-//          (update_pressure_plain, K1's rs_sat, update_cells_plain) bit for
-//          bit.
+//          (update_pressure_plain, K1's rs_sat and rv_sat,
+//          update_cells_plain) bit for bit.
 // converge each block reduces a grid-stride share of the cells to 11
 //          partials (per phase the NaN-propagating max of |R| B / pv, the
 //          sums of R and of B = 1 / max(b, 1e-300); the sums of pv and of
@@ -95,6 +97,9 @@ struct Update {
     const double *xs, *ys;       // rs_sat table (nreg, n), or null
     int n;
     const long long* reg;        // (nc) PVT regions, or null (one region)
+    const double *vxs, *vys;     // rv_sat table (nreg, nv), or null
+    int nv;
+    const long long* vreg;       // (nc) PVT regions, or null (one region)
     double omega, dp_max_rel, ds_max, dr_max_rel;
     int disgas, vapoil;
     double *p_out, *sw_out, *x_out;
@@ -102,12 +107,13 @@ struct Update {
     double *bhp_out, *qs_out;
 };
 
-__device__ __forceinline__ double rs_sat_at(const Update& a, long long r,
-                                            double p) {
-    if (!a.xs) return 0.0;
-    opm_tables::Coord1 c = opm_tables::coord1(a.xs + r * a.n, a.n, p, 0);
+// a saturated ratio's table row (xs, ys of n nodes) at p; 0 without one
+__device__ __forceinline__ double sat_at(const double* xs, const double* ys,
+                                         int n, long long r, double p) {
+    if (!xs) return 0.0;
+    opm_tables::Coord1 c = opm_tables::coord1(xs + r * n, n, p, 0);
     double v, s;
-    opm_tables::interp1(c, a.ys + r * a.n, &v, &s);
+    opm_tables::interp1(c, ys + r * n, &v, &s);
     return v;
 }
 
@@ -122,9 +128,11 @@ __device__ __forceinline__ void update_cell(const Update& a, long long c) {
     const double lim = a.dp_max_rel * fabs(p0);
     const double pn = p0 - clamp_n(dp, -lim, lim);
     const long long r = a.reg ? a.reg[c] : 0;
-    const double rssat0 = rs_sat_at(a, r, p0);
-    const double rssat = rs_sat_at(a, r, pn);
-    const double rvsat0 = 0.0, rvsat = 0.0;
+    const double rssat0 = sat_at(a.xs, a.ys, a.n, r, p0);
+    const double rssat = sat_at(a.xs, a.ys, a.n, r, pn);
+    const long long rv = a.vreg ? a.vreg[c] : 0;
+    const double rvsat0 = sat_at(a.vxs, a.vys, a.nv, rv, p0);
+    const double rvsat = sat_at(a.vxs, a.vys, a.nv, rv, pn);
     // update_cells_plain, operation for operation
     const bool is_sg = hc == 0, is_rs = hc == 1, is_rv = hc == 2;
     const double sg_old = is_sg ? x : (is_rv ? 1.0 - sw0 : 0.0);
@@ -384,13 +392,16 @@ int opm_k9_grid(int* out) {
 // increments (3, nc); dbhp (stride sb) and dqs (rows of stride sq) the
 // well increments; bhp (nw), qs (nw, 3); xs, ys the rs_sat table (nreg, n)
 // (null: rs_sat = 0), reg the PVT region of each cell (null: one region);
-// the outputs p_out, sw_out, x_out, hc_out, bhp_out, qs_out
+// vxs, vys, nv, vreg the same of the rv_sat table; the outputs p_out,
+// sw_out, x_out, hc_out, bhp_out, qs_out
 int opm_k9_update(long long nc, int nw, const double* p, const double* sw,
                   const double* x, const int* hc, const double* du,
                   const double* dbhp, long long sb, const double* dqs,
                   long long sq, const double* bhp, const double* qs,
                   const double* xs, const double* ys, int n,
-                  const long long* reg, double omega, double dp_max_rel,
+                  const long long* reg, const double* vxs, const double* vys,
+                  int nv, const long long* vreg, double omega,
+                  double dp_max_rel,
                   double ds_max, double dr_max_rel, int disgas, int vapoil,
                   double* p_out, double* sw_out, double* x_out, int* hc_out,
                   double* bhp_out, double* qs_out, cudaStream_t stream) {
@@ -413,6 +424,10 @@ int opm_k9_update(long long nc, int nw, const double* p, const double* sw,
     a.ys = ys;
     a.n = n;
     a.reg = reg;
+    a.vxs = vxs;
+    a.vys = vys;
+    a.nv = nv;
+    a.vreg = vreg;
     a.omega = omega;
     a.dp_max_rel = dp_max_rel;
     a.ds_max = ds_max;

@@ -20,6 +20,10 @@ struct Layout {
     int s_nreg, s_nw, s_sw, s_wc, s_ng, s_sg, s_gc, s_swco;
     int r_nreg, r_pref, r_comp;
     int d_nreg, d_sd;
+    // PVTG (wet gas): wet when the deck has it (the gas b and mu come from
+    // it, over (pg, drv)), vapoil when rv_sat is its saturated curve
+    int wet, vapoil;
+    int gw_nreg, gw_nrec, gw_nd, gw_pg, gw_rv, gw_drv, gw_grid;
 };
 constexpr int kMeta = sizeof(Layout) / sizeof(int);
 

@@ -17,14 +17,13 @@ import numpy as np
 import torch
 
 from opm_tpu_torch.props.pvt import (DeadPVT, LiveOilPVT, RockPVT, WaterPVT,
-                                     _t)
+                                     WetGasPVT, _t)
 from opm_tpu_torch.props.satfunc import SatFuncFamily1
 
 WATER, OIL, GAS = 0, 1, 2
 
 _NOT_PORTED = {
     "PVCDO": "dead oil with constant compressibility",
-    "PVTG": "wet gas",
     "ROCKTAB": "tabulated rock compaction",
     "VAPPARS": "VAPPARS",
 }
@@ -47,6 +46,7 @@ class BlackoilProps:
     oil_dead: Optional[DeadPVT]
     oil_live: Optional[LiveOilPVT]
     gas_dead: Optional[DeadPVT]
+    gas_wet: Optional[WetGasPVT]
     rock: Optional[RockPVT]
     satfunc: Optional[SatFuncFamily1]
     device: torch.device = torch.device("cpu")
@@ -61,14 +61,11 @@ class BlackoilProps:
                 raise NotImplementedError(
                     f"{kw} ({what}) is not ported yet "
                     "(ROADMAP Queue 1 items 2 and 8)")
-        if rs.vapoil:
-            raise NotImplementedError(
-                "VAPOIL is not ported yet (ROADMAP Queue 1 item 8)")
         dens = t.get("DENSITY", [dict(oil=600.0, water=1000.0, gas=1.0)])
         sd = _t([[d["water"], d["oil"], d["gas"]] for d in dens], device)
         gas = (DeadPVT.from_tables(t["PVDG"], device) if "PVDG" in t
-               else _inert_gas_pvt(device) if "GAS" not in rs.phases
-               else None)
+               else _inert_gas_pvt(device)
+               if "GAS" not in rs.phases and "PVTG" not in t else None)
         return cls(
             phases=rs.phases, disgas=rs.disgas, vapoil=rs.vapoil,
             surface_density=sd,
@@ -79,6 +76,8 @@ class BlackoilProps:
             oil_live=(LiveOilPVT.from_tables(t["PVTO"], device)
                       if "PVTO" in t else None),
             gas_dead=gas,
+            gas_wet=(WetGasPVT.from_tables(t["PVTG"], device)
+                     if "PVTG" in t else None),
             rock=RockPVT.from_tables(t["ROCK"], device) if "ROCK" in t
             else None,
             satfunc=SatFuncFamily1.from_case(case, device),
@@ -94,6 +93,8 @@ class BlackoilProps:
         return self.oil_dead.b_mu(p, reg)
 
     def gas_b_mu(self, p, rv, reg):
+        if self.gas_wet is not None:
+            return self.gas_wet.b_mu(p, rv, reg)
         return self.gas_dead.b_mu(p, reg)
 
     # -- saturated dissolution ratios ------------------------------------
@@ -102,7 +103,15 @@ class BlackoilProps:
             return self.oil_live.rs_sat(p, reg)
         return torch.zeros_like(p)
 
+    @property
+    def rv_gas(self) -> Optional[WetGasPVT]:
+        """PVTG where rv_sat is its saturated curve (VAPOIL), else None
+        (rv_sat is 0)."""
+        return self.gas_wet if self.vapoil else None
+
     def rv_sat(self, p, reg):
+        if self.rv_gas is not None:
+            return self.rv_gas.rv_sat(p, reg)
         return torch.zeros_like(p)
 
     # -- phase mass densities at reservoir conditions ---------------------
@@ -138,7 +147,7 @@ class CellPack:
     float64 buffer ``tab`` on the props' device and ``meta`` (and
     ``c_meta``, the same as a C int array), the offsets and sizes of each
     table in it, in the order of ``META`` (the field order of ``Layout``
-    in csrc/cells.cu). Per-region arrays keep
+    in csrc/pack.cuh). Per-region arrays keep
     their (nreg, ...) layout; K2 takes row 0 of a table with one region
     and the cell's PVTNUM/SATNUM row otherwise, as ``reg_pick`` and the
     lookups do."""
@@ -152,13 +161,18 @@ class CellPack:
             "s_nreg", "s_nw", "s_sw", "s_wc", "s_ng", "s_sg", "s_gc",
             "s_swco",
             "r_nreg", "r_pref", "r_comp",
-            "d_nreg", "d_sd")
+            "d_nreg", "d_sd",
+            # PVTG (wet gas; appended so the other offsets stay): wet when
+            # the deck has it, vapoil when rv_sat is PVTG's curve
+            "wet", "vapoil", "gw_nreg", "gw_nrec", "gw_nd", "gw_pg",
+            "gw_rv", "gw_drv", "gw_grid")
 
     def __init__(self, props: BlackoilProps):
         missing = [name for name, t in (("PVTW", props.water),
                                         ("PVDO/PVTO", props.oil_dead
                                          or props.oil_live),
-                                        ("PVDG", props.gas_dead),
+                                        ("PVDG/PVTG", props.gas_dead
+                                         or props.gas_wet),
                                         ("SWOF/SGOF", props.satfunc))
                    if t is None]
         if missing:
@@ -198,9 +212,10 @@ class CellPack:
             m["od_x"] = add(od.p)
             m["od_y"] = add(od.cols)
         g = props.gas_dead
-        m["g_nreg"], m["g_n"] = g.p.shape
-        m["g_x"] = add(g.p)
-        m["g_y"] = add(g.cols)
+        if g is not None:
+            m["g_nreg"], m["g_n"] = g.p.shape
+            m["g_x"] = add(g.p)
+            m["g_y"] = add(g.cols)
         sf = props.satfunc
         m["s_nreg"], m["s_nw"] = sf.sw.shape
         m["s_ng"] = sf.sg.shape[1]
@@ -216,6 +231,16 @@ class CellPack:
             m["r_comp"] = add(props.rock.comp)
         m["d_nreg"] = props.surface_density.shape[0]
         m["d_sd"] = add(props.surface_density)
+        gw = props.gas_wet
+        if gw is not None:
+            m["wet"] = 1
+            m["vapoil"] = int(props.rv_gas is not None)
+            m["gw_nreg"], m["gw_nrec"] = gw.pg_tab.shape
+            m["gw_nd"] = gw.drv_grid.shape[1]
+            m["gw_pg"] = add(gw.pg_tab)
+            m["gw_rv"] = add(gw.rv_sat_tab)
+            m["gw_drv"] = add(gw.drv_grid)
+            m["gw_grid"] = add(gw.grids)
         self.tab = torch.cat(parts).to(props.device)
         self.meta = [int(m[k]) for k in self.META]
         # the layout as the C array K2's entry points read

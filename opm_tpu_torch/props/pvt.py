@@ -7,8 +7,8 @@ Tables interpolate 1/B and 1/(B*mu) linearly in p, so mu = (1/B)/(1/(B*mu)).
 
 Every table lookup goes through kernel K1 (utils/tables.py); one lookup
 returns both inverse-FVF and inverse-(FVF*mu) columns (or grids), so b and
-mu of a phase cost one launch. Ported here: PVTW, PVDO/PVDG, PVTO and ROCK.
-PVCDO, PVTG and ROCKTAB are not ported yet (ROADMAP Queue 1 item 2).
+mu of a phase cost one launch. Ported here: PVTW, PVDO/PVDG, PVTO, PVTG and
+ROCK. PVCDO and ROCKTAB are not ported yet (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -198,6 +198,110 @@ class LiveOilPVT:
         pb = self.p_bub(rs, reg)
         dp = torch.maximum(p - pb, torch.zeros_like(p))
         ib, ibm = lookup2(self.rs_tab, self.dp_grid, self.grids, rs, dp,
+                          reg=reg)
+        return ib, ib / ibm
+
+
+@dataclass
+class WetGasPVT:
+    """PVTG: wet gas with vaporized oil rv. Records are indexed by gas
+    pressure; within a record, rows vary rv downward from the saturated
+    rv. A dense grid over (pressure record, drv = rv_sat(pg) - rv) (the
+    reference's construction, copied: the drv nodes of every record, short
+    regions padded, records without undersaturated rows borrowing the
+    relative variation of the nearest record that has them)."""
+
+    pg_tab: torch.Tensor      # (nreg, nrec) gas pressure of each record
+    rv_sat_tab: torch.Tensor  # (nreg, nrec) saturated rv at pg
+    drv_grid: torch.Tensor    # (nreg, ndrv) >= 0
+    grids: torch.Tensor       # (nreg, 2, nrec, ndrv): inv_b, inv_bmu
+
+    def __post_init__(self):
+        # the single-column (nreg, 1, nrec) table of rv_sat for the K1
+        # lookups (also EQUIL's and K9's)
+        self.rv_col = self.rv_sat_tab[:, None, :].contiguous()
+
+    @classmethod
+    def from_tables(cls, regions, device):
+        nreg = len(regions)
+        nrec = max(len(recs) for recs in regions)
+        reg_drv = []
+        max_nd = 2
+        for recs in regions:
+            ds = {0.0}
+            for pg, rows in recs:
+                rvsat = rows[0, 0]
+                for rv in rows[1:, 0]:
+                    ds.add(float(rvsat - rv))
+            d = np.array(sorted(ds))
+            if len(d) == 1:
+                d = np.array([0.0, max(1e-6, 1.0)])
+            max_nd = max(max_nd, len(d))
+            reg_drv.append(d)
+        nd = max_nd
+
+        pg_tab = np.zeros((nreg, nrec))
+        rv_tab = np.zeros((nreg, nrec))
+        drv_grid = np.zeros((nreg, nd))
+        ib_grid = np.zeros((nreg, nrec, nd))
+        ibm_grid = np.zeros((nreg, nrec, nd))
+        for r, recs in enumerate(regions):
+            d = reg_drv[r]
+            if len(d) < nd:
+                extra = d[-1] + np.arange(1, nd - len(d) + 1) * max(d[-1],
+                                                                   1e-3)
+                d = np.concatenate([d, extra])
+            drv_grid[r] = d
+            n = len(recs)
+            rel_ib = np.ones((n, nd))
+            rel_ibm = np.ones((n, nd))
+            has = np.zeros(n, dtype=bool)
+            for i, (pg, rows) in enumerate(recs):
+                pg_tab[r, i] = pg
+                rv_tab[r, i] = rows[0, 0]
+                ib0 = 1.0 / rows[0, 1]
+                ibm0 = ib0 / rows[0, 2]
+                ib_grid[r, i, 0] = ib0
+                ibm_grid[r, i, 0] = ibm0
+                if rows.shape[0] > 1:
+                    has[i] = True
+                    dd = rows[0, 0] - rows[:, 0]
+                    ib = 1.0 / rows[:, 1]
+                    ibm = ib / rows[:, 2]
+                    order = np.argsort(dd)
+                    rel_ib[i] = np.interp(d, dd[order], (ib / ib0)[order])
+                    rel_ibm[i] = np.interp(d, dd[order],
+                                           (ibm / ibm0)[order])
+            # donor: nearest record with undersaturated data
+            donors = np.nonzero(has)[0]
+            for i in range(n):
+                src = i if has[i] else (donors[np.argmin(np.abs(donors - i))]
+                                        if len(donors) else None)
+                if src is None:
+                    ib_grid[r, i, :] = ib_grid[r, i, 0]
+                    ibm_grid[r, i, :] = ibm_grid[r, i, 0]
+                else:
+                    ib_grid[r, i, :] = ib_grid[r, i, 0] * rel_ib[src]
+                    ibm_grid[r, i, :] = ibm_grid[r, i, 0] * rel_ibm[src]
+            for i in range(n, nrec):
+                pg_tab[r, i] = pg_tab[r, n - 1] * (1 + 1e-7 * (i - n + 1))
+                rv_tab[r, i] = rv_tab[r, n - 1]
+                ib_grid[r, i] = ib_grid[r, n - 1]
+                ibm_grid[r, i] = ibm_grid[r, n - 1]
+        return cls(_t(pg_tab, device), _t(rv_tab, device),
+                   _t(drv_grid, device),
+                   _t(np.stack([ib_grid, ibm_grid], 1), device))
+
+    def rv_sat(self, p, reg):
+        """Saturated (maximum) vaporized oil-gas ratio at gas pressure p."""
+        return lookup1(self.pg_tab, self.rv_col, p, reg=reg)[0]
+
+    def b_mu(self, p, rv, reg):
+        """(b, mu) at gas pressure p and rv, over (p, drv = max(rv_sat(p)
+        - rv, 0))."""
+        rvs = self.rv_sat(p, reg)
+        drv = torch.maximum(rvs - rv, torch.zeros_like(p))
+        ib, ibm = lookup2(self.pg_tab, self.drv_grid, self.grids, p, drv,
                           reg=reg)
         return ib, ib / ibm
 

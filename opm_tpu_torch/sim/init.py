@@ -2,17 +2,18 @@
 
 Port of the JAX package's sim/init.py: per-EQLNUM-region integration of
 hydrostatic phase-pressure columns from the datum (a fixed-step midpoint
-march on a 2000-point depth grid), RSVD/PBVD dissolved-gas columns,
-capillary-pressure inversion for the saturation profile (sharp contacts
-when the capillary curves are flat), and explicit PRESSURE/SWAT/SGAS/RS
-init. On the card a region is two launches of ``csrc/equil.cu``: K1's
-column march (``equil_columns_cuda``: the three columns), then the cell
-pass (``equil_cells_cuda``: the columns' K1 lookups onto the region's
-cells, the capillary inversions, rs_sat and RSVD/PBVD, written straight
-into the initial state's arrays), with no host read; on the CPU their
-plain twins ``equil_columns_plain`` and ``equil_cells_plain`` run.
-SWATINIT and the RVVD/PDVD wet-gas columns are not ported yet (ROADMAP
-Queue 1 item 3).
+march on a 2000-point depth grid; the gas column's density with rv =
+rv_sat(p) under VAPOIL), RSVD/PBVD dissolved-gas and RVVD/PDVD
+vaporized-oil columns, capillary-pressure inversion for the saturation
+profile (sharp contacts when the capillary curves are flat), and explicit
+PRESSURE/SWAT/SGAS/RS/RV init. On the card a region is two launches of
+``csrc/equil.cu``: K1's column march (``equil_columns_cuda``: the three
+columns), then the cell pass (``equil_cells_cuda``: the columns' K1
+lookups onto the region's cells, the capillary inversions, rs_sat and
+RSVD/PBVD, rv_sat and RVVD/PDVD, written straight into the initial state's
+arrays), with no host read; on the CPU their plain twins
+``equil_columns_plain`` and ``equil_cells_plain`` run. SWATINIT is not
+ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ from opm_tpu_torch.utils import cuda_lib
 from opm_tpu_torch.utils.tables import lookup1_plain, lookup2_plain
 
 _NZ = 2000  # column resolution
-# the dissolved-gas column of a region (csrc/equil.cu Mode)
+# the dissolved-gas and the vaporized-oil column of a region (csrc/equil.cu
+# Mode)
 _MODES = {None: 0, "rsvd": 1, "pbvd": 2}
+_VMODES = {None: 0, "rvvd": 1, "pdvd": 2}
 
 
 def _linspace(start, stop, num, device):
@@ -43,8 +46,8 @@ def _linspace(start, stop, num, device):
 
 def np_interp(xp, fp, x):
     """numpy.interp's formula (slope * (x - xp[j]) + fp[j], end values
-    beyond the ends) on tensors, for the deck's RSVD/PBVD columns: xp, fp
-    (n,) float64 on x's device."""
+    beyond the ends) on tensors, for the deck's RSVD/PBVD/RVVD/PDVD
+    columns: xp, fp (n,) float64 on x's device."""
     n = xp.shape[0]
     if n == 1:
         return fp[:1].expand(x.shape)
@@ -97,16 +100,19 @@ def _look1(xs, ys, x, clamp=0):
 
 
 def equil_columns_plain(props, z, g, pvt0, rec, mode=None, vz=None,
-                        vv=None):
+                        vv=None, vmode=None, wz=None, wv=None):
     """The oil, water and gas pressure columns (3, nz) of one EQUIL region
     over the depth grid z: the reference's three _integrate_column marches
-    with its densities rho_o, rho_w and rho_g at PVT region pvt0, water
-    anchored at the WOC and gas at the GOC on the oil column. ``mode`` is
-    the region's dissolved-gas column, None (saturated), "rsvd" or "pbvd",
-    with its depths vz and values vv. Plain torch on either device, through
-    K1's plain lookups: the kernel's twin."""
+    with its densities rho_o, rho_w and rho_g at PVT region pvt0 (rho_g
+    with rv = rv_sat(p) under VAPOIL, so wet gas is read at drv = 0),
+    water anchored at the WOC and gas at the GOC on the oil column.
+    ``mode`` is the region's dissolved-gas column, None (saturated), "rsvd"
+    or "pbvd", with its depths vz and values vv; the vaporized-oil column
+    (vmode, wz, wv) is the cell pass's only. Plain torch on either device,
+    through K1's plain lookups: the kernel's twin."""
     sd = props.surface_density[pvt0]
     live, dead, gas = props.oil_live, props.oil_dead, props.gas_dead
+    wet = props.gas_wet
 
     def rs_sat(p):
         if live is None:
@@ -138,10 +144,21 @@ def equil_columns_plain(props, z, g, pvt0, rec, mode=None, vz=None,
     def rho_w(p, zz):
         return props.rho_water(p, pvt0) * g     # PVTW: no table lookup
 
+    def rv_sat(p):
+        return _look1(_row(wet.pg_tab, pvt0), _row(wet.rv_col, pvt0), p)
+
+    def gas_b(p, rv):
+        if wet is None:
+            return _look1(_row(gas.p, pvt0), _row(gas.cols, pvt0), p)
+        drv = torch.maximum(rv_sat(p) - rv, torch.zeros_like(p))
+        return lookup2_plain(_row(wet.pg_tab, pvt0), _row(wet.drv_grid, pvt0),
+                             _row(wet.grids, pvt0), p.reshape(1),
+                             drv.reshape(1), None, 0, 0)[0][0, 0]
+
     def rho_g(p, zz):
-        rv = torch.zeros_like(p)
-        return (sd[GAS] + rv * sd[OIL]) * _look1(
-            _row(gas.p, pvt0), _row(gas.cols, pvt0), p) * g
+        rv = (rv_sat(p) if props.rv_gas is not None
+              else torch.zeros_like(p))
+        return (sd[GAS] + rv * sd[OIL]) * gas_b(p, rv) * g
 
     def at(zz):
         return torch.tensor(zz, dtype=torch.float64, device=z.device)
@@ -168,7 +185,9 @@ _EQUIL_SIGS = {
     "opm_equil_cells": [cuda_lib.P, cuda_lib.I, cuda_lib.P, cuda_lib.P,
                         cuda_lib.P] + [cuda_lib.I] * 5
     + [cuda_lib.D] * 2 + [cuda_lib.P] * 5 + [cuda_lib.I] * 3
-    + [cuda_lib.P] * 2 + [cuda_lib.I] * 2 + [cuda_lib.P, cuda_lib.L]
+    + [cuda_lib.P] * 2 + [cuda_lib.I] * 2
+    + [cuda_lib.P] * 2 + [cuda_lib.I] * 3 + [cuda_lib.P] * 2
+    + [cuda_lib.I] * 2 + [cuda_lib.P, cuda_lib.L]
     + [cuda_lib.P] * 3 + [cuda_lib.L, cuda_lib.P, cuda_lib.P],
 }
 # the shared memory one block may take on an H100
@@ -176,7 +195,7 @@ _SMEM_LIMIT = 227 * 1024
 
 
 def equil_columns_cuda(props, z, g, pvt0, rec, mode=None, vz=None,
-                       vv=None):
+                       vv=None, vmode=None, wz=None, wv=None):
     """K1's column march on the card: one launch writes the (3, nz)
     columns of ``equil_columns_plain`` (same contract), with no host
     read."""
@@ -201,7 +220,7 @@ def equil_columns_cuda(props, z, g, pvt0, rec, mode=None, vz=None,
     # region serves every region, the surface densities are indexed as they
     # stand
     nregs = dict(zip(pack.META, pack.meta))
-    for key in ("w_nreg", "g_nreg", "d_nreg",
+    for key in ("w_nreg", "gw_nreg" if nregs["wet"] else "g_nreg", "d_nreg",
                 "ol_nreg" if nregs["live"] else "od_nreg"):
         n = nregs[key]
         if not (0 <= pvt0 < n or (n == 1 and key != "d_nreg")):
@@ -233,20 +252,30 @@ def equil_columns_cuda(props, z, g, pvt0, rec, mode=None, vz=None,
 equil_columns_cuda.launches = 0
 
 
-def equil_columns(props, z, g, pvt0, rec, mode=None, vz=None, vv=None):
+def equil_columns(props, z, g, pvt0, rec, mode=None, vz=None, vv=None,
+                  vmode=None, wz=None, wv=None):
     """The (3, nz) oil, water and gas pressure columns of one EQUIL region:
     K1's column march on a CUDA grid, its plain twin on the CPU."""
     return cuda_lib.dispatch(z, equil_columns_cuda, equil_columns_plain,
-                             props, z, g, pvt0, rec, mode, vz, vv,
-                             what="K1 EQUIL column march")
+                             props, z, g, pvt0, rec, mode, vz, vv, vmode,
+                             wz, wv, what="K1 EQUIL column march")
 
 
-def march_args(grid, props, rec, cells, rsvd=None, pbvd=None):
+def _column(vd, dev):
+    """A depth table's (depths, values) as float64 tensors on dev."""
+    return tuple(torch.as_tensor(np.ascontiguousarray(vd[:, k]),
+                                 dtype=torch.float64, device=dev)
+                 for k in (0, 1))
+
+
+def march_args(grid, props, rec, cells, rsvd=None, pbvd=None, rvvd=None,
+               pdvd=None):
     """The arguments of ``equil_columns`` for the EQUIL region ``rec`` over
-    its active ``cells``: (props, z, g, pvt0, rec, mode, vz, vv), with the
-    depth grid z from 1 m above to 1 m below the cells and the contacts
-    (``_NZ`` points), pvt0 the region's most frequent PVT region and its
-    RSVD or PBVD column."""
+    its active ``cells``: (props, z, g, pvt0, rec, mode, vz, vv, vmode, wz,
+    wv), with the depth grid z from 1 m above to 1 m below the cells and
+    the contacts (``_NZ`` points), pvt0 the region's most frequent PVT
+    region, its RSVD or PBVD column (mode, vz, vv) and its RVVD or PDVD
+    column (vmode, wz, wv)."""
     dev = props.device
     depth = np.asarray(grid.depth)[cells]
     reg_pvt = np.asarray(grid.pvtnum)[cells]
@@ -258,16 +287,18 @@ def march_args(grid, props, rec, cells, rsvd=None, pbvd=None):
     z = _linspace(float(zmin), float(zmax), _NZ, dev)
     mode, vd = (("rsvd", rsvd) if rsvd is not None
                 else ("pbvd", pbvd) if pbvd is not None else (None, None))
-    vz = vv = None
-    if mode:
-        vz, vv = (torch.as_tensor(np.ascontiguousarray(vd[:, k]),
-                                  dtype=torch.float64, device=dev)
-                  for k in (0, 1))
-    return props, z, grid.gravity, pvt0, rec, mode, vz, vv
+    vmode, wd = (("rvvd", rvvd) if rvvd is not None
+                 else ("pdvd", pdvd) if pdvd is not None else (None, None))
+    vz, vv = _column(vd, dev) if mode else (None, None)
+    wz, wv = _column(wd, dev) if vmode else (None, None)
+    return (props, z, grid.gravity, pvt0, rec, mode, vz, vv, vmode, wz,
+            wv)
 
 
 def equil_regions(grid, case):
-    """(rec, cells, rsvd, pbvd) of each EQUIL region that has cells."""
+    """(rec, cells, columns) of each EQUIL region that has cells; columns
+    holds its RSVD, PBVD, RVVD and PDVD tables (None where the deck has
+    none), ``march_args``'s keywords."""
     sol = case.solution
     eql = np.asarray(grid.eqlnum)
     out = []
@@ -275,13 +306,9 @@ def equil_regions(grid, case):
         idx = np.nonzero(eql == ireg)[0]
         if len(idx) == 0:
             continue
-        if (ireg < len(sol.rvvd) and sol.rvvd[ireg] is not None) or \
-                (ireg < len(sol.pdvd) and sol.pdvd[ireg] is not None):
-            raise NotImplementedError(
-                "RVVD/PDVD are not ported yet (ROADMAP Queue 1 item 3)")
-        out.append((rec, idx,
-                    sol.rsvd[ireg] if ireg < len(sol.rsvd) else None,
-                    sol.pbvd[ireg] if ireg < len(sol.pbvd) else None))
+        cols = {k: (getattr(sol, k)[ireg] if ireg < len(getattr(sol, k))
+                    else None) for k in ("rsvd", "pbvd", "rvvd", "pdvd")}
+        out.append((rec, idx, cols))
     return out
 
 
@@ -308,12 +335,13 @@ def equil_cells_plain(args, cols, cells, cell_data, out):
     the march over its depth grid onto the region's ``cells`` (int32), the
     capillary inversions (sw from pcow where the deck's pcow is not flat,
     else a sharp WOC; sg from pcgo above the GOC), the saturated rs at
-    each cell's PVT region and the RSVD/PBVD column; p, sw, sg, rs and rv
-    written at the cells into the rows of ``out`` (5, nc). ``args`` are
-    the region's ``march_args``, ``cell_data`` the grid's
-    ``equil_cell_data``. Plain torch on either device through K1's plain
-    lookups: the kernel's twin."""
-    props, z, _, _, rec, mode, vz, vv = args
+    each cell's PVT region and the RSVD/PBVD column, under VAPOIL rv from
+    the RVVD column capped by rv_sat(pg), or from PDVD as rv_sat(min(pd,
+    pg)), or rv_sat(pg); p, sw, sg, rs and rv written at the cells into
+    the rows of ``out`` (5, nc). ``args`` are the region's ``march_args``,
+    ``cell_data`` the grid's ``equil_cell_data``. Plain torch on either
+    device through K1's plain lookups: the kernel's twin."""
+    props, z, _, _, rec, mode, vz, vv, vmode, wz, wv = args
     depth, pvtnum, satnum = cell_data
     idx = cells.long()
     zc = depth[idx]
@@ -353,24 +381,41 @@ def equil_cells_plain(args, cols, cells, cell_data, out):
             rs_c = rssat_c
     else:
         rs_c = torch.zeros_like(zc)
-    rv_c = torch.zeros_like(zc)
+    gw = props.rv_gas
+    if gw is not None:
+        def rv_sat(p):
+            return _look(gw.pg_tab, gw.rv_col, p, reg_pvt, 0)
+
+        rvsat_c = rv_sat(pg_c)
+        if vmode == "rvvd":
+            rv_c = torch.minimum(np_interp(wz, wv, zc), rvsat_c)
+        elif vmode == "pdvd":
+            rv_c = rv_sat(torch.minimum(np_interp(wz, wv, zc), pg_c))
+        else:
+            rv_c = rvsat_c
+    else:
+        rv_c = torch.zeros_like(zc)
     out[:, idx] = torch.stack([po_c, sw, sg, rs_c, rv_c])
 
 
 def equil_cells_cuda(args, cols, cells, cell_data, out):
     """The cell pass on the card: one launch writes what
     ``equil_cells_plain`` writes (same contract), with no host read."""
-    props, z, _, _, rec, mode, vz, vv = args
+    props, z, _, _, rec, mode, vz, vv, vmode, wz, wv = args
     depth, pvtnum, satnum = cell_data
     dev = z.device
     nz, nc = z.shape[0], depth.shape[0]
     nv = vz.shape[0] if mode else 0
-    if mode not in _MODES:
-        raise ValueError(f"equil_cells_cuda: unknown mode {mode!r}")
+    nw = wz.shape[0] if vmode else 0
+    if mode not in _MODES or vmode not in _VMODES:
+        raise ValueError(f"equil_cells_cuda: unknown modes {mode!r}, "
+                         f"{vmode!r}")
     for t, nm, shape in ((z, "z", (nz,)), (cols, "cols", (3, nz)),
                          (depth, "depth", (nc,)), (out, "out", (5, nc)),
                          *([(vz, "vz", (nv,)), (vv, "vv", (nv,))]
-                           if mode else [])):
+                           if mode else []),
+                         *([(wz, "wz", (nw,)), (wv, "wv", (nw,))]
+                           if vmode else [])):
         if (t.dtype != torch.float64 or t.device != dev
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"equil_cells_cuda: {nm} must be a contiguous "
@@ -383,10 +428,10 @@ def equil_cells_cuda(args, cols, cells, cell_data, out):
     if pvtnum.shape != (nc,) or satnum.shape != (nc,):
         raise ValueError("equil_cells_cuda: the region numbers do not "
                          "span the grid")
-    if 8 * (4 * nz + 2 * nv) > _SMEM_LIMIT:
+    if 8 * (4 * nz + 2 * nv + 2 * nw) > _SMEM_LIMIT:
         raise ValueError("equil_cells_cuda: the columns exceed shared "
                          "memory")
-    sf, lo = props.satfunc, props.oil_live
+    sf, lo, gw = props.satfunc, props.oil_live, props.rv_gas
     if sf is None:
         raise NotImplementedError("EQUIL's cell pass without SWOF/SGOF is "
                                   "not ported (ROADMAP Queue 1 item 2)")
@@ -395,12 +440,16 @@ def equil_cells_cuda(args, cols, cells, cell_data, out):
             (sf.sg, "sg"), (sf.swco, "swco")]
     o_tabs = ([(lo.pbub_tab, "pbub_tab"), (lo.rs_tab, "rs_tab")] if live
               else [(None, "")] * 2)
-    for t, nm in tabs + o_tabs:
+    vap = gw is not None
+    g_tabs = ([(gw.pg_tab, "pg_tab"), (gw.rv_sat_tab, "rv_sat_tab")] if vap
+              else [(None, "")] * 2)
+    for t, nm in tabs + o_tabs + g_tabs:
         if t is not None and (t.dtype != torch.float64 or t.device != dev
                               or not t.is_contiguous()):
             raise ValueError(f"equil_cells_cuda: the table {nm} is not a "
                              f"contiguous float64 tensor on {dev}")
     o_dims = tuple(lo.rs_tab.shape) if live else (0, 0)
+    g_dims = tuple(gw.pg_tab.shape) if vap else (0, 0)
 
     def p(t):
         return None if t is None else cuda_lib.ptr(t)
@@ -412,9 +461,11 @@ def equil_cells_cuda(args, cols, cells, cell_data, out):
         int(sf.pcow_range > 1e-9), int(sf.pcgo_range > 1e-9),
         float(rec.woc_depth), float(rec.goc_depth),
         *(p(t) for t, _ in tabs), sf.sw.shape[0], sf.sw.shape[1],
-        sf.sg.shape[1], *(p(t) for t, _ in o_tabs), *o_dims, p(cells),
-        cells.shape[0], p(depth), p(pvtnum), p(satnum), nc, p(out),
-        cuda_lib.stream_ptr(dev))
+        sf.sg.shape[1], *(p(t) for t, _ in o_tabs), *o_dims,
+        p(wz) if vmode else None, p(wv) if vmode else None, nw,
+        _VMODES[vmode], int(vap), *(p(t) for t, _ in g_tabs), *g_dims,
+        p(cells), cells.shape[0], p(depth), p(pvtnum), p(satnum), nc,
+        p(out), cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "opm_equil_cells")
     equil_cells_cuda.launches += 1
 
@@ -430,12 +481,13 @@ def equil_cells(args, cols, cells, cell_data, out):
                              what="K1 EQUIL cell pass")
 
 
-def equilibrate_region(grid, props, rec, cells, rsvd=None, pbvd=None):
+def equilibrate_region(grid, props, rec, cells, rsvd=None, pbvd=None,
+                       rvvd=None, pdvd=None):
     """Phase pressures + saturations + rs/rv for the active cells of one
     equilibration region: the column march, then the cell pass. Returns
     tensors over ``cells``."""
     dev = props.device
-    args = march_args(grid, props, rec, cells, rsvd, pbvd)
+    args = march_args(grid, props, rec, cells, rsvd, pbvd, rvvd, pdvd)
     ti = torch.as_tensor(cells, dtype=torch.int32, device=dev)
     out = torch.zeros((5, grid.nc), dtype=torch.float64, device=dev)
     equil_cells(args, equil_columns(*args), ti, equil_cell_data(grid, dev),
@@ -466,14 +518,15 @@ def initial_state(grid, props, case, nw: int) -> BlackoilState:
         pvtnum = torch.as_tensor(grid.pvtnum, dtype=torch.long, device=dev)
         rs = cells(sol.rs) if sol.rs is not None else \
             props.rs_sat(p, pvtnum)
-        rv = torch.zeros(nc, dtype=torch.float64, device=dev)
+        rv = cells(sol.rv) if sol.rv is not None else \
+            torch.zeros(nc, dtype=torch.float64, device=dev)
     elif sol.equil:
         # every region's inputs first (the host-to-device copies), then a
         # march and a cell pass a region writing into out's rows
         cell_data = equil_cell_data(grid, dev)
-        regions = [(march_args(grid, props, rec, idx, rsvd, pbvd),
+        regions = [(march_args(grid, props, rec, idx, **vd),
                     torch.as_tensor(idx, dtype=torch.int32, device=dev))
-                   for rec, idx, rsvd, pbvd in equil_regions(grid, case)]
+                   for rec, idx, vd in equil_regions(grid, case)]
         out = torch.zeros((5, nc), dtype=torch.float64, device=dev)
         for args, ti in regions:
             equil_cells(args, equil_columns(*args), ti, cell_data, out)

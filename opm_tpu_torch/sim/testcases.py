@@ -1,6 +1,6 @@
 """Synthetic test decks (port of the JAX package's sim/testcases.py: the
-SPE10-like and the Norne-like generators so far), and SPE1 with PBVD in
-place of RSVD."""
+SPE10-like, the Norne-like and the SPE3-like generators so far), SPE1 with
+PBVD in place of RSVD and SPE3 with PDVD in place of RVVD."""
 
 from __future__ import annotations
 
@@ -363,3 +363,158 @@ def spe1_pbvd_deck(spe1_text: str) -> str:
     if SPE1_RSVD not in spe1_text:
         raise ValueError("SPE1's RSVD table not found in the deck text")
     return spe1_text.replace(SPE1_RSVD, SPE1_PBVD)
+
+
+def spe3like_deck(tsteps="5 10 3*15 22*30", cycling=False,
+                  cycle_tsteps="10*30", blowdown_tsteps="6*30") -> str:
+    """SPE3-class retrograde gas-condensate depletion (Kenyon & Behie,
+    SPE-12278, black-oil conversion as in the reference's SPE3 regression,
+    compareECLFiles.cmake:107-112): 9x9x4 grid, wet gas with vaporized
+    oil (VAPOIL + PVTG), dead condensate oil (PVDO), immobile connate
+    water. The whole column initializes as UNDERSATURATED gas (rv below
+    the dew-point rv_sat via RVVD); drawdown below the dew point drops
+    condensate out — the HC_GASONLY <-> HC_GASOIL switching path.
+
+    cycling=True adds the PUBLISHED study's gas-cycling structure
+    (Kenyon & Behie: separator gas reinjected dry, then blowdown) on an
+    accelerated clock: `tsteps` of depletion drops condensate out, then
+    the injector opens at 1.5x the offtake (45 MMscf/d dry gas:
+    full reinjection plus makeup gas, so the cycle genuinely
+    repressurizes) for
+    `cycle_tsteps`, then shuts for a `blowdown_tsteps` blowdown — the
+    harder VAPOIL direction: rv RISES where the dry front repressurizes
+    saturated cells / re-vaporizes dropped-out condensate, then falls
+    again in blowdown."""
+    n = 9 * 9 * 4
+    nlay = 9 * 9
+    wspec_inj = "\n 'INJ'  'G1' 1 1 7530 'GAS' /" if cycling else ""
+    compdat_inj = ("\n 'INJ'  1 1 1 2 'OPEN' 1* 1* 0.5 /"
+                   if cycling else "")
+    # injector exists from t=0 but stays explicitly SHUT through the
+    # depletion period
+    inje = ("\nWCONINJE\n 'INJ' 'GAS' 'SHUT' 'RATE' 45000 1* 6000 /\n/"
+            if cycling else "")
+    shut_and_blowdown = (
+        "\nWCONINJE\n 'INJ' 'GAS' 'OPEN' 'RATE' 45000 1* 6000 /\n/"
+        "\nTSTEP\n " + cycle_tsteps + " /"
+        "\nWCONINJE\n 'INJ' 'GAS' 'SHUT' 'RATE' 45000 1* 6000 /\n/"
+        "\nTSTEP\n " + blowdown_tsteps + " /" if cycling else "")
+    return f"""
+RUNSPEC
+TITLE
+  SPE3-LIKE gas condensate (VAPOIL)
+DIMENS
+ 9 9 4 /
+EQLDIMS
+/
+TABDIMS
+/
+OIL
+GAS
+WATER
+VAPOIL
+FIELD
+WELLDIMS
+ 2 4 1 2 /
+GRID
+DX
+ {n}*293.3 /
+DY
+ {n}*293.3 /
+DZ
+ {nlay}*30 {nlay}*30 {nlay}*50 {nlay}*50 /
+TOPS
+ {nlay}*7500 /
+PORO
+ {n}*0.13 /
+PERMX
+ {nlay}*130 {nlay}*40 {nlay}*20 {nlay}*150 /
+PERMY
+ {nlay}*130 {nlay}*40 {nlay}*20 {nlay}*150 /
+PERMZ
+ {nlay}*13 {nlay}*4 {nlay}*2 {nlay}*15 /
+PROPS
+PVTW
+ 3550 1.0 3E-6 0.7 0 /
+ROCK
+ 3550 4E-6 /
+SWOF
+ 0.16  0       1     50
+ 0.30  0.02    0.6   8
+ 0.50  0.12    0.2   3
+ 0.70  0.35    0.02  1
+ 0.90  0.8     0.0   0.2
+ 1.0   1.0     0.0   0.0 /
+SGOF
+ 0.0   0.0     1.0    0
+ 0.05  0.0     0.65   0
+ 0.2   0.05    0.35   0
+ 0.4   0.18    0.1    0
+ 0.6   0.40    0.01   0
+ 0.78  0.75    0.0    0
+ 0.84  0.90    0.0    0 /
+DENSITY
+ 45.0 63.0 0.0702 /
+PVDO
+ 1000  1.12  0.30
+ 2000  1.10  0.34
+ 3000  1.08  0.38
+ 3600  1.07  0.40 /
+PVTG
+ 500   0.0001  5.9    0.0135
+       0.0     5.88   0.0134 /
+ 1500  0.0006  1.85   0.0150
+       0.0     1.84   0.0148 /
+ 2500  0.0018  1.05   0.0170
+       0.0009  1.045  0.0167
+       0.0     1.04   0.0165 /
+ 3000  0.0028  0.86   0.0185
+       0.0014  0.855  0.0182
+       0.0     0.85   0.0180 /
+ 3600  0.0042  0.72   0.0210
+       0.0021  0.715  0.0205
+       0.0     0.71   0.0200 /
+/
+SOLUTION
+EQUIL
+ 7500 3550 8600 0 8590 0 1 1 0 /
+RVVD
+ 7400 0.0030
+ 8600 0.0030 /
+SUMMARY
+FGPR
+FOPR
+SCHEDULE
+WELSPECS
+ 'PROD' 'G1' 7 7 7530 'GAS' /{wspec_inj}
+/
+COMPDAT
+ 'PROD' 7 7 3 4 'OPEN' 1* 1* 0.5 /{compdat_inj}
+/
+WCONPROD
+ 'PROD' 'OPEN' 'GRAT' 2* 30000 2* 500 /
+/{inje}
+TSTEP
+ {tsteps} /{shut_and_blowdown}
+END
+"""
+
+
+def spe3like_case(**kw) -> EclipseCase:
+    return load_case_string(spe3like_deck(**kw))
+
+
+# SPE3's vaporized-oil column (data/SPE3.DATA, spe3like_deck) and a
+# dew-point column in its place: 3500 psi at the top of the column, 3700 at
+# its base, so rv_sat(min(pd, pg)) is capped by pd in the upper cells and
+# by pg below
+SPE3_RVVD = "RVVD\n 7400 0.0030\n 8600 0.0030 /"
+SPE3_PDVD = "PDVD\n 7400 3500\n 8600 3700 /"
+
+
+def spe3_pdvd_deck(spe3_text: str) -> str:
+    """SPE3's deck text with PDVD in place of RVVD (the EQUIL branch of a
+    dew-point column, which no deck of the repository has)."""
+    if SPE3_RVVD not in spe3_text:
+        raise ValueError("SPE3's RVVD table not found in the deck text")
+    return spe3_text.replace(SPE3_RVVD, SPE3_PDVD)

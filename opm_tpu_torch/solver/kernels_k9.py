@@ -7,10 +7,11 @@ fused on the TPU.
 
 * update: ``update_cuda`` reads the state and the cell increments ((3, nc):
   the CPR route's du_c, or a view of the dense route's flat du) in place,
-  applies omega, chops the pressure, looks up rs_sat at the old and the
-  new pressure (K1's device code), scales and switches, and an extra
-  block does the well rows; its twin ``update_plain`` composes
-  ``update_pressure_plain``, K1's rs_sat lookup and ``update_cells_plain``
+  applies omega, chops the pressure, looks up rs_sat and rv_sat at the old
+  and the new pressure (K1's device code), scales and switches, and an
+  extra block does the well rows; its twin ``update_plain`` composes
+  ``update_pressure_plain``, K1's rs_sat and rv_sat lookups and
+  ``update_cells_plain``
   (the CPU path, and the kernel's oracle on the card, bit for bit);
 * convergence: ``convergence_cuda`` / ``convergence_masked_cuda`` reduce
   the cells to per-block partials, and the block that finishes last forms
@@ -40,8 +41,8 @@ _PARTS = 11
 _P, _I, _L, _D = cuda_lib.P, cuda_lib.I, cuda_lib.L, cuda_lib.D
 _SIGS = {
     "opm_k9_update": [_L, _I, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P,
-                      _P, _P, _I, _P, _D, _D, _D, _D, _I, _I, _P, _P, _P,
-                      _P, _P, _P, _P],
+                      _P, _P, _I, _P, _P, _P, _I, _P, _D, _D, _D, _D, _I,
+                      _I, _P, _P, _P, _P, _P, _P, _P],
     "opm_k9_convergence": [_L, _I, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P,
                            _D, _D, _D, _D, _P, _P, _P, _P],
     "opm_k9_grid": [_P],
@@ -92,24 +93,35 @@ def update_consts(model) -> UpdateConsts:
                         model.props.disgas, model.props.vapoil)
 
 
-class RsTable(NamedTuple):
-    """rs_sat's table as K1 reads it: bubble pressures xs (nreg, n), the
-    saturated rs column ys (nreg, 1, n), the cells' PVT regions (nc,)
-    int64 (or None with one region)."""
+class SatTable(NamedTuple):
+    """A saturated ratio's table as K1 reads it: rs_sat's bubble pressures
+    (or rv_sat's gas pressures) xs (nreg, n), the saturated rs (rv) column
+    ys (nreg, 1, n), the cells' PVT regions (nc,) int64 (or None with one
+    region)."""
 
     xs: torch.Tensor
     ys: torch.Tensor
     reg: Optional[torch.Tensor]
 
 
-def rs_table(props, pvtnum) -> Optional[RsTable]:
+def rs_table(props, pvtnum) -> Optional[SatTable]:
     """The rs_sat table of ``props`` (None where rs_sat is 0: no DISGAS or
     no live oil, props/blackoil.py ``rs_sat``)."""
     lo = props.oil_live
     if not (props.disgas and lo is not None):
         return None
-    return RsTable(lo.pbub_tab, lo.rs_col,
+    return SatTable(lo.pbub_tab, lo.rs_col,
                    pvtnum if lo.pbub_tab.shape[0] > 1 else None)
+
+
+def rv_table(props, pvtnum) -> Optional[SatTable]:
+    """The rv_sat table of ``props`` (None where rv_sat is 0: no VAPOIL or
+    no wet gas, props/blackoil.py ``rv_sat``)."""
+    gw = props.rv_gas
+    if gw is None:
+        return None
+    return SatTable(gw.pg_tab, gw.rv_col,
+                   pvtnum if gw.pg_tab.shape[0] > 1 else None)
 
 
 class Workspace:
@@ -345,31 +357,38 @@ def update_cells_plain(sw0, x, hc, dsw, dx, rssat0, rssat, rvsat0, rvsat,
     return sw, x_new, hc_new
 
 
+def _sat_pair(tab, p, pressure):
+    """A saturated ratio at the old and the new pressure (K1's lookups;
+    0 without its table)."""
+    if tab is None:
+        zero = torch.zeros_like(p)
+        return zero, zero
+    return (lookup1(tab.xs, tab.ys, p, reg=tab.reg)[0],
+            lookup1(tab.xs, tab.ys, pressure, reg=tab.reg)[0])
+
+
 def update_plain(p, sw, x, hc, bhp, qs, du_c, dbhp, dqs, omega, consts,
-                 rs):
+                 rs, rv=None):
     """(p, sw, x, hcstate, bhp, qs) after the Newton update x <- x -
     omega dx (the reference's sign convention): the twins' composition,
-    ``update_pressure_plain``, K1's rs_sat lookup at the old and the new
-    pressure (rv_sat 0: VAPOIL is not ported) and ``update_cells_plain``,
-    then the well rows."""
+    ``update_pressure_plain``, K1's rs_sat and rv_sat lookups at the old
+    and the new pressure (``rs``, ``rv``: their tables, None where the
+    ratio is 0) and ``update_cells_plain``, then the well rows."""
     c = consts
     pressure = update_pressure_plain(p, omega * du_c[0], c.dp_max_rel)
-    if rs is None:
-        rssat0 = rssat = torch.zeros_like(p)
-    else:
-        rssat0 = lookup1(rs.xs, rs.ys, p, reg=rs.reg)[0]
-        rssat = lookup1(rs.xs, rs.ys, pressure, reg=rs.reg)[0]
-    zero = torch.zeros_like(p)
+    rssat0, rssat = _sat_pair(rs, p, pressure)
+    rvsat0, rvsat = _sat_pair(rv, p, pressure)
     sw_n, x_n, hc_n = update_cells_plain(
-        sw, x, hc, omega * du_c[1], omega * du_c[2], rssat0, rssat, zero,
-        zero, c.ds_max, c.dr_max_rel, c.disgas, c.vapoil)
+        sw, x, hc, omega * du_c[1], omega * du_c[2], rssat0, rssat, rvsat0,
+        rvsat, c.ds_max, c.dr_max_rel, c.disgas, c.vapoil)
     # well rows (StandardWells_impl.hpp:613-703)
     lim = c.dp_max_rel * torch.abs(bhp)
     bhp_n = bhp - torch.clamp(omega * dbhp, -lim, lim)
     return pressure, sw_n, x_n, hc_n, bhp_n, qs - omega * dqs
 
 
-def update_cuda(p, sw, x, hc, bhp, qs, du_c, dbhp, dqs, omega, consts, rs):
+def update_cuda(p, sw, x, hc, bhp, qs, du_c, dbhp, dqs, omega, consts, rs,
+                rv=None):
     """K9's update on the card, one launch; same contract as
     update_plain. du_c (3, nc) contiguous; dbhp (nw,) and dqs (nw, 3) may
     be strided views (dqs's rows contiguous)."""
@@ -389,18 +408,8 @@ def update_cuda(p, sw, x, hc, bhp, qs, du_c, dbhp, dqs, omega, consts, rs):
                 or (nw and t.dim() == 2 and t.stride(1) != 1)):
             raise ValueError(f"K9: {nm} must be a float64 {shape} tensor "
                              f"on {dev} (rows contiguous)")
-    xs = ys = reg = None
-    n = 0
-    if rs is not None:
-        xs, ys, reg = rs
-        n = xs.shape[1]
-        _f64(xs, tuple(xs.shape), dev, "the rs_sat abscissae")
-        _f64(ys, (xs.shape[0], 1, n), dev, "the rs_sat column")
-        if (xs.shape[0] > 1) != (reg is not None) or (reg is not None and (
-                reg.dtype != torch.int64 or not reg.is_contiguous()
-                or tuple(reg.shape) != (nc,) or reg.device != dev)):
-            raise ValueError("K9: the PVT regions must be a contiguous "
-                             f"int64 ({nc},) tensor with several regions")
+    rs_args = _sat_args(rs, "rs_sat", nc, dev)
+    rv_args = _sat_args(rv, "rv_sat", nc, dev)
     cells = torch.empty((3, nc), dtype=torch.float64, device=dev)
     p_out, sw_out, x_out = cells.unbind(0)
     hc_out, bhp_out, qs_out = (torch.empty_like(hc), torch.empty_like(bhp),
@@ -410,9 +419,7 @@ def update_cuda(p, sw, x, hc, bhp, qs, du_c, dbhp, dqs, omega, consts, rs):
         nc, nw, p.data_ptr(), sw.data_ptr(), x.data_ptr(), hc.data_ptr(),
         du_c.data_ptr(), dbhp.data_ptr(), dbhp.stride(0) if nw else 1,
         dqs.data_ptr(), dqs.stride(0) if nw else 3, bhp.data_ptr(),
-        qs.data_ptr(), None if xs is None else xs.data_ptr(),
-        None if ys is None else ys.data_ptr(), n,
-        None if reg is None else reg.data_ptr(), float(omega),
+        qs.data_ptr(), *rs_args, *rv_args, float(omega),
         float(c.dp_max_rel), float(c.ds_max), float(c.dr_max_rel),
         int(bool(c.disgas)), int(bool(c.vapoil)), p_out.data_ptr(),
         sw_out.data_ptr(), x_out.data_ptr(), hc_out.data_ptr(),
@@ -425,6 +432,24 @@ def update_cuda(p, sw, x, hc, bhp, qs, du_c, dbhp, dqs, omega, consts, rs):
 update_cuda.launches = 0
 
 
+def _sat_args(tab, what, nc, dev):
+    """A saturated ratio's table as the kernel's (xs, ys, n, reg) pointers
+    (null, null, 0, null without one), checked."""
+    if tab is None:
+        return None, None, 0, None
+    xs, ys, reg = tab
+    n = xs.shape[1]
+    _f64(xs, tuple(xs.shape), dev, f"the {what} abscissae")
+    _f64(ys, (xs.shape[0], 1, n), dev, f"the {what} column")
+    if (xs.shape[0] > 1) != (reg is not None) or (reg is not None and (
+            reg.dtype != torch.int64 or not reg.is_contiguous()
+            or tuple(reg.shape) != (nc,) or reg.device != dev)):
+        raise ValueError("K9: the PVT regions must be a contiguous "
+                         f"int64 ({nc},) tensor with several regions")
+    return (xs.data_ptr(), ys.data_ptr(), n,
+            None if reg is None else reg.data_ptr())
+
+
 def _lib():
     return cuda_lib.load("newton", _SIGS)
 
@@ -433,7 +458,8 @@ def update_args(model, state, du_c, dbhp, dqs, omega):
     """update_cuda's / update_plain's arguments for a model and a state."""
     return (state.pressure, state.sw, state.x, state.hcstate, state.bhp,
             state.qs, du_c, dbhp, dqs, omega, update_consts(model),
-            rs_table(model.props, model.pvtnum))
+            rs_table(model.props, model.pvtnum),
+            rv_table(model.props, model.pvtnum))
 
 
 def update(*args):

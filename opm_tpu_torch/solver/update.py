@@ -2,10 +2,10 @@
 
 Port of the JAX package's solver/update.py. The whole update is kernel K9's
 update entry (solver/kernels_k9.py, csrc/newton.cu): one launch that
-applies omega to the increments, chops the pressure, looks up rs_sat at
-the old and the new pressure (K1's device code), scales and renormalises
-the saturations, chops rs/rv, switches the hydrocarbon state, and in an
-extra block updates the well rows. On the CPU its plain twin composes the
+applies omega to the increments, chops the pressure, looks up rs_sat and
+rv_sat at the old and the new pressure (K1's device code), scales and
+renormalises the saturations, chops rs/rv, switches the hydrocarbon state,
+and in an extra block updates the well rows. On the CPU its plain twin composes the
 same steps in torch.
 """
 

@@ -31,6 +31,8 @@ bit its twin on those decks, the toy Norne-like deck and SPE9 (into
 arrays of NaN, no host read in its call; initial_state one march and one
 cell pass a region and no K1 lookup), the face-list face blocks' packed
 copy for K4-faces (written into NaN) bit for bit the pack's twin, and
+K2's three entries and K9's update with SPE3's wet gas (PVTG, VAPOIL)
+against their twins, EQUIL's kernels on SPE3 with RVVD and with PDVD,
 K3's tangent entry
 bit for bit its twin in both launch geometries (SPE1's jacfwd batch and
 ragged tile-march shapes) and K3-faces' divergence bit for bit its twin
@@ -1110,11 +1112,17 @@ def test_vcycle_from_weighted_residual(dev, grid):
 
 # K1's EQUIL column march (csrc/equil.cu): SPE1 (live oil, RSVD), SPE1
 # with PBVD in place of RSVD (the same bubble point, 4014.7 psia), dead oil
-# with no DISGAS and no gas (SPE1CASE2_2P) and the toy SPE10-like deck
+# with no DISGAS and no gas (SPE1CASE2_2P), the toy SPE10-like deck, and
+# SPE3 (wet gas under VAPOIL: rho_g at rv_sat; RVVD, and PDVD in its place)
 def _equil_deck(name):
     from opm_tpu_torch.io.eclstate import load_case, load_case_string
     from opm_tpu_torch.sim.testcases import (norne_like_case, spe1_pbvd_deck,
-                                             spe10like_case)
+                                             spe3_pdvd_deck, spe10like_case)
+    if name in ("spe3", "spe3_pdvd"):
+        with open(os.path.join(ROOT, "data", "SPE3.DATA")) as f:
+            text = f.read()
+        return load_case_string(text if name == "spe3"
+                                else spe3_pdvd_deck(text))
     if name == "spe10_toy":
         return spe10like_case(nx=15, ny=44, nz=4, tsteps="3*1")
     if name == "norne_toy":
@@ -1129,7 +1137,7 @@ def _equil_deck(name):
 
 
 @pytest.mark.parametrize("deck", ["spe1", "spe1_pbvd", "spe1_2p",
-                                  "spe10_toy"])
+                                  "spe10_toy", "spe3", "spe3_pdvd"])
 def test_equil_march_matches_twin(dev, deck, monkeypatch):
     """The kernel's columns bit for bit the twin's on the card, the call
     making no host read; one march and at most 7 K1 lookups a region in
@@ -1140,8 +1148,8 @@ def test_equil_march_matches_twin(dev, deck, monkeypatch):
     sim = SimulatorFullyImplicitBlackoil(_equil_deck(deck), device=dev)
     regions = init.equil_regions(sim.grid, sim.case)
     assert len(regions) == 1
-    for rec, cells, rsvd, pbvd in regions:
-        args = init.march_args(sim.grid, sim.props, rec, cells, rsvd, pbvd)
+    for rec, cells, vd in regions:
+        args = init.march_args(sim.grid, sim.props, rec, cells, **vd)
         init.equil_columns_cuda(*args)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -1174,7 +1182,8 @@ def test_equil_march_matches_twin(dev, deck, monkeypatch):
 # one cell pass a region and no K1 lookup, and its state is bit for bit
 # the one through the cell pass's twin
 @pytest.mark.parametrize("deck", ["spe1", "spe1_pbvd", "spe1_2p",
-                                  "spe10_toy", "norne_toy", "spe9"])
+                                  "spe10_toy", "norne_toy", "spe9", "spe3",
+                                  "spe3_pdvd"])
 def test_equil_cells_match_twin(dev, deck, monkeypatch):
     from opm_tpu_torch.sim import init
     from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
@@ -1184,8 +1193,8 @@ def test_equil_cells_match_twin(dev, deck, monkeypatch):
     regions = init.equil_regions(grid, sim.case)
     cd = init.equil_cell_data(grid, dev)
     nan = float("nan")
-    for rec, cells, rsvd, pbvd in regions:
-        args = init.march_args(grid, sim.props, rec, cells, rsvd, pbvd)
+    for rec, cells, vd in regions:
+        args = init.march_args(grid, sim.props, rec, cells, **vd)
         cols = init.equil_columns_cuda(*args)
         ti = torch.as_tensor(cells, dtype=torch.int32, device=dev)
         kout = torch.full((5, grid.nc), nan, dtype=torch.float64, device=dev)
@@ -1216,6 +1225,97 @@ def test_equil_cells_match_twin(dev, deck, monkeypatch):
                                  len(sim.well_names))
     for f in ("pressure", "sw", "x", "hcstate"):
         assert torch.equal(getattr(st, f), getattr(st_twin, f)), f
+
+
+# K2's three entries and K9's update with SPE3's tables: PVTG's gas over
+# (pg, drv = max(rv_sat(pg) - rv, 0)), rv = rv_sat(p) under VAPOIL, and
+# K9's rv_sat at the old and the new pressure with cells switching GASOIL
+# <-> GASONLY
+def _spe3_props(dev):
+    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.props.blackoil import BlackoilProps
+    return BlackoilProps.from_case(load_case(os.path.join(
+        ROOT, "data", "SPE3.DATA")), dev)
+
+
+def test_k2_entries_with_wet_gas(dev):
+    """Values and the assembly's face inputs and r_cell bit for bit, the
+    tangent columns and the diag within 1e-12 of each row's max, at 20,000
+    seeded cells in all three states (every tenth GASONLY cell at drv =
+    0, pressures past both ends of PVTG)."""
+    from opm_tpu_torch.models import blackoil as mb
+    props = _spe3_props(dev)
+    pack = props.cell_pack()
+    n = 20000
+    rng = np.random.default_rng(31)
+    hc = rng.integers(0, 3, n).astype(np.int32)
+    p = rng.uniform(2e6, 2.8e7, n)
+    rvs = props.rv_sat(torch.as_tensor(p, device=dev), 0).cpu().numpy()
+    rv = np.where(np.arange(n) % 10 == 0, rvs, rvs * rng.uniform(0.3, 1, n))
+    x = np.where(hc == 0, rng.uniform(0, 0.8, n),
+                 np.where(hc == 1, rng.uniform(0, 50, n), rv))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    reg = torch.zeros(n, dtype=torch.int64, device=dev)
+    a2 = (t(p), t(rng.uniform(0.16, 0.3, n)), t(x), t(hc), reg, reg)
+    n0 = [f.launches for f in (mb.cells_values_cuda, mb.cells_columns_cuda,
+                               mb.cells_assemble_cuda)]
+    assert torch.equal(mb.cells_values_cuda(pack, *a2),
+                       mb.cells_values_plain(props, *a2))
+
+    def rows_close(a, b):
+        a, b = a.reshape(-1, n), b.reshape(-1, n)
+        return bool(((a - b).abs().amax(1)
+                     <= 1e-12 * b.abs().amax(1)).all())
+    assert rows_close(mb.cells_columns_cuda(pack, *a2),
+                      mb.cells_columns_plain(props, *a2))
+    a3 = a2 + (t(rng.uniform(0, 1, (3, n))), t(rng.uniform(1, 1e3, n)),
+               86400.0)
+    ka = mb.cells_assemble_cuda(pack, *a3)
+    pa = mb.cells_assemble_plain(props, *a3)
+    assert torch.equal(ka[0], pa[0]) and torch.equal(ka[2], pa[2])
+    assert rows_close(ka[1], pa[1]) and rows_close(ka[3], pa[3])
+    assert [f.launches - b for f, b in zip(
+        (mb.cells_values_cuda, mb.cells_columns_cuda,
+         mb.cells_assemble_cuda), n0)] == [1, 1, 1]
+
+
+def test_k9_update_with_vapoil(dev):
+    """K9's update bit for bit its twins' composition at 20,000 seeded
+    GASOIL and GASONLY cells with increments that switch cells both ways,
+    one launch a call."""
+    from opm_tpu_torch.solver import kernels_k9 as k9
+    props = _spe3_props(dev)
+    n, nw = 20000, 2
+    rng = np.random.default_rng(32)
+    p = rng.uniform(1.2e7, 2.4e7, n)
+    hc = np.where(rng.random(n) < 0.5, 0, 2).astype(np.int32)
+    rvs = props.rv_sat(torch.as_tensor(p, device=dev), 0).cpu().numpy()
+    x = np.where(hc == 0, 0.84 - rng.uniform(0, 1e-3, n),
+                 np.where(rng.random(n) < 0.5, rvs, rvs * 0.99))
+    du = np.stack([rng.uniform(-1e6, 2e6, n), np.zeros(n),
+                   np.where(hc == 0, -rng.uniform(0, 2e-3, n),
+                            rng.standard_normal(n) * 1e-8)])
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    du_w = t(rng.standard_normal((nw, 4)))
+    rv = k9.rv_table(props, None)
+    assert rv is not None and k9.rs_table(props, None) is None
+    a = (t(p), t(np.full(n, 0.16)), t(x), t(hc), t(rng.uniform(1e7, 2e7, nw)),
+         t(rng.standard_normal((nw, 3))), t(du), du_w[:, 3], du_w[:, :3],
+         0.9, k9.UpdateConsts(0.3, 0.2, 1e9, False, True), None, rv)
+    n0 = k9.update_cuda.launches
+    ku = k9.update_cuda(*a)
+    assert k9.update_cuda.launches == n0 + 1
+    for x_, y_ in zip(ku, k9.update_plain(*a)):
+        if x_.dtype == torch.float64:
+            x_, y_ = x_.view(torch.int64), y_.view(torch.int64)
+        assert torch.equal(x_, y_)
+    h0, h1 = a[3], ku[3]
+    assert int(((h0 == 0) & (h1 == 2)).sum()) > 0
+    assert int(((h0 == 2) & (h1 == 0)).sum()) > 0
 
 
 def _k3_inputs(dev, dims, seed):
