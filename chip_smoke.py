@@ -105,6 +105,25 @@ Phases (each prints a line of its own; any failure exits non-zero):
    spread the fixture records), the deck's own checks (all GASONLY at
    t = 0 with 0 < rv < rv_sat, condensate dropping out, the gas balance)
    and the launch counters of its kernels over the run;
+4c. output and restart: SPE1's whole schedule again with output on
+   (output_dir in a temporary directory; .npz checkpoints, UNRST, VTK,
+   Matlab), held to the fixture and to phase 4's run (counts, the final
+   state's digest bit for bit), its wall beside phase 4's and the ratio;
+   the SMSPEC's keys exactly the deck's requests plus TIME, the UNSMRY
+   read back with the port's reader equal to the collector's rows at
+   float32 rounding and held to the fixture; SPE1 resumed on the card from
+   restart_0003.npz, from the UNRST at step 3 and by a crafted deck with
+   RESTART 'SPE1CASE2' 3 /, each to the end of report step 5 and held to
+   the uninterrupted run at the JAX package's restart-test limits; the
+   host syncs (sync debug mode "warn"), K1 interp1 and K2 cells_values
+   launches of each report step's summary row and output over SPE1's
+   first three report steps, and the devices of their arrays (all cuda);
+   SPE1 with its layers as FIPNUM regions and region and block vectors
+   asked for, two report steps: the vectors in the SMSPEC and the card's
+   summary arrays against the CPU's on the same state (1e-12 relative);
+   SPE3's whole schedule with output on: phase 4b's counts and digest,
+   the UNRST's RV equal to the state's rv at every step, FOPR and FGPR
+   read back held to the fixture as phase 4b holds them;
 5. SPE10-2's first report step (20 days) end to end on the card through
    the CPR route, with the launch counters of K4/K6/K7/K8 read over that
    run (K8: two launches per BiCGStab iteration, two per solve; K7: two
@@ -158,6 +177,10 @@ Phases (each prints a line of its own; any failure exits non-zero):
    each held to the JAX package's CPU run of the same representation
    (data/nornelike_full_reference_cpu.json) at the limits of phase 4, and
    the two to each other as closely as the reference's two runs agree;
+   then that step again in each with output on (UNRST, INIT, EGRID): the
+   output-off run's counts and digest, FPR and FOPR read back from the
+   UNSMRY held to the fixture, the files covering the real active cells
+   only;
 7. the toy Norne-like deck in both representations against
    data/nornelike_toy_reference_cpu.json (first K6 in K10's refresh
    against the twin and the pair on the gather deck's first Newton
@@ -3182,6 +3205,31 @@ def spe3_kernels(K, dev, seed, results):
     return sims
 
 
+SPE3_LIMITS = dict(FPR=TOL_FPR, FOPR=TOL_RATE, FGPR=TOL_RATE,
+                   FGIR=TOL_RATE)
+
+
+def hold_spe3(series, refs):
+    """SPE3's vectors (``series``: key -> one value a report step, SI) held
+    to the fixture's report steps: within SPE3_LIMITS relative (a rate the
+    reference has at 0: of that vector's maximum), or within the
+    reference's own roundoff spread at that step. Returns (worst relative
+    error per key, the values outside both, those beyond the limit but
+    within the spread)."""
+    scale = {k: max(abs(r[k]) for r in refs) for k in series}
+    worst = {k: 0.0 for k in series}
+    outside, in_spread = [], []
+    for k, vals in series.items():
+        for i, (v, r) in enumerate(zip(vals, refs)):
+            e = (abs(v - r[k]) / abs(r[k]) if r[k] != 0.0
+                 else abs(v) / scale[k])
+            worst[k] = max(worst[k], e)
+            if e > SPE3_LIMITS[k]:
+                (in_spread if e <= r["spread"][k] else outside).append(
+                    (i, k, e, r["spread"][k]))
+    return worst, outside, in_spread
+
+
 def spe3_run(K, ref):
     """SPE3's whole schedule (720 days: depletion, dry-gas reinjection,
     blowdown) on the card through SimulatorFullyImplicitBlackoil with no
@@ -3238,18 +3286,8 @@ def spe3_run(K, ref):
     counts = [((s[3], s[4], f), (r["substeps"], r["newtons"], r["failed"]))
               for s, f, r in zip(steps, failed, refs)]
     off = [(k, c, rc) for k, (c, rc) in enumerate(counts) if c != rc]
-    lim = dict(FPR=TOL_FPR, FOPR=TOL_RATE, FGPR=TOL_RATE, FGIR=TOL_RATE)
-    scale = {k: max(abs(r[k]) for r in refs) for k in lim}
-    worst = {k: 0.0 for k in lim}
-    outside, in_spread = [], []
-    for i, (row, r) in enumerate(zip(rows, refs)):
-        for k in lim:
-            e = (abs(row[k] - r[k]) / abs(r[k]) if r[k] != 0.0
-                 else abs(row[k]) / scale[k])
-            worst[k] = max(worst[k], e)
-            if e > lim[k]:
-                (in_spread if e <= r["spread"][k] else outside).append(
-                    (i, k, e, r["spread"][k]))
+    worst, outside, in_spread = hold_spe3(
+        {k: [row[k] for row in rows] for k in SPE3_LIMITS}, refs)
     fip1 = fluid_in_place(m, state)
     t = np.array([r["time"] for r in rows]) * DAY
     dt = np.diff(np.concatenate([[0.0], t]))
@@ -3261,7 +3299,7 @@ def spe3_run(K, ref):
                within_reference_spread=in_spread,
                gasoil_cells=gasoil, gas_balance_rel=gas_balance,
                launches={n: launches[n] for n in K.SPE3},
-               launches_all=launches)
+               launches_all=launches, digest=state_digest(state))
     log(f"SPE3 end to end on the card (720 days, {len(rows)} report steps, "
         f"dense route): {wall:.1f} s, {rep.newton_iterations} Newtons, "
         f"{rep.substeps} substeps, {rep.failed_substeps} failed "
@@ -3297,17 +3335,493 @@ def spe3_run(K, ref):
 
 
 # ---------------------------------------------------------------------------
-def run_vs_fixture(sim, ref, label, state=None, report_step_limit=None):
-    """Run ``sim`` and hold each report step to the fixture: Newton and
-    substep counts, 0 failed, linear iterations within TOL_LINEAR (when
-    recorded), FPR / FOPR (/ FWPR, FGOR) within their limits."""
+# 4c: output and restart (the driver's files, resume on the card)
+
+# the host syncs a report step's output may add on the card: one batched
+# pull of the state with its derived arrays (the summary row's own pull is
+# made with output off too)
+OUTPUT_SYNCS = 1
+
+
+def state_digest(state):
+    """sha256 of a BlackoilState's arrays (their bytes on the host)."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in state._fields:
+        t = getattr(state, name)
+        if t is not None:
+            h.update(name.encode())
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def host_state(state):
+    """The state's arrays on the host (numpy), for the resume checks."""
+    return {n: getattr(state, n).detach().cpu().numpy()
+            for n in ("pressure", "sw", "x", "hcstate", "bhp")}
+
+
+def file_series(base, unit_system, keys):
+    """The UNSMRY's vectors ``keys`` read back with the port's reader,
+    converted to SI (divided by the SMSPEC unit factor)."""
+    from opm_tpu_torch.io import eclsum
+    data = eclsum.read_summary(base)
+    return {k: [v / eclsum._unit_for(k.split(":")[0], unit_system)[1]
+                for v in data[k]] for k in keys}
+
+
+def check_unsmry(sim, base, label):
+    """The SMSPEC's keys are exactly the deck's requests plus TIME, and the
+    UNSMRY's values the collector's rows at float32 rounding."""
+    import numpy as np
+
+    from opm_tpu_torch.io import eclsum
+    data = eclsum.read_summary(base)
+    keys = ["TIME"] + list(sim.summary.requested_keys)
+    if list(data) != keys:
+        fail(f"{label}: SMSPEC keys {list(data)}, the deck asks for {keys}")
+    us = sim.case.runspec.unit_system
+    off = []
+    for k in keys[1:]:
+        fac = eclsum._unit_for(k.split(":")[0], us)[1]
+        want = np.float32([r[k] * fac for r in sim.summary.rows])
+        if not np.array_equal(np.float32(data[k]), want):
+            off.append(k)
+    if off:
+        fail(f"{label}: UNSMRY vectors other than the rows at float32 "
+             f"rounding: {off}")
+    return keys
+
+
+def resume_checks(case, d, states, label):
+    """SPE1 resumed on the card from restart_0003.npz and from the UNRST at
+    step 3, and a crafted deck with RESTART 'SPE1CASE2' 3 / beside that
+    UNRST, each run to the end of report step 5 and held to the
+    uninterrupted run there: .npz pressure 4e-4 of the mean and sw 1e-4,
+    UNRST and RESTART pressure 2e-3 relative, sw 2e-3, bhp 1e-3 (the JAX
+    package's tests/test_restart.py limits), hcstate equal."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.io.eclstate import load_case
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    a = states[5]
+    out = {}
+    with open(os.path.join(ROOT, "data", "SPE1CASE2.DATA")) as f:
+        text = f.read().replace("SOLUTION",
+                                "SOLUTION\nRESTART\n 'SPE1CASE2' 3 /\n", 1)
+    deck = os.path.join(d, "SPE1RST.DATA")
+    with open(deck, "w") as f:
+        f.write(text)
+    for kind, rcase, kw in (
+            ("npz", case, dict(
+                restart_file=os.path.join(d, "restart_0003.npz"))),
+            ("UNRST", case, dict(
+                restart_file=os.path.join(d, "SPE1CASE2.UNRST"),
+                restart_step=3)),
+            ("deck RESTART", load_case(deck), {})):
+        sim = SimulatorFullyImplicitBlackoil(rcase)
+        t0 = time.perf_counter()
+        b = host_state(sim.run(report_step_limit=6, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = [s[0] for s in sim._step_timing]
+        p_mean = float(np.abs(a["pressure"] - b["pressure"]).max()
+                       / a["pressure"].mean())
+        p_rel = float((np.abs(a["pressure"] - b["pressure"])
+                       / np.maximum(np.abs(a["pressure"]), 1.0)).max())
+        sw = float(np.abs(a["sw"] - b["sw"]).max())
+        bhp = float((np.abs(a["bhp"] - b["bhp"]) / np.abs(a["bhp"])).max())
+        hc = bool(np.array_equal(a["hcstate"], b["hcstate"]))
+        out[kind] = dict(steps_run=ran, wall_s=wall, pressure_of_mean=p_mean,
+                         pressure_rel=p_rel, sw=sw, bhp_rel=bhp,
+                         hcstate_equal=hc)
+        log(f"  {label} resumed from the {kind} at report step 3 on the "
+            f"card: ran {ran} in {wall:.2f} s; pressure {p_rel:.2e} "
+            f"relative ({p_mean:.2e} of the mean), sw {sw:.2e}, bhp "
+            f"{bhp:.2e}, hcstate {'equal' if hc else 'DIFFERENT'}")
+        ok = ran == [4, 5] and hc and (
+            p_mean < 4e-4 and sw < 1e-4 if kind == "npz"
+            else p_rel < 2e-3 and sw < 2e-3 and bhp < 1e-3)
+        if not ok:
+            fail(f"{label}: the resume from the {kind} is off the "
+                 "uninterrupted run")
+    return out
+
+
+def spe1_regions_deck(text):
+    """SPE1 with its three layers as FIPNUM regions and the region and
+    block vectors asked for in its SUMMARY section."""
+    return text.replace(
+        "SOLUTION", "REGIONS\nFIPNUM\n 100*1 100*2 100*3 /\n\nSOLUTION",
+        1).replace("SUMMARY", "SUMMARY\nRPR\n/\nROIP\n/\nRWIP\n 2 /\n"
+                   "RGIP\n/\nBPR\n 1 1 1 /\n 10 10 3 /\n/", 1)
+
+
+def region_check(text, d):
+    """SPE1 with FIPNUM regions (``spe1_regions_deck``), two report steps
+    on the card with output on: the region and block vectors in the
+    SMSPEC, and the card's summary arrays of the final state (masked row
+    sums over the regions, the block gathers) against the CPU's on a copy
+    of that state, 1e-12 relative."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.io import eclsum
+    from opm_tpu_torch.io.eclstate import load_case_string
+    from opm_tpu_torch.sim.blackoil import (SimulatorFullyImplicitBlackoil,
+                                            summary_arrays)
+    from opm_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+    case = load_case_string(spe1_regions_deck(text))
+    sim = SimulatorFullyImplicitBlackoil(case, output_dir=d)
+    state = sim.run(report_step_limit=2)
+    keys = check_unsmry(sim, os.path.join(d, sim._out_base()),
+                        "SPE1 with regions")
+    cpu = SimulatorFullyImplicitBlackoil(case, device="cpu")
+    got = []
+    for s_, st in ((sim, state),
+                   (cpu, state_from_numpy(state_to_numpy(state), "cpu"))):
+        masks, cells = s_.summary._spec_on(s_.model.device)
+        qs, bhp, fpr, fip, (rpr, rfip), block = summary_arrays(
+            s_.model, st, masks, cells)
+        got.append([t.cpu().numpy() for t in (fpr, fip, rpr, rfip, block)])
+    err = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+              for a, b in zip(*got))
+    regional = [k for k in keys if k[0] in "RB"]
+    log(f"SPE1 with FIPNUM regions, 2 report steps on the card with output "
+        f"on: {len(regional)} region and block vectors in the SMSPEC; the "
+        f"card's summary arrays against the CPU's on the same state "
+        f"{err:.2e} relative")
+    # RPR, ROIP, RGIP of three regions, RWIP of region 2, two BPR
+    if len(regional) != 12 or not err <= 1e-12:
+        fail("SPE1 with regions: region or block vectors missing, or off "
+             "the CPU's")
+    return dict(vectors=regional, rel_err_vs_cpu=err)
+
+
+@contextlib.contextmanager
+def output_probe():
+    """Inside the block, each call of ``summary_arrays`` and
+    ``output_arrays`` (the report step's summary and output arrays) records
+    the devices of the tensors it takes and gives, and each
+    ``SummaryCollector.record`` and ``_write_step_outputs`` of a simulator
+    passed to ``probe.watch`` runs under the sync debug mode "warn",
+    counting its host syncs and the K1 ``interp1`` and K2 ``cells_values``
+    launches it makes. Yields the probe."""
+    import warnings
+
+    import torch
+
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.sim import blackoil as bo
+    from opm_tpu_torch.utils import tables as k1
+
+    class Probe:
+        def __init__(self):
+            self.devices = set()
+            self.calls = {"record": [], "output": []}
+
+        def watch(self, sim):
+            for key, obj, attr in (("record", sim.summary, "record"),
+                                   ("output", sim, "_write_step_outputs")):
+                setattr(obj, attr, self.counted(key, getattr(obj, attr)))
+
+        def counted(self, key, fn):
+            def wrapped(*a, **kw):
+                n1, n2 = k1.interp1_cuda.launches, mb.cells_values_cuda.launches
+                with warnings.catch_warnings(record=True) as w:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        out = fn(*a, **kw)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                self.calls[key].append(dict(
+                    syncs=sum("synchroniz" in str(x.message) for x in w),
+                    interp1=k1.interp1_cuda.launches - n1,
+                    cells_values=mb.cells_values_cuda.launches - n2))
+                return out
+            return wrapped
+
+    probe = Probe()
+
+    def on_device(fn):
+        def wrapped(model, state, *a, **kw):
+            out = fn(model, state, *a, **kw)
+            stack = [state, out]
+            while stack:
+                t = stack.pop()
+                if isinstance(t, torch.Tensor):
+                    probe.devices.add(t.device.type)
+                elif isinstance(t, (tuple, list)):
+                    stack.extend(t)
+            return out
+        return wrapped
+
+    plain = bo.summary_arrays, bo.output_arrays
+    bo.summary_arrays, bo.output_arrays = (on_device(f) for f in plain)
+    try:
+        yield probe
+    finally:
+        bo.summary_arrays, bo.output_arrays = plain
+
+
+def output_phase(K, case1, ref1, off1, case3, ref3, off3):
+    """Phase 4c: SPE1's whole schedule with output on (checkpoints, UNRST,
+    VTK, Matlab) through SimulatorFullyImplicitBlackoil, held to the
+    fixture and to the output-off run of phase 4 (counts, the final
+    state's digest bit for bit), its wall beside that run's, the launch
+    counters over it (K1 interp1's row of the kernels line takes its count:
+    the report steps' rs_sat of the output); the SMSPEC's keys and the
+    UNSMRY's values read back; the resumes on the card; the
+    host syncs and K1/K2 launches of a report step's output over SPE1's
+    first three report steps; SPE1 with FIPNUM regions (``region_check``);
+    then SPE3's whole schedule with output on:
+    the digest and counts of phase 4b's run, the UNRST's RV against the
+    state's rv at every written step, FOPR and FGPR read back from the
+    UNSMRY held to the fixture as phase 4b holds them (FGIR is not in
+    SPE3's SUMMARY section: the rows hold it there)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.io import eclsum
+    from opm_tpu_torch.models.state import rs_rv
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+
+    res = {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_output_")
+    try:
+        # -- SPE1, the whole schedule ------------------------------------
+        sim = SimulatorFullyImplicitBlackoil(case1, output_dir=d)
+        states = {}
+        sim.events.event("report_step_completed").add(
+            lambda s, step: states.__setitem__(step.index, host_state(s))
+            if step.index == 5 else None)
+        K.reset()
+        r1 = run_vs_fixture(sim, ref1, "SPE1 end to end, output on",
+                            run_kw=dict(write_restart=True, write_vtk=True,
+                                        write_matlab=True))
+        launches = {e[0]: e[4].launches for e in K.entries}
+        K.launches["K1 interp1"] = launches["K1 interp1"]
+        counts = {k: (r1[k], off1[k]) for k in
+                  ("newtons", "substeps", "failed", "linear")}
+        base = os.path.join(d, sim._out_base())
+        keys = check_unsmry(sim, base, "SPE1")
+        lim = dict(FPR=TOL_FPR, FOPR=TOL_RATE, FGOR=TOL_RATE)
+        series = file_series(base, "FIELD", list(lim))
+        refs = ref1["report_steps"]
+        worst = {k: max(abs(v - r[k]) / max(abs(r[k]), 1e-30)
+                        for v, r in zip(series[k], refs)) for k in lim}
+        files = sorted(os.listdir(d))
+        ratio = r1["wall_s"] / off1["wall_s"]
+        res["spe1"] = dict(
+            wall_s=r1["wall_s"], wall_off_s=off1["wall_s"],
+            wall_ratio=ratio, counts=counts,
+            digest_equal=r1["digest"] == off1["digest"], smspec_keys=keys,
+            file_worst_rel=worst, files=files, launches_all=launches)
+        log(f"SPE1 with output on (checkpoints, UNRST, VTK, Matlab): "
+            f"{r1['wall_s']:.2f} s against {off1['wall_s']:.2f} s with "
+            f"output off (ratio {ratio:.3f}); counts (on, off) "
+            f"{json.dumps(counts)}; final state's digest "
+            f"{'equal' if r1['digest'] == off1['digest'] else 'DIFFERENT'}")
+        log(f"  files: {files}")
+        log("  launches: " + ", ".join(f"{n}={c}" for n, c in
+                                       launches.items() if c))
+        log("  read back from the UNSMRY against the fixture: "
+            + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+        if r1["digest"] != off1["digest"] or any(
+                a != b for a, b in counts.values()):
+            fail("SPE1: output on changed the simulation")
+        if any(worst[k] > lim[k] for k in lim):
+            fail("SPE1: the UNSMRY's vectors are off the fixture")
+        if launches["K1 interp1"] < len(sim.summary.rows):
+            fail("SPE1 with output on: K1 interp1 not launched by each "
+                 "report step's output")
+        res["spe1_resume"] = resume_checks(case1, d, states, "SPE1")
+        shutil.rmtree(d)
+        os.makedirs(d)
+        with open(os.path.join(ROOT, "data", "SPE1CASE2.DATA")) as f:
+            res["spe1_regions"] = region_check(f.read(), d)
+        shutil.rmtree(d)
+        os.makedirs(d)
+
+        # -- the host syncs and launches of a report step's output -------
+        with output_probe() as probe:
+            sim = SimulatorFullyImplicitBlackoil(case1, output_dir=d)
+            probe.watch(sim)
+            sim.run(report_step_limit=3, write_restart=True, write_vtk=True,
+                    write_matlab=True)
+            torch.cuda.synchronize()
+        rec, outp = probe.calls["record"], probe.calls["output"]
+        res["syncs"] = dict(record=[c["syncs"] for c in rec],
+                            output=[c["syncs"] for c in outp],
+                            devices=sorted(probe.devices),
+                            output_interp1=[c["interp1"] for c in outp],
+                            record_cells_values=[c["cells_values"]
+                                                 for c in rec])
+        log(f"host syncs a report step on the card (SPE1, 3 report "
+            f"steps): the summary row {res['syncs']['record']} (made with "
+            f"output off too), the output {res['syncs']['output']} (at most "
+            f"{OUTPUT_SYNCS}); K2 cells_values launches in the summary row "
+            f"{res['syncs']['record_cells_values']}, K1 interp1 launches in "
+            f"the output {res['syncs']['output_interp1']}; devices of the "
+            f"summary and output arrays {sorted(probe.devices)}")
+        if len(outp) != 3 or any(c["syncs"] > OUTPUT_SYNCS for c in outp) \
+                or any(c["syncs"] > 1 for c in rec):
+            fail("the report step's output made more host syncs than "
+                 "counted")
+        if any(c["interp1"] < 1 for c in outp) or any(
+                c["cells_values"] < 1 for c in rec):
+            fail("the report step's output did not launch K1 interp1 and "
+                 "K2 cells_values")
+        if probe.devices != {"cuda"}:
+            fail(f"summary or output arrays on {sorted(probe.devices)}")
+        shutil.rmtree(d)
+        os.makedirs(d)
+
+        # -- SPE3, the whole schedule -------------------------------------
+        sim = SimulatorFullyImplicitBlackoil(case3, output_dir=d)
+        # each report step's rv from its state on the card, and its GASONLY
+        # cells' x (there rv is the primary variable)
+        rv_steps = {}
+
+        def keep_rv(s, step):
+            rv = rs_rv(s, sim.props, sim.model.pvtnum)[1].cpu().numpy()
+            gasonly = (s.hcstate == 2).cpu().numpy()
+            rv_steps[step.index] = (rv, s.x.cpu().numpy()[gasonly], gasonly)
+
+        sim.events.event("report_step_completed").add(keep_rv)
+        t0 = time.perf_counter()
+        end = sim.run(write_restart=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = sim.report
+        c3 = (rep.newton_iterations, rep.substeps, rep.failed_substeps)
+        base = os.path.join(d, sim._out_base())
+        unrst = eclsum.read_unrst(base + ".UNRST")
+        rv_off = []
+        for u in unrst:
+            rv, x_gasonly, gasonly = rv_steps[u["seqnum"]]
+            if not (np.array_equal(u["RV"], rv)
+                    and np.array_equal(u["RV"][gasonly], x_gasonly)):
+                rv_off.append(u["seqnum"])
+        keys = check_unsmry(sim, base, "SPE3")
+        series = file_series(base, "FIELD", ["FOPR", "FGPR"])
+        series["FPR"] = [r["FPR"] for r in sim.summary.rows]
+        series["FGIR"] = [r["FGIR"] for r in sim.summary.rows]
+        worst, outside, _ = hold_spe3(series, ref3["report_steps"])
+        dig = state_digest(end)
+        res["spe3"] = dict(wall_s=wall, wall_off_s=off3["wall_s"],
+                           counts=c3, digest_equal=dig == off3["digest"],
+                           unrst_steps=len(unrst), rv_steps_off=rv_off,
+                           smspec_keys=keys, file_worst_rel=worst,
+                           outside=outside)
+        log(f"SPE3 with output on (checkpoints, UNRST): {wall:.2f} s "
+            f"against {off3['wall_s']:.2f} s off; {c3[0]} / {c3[1]} / "
+            f"{c3[2]}; digest "
+            f"{'equal' if dig == off3['digest'] else 'DIFFERENT'}; UNRST RV "
+            f"equal to the state's rv at {len(unrst) - len(rv_off)} of "
+            f"{len(unrst)} steps; read back (FOPR, FGPR; FPR, FGIR from "
+            f"the rows): " + ", ".join(f"{k}={v:.2e}"
+                                       for k, v in worst.items()))
+        if dig != off3["digest"] or c3 != (off3["newtons"],
+                                           off3["substeps"],
+                                           off3["failed"]):
+            fail("SPE3: output on changed the simulation")
+        if rv_off or len(unrst) != len(sim.summary.rows):
+            fail(f"SPE3: UNRST RV off the state's rv at steps {rv_off}")
+        if outside:
+            fail(f"SPE3: vectors read back off the fixture: {outside}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def norne_output_step(casen, knob, ref, off, label):
+    """The Norne-class first report step in one representation with
+    output on (UNRST, INIT, EGRID): the counts and final-state digest of
+    the output-off run (phase 6), the fixture held by run_vs_fixture and
+    by FPR/FOPR read back from the UNSMRY, and the files covering the real
+    active cells only."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.io import eclsum
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.sim.init import initial_state
+    d = tempfile.mkdtemp(prefix="chip_smoke_norne_")
+    try:
+        with embed_knob(knob):
+            sim = SimulatorFullyImplicitBlackoil(casen, output_dir=d)
+        st0 = initial_state(sim.grid, sim.props, sim.case,
+                            len(sim.well_names))
+        torch.cuda.synchronize()
+        r = run_vs_fixture(sim, ref, f"{label} first report step, output "
+                           "on", state=st0, report_step_limit=1,
+                           run_kw=dict(write_restart=True))
+        g = sim.grid
+        base = os.path.join(d, sim._out_base())
+        keys = check_unsmry(sim, base, label)
+        series = file_series(base, sim.case.runspec.unit_system,
+                                ["FPR", "FOPR"])
+        r0 = ref["report_steps"][0]
+        worst = {k: abs(series[k][0] - r0[k]) / abs(r0[k])
+                 for k in series}
+        u = eclsum.read_unrst(base + ".UNRST")
+        init = eclsum.read_init(base + ".INIT")
+        egrid = {n: v for n, _, v in eclsum.read_ecl_file(base + ".EGRID")}
+        cover = dict(
+            n_real=g.n_real, nc=g.nc, unrst=int(u[0]["PRESSURE"].size),
+            init_cells=int(init["INTEHEAD"][11]),
+            init_depth=int(init["DEPTH"].size),
+            porv_nonzero=int(np.count_nonzero(init["PORV"])),
+            egrid_active=int(np.count_nonzero(egrid["ACTNUM"])))
+        counts = {k: (r[k], off[k]) for k in ("substeps", "newtons",
+                                              "linear", "failed")}
+        out = dict(wall_s=r["wall_s"], wall_off_s=off["wall_s"],
+                   counts=counts, digest_equal=r["digest"] == off["digest"],
+                   smspec_keys=keys, file_worst_rel=worst, cover=cover)
+        log(f"  {label} with output on: {r['wall_s']:.2f} s (off "
+            f"{off['wall_s']:.2f} s); counts (on, off) {json.dumps(counts)}"
+            f"; digest {'equal' if out['digest_equal'] else 'DIFFERENT'}; "
+            f"files cover {json.dumps(cover)}; read back: "
+            + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+        if not out["digest_equal"] or any(a != b for a, b in
+                                          counts.values()):
+            fail(f"{label}: output on changed the simulation")
+        if {cover[k] for k in ("unrst", "init_cells", "init_depth",
+                               "porv_nonzero", "egrid_active")} \
+                != {g.n_real}:
+            fail(f"{label}: the files do not cover the real active cells "
+                 "only")
+        if worst["FPR"] > TOL_FPR or worst["FOPR"] > TOL_RATE:
+            fail(f"{label}: FPR/FOPR read back off the fixture")
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+def run_vs_fixture(sim, ref, label, state=None, report_step_limit=None,
+                   run_kw=None):
+    """Run ``sim`` (with ``run``'s output flags ``run_kw``) and hold each
+    report step to the fixture: Newton and substep counts, 0 failed, linear
+    iterations within TOL_LINEAR (when recorded), FPR / FOPR (/ FWPR, FGOR)
+    within their limits. The result carries the final state's digest."""
     import torch
 
     lin = []
     sim.events.event("report_step_completed").add(
         lambda s, step: lin.append(sim.report.linear_iterations))
     t0 = time.perf_counter()
-    sim.run(state, report_step_limit=report_step_limit)
+    end = sim.run(state, report_step_limit=report_step_limit,
+                  **(run_kw or {}))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     lin = lin[1:] + [sim.report.linear_iterations]
@@ -3352,7 +3866,8 @@ def run_vs_fixture(sim, ref, label, state=None, report_step_limit=None):
     return dict(wall_s=wall, newtons=rep.newton_iterations,
                 substeps=rep.substeps, failed=rep.failed_substeps,
                 linear=rep.linear_iterations, linear_per_step=lin,
-                newton_diffs=diffs, worst_rel=worst)
+                newton_diffs=diffs, worst_rel=worst,
+                digest=state_digest(end))
 
 
 # ---------------------------------------------------------------------------
@@ -3610,6 +4125,13 @@ def main(argv=None):
         ref3 = json.load(f)
     results["spe3"] = spe3_run(K, ref3)
 
+    # -- 4c. output and restart: SPE1 and SPE3 with output on, resumes -------
+    results["output"] = output_phase(
+        K, case1, ref1, results["spe1"],
+        load_case(os.path.join(ROOT, "data", "SPE3.DATA")), ref3,
+        results["spe3"])
+    torch.cuda.empty_cache()
+
     # -- 5. SPE10-2 first report step through the CPR route --------------------
     solver = sim10.solver
     solver.timing = {}
@@ -3823,6 +4345,11 @@ def main(argv=None):
              "the reference's own two runs")
     del sims, simn
     torch.cuda.empty_cache()
+    # the first report step of each with output on (UNRST, INIT, EGRID)
+    for rname, knob in (("embedded", None), ("gather", "0")):
+        results[f"norne_{rname}_output"] = norne_output_step(
+            casen, knob, reff[rname], runs[rname], f"Norne-class {rname}")
+        torch.cuda.empty_cache()
 
     # -- 7. the toy Norne-like deck in both representations ---------------------
     with open(os.path.join(ROOT, "data",

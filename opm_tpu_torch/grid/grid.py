@@ -637,3 +637,33 @@ def build_corner_point_grid(case) -> Grid:
         satnum=reg("SATNUM"), pvtnum=reg("PVTNUM"),
         eqlnum=reg("EQLNUM"), fipnum=reg("FIPNUM"),
     )
+
+
+def estimate_cell_velocity(grid: Grid, face_flux):
+    """Cell-centered Darcy velocity vectors (nc, 3) from signed face fluxes
+    — the miscUtilities estimateCellVelocity capability
+    (opm/core/utility/miscUtilities.hpp: flux ->
+    cell-velocity interpolation for output/visualization). Per direction,
+    the velocity is the average of the two bounding faces' fluxes divided
+    by the face area (sealed boundary faces contribute zero flux)."""
+    flux = np.asarray(face_flux)
+    v = np.zeros((grid.nc, 3))
+    area = {0: np.asarray(grid.dy) * np.asarray(grid.dz)
+            * np.asarray(grid.ntg),
+            1: np.asarray(grid.dx) * np.asarray(grid.dz)
+            * np.asarray(grid.ntg),
+            2: np.asarray(grid.dx) * np.asarray(grid.dy)}
+    fd = np.asarray(grid.face_dir)
+    fc = np.asarray(grid.face_cells)
+    for d in range(3):
+        sel = fd == d
+        c1 = fc[sel, 0]
+        c2 = fc[sel, 1]
+        f = flux[sel]
+        np.add.at(v[:, d], c1, f)
+        np.add.at(v[:, d], c2, f)
+        # every cell has two bounding faces per direction; sealed boundary
+        # faces count as zero-flux samples
+        v[:, d] /= 2.0
+        v[:, d] /= area[d]
+    return v

@@ -3,14 +3,18 @@
 Port of the per-step path of the JAX package's sim/blackoil.py (the branch
 the reference takes on CPU, where ``fused`` is off): report-step loop,
 per-step well rebuild, adaptive sub-stepping, summary collection and the
-iteration totals. Not ported yet, and raising where a deck reaches them:
-report-step spans and the fused substep (ROADMAP Queue 1 item 7); THPRES,
-geology modifiers, group control, economic limits, RESV controls and
-restart (item 8); the output writers (item 5).
+iteration totals, and the output layer: the deck-driven SUMMARY vectors,
+the ECL SMSPEC/UNSMRY, UNRST, INIT and EGRID files, the PRT run log,
+.npz checkpoints, VTK and Matlab dumps (an asynchronous writer thread on
+host arrays), and resume from a checkpoint, an UNRST or a deck RESTART.
+Not ported yet, and raising where a deck reaches them: report-step spans
+and the fused substep (ROADMAP Queue 1 item 7); THPRES, geology
+modifiers, group control, economic limits and RESV controls (item 8).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -18,18 +22,23 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from opm_tpu_torch.grid.grid import build_grid
+from opm_tpu_torch.grid.grid import build_grid, estimate_cell_velocity
+from opm_tpu_torch.io import eclsum, matlab, restart, vtk
 from opm_tpu_torch.io.eclstate import EclipseCase, load_case
+from opm_tpu_torch.io.prt import PrtLogger
 from opm_tpu_torch.io.schedule import build_schedule
+from opm_tpu_torch.io.summaryconfig import block_cells, expand_requests
 from opm_tpu_torch.models.blackoil import (BlackoilModel, ModelParams,
                                            make_well_device_arrays)
-from opm_tpu_torch.models.state import GAS, OIL, WATER, BlackoilState
+from opm_tpu_torch.models.state import (GAS, OIL, WATER, BlackoilState,
+                                        rs_rv, saturations)
 from opm_tpu_torch.props.blackoil import BlackoilProps
 from opm_tpu_torch.sim.init import initial_state
 from opm_tpu_torch.solver.newton import NonlinearSolver, SolverReport
 from opm_tpu_torch.solver.timestepping import (AdaptiveTimeStepping,
                                                TimeStepControlParams)
 from opm_tpu_torch.utils.events import EventSource
+from opm_tpu_torch.utils.threadhandle import ThreadHandle
 from opm_tpu_torch.wells.wells import (CTRL_BHP, CTRL_GRAT, CTRL_LRAT,
                                        CTRL_ORAT, CTRL_RESERVOIR_RATE,
                                        CTRL_RESV, CTRL_SURFACE_RATE,
@@ -50,39 +59,160 @@ class SimulatorReportTotals:
     linear_iterations: int = 0
 
 
-def summary_arrays(model, state):
-    """(qs, bhp, fpr, fip) of one report step, on the model's device (the
-    padding cells of an embedded grid carry no pore volume here)."""
+def region_masks(fipnum: np.ndarray, nreg: int, device) -> torch.Tensor:
+    """(nreg, nc) float64 0/1 rows: cell c in FIPNUM region r (0-based;
+    cells at -1, the padding of an embedded grid, in none). The region
+    sums are masked row sums, so every region adds its cells in one fixed
+    order on each device (no scatter)."""
+    fip = torch.as_tensor(np.asarray(fipnum), dtype=torch.long,
+                          device=device)
+    regs = torch.arange(nreg, dtype=torch.long, device=device)
+    return (fip[None, :] == regs[:, None]).to(torch.float64)
+
+
+def summary_arrays(model, state, masks=None, cells=None):
+    """(qs, bhp, fpr, fip, region, block) of one report step, on the
+    model's device (the padding cells of an embedded grid carry no pore
+    volume here). region = (rpr, rfip): the pore-volume-weighted pressure
+    (nreg,) and the surface volumes in place (nreg, 3) of each row of
+    ``masks`` (``region_masks``); block = the pressures at ``cells``.
+    Both None unless asked for."""
     pv = model.pv_out
     fpr = torch.sum(state.pressure * pv) / torch.sum(pv)
-    fip = torch.sum(model.accumulation(state) * pv[None, :], dim=1)
-    return state.qs, state.bhp, fpr, fip
+    vol = model.accumulation(state) * pv[None, :]            # (3, nc)
+    fip = torch.sum(vol, dim=1)
+    region = None
+    if masks is not None:
+        rpv = torch.sum(masks * pv[None, :], dim=1)
+        rppv = torch.sum(masks * (state.pressure * pv)[None, :], dim=1)
+        rpr = rppv / torch.clamp_min(rpv, 1e-300)
+        rfip = torch.sum(masks[:, None, :] * vol[None, :, :], dim=2)
+        region = (rpr, rfip)
+    block = None
+    if cells is not None:
+        block = state.pressure[cells]
+    return state.qs, state.bhp, fpr, fip, region, block
 
 
 class SummaryCollector:
-    """Accumulates the field and well time series per report step (field
-    rates, GOR/WCT, cumulatives, fluid in place, per-well BHP and rates)."""
+    """Accumulates well/field time series (the BlackoilOutputWriter summary
+    role, SimulatorFullyImplicitBlackoilOutput.hpp:206).
 
-    def __init__(self, well_names: List[str]):
+    With ``requests`` (the deck SUMMARY section, io/eclstate.py
+    summary_requests) the collector additionally computes every requested
+    vector it supports (per-well ratios/cumulatives, per-FIPNUM region
+    pressure and in-place volumes, block pressures), and
+    ``requested_keys``/``unsupported`` drive the ECL writer's vector
+    selection and the PRT warning (the reference's SummaryConfig role)."""
+
+    def __init__(self, well_names: List[str], requests=None, grid=None):
         self.well_names = well_names
         self.rows: List[dict] = []
         self._totals = dict(FOPT=0.0, FWPT=0.0, FGPT=0.0, FWIT=0.0,
                             FGIT=0.0, FLPT=0.0)
         self._last_t = 0.0
+        self.requested_keys: Optional[List[str]] = None
+        self.unsupported: List[str] = []
+        self._need: set = set()
+        self._block = []              # [(key, active_cell_index)]
+        self._fipnum = None
+        self._nreg = 1
+        self._well_totals = {}        # key -> per-well cumulative array
+        self._device_spec = {}        # device -> (masks, block cells)
+        if requests:
+            nreg = 1
+            ijk_to_cell = None
+            if grid is not None:
+                fip = (np.zeros(grid.nc, dtype=np.int64)
+                       if grid.fipnum is None else np.asarray(grid.fipnum))
+                if grid.active_mask is not None:
+                    self._fipnum = np.where(np.asarray(grid.active_mask),
+                                            fip, -1)
+                else:
+                    self._fipnum = fip
+                nreg = int(fip.max()) + 1 if fip.size else 1
+                nx, ny, nz = grid.dims
+                cart = np.full(nx * ny * nz, -1, dtype=np.int64)
+                rc = grid.real_cells
+                cart[np.asarray(grid.global_cell)[rc]] = rc
 
-    def record(self, t, state: BlackoilState, model):
-        """One summary row from the device state (one host pull)."""
-        qs, bhp, fpr, fip = summary_arrays(model, state)
-        flat = torch.cat([qs.reshape(-1), bhp, fpr.reshape(1),
-                          fip]).cpu().numpy()
+                def ijk_to_cell(i, j, k, _cart=cart, _d=(nx, ny, nz)):
+                    nx_, ny_, nz_ = _d
+                    if not (0 <= i < nx_ and 0 <= j < ny_ and 0 <= k < nz_):
+                        return None
+                    c = _cart[(k * ny_ + j) * nx_ + i]
+                    return None if c < 0 else int(c)
+
+            self._nreg = nreg
+            keys, unsup, need = expand_requests(
+                requests, well_names, nreg, ijk_to_cell)
+            self.requested_keys = keys
+            self.unsupported = unsup
+            self._need = need
+            if ijk_to_cell is not None:
+                self._block = block_cells(keys, ijk_to_cell)
+            if "well_totals" in need:
+                nw = len(well_names)
+                for k in ("WOPT", "WWPT", "WGPT", "WWIT", "WGIT"):
+                    self._well_totals[k] = np.zeros(nw)
+
+    def region_spec(self):
+        """(fipnum, nreg) when region vectors are requested, else None."""
+        if "region" in self._need and self._fipnum is not None:
+            return self._fipnum, self._nreg
+        return None
+
+    def block_spec(self):
+        """[(key, cell)] block-pressure requests."""
+        return self._block if "block" in self._need else []
+
+    def _spec_on(self, device):
+        """The region masks and the block cells on ``device``, made once."""
+        spec = self._device_spec.get(device)
+        if spec is None:
+            rs = self.region_spec()
+            masks = None if rs is None else region_masks(rs[0], rs[1],
+                                                         device)
+            bl = self.block_spec()
+            cells = (torch.as_tensor([c for _, c in bl], dtype=torch.long,
+                                     device=device) if bl else None)
+            spec = self._device_spec[device] = (masks, cells)
+        return spec
+
+    def record(self, t, state: BlackoilState, model, extra=None):
+        """One summary row from the device state: the arrays computed on
+        the model's device, then one host pull."""
+        masks, cells = self._spec_on(model.device)
+        qs, bhp, fpr, fip, region, block = summary_arrays(
+            model, state, masks, cells)
+        parts = [qs.reshape(-1), bhp, fpr.reshape(1), fip]
+        if region is not None:
+            parts += [region[0], region[1].reshape(-1)]
+        if block is not None:
+            parts.append(block)
+        flat = torch.cat(parts).cpu().numpy()
         nw = bhp.shape[0]
-        return self.record_arrays(t, flat[:3 * nw].reshape(nw, 3),
-                                  flat[3 * nw:4 * nw], float(flat[4 * nw]),
-                                  flat[4 * nw + 1:])
+        nreg = self._nreg
+        o = 4 * nw + 4
+        reg_h = None
+        if region is not None:
+            reg_h = (flat[o:o + nreg], flat[o + nreg:o + 4 * nreg].reshape(
+                nreg, 3))
+            o += 4 * nreg
+        return self.record_arrays(
+            t, flat[:3 * nw].reshape(nw, 3), flat[3 * nw:4 * nw],
+            float(flat[4 * nw]), flat[4 * nw + 1:4 * nw + 4], extra,
+            region=reg_h, block=None if block is None else flat[o:])
 
-    def record_arrays(self, t, qs, bhp, fpr, fip):
+    def record_arrays(self, t, qs, bhp, fpr, fip, extra=None, *,
+                      region=None, block=None):
+        """Build a summary row from arrays on the host."""
+        qs = np.asarray(qs)
+        bhp = np.asarray(bhp)
         row = dict(time=t / DAY)
         row["FPR"] = float(fpr)
+        # field rates: production reported positive (OPM sign convention:
+        # qs negative for producers)
         prod = np.clip(-qs, 0.0, None)
         inj = np.clip(qs, 0.0, None)
         row["FOPR"] = prod[:, OIL].sum()
@@ -96,6 +226,7 @@ class SummaryCollector:
         row["FGOR"] = row["FGPR"] / fopr if fopr > 1e-12 else 0.0
         row["FWCT"] = (row["FWPR"] / (row["FWPR"] + fopr)
                        if row["FWPR"] + fopr > 1e-12 else 0.0)
+        # cumulative totals (rectangle rule over report steps)
         dt = t - self._last_t
         self._last_t = t
         self._totals["FOPT"] += row["FOPR"] * dt
@@ -105,6 +236,12 @@ class SummaryCollector:
         self._totals["FGIT"] += row["FGIR"] * dt
         self._totals["FLPT"] += row["FLPR"] * dt
         row.update(self._totals)
+        if self._well_totals:
+            self._well_totals["WOPT"] += prod[:, OIL] * dt
+            self._well_totals["WWPT"] += prod[:, WATER] * dt
+            self._well_totals["WGPT"] += prod[:, GAS] * dt
+            self._well_totals["WWIT"] += inj[:, WATER] * dt
+            self._well_totals["WGIT"] += inj[:, GAS] * dt
         row["FWIP"] = float(fip[WATER])
         row["FOIP"] = float(fip[OIL])
         row["FGIP"] = float(fip[GAS])
@@ -117,17 +254,74 @@ class SummaryCollector:
             row[f"WWIR:{name}"] = inj[iw, WATER]
             row[f"WGOR:{name}"] = (prod[iw, GAS] / prod[iw, OIL]
                                    if prod[iw, OIL] > 1e-12 else 0.0)
+            if self.requested_keys is not None:
+                liq = prod[iw, OIL] + prod[iw, WATER]
+                row[f"WLPR:{name}"] = liq
+                row[f"WWCT:{name}"] = (prod[iw, WATER] / liq
+                                       if liq > 1e-12 else 0.0)
+                row[f"WGLR:{name}"] = (prod[iw, GAS] / liq
+                                       if liq > 1e-12 else 0.0)
+                row[f"WOIR:{name}"] = inj[iw, OIL]
+                # THP is only defined through a VFP back-solve (not ported:
+                # ROADMAP Queue 1 item 8); wells without VFP report 0, as
+                # the reference does
+                row.setdefault(f"WTHP:{name}", 0.0)
+                for k, tot in self._well_totals.items():
+                    row[f"{k}:{name}"] = tot[iw]
+        if region is not None:
+            rpr, rfip = region
+            for r in range(self._nreg):
+                row[f"RPR:{r + 1}"] = float(rpr[r])
+                row[f"ROIP:{r + 1}"] = float(rfip[r, OIL])
+                row[f"RWIP:{r + 1}"] = float(rfip[r, WATER])
+                row[f"RGIP:{r + 1}"] = float(rfip[r, GAS])
+        if block is not None:
+            for (key, _c), val in zip(self._block, np.asarray(block)):
+                row[key] = float(val)
+        if extra:
+            row.update(extra)
         self.rows.append(row)
         return row
 
     def series(self, key):
         return np.array([r.get(key, np.nan) for r in self.rows])
 
+    def to_csv(self, path):
+        keys = sorted({k for r in self.rows for k in r},
+                      key=lambda k: (k != "time", k))
+        with open(path, "w") as f:
+            f.write(",".join(keys) + "\n")
+            for r in self.rows:
+                f.write(",".join(f"{r.get(k, float('nan')):.10g}"
+                                 for k in keys) + "\n")
 
-def fluid_in_place(model, state: BlackoilState):
-    """Surface-volume fluid in place per phase (w, o, g), on the host."""
+
+def fluid_in_place(model, state: BlackoilState, regions=None):
+    """Surface-volume fluid in place per phase (w, o, g), on the host. With
+    ``regions`` (nc,) 0-based FIPNUM: (nreg, 3) per-region volumes (the
+    reference's per-FIPNUM report), summed on the host from one pull of
+    the cell volumes, in the reference's order."""
     acc = model.accumulation(state)
-    return torch.sum(acc * model.pv_out[None, :], dim=1).cpu().numpy()
+    if regions is None:
+        return torch.sum(acc * model.pv_out[None, :], dim=1).cpu().numpy()
+    vol = (acc * model.pv_out[None, :]).cpu().numpy().T     # (nc, 3)
+    regions = np.asarray(regions)
+    out = np.zeros((int(regions.max()) + 1, 3))
+    np.add.at(out, regions, vol)
+    return out
+
+
+def output_arrays(model, state: BlackoilState, face_flux: bool = False):
+    """(sg, rs, rv[, face fluxes (3, nf)]) of a report step's output on the
+    model's device: the saturations from the switched variables, rs and rv
+    from K1's rs_sat/rv_sat lookups where the phase is saturated, and for
+    the Matlab velocity the plain K3 face fluxes."""
+    _, _, sg = saturations(state)
+    rs, rv = rs_rv(state, model.props, model.pvtnum)
+    out = [sg, rs, rv]
+    if face_flux:
+        out.append(model.face_fluxes(model.cell_quantities(state)))
+    return out
 
 
 def schedule_wells(schedule):
@@ -231,11 +425,35 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def egrid_geometry(case) -> Optional[str]:
+    """Where an EGRID's geometry comes from: 'COORD/ZCORN' (corner-point
+    decks), 'DX/DY/DZ' (per-cell block sizes, with TOPS or a zero top) or
+    'DXV/DYV/DZV' (vectors); None when the case carries none of them, and
+    then no EGRID is written."""
+    ga = case.grid_arrays
+    nx, ny, nz = case.runspec.dims
+    if "COORD" in ga and "ZCORN" in ga:
+        return "COORD/ZCORN"
+    if "TOPS" in ga and np.size(ga["TOPS"]) < nx * ny:
+        return None
+    if all(k in ga and np.size(ga[k]) == nx * ny * nz
+           for k in ("DX", "DY", "DZ")):
+        return "DX/DY/DZ"
+    if "DX" not in ga and all(k in ga for k in ("DXV", "DYV", "DZV")):
+        return "DXV/DYV/DZV"
+    return None
+
+
 class SimulatorFullyImplicitBlackoil:
     def __init__(self, case: EclipseCase, *,
                  params: Optional[ModelParams] = None,
                  ts_params: Optional[TimeStepControlParams] = None,
+                 output_dir: Optional[str] = None,
                  device="cuda"):
+        """output_dir: where the run writes its files (none when None):
+        the PRT log, summary.csv, SMSPEC/UNSMRY, INIT, EGRID, the FIP and
+        timing reports, and with ``run``'s flags the checkpoints, UNRST,
+        VTK and Matlab dumps."""
         self.case = case
         self.device = resolve_device(device)
         if case.solution.thpres:
@@ -246,6 +464,7 @@ class SimulatorFullyImplicitBlackoil:
         self.model = BlackoilModel(self.grid, self.props, params,
                                    device=self.device)
         self.schedule = build_schedule(case)
+        self.output_dir = output_dir
         names, self.max_perf = schedule_wells(self.schedule)
         self.well_names = names
         self.ts = AdaptiveTimeStepping(ts_params, tuning=self.schedule.tuning)
@@ -257,7 +476,10 @@ class SimulatorFullyImplicitBlackoil:
         self.events = EventSource("timestep_completed",
                                   "report_step_completed")
         self._step_timing: list = []
-        self.summary = SummaryCollector(names)
+        self._unrst_steps: list = []
+        self.summary = SummaryCollector(
+            names, requests=getattr(case, "summary_requests", None),
+            grid=self.grid)
         self.report = SimulatorReportTotals()
 
     @staticmethod
@@ -277,19 +499,232 @@ class SimulatorFullyImplicitBlackoil:
                     f"well {w.name}: WECON is not ported yet "
                     "(ROADMAP Queue 1 item 8)")
 
+    def _out_base(self) -> str:
+        """Output-file basename: the deck filename (ECL convention),
+        falling back to the deck TITLE for synthetic cases."""
+        if getattr(self.case, "path", None):
+            return os.path.splitext(os.path.basename(self.case.path))[0]
+        return (self.case.runspec.title or "CASE").split()[0] or "CASE"
+
+    def _deck_restart(self):
+        """(file, step, tried): the deck RESTART's BASENAME.UNRST beside the
+        deck or in the working directory, as the reference looks for it;
+        file is None when neither exists."""
+        base, rstep = self.case.solution.restart
+        root = os.path.dirname(self.case.path or ".")
+        tried = (os.path.join(root, base + ".UNRST"), base + ".UNRST")
+        for cand in tried:
+            if os.path.exists(cand):
+                return cand, rstep, tried
+        return None, rstep, tried
+
+    def _write_step_outputs(self, state, step, writer, write_restart,
+                            write_vtk, write_matlab):
+        """Per-report-step output (restart checkpoint + UNRST accumulation,
+        VTK, Matlab): the derived arrays on the device, one host pull of
+        them with the state, then the writes queued on the writer thread
+        (host arrays only)."""
+        if not ((write_restart or write_vtk or write_matlab)
+                and self.output_dir):
+            return
+        derived = output_arrays(self.model, state, face_flux=write_matlab)
+        nc, nw = state.nc, state.nw
+        parts = [state.pressure, state.sw, state.x,
+                 state.hcstate.to(torch.float64), state.bhp,
+                 state.qs.reshape(-1), state.control.to(torch.float64),
+                 state.target] + [a.reshape(-1) for a in derived]
+        flat = torch.cat(parts).cpu().numpy()
+        sizes = [nc, nc, nc, nc, nw, 3 * nw, nw, nw, nc, nc, nc]
+        if write_matlab:
+            sizes.append(derived[3].numel())
+        cut = np.split(flat, np.cumsum(sizes)[:-1])
+        host = dict(pressure=cut[0], sw=cut[1], x=cut[2],
+                    hcstate=cut[3].astype(np.int32), bhp=cut[4],
+                    qs=cut[5].reshape(nw, 3),
+                    control=cut[6].astype(np.int32), target=cut[7],
+                    sgmax=None, somax=None)
+        sw_, sg_, rs_, rv_ = host["sw"], cut[8], cut[9], cut[10]
+        # embedded grids: the ECL arrays and dumps cover the REAL active
+        # cells only (padding is an internal layout)
+        rc = (slice(None) if self.grid.active_mask is None
+              else self.grid.real_cells)
+        os.makedirs(self.output_dir, exist_ok=True)
+        if write_restart:
+            writer.submit(
+                restart.save_restart,
+                os.path.join(self.output_dir,
+                             f"restart_{step.index:04d}.npz"),
+                host, report_step=step.index, time=step.end_time,
+                suggested_dt=self.ts.suggested_dt)
+            # accumulate ECL unified-restart solution steps
+            p_unit = restart.pressure_unit(self.case.runspec.unit_system)
+            xwel = np.concatenate([
+                host["bhp"][:, None], host["qs"],
+                host["control"].astype(np.float64)[:, None],
+                host["target"][:, None]], axis=1)
+            self._unrst_steps.append(dict(
+                seqnum=step.index,
+                time_days=step.end_time / DAY,
+                PRESSURE=host["pressure"][rc] * p_unit,
+                SWAT=sw_[rc], SGAS=sg_[rc],
+                RS=rs_[rc], RV=rv_[rc],
+                # well state + stepper extras (SI), the analogue of the
+                # reference's OPM_XWEL/OPM_EXTRA restart data
+                OPM_XWEL=xwel.reshape(-1),
+                OPM_EXTRA=np.asarray([self.ts.suggested_dt])))
+        if write_vtk:
+            writer.submit(
+                vtk.write_vtr,
+                os.path.join(self.output_dir, f"step_{step.index:04d}.vtr"),
+                self.grid,
+                dict(PRESSURE=host["pressure"], SWAT=sw_, SGAS=sg_))
+        if write_matlab:
+            # Matlab sub-writer (BlackoilMatlabWriter,
+            # SimulatorFullyImplicitBlackoilOutput.hpp:175-195):
+            # per-variable NNN.txt dumps + estimated cell velocity
+            so_m = 1.0 - sw_ - sg_
+            flux_m = cut[11].reshape(3, -1).sum(axis=0)
+            vel = estimate_cell_velocity(self.grid, flux_m)
+            sat = np.stack([sw_[rc], so_m[rc], sg_[rc]], axis=1)
+            writer.submit(
+                matlab.output_state_matlab, self.output_dir, step.index,
+                pressure=host["pressure"][rc], saturation=sat, rs=rs_[rc],
+                rv=rv_[rc], velocity=vel[rc])
+            writer.submit(
+                matlab.output_well_state_matlab, self.output_dir,
+                step.index, bhp=host["bhp"], wellrates=host["qs"])
+
+    def _write_run_outputs(self, state):
+        """End-of-run files (on the main thread, after the writer has
+        drained): summary.csv, SMSPEC/UNSMRY, UNRST, INIT, EGRID where the
+        case carries the geometry, the per-FIPNUM fluid in place and the
+        timing reports."""
+        out = self.output_dir
+        base = os.path.join(out, self._out_base())
+        rs = self.case.runspec
+        fip_reg = fluid_in_place(self.model, state, regions=self.grid.fipnum)
+        os.makedirs(out, exist_ok=True)
+        self.summary.to_csv(os.path.join(out, "summary.csv"))
+        eclsum.write_summary(base, self.summary.rows, dims=rs.dims,
+                             start_date=rs.start_date,
+                             unit_system=rs.unit_system,
+                             requested=self.summary.requested_keys)
+        if self._unrst_steps:
+            eclsum.write_unrst(base, self._unrst_steps, dims=rs.dims,
+                               start_date=rs.start_date)
+        # static geology snapshot + geometry (writeInit role:
+        # FlowMain.hpp writeInit -> EclipseIO INIT/EGRID)
+        eclsum.write_init(base, self.grid, unit_system=rs.unit_system,
+                          start_date=rs.start_date)
+        if egrid_geometry(self.case) is not None:
+            eclsum.write_egrid(base, self.case)
+        with open(os.path.join(out, "fip_report.txt"), "w") as f:
+            f.write("# FIPNUM  water[sm3]  oil[sm3]  gas[sm3]  (end of "
+                    "run)\n")
+            for r in range(fip_reg.shape[0]):
+                f.write(f"{r + 1:6d}  {fip_reg[r, WATER]:.6e}  "
+                        f"{fip_reg[r, OIL]:.6e}  "
+                        f"{fip_reg[r, GAS]:.6e}\n")
+        # per-step timing breakdown (step_timing.txt / walltime.txt,
+        # SimulatorBase_impl.hpp:108,302-304)
+        with open(os.path.join(out, "step_timing.txt"), "w") as f:
+            f.write("# step  end_days  wall_s  substeps  newtons\n")
+            for row in self._step_timing:
+                f.write("%5d %10.2f %8.3f %5d %5d\n" % row)
+        with open(os.path.join(out, "walltime.txt"), "w") as f:
+            f.write(f"{self.report.total_time:.3f}\n")
+
     # ------------------------------------------------------------------
     def run(self, state: Optional[BlackoilState] = None, *,
-            report_step_limit: Optional[int] = None, verbose: bool = False):
+            report_step_limit: Optional[int] = None, verbose: bool = False,
+            restart_file: Optional[str] = None,
+            restart_step: Optional[int] = None,
+            write_restart: bool = False, write_vtk: bool = False,
+            write_matlab: bool = False):
         """Run the schedule (per report step: wells, adaptive substeps,
-        summary row). Returns the final state."""
+        summary row, output). Returns the final state.
+
+        restart_file resumes mid-run from a checkpoint: this package's
+        .npz, or an ECL .UNRST with restart_step selecting the SEQNUM; a
+        deck RESTART keyword does the same from BASENAME.UNRST (the
+        RESTART/SKIPREST capability, SimulatorBase_impl.hpp:96-131,
+        FlowMain.hpp:845-846). A restart_file that does not exist raises;
+        a deck RESTART whose UNRST is missing starts from the initial
+        state, as the reference does, with a warning on stdout and in the
+        PRT. write_restart emits .npz checkpoints and the unified ECL
+        restart per report step into output_dir; write_vtk and
+        write_matlab the VTK and Matlab dumps."""
         t_start = time.perf_counter()
         nw = len(self.well_names)
-        if state is None:
+        self._unrst_steps = []
+        missing = None
+        if restart_file is None and state is None \
+                and self.case.solution.restart is not None:
+            restart_file, restart_step, tried = self._deck_restart()
+            if restart_file is None:
+                missing = (f"deck RESTART {self.case.solution.restart[0]} "
+                           f"{restart_step}: no restart file at "
+                           f"{' or '.join(tried)}; starting from the "
+                           "initial state")
+        if restart_file is not None and not os.path.exists(restart_file):
+            raise FileNotFoundError(f"restart file {restart_file} does not "
+                                    "exist")
+        writer = prt = None
+        if self.output_dir:
+            os.makedirs(self.output_dir, exist_ok=True)
+            # async output worker (the reference's BlackoilOutputWriter
+            # asyncOutput_ / ThreadHandle): report-step writes overlap the
+            # next step's device work
+            writer = ThreadHandle()
+            prt = PrtLogger(os.path.join(self.output_dir,
+                                         self._out_base() + ".PRT"),
+                            self.case.runspec.title or "")
+            for m in self.summary.unsupported:
+                prt.warning(f"SUMMARY mnemonic not supported, ignored: {m}")
+        if missing is not None:
+            print(f"WARNING: {missing}")
+            if prt is not None:
+                prt.warning(missing)
+        try:
+            state = self._run_steps(state, nw, report_step_limit, verbose,
+                                    restart_file, restart_step, writer, prt,
+                                    write_restart, write_vtk, write_matlab)
+            if writer is not None:
+                writer.close()      # raises a write that failed
+            self.report.total_time = time.perf_counter() - t_start
+            if prt is not None:
+                prt.final_report(self.report)
+        finally:
+            if writer is not None:
+                # a run that failed: stop the worker (a write error it
+                # raises here is chained to the run's)
+                writer.close()
+            if prt is not None:
+                prt.close()
+        if self.output_dir:
+            self._write_run_outputs(state)
+        return state
+
+    def _run_steps(self, state, nw, report_step_limit, verbose,
+                   restart_file, restart_step, writer, prt, write_restart,
+                   write_vtk, write_matlab):
+        start_step = 0
+        if restart_file is not None:
+            if restart_file.upper().endswith(".UNRST"):
+                state, meta = restart.load_restart_unrst(
+                    restart_file, restart_step, self.case, self.model)
+            else:
+                state, meta = restart.load_restart(restart_file,
+                                                   self.device)
+            start_step = meta["report_step"] + 1
+            self.ts.suggested_dt = meta["suggested_dt"]
+        elif state is None:
             state = initial_state(self.grid, self.props, self.case, nw)
         steps = self.schedule.report_steps
         if report_step_limit is not None:
             steps = steps[:report_step_limit]
-        first = True
+        steps = steps[start_step:]
+        first = start_step == 0
         for step in steps:
             self._check_step_ported(step)
             ws = report_step_wells(step, self.grid, self.well_names,
@@ -309,13 +744,26 @@ class SimulatorFullyImplicitBlackoil:
                 self.report.linear_solve_time += rep.linear_solve_time
                 return s2, rep
 
-            def _substep_cb(s, tl, dts, sr):
+            def _substep_cb(s, tl, dts, sr, _step=step):
                 self.events.signal("timestep_completed", s, tl, dts)
+                if prt is not None:
+                    prt.substep(_step.index,
+                                (_step.start_time + tl) / DAY, dts / DAY,
+                                sr.iterations, sr.converged,
+                                sr.convergence_history)
+
+            def _fail_cb(tl, dts, exc, _step=step):
+                if prt is not None:
+                    prt.substep(_step.index,
+                                (_step.start_time + tl) / DAY, dts / DAY,
+                                0, False, None,
+                                failure=type(exc).__name__)
 
             t_step0 = time.perf_counter()
             state, subrep = self.ts.step(
                 solve_fn, state, step.end_time - step.start_time,
-                had_event=bool(step.events), substep_callback=_substep_cb)
+                had_event=bool(step.events), substep_callback=_substep_cb,
+                failure_callback=_fail_cb)
             self._step_timing.append(
                 (step.index, step.end_time / DAY,
                  time.perf_counter() - t_step0, subrep.substeps,
@@ -326,18 +774,24 @@ class SimulatorFullyImplicitBlackoil:
             self.report.newton_iterations += subrep.total_newton
             self.report.linear_iterations += subrep.total_linear
             row = self.summary.record(step.end_time, state, self.model)
+            if prt is not None:
+                prt.report_step(step.index, step.end_time / DAY, row,
+                                fip=[row["FWIP"], row["FOIP"],
+                                     row["FGIP"]])
+            self._write_step_outputs(state, step, writer, write_restart,
+                                     write_vtk, write_matlab)
             if verbose:
                 print(f"step {step.index:4d} t={step.end_time / DAY:9.1f} d "
                       f"newton={subrep.total_newton:3d} "
                       f"FPR={row['FPR'] / 1e5:8.2f} bar "
                       f"FOPR={row['FOPR'] * DAY:10.1f} "
                       f"FGOR={row['FGOR']:8.2f}")
-        self.report.total_time = time.perf_counter() - t_start
         return state
 
 
 def run_deck(path: str, *, device="cuda", verbose=False, **kw):
-    """flow-style entry: load the deck, build, run."""
+    """flow-style entry: load the deck, build, run (``kw`` go to the
+    simulator: params, ts_params, output_dir)."""
     case = load_case(path)
     sim = SimulatorFullyImplicitBlackoil(case, device=device, **kw)
     state = sim.run(verbose=verbose)

@@ -1,10 +1,124 @@
 """Synthetic test decks (port of the JAX package's sim/testcases.py: the
-SPE10-like, the Norne-like and the SPE3-like generators so far), SPE1 with
-PBVD in place of RSVD and SPE3 with PDVD in place of RVVD."""
+mini black-oil, the SPE10-like, the Norne-like and the SPE3-like
+generators so far), SPE1 with PBVD in place of RSVD and SPE3 with PDVD
+in place of RVVD."""
 
 from __future__ import annotations
 
 from opm_tpu_torch.io.eclstate import EclipseCase, load_case_string
+
+
+def mini_blackoil_deck(nx=10, ny=10, nz=3, *, inj_rate=100000,
+                       prod_rate=20000, tsteps="10*30") -> str:
+    """SPE1-like three-phase DISGAS case, scalable grid dimensions."""
+    n = nx * ny * nz
+    nlay = nx * ny
+    return f"""
+RUNSPEC
+TITLE
+  MINI BLACKOIL {nx}x{ny}x{nz}
+DIMENS
+ {nx} {ny} {nz} /
+EQLDIMS
+/
+TABDIMS
+/
+OIL
+GAS
+WATER
+DISGAS
+FIELD
+WELLDIMS
+ 2 {nz} 1 2 /
+GRID
+DX
+ {n}*{10000.0 / nx} /
+DY
+ {n}*{10000.0 / ny} /
+DZ
+ {n}*{100.0 / nz} /
+TOPS
+ {nlay}*8325 /
+PORO
+ {n}*0.3 /
+PERMX
+ {n}*500 /
+PERMY
+ {n}*500 /
+PERMZ
+ {n}*50 /
+PROPS
+PVTW
+ 4014.7 1.029 3.13D-6 0.31 0 /
+ROCK
+ 14.7 3D-6 /
+SWOF
+ 0.12 0       1     0
+ 0.3  0.0002  0.8   0
+ 0.5  0.005   0.35  0
+ 0.7  0.05    0.05  0
+ 0.88 0.15    0.0   0
+ 1.0  0.30    0.0   0 /
+SGOF
+ 0    0     1     0
+ 0.02 0     0.95  0
+ 0.2  0.08  0.35  0
+ 0.4  0.3   0.05  0
+ 0.6  0.6   0.005 0
+ 0.88 0.95  0.0   0 /
+DENSITY
+ 53.66 64.49 0.0533 /
+PVDG
+ 14.700 166.666 0.008
+ 1014.7 3.19700 0.0140
+ 2014.7 1.61400 0.0189
+ 3014.7 1.08000 0.0228
+ 4014.7 0.81100 0.0268
+ 5014.7 0.64900 0.0309
+ 9014.7 0.38600 0.0470 /
+PVTO
+ 0.0010 14.7   1.0620 1.0400 /
+ 0.1800 514.7  1.2070 0.9100 /
+ 0.3710 1014.7 1.2950 0.8300 /
+ 0.6360 2014.7 1.4350 0.6950 /
+ 0.9300 3014.7 1.5650 0.5940 /
+ 1.2700 4014.7 1.6950 0.5100
+        5014.7 1.6710 0.5490
+        9014.7 1.5790 0.7400 /
+ 1.6180 5014.7 1.8270 0.4490
+        9014.7 1.7370 0.6310 /
+/
+SOLUTION
+EQUIL
+ 8400 4800 8500 0 8200 0 1 0 0 /
+RSVD
+ 8200 1.270
+ 8500 1.270 /
+SUMMARY
+FOPR
+SCHEDULE
+WELSPECS
+ 'PROD' 'G1' {nx} {ny} 8400 'OIL' /
+ 'INJ'  'G1' 1 1 8335 'GAS' /
+/
+COMPDAT
+ 'PROD' {nx} {ny} {nz} {nz} 'OPEN' 1* 1* 0.5 /
+ 'INJ'  1 1 1 1 'OPEN' 1* 1* 0.5 /
+/
+WCONPROD
+ 'PROD' 'OPEN' 'ORAT' {prod_rate} 4* 1000 /
+/
+WCONINJE
+ 'INJ' 'GAS' 'OPEN' 'RATE' {inj_rate} 1* 9014 /
+/
+TSTEP
+ {tsteps} /
+END
+"""
+
+
+def mini_blackoil_case(nx=10, ny=10, nz=3, **kw) -> EclipseCase:
+    return load_case_string(mini_blackoil_deck(nx, ny, nz, **kw))
 
 
 def spe10like_deck(nx=60, ny=220, nz=20, seed=10, tsteps="5*20") -> str:

@@ -1,13 +1,21 @@
 """flow: the simulator CLI of the port.
 
 Deck in, simulation out: runs the fully-implicit black-oil simulator on
-the chosen device and prints one summary row per report step (with
-``--verbose``) and a final JSON line of iteration totals and wall time.
+the chosen device, writes its files into --output-dir (the PRT log,
+summary.csv, CASE.SMSPEC/UNSMRY, CASE.INIT, CASE.EGRID, fip_report.txt,
+step_timing.txt, walltime.txt; with --write-restart restart_NNNN.npz and
+CASE.UNRST, with --vtk step_NNNN.vtr, with --matlab the per-variable
+NNN.txt dumps), prints one summary row per report step (unless --quiet)
+and a final JSON line of iteration totals and wall time.
 
-    python -m opm_tpu_torch.tools.flow CASE.DATA [--device cuda|cpu]
+    python -m opm_tpu_torch.tools.flow CASE.DATA [--output-dir out]
+        [--device cuda|cpu] [--report-steps N] [--vtk] [--matlab]
+        [--write-restart] [--restart-file F [--restart-step N]]
+        [--param KEY=VALUE ...] [--quiet]
 
 The default device is the card (cuda); --device cpu runs on the CPU.
-        [--report-steps N] [--param KEY=VALUE ...] [--quiet]
+--restart-file resumes from a restart_NNNN.npz checkpoint, or from an
+.UNRST at the report step --restart-step names.
 """
 
 from __future__ import annotations
@@ -22,15 +30,28 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="flow", description=__doc__)
     ap.add_argument("deck")
+    ap.add_argument("--output-dir", default="output")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cpu, cuda, cuda:1, ...)")
     ap.add_argument("--report-steps", type=int, default=None)
+    ap.add_argument("--vtk", action="store_true")
+    ap.add_argument("--matlab", action="store_true",
+                    help="per-variable NNN.txt dumps per report step "
+                         "(output_matlab, BlackoilMatlabWriter role)")
+    ap.add_argument("--write-restart", action="store_true")
+    ap.add_argument("--restart-file", default=None)
+    ap.add_argument("--restart-step", type=int, default=None,
+                    help="the report step (SEQNUM) to resume from when "
+                         "--restart-file is an .UNRST")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--param", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="ParameterGroup override (repeatable), e.g. "
                          "tolerance_cnv=1e-3, max_iter=12, initial_dt=2.0")
     args = ap.parse_args(argv)
+    if args.restart_file and args.restart_file.upper().endswith(".UNRST") \
+            and args.restart_step is None:
+        ap.error("--restart-file F.UNRST needs --restart-step")
 
     import torch
 
@@ -58,11 +79,16 @@ def main(argv=None):
     if not args.quiet:
         print(f"{case.runspec.title or args.deck}: "
               f"{case.runspec.dims} {'/'.join(case.runspec.phases)}"
-              f"{' DISGAS' if case.runspec.disgas else ''} on {device}")
+              f"{' DISGAS' if case.runspec.disgas else ''}"
+              f"{' VAPOIL' if case.runspec.vapoil else ''} on {device}")
     sim = SimulatorFullyImplicitBlackoil(case, params=mparams, ts_params=tsp,
+                                         output_dir=args.output_dir,
                                          device=device)
     t0 = time.perf_counter()
-    sim.run(report_step_limit=args.report_steps, verbose=not args.quiet)
+    sim.run(report_step_limit=args.report_steps, verbose=not args.quiet,
+            restart_file=args.restart_file, restart_step=args.restart_step,
+            write_restart=args.write_restart, write_vtk=args.vtk,
+            write_matlab=args.matlab)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0

@@ -127,3 +127,9 @@ class UnitSystem:
         if name not in self._atoms:
             raise KeyError(f"unknown dimension atom {name!r}")
         return self._atoms[name]
+
+
+def si_factor(system: str, dim: str) -> float:
+    """SI factor of dimension ``dim`` in unit system ``system`` (the output
+    writers divide by it to store deck units)."""
+    return UnitSystem(system).factor(dim)
