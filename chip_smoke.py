@@ -184,7 +184,40 @@ Phases (each prints a line of its own; any failure exits non-zero):
 7. the toy Norne-like deck in both representations against
    data/nornelike_toy_reference_cpu.json (first K6 in K10's refresh
    against the twin and the pair on the gather deck's first Newton
-   system).
+   system);
+3e. (after 3b) K3's five entries with a THPRES threshold (a third of the
+   faces at 0, a third above |dphi|, the rest exactly one phase's |dphi|
+   as the twin computes it on a CPU copy: the clip's tie): the
+   divergence, its tangent (B = 3) and the stencil face blocks at
+   SPE10-2's shapes bit for bit their twins on the card; K3-faces'
+   divergence and face blocks on the full Norne-class gather grid's face
+   list bit for bit their twins on CPU copies (phase 8); each timed per
+   launch and in a run of 50 with and without the threshold, with its
+   bound;
+4d. the small decks of the JAX package's tests of field-style controls
+   (data/wellctrl_reference_cpu.json: THPRES given and defaulted,
+   secondary-limit switching, the VFP datum correction, WTHP, a group
+   ORAT target, WCONHIST/WCONINJH, MULTFLT mid-run) end to end on the card
+   through the dense route, each held per report step to whichever of
+   the fixture's two runs (compiled, op by op) has its counts: FPR within
+   1e-4, FOPR, FWPR, FGOR within 1e-3, WBHP 1e-4, WTHP 1e-3, the same
+   control code for every well; no host sync (host-to-device copies
+   included) inside any Newton iteration's residual, controls and
+   assembly;
+8. the Norne-class field under field controls (sim/testcases.py
+   norne_field_controls: THP with a VFP table, a group ORAT target,
+   WCONHIST RESV, WECON, WCONINJH, a RESV injector, THPRES between two
+   EQLNUM regions, MULTFLT before the third of three report steps): the
+   toy field in E and G held to data/nornewells_reference_cpu.json and
+   the full field (46x112x22) in E and G held to
+   data/nornewells_full_reference_cpu.json; each with its wall, counts,
+   sections, the threshold entries' launches, P8 shut by WECON, no host
+   sync inside any Newton iteration's residual, controls and assembly,
+   the CPR hierarchy rebuilt after MULTFLT (K7's refresh on E, K10's on G
+   launched after it; the hierarchy's, the model's and the simulator's
+   device bytes before and after), device memory at the end within 5% of
+   what it was before the rebuild (both after a garbage collection), and a report step's host reads and seconds of
+   each new piece (groups, VFP, WTHP, economic limits, RESV).
 
 Phases 4 to 7 read the launch counters over each run (and print the
 synced Newton sections) and fail if a kernel of that run's path was not
@@ -558,6 +591,24 @@ class Kernels:
              f"{JAX_PKG}/sim/init.py:174-183", equil.equil_cells_cuda),
             ("K1 equil_cells PDVD", "cuda", f"{P}/csrc/equil.cu",
              f"{JAX_PKG}/sim/init.py:184-188", equil.equil_cells_cuda),
+            # K3's entries with a THPRES threshold (the clip of
+            # face_flux_from_q): the same launches as their rows above,
+            # counted where a threshold is given
+            ("K3 tpfa_div thr", "cuda", f"{P}/csrc/tpfa.cu",
+             f"{JAX_PKG}/models/blackoil.py:194-198,298-331",
+             ThrCount(mb.tpfa_div_cuda)),
+            ("K3 tpfa_div_tangent thr", "cuda", f"{P}/csrc/tpfa.cu",
+             f"{JAX_PKG}/models/blackoil.py:194-198,298-331",
+             ThrCount(mb.tpfa_div_tangent_cuda)),
+            ("K3 face_blocks thr", "cuda", f"{P}/csrc/blocks.cu",
+             f"{JAX_PKG}/models/linearize.py:164-236",
+             ThrCount(k4.face_blocks_cuda)),
+            ("K3-faces faces_div thr", "cuda", f"{P}/csrc/faces.cu",
+             f"{JAX_PKG}/models/blackoil.py:194-198,319-338",
+             ThrCount(mb.faces_div_cuda)),
+            ("K3-faces face_blocks thr", "cuda", f"{P}/csrc/faces.cu",
+             f"{JAX_PKG}/models/linearize.py:237-320",
+             ThrCount(k4.faces_blocks_cuda)),
         ]
         self.err = {e[0]: 0.0 for e in self.entries}
         self.ms, self.plain_ms, self.library_ms = {}, {}, {}
@@ -610,15 +661,29 @@ class Kernels:
                "K1 equil_march wet gas", "K1 equil_cells RVVD",
                "K1 equil_cells PDVD")
 
+    # the threshold rows (phases 3e, 4d and 8)
+    THR = ("K3 tpfa_div thr", "K3 tpfa_div_tangent thr",
+           "K3 face_blocks thr", "K3-faces faces_div thr",
+           "K3-faces face_blocks thr")
+    # the pressure hierarchy's launches a MULTFLT rebuild must be followed
+    # by (E: K7's refresh; G: K6 in K10's refresh, K10's up leg)
+    REBUILT = ("K7 gmg_refresh", "K6 cpr_setup in amg_refresh",
+               "K10 amg_vcycle_up")
+
     def names(self, prefixes, face_grids=False, main_path=False):
         """The entries whose kernel family is in ``prefixes``: those of the
         structured routes, or with ``face_grids`` those of the grids with
         a face list; with ``main_path`` only those a run launches (the
-        wet-gas rows are named by WET_GAS alone)."""
+        wet-gas and the threshold rows are named by WET_GAS and THR
+        alone)."""
         return [e[0] for e in self.entries if e[0].split()[0] in prefixes
                 and (e[0] in self.FACE_GRIDS_ONLY) == face_grids
-                and e[0] not in self.WET_GAS
+                and e[0] not in self.WET_GAS and e[0] not in self.THR
                 and not (main_path and e[0] in self.OFF_MAIN)]
+
+    def counts(self, names):
+        """The wrappers' current launch counts of ``names``."""
+        return {e[0]: e[4].launches for e in self.entries if e[0] in names}
 
     def reset(self):
         from opm_tpu_torch.linalg import gmg as k7
@@ -3871,6 +3936,634 @@ def run_vs_fixture(sim, ref, label, state=None, report_step_limit=None,
 
 
 # ---------------------------------------------------------------------------
+# 3e / 8: THPRES thresholds through K3, the well-control decks, the
+# Norne-class field under field-style controls
+
+class ThrCount:
+    """A K3 wrapper's launches with a THPRES threshold (its
+    ``thr_launches``), read and reset as a wrapper's ``launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.thr_launches
+
+    @launches.setter
+    def launches(self, v):
+        self.fn.thr_launches = v
+
+
+def seeded_ties(dphi, seed):
+    """(nf,) thresholds for faces with per-phase potentials dphi (3, nf),
+    computed on a CPU copy as the twins compute them: a third 0, a third
+    above every phase's |dphi|, the rest exactly one phase's |dphi| (the
+    clip's tie)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    a = dphi.abs()
+    nf = a.shape[1]
+    kind = torch.as_tensor(rng.integers(0, 3, nf))
+    tie = a[torch.as_tensor(rng.integers(0, 3, nf)), torch.arange(nf)]
+    return torch.where(kind == 1, 1.5 * a.amax(dim=0) + 1.0,
+                       torch.where(kind == 2, tie, 0.0))
+
+
+def face_dphi(p3, rho, depth, c1, c2, g):
+    """The faces' potentials (3, nf) on a CPU copy, as the twins compute
+    them."""
+    return (p3[:, c1] - p3[:, c2]) - 0.5 * (rho[:, c1] + rho[:, c2]) * g * (
+        depth[c1] - depth[c2])
+
+
+def stencil_faces(dims):
+    """(c1, c2) of a structured grid's stencil faces in the grid's face
+    order."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.models.blackoil import _dir_segments
+    nx, ny, nz = dims
+    idx = np.arange(nx * ny * nz).reshape(nz, ny, nx)
+    c1 = np.concatenate([idx[sl].ravel() for sl, _, _ in
+                         _dir_segments(dims)])
+    c2 = np.concatenate([idx[sr].ravel() for _, sr, _ in
+                         _dir_segments(dims)])
+    return torch.as_tensor(c1), torch.as_tensor(c2)
+
+
+def thr_inputs(model, state, seed, faces=None):
+    """K3's face inputs at ``state`` on the card and seeded thresholds over
+    the model's faces (``faces``: a face list's (c1, c2), else the
+    stencil's), with the count of ties."""
+    import torch
+    q = model.cell_quantities(state)
+    p3 = torch.stack([q.pw, q.po, q.pg]).contiguous()
+    rho, bmob = q.rho.contiguous(), (q.b * q.mob).contiguous()
+    c1, c2 = faces if faces is not None else stencil_faces(model.dims)
+    dphi = face_dphi(p3.cpu(), rho.cpu(), model.depth.cpu(), c1, c2,
+                     model.gravity)
+    thr = seeded_ties(dphi, seed)
+    ties = int((dphi.abs() == thr[None, :]).any(dim=0).sum())
+    return (p3, rho, bmob, q.rs.contiguous(), q.rv.contiguous()), \
+        thr.to(model.device), ties
+
+
+def compare_threshold_kernels(K, model, state, seed, label):
+    """K3's structured entries with a THPRES threshold at SPE10-2's shapes
+    (the divergence, the tangent at B = 3, the stencil face blocks) against
+    their twins on the card, bit for bit, ties included; each timed per
+    launch with and without the threshold, with its bound."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize as lz
+    dev = model.device
+    (p3, rho, bmob, rs, rv), thr, ties = thr_inputs(model, state, seed)
+    nf = thr.shape[0]
+    args = (model.dims, p3, rho, bmob, rs, rv, model.depth, model.trans,
+            model.gravity)
+    out = dict(faces=nf, ties=ties, zero=int((thr == 0).sum()))
+    if ties == 0:
+        fail(f"{label}: no face on a threshold's tie")
+    rng = np.random.default_rng(seed + 7)
+    tan = [torch.as_tensor(rng.standard_normal((3,) + a.shape), device=dev)
+           * a.abs().mean() for a in (p3, rho, bmob, rs, rv)]
+    fv = torch.cat([p3, rho, bmob, rs[None], rv[None]]).contiguous()
+    fc = torch.as_tensor(rng.standard_normal((3, 11, model.nc)), device=dev)
+    r0 = torch.as_tensor(rng.standard_normal((3, model.nc)), device=dev)
+    d0 = torch.as_tensor(rng.standard_normal((9, model.nc)), device=dev)
+    nf_all = model.trans.shape[0]
+
+    def blocks(fn, th):
+        r, d = r0.clone(), d0.clone()
+        fL = torch.zeros((9, nf_all), dtype=torch.float64, device=dev)
+        fR = torch.zeros_like(fL)
+        fn(model.dims, fv, fc, model.depth, model.trans, model.gravity, r,
+           d, fL, fR, thr=th)
+        return r, d, fL, fR
+
+    cases = (
+        ("K3 tpfa_div thr", lambda th: mb.tpfa_div_cuda(*args, thr=th),
+         lambda th: mb.tpfa_div_plain(*args, thr=th), args[1:8],
+         (3, model.nc), 80 * nf),
+        ("K3 tpfa_div_tangent thr",
+         lambda th: mb.tpfa_div_tangent_cuda(*args, *tan, thr=th),
+         lambda th: mb.tpfa_div_tangent_plain(*args, *tan, thr=th),
+         (args[1:8], tan), (3, 3, model.nc), 120 * nf * 3),
+        ("K3 face_blocks thr",
+         lambda th: blocks(lz.face_blocks_cuda, th),
+         lambda th: blocks(lz.face_blocks_plain, th),
+         (fv, fc, model.depth, model.trans, r0, d0),
+         (2 * 9 * nf_all + 12 * model.nc,), 6 * 120 * nf))
+    for name, kfn, pfn, ins, out_shape, flops in cases:
+        k, p = kfn(thr), pfn(thr)
+        k, p = (k,) if isinstance(k, torch.Tensor) else k, \
+            (p,) if isinstance(p, torch.Tensor) else p
+        for a, b in zip(k, p):
+            K.note(name, float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                fail(f"{label}: {name} is not bit for bit its twin's")
+        K.ms[name] = cuda_ms(lambda: kfn(thr))
+        K.plain_ms[name] = cuda_ms(lambda: pfn(thr))
+        K.run_ms[name] = run_ms(lambda: kfn(thr))
+        out[name] = dict(ms=K.ms[name], run_ms=K.run_ms[name],
+                         ms_no_thr=cuda_ms(lambda: kfn(None)),
+                         run_ms_no_thr=run_ms(lambda: kfn(None)),
+                         plain_ms=K.plain_ms[name])
+        nb = nbytes(ins, thr) + 8 * int(np.prod(out_shape))
+        K.bound_raw(name, nb, flops)
+        out[name]["bound_ms"] = K.bound_ms[name]
+        log(f"  {name:26s} kernel {K.ms[name]:9.4f} ms (no threshold "
+            f"{out[name]['ms_no_thr']:.4f})   per launch in a run of 50 "
+            f"{K.run_ms[name]:.4f} (no threshold "
+            f"{out[name]['run_ms_no_thr']:.4f})   plain "
+            f"{K.plain_ms[name]:.4f}   bound {K.bound_ms[name]:.4f} "
+            f"({K.bound_by[name]})")
+    return out
+
+
+def compare_threshold_faces(K, model, state, seed, label):
+    """K3-faces' two entries with a THPRES threshold on a gather grid's face
+    list against their twins on CPU copies, bit for bit, ties included;
+    timed per launch with and without it, with the bound."""
+    import numpy as np
+    import torch
+
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize as lz
+    dev = model.device
+    fl = model.faces
+    fl_cpu = mb.FaceList(model.grid.face_cells, model.nc, fl.first, "cpu")
+    (p3, rho, bmob, rs, rv), thr, ties = thr_inputs(
+        model, state, seed, (fl_cpu.c1, fl_cpu.c2))
+    if ties == 0:
+        fail(f"{label}: no face on a threshold's tie")
+    a = (p3, rho, bmob, rs, rv, model.depth, model.trans)
+    cpu = [x.cpu() for x in a]
+    kd = mb.faces_div_cuda(fl, *a, model.gravity, thr=thr)
+    pd = mb.faces_div_plain(fl_cpu, *cpu, model.gravity, thr=thr.cpu())
+    K.note("K3-faces faces_div thr", float((kd.cpu() - pd).abs().max()))
+    if not torch.equal(kd.cpu(), pd):
+        fail(f"{label}: K3-faces faces_div with a threshold is not bit for "
+             "bit its twin's")
+    rng = np.random.default_rng(seed + 9)
+    nc, nf = model.nc, model.trans.shape[0]
+    fv = torch.cat([p3, rho, bmob, rs[None], rv[None]]).contiguous()
+    fc = torch.as_tensor(rng.standard_normal((3, 11, nc)), device=dev)
+    r0 = torch.as_tensor(rng.standard_normal((3, nc)), device=dev)
+    d0 = torch.as_tensor(rng.standard_normal((9, nc)), device=dev)
+
+    def fblocks(fn, lead, on, th):
+        r, d = r0.to(on).clone(), d0.to(on).clone()
+        fL = torch.zeros((9, nf), dtype=torch.float64, device=on)
+        fR = torch.zeros_like(fL)
+        blk = fn(lead, fv.to(on), fc.to(on), model.depth.to(on),
+                 model.trans.to(on), model.gravity, r, d, fL, fR,
+                 thr=None if th is None else th.to(on))
+        return r, d, fL, fR, blk
+
+    k = fblocks(lz.faces_blocks_cuda, fl, dev, thr)
+    p = fblocks(lz.faces_blocks_packed_plain, fl_cpu, "cpu", thr)
+    for x, y in zip(k, p):
+        K.note("K3-faces face_blocks thr", float((x.cpu() - y).abs().max()))
+        if not torch.equal(x.cpu(), y):
+            fail(f"{label}: K3-faces face blocks with a threshold are not "
+                 "bit for bit their twin's")
+    out = dict(faces=fl.n, ties=ties, zero=int((thr == 0).sum()))
+    for name, kfn, pfn, ins, nout, flops in (
+            ("K3-faces faces_div thr",
+             lambda th: mb.faces_div_cuda(fl, *a, model.gravity, thr=th),
+             lambda th: mb.faces_div_plain(fl, *a, model.gravity, thr=th),
+             (a, fl.full.ptr, fl.full.ent, fl.full.nbr), 3 * nc, 80 * fl.n),
+            ("K3-faces face_blocks thr",
+             lambda th: fblocks(lz.faces_blocks_cuda, fl, dev, th),
+             lambda th: fblocks(lz.faces_blocks_packed_plain, fl, dev, th),
+             (fv, fc, model.depth, model.trans, r0, d0, fl.c1_32, fl.c2_32),
+             18 * fl.n + 12 * nc + 288 * fl.sell.n_chunks,
+             6 * 120 * fl.n)):
+        K.ms[name] = cuda_ms(lambda: kfn(thr))
+        K.plain_ms[name] = cuda_ms(lambda: pfn(thr))
+        K.run_ms[name] = run_ms(lambda: kfn(thr))
+        out[name] = dict(ms=K.ms[name], run_ms=K.run_ms[name],
+                         ms_no_thr=cuda_ms(lambda: kfn(None)),
+                         run_ms_no_thr=run_ms(lambda: kfn(None)),
+                         plain_ms=K.plain_ms[name])
+        K.bound_raw(name, nbytes(ins, thr) + 8 * nout, flops)
+        out[name]["bound_ms"] = K.bound_ms[name]
+        log(f"  {name:26s} kernel {K.ms[name]:9.4f} ms (no threshold "
+            f"{out[name]['ms_no_thr']:.4f})   per launch in a run of 50 "
+            f"{K.run_ms[name]:.4f} (no threshold "
+            f"{out[name]['run_ms_no_thr']:.4f})   plain "
+            f"{K.plain_ms[name]:.4f}   bound {K.bound_ms[name]:.4f} "
+            f"({K.bound_by[name]})")
+    return out
+
+
+# the limits of the field-control legs against their fixtures (relative)
+CTRL_LIMITS = dict(FPR=TOL_FPR, FOPR=TOL_RATE, FWPR=TOL_RATE, FGOR=TOL_RATE,
+                   WBHP=1e-4, WTHP=1e-3)
+
+
+def hold_controls(label, sim, ctrl, runs, spread=None):
+    """A field-controls run held per report step to its fixture: the
+    reference's runs (its compiled run and, where recorded, its op-by-op
+    one, whose summation orders part these decks by more than the limits)
+    whose per-step counts equal the port's; against it every report step's
+    FPR, FOPR, FWPR (these two of the field's liquid rate), FGOR, each
+    well's WBHP and WTHP within CTRL_LIMITS and the same control code for
+    every well; with ``spread`` (the reference's own roundoff spread per
+    report step, as the nornewells fixture records it) a step's counts may
+    also be those of the spread's runs and its values off by as much as
+    the spread there, where that is wider than the limit. Returns the
+    run's name and the worst relative errors (beyond the spread)."""
+    steps = [[int(s[3]), int(s[4])] for s in sim._step_timing]
+
+    def counts_ok(r):
+        ref = [[x["substeps"], x["newtons"]] for x in r["report_steps"]]
+        if spread is None:
+            return steps == ref
+        return len(steps) == len(ref) and all(
+            st == rs or st in sp["counts"]
+            for st, rs, sp in zip(steps, ref, spread))
+
+    match = [m for m, r in runs.items() if counts_ok(r)]
+    if not match:
+        fail(f"{label}: report-step counts {steps} equal none of the "
+             "reference's runs: " + "; ".join(
+                 f"{m} {[[x['substeps'], x['newtons']] for x in r['report_steps']]}"
+                 for m, r in runs.items()))
+    best = None
+    for m in match:
+        ref = runs[m]["report_steps"]
+        worst = {k: 0.0 for k in CTRL_LIMITS}
+        raw = dict(worst)
+        codes = ctrl == [x["control"] for x in ref]
+        for j, (row, x) in enumerate(zip(sim.summary.rows, ref)):
+            sp = spread[j] if spread is not None else None
+            for k in ("FPR", "FOPR", "FWPR", "FGOR"):
+                # the phase rates relative to the field's liquid rate (a
+                # trickle of water is no measure of its own)
+                scale = max(abs(x[k]), x["FOPR"] + x["FWPR"]) \
+                    if k in ("FOPR", "FWPR") else abs(x[k])
+                e = abs(row[k] - x[k]) / max(scale, 1e-30)
+                raw[k] = max(raw[k], e)
+                if sp is not None and e <= sp[k]:
+                    e = 0.0
+                worst[k] = max(worst[k], e)
+            for k in ("WBHP", "WTHP"):
+                for i, n in enumerate(sim.well_names):
+                    v, w = row.get(f"{k}:{n}", 0.0), x[k][i]
+                    e = abs(v - w) / abs(w) if w else abs(v)
+                    raw[k] = max(raw[k], e)
+                    if sp is not None and e <= sp[k][i]:
+                        e = 0.0
+                    worst[k] = max(worst[k], e)
+        ok = codes and all(worst[k] <= CTRL_LIMITS[k] for k in worst)
+        if best is None or ok:
+            best = (m, worst, raw, codes, ok)
+        if ok:
+            break
+    m, worst, raw, codes, ok = best
+    log(f"  {label}: held to the reference's {m} run; worst relative "
+        + ", ".join(f"{k}={v:.2e}" for k, v in raw.items())
+        + ("" if spread is None else "; beyond the reference's roundoff "
+           "spread: " + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+        + f"; control codes {'equal' if codes else 'DIFFER'}")
+    if not ok:
+        fail(f"{label}: outside the fixture's limits or other control codes")
+    return m, raw
+
+
+def device_bytes(obj):
+    """The bytes of the distinct CUDA storages that ``obj`` holds, through
+    the attributes of the port's objects and through lists, tuples and
+    dicts (the CPR hierarchy with its kernels' buffers, or the model)."""
+    import torch
+
+    seen, ptrs, stack = set(), {}, [obj]
+    while stack:
+        o = stack.pop()
+        if isinstance(o, torch.Tensor):
+            if o.is_cuda:
+                st = o.untyped_storage()
+                ptrs[st.data_ptr()] = st.nbytes()
+            continue
+        if id(o) in seen:
+            continue
+        seen.add(id(o))
+        if isinstance(o, dict):
+            stack.extend(o.values())
+        elif isinstance(o, (list, tuple)):
+            stack.extend(o)
+        elif type(o).__module__.startswith("opm_tpu_torch"):
+            stack.extend(getattr(o, "__dict__", {}).values())
+            stack.extend(getattr(o, k) for k in getattr(o, "__slots__", ())
+                         if hasattr(o, k))
+    return sum(ptrs.values())
+
+
+@contextlib.contextmanager
+def newton_host_reads():
+    """Inside the block, the syncs of every Newton iteration's residual,
+    convergence and control update (NonlinearSolver._assemble) and of every
+    block assembly (linearize.assemble) are counted under the sync debug
+    mode "warn", by the Python line that called the synchronizing operation
+    (``sites``; host-to-device copies of constants count too); each
+    Newton's one read of K9's row is outside them, in the loop. Yields the
+    counters."""
+    import warnings
+
+    import torch
+
+    from opm_tpu_torch.models import linearize as lz
+    from opm_tpu_torch.solver import newton as nt
+
+    counts = dict(calls=0, syncs=0, sites={})
+    plain_asm, plain_lin = nt.NonlinearSolver._assemble, lz.assemble
+
+    def counted(fn):
+        def wrapped(*a, **kw):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            for x in w:
+                if "synchroniz" in str(x.message):
+                    counts["syncs"] += 1
+                    site = f"{os.path.basename(x.filename)}:{x.lineno}"
+                    counts["sites"][site] = counts["sites"].get(site, 0) + 1
+            counts["calls"] += fn is plain_asm
+            return out
+        return wrapped
+
+    nt.NonlinearSolver._assemble = counted(plain_asm)
+    lz.assemble = counted(plain_lin)
+    try:
+        yield counts
+    finally:
+        nt.NonlinearSolver._assemble = plain_asm
+        lz.assemble = plain_lin
+
+
+def wellctrl_phase(K):
+    """Each deck of data/wellctrl_reference_cpu.json end to end on the card
+    (dense route), held per report step to the fixture (hold_controls); the
+    threshold entries' launches over the THPRES decks."""
+    import torch
+
+    from opm_tpu_torch.io.eclstate import load_case_string
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    with open(os.path.join(ROOT, "data", "wellctrl_reference_cpu.json")) as f:
+        fx = json.load(f)
+    out = {}
+    K.reset()
+    for name, d in fx["runs"].items():
+        sim = SimulatorFullyImplicitBlackoil(load_case_string(d["deck"]))
+        ctrl = []
+        sim.events.event("report_step_completed").add(
+            lambda s, step, c=ctrl: c.append(s.control.tolist()))
+        t0 = time.perf_counter()
+        with newton_host_reads() as hr:
+            sim.run(report_step_limit=d["report_step_limit"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = sim.report
+        log(f"wellctrl {name}: {wall:.2f} s, {rep.newton_iterations} "
+            f"Newtons, {rep.substeps} substeps, {rep.failed_substeps} "
+            f"failed; host syncs inside the Newton iterations' residual, "
+            f"controls and assembly: {hr['syncs']} in {hr['calls']} "
+            f"iterations at {hr['sites']}; report-step host work "
+            f"{sim.host_work}")
+        m, worst = hold_controls(f"wellctrl {name}", sim, ctrl, {
+            k: v for k, v in d.items() if k in ("jit", "eager")})
+        out[name] = dict(wall_s=wall, newtons=rep.newton_iterations,
+                         substeps=rep.substeps,
+                         failed=rep.failed_substeps, held_to=m,
+                         worst_rel=worst, newton_syncs=hr["syncs"],
+                         newton_calls=hr["calls"], sync_sites=hr["sites"],
+                         host_work=sim.host_work)
+        if hr["syncs"]:
+            fail(f"wellctrl {name}: host syncs inside the Newton "
+                 f"iterations: {hr['sites']}")
+    out["launches"] = K.counts(K.THR)
+    for n in ("K3 tpfa_div thr", "K3 tpfa_div_tangent thr"):
+        if out["launches"][n] <= 0:
+            fail(f"the THPRES decks launched no {n}")
+    log("  threshold launches over the wellctrl decks: " + ", ".join(
+        f"{n}={c}" for n, c in out["launches"].items()))
+    return out
+
+
+def norne_controls_run(K, case, knob, label, ref=None, spread=None):
+    """The Norne-class field under field controls (three report steps,
+    MULTFLT before the third) on the card in one representation: counts,
+    wall, sections, the launch counters (the threshold entries, K10 on G,
+    K7 after the rebuild on E), device memory before and after the
+    rebuild, host reads a Newton and a report step's host work of each
+    piece; held to ``ref`` (the fixture's run) when given; fails unless P8
+    is shut by WECON."""
+    import torch
+
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    # the earlier legs' garbage collected first: the rebuild's own
+    # collection must not count it as released
+    gc.collect()
+    torch.cuda.synchronize()
+    mem = dict(start=torch.cuda.memory_allocated())
+    with embed_knob(knob):
+        sim = SimulatorFullyImplicitBlackoil(case)
+    sim.solver.timing = {}
+    hier = {}
+    plain_geo = sim._apply_geo_modifiers
+
+    def geo(mods):
+        gc.collect()
+        torch.cuda.synchronize()
+        mem["before"] = torch.cuda.memory_allocated()
+        hier["bytes_before"] = dict(cpr=device_bytes(sim.solver.amg),
+                                    model=device_bytes(sim.model),
+                                    sim=device_bytes(sim))
+        hier["old"] = id(sim.solver.amg)
+        hier["launches_before"] = K.counts(K.REBUILT)
+        t0 = time.perf_counter()
+        plain_geo(mods)
+        torch.cuda.synchronize()
+        hier["rebuild_s"] = time.perf_counter() - t0
+        mem["after_rebuild"] = torch.cuda.memory_allocated()
+        hier["bytes_after"] = dict(cpr=device_bytes(sim.solver.amg),
+                                   model=device_bytes(sim.model),
+                                   sim=device_bytes(sim))
+        hier["new"] = id(sim.solver.amg)
+
+    sim._apply_geo_modifiers = geo
+    ctrl, thr_zero = [], []
+    sim.events.event("report_step_completed").add(
+        lambda s, step: ctrl.append(s.control.tolist()))
+
+    def zero_faces(s, step):
+        if thr_zero:
+            return
+        q = sim.model.cell_quantities(s)
+        flux = sim.model.face_fluxes(q, sim.model.threshold_dp)
+        free = sim.model.face_fluxes(q)
+        on = (sim.model.threshold_dp > 0) & (sim.model.trans > 0)
+        held = on & (flux == 0).all(dim=0) & (free != 0).any(dim=0)
+        thr_zero.append([int(on.sum()), int(held.sum())])
+
+    sim.events.event("report_step_completed").add(zero_faces)
+    K.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with newton_host_reads() as hr:
+        sim.run(report_step_limit=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mem["end"] = torch.cuda.memory_allocated()
+    hier["bytes_end"] = dict(cpr=device_bytes(sim.solver.amg),
+                             model=device_bytes(sim.model),
+                             sim=device_bytes(sim))
+    launched = K.counts(K.THR + K.REBUILT)
+    rep = sim.report
+    nsteps = len(sim.summary.rows)
+    res = dict(wall_s=wall, newtons=rep.newton_iterations,
+               substeps=rep.substeps, failed=rep.failed_substeps,
+               linear=rep.linear_iterations,
+               steps=[list(s) for s in sim._step_timing],
+               sections_s=dict(sim.solver.timing),
+               launches=launched,
+               memory=mem, rebuild_s=hier.get("rebuild_s"),
+               device_bytes=dict(before=hier.get("bytes_before"),
+                                 after=hier.get("bytes_after"),
+                                 end=hier["bytes_end"]),
+               newton_syncs=hr["syncs"], newton_calls=hr["calls"],
+               sync_sites=hr["sites"],
+               host_work={k: [v[0] / nsteps, v[1] / nsteps]
+                          for k, v in sim.host_work.items()},
+               econ_shut=sorted(sim._econ_shut), thpres_zero=thr_zero,
+               controls=ctrl[-1])
+    log(f"{label}: {wall:.2f} s, {rep.newton_iterations} Newtons, "
+        f"{rep.substeps} substeps, {rep.failed_substeps} failed, "
+        f"{rep.linear_iterations} linear; steps {res['steps']}")
+    log("  sections (s, synced): " + ", ".join(
+        f"{k}={v:.2f}" for k, v in res["sections_s"].items()))
+    log("  launches: " + ", ".join(f"{n}={c}" for n, c in
+                                   res["launches"].items()))
+    log(f"  rebuild after MULTFLT {hier.get('rebuild_s', 0):.3f} s; device "
+        f"memory (MB) at the start {mem['start'] / 1e6:.1f}, before the "
+        f"rebuild {mem.get('before', 0) / 1e6:.1f}, after it "
+        f"{mem.get('after_rebuild', 0) / 1e6:.1f}, at the end "
+        f"{mem['end'] / 1e6:.1f}; device MB held by the CPR hierarchy "
+        f"(with K7's / K10's buffers), the model and the whole simulator "
+        f"before the rebuild / after it / at the end: " + ", ".join(
+            f"{k} " + " / ".join(
+                f"{hier.get(w, {}).get(k, 0) / 1e6:.1f}"
+                for w in ("bytes_before", "bytes_after", "bytes_end"))
+            for k in ("cpr", "model", "sim")))
+    log(f"  host syncs inside the Newton iterations' residual, controls "
+        f"and assembly: {hr['syncs']} in {hr['calls']} iterations at "
+        f"{hr['sites']} (K9's row is the loop's one read); a report step's "
+        "host work (reads, s): "
+        + ", ".join(
+            f"{k} {v[0]:.2f} {v[1]:.4f}" for k, v in
+            res["host_work"].items()))
+    log(f"  THPRES faces on the interface / held at zero flow after step "
+        f"1: {thr_zero}; shut by WECON: {res['econ_shut']}; controls "
+        f"{ctrl[-1]}")
+    if rep.failed_substeps or nsteps != 3:
+        fail(f"{label}: failed substeps or {nsteps} report steps")
+    if hr["syncs"]:
+        fail(f"{label}: host syncs inside the Newton iterations: "
+             f"{hr['sites']}")
+    if "P8" not in sim._econ_shut:
+        fail(f"{label}: P8 not shut by WECON")
+    if "before" not in mem or hier["old"] == hier["new"]:
+        fail(f"{label}: the CPR hierarchy was not rebuilt after MULTFLT")
+    after = {n: launched[n] - hier["launches_before"][n]
+             for n in K.REBUILT}
+    rebuilt = "K6 cpr_setup in amg_refresh" if knob else "K7 gmg_refresh"
+    if after[rebuilt] <= 0:
+        fail(f"{label}: no {rebuilt} launch after the rebuild")
+    # the old hierarchy released and the new one made: memory at the end
+    # within 5% of what it was before the rebuild (both read after a
+    # garbage collection)
+    if abs(mem["end"] - mem["before"]) > 0.05 * mem["before"]:
+        fail(f"{label}: device memory after the rebuild "
+             f"{mem['end'] / 1e6:.1f} MB against {mem['before'] / 1e6:.1f}")
+    need = (["K3-faces faces_div thr", "K3-faces face_blocks thr"]
+            + ([] if knob else ["K3 tpfa_div thr", "K3 face_blocks thr"]))
+    dead = [n for n in need if launched[n] <= 0]
+    if dead:
+        fail(f"{label}: threshold entries not launched: {dead}")
+    if ref is not None:
+        res["held_to"], res["worst_rel"] = hold_controls(
+            label, sim, ctrl, {"jit": ref}, spread)
+    return res
+
+
+def norne_controls_phase(K, seed):
+    """Phase 8: the Norne-class field under field controls
+    (sim/testcases.py norne_field_controls) in E and G, at the toy size
+    held to data/nornewells_reference_cpu.json and at full size
+    (46x112x22) held to data/nornewells_full_reference_cpu.json;
+    K3-faces' threshold entries on G's face list against their twins."""
+    import hashlib
+
+    import torch
+
+    from opm_tpu_torch.io.eclstate import load_case_string
+    from opm_tpu_torch.sim.blackoil import SimulatorFullyImplicitBlackoil
+    from opm_tpu_torch.sim.init import initial_state
+    from opm_tpu_torch.sim.testcases import (norne_field_controls,
+                                             norne_like_deck)
+    out = {}
+    for size, fname in (("toy", "nornewells_reference_cpu.json"),
+                        ("full", "nornewells_full_reference_cpu.json")):
+        with open(os.path.join(ROOT, "data", fname)) as f:
+            fx = json.load(f)
+        t0 = time.perf_counter()
+        text = norne_field_controls(norne_like_deck(**fx["deck_kwargs"]))
+        if hashlib.sha256(text.encode()).hexdigest() != fx["deck_sha256"]:
+            fail(f"the {size} Norne field-controls deck is not the fixture's")
+        case = load_case_string(text)
+        out[f"{size}_parse_s"] = time.perf_counter() - t0
+        label = ("toy Norne field controls" if size == "toy"
+                 else "Norne-class field controls")
+        for rname, knob in (("embedded", None), ("gather", "0")):
+            out[f"{size}_{rname}"] = norne_controls_run(
+                K, case, knob, f"{label} {rname}", fx["runs"][rname]["jit"],
+                fx["runs"][rname].get("spread"))
+            if size == "full" and knob:
+                with embed_knob(knob):
+                    simg = SimulatorFullyImplicitBlackoil(case)
+                st = initial_state(simg.grid, simg.props, simg.case,
+                                   len(simg.well_names))
+                st = seeded_pressure(st, seed)
+                out["faces_thr"] = compare_threshold_faces(
+                    K, simg.model, st, seed, "Norne-class gather")
+                del simg, st
+            torch.cuda.empty_cache()
+    return out
+
+
+def seeded_pressure(state, seed):
+    """``state`` with a seeded pressure perturbation (faces on both sides
+    of their thresholds)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 3)
+    dp = torch.as_tensor(rng.standard_normal(state.pressure.shape[0]) * 2e4,
+                         device=state.pressure.device)
+    return state._replace(pressure=state.pressure + dp)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
@@ -4010,6 +4703,12 @@ def main(argv=None):
     k9r = compare_kernels(K, m10, st10, args.seed, "SPE10-2", timed=True,
                           B=3)
     results["spe10_k9"] = k9r
+    # -- 3e. K3's entries with a THPRES threshold at SPE10-2's shapes
+    results["spe10_thr"] = compare_threshold_kernels(K, m10, st10, args.seed,
+                                                     "SPE10-2")
+    log("K3 with a THPRES threshold == its twins at SPE10-2 shapes (ties "
+        f"{results['spe10_thr']['ties']} of {results['spe10_thr']['faces']} "
+        "faces): ok")
     log(f"  K9 at SPE10-2: one device kernel per update_state (profiler: "
         f"{k9r['update_device_kernels']}) and per convergence check "
         f"({k9r['convergence_device_kernels']}); host ms per call "
@@ -4374,6 +5073,14 @@ def main(argv=None):
             + ["K3-faces face_blocks", "K9 update"]
             + (["K3 face_blocks", "K9 convergence_masked"] if knob is None
                else ["K9 convergence"]))
+
+    # -- 4d. the well-control decks, 8. the Norne-class field under field
+    # controls; the threshold rows' launches are those runs'
+    results["wellctrl"] = wellctrl_phase(K)
+    results["norne_controls"] = ctl = norne_controls_phase(K, args.seed)
+    for n in K.THR:
+        K.launches[n] = results["wellctrl"]["launches"][n] + sum(
+            ctl[r]["launches"][n] for r in ("full_embedded", "full_gather"))
 
     log("EQUIL: initial_state s (K1 march ms a region, twin ms): " + "; ".join(
         f"{n} {r['initial_state_s']:.3f} (" + ", ".join(

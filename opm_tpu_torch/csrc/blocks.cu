@@ -10,7 +10,8 @@
 //
 // Inputs: the face inputs fv (11, nc: p3, rho, b mob, rs, rv) and their
 // tangent columns fc (3, 11, nc) from K2's assembly entry (cells.cu), the
-// depths and the stencil faces' transmissibilities; r_cell (3, nc) and diag
+// depths, the stencil faces' transmissibilities and THPRES thresholds (thr,
+// null without THPRES: the zero threshold's tangent); r_cell (3, nc) and diag
 // (9, nc) from K2, updated in place; face_L / face_R (9, nf) written at
 // the stencil faces (nf is their row stride: an embedded grid's extra
 // faces follow and are left to faces.cu).
@@ -42,11 +43,13 @@ using opm_tpfa::face_blocks;
 
 constexpr int kThreads = 128;
 
+template <bool kThr>
 __global__ void face_blocks_kernel(int nx, int ny, int nz, long long nf,
                                    const double* __restrict__ fv,
                                    const double* __restrict__ fc,
                                    const double* __restrict__ depth,
                                    const double* __restrict__ trans,
+                                   const double* __restrict__ thr,
                                    double g, double* __restrict__ r_cell,
                                    double* __restrict__ diag,
                                    double* __restrict__ fL,
@@ -68,7 +71,7 @@ __global__ void face_blocks_kernel(int nx, int ny, int nz, long long nf,
     auto as_left = [&](long long R, long long fi) {
         double flux[3], bl[9], br[9];
         face_blocks(q, fc, nc, c, R, trans[fi], g, depth[c] - depth[R], flux,
-                    bl, br);
+                    bl, br, opm_tpfa::thr_at<kThr>(thr, fi));
         for (int e = 0; e < 3; ++e) r[e] = r[e] + flux[e];
         for (int b = 0; b < 9; ++b) {
             fL[b * nf + fi] = bl[b];
@@ -80,7 +83,7 @@ __global__ void face_blocks_kernel(int nx, int ny, int nz, long long nf,
     auto as_right = [&](long long L, long long fi) {
         double flux[3], br[9];
         face_blocks(q, fc, nc, L, c, trans[fi], g, depth[L] - depth[c], flux,
-                    nullptr, br);
+                    nullptr, br, opm_tpfa::thr_at<kThr>(thr, fi));
         for (int e = 0; e < 3; ++e) r[e] = r[e] + (-flux[e]);
         for (int b = 0; b < 9; ++b) d[b] = d[b] + (-br[b]);
     };
@@ -99,12 +102,19 @@ __global__ void face_blocks_kernel(int nx, int ny, int nz, long long nf,
 extern "C" int opm_face_blocks(int nx, int ny, int nz, long long nf,
                                const double* fv, const double* fc,
                                const double* depth, const double* trans,
-                               double g, double* r_cell, double* diag,
+                               const double* thr, double g, double* r_cell,
+                               double* diag,
                                double* fL, double* fR, cudaStream_t stream) {
     long long nc = (long long)nx * ny * nz;
     if (nc == 0) return 0;
     int blocks = (int)((nc + kThreads - 1) / kThreads);
-    face_blocks_kernel<<<blocks, kThreads, 0, stream>>>(
-        nx, ny, nz, nf, fv, fc, depth, trans, g, r_cell, diag, fL, fR);
+    if (thr)
+        face_blocks_kernel<true><<<blocks, kThreads, 0, stream>>>(
+            nx, ny, nz, nf, fv, fc, depth, trans, thr, g, r_cell, diag, fL,
+            fR);
+    else
+        face_blocks_kernel<false><<<blocks, kThreads, 0, stream>>>(
+            nx, ny, nz, nf, fv, fc, depth, trans, thr, g, r_cell, diag, fL,
+            fR);
     return (int)cudaGetLastError();
 }

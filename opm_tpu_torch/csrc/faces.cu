@@ -90,9 +90,11 @@ struct Csr {
     const int* nbr;
 };
 
+template <bool kThr>
 __global__ void faces_div_kernel(Csr g, long long nc, Cells q,
                                  const double* __restrict__ depth,
-                                 const double* __restrict__ trans, double gr,
+                                 const double* __restrict__ trans,
+                                 const double* __restrict__ thr, double gr,
                                  int accumulate, double* div) {
     int t = blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= g.n_rows) return;
@@ -109,7 +111,7 @@ __global__ void faces_div_kernel(Csr g, long long nc, Cells q,
         Face fa;
         double flux[3];
         face_primal(q, nc, L, R, trans[f], gr, depth[L] - depth[R], &fa,
-                    flux);
+                    flux, opm_tpfa::thr_at<kThr>(thr, f));
         for (int e = 0; e < 3; ++e)
             acc[e] = left ? acc[e] + flux[e] : acc[e] - flux[e];
     }
@@ -130,11 +132,13 @@ struct ListFaces {
     const int* c2;
 };
 
+template <bool kThr>
 __global__ void faces_blocks_face_kernel(ListFaces lf, long long nc,
                                          const double* __restrict__ fv,
                                          const double* __restrict__ fc,
                                          const double* __restrict__ depth,
                                          const double* __restrict__ trans,
+                                         const double* __restrict__ thr,
                                          double gr,
                                          double* __restrict__ flux,
                                          double* __restrict__ fL,
@@ -146,7 +150,7 @@ __global__ void faces_blocks_face_kernel(ListFaces lf, long long nc,
     const long long L = lf.c1[i], R = lf.c2[i];
     double fl[3], bl[9], br[9];
     face_blocks(q, fc, nc, L, R, trans[f], gr, depth[L] - depth[R], fl, bl,
-                br);
+                br, opm_tpfa::thr_at<kThr>(thr, f));
     for (int e = 0; e < 3; ++e) flux[e * lf.n + i] = fl[e];
     for (int b = 0; b < 9; ++b) {
         fL[b * lf.nf + f] = bl[b];
@@ -343,18 +347,24 @@ inline int blocks_for(long long n) {
 extern "C" {
 
 // div (3, nc) over the CSR's rows: the face fluxes' signed sum, added to
-// div's values when accumulate != 0
+// div's values when accumulate != 0; thr: the faces' THPRES thresholds
+// (global face index), or null
 int opm_faces_div(int n_rows, const int* rows, const int* ptr,
                   const int* ent, const int* nbr, long long nc,
                   const double* p, const double* rho, const double* bmob,
                   const double* rs, const double* rv, const double* depth,
-                  const double* trans, double g, int accumulate, double* div,
-                  cudaStream_t stream) {
+                  const double* trans, const double* thr, double g,
+                  int accumulate, double* div, cudaStream_t stream) {
     if (n_rows == 0) return 0;
     Csr csr{n_rows, rows, ptr, ent, nbr};
     Cells q{p, rho, bmob, rs, rv};
-    faces_div_kernel<<<blocks_for(n_rows), kThreads, 0, stream>>>(
-        csr, nc, q, depth, trans, g, accumulate, div);
+    if (thr)
+        faces_div_kernel<true><<<blocks_for(n_rows), kThreads, 0, stream>>>(
+            csr, nc, q, depth, trans, thr, g, accumulate, div);
+    else
+        faces_div_kernel<false><<<blocks_for(n_rows), kThreads, 0,
+                                  stream>>>(csr, nc, q, depth, trans, thr, g,
+                                            accumulate, div);
     return (int)cudaGetLastError();
 }
 
@@ -364,12 +374,14 @@ int opm_faces_div(int n_rows, const int* rows, const int* ptr,
 // scratch (the face phase), then r_cell and diag updated in place over
 // the CSR's rows and the signed off-diagonal blocks written into blk
 // (288 n_chunks,), the sliced-ELL layout of the same CSR with slices
-// chunk0 (the row phase): two launches
+// chunk0 (the row phase): two launches; thr: the faces' THPRES thresholds
+// (global face index), or null (the zero threshold's tangent)
 int opm_faces_blocks(int n_rows, const int* rows, const int* ptr,
                      const int* ent, const int* nbr, long long first,
                      long long n, const int* c1, const int* c2, long long nc,
                      long long nf, const double* fv, const double* fc,
-                     const double* depth, const double* trans, double g,
+                     const double* depth, const double* trans,
+                     const double* thr, double g,
                      double* flux, double* r_cell, double* diag, double* fL,
                      double* fR, const int* chunk0, double* blk,
                      cudaStream_t stream) {
@@ -377,8 +389,16 @@ int opm_faces_blocks(int n_rows, const int* rows, const int* ptr,
     Csr csr{n_rows, rows, ptr, ent, nbr};
     ListFaces lf{first, n, nf, c1, c2};
     const int n32 = (n_rows + 31) / 32 * 32;
-    faces_blocks_face_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-        lf, nc, fv, fc, depth, trans, g, flux, fL, fR);
+    if (thr)
+        faces_blocks_face_kernel<true><<<blocks_for(n), kThreads, 0,
+                                         stream>>>(lf, nc, fv, fc, depth,
+                                                   trans, thr, g, flux, fL,
+                                                   fR);
+    else
+        faces_blocks_face_kernel<false><<<blocks_for(n), kThreads, 0,
+                                          stream>>>(lf, nc, fv, fc, depth,
+                                                    trans, thr, g, flux, fL,
+                                                    fR);
     faces_blocks_row_kernel<<<blocks_for(12LL * n32), kThreads, 0,
                               stream>>>(csr, lf, nc, n32, flux, fL, fR,
                                         r_cell, diag, chunk0, blk);

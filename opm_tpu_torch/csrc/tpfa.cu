@@ -4,7 +4,12 @@
 // Replaces the JAX package's models/blackoil.py face_flux_from_q
 // (:176-212), the structured BlackoilModel.face_fluxes (:298-331) and the
 // structured BlackoilModel.divergence (:341-364), which XLA fused on the
-// TPU into shifted-slice face passes and pad+add scatters.
+// TPU into shifted-slice face passes and pad+add scatters. Both entries
+// take the faces' THPRES thresholds thr (nf,) in the grid's face order, or
+// null (no clip): tpfa_face.cuh's clip and its tangent, in kernels
+// instantiated with a threshold; without one the entries launch the
+// instantiation that compiles to the code without THPRES (the occupancy
+// queries are that one's).
 //
 // What bounds it on the card: memory traffic. Per cell the forward reads
 // 3 phase pressures, 3 densities, 3 b*mobilities, rs, rv and depth (12
@@ -86,6 +91,7 @@ using opm_tpfa::face_flux;
 using opm_tpfa::face_tangent_of;
 using opm_tpfa::Tan;
 using opm_tpfa::tan_at;
+using opm_tpfa::thr_at;
 
 // the 12 values of one cell a face reads: p3, rho3, bmob3, rs, rv, depth
 constexpr int kVals = 12;
@@ -170,10 +176,12 @@ __device__ __forceinline__ void copy_wait() {
 // of the (i, j) tiles, blockIdx.y the run of zrun planes; dynamic shared
 // memory: two planes of kVals x 32 ty values, then the x and y faces' 3 x
 // 32 ty fluxes each (div_tiles' smem)
+template <bool kThr>
 __global__ void __launch_bounds__(256, 3)
 tpfa_div_kernel(int nx, int ny, int nz, int tiles_x, int zrun, Cells q,
                 const double* __restrict__ depth,
-                const double* __restrict__ trans, double g,
+                const double* __restrict__ trans,
+                const double* __restrict__ thr, double g,
                 double* __restrict__ div) {
     extern __shared__ double sm[];
     const int tx = blockDim.x, ty = blockDim.y;
@@ -205,8 +213,9 @@ tpfa_div_kernel(int nx, int ny, int nz, int tiles_x, int zrun, Cells q,
             Vals prv;
             load_vals(prv, q, depth, nc, (k0 - 1) * area + col);
             const Staged r{sm + t, nt};
-            face_flux(prv, r, trans[nfz0 + (k0 - 1) * area + col], g,
-                      prv.depth() - r.depth(), &f, fz_dn);
+            const int fz = nfz0 + (k0 - 1) * area + col;
+            face_flux(prv, r, trans[fz], g, prv.depth() - r.depth(), &f,
+                      fz_dn, thr_at<kThr>(thr, fz));
         }
     }
     for (int k = k0; k < k1; ++k) {
@@ -224,15 +233,17 @@ tpfa_div_kernel(int nx, int ny, int nz, int tiles_x, int zrun, Cells q,
         double fl[3];
         // x faces of the rows, y faces of the columns that have outputs
         if (in && mid_j && ti < tx - 1 && i + 1 < nx) {
-            face_flux(own, Staged{cur + t + 1, nt},
-                      trans[(k * ny + j) * (nx - 1) + i], g,
-                      own.depth() - cur[11 * nt + t + 1], &f, fl);
+            const int fi = (k * ny + j) * (nx - 1) + i;
+            face_flux(own, Staged{cur + t + 1, nt}, trans[fi], g,
+                      own.depth() - cur[11 * nt + t + 1], &f, fl,
+                      thr_at<kThr>(thr, fi));
             for (int e = 0; e < 3; ++e) fx[e * nt + t] = fl[e];
         }
         if (in && mid_i && tj < ty - 1 && j + 1 < ny) {
-            face_flux(own, Staged{cur + t + tx, nt},
-                      trans[nfx + (k * (ny - 1) + j) * nx + i], g,
-                      own.depth() - cur[11 * nt + t + tx], &f, fl);
+            const int fi = nfx + (k * (ny - 1) + j) * nx + i;
+            face_flux(own, Staged{cur + t + tx, nt}, trans[fi], g,
+                      own.depth() - cur[11 * nt + t + tx], &f, fl,
+                      thr_at<kThr>(thr, fi));
             for (int e = 0; e < 3; ++e) fy[e * nt + t] = fl[e];
         }
         copy_wait();
@@ -240,15 +251,16 @@ tpfa_div_kernel(int nx, int ny, int nz, int tiles_x, int zrun, Cells q,
         if (!out) continue;
         double fz_up[3] = {0.0, 0.0, 0.0};
         if (up) {
+            const int fz = nfz0 + base + col;
             if (k + 1 < k1) {
-                face_flux(own, Staged{ahead + t, nt},
-                          trans[nfz0 + base + col], g,
-                          own.depth() - ahead[11 * nt + t], &f, fz_up);
+                face_flux(own, Staged{ahead + t, nt}, trans[fz], g,
+                          own.depth() - ahead[11 * nt + t], &f, fz_up,
+                          thr_at<kThr>(thr, fz));
             } else {
                 Vals r;
                 load_vals(r, q, depth, nc, base + area + col);
-                face_flux(own, r, trans[nfz0 + base + col], g,
-                          own.depth() - r.depth(), &f, fz_up);
+                face_flux(own, r, trans[fz], g, own.depth() - r.depth(), &f,
+                          fz_up, thr_at<kThr>(thr, fz));
             }
         }
         for (int e = 0; e < 3; ++e) {
@@ -292,10 +304,12 @@ __device__ __forceinline__ Cells tan_set(const Cells& dq, int nc, int b) {
 // (3 r + e) nc + c). The primal values (12 rows) are staged once over the
 // second buffer and the first face rows, before any set reaches them.
 // tangents: dp, drho, dbmob (B, 3, nc); drs, drv (B, nc); ddiv (B, 3, nc)
+template <bool kThr>
 __global__ void __launch_bounds__(1024, 1)
 tpfa_tangent_whole_kernel(int B, int dirs, Cells q, Cells dq,
                           const double* __restrict__ depth,
-                          const double* __restrict__ trans, double g,
+                          const double* __restrict__ trans,
+                          const double* __restrict__ thr, double g,
                           double* __restrict__ ddiv) {
     extern __shared__ double sm[];
     const int nx = blockDim.x, ny = blockDim.y, nz = blockDim.z / 3;
@@ -342,7 +356,7 @@ tpfa_tangent_whole_kernel(int B, int dirs, Cells q, Cells dq,
         T = trans[fi];
         dz = pv[11 * nc + c] - pv[11 * nc + c + off];
         face_flux(Staged{pv + c, nc}, Staged{pv + c + off, nc}, T, g, dz, &f,
-                  fl);
+                  fl, thr_at<kThr>(thr, fi));
     }
     for (int b = b0; b < b1; ++b) {
         const bool odd = (b - b0) & 1;
@@ -398,11 +412,13 @@ __device__ __forceinline__ void copy_plane(double* plane, int slots, int slot,
 // map, tiles and runs (blockIdx.x the tile, blockIdx.y the run); dynamic
 // shared memory: two planes of kPlane x 32 ty values, then the x and y
 // faces' 3 x 32 ty tangent fluxes each
+template <bool kThr>
 __global__ void __launch_bounds__(256, 2)
 tpfa_tangent_march_kernel(int nx, int ny, int nz, int tiles_x, int zrun,
                           Cells q, Cells dq,
                           const double* __restrict__ depth,
-                          const double* __restrict__ trans, double g,
+                          const double* __restrict__ trans,
+                          const double* __restrict__ thr, double g,
                           double* __restrict__ ddiv) {
     extern __shared__ double sm[];
     const int tx = blockDim.x, ty = blockDim.y;
@@ -440,7 +456,7 @@ tpfa_tangent_march_kernel(int nx, int ny, int nz, int tiles_x, int zrun,
             const Staged r{sm + t, nt};
             const double T = trans[nfz0 + c];
             const double dz = prv.depth() - r.depth();
-            face_flux(prv, r, T, g, dz, &f, fl);
+            face_flux(prv, r, T, g, dz, &f, fl, thr_at<kThr>(thr, nfz0 + c));
             face_tangent_of(f, T, g, dz, tan_at(ts, nc, c),
                             tan_staged(sm + kVals * nt + t, nt), false,
                             fz_dn);
@@ -461,17 +477,21 @@ tpfa_tangent_march_kernel(int nx, int ny, int nz, int tiles_x, int zrun,
         const double* town = cur + kVals * nt + t;
         // x faces of the rows, y faces of the columns that have outputs
         if (in && mid_j && ti < tx - 1 && i + 1 < nx) {
-            const double T = trans[(k * ny + j) * (nx - 1) + i];
+            const int fi = (k * ny + j) * (nx - 1) + i;
+            const double T = trans[fi];
             const double dz = own.depth() - cur[11 * nt + t + 1];
-            face_flux(own, Staged{cur + t + 1, nt}, T, g, dz, &f, fl);
+            face_flux(own, Staged{cur + t + 1, nt}, T, g, dz, &f, fl,
+                      thr_at<kThr>(thr, fi));
             face_tangent_of(f, T, g, dz, tan_staged(town, nt),
                             tan_staged(town + 1, nt), false, ft);
             for (int e = 0; e < 3; ++e) fx[e * nt + t] = ft[e];
         }
         if (in && mid_i && tj < ty - 1 && j + 1 < ny) {
-            const double T = trans[nfx + (k * (ny - 1) + j) * nx + i];
+            const int fi = nfx + (k * (ny - 1) + j) * nx + i;
+            const double T = trans[fi];
             const double dz = own.depth() - cur[11 * nt + t + tx];
-            face_flux(own, Staged{cur + t + tx, nt}, T, g, dz, &f, fl);
+            face_flux(own, Staged{cur + t + tx, nt}, T, g, dz, &f, fl,
+                      thr_at<kThr>(thr, fi));
             face_tangent_of(f, T, g, dz, tan_staged(town, nt),
                             tan_staged(town + tx, nt), false, ft);
             for (int e = 0; e < 3; ++e) fy[e * nt + t] = ft[e];
@@ -482,9 +502,10 @@ tpfa_tangent_march_kernel(int nx, int ny, int nz, int tiles_x, int zrun,
         double fz_up[3] = {0.0, 0.0, 0.0};
         if (up) {
             const double T = trans[nfz0 + base + col];
+            const double th = thr_at<kThr>(thr, nfz0 + base + col);
             if (k + 1 < k1) {
                 const double dz = own.depth() - ahead[11 * nt + t];
-                face_flux(own, Staged{ahead + t, nt}, T, g, dz, &f, fl);
+                face_flux(own, Staged{ahead + t, nt}, T, g, dz, &f, fl, th);
                 face_tangent_of(f, T, g, dz, tan_staged(town, nt),
                                 tan_staged(ahead + kVals * nt + t, nt),
                                 false, fz_up);
@@ -493,7 +514,7 @@ tpfa_tangent_march_kernel(int nx, int ny, int nz, int tiles_x, int zrun,
                 Vals r;
                 load_vals(r, q, depth, nc, c);
                 const double dz = own.depth() - r.depth();
-                face_flux(own, r, T, g, dz, &f, fl);
+                face_flux(own, r, T, g, dz, &f, fl, th);
                 face_tangent_of(f, T, g, dz, tan_staged(town, nt),
                                 tan_at(ts, nc, c), false, fz_up);
             }
@@ -521,15 +542,21 @@ extern "C" int opm_tpfa_div(int nx, int ny, int nz, int ty, int tiles_x,
                             const double* p, const double* rho,
                             const double* bmob, const double* rs,
                             const double* rv, const double* depth,
-                            const double* trans, double g, double* div,
-                            void* stream) {
+                            const double* trans, const double* thr, double g,
+                            double* div, void* stream) {
     Cells q{p, rho, bmob, rs, rv};
+    const dim3 grid(tiles_x * tiles_y, runs), block(32, ty);
     cudaError_t err = cudaFuncSetAttribute(
-        tpfa_div_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        thr ? (const void*)tpfa_div_kernel<true>
+            : (const void*)tpfa_div_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    tpfa_div_kernel<<<dim3(tiles_x * tiles_y, runs), dim3(32, ty), smem,
-                      (cudaStream_t)stream>>>(nx, ny, nz, tiles_x, zrun, q,
-                                              depth, trans, g, div);
+    if (thr)
+        tpfa_div_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
+            nx, ny, nz, tiles_x, zrun, q, depth, trans, thr, g, div);
+    else
+        tpfa_div_kernel<false><<<grid, block, smem, (cudaStream_t)stream>>>(
+            nx, ny, nz, tiles_x, zrun, q, depth, trans, thr, g, div);
     return (int)cudaGetLastError();
 }
 
@@ -543,11 +570,11 @@ extern "C" int opm_tpfa_div_occupancy(int ty, int smem, int* out) {
                                      dev);
     if (err == cudaSuccess)
         err = cudaFuncSetAttribute(
-            tpfa_div_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem);
+            tpfa_div_kernel<false>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &out[1], tpfa_div_kernel, 32 * ty, smem);
+            &out[1], tpfa_div_kernel<false>, 32 * ty, smem);
     return (int)err;
 }
 
@@ -564,22 +591,32 @@ extern "C" int opm_tpfa_div_tangent(int nx, int ny, int nz, int B, int whole,
                                     const double* drho, const double* dbmob,
                                     const double* drs, const double* drv,
                                     const double* depth, const double* trans,
-                                    double g, double* ddiv, void* stream) {
+                                    const double* thr, double g, double* ddiv,
+                                    void* stream) {
     Cells q{p, rho, bmob, rs, rv};
     Cells dq{dp, drho, dbmob, drs, drv};
-    const void* k = whole ? (const void*)tpfa_tangent_whole_kernel
-                          : (const void*)tpfa_tangent_march_kernel;
+    const void* k =
+        whole ? (thr ? (const void*)tpfa_tangent_whole_kernel<true>
+                     : (const void*)tpfa_tangent_whole_kernel<false>)
+              : (thr ? (const void*)tpfa_tangent_march_kernel<true>
+                     : (const void*)tpfa_tangent_march_kernel<false>);
     cudaError_t err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    if (whole)
-        tpfa_tangent_whole_kernel<<<gx, dim3(nx, ny, 3 * nz), smem,
-                                    (cudaStream_t)stream>>>(
-            B, dirs, q, dq, depth, trans, g, ddiv);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const dim3 wb(nx, ny, 3 * nz), mg(gx, gy, B), mb(32, by);
+    if (whole && thr)
+        tpfa_tangent_whole_kernel<true><<<gx, wb, smem, st>>>(
+            B, dirs, q, dq, depth, trans, thr, g, ddiv);
+    else if (whole)
+        tpfa_tangent_whole_kernel<false><<<gx, wb, smem, st>>>(
+            B, dirs, q, dq, depth, trans, thr, g, ddiv);
+    else if (thr)
+        tpfa_tangent_march_kernel<true><<<mg, mb, smem, st>>>(
+            nx, ny, nz, tiles_x, zrun, q, dq, depth, trans, thr, g, ddiv);
     else
-        tpfa_tangent_march_kernel<<<dim3(gx, gy, B), dim3(32, by), smem,
-                                    (cudaStream_t)stream>>>(
-            nx, ny, nz, tiles_x, zrun, q, dq, depth, trans, g, ddiv);
+        tpfa_tangent_march_kernel<false><<<mg, mb, smem, st>>>(
+            nx, ny, nz, tiles_x, zrun, q, dq, depth, trans, thr, g, ddiv);
     return (int)cudaGetLastError();
 }
 
@@ -588,8 +625,8 @@ extern "C" int opm_tpfa_div_tangent(int nx, int ny, int nz, int B, int whole,
 // device's SM count: out[0], out[1]
 extern "C" int opm_tpfa_tangent_occupancy(int whole, int threads, int smem,
                                           int* out) {
-    const void* k = whole ? (const void*)tpfa_tangent_whole_kernel
-                          : (const void*)tpfa_tangent_march_kernel;
+    const void* k = whole ? (const void*)tpfa_tangent_whole_kernel<false>
+                          : (const void*)tpfa_tangent_march_kernel<false>;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)

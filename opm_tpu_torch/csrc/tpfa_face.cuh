@@ -4,6 +4,14 @@
 // cell L and right cell R, and its tangent with the upwind direction fixed
 // by the primal. Products and sums in the plain version's order (build with
 // --fmad=false).
+//
+// THPRES (:194-198): a face's threshold th >= 0 clips each phase's
+// potential, dphi' = sign(dphi) max(|dphi| - th, 0), and the upwinding and
+// T dphi use dphi' (inside the threshold the left cell is upstream). Its
+// tangent is jax.jacfwd's through jnp.sign and jnp.maximum: dphi_t times 0
+// where dphi == 0 or |dphi| < th, 1/2 where |dphi| == th, 1 beyond. A
+// negative th (the kernels' null threshold pointer) is no clip at all: the
+// arithmetic of the entries without THPRES.
 
 #pragma once
 
@@ -24,8 +32,17 @@ struct Face {
     double up[3];         // upwind flag (1 = left cell) per phase
     double vf[3];         // trans * dphi
     double bm[3];         // upwind b * mobility
+    double tw[3];         // the clip's factor on the dphi tangent (1: none)
     double rs_up, rv_up;
 };
+
+// a face's threshold: thr[f] in a kernel instantiated with a threshold
+// (kThr), else the constant -1 (no clip), so an instantiation without one
+// compiles to the arithmetic of the entries without THPRES
+template <bool kThr>
+__device__ __forceinline__ double thr_at(const double* thr, long long f) {
+    return kThr ? thr[f] : -1.0;
+}
 
 // One cell's face inputs read from the (3, nc) / (nc,) arrays where they
 // are used (as loads of device memory, in the arithmetic's order).
@@ -45,11 +62,20 @@ struct CellAt {
 template <typename SideL, typename SideR>
 __device__ __forceinline__ void face_flux(const SideL& l, const SideR& r,
                                           double T, double g, double dz,
-                                          Face* f, double flux[3]) {
+                                          Face* f, double flux[3],
+                                          double th = -1.0) {
     double F[3];
     for (int ph = 0; ph < 3; ++ph) {
         double rho_face = 0.5 * (l.rho(ph) + r.rho(ph));
         double dphi = (l.p(ph) - r.p(ph)) - rho_face * g * dz;
+        f->tw[ph] = 1.0;
+        if (th >= 0.0) {
+            const double a = fabs(dphi);
+            const double s = dphi > 0.0 ? 1.0 : (dphi < 0.0 ? -1.0 : 0.0);
+            f->tw[ph] = dphi == 0.0 ? 0.0
+                      : (a > th ? 1.0 : (a == th ? 0.5 : 0.0));
+            dphi = s * fmax(a - th, 0.0);
+        }
         bool up = dphi >= 0.0;
         f->dphi[ph] = dphi;
         f->up[ph] = up ? 1.0 : 0.0;
@@ -67,8 +93,9 @@ __device__ __forceinline__ void face_flux(const SideL& l, const SideR& r,
 __device__ __forceinline__ void face_primal(const Cells& q, long long nc,
                                             long long L, long long R,
                                             double T, double g, double dz,
-                                            Face* f, double flux[3]) {
-    face_flux(CellAt{q, nc, L}, CellAt{q, nc, R}, T, g, dz, f, flux);
+                                            Face* f, double flux[3],
+                                            double th = -1.0) {
+    face_flux(CellAt{q, nc, L}, CellAt{q, nc, R}, T, g, dz, f, flux, th);
 }
 
 // One side's tangents of the face inputs.
@@ -102,7 +129,7 @@ __device__ __forceinline__ Tan tan_col(const double* cols, long long nc,
 // the flux tangent from the left and right cells' input tangents; with
 // zero_threshold the dphi tangent is 0 where dphi == 0 exactly (the
 // derivative of a THPRES clip with threshold 0, which the block assembly
-// goes through)
+// goes through); a clipped face's dphi tangent takes the clip's factor
 __device__ __forceinline__ void face_tangent_of(const Face& f, double T,
                                                 double g, double dz,
                                                 const Tan& a, const Tan& b,
@@ -112,7 +139,10 @@ __device__ __forceinline__ void face_tangent_of(const Face& f, double T,
     for (int ph = 0; ph < 3; ++ph) {
         double rho_face_t = 0.5 * (a.rho[ph] + b.rho[ph]);
         double dphi_t = (a.p[ph] - b.p[ph]) - rho_face_t * g * dz;
-        if (zero_threshold && f.dphi[ph] == 0.0) dphi_t = 0.0;
+        if (f.tw[ph] != 1.0)
+            dphi_t = f.tw[ph] == 0.0 ? 0.0 : 0.5 * dphi_t;
+        else if (zero_threshold && f.dphi[ph] == 0.0)
+            dphi_t = 0.0;
         bool up = f.up[ph] != 0.0;
         bm_t[ph] = up ? a.bmob[ph] : b.bmob[ph];
         vf_t[ph] = T * dphi_t;
@@ -152,15 +182,17 @@ __device__ __forceinline__ void face_tangent(const Cells& dq, long long nc,
 // The face's contribution to the Jacobian: its flux and, for each
 // primary j of the left (fL) or right (fR) cell, the flux tangent
 // (rows 3 * eq + j); cols is the (3, 11, nc) tangent block of the face
-// inputs. Either block pointer may be null (not wanted).
+// inputs. Either block pointer may be null (not wanted). Without a
+// threshold (th < 0) the tangent goes through a zero one, as the
+// reference's assembly does.
 __device__ __forceinline__ void face_blocks(const Cells& q,
                                             const double* cols, long long nc,
                                             long long L, long long R,
                                             double T, double g, double dz,
                                             double flux[3], double* fL,
-                                            double* fR) {
+                                            double* fR, double th = -1.0) {
     Face f;
-    face_primal(q, nc, L, R, T, g, dz, &f, flux);
+    face_primal(q, nc, L, R, T, g, dz, &f, flux, th);
     const Tan z = tan_zero();
     double ft[3];
     for (int j = 0; j < 3; ++j) {

@@ -217,11 +217,13 @@ def _canonical_slot(g1, dk, nx, ny, nz):
                  nfx + nfy + (k * ny + j) * nx + i))
 
 
-def _embed_wanted(nc, ncg, conf, n_extra_nnc=0):
-    """Embedding policy (OPM_TPU_EMBED=0/1/auto, the JAX package's knob).
-    auto: embed when at least a quarter of the box is active and at least
-    80% of the connections are conforming."""
-    knob = os.environ.get("OPM_TPU_EMBED", "auto")
+def _embed_wanted(nc, ncg, conf, n_extra_nnc=0, knob=None):
+    """Embedding policy ``knob`` "0"/"1"/"auto" (None: OPM_TPU_EMBED, the
+    JAX package's knob, default auto). auto: embed when at least a quarter
+    of the box is active and at least 80% of the connections are
+    conforming."""
+    if knob is None:
+        knob = os.environ.get("OPM_TPU_EMBED", "auto")
     if knob == "0":
         return False
     if knob == "1":
@@ -303,12 +305,13 @@ def _build_embedded_grid(case, dims, real_mask, *, pv_all, volume, depth,
     )
 
 
-def build_grid(case) -> Grid:
+def build_grid(case, embed=None) -> Grid:
     """Build an active-cell grid + derived geology from an EclipseCase.
-    Dispatches to the corner-point path when COORD/ZCORN are present."""
+    Dispatches to the corner-point path when COORD/ZCORN are present.
+    ``embed``: the embedding policy (_embed_wanted's knob)."""
     ga = case.grid_arrays
     if "COORD" in ga and "ZCORN" in ga:
-        return build_corner_point_grid(case)
+        return build_corner_point_grid(case, embed)
     nx, ny, nz = case.runspec.dims
     ncg = nx * ny * nz
 
@@ -419,7 +422,7 @@ def build_grid(case) -> Grid:
 
     if nc < ncg and fc and _embed_wanted(
             nc, ncg, np.ones(sum(len(a) for a in gc1), dtype=bool),
-            len(nnc_tr)):
+            len(nnc_tr), embed):
         # ACTNUM-holed cartesian grid: embed into the full box so the
         # structured stencil/GMG fast path applies (padding cells inert)
         gall = np.concatenate(gc1)
@@ -479,7 +482,7 @@ def build_grid(case) -> Grid:
     )
 
 
-def build_corner_point_grid(case) -> Grid:
+def build_corner_point_grid(case, embed=None) -> Grid:
     """Corner-point (COORD/ZCORN) grid + NEWTRAN transmissibilities
     (grid/cornerpoint.py does the geometry; this assembles the active-cell
     arrays and harmonic face transmissibilities with MULT/NTG factors)."""
@@ -597,7 +600,7 @@ def build_corner_point_grid(case) -> Grid:
         trans = trans[order]
         face_dir = face_dir[order]
         structured = True
-    elif _embed_wanted(nc, ncg, conf, len(nnc_tr)):
+    elif _embed_wanted(nc, ncg, conf, len(nnc_tr), embed):
         real_mask = active_mask
         cart_emb = np.where(real_mask, np.arange(ncg, dtype=np.int32),
                             np.int32(-1))

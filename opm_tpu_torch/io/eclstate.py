@@ -16,6 +16,7 @@ import numpy as np
 
 from opm_tpu_torch.io.deck import DEFAULT, Deck, parse_deck, parse_deck_string
 from opm_tpu_torch.utils.units import UnitSystem
+from opm_tpu_torch.wells.vfp import parse_vfp_tables
 
 # dimension of each grid-property array (for unit conversion, incl. via EQUALS)
 _ARRAY_DIMS = {
@@ -117,10 +118,9 @@ class EclipseCase:
         self.regions = self._parse_regions(deck)
         self.solution = self._parse_solution(deck)
         self.summary_requests = self._parse_summary(deck)
-        if any(kw.name in ("VFPPROD", "VFPINJ") for kw in deck):
-            raise NotImplementedError(
-                "VFP tables are not ported yet (ROADMAP Queue 1 item 8)")
-        self.vfp_tables: dict = {}
+        # VFPPROD/VFPINJ tables, SI, float64 tensors on the CPU (the
+        # simulator puts them on its device)
+        self.vfp_tables = parse_vfp_tables(deck, self.units)
 
     # ------------------------------------------------------------------
     def _parse_runspec(self, deck: Deck) -> Runspec:

@@ -481,13 +481,29 @@ def _dir_segments(dims):
     ]
 
 
+def thpres_clip(dphi, thr):
+    """The THPRES clip sign(dphi) max(|dphi| - thr, 0) (the reference's
+    face_flux_from_q, :194-198) and its factor on the dphi tangent, as
+    jax.jacfwd gives it through jnp.sign and jnp.maximum: 0 where dphi ==
+    0 or |dphi| < thr, 1/2 where |dphi| == thr, 1 beyond."""
+    a = torch.abs(dphi)
+    tw = torch.where(a > thr, 1.0, torch.where(a == thr, 0.5, 0.0))
+    tw = torch.where(dphi == 0.0, 0.0, tw)
+    return torch.sign(dphi) * torch.maximum(a - thr,
+                                            torch.zeros_like(a)), tw
+
+
 def face_flux_from_q(p3L, p3R, rhoL, rhoR, bmL, bmR, rsL, rsR, rvL, rvR,
-                     trans, dz, gravity):
+                     trans, dz, gravity, thr=None):
     """TPFA phase fluxes from the two cells' quantities; phase arrays
     (..., 3, nf), rs/rv (..., nf). Phase-potential upwinding on
-    dphi = (p_L - p_R) - rho_face g dz; oil/gas get the rv/rs cross terms."""
+    dphi = (p_L - p_R) - rho_face g dz, clipped by the faces' THPRES
+    thresholds ``thr`` (nf,) when given; oil/gas get the rv/rs cross
+    terms."""
     rho_face = 0.5 * (rhoL + rhoR)
     dphi = (p3L - p3R) - rho_face * gravity * dz
+    if thr is not None:
+        dphi = thpres_clip(dphi, thr)[0]
     up = dphi >= 0.0
     bm = torch.where(up, bmL, bmR)
     vf = trans * dphi
@@ -501,22 +517,30 @@ def face_flux_from_q(p3L, p3R, rhoL, rhoR, bmL, bmR, rsL, rsR, rvL, rvR,
 
 def _face_flux_tangent(p3L, p3R, rhoL, rhoR, bmL, bmR, rsL, rsR, rvL, rvR,
                        trans, dz, gravity, dp3L, dp3R, drhoL, drhoR, dbmL,
-                       dbmR, drsL, drsR, drvL, drvR, zero_threshold=False):
+                       dbmR, drsL, drsR, drvL, drvR, zero_threshold=False,
+                       thr=None):
     """Tangent of face_flux_from_q with the upwind direction fixed by the
     primal; tangent arrays carry a leading batch axis. ``zero_threshold``:
     the tangent through a THPRES clip with threshold 0,
     sign(dphi) max(|dphi| - 0, 0), as the reference's block assembly
     takes it: equal to the plain tangent except where dphi == 0 exactly
-    (a face in hydrostatic equilibrium), where it is 0."""
+    (a face in hydrostatic equilibrium), where it is 0. ``thr``: the
+    tangent through the clip with the faces' thresholds (thpres_clip)."""
     rho_face = 0.5 * (rhoL + rhoR)
     dphi = (p3L - p3R) - rho_face * gravity * dz
+    tw = None
+    if thr is not None:
+        dphi, tw = thpres_clip(dphi, thr)
     up = dphi >= 0.0
     bm = torch.where(up, bmL, bmR)
     vf = trans * dphi
     rs_up = torch.where(up[..., OIL, :], rsL, rsR)
     rv_up = torch.where(up[..., GAS, :], rvL, rvR)
     dphi_t = (dp3L - dp3R) - (0.5 * (drhoL + drhoR)) * gravity * dz
-    if zero_threshold:
+    if tw is not None:
+        dphi_t = torch.where(tw == 1.0, dphi_t,
+                             torch.where(tw == 0.0, 0.0, 0.5 * dphi_t))
+    elif zero_threshold:
         dphi_t = torch.where(dphi == 0.0, 0.0, dphi_t)
     bm_t = torch.where(up, dbmL, dbmR)
     vf_t = trans * dphi_t
@@ -542,9 +566,10 @@ def _slice(a, sl):
 
 
 def face_fluxes(dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
-                tangents=None):
+                tangents=None, thr=None):
     """Per-face fluxes (..., 3, nf) in grid face order; with ``tangents``
-    (dp3, drho, dbmob, drs, drv), their tangents instead."""
+    (dp3, drho, dbmob, drs, drv), their tangents instead; ``thr`` the
+    stencil faces' THPRES thresholds or None."""
     cells = [_cells3(a, dims) for a in (p3, rho, bmob, rs, rv)]
     dep = _cells3(depth, dims)
     tcells = (None if tangents is None
@@ -556,14 +581,16 @@ def face_fluxes(dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
         for a in cells:
             args += [_slice(a, slL), _slice(a, slR)]
         T = trans[ofs:ofs + nf_d]
+        th = None if thr is None else thr[ofs:ofs + nf_d]
         dz = (dep[slL] - dep[slR]).reshape(-1)
         if tcells is None:
-            segs.append(face_flux_from_q(*args, T, dz, gravity))
+            segs.append(face_flux_from_q(*args, T, dz, gravity, th))
         else:
             targs = []
             for a in tcells:
                 targs += [_slice(a, slL), _slice(a, slR)]
-            segs.append(_face_flux_tangent(*args, T, dz, gravity, *targs))
+            segs.append(_face_flux_tangent(*args, T, dz, gravity, *targs,
+                                           thr=th))
         ofs += nf_d
     return torch.cat(segs, dim=-1)
 
@@ -586,19 +613,21 @@ def divergence(dims, face_flux):
     return out.reshape(lead + (nx * ny * nz,))
 
 
-def tpfa_div_plain(dims, p3, rho, bmob, rs, rv, depth, trans, gravity):
-    """div F (3, nc): the plain version of K3's forward entry."""
+def tpfa_div_plain(dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
+                   thr=None):
+    """div F (3, nc): the plain version of K3's forward entry (thr: the
+    stencil faces' THPRES thresholds, or None)."""
     return divergence(dims, face_fluxes(dims, p3, rho, bmob, rs, rv, depth,
-                                        trans, gravity))
+                                        trans, gravity, thr=thr))
 
 
 def tpfa_div_tangent_plain(dims, p3, rho, bmob, rs, rv, depth, trans,
-                           gravity, dp3, drho, dbmob, drs, drv):
+                           gravity, dp3, drho, dbmob, drs, drv, thr=None):
     """(B, 3, nc) tangent divergences: the plain version of K3's tangent
     entry (tangents (B, 3, nc) and (B, nc))."""
     return divergence(dims, face_fluxes(
         dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
-        tangents=(dp3, drho, dbmob, drs, drv)))
+        tangents=(dp3, drho, dbmob, drs, drv), thr=thr))
 
 
 # ---------------------------------------------------------------------------
@@ -606,9 +635,9 @@ def tpfa_div_tangent_plain(dims, p3, rho, bmob, rs, rv, depth, trans,
 
 _P, _I, _D = cuda_lib.P, cuda_lib.I, cuda_lib.D
 _SIGS = {
-    "opm_tpfa_div": [_I] * 9 + [_P] * 7 + [_D, _P, _P],
+    "opm_tpfa_div": [_I] * 9 + [_P] * 8 + [_D, _P, _P],
     "opm_tpfa_div_occupancy": [_I, _I, _P],
-    "opm_tpfa_div_tangent": [_I] * 12 + [_P] * 12 + [_D, _P, _P],
+    "opm_tpfa_div_tangent": [_I] * 12 + [_P] * 13 + [_D, _P, _P],
     "opm_tpfa_tangent_occupancy": [_I, _I, _I, _P],
 }
 
@@ -745,9 +774,10 @@ def _check_cells(tensors, dev, nc):
                              f"on {dev} with a trailing cell axis of {nc}")
 
 
-def _check_primal(dims, p3, rho, bmob, rs, rv, depth, trans):
+def _check_primal(dims, p3, rho, bmob, rs, rv, depth, trans, thr=None):
     """Checks shared by both K3 entries: (3, nc) phase arrays, (nc,) rs,
-    rv and depth, and one transmissibility per canonical face."""
+    rv and depth, and one transmissibility (and threshold, when given) per
+    canonical face."""
     nc = dims[0] * dims[1] * dims[2]
     dev = p3.device
     _check_cells((p3, rho, bmob, rs, rv, depth), dev, nc)
@@ -757,18 +787,24 @@ def _check_primal(dims, p3, rho, bmob, rs, rv, depth, trans):
         raise ValueError("K3: phase arrays must be (3, nc), rs/rv/depth "
                          "(nc,)")
     nf = sum(n for _, _, n in _dir_segments(dims))
-    if (trans.dtype != torch.float64 or trans.device != dev
-            or not trans.is_contiguous() or trans.shape != (nf,)):
-        raise ValueError(f"K3: trans must be a contiguous float64 ({nf},) "
-                         f"tensor on {dev}")
+    for t, name in ((trans, "trans"), (thr, "thr")):
+        if t is not None and (t.dtype != torch.float64 or t.device != dev
+                              or not t.is_contiguous() or t.shape != (nf,)):
+            raise ValueError(f"K3: {name} must be a contiguous float64 "
+                             f"({nf},) tensor on {dev}")
 
 
-def tpfa_div_cuda(dims, p3, rho, bmob, rs, rv, depth, trans, gravity):
+def _ptr_or_null(t):
+    return cuda_lib.P(0) if t is None else cuda_lib.ptr(t)
+
+
+def tpfa_div_cuda(dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
+                  thr=None):
     """K3 forward entry on the card; same contract as tpfa_div_plain."""
     nx, ny, nz = dims
     nc = nx * ny * nz
     dev = p3.device
-    _check_primal(dims, p3, rho, bmob, rs, rv, depth, trans)
+    _check_primal(dims, p3, rho, bmob, rs, rv, depth, trans, thr)
     if 3 * nc + 3 >= 2 ** 31:
         raise ValueError(f"K3: {nc} cells exceed the kernel's 32-bit "
                          "indices")
@@ -779,25 +815,29 @@ def tpfa_div_cuda(dims, p3, rho, bmob, rs, rv, depth, trans, gravity):
     err = lib.opm_tpfa_div(nx, ny, nz, g.ty, g.tiles_x, g.tiles_y, g.zrun,
                            g.runs, g.smem, ptr(p3), ptr(rho),
                            ptr(bmob), ptr(rs), ptr(rv), ptr(depth),
-                           ptr(trans), float(gravity), ptr(div),
-                           cuda_lib.stream_ptr(dev))
+                           ptr(trans), _ptr_or_null(thr), float(gravity),
+                           ptr(div), cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "opm_tpfa_div")
     tpfa_div_cuda.launches += 1
+    if thr is not None:
+        tpfa_div_cuda.thr_launches += 1
     return div
 
 
 tpfa_div_cuda.launches = 0
+# launches with a THPRES threshold (of those counted in launches)
+tpfa_div_cuda.thr_launches = 0
 
 
 def tpfa_div_tangent_cuda(dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
-                          dp3, drho, dbmob, drs, drv):
+                          dp3, drho, dbmob, drs, drv, thr=None):
     """K3 tangent entry on the card; same contract as
     tpfa_div_tangent_plain."""
     nx, ny, nz = dims
     nc = nx * ny * nz
     dev = p3.device
     B = dp3.shape[0]
-    _check_primal(dims, p3, rho, bmob, rs, rv, depth, trans)
+    _check_primal(dims, p3, rho, bmob, rs, rv, depth, trans, thr)
     _check_cells((dp3, drho, dbmob, drs, drv), dev, nc)
     if (dp3.shape != (B, 3, nc) or drho.shape != (B, 3, nc)
             or dbmob.shape != (B, 3, nc) or drs.shape != (B, nc)
@@ -819,14 +859,18 @@ def tpfa_div_tangent_cuda(dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
             nx, ny, nz, B, int(g.whole), g.block[1], g.grid[0], g.grid[1],
             g.dirs, g.tiles_x, g.zrun, g.smem, ptr(p3), ptr(rho), ptr(bmob),
             ptr(rs), ptr(rv), ptr(dp3), ptr(drho), ptr(dbmob), ptr(drs),
-            ptr(drv), ptr(depth), ptr(trans), float(gravity), ptr(ddiv),
-            cuda_lib.stream_ptr(dev))
+            ptr(drv), ptr(depth), ptr(trans), _ptr_or_null(thr),
+            float(gravity), ptr(ddiv), cuda_lib.stream_ptr(dev))
         cuda_lib.check(err, "opm_tpfa_div_tangent")
         tpfa_div_tangent_cuda.launches += 1
+        if thr is not None:
+            tpfa_div_tangent_cuda.thr_launches += 1
     return ddiv
 
 
 tpfa_div_tangent_cuda.launches = 0
+# launches with a THPRES threshold (of those counted in launches)
+tpfa_div_tangent_cuda.thr_launches = 0
 
 
 class _TpfaDivTangent(torch.autograd.Function):
@@ -834,15 +878,16 @@ class _TpfaDivTangent(torch.autograd.Function):
     batch axes, folded into K3's B."""
 
     @staticmethod
-    def forward(p3, rho, bmob, rs, rv, depth, trans, gravity, dims, dp3,
-                drho, dbmob, drs, drv):
+    def forward(p3, rho, bmob, rs, rv, depth, trans, gravity, dims, thr,
+                dp3, drho, dbmob, drs, drv):
         nc = rs.shape[-1]
         lead = drs.shape[:-1]
         t3 = [a.reshape(-1, 3, nc).contiguous() for a in (dp3, drho, dbmob)]
         t1 = [a.reshape(-1, nc).contiguous() for a in (drs, drv)]
         out = cuda_lib.dispatch(
             p3, tpfa_div_tangent_cuda, tpfa_div_tangent_plain, dims, p3,
-            rho, bmob, rs, rv, depth, trans, gravity, *t3, *t1, what="K3")
+            rho, bmob, rs, rv, depth, trans, gravity, *t3, *t1, thr=thr,
+            what="K3")
         return out.reshape(lead + (3, nc))
 
     @staticmethod
@@ -851,14 +896,14 @@ class _TpfaDivTangent(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
-             dims, dp3, drho, dbmob, drs, drv):
-        if any(d is not None for d in in_dims[:7]):
+             dims, thr, dp3, drho, dbmob, drs, drv):
+        if any(d is not None for d in in_dims[:7] + in_dims[9:10]):
             raise NotImplementedError("K3 tangent with a batched primal")
         B = info.batch_size
         tans = [cuda_lib.batched(a, d, B)
-                for a, d in zip((dp3, drho, dbmob, drs, drv), in_dims[9:])]
+                for a, d in zip((dp3, drho, dbmob, drs, drv), in_dims[10:])]
         out = _TpfaDivTangent.apply(p3, rho, bmob, rs, rv, depth, trans,
-                                    gravity, dims, *tans)
+                                    gravity, dims, thr, *tans)
         return out, 0
 
 
@@ -867,17 +912,18 @@ class _TpfaDiv(torch.autograd.Function):
     entry."""
 
     @staticmethod
-    def forward(p3, rho, bmob, rs, rv, depth, trans, gravity, dims):
+    def forward(p3, rho, bmob, rs, rv, depth, trans, gravity, dims, thr):
         return cuda_lib.dispatch(p3, tpfa_div_cuda, tpfa_div_plain, dims,
                                  p3, rho, bmob, rs, rv, depth, trans,
-                                 gravity, what="K3")
+                                 gravity, thr=thr, what="K3")
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        p3, rho, bmob, rs, rv, depth, trans, gravity, dims = inputs
+        p3, rho, bmob, rs, rv, depth, trans, gravity, dims, thr = inputs
         ctx.save_for_forward(p3, rho, bmob, rs, rv, depth, trans)
         ctx.gravity = gravity
         ctx.dims = dims
+        ctx.thr = thr
 
     @staticmethod
     def jvp(ctx, dp3, drho, dbmob, drs, drv, *rest):
@@ -886,19 +932,21 @@ class _TpfaDiv(torch.autograd.Function):
                 for t, ref in zip((dp3, drho, dbmob, drs, drv),
                                   (p3, rho, bmob, rs, rv))]
         return _TpfaDivTangent.apply(p3, rho, bmob, rs, rv, depth, trans,
-                                     ctx.gravity, ctx.dims, *tans)
+                                     ctx.gravity, ctx.dims, ctx.thr, *tans)
 
     @staticmethod
     def vmap(info, in_dims, *args):
         raise NotImplementedError("K3 with a batched primal")
 
 
-def tpfa_divergence(dims, p3, rho, bmob, rs, rv, depth, trans, gravity):
-    """div F (3, nc) of the TPFA phase fluxes (K3)."""
+def tpfa_divergence(dims, p3, rho, bmob, rs, rv, depth, trans, gravity,
+                    thr=None):
+    """div F (3, nc) of the TPFA phase fluxes (K3), clipped by the stencil
+    faces' THPRES thresholds ``thr`` when given."""
     return _TpfaDiv.apply(p3.contiguous(), rho.contiguous(),
                           bmob.contiguous(), rs.contiguous(),
                           rv.contiguous(), depth, trans, float(gravity),
-                          tuple(dims))
+                          tuple(dims), thr)
 
 
 # ---------------------------------------------------------------------------
@@ -1033,28 +1081,31 @@ class FaceList:
 # K3-faces: the face-list flux divergence (plain version, CUDA wrapper)
 
 def faces_flux_plain(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
-                     gravity):
-    """(3, n) fluxes of the list's faces (the reference's gather
-    branch)."""
+                     gravity, thr=None):
+    """(3, n) fluxes of the list's faces (the reference's gather branch);
+    thr: every face's THPRES threshold (the grid's face order), or
+    None."""
     c1, c2 = fl.c1, fl.c2
     return face_flux_from_q(p3[:, c1], p3[:, c2], rho[:, c1], rho[:, c2],
                             bmob[:, c1], bmob[:, c2], rs[c1], rs[c2],
                             rv[c1], rv[c2], trans[fl.first:],
-                            depth[c1] - depth[c2], gravity)
+                            depth[c1] - depth[c2], gravity,
+                            None if thr is None else thr[fl.first:])
 
 
 def faces_div_plain(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
-                    gravity, out=None):
+                    gravity, out=None, thr=None):
     """Signed scatter-add of the list's face fluxes (left += f, right -= f)
     onto zeros, or onto ``out`` (the structured divergence of an embedded
     grid; not modified)."""
-    flux = faces_flux_plain(fl, p3, rho, bmob, rs, rv, depth, trans, gravity)
+    flux = faces_flux_plain(fl, p3, rho, bmob, rs, rv, depth, trans, gravity,
+                            thr)
     base = torch.zeros_like(p3) if out is None else out.clone()
     return base.index_add_(1, fl.c1, flux).index_add_(1, fl.c2, -flux)
 
 
 _FACES_SIGS = {
-    "opm_faces_div": [_I, _P, _P, _P, _P, cuda_lib.L] + [_P] * 7
+    "opm_faces_div": [_I, _P, _P, _P, _P, cuda_lib.L] + [_P] * 8
     + [_D, _I, _P, _P],
     # the operator over the sliced-ELL layout (models/linearize.py)
     "opm_faces_sell_apply": [_I] + [_P] * 6 + [cuda_lib.L] + [_P] * 3
@@ -1062,7 +1113,7 @@ _FACES_SIGS = {
     # the face blocks of the assembly, with the operator's packed copy
     # (models/linearize.py)
     "opm_faces_blocks": [_I, _P, _P, _P, _P, cuda_lib.L, cuda_lib.L, _P, _P,
-                         cuda_lib.L, cuda_lib.L] + [_P] * 4 + [_D]
+                         cuda_lib.L, cuda_lib.L] + [_P] * 5 + [_D]
     + [_P] * 8,
 }
 
@@ -1074,7 +1125,7 @@ def csr_args(csr: FaceCsr):
 
 
 def faces_div_cuda(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
-                   gravity, out=None):
+                   gravity, out=None, thr=None):
     """K3-faces on the card; same contract as faces_div_plain, except that
     ``out`` is updated in place."""
     nc = rs.shape[0]
@@ -1085,6 +1136,11 @@ def faces_div_cuda(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
             or trans.shape[0] != fl.first + fl.n):
         raise ValueError("K3-faces: trans must be contiguous float64 over "
                          "every face of the grid")
+    if thr is not None and (thr.dtype != torch.float64 or thr.device != dev
+                            or not thr.is_contiguous()
+                            or thr.shape != trans.shape):
+        raise ValueError("K3-faces: thr must be contiguous float64 over "
+                         "every face of the grid")
     if out is not None:
         _check_cells((out,), dev, nc)
     div = torch.empty_like(p3) if out is None else out
@@ -1093,24 +1149,28 @@ def faces_div_cuda(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
     err = lib.opm_faces_div(
         *csr_args(fl.full if out is None else fl.touched), nc, ptr(p3),
         ptr(rho), ptr(bmob), ptr(rs), ptr(rv), ptr(depth), ptr(trans),
-        float(gravity), int(out is not None), ptr(div),
+        _ptr_or_null(thr), float(gravity), int(out is not None), ptr(div),
         cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "opm_faces_div")
     faces_div_cuda.launches += 1
+    if thr is not None:
+        faces_div_cuda.thr_launches += 1
     return div
 
 
 faces_div_cuda.launches = 0
+# launches with a THPRES threshold (of those counted in launches)
+faces_div_cuda.thr_launches = 0
 
 
 def faces_divergence(fl: FaceList, p3, rho, bmob, rs, rv, depth, trans,
-                     gravity, out=None):
+                     gravity, out=None, thr=None):
     """div F (3, nc) of the list's faces (K3-faces), added onto ``out``
-    when given."""
+    when given; thr: every face's THPRES threshold, or None."""
     args = (fl, p3.contiguous(), rho.contiguous(), bmob.contiguous(),
             rs.contiguous(), rv.contiguous(), depth, trans, gravity, out)
     return cuda_lib.dispatch(p3, faces_div_cuda, faces_div_plain, *args,
-                             what="K3-faces")
+                             thr=thr, what="K3-faces")
 
 
 # ---------------------------------------------------------------------------
@@ -1145,6 +1205,8 @@ class BlackoilModel:
         self.satnum = torch.as_tensor(grid.satnum, dtype=torch.long,
                                       device=dev)
         self.gravity = float(grid.gravity)
+        # (nf,) THPRES thresholds in the grid's face order, set by the
+        # simulator (None: no clip)
         self.threshold_dp = None
         self.structured = bool(getattr(grid, "structured", False))
         self.op_dims = self.dims if self.structured else None
@@ -1178,37 +1240,39 @@ class BlackoilModel:
         return accumulation_from_q(self.cell_quantities(state))
 
     def flux_divergence(self, q: CellQuantities, threshold_dp=None):
-        """div of the TPFA face fluxes, (3, nc), through K3."""
-        if threshold_dp is not None:
-            raise NotImplementedError(
-                "THPRES is not ported yet (ROADMAP Queue 1 item 8)")
+        """div of the TPFA face fluxes, (3, nc), through K3 (and K3-faces),
+        clipped by the faces' THPRES thresholds when given."""
         p3 = torch.stack([q.pw, q.po, q.pg], dim=0)
         bmob = q.b * q.mob
         div = None
         if self.structured:
-            div = tpfa_divergence(self.dims, p3, q.rho, bmob, q.rs, q.rv,
-                                  self.depth, self.trans_stencil,
-                                  self.gravity)
+            div = tpfa_divergence(
+                self.dims, p3, q.rho, bmob, q.rs, q.rv, self.depth,
+                self.trans_stencil, self.gravity,
+                None if threshold_dp is None
+                else threshold_dp[:self.nf_canonical].contiguous())
         if self.faces is not None:
             div = faces_divergence(self.faces, p3, q.rho, bmob, q.rs, q.rv,
                                    self.depth, self.trans, self.gravity,
-                                   out=div)
+                                   out=div, thr=threshold_dp)
         return div
 
-    def face_fluxes(self, q: CellQuantities):
+    def face_fluxes(self, q: CellQuantities, threshold_dp=None):
         """Per-face fluxes (3, nf) in grid face order (plain; for output
-        and tests)."""
+        and tests), clipped by the faces' THPRES thresholds when given."""
         p3 = torch.stack([q.pw, q.po, q.pg], dim=0)
         bmob = q.b * q.mob
+        thr = threshold_dp
         segs = []
         if self.structured:
-            segs.append(face_fluxes(self.dims, p3, q.rho, bmob, q.rs, q.rv,
-                                    self.depth, self.trans_stencil,
-                                    self.gravity))
+            segs.append(face_fluxes(
+                self.dims, p3, q.rho, bmob, q.rs, q.rv, self.depth,
+                self.trans_stencil, self.gravity,
+                thr=None if thr is None else thr[:self.nf_canonical]))
         if self.faces is not None:
             segs.append(faces_flux_plain(self.faces, p3, q.rho, bmob, q.rs,
                                          q.rv, self.depth, self.trans,
-                                         self.gravity))
+                                         self.gravity, thr))
         return torch.cat(segs, dim=-1)
 
     # ------------------------------------------------------------------
@@ -1266,7 +1330,8 @@ class BlackoilModel:
         flat_cq = cq_s.reshape(-1, 3)
         cell_res = cell_res.index_add(1, flat_cells, -flat_cq.T)
         well_flux, well_ctrl = stdwells.well_residuals(
-            wd, state.qs, state.bhp, cq_s, state.control, state.target)
+            wd, state.qs, state.bhp, cq_s, state.control, state.target,
+            resv_coef=wd.get("resv_coef"), vfp=wd.get("vfp"))
         return Residual(cell=cell_res, well_flux=well_flux,
                         well_ctrl=well_ctrl, b=q.b)
 

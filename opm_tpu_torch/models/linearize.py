@@ -45,7 +45,8 @@ import torch
 from opm_tpu_torch.models.blackoil import (_FACES_SIGS, SELL_PAD, FaceList,
                                            SellLayout, _cells3,
                                            _dir_segments,
-                                           _face_flux_tangent, _slice,
+                                           _face_flux_tangent, _ptr_or_null,
+                                           _slice,
                                            cell_assembly,
                                            cell_quantities_plain,
                                            cells_assemble_plain,
@@ -105,10 +106,6 @@ def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
         raise NotImplementedError(
             "hysteresis/VAPPARS memory is not ported yet "
             "(ROADMAP Queue 1 item 2)")
-    if model.threshold_dp is not None:
-        raise NotImplementedError(
-            "THPRES is not ported yet (ROADMAP Queue 1 item 8)")
-    stdwells._check_ported(wd)
     props = model.props
     dims = model.dims
     dev = state.pressure.device
@@ -128,21 +125,23 @@ def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
     face_R = torch.empty_like(face_L)
     fargs = (fv, fc, model.depth, model.trans, model.gravity, r_cell, diag,
              face_L, face_R)
+    # THPRES: the faces' thresholds (None: the zero threshold's tangent)
+    thr = model.threshold_dp
     if model.structured:
         if twin:
-            face_blocks_plain(dims, *fargs)
+            face_blocks_plain(dims, *fargs, thr=thr)
         else:
             cuda_lib.dispatch(fv, face_blocks_cuda, face_blocks_plain, dims,
-                              *fargs, what="K3 face blocks")
+                              *fargs, thr=thr, what="K3 face blocks")
     # (the face list's, with K4-faces' packed copy on the card)
     fl = model.faces
     blk = None
     if fl is not None:
         if twin:
-            faces_blocks_plain(fl, *fargs)
+            faces_blocks_plain(fl, *fargs, thr=thr)
         else:
             blk = cuda_lib.dispatch(fv, faces_blocks_cuda,
-                                    faces_blocks_plain, fl, *fargs,
+                                    faces_blocks_plain, fl, *fargs, thr=thr,
                                     what="K3-faces face blocks")
 
     # ---- wells: perforation-local fluxes and their exact derivatives
@@ -194,15 +193,18 @@ def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
     # well equations: flux rows q - sum cq, control row
     cq_sum = cq_val.reshape(nw, mp, 3).sum(dim=1)
     flux_res = state.qs - cq_sum
+    inj = wd["is_injector"].to(torch.bool)
     g = stdwells.control_distribution(state.control, wd["comp_frac"])
-    g = stdwells.effective_distribution(
-        g, state.control, wd["is_injector"].to(torch.bool),
-        cq_val.reshape(nw, mp, 3))
+    g = stdwells.resv_distribution(g, state.control, inj,
+                                   wd.get("resv_coef"))
+    g = stdwells.effective_distribution(g, state.control, inj,
+                                        cq_val.reshape(nw, mp, 3))
     is_bhp = (state.control == CTRL_BHP) | (state.control == CTRL_THP)
     closed = wd["open"] < 0.5
     rate = torch.einsum("wp,wp->w", g, state.qs) - state.target
-    ctrl_res = torch.where(is_bhp, state.bhp - state.target, rate)
-    ctrl_jq = torch.where(is_bhp[:, None], 0.0, g)
+    bhp_t, dbhp_t = _control_bhp(wd.get("vfp"), state)
+    ctrl_res = torch.where(is_bhp, state.bhp - bhp_t, rate)
+    ctrl_jq = torch.where(is_bhp[:, None], -dbhp_t, g)
     ctrl_jb = torch.where(is_bhp, 1.0, 0.0).to(torch.float64)
     flux_res = torch.where(closed[:, None], state.qs, flux_res)
     ctrl_res = torch.where(closed, state.bhp - wd["bhp_limit"], ctrl_res)
@@ -214,8 +216,7 @@ def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
     flux_rows = torch.where(closed[:, None, None], eye34[None],
                             eye34[None] - dwv_sum)
     ctrl_row = torch.cat([ctrl_jq, ctrl_jb[:, None]], dim=1)
-    ctrl_bhp = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float64,
-                            device=dev)
+    ctrl_bhp = torch.eye(4, dtype=torch.float64, device=dev)[3]
     ctrl_row = torch.where(closed[:, None], ctrl_bhp[None], ctrl_row)
     wd_diag = torch.cat([flux_rows, ctrl_row[:, None, :]], dim=1)
     cw = (cw * wd["open"][:, None, None, None]).contiguous()
@@ -231,6 +232,29 @@ def assemble(model, state, acc0, dt, wd, cdp, *, twin=False) -> BlockSystem:
                        packed=packed)
 
 
+def _control_bhp(vfp, state):
+    """The BHP target of the control row and its derivative in the well's
+    rates (nw, 3): the target itself (rates play no part) or, for a
+    THP-controlled well with a VFP table, the table's BHP at its THP
+    target plus the datum correction, differentiated by forward mode
+    (the reference's jacfwd of ctrl_local, models/linearize.py:
+    383-433)."""
+    target = state.target
+    if vfp is None:
+        return target, torch.zeros_like(state.qs)
+    is_thp = state.control == CTRL_THP
+
+    def bhp_t(qs):
+        return torch.where(is_thp, stdwells.vfp_bhp(vfp, qs, target),
+                           target)
+
+    eye = torch.eye(3, dtype=torch.float64, device=target.device)
+    seeds = eye[:, None, :].expand(3, target.shape[0], 3)
+    val, cols = torch.func.vmap(
+        lambda d: torch.func.jvp(bhp_t, (state.qs,), (d,)))(seeds)
+    return val[0], cols.T
+
+
 # ---------------------------------------------------------------------------
 # K3 face blocks: the fluxes and face_L / face_R of the assembly, folded into
 # r_cell and diag (plain versions, CUDA wrappers: csrc/blocks.cu stencil
@@ -243,30 +267,34 @@ def _face_inputs(fv, fc):
             (fc[:, 0:3], fc[:, 3:6], fc[:, 6:9], fc[:, 9], fc[:, 10]))
 
 
-def _blocks(args, T, dz, gravity, tans_L, tans_R):
+def _blocks(args, T, dz, gravity, tans_L, tans_R, thr=None):
     """face_L, face_R (9, n) (rows 3 eq + var) of faces with the gathered
     face inputs ``args`` (L, R pairs) and the tangent columns at the left
-    and right cells, through the zero-THPRES tangent (the reference
-    assembles through a zero threshold, whose clip has a zero derivative
-    on faces with dphi == 0 exactly)."""
+    and right cells, through the faces' THPRES clip ``thr`` or, without
+    THPRES, the zero-THPRES tangent (the reference assembles through a
+    zero threshold, whose clip has a zero derivative on faces with
+    dphi == 0 exactly)."""
     tL, tR = [], []
     for aL, aR in zip(tans_L, tans_R):
         tL += [aL, torch.zeros_like(aL)]
         tR += [torch.zeros_like(aR), aR]
-    fL = _face_flux_tangent(*args, T, dz, gravity, *tL, zero_threshold=True)
-    fR = _face_flux_tangent(*args, T, dz, gravity, *tR, zero_threshold=True)
+    fL = _face_flux_tangent(*args, T, dz, gravity, *tL, zero_threshold=True,
+                            thr=thr)
+    fR = _face_flux_tangent(*args, T, dz, gravity, *tR, zero_threshold=True,
+                            thr=thr)
     n = T.shape[-1]
     # (3 var, 3 eq, n) -> rows 3*eq + var
     return fL.transpose(0, 1).reshape(9, n), fR.transpose(0, 1).reshape(9, n)
 
 
 def face_blocks_plain(dims, fv, fc, depth, trans, gravity, r_cell, diag,
-                      face_L, face_R):
+                      face_L, face_R, thr=None):
     """The stencil faces' fluxes and blocks from K2's face inputs fv (11,
     nc) and tangent columns fc (3, 11, nc), by direction in the
     reference's order: r_cell += F and diag += face_L on the left cells,
     r_cell += -F and diag += -face_R on the right cells (in place); face_L
-    and face_R (9, nf) are written at the stencil faces."""
+    and face_R (9, nf) are written at the stencil faces. thr: every
+    face's THPRES threshold (the grid's face order), or None."""
     prim, tans = _face_inputs(fv, fc)
     prim = [_cells3(a, dims) for a in prim]
     tans = [_cells3(a, dims) for a in tans]
@@ -276,14 +304,15 @@ def face_blocks_plain(dims, fv, fc, depth, trans, gravity, r_cell, diag,
     ofs = 0
     for slL, slR, nf_d in _dir_segments(dims):
         T = trans[ofs:ofs + nf_d]
+        th = None if thr is None else thr[ofs:ofs + nf_d]
         dz = (dep[slL] - dep[slR]).reshape(-1)
         args = []
         for a in prim:
             args += [_slice(a, slL), _slice(a, slR)]
-        flux = face_flux_from_q(*args, T, dz, gravity)
+        flux = face_flux_from_q(*args, T, dz, gravity, th)
         fL, fR = _blocks(args, T, dz, gravity,
                          [_slice(a, slL) for a in tans],
-                         [_slice(a, slR) for a in tans])
+                         [_slice(a, slR) for a in tans], th)
         shp = r3[(slice(None),) + slL].shape
         r3[(slice(None),) + slL] += flux.reshape(shp)
         r3[(slice(None),) + slR] += -flux.reshape(shp)
@@ -295,7 +324,7 @@ def face_blocks_plain(dims, fv, fc, depth, trans, gravity, r_cell, diag,
 
 
 def faces_blocks_plain(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
-                       diag, face_L, face_R):
+                       diag, face_L, face_R, thr=None):
     """The list's faces (all faces of a gather grid, an embedded grid's
     extra faces after the stencil) by gather, chained through the same
     per-cell tangent columns: r_cell and diag updated in place by
@@ -304,13 +333,14 @@ def faces_blocks_plain(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
     c1, c2 = fl.c1, fl.c2
     prim, tans = _face_inputs(fv, fc)
     T = trans[fl.first:]
+    th = None if thr is None else thr[fl.first:]
     dz = depth[c1] - depth[c2]
     args = []
     for a in prim:
         args += [a[..., c1], a[..., c2]]
-    flux = face_flux_from_q(*args, T, dz, gravity)
+    flux = face_flux_from_q(*args, T, dz, gravity, th)
     fL, fR = _blocks(args, T, dz, gravity, [a[..., c1] for a in tans],
-                     [a[..., c2] for a in tans])
+                     [a[..., c2] for a in tans], th)
     r_cell.index_add_(1, c1, flux).index_add_(1, c2, -flux)
     diag.index_add_(1, c1, fL).index_add_(1, c2, -fR)
     face_L[:, fl.first:] = fL
@@ -318,21 +348,24 @@ def faces_blocks_plain(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
 
 
 def faces_blocks_packed_plain(fl: FaceList, fv, fc, depth, trans, gravity,
-                              r_cell, diag, face_L, face_R):
+                              r_cell, diag, face_L, face_R, thr=None):
     """faces_blocks_plain, then K4-faces' sliced-ELL copy of the blocks it
     wrote (faces_pack_plain): the oracle of faces_blocks_cuda; returns the
     copy."""
     faces_blocks_plain(fl, fv, fc, depth, trans, gravity, r_cell, diag,
-                       face_L, face_R)
+                       face_L, face_R, thr)
     return faces_pack_plain(fl.sell, face_L, face_R)
 
 
 def _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
-                       face_R):
+                       face_R, thr=None):
     dev = fv.device
-    for t, shape in ((fv, (11, nc)), (fc, (3, 11, nc)), (depth, (nc,)),
-                     (trans, (nf,)), (r_cell, (3, nc)), (diag, (9, nc)),
-                     (face_L, (9, nf)), (face_R, (9, nf))):
+    checks = [(fv, (11, nc)), (fc, (3, 11, nc)), (depth, (nc,)),
+              (trans, (nf,)), (r_cell, (3, nc)), (diag, (9, nc)),
+              (face_L, (9, nf)), (face_R, (9, nf))]
+    if thr is not None:
+        checks.append((thr, (nf,)))
+    for t, shape in checks:
         if (t.dtype != torch.float64 or t.device != dev
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"K3 face blocks: expected a contiguous float64 "
@@ -341,13 +374,13 @@ def _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
 
 
 BLOCKS_SIGS = {
-    "opm_face_blocks": [_I, _I, _I, _L] + [_P] * 4 + [cuda_lib.D]
+    "opm_face_blocks": [_I, _I, _I, _L] + [_P] * 5 + [cuda_lib.D]
     + [_P] * 5,
 }
 
 
 def face_blocks_cuda(dims, fv, fc, depth, trans, gravity, r_cell, diag,
-                     face_L, face_R):
+                     face_L, face_R, thr=None):
     """K3 face blocks, stencil form, on the card; same contract as
     face_blocks_plain (trans and the face blocks span every face of the
     grid; the stencil faces come first)."""
@@ -355,7 +388,7 @@ def face_blocks_cuda(dims, fv, fc, depth, trans, gravity, r_cell, diag,
     nc = nx * ny * nz
     nf = trans.shape[0]
     _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
-                       face_R)
+                       face_R, thr)
     nf_d = sum(n for _, _, n in _dir_segments(dims))
     if nf < nf_d:
         raise ValueError(f"K3 face blocks: {nf} faces, the stencil of "
@@ -363,18 +396,23 @@ def face_blocks_cuda(dims, fv, fc, depth, trans, gravity, r_cell, diag,
     lib = cuda_lib.load("blocks", BLOCKS_SIGS)
     ptr = cuda_lib.ptr
     err = lib.opm_face_blocks(nx, ny, nz, nf, ptr(fv), ptr(fc), ptr(depth),
-                              ptr(trans), float(gravity), ptr(r_cell),
+                              ptr(trans), _ptr_or_null(thr), float(gravity),
+                              ptr(r_cell),
                               ptr(diag), ptr(face_L), ptr(face_R),
                               cuda_lib.stream_ptr(fv.device))
     cuda_lib.check(err, "opm_face_blocks")
     face_blocks_cuda.launches += 1
+    if thr is not None:
+        face_blocks_cuda.thr_launches += 1
 
 
 face_blocks_cuda.launches = 0
+# launches with a THPRES threshold (of those counted in launches)
+face_blocks_cuda.thr_launches = 0
 
 
 def faces_blocks_cuda(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
-                      diag, face_L, face_R):
+                      diag, face_L, face_R, thr=None):
     """K3 face blocks, face-list form, on the card (over the rows of the
     cells the list's faces touch: every cell of a gather grid, an embedded
     grid's epilogue); same contract as faces_blocks_packed_plain: the row
@@ -386,7 +424,7 @@ def faces_blocks_cuda(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
     nc = diag.shape[-1]
     nf = trans.shape[0]
     _check_face_blocks(nc, nf, fv, fc, depth, trans, r_cell, diag, face_L,
-                       face_R)
+                       face_R, thr)
     if nf != fl.first + fl.n:
         raise ValueError("K3-faces face blocks: trans must span every face "
                          "of the grid")
@@ -398,15 +436,20 @@ def faces_blocks_cuda(fl: FaceList, fv, fc, depth, trans, gravity, r_cell,
     ptr = cuda_lib.ptr
     err = lib.opm_faces_blocks(
         *csr_args(fl.touched), fl.first, fl.n, ptr(fl.c1_32), ptr(fl.c2_32),
-        nc, nf, ptr(fv), ptr(fc), ptr(depth), ptr(trans), float(gravity),
-        ptr(flux), ptr(r_cell), ptr(diag), ptr(face_L), ptr(face_R),
+        nc, nf, ptr(fv), ptr(fc), ptr(depth), ptr(trans), _ptr_or_null(thr),
+        float(gravity), ptr(flux), ptr(r_cell), ptr(diag), ptr(face_L),
+        ptr(face_R),
         ptr(sell.chunk0), ptr(blk), cuda_lib.stream_ptr(fv.device))
     cuda_lib.check(err, "opm_faces_blocks")
     faces_blocks_cuda.launches += 1
+    if thr is not None:
+        faces_blocks_cuda.thr_launches += 1
     return blk
 
 
 faces_blocks_cuda.launches = 0
+# launches with a THPRES threshold (of those counted in launches)
+faces_blocks_cuda.thr_launches = 0
 
 
 def bapply_rows(rows9, v):

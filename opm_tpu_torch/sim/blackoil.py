@@ -7,17 +7,27 @@ iteration totals, and the output layer: the deck-driven SUMMARY vectors,
 the ECL SMSPEC/UNSMRY, UNRST, INIT and EGRID files, the PRT run log,
 .npz checkpoints, VTK and Matlab dumps (an asynchronous writer thread on
 host arrays), and resume from a checkpoint, an UNRST or a deck RESTART.
-Not ported yet, and raising where a deck reaches them: report-step spans
-and the fused substep (ROADMAP Queue 1 item 7); THPRES, geology
-modifiers, group control, economic limits and RESV controls (item 8).
+Field-style controls as the reference's per-step path runs them: THPRES
+thresholds between equilibration regions (defaulted ones from the initial
+state's pressure jump), VFP tables with THP control and the WTHP summary
+values, group targets resolved a report step and reallocated in each
+Newton, history-mode (WCONHIST/WCONINJH) and RESV controls through the
+rate converter, WECON economic limits and schedule geology modifiers
+(MULTFLT and the like), which rebuild the grid, the model and the solver
+with its CPR hierarchy. Each report step's host work of these pieces is
+counted in ``host_work`` (host reads and seconds). Not ported yet, and
+raising where a deck reaches them: report-step spans and the fused
+substep (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import copy
+import gc
 import os
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -39,10 +49,19 @@ from opm_tpu_torch.solver.timestepping import (AdaptiveTimeStepping,
                                                TimeStepControlParams)
 from opm_tpu_torch.utils.events import EventSource
 from opm_tpu_torch.utils.threadhandle import ThreadHandle
+from opm_tpu_torch.wells import standard as stdwells
+from opm_tpu_torch.wells.econ import check_econ_limits
+from opm_tpu_torch.wells.groups import (make_group_device_arrays,
+                                        resolve_group_controls)
+from opm_tpu_torch.wells.rateconv import (region_averages,
+                                          voidage_coefficients,
+                                          well_resv_coefficients)
+from opm_tpu_torch.wells.vfp import tables_to
 from opm_tpu_torch.wells.wells import (CTRL_BHP, CTRL_GRAT, CTRL_LRAT,
                                        CTRL_ORAT, CTRL_RESERVOIR_RATE,
                                        CTRL_RESV, CTRL_SURFACE_RATE,
-                                       CTRL_WRAT, WellSet, build_well_set)
+                                       CTRL_THP, CTRL_WRAT, WellSet,
+                                       build_well_set)
 
 DAY = 86400.0
 
@@ -262,9 +281,8 @@ class SummaryCollector:
                 row[f"WGLR:{name}"] = (prod[iw, GAS] / liq
                                        if liq > 1e-12 else 0.0)
                 row[f"WOIR:{name}"] = inj[iw, OIL]
-                # THP is only defined through a VFP back-solve (not ported:
-                # ROADMAP Queue 1 item 8); wells without VFP report 0, as
-                # the reference does
+                # THP is only defined through a VFP back-solve; wells
+                # without VFP report 0, as the reference does
                 row.setdefault(f"WTHP:{name}", 0.0)
                 for k, tot in self._well_totals.items():
                     row[f"{k}:{name}"] = tot[iw]
@@ -337,11 +355,12 @@ def schedule_wells(schedule):
     return names, max_perf
 
 
-def report_step_wells(step, grid, names, max_perf) -> WellSet:
-    """The report step's WellSet, extended to the global well list
-    (wells missing from this step are shut)."""
-    ws = build_well_set(step.wells, grid, max_perf=max_perf,
-                        name_order=names)
+def report_step_wells(step, grid, names, max_perf, wells=None) -> WellSet:
+    """The report step's WellSet (of ``wells``, the step's own by
+    default), extended to the global well list (wells missing from this
+    step are shut)."""
+    ws = build_well_set(step.wells if wells is None else wells, grid,
+                        max_perf=max_perf, name_order=names)
     nw = len(names)
     if ws.nw == nw and ws.names == names:
         return ws
@@ -456,17 +475,30 @@ class SimulatorFullyImplicitBlackoil:
         VTK and Matlab dumps."""
         self.case = case
         self.device = resolve_device(device)
-        if case.solution.thpres:
-            raise NotImplementedError(
-                "THPRES is not ported yet (ROADMAP Queue 1 item 8)")
-        self.grid = build_grid(case)
+        # the grid's embedding policy as it was built (a geology rebuild
+        # keeps the representation)
+        self._embed_knob = os.environ.get("OPM_TPU_EMBED", "auto")
+        self.grid = build_grid(case, self._embed_knob)
+        # a geology modifier edits a copy of the case, made at the first
+        self._owns_case = False
         self.props = BlackoilProps.from_case(case, self.device)
         self.model = BlackoilModel(self.grid, self.props, params,
                                    device=self.device)
+        self._thpres_default_pairs = []
+        if case.solution.thpres:
+            self._thpres_setup()
+        self.vfp_tables = tables_to(case.vfp_tables, self.device)
         self.schedule = build_schedule(case)
         self.output_dir = output_dir
         names, self.max_perf = schedule_wells(self.schedule)
         self.well_names = names
+        # wells shut by economic limits, and (i, j, k) completions closed
+        # by a WECON workover per well
+        self._econ_shut: set = set()
+        self._econ_closed_conns: Dict[str, set] = {}
+        self._vfp_report = None
+        # per piece of a report step's host work: [host reads, seconds]
+        self.host_work: Dict[str, list] = {}
         self.ts = AdaptiveTimeStepping(ts_params, tuning=self.schedule.tuning)
         # TUNING record 3 NEWTMX: deck-driven max Newton iterations
         if self.schedule.tuning and self.schedule.tuning.get("newtmx"):
@@ -482,22 +514,314 @@ class SimulatorFullyImplicitBlackoil:
             grid=self.grid)
         self.report = SimulatorReportTotals()
 
-    @staticmethod
-    def _check_step_ported(step):
-        if step.geo_mods:
-            raise NotImplementedError(
-                "schedule geology modifiers are not ported yet "
-                "(ROADMAP Queue 1 item 8)")
-        for w in step.wells:
-            if w.control in ("GRUP", "RESV", "THP") or w.history:
-                raise NotImplementedError(
-                    f"well {w.name}: {w.control} control / history mode "
-                    "is not ported yet (ROADMAP Queue 1 item 8)")
-            if any(np.isfinite(v) for v in (w.econ_min_orat, w.econ_min_grat,
-                                            w.econ_max_wct, w.econ_max_gor)):
-                raise NotImplementedError(
-                    f"well {w.name}: WECON is not ported yet "
-                    "(ROADMAP Queue 1 item 8)")
+    # ------------------------------------------------------------------
+    # THPRES, host work, economic limits, groups, RESV, VFP
+    def _thpres_setup(self):
+        """Per-face threshold pressures between equilibration regions
+        (thresholdPressures.hpp:47,321; the reference's sim/blackoil.py :333-350),
+        in the grid's face order on model.threshold_dp; defaulted pairs
+        wait for the initial state (_thpres_defaults)."""
+        eql = np.asarray(self.grid.eqlnum)
+        fc = np.asarray(self.grid.face_cells)
+        thp = np.zeros(len(fc))
+        for (r1, r2, val) in self.case.solution.thpres:
+            m = (((eql[fc[:, 0]] == r1 - 1) & (eql[fc[:, 1]] == r2 - 1))
+                 | ((eql[fc[:, 0]] == r2 - 1) & (eql[fc[:, 1]] == r1 - 1)))
+            if val is None:
+                self._thpres_default_pairs.append(m)
+            else:
+                thp[m] = val
+        self.model.threshold_dp = torch.as_tensor(thp, device=self.device)
+
+    def _thpres_defaults(self, state):
+        """Defaulted THPRES: the sustained equilibrium pressure jump across
+        the barrier, max |p1 - p2| over the region interface (computeMaxDp
+        from the equilibrated columns, thresholdPressures.hpp:47)."""
+        fc = np.asarray(self.grid.face_cells)
+        p0 = state.pressure.cpu().numpy()
+        dp_face = np.abs(p0[fc[:, 0]] - p0[fc[:, 1]])
+        thp = self.model.threshold_dp.cpu().numpy()
+        for m in self._thpres_default_pairs:
+            if m.any():
+                thp = np.where(m, dp_face[m].max(), thp)
+        self.model.threshold_dp = torch.as_tensor(thp, device=self.device)
+        self._thpres_default_pairs = []
+
+    def _pull(self, piece, *tensors):
+        """One host read of the tensors (concatenated flat), counted under
+        ``piece`` in host_work; the host arrays back in order."""
+        flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+        host = flat.cpu().numpy()
+        self.host_work.setdefault(piece, [0, 0.0])[0] += 1
+        return np.split(host, np.cumsum([t.numel() for t in tensors])[:-1])
+
+    def _timed(self, piece, t0):
+        self.host_work.setdefault(piece, [0, 0.0])[1] += \
+            time.perf_counter() - t0
+
+    def _step_wells_for(self, step):
+        """The step's wells, with the wells and connections that economic
+        limits shut kept shut."""
+        if not (self._econ_shut or self._econ_closed_conns):
+            return step.wells
+        step_wells = [w.copy() for w in step.wells]
+        for w in step_wells:
+            if w.name in self._econ_shut:
+                w.status = "SHUT"
+            closed = self._econ_closed_conns.get(w.name)
+            if closed:
+                for c in w.completions:
+                    if (c.i, c.j, c.k) in closed:
+                        c.status = "SHUT"
+        return step_wells
+
+    def _check_econ_limits(self, step_wells, state, ws, wd):
+        """WECON economic limits after a report step: rate violations shut
+        the producer; a max-water-cut violation follows the workover
+        procedure, closing the worst-offending connection
+        (checkRateEconLimits / checkMaxWaterCutLimit,
+        StandardWells_impl.hpp:1209-1380; wells/econ.py). One host read,
+        and none on a step without WECON wells."""
+        econ = [w for w in step_wells
+                if w.type == "PRODUCER" and w.status.upper() == "OPEN"
+                and w.name not in self._econ_shut
+                and any(np.isfinite(v) for v in (
+                    w.econ_min_orat, w.econ_min_grat, w.econ_max_wct,
+                    w.econ_max_gor))]
+        if not econ:
+            return
+        t0 = time.perf_counter()
+        idx = {n: i for i, n in enumerate(self.well_names)}
+        need_cq = any(np.isfinite(w.econ_max_wct)
+                      and w.econ_workover in ("CON", "+CON") for w in econ)
+        parts = [state.qs]
+        if need_cq:
+            cellq = self.model.well_cell_quantities(
+                self.model.cell_quantities(state))
+            cdp = stdwells.connection_pressure_offsets(wd, cellq, state.qs)
+            parts.append(stdwells.perforation_fluxes(
+                wd, cellq, state.bhp, state.qs, cdp))
+        host = self._pull("econ", *parts)
+        qs = host[0].reshape(-1, 3)
+        cq = host[1].reshape(ws.nw, ws.max_perf, 3) if need_cq else None
+        for w in econ:
+            i = idx.get(w.name)
+            if i is None:
+                continue
+            qo = max(-qs[i, OIL], 0.0)
+            qw = max(-qs[i, WATER], 0.0)
+            qg = max(-qs[i, GAS], 0.0)
+            if cq is not None:
+                perf_qw = np.clip(-cq[i, :, WATER], 0.0, None)
+                perf_qo = np.clip(-cq[i, :, OIL], 0.0, None)
+                open_mask = np.asarray(ws.perf_mask[i])
+            else:
+                perf_qw = np.array([qw])
+                perf_qo = np.array([qo])
+                open_mask = np.array([True])
+            res = check_econ_limits(
+                qo, qw, qg, perf_qw, perf_qo, open_mask,
+                min_orat=w.econ_min_orat, min_grat=w.econ_min_grat,
+                max_wct=w.econ_max_wct, max_gor=w.econ_max_gor,
+                workover=w.econ_workover)
+            if res.shut_well:
+                self._econ_shut.add(w.name)
+            elif res.closed_connections:
+                # closed_connections index the padded perf arrays, which
+                # build_well_set fills depth-sorted: (i, j, k) from
+                # perf_cell
+                closed = self._econ_closed_conns.setdefault(w.name, set())
+                pm = np.asarray(ws.perf_mask[i])
+                pc = np.asarray(ws.perf_cell[i])
+                for k in res.closed_connections:
+                    if k < pm.shape[0] and pm[k]:
+                        ci, cj, ck = self.grid.ijk(int(pc[k]))
+                        closed.add((int(ci), int(cj), int(ck)))
+                if len(closed) >= len(w.completions):
+                    self._econ_shut.add(w.name)
+        self._timed("econ", t0)
+
+    def _resolve_groups(self, step, step_wells, state):
+        """GRUP wells' targets from their groups' (resolve_group_controls,
+        once a report step) and the in-Newton reallocation specs: the
+        current rates as guide rates, the wells' potentials at their BHP
+        limits (computeWellPotentials, from the first report step's wells
+        as the reference) as the fallback, the field's producer voidage
+        (for VREP) from the rate converter: one host read."""
+        t0 = time.perf_counter()
+        dev = self.device
+        # the field's voidage: one region over every cell
+        p_avg, rs_avg, rv_avg = region_averages(
+            self.model, state, np.zeros(self.model.nc, dtype=np.int64))
+        coef = voidage_coefficients(self.props, p_avg, rs_avg, rv_avg)[0]
+        voidage = torch.sum(torch.clamp(-state.qs, min=0.0) * coef[None, :])
+        ws0 = report_step_wells(self.schedule.report_steps[0], self.grid,
+                                self.well_names, self.max_perf)
+        wd0 = make_well_device_arrays(ws0, self.grid.gravity, dev)
+        cellq = self.model.well_cell_quantities(
+            self.model.cell_quantities(state))
+        cdp = stdwells.connection_pressure_offsets(wd0, cellq, state.qs)
+        pots = stdwells.well_potentials(wd0, cellq, cdp)
+        qs_h, pots_h, void_h = self._pull("groups", state.qs, pots, voidage)
+        nw = len(self.well_names)
+        qs_h = qs_h.reshape(nw, 3)
+        pots_h = pots_h.reshape(nw, 3)
+        rates = {n: qs_h[i] for i, n in enumerate(self.well_names)}
+        potentials = {n: pots_h[i] for i, n in enumerate(self.well_names)}
+        collect = []
+        wells = resolve_group_controls(step_wells, step.groups, rates,
+                                       float(void_h[0]),
+                                       potentials=potentials,
+                                       collect=collect)
+        specs = (make_group_device_arrays(collect, self.well_names, dev)
+                 if collect else None)
+        self._timed("groups", t0)
+        return wells, specs
+
+    def _resv_targets(self, ws, wd, state):
+        """RESV controls: the voidage coefficients of each well's FIP
+        region (computeRESV, SimulatorBase_impl.hpp:196), and WCONHIST
+        producers' targets, the observed surface rates at reservoir
+        conditions (SimulatorBase_impl.hpp:569-596); on the card, no host
+        read."""
+        t0 = time.perf_counter()
+        coef = well_resv_coefficients(self.model, state, ws)
+        wd["resv_coef"] = coef
+        hist = ws.is_history & ~ws.is_injector & ws.open_mask
+        if np.any(hist):
+            q_obs = torch.as_tensor(
+                np.nan_to_num(ws.rate_targets[:, [1, 0, 2]]),
+                device=self.device)
+            tgt = torch.where(torch.as_tensor(hist, device=self.device),
+                              torch.sum(coef * q_obs, dim=1), state.target)
+            wd["primary_target"] = tgt
+            state = state._replace(target=tgt)
+        self._timed("resv", t0)
+        return state
+
+    def _wire_vfp(self, wd, ws, state, step_wells):
+        """The VFP data of the step's wells (each well's table slot and its
+        hydrostatic datum correction, computeHydrostaticCorrection,
+        StandardWells_impl.hpp:918-960: rho_wellbore g (bhp_ref_depth -
+        table_datum_depth) with the mixture density at the shallowest
+        connection, once a report step): on wd when a well is on THP
+        control or carries a THP limit, and kept for the WTHP values. One
+        host read."""
+        self._vfp_report = None
+        if not self.vfp_tables:
+            return
+        tables = tuple(self.vfp_tables[k] for k in sorted(self.vfp_tables))
+        tid_to_slot = {t.table_id: i for i, t in enumerate(tables)}
+        slots = np.array(
+            [tid_to_slot.get(next((w.vfp_table for w in step_wells
+                                   if w.name == n), 0), -1)
+             for n in self.well_names], dtype=np.int64)
+        if not np.any(slots >= 0):
+            return
+        t0 = time.perf_counter()
+        need_vfp = bool(np.any(ws.control == CTRL_THP)
+                        or np.any(np.isfinite(ws.thp_limit) & ws.open_mask))
+        cellq = self.model.well_cell_quantities(
+            self.model.cell_quantities(state))
+        rho_top = self._pull("vfp", stdwells.wellbore_mixture_density(
+            wd, cellq, state.qs)[:, 0])[0]
+        datum = np.array([tables[k].datum_depth if k >= 0 else 0.0
+                          for k in slots])
+        dp_corr = np.where(slots >= 0, rho_top * float(self.grid.gravity)
+                           * (np.asarray(ws.ref_depth) - datum), 0.0)
+        self._vfp_report = (tables, slots, dp_corr)
+        if need_vfp:
+            wd["vfp"] = (tables, torch.as_tensor(slots, device=self.device),
+                         torch.as_tensor(dp_corr, device=self.device))
+        self._timed("vfp", t0)
+
+    def _thp_report_extra(self, state):
+        """WTHP summary values of every well with a VFP table: the table
+        inverted for THP at the converged rates and datum-corrected BHP
+        (StandardWells_impl.hpp:613-703), on the card, one host read."""
+        if self._vfp_report is None:
+            return None
+        t0 = time.perf_counter()
+        tables, slots, dp_corr = self._vfp_report
+        iws = [iw for iw in range(len(self.well_names)) if slots[iw] >= 0]
+        thp = [tables[slots[iw]].thp_at(state.qs[iw],
+                                        state.bhp[iw] - float(dp_corr[iw]))
+               for iw in iws]
+        vals = self._pull("wthp", torch.stack(thp))[0]
+        self._timed("wthp", t0)
+        return {f"WTHP:{self.well_names[iw]}": float(v)
+                for iw, v in zip(iws, vals)}
+
+    # ------------------------------------------------------------------
+    def _apply_geo_modifiers(self, mods):
+        """GEO_MODIFIER schedule events (SimulatorBase_impl.hpp:258-268,
+        the reference's sim/blackoil.py :563-615): apply MULTFLT / ARRAY / EQUALS /
+        MULTIPLY to the simulator's own copy of the case (the caller's is
+        left as it was), rebuild the grid with the embedding policy the
+        first grid was built with, then the model (keeping the
+        thresholds) and the solver with its CPR stack (the structured GMG
+        hierarchy and K7's buffers, or the AMG hierarchy, K10's buffers and
+        K4-faces' sliced-ELL layout on a gather grid), after the old ones
+        are released. Raises, as the reference, when the active topology
+        changes."""
+        if not self._owns_case:
+            self.case = copy.deepcopy(self.case)
+            self._owns_case = True
+        case = self.case
+        nx, ny, nz = case.runspec.dims
+        ncg = nx * ny * nz
+
+        def ensure(name):
+            if name not in case.grid_arrays:
+                case.grid_arrays[name] = np.ones(ncg)
+            return case.grid_arrays[name]
+
+        def box_idx(b):
+            if b is None:
+                return slice(None)
+            i1, i2, j1, j2, k1, k2 = b
+            K, J, I = np.meshgrid(np.arange(k1, k2 + 1),
+                                  np.arange(j1, j2 + 1),
+                                  np.arange(i1, i2 + 1), indexing="ij")
+            return ((K * ny + J) * nx + I).ravel()
+
+        for mod in mods:
+            if mod[0] == "MULTFLT":
+                for nm, v in mod[1]:
+                    case.fault_mults[nm] = v
+            elif mod[0] == "ARRAY":
+                _, name, vals = mod
+                ensure(name)[: len(vals)] = vals
+            elif mod[0] == "EQUALS":
+                _, name, value, b = mod
+                ensure(name)[box_idx(b)] = value
+            elif mod[0] == "MULTIPLY":
+                _, name, value, b = mod
+                ensure(name)[box_idx(b)] *= value
+        thr = self.model.threshold_dp
+        params = self.model.params
+        old_nc, old_nf = self.grid.nc, self.grid.nf
+        grid = build_grid(case, self._embed_knob)
+        if grid.nc != old_nc or grid.nf != old_nf:
+            raise ValueError(
+                "schedule geology modifier changed the active topology "
+                f"(nc {old_nc}->{grid.nc}, nf {old_nf}->{grid.nf}); only "
+                "transmissibility/pore-volume changes are supported mid-run")
+        linear_solver = self.solver.linear_solver
+        timing = self.solver.timing
+        # release the old model and solver (and the CPR hierarchy's device
+        # buffers) before their successors are made
+        self.model = self.solver = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.grid = grid
+        self.model = BlackoilModel(grid, self.props, params,
+                                   device=self.device)
+        self.model.threshold_dp = thr
+        self.solver = NonlinearSolver(self.model,
+                                      linear_solver=linear_solver)
+        self.solver.timing = timing
 
     def _out_base(self) -> str:
         """Output-file basename: the deck filename (ECL convention),
@@ -720,22 +1044,31 @@ class SimulatorFullyImplicitBlackoil:
             self.ts.suggested_dt = meta["suggested_dt"]
         elif state is None:
             state = initial_state(self.grid, self.props, self.case, nw)
+        if self._thpres_default_pairs:
+            self._thpres_defaults(state)
         steps = self.schedule.report_steps
         if report_step_limit is not None:
             steps = steps[:report_step_limit]
         steps = steps[start_step:]
         first = start_step == 0
         for step in steps:
-            self._check_step_ported(step)
+            if step.geo_mods:
+                self._apply_geo_modifiers(step.geo_mods)
+            step_wells = self._step_wells_for(step)
+            groups = None
+            if step.groups and any(w.control == "GRUP" for w in step_wells):
+                step_wells, groups = self._resolve_groups(step, step_wells,
+                                                          state)
             ws = report_step_wells(step, self.grid, self.well_names,
-                                   self.max_perf)
-            if np.any(np.isin(ws.control, (CTRL_RESV, CTRL_RESERVOIR_RATE))):
-                raise NotImplementedError(
-                    "RESV controls are not ported yet (ROADMAP Queue 1 "
-                    "item 8)")
+                                   self.max_perf, wells=step_wells)
             wd = make_well_device_arrays(ws, self.grid.gravity, self.device)
+            if groups:
+                wd["groups"] = groups
             state = init_well_state(state, ws, first)
             first = False
+            self._wire_vfp(wd, ws, state, step_wells)
+            if np.any(np.isin(ws.control, (CTRL_RESV, CTRL_RESERVOIR_RATE))):
+                state = self._resv_targets(ws, wd, state)
 
             def solve_fn(s, dt, _wd=wd):
                 rep = SolverReport()
@@ -773,11 +1106,13 @@ class SimulatorFullyImplicitBlackoil:
             self.report.failed_substeps += subrep.failed_substeps
             self.report.newton_iterations += subrep.total_newton
             self.report.linear_iterations += subrep.total_linear
-            row = self.summary.record(step.end_time, state, self.model)
+            row = self.summary.record(step.end_time, state, self.model,
+                                      extra=self._thp_report_extra(state))
             if prt is not None:
                 prt.report_step(step.index, step.end_time / DAY, row,
                                 fip=[row["FWIP"], row["FOIP"],
                                      row["FGIP"]])
+            self._check_econ_limits(step_wells, state, ws, wd)
             self._write_step_outputs(state, step, writer, write_restart,
                                      write_vtk, write_matlab)
             if verbose:

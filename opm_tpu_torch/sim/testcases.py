@@ -1,7 +1,9 @@
 """Synthetic test decks (port of the JAX package's sim/testcases.py: the
 mini black-oil, the SPE10-like, the Norne-like and the SPE3-like
-generators so far), SPE1 with PBVD in place of RSVD and SPE3 with PDVD
-in place of RVVD."""
+generators so far), SPE1 with PBVD in place of RSVD, SPE3 with PDVD in
+place of RVVD, the small decks of the JAX package's tests of field-style
+well controls (wellctrl_decks) and the Norne-class field under them
+(norne_field_controls)."""
 
 from __future__ import annotations
 
@@ -632,3 +634,523 @@ def spe3_pdvd_deck(spe3_text: str) -> str:
     if SPE3_RVVD not in spe3_text:
         raise ValueError("SPE3's RVVD table not found in the deck text")
     return spe3_text.replace(SPE3_RVVD, SPE3_PDVD)
+
+
+# ---------------------------------------------------------------------------
+# field-style well controls and schedule geology: the small decks of the
+# JAX package's tests (tests/test_spe1.py THPRES, test_well_switching.py,
+# test_vfp.py, test_groups.py, test_wconhist.py, test_schedule_geo.py),
+# text for text, and the Norne-class field's edit
+
+# tests/test_spe1.py::test_thpres_defaulted_compute_max_dp (8x1x1, two
+# EQLNUM regions, THPRES 1 2 defaulted)
+THPRES_DECK = """
+RUNSPEC
+TITLE
+ THPRES-DEFAULT
+DIMENS
+ 8 1 1 /
+OIL
+WATER
+GAS
+DISGAS
+FIELD
+EQLDIMS
+ 2 /
+TABDIMS
+ 1 1 /
+WELLDIMS
+ 1 1 1 1 /
+GRID
+DXV
+ 8*100 /
+DYV
+ 100 /
+DZV
+ 50 /
+TOPS
+ 8*8300 /
+PORO
+ 8*0.3 /
+PERMX
+ 8*100 /
+REGIONS
+EQLNUM
+ 4*1 4*2 /
+PROPS
+PVTW
+ 4000 1.0 3.0E-6 0.5 0 /
+ROCK
+ 4000 4.0E-6 /
+SWOF
+ 0.12 0    1   0
+ 0.8  0.9  0.0 0 /
+SGOF
+ 0    0    1   0
+ 0.85 0.9  0.0 0 /
+DENSITY
+ 53.66 64.49 0.0533 /
+PVDG
+ 14.7   166.666 0.008
+ 9014.7 0.386   0.0470 /
+PVTO
+ 0.20 1014.7 1.20 0.90 /
+ 1.27 4014.7 1.695 0.51
+      9014.7 1.579 0.74 /
+/
+SOLUTION
+EQUIL
+ 8325 4000 8600 0 8200 0 1 0 0 /
+ 8325 4400 8600 0 8200 0 1 0 0 /
+THPRES
+ 1 2 /
+/
+SUMMARY
+FOPR
+SCHEDULE
+TSTEP
+ 1 /
+END
+"""
+
+# tests/test_well_switching.py's deck-driven cases (10x1x1)
+SWITCHING_TMPL = """
+RUNSPEC
+DIMENS
+ 10 1 1 /
+EQLDIMS
+/
+TABDIMS
+/
+OIL
+GAS
+WATER
+DISGAS
+FIELD
+WELLDIMS
+ 2 1 2 2 /
+GRID
+DX
+ 10*500 /
+DY
+ 10*500 /
+DZ
+ 10*50 /
+TOPS
+ 10*8325 /
+PORO
+ 10*0.3 /
+PERMX
+ 10*200 /
+PERMY
+ 10*200 /
+PERMZ
+ 10*200 /
+PROPS
+PVTW
+ 4014.7 1.029 3.13D-6 0.31 0 /
+ROCK
+ 14.7 3D-6 /
+SWOF
+ 0.12 0    1    0
+ 0.5  0.1  0.4  0
+ 1.0  0.5  0    0 /
+SGOF
+ 0    0    1     0
+ 0.3  0.1  0.3   0
+ 0.88 0.8  0.0   0 /
+DENSITY
+ 53.66 64.49 0.0533 /
+PVDG
+ 14.7   166.666 0.008
+ 5014.7 0.48    0.0161 /
+PVTO
+ 0.001  14.7   1.062  1.04 /
+ 0.0905 264.7  1.15   0.975 /
+ 0.18   514.7  1.207  0.91 /
+ 0.371  1014.7 1.295  0.83 /
+ 0.636  2014.7 1.435  0.695 /
+ 0.775  2514.7 1.5    0.641 /
+ 0.93   3014.7 1.565  0.594 /
+ 1.270  4014.7 1.695  0.51
+        5014.7 1.671  0.549 /
+ 1.618  5014.7 1.827  0.449 /
+/
+SOLUTION
+EQUIL
+ 8400 4800 8450 0 8300 0 1 0 0 /
+SUMMARY
+SCHEDULE
+WELSPECS
+ 'P1' 'G' 10 1 8350 'OIL' /
+ 'I1' 'G' 1 1 8350 'WAT' /
+/
+COMPDAT
+ 'P1' 10 1 1 1 'OPEN' 1* 1* 0.5 /
+ 'I1' 1 1 1 1 'OPEN' 1* 1* 0.5 /
+/
+{schedule}
+TSTEP
+ {tsteps} /
+END
+"""
+
+# tests/test_groups.py (10x5x1, GRUPTREE/GCONPROD)
+GROUPS_DECK = """
+RUNSPEC
+DIMENS
+ 10 5 1 /
+EQLDIMS
+/
+TABDIMS
+/
+OIL
+GAS
+WATER
+DISGAS
+FIELD
+WELLDIMS
+ 3 1 2 3 /
+GRID
+DX
+ 50*500 /
+DY
+ 50*500 /
+DZ
+ 50*50 /
+TOPS
+ 50*8325 /
+PORO
+ 50*0.3 /
+PERMX
+ 50*200 /
+PERMY
+ 50*200 /
+PERMZ
+ 50*200 /
+PROPS
+PVTW
+ 4014.7 1.029 3.13D-6 0.31 0 /
+ROCK
+ 14.7 3D-6 /
+SWOF
+ 0.12 0    1    0
+ 0.5  0.02 0.4  0
+ 1.0  0.3  0    0 /
+SGOF
+ 0    0    1     0
+ 0.3  0.1  0.3   0
+ 0.88 0.8  0.0   0 /
+DENSITY
+ 53.66 64.49 0.0533 /
+PVDG
+ 14.7   166.666 0.008
+ 2014.7 1.614   0.0189
+ 9014.7 0.386   0.0470 /
+PVTO
+ 0.20 1014.7 1.20 0.90 /
+ 0.60 2514.7 1.45 0.65 /
+ 1.27 4014.7 1.695 0.51
+      9014.7 1.579 0.74 /
+/
+SOLUTION
+EQUIL
+ 8350 4000 8500 0 8200 0 1 0 0 /
+RSVD
+ 8200 0.6
+ 8500 0.6 /
+SUMMARY
+FOPR
+SCHEDULE
+GRUPTREE
+ 'PLAT' 'FIELD' /
+/
+WELSPECS
+ 'P1' 'PLAT' 1 1 8350 'OIL' /
+ 'P2' 'PLAT' 10 5 8350 'OIL' /
+ 'I1' 'FIELD' 5 3 8350 'GAS' /
+/
+COMPDAT
+ 'P1' 1 1 1 1 'OPEN' 1* 1* 0.5 /
+ 'P2' 10 5 1 1 'OPEN' 1* 1* 0.5 /
+ 'I1' 5 3 1 1 'OPEN' 1* 1* 0.5 /
+/
+GCONPROD
+ 'PLAT' 'ORAT' 4000 3* 1* /
+/
+WCONPROD
+ 'P1' 'OPEN' 'GRUP' 5* 500 /
+ 'P2' 'OPEN' 'GRUP' 5* 500 /
+/
+WCONINJE
+ 'I1' 'GAS' 'OPEN' 'RATE' 2000 1* 9000 /
+/
+TSTEP
+ 5*10 /
+END
+"""
+
+# tests/test_wconhist.py (10x5x1, WCONHIST/WCONINJH); its _case() names
+# the WCONINJH well
+WCONHIST_DECK = """
+RUNSPEC
+DIMENS
+ 10 5 1 /
+EQLDIMS
+/
+TABDIMS
+/
+OIL
+GAS
+WATER
+DISGAS
+FIELD
+WELLDIMS
+ 2 1 2 2 /
+GRID
+DX
+ 50*500 /
+DY
+ 50*500 /
+DZ
+ 50*50 /
+TOPS
+ 50*8325 /
+PORO
+ 50*0.3 /
+PERMX
+ 50*200 /
+PERMY
+ 50*200 /
+PERMZ
+ 50*200 /
+PROPS
+PVTW
+ 4014.7 1.029 3.13D-6 0.31 0 /
+ROCK
+ 14.7 3D-6 /
+SWOF
+ 0.12 0    1    0
+ 0.5  0.02 0.4  0
+ 1.0  0.3  0    0 /
+SGOF
+ 0    0    1     0
+ 0.3  0.1  0.3   0
+ 0.88 0.8  0.0   0 /
+DENSITY
+ 53.66 64.49 0.0533 /
+PVDG
+ 14.7   166.666 0.008
+ 2014.7 1.614   0.0189
+ 9014.7 0.386   0.0470 /
+PVTO
+ 0.20 1014.7 1.20 0.90 /
+ 0.60 2514.7 1.45 0.65 /
+ 1.27 4014.7 1.695 0.51
+      9014.7 1.579 0.74 /
+/
+SOLUTION
+EQUIL
+ 8350 4000 8500 0 8200 0 1 0 0 /
+RSVD
+ 8200 0.6
+ 8500 0.6 /
+SUMMARY
+FOPR
+SCHEDULE
+WELSPECS
+ 'P1' 'G' 1 1 8350 'OIL' /
+ 'I1' 'G' 10 5 8350 'WATER' /
+/
+COMPDAT
+ 'P1' 1 1 1 1 'OPEN' 1* 1* 0.5 /
+ 'I1' 10 5 1 1 'OPEN' 1* 1* 0.5 /
+/
+WCONHIST
+ 'P1' 'OPEN' 'ORAT' 1000 0 600 /
+/
+WCONINJH
+ 'WATER' 'OPEN' 1200 /
+/
+TSTEP
+ 5*10 /
+END
+"""
+
+
+def _vfp_wthp_deck():
+    """tests/test_vfp.py::test_wthp_reported_for_bhp_rate_controlled_vfp_
+    well: the mini deck's producer with VFPPROD table 1 (ORAT control)."""
+    flo_ax = [1000.0, 10000.0, 30000.0]
+    thp_ax = [100.0, 500.0, 1000.0]
+    wct_ax = [0.0, 0.9]
+    gor_ax = [0.0, 10.0]
+    recs = []
+    for it in range(3):
+        for iw in range(2):
+            for ig in range(2):
+                bhps = [thp_ax[it] + 0.05 * f + 2500.0
+                        + 20.0 * wct_ax[iw] + 5.0 * gor_ax[ig]
+                        for f in flo_ax]
+                recs.append(f" {it+1} {iw+1} {ig+1} 1 "
+                            + " ".join(f"{b:.6g}" for b in bhps) + " /")
+    vfp = ("VFPPROD\n 1 8400 'LIQ' 'WCT' 'GOR' 'THP' ' ' 'FIELD' 'BHP' /\n"
+           + " ".join(f"{f:g}" for f in flo_ax) + " /\n"
+           + " ".join(f"{t:g}" for t in thp_ax) + " /\n"
+           + " ".join(f"{w:g}" for w in wct_ax) + " /\n"
+           + " ".join(f"{g:g}" for g in gor_ax) + " /\n 0.0 /\n"
+           + "\n".join(recs) + "\n")
+    deck = mini_blackoil_deck(nx=6, ny=6, nz=2, tsteps="3*20")
+    return deck.replace("WCONPROD\n 'PROD' 'OPEN' 'ORAT' 20000 4* 1000 /",
+                        vfp + "WCONPROD\n"
+                        " 'PROD' 'OPEN' 'ORAT' 20000 4* 1000 1* 1 /")
+
+
+_VFP_DATUM_SCHED = """VFPPROD
+ 1 {datum} 'LIQ' 'WCT' 'GOR' 'THP' ' ' 'FIELD' 'BHP' /
+ 10 5000 /
+ 100 1500 /
+ 0.0 1.0 /
+ 0.0 10.0 /
+ 0.0 /
+ 1 1 1 1  1300 1300 /
+ 1 2 1 1  1300 1300 /
+ 2 1 1 1  2700 2700 /
+ 2 2 1 1  2700 2700 /
+ 1 1 2 1  1300 1300 /
+ 1 2 2 1  1300 1300 /
+ 2 1 2 1  2700 2700 /
+ 2 2 2 1  2700 2700 /
+/
+WCONPROD
+ 'P1' 'OPEN' 'THP' 5* 100 500 1 /
+/
+WCONINJE
+ 'I1' 'WATER' 'OPEN' 'RATE' 1000 1* 9000 /
+/"""
+
+
+def _geo_deck(schedule_mod):
+    """tests/test_schedule_geo.py's mini deck with a fault plane at i=2|3
+    and a schedule tail after the modifier."""
+    deck = mini_blackoil_deck(4, 3, 2, tsteps="3*10")
+    deck = deck.replace(
+        "PROPS\n",
+        "FAULTS\n 'F1' 2 2 1 3 1 2 'X' /\n/\nPROPS\n", 1)
+    return deck.replace(
+        "END\n", schedule_mod + "TSTEP\n 3*10 /\nEND\n", 1)
+
+
+def wellctrl_decks():
+    """{name: (deck text, report steps run)} of the JAX package's small
+    dense-route tests of field-style controls, run to the ends their tests
+    use (None: the whole schedule; the defaulted THPRES deck's one step)."""
+    sw = SWITCHING_TMPL
+    return {
+        "thpres_default": (THPRES_DECK, None),
+        "thpres_explicit": (THPRES_DECK.replace(
+            "THPRES\n 1 2 /", "THPRES\n 1 2 200 /"), None),
+        "grat_limit": (sw.format(schedule="""WCONPROD
+ 'P1' 'OPEN' 'ORAT' 2000 1* 1000 2* 100 /
+/
+WCONINJE
+ 'I1' 'WATER' 'OPEN' 'RATE' 2500 1* 9000 /
+/""", tsteps="5*10"), 3),
+        "watered_out": (sw.format(schedule="""WCONPROD
+ 'P1' 'OPEN' 'ORAT' 1500 700 3* 100 /
+/
+WCONINJE
+ 'I1' 'WATER' 'OPEN' 'RATE' 3000 1* 9000 /
+/""", tsteps="30*10").replace("10*500", "10*100").replace("10*50 /",
+                                                            "10*20 /"),
+                        None),
+        "vfp_datum_same": (sw.format(
+            schedule=_VFP_DATUM_SCHED.format(datum=8350.0),
+            tsteps="3*10"), None),
+        "vfp_datum_off": (sw.format(
+            schedule=_VFP_DATUM_SCHED.format(datum=8350.0 - 100.0 / 0.3048),
+            tsteps="3*10"), None),
+        "wthp": (_vfp_wthp_deck(), 2),
+        "group_orat": (GROUPS_DECK, 3),
+        "wconhist": (WCONHIST_DECK.replace(
+            "WCONINJH\n 'WATER' 'OPEN' 1200 /",
+            "WCONINJH\n 'I1' 'WATER' 'OPEN' 1200 /"), 3),
+        "multflt": (_geo_deck("MULTFLT\n 'F1' 1e-6 /\n/\n"), None),
+    }
+
+
+def norne_field_controls(text):
+    """The Norne-class field under field-style controls: text edits of
+    norne_like_deck's output (its DIMENS and fault FA read from the text).
+    RUNSPEC: EQLDIMS 2, WELLDIMS 12 22 3 12. REGIONS: EQLNUM 1 west of
+    fault FA (i <= its column), 2 elsewhere. SOLUTION: EQUIL and RSVD once
+    a region, equal, and THPRES 1 2 between them. Wells: P1 on THP
+    control with VFPPROD table 1 (an ORAT flo axis over P1's rates, THP
+    and WCT axes); P2-P4 and P7 on GRUP under GRUPTREE 'PROD' 'FIELD' and
+    GCONPROD 'PROD' 'ORAT'; P5 and P6 on WCONHIST 'RESV' with observed
+    rates; P8 on ORAT with a WECON minimum oil rate; I1, I2 on WCONINJE
+    rate, I3 on WCONINJH, I4 on WCONINJE 'RESV'. SCHEDULE: the first two
+    TSTEPs, MULTFLT 'FA' 0.1, the third. SUMMARY: WBHP and WTHP. The
+    values (METRIC) are test data, chosen with the reference's CPU runs:
+    P8's ORAT target under its WECON minimum shuts it after the first
+    report step at any size of the field."""
+    lines = text.split("\n")
+    dims = lines[lines.index("DIMENS") + 1].split()
+    nx, ny, nz = int(dims[0]), int(dims[1]), int(dims[2])
+    fa = next(ln for ln in lines if ln.startswith(" 'FA'")).split()
+    f1 = int(fa[1])
+    text = text.replace("EQLDIMS\n/", "EQLDIMS\n 2 /", 1)
+    text = text.replace("WELLDIMS\n 12 22 1 12 /", "WELLDIMS\n 12 22 3 12 /",
+                        1)
+    eql = []
+    for k in range(nz):
+        for j in range(ny):
+            eql.append(f"{f1}*1 {nx - f1}*2")
+    text = text.replace("SOLUTION\n", "REGIONS\nEQLNUM\n "
+                        + "\n ".join(eql) + " /\nSOLUTION\n", 1)
+    equil = "\n 2650 270 2850 0 2500 0 1 0 0 /"
+    text = text.replace("EQUIL" + equil, "EQUIL" + equil + equil, 1)
+    rsvd = "RSVD\n 2400 90\n 2900 90 /"
+    text = text.replace(rsvd, rsvd + "\n 2400 90\n 2900 90 /\n"
+                        "THPRES\n 1 2 2.0 /\n/", 1)
+    text = text.replace("SUMMARY\nFOPR\nFPR\n",
+                        "SUMMARY\nFOPR\nFPR\nWBHP\n/\nWTHP\n/\n", 1)
+    # P1's table: bhp = thp + a flo + b wct (bar, sm3/day)
+    flo = [50.0, 500.0, 2000.0, 8000.0]
+    thp = [10.0, 40.0, 80.0, 160.0]
+    wct = [0.0, 0.5, 1.0]
+    recs = []
+    for it, t in enumerate(thp):
+        for iw, w in enumerate(wct):
+            recs.append(f" {it + 1} {iw + 1} 1 1 " + " ".join(
+                f"{t + 150.0 + 0.01 * f + 30.0 * w:.6g}" for f in flo)
+                + " /")
+    vfp = ("VFPPROD\n 1 2600 'OIL' 'WCT' 'GOR' 'THP' ' ' 'METRIC' 'BHP' /\n "
+           + " ".join(f"{v:g}" for v in flo) + " /\n "
+           + " ".join(f"{v:g}" for v in thp) + " /\n "
+           + " ".join(f"{v:g}" for v in wct) + " /\n 0 /\n 0 /\n"
+           + "\n".join(recs) + "\n")
+    wcon = ("GRUPTREE\n 'PROD' 'FIELD' /\n/\n" + vfp
+            + "WCONPROD\n"
+            " 'P1' 'OPEN' 'THP' 5* 120 60 1 /\n"
+            " 'P2' 'OPEN' 'GRUP' 5* 120 /\n"
+            " 'P3' 'OPEN' 'GRUP' 5* 120 /\n"
+            " 'P4' 'OPEN' 'GRUP' 5* 120 /\n"
+            " 'P7' 'OPEN' 'GRUP' 5* 120 /\n"
+            " 'P8' 'OPEN' 'ORAT' 500 4* 120 /\n/\n"
+            "GCONPROD\n 'PROD' 'ORAT' 3000 /\n/\n"
+            "WCONHIST\n 'P5' 'OPEN' 'RESV' 900 30 80000 /\n"
+            " 'P6' 'OPEN' 'RESV' 900 30 80000 /\n/\n"
+            "WECON\n 'P8' 600 /\n/\n")
+    head, rest = text.split("WCONPROD\n", 1)
+    rest = rest[rest.index("/\nWCONINJE"):][2:]
+    text = head + wcon + rest
+    text = text.replace(
+        " 'I3' 'WATER' 'OPEN' 'RATE' 3000 1* 420 /\n"
+        " 'I4' 'WATER' 'OPEN' 'RATE' 3000 1* 420 /\n/\n",
+        " 'I4' 'WATER' 'OPEN' 'RESV' 1* 3000 420 /\n/\n"
+        "WCONINJH\n 'I3' 'WATER' 'OPEN' 3000 /\n/\n", 1)
+    tail = text[text.index("TSTEP\n"):]
+    text = text.replace(tail, "TSTEP\n 5 10 /\nMULTFLT\n 'FA' 0.1 /\n/\n"
+                        "TSTEP\n 30 /\nEND\n", 1)
+    return text

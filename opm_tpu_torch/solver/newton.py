@@ -302,7 +302,8 @@ class NonlinearSolver:
                 allow_crossflow=model.params.allow_crossflow)
             cq_s = cq_s * mask[..., None]
             flux_res, ctrl_res = stdwells.well_residuals(
-                wd, qs, bhp, cq_s, s.control, s.target)
+                wd, qs, bhp, cq_s, s.control, s.target,
+                resv_coef=wd.get("resv_coef"), vfp=wd.get("vfp"))
             return torch.cat([flux_res.reshape(-1), ctrl_res])
 
         def flat(s):

@@ -122,13 +122,14 @@ def check(err: int, what: str) -> None:
                            f"(cudaError_t {err})")
 
 
-def dispatch(x, cuda_fn, plain_fn, *args, what: str):
-    """The kernel on a CUDA tensor x, the plain version on a CPU tensor;
-    any other device raises (there is no fallback between the two)."""
+def dispatch(x, cuda_fn, plain_fn, *args, what: str, **kw):
+    """The kernel on a CUDA tensor x, the plain version on a CPU tensor
+    (both called with args and kw); any other device raises (there is no
+    fallback between the two)."""
     if x.device.type == "cuda":
-        return cuda_fn(*args)
+        return cuda_fn(*args, **kw)
     if x.device.type == "cpu":
-        return plain_fn(*args)
+        return plain_fn(*args, **kw)
     raise RuntimeError(f"no {what} kernel for device {x.device}")
 
 

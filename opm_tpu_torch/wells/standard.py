@@ -1,10 +1,9 @@
 """StandardWells on tensors (port of the JAX package's wells/standard.py).
 
-Perforation fluxes, well equations, wellbore densities and control
-switching over padded (nw, max_perf) arrays. The VFP/THP, RESV and group
-branches are not ported yet (ROADMAP Queue 1 item 8): the padded well dict
-never carries them here, and ``well_residuals``/``update_controls`` raise
-if it does.
+Perforation fluxes, well equations (with the VFP lookup of THP control
+and the voidage coefficients of RESV control), wellbore densities, well
+potentials and control switching (the THP constraint, history rules and
+the in-Newton group reallocation) over padded (nw, max_perf) arrays.
 """
 
 from __future__ import annotations
@@ -12,18 +11,12 @@ from __future__ import annotations
 import torch
 
 from opm_tpu_torch.wells.wells import (CTRL_BHP, CTRL_GRAT, CTRL_LRAT,
-                                       CTRL_ORAT, CTRL_SURFACE_RATE,
+                                       CTRL_ORAT, CTRL_RESERVOIR_RATE,
+                                       CTRL_RESV, CTRL_SURFACE_RATE,
                                        CTRL_THP, CTRL_WRAT)
 
 WATER, OIL, GAS = 0, 1, 2
 _EPS = 1e-14
-
-
-def _check_ported(wd):
-    for k in ("vfp", "resv_coef", "groups"):
-        if wd.get(k) is not None:
-            raise NotImplementedError(
-                f"well data '{k}' is not ported yet (ROADMAP Queue 1 item 8)")
 
 
 def _gather_ph(a3, c):
@@ -108,32 +101,67 @@ def effective_distribution(g, control, is_injector, cq_s):
     return torch.where(dead[:, None], -1.0, g)
 
 
+_RATE_ROWS = {}
+
+
+def _rate_rows(dev):
+    """The distribution rows of ORAT, WRAT, GRAT and LRAT (4, 3), made once
+    a device from an identity on it: no host-to-device copy inside a
+    Newton iteration. 0 - e keeps the zeros +0.0."""
+    rows = _RATE_ROWS.get(dev)
+    if rows is None:
+        eye = torch.eye(3, dtype=torch.float64, device=dev)
+        rows = _RATE_ROWS[dev] = 0.0 - torch.stack(
+            [eye[OIL], eye[WATER], eye[GAS], eye[WATER] + eye[OIL]])
+    return rows
+
+
 def control_distribution(control, comp_frac):
     """Rate-distribution vector g with rate residual g.qs - target."""
     nw = control.shape[0]
     dev = comp_frac.device
     g = torch.zeros((nw, 3), dtype=torch.float64, device=dev)
-
-    def row(v):
-        return torch.tensor(v, dtype=torch.float64, device=dev)
-
-    g = torch.where((control == CTRL_ORAT)[:, None], row([0.0, -1.0, 0.0]), g)
-    g = torch.where((control == CTRL_WRAT)[:, None], row([-1.0, 0.0, 0.0]), g)
-    g = torch.where((control == CTRL_GRAT)[:, None], row([0.0, 0.0, -1.0]), g)
-    g = torch.where((control == CTRL_LRAT)[:, None],
-                    row([-1.0, -1.0, 0.0]), g)
+    rows = _rate_rows(dev)
+    for k, code in enumerate((CTRL_ORAT, CTRL_WRAT, CTRL_GRAT, CTRL_LRAT)):
+        g = torch.where((control == code)[:, None], rows[k], g)
     g = torch.where((control == CTRL_SURFACE_RATE)[:, None], comp_frac, g)
     return g
 
 
-def well_residuals(wd, qs, bhp, cq_s, control, target):
+def resv_distribution(g, control, is_injector, resv_coef):
+    """g with the RESV-controlled wells' rows replaced by their signed
+    voidage coefficients (+ for injectors, - for producers)."""
+    if resv_coef is None:
+        return g
+    is_resv = ((control == CTRL_RESV)
+               | (control == CTRL_RESERVOIR_RATE))[:, None]
+    sign = torch.where(is_injector, 1.0, -1.0)[:, None]
+    return torch.where(is_resv, sign * resv_coef, g)
+
+
+def vfp_bhp(vfp, qs, thp):
+    """The BHP each well's VFP table gives at rates qs (nw, 3) and THP
+    thp (nw,), plus its datum correction (0 where a well has no table):
+    vfp = (tables tuple, slot (nw,), dp_corr (nw,)), slot -1 = none."""
+    tables, slot, dp_corr = vfp
+    out = torch.zeros_like(thp)
+    for si, tab in enumerate(tables):
+        out = torch.where(slot == si, tab.bhp_at(qs, thp) + dp_corr, out)
+    return out
+
+
+def well_residuals(wd, qs, bhp, cq_s, control, target, *, resv_coef=None,
+                   vfp=None):
     """(flux_res (nw, 3), ctrl_res (nw,)): q_s - sum_perf cq_s, and
-    bhp - target (BHP) or g.qs - target (rate controls)."""
-    _check_ported(wd)
+    bhp - target (BHP), g.qs - target (rate controls; RESV through the
+    voidage coefficients) or bhp - VFP(target, rates) - dp_datum (THP
+    control, addWellControlEq's THP branch, StandardWells_impl.hpp:
+    884-960). vfp: optional (tables, slot (nw,), dp_corr (nw,))."""
     flux_res = qs - torch.sum(cq_s, dim=1)
+    inj = wd["is_injector"].to(torch.bool)
     g = control_distribution(control, wd["comp_frac"])
-    g = effective_distribution(g, control, wd["is_injector"].to(torch.bool),
-                               cq_s)
+    g = resv_distribution(g, control, inj, resv_coef)
+    g = effective_distribution(g, control, inj, cq_s)
     is_bhp = (control == CTRL_BHP) | (control == CTRL_THP)
     rate_res = torch.einsum("wp,wp->w", g, qs) - target
     # a rate-controlled well that cannot flow at all is pinned to its BHP
@@ -142,7 +170,11 @@ def well_residuals(wd, qs, bhp, cq_s, control, target):
     is_rate = torch.sum(torch.abs(g), dim=1) > 0
     dead_all = is_rate & (tot_flow <= torch.clamp(1e-6 * torch.abs(target),
                                                   min=1e-14))
-    ctrl_res = torch.where(is_bhp, bhp - target, rate_res)
+    bhp_target = target
+    if vfp is not None:
+        bhp_target = torch.where(control == CTRL_THP,
+                                 vfp_bhp(vfp, qs, target), target)
+    ctrl_res = torch.where(is_bhp, bhp - bhp_target, rate_res)
     ctrl_res = torch.where(dead_all, bhp - wd["bhp_limit"], ctrl_res)
     closed = ~wd["open"].to(torch.bool)
     flux_res = torch.where(closed[:, None], qs, flux_res)
@@ -190,10 +222,32 @@ def connection_pressure_offsets(wd, cellq, qs, perf_rates=None):
     return torch.cumsum(dp, dim=1)
 
 
+def well_potentials(wd, cellq, cdp):
+    """Phase production/injection potentials at the wells' BHP limits
+    (computeWellPotentials, StandardWells_impl.hpp:1005): the surface rates
+    each well could deliver with its pressure constraint active; guide
+    rates. (nw, 3), production positive for producers."""
+    bhp = wd["bhp_limit"]
+    qs0 = torch.zeros((bhp.shape[0], 3), dtype=torch.float64,
+                      device=bhp.device)
+    cq = perforation_fluxes(wd, cellq, bhp, qs0, cdp, allow_crossflow=False)
+    tot = torch.sum(cq, dim=1)
+    return torch.where(wd["is_injector"][:, None], tot, -tot)
+
+
 def update_controls(wd, bhp, qs, control, target, cq_sum=None):
-    """First-broken-constraint switching over the BHP limit and the
-    producer/injector rate limits (updateWellControls)."""
-    _check_ported(wd)
+    """First-broken-constraint switching (updateWellControls,
+    StandardWells_impl.hpp:712-790): the BHP limit, the THP limit (its BHP
+    through the VFP tables), the producer ORAT/WRAT/GRAT/LRAT/RESV limits
+    (WCONHIST's observed rates are no limits) and the injector surface and
+    reservoir rate limits, in that order; the first one broken that is not
+    the active control becomes it. cq_sum (nw, 3), the summed perforation
+    rates, also sends rate producers whose controlled phase cannot flow to
+    their BHP limit. Then the per-Newton group reallocation over
+    wd["groups"] (updateWellTargets, BlackoilModelBase_impl.hpp:779-792,
+    2548-2596): the members at their BHP limit keep what they make, the
+    rest of the group's target goes to the members on group control in
+    proportion to their current targets (else their guides)."""
     is_inj = wd["is_injector"].to(torch.bool)
     primary = wd["primary_control"]
     primary_target = wd["primary_target"]
@@ -215,13 +269,27 @@ def update_controls(wd, bhp, qs, control, target, cq_sum=None):
         viol_bhp = viol_bhp | ctrl_dead
 
     candidates = [(CTRL_BHP, viol_bhp, wd["bhp_limit"])]
+    thp_lim = wd.get("thp_limit")
+    vfp = wd.get("vfp")
+    if vfp is not None and thp_lim is not None:
+        # the BHP the well would need to sustain its THP limit
+        bhp_thp = vfp_bhp(vfp, qs, thp_lim)
+        has = torch.isfinite(thp_lim) & (vfp[1] >= 0)
+        viol_thp = has & torch.where(is_inj, bhp > bhp_thp, bhp < bhp_thp)
+        candidates.append((CTRL_THP, viol_thp, thp_lim))
+
     rt = wd["rate_targets"]
     is_hist = wd["is_history"]
     cur = {CTRL_ORAT: (prod[:, OIL], rt[:, 0]),
            CTRL_WRAT: (prod[:, WATER], rt[:, 1]),
            CTRL_GRAT: (prod[:, GAS], rt[:, 2]),
            CTRL_LRAT: (prod[:, OIL] + prod[:, WATER], rt[:, 3])}
+    resv_coef = wd.get("resv_coef")
+    if resv_coef is not None:
+        cur[CTRL_RESV] = (torch.sum(prod * resv_coef, dim=1), rt[:, 4])
     for code, (rate, lim) in cur.items():
+        # the primary control's target may have been recomputed (group
+        # distribution, WCONHIST RESV voidage): prefer it
         lim = torch.where(primary == code, primary_target, lim)
         mask = ~is_inj & torch.isfinite(lim)
         mask = mask & (~is_hist.to(torch.bool) | (primary == code))
@@ -232,6 +300,13 @@ def update_controls(wd, bhp, qs, control, target, cq_sum=None):
     viol = (is_inj & torch.isfinite(lim)
             & (torch.sum(inj, dim=1) > lim * (1.0 + eps)))
     candidates.append((CTRL_SURFACE_RATE, viol, lim))
+    irv = wd.get("inj_resv_target")
+    if irv is not None and resv_coef is not None:
+        lim = torch.where(primary == CTRL_RESERVOIR_RATE, primary_target,
+                          irv)
+        viol = (is_inj & torch.isfinite(lim)
+                & (torch.sum(inj * resv_coef, dim=1) > lim * (1.0 + eps)))
+        candidates.append((CTRL_RESERVOIR_RATE, viol, lim))
 
     new_control, new_target = control, target
     chosen = torch.zeros(bhp.shape, dtype=torch.bool, device=bhp.device)
@@ -244,4 +319,17 @@ def update_controls(wd, bhp, qs, control, target, cq_sum=None):
     closed = ~wd["open"].to(torch.bool)
     new_control = torch.where(closed, control, new_control)
     new_target = torch.where(closed, target, new_target)
+
+    for spec in wd.get("groups", ()):
+        code, pv, total, mask, guides, sign = spec[:6]
+        on_grp = (mask > 0.0) & (new_control == code)
+        on_bhp = (mask > 0.0) & (new_control == CTRL_BHP)
+        made = torch.clamp(sign * (qs @ pv), min=0.0)
+        absorbed = torch.sum(torch.where(on_bhp, made, 0.0))
+        remaining = torch.clamp(total - absorbed, min=0.0)
+        g_dyn = torch.where(on_grp, torch.abs(new_target), 0.0)
+        g_dyn = torch.where(torch.sum(g_dyn) > 0.0, g_dyn,
+                            torch.where(on_grp, guides, 0.0))
+        share = g_dyn / torch.clamp(torch.sum(g_dyn), min=1e-300)
+        new_target = torch.where(on_grp, remaining * share, new_target)
     return new_control, new_target

@@ -1605,3 +1605,105 @@ def test_k6_refresh_setup_bitwise(dev, case):
         k10.refresh_setup_cuda(R, fl, *ops)
     torch.cuda.synchronize()
     assert torch.cuda.memory_stats()["allocation.all.allocated"] == a0
+
+
+def _ties(dphi, seed):
+    """THPRES thresholds for faces with per-phase potentials dphi (3, nf)
+    on the CPU: a third 0, a third above every phase's |dphi|, the rest
+    exactly one phase's |dphi| (the clip's tie)."""
+    rng = np.random.default_rng(seed)
+    a = dphi.abs()
+    nf = a.shape[1]
+    kind = torch.as_tensor(rng.integers(0, 3, nf))
+    pick = torch.as_tensor(rng.integers(0, 3, nf))
+    tie = a[pick, torch.arange(nf)]
+    return torch.where(kind == 1, 1.5 * a.amax(dim=0) + 1.0,
+                       torch.where(kind == 2, tie, 0.0))
+
+
+def _dphi_list(p3, rho, depth, c1, c2, g):
+    """The faces' potentials (3, nf) as the twins compute them."""
+    return (p3[:, c1] - p3[:, c2]) - 0.5 * (rho[:, c1] + rho[:, c2]) * g * (
+        depth[c1] - depth[c2])
+
+
+def _stencil_cells(dims):
+    from opm_tpu_torch.models.blackoil import _dir_segments
+    nx, ny, nz = dims
+    idx = np.arange(nx * ny * nz).reshape(nz, ny, nx)
+    c1, c2 = [], []
+    for slL, slR, _ in _dir_segments(dims):
+        c1.append(idx[slL].ravel())
+        c2.append(idx[slR].ravel())
+    return (torch.as_tensor(np.concatenate(c1)),
+            torch.as_tensor(np.concatenate(c2)))
+
+
+# K3's five entries with a THPRES threshold (a third of the faces at 0, a
+# third above |dphi|, the rest exactly at one phase's |dphi| as the twin
+# computes it on a CPU copy): bit for bit their twins on the card (the
+# face-list entries on CPU copies), one launch a call
+@pytest.mark.parametrize("dims", [(10, 10, 3), (15, 44, 4), (33, 9, 7)],
+                         ids=lambda d: "x".join(map(str, d)))
+def test_k3_threshold_entries_bitwise(dev, dims):
+    from opm_tpu_torch.models import blackoil as mb
+    from opm_tpu_torch.models import linearize as lz
+    a = _k3_inputs(dev, dims, sum(dims) + 1)
+    p3, rho, bmob, rs, rv, depth, trans = a
+    g = 9.80665
+    c1, c2 = _stencil_cells(dims)
+    cpu = [x.cpu() for x in a]
+    thr = _ties(_dphi_list(cpu[0], cpu[1], cpu[5], c1, c2, g),
+                sum(dims)).to(dev)
+    assert bool((thr > 0).any()) and bool((thr == 0).any())
+    n0 = mb.tpfa_div_cuda.launches
+    kd = mb.tpfa_div_cuda(dims, *a, g, thr=thr)
+    assert mb.tpfa_div_cuda.launches == n0 + 1
+    assert torch.equal(kd, mb.tpfa_div_plain(dims, *a, g, thr=thr))
+    assert not torch.equal(kd, mb.tpfa_div_plain(dims, *a, g))
+    # the tangent entry, both geometries' shapes
+    nc = rs.shape[0]
+    rng = np.random.default_rng(3)
+    B = 5
+    tans = [torch.as_tensor(rng.standard_normal((B,) + s), device=dev)
+            for s in ((3, nc), (3, nc), (3, nc), (nc,), (nc,))]
+    kt = mb.tpfa_div_tangent_cuda(dims, *a, g, *tans, thr=thr)
+    assert torch.equal(kt, mb.tpfa_div_tangent_plain(dims, *a, g, *tans,
+                                                     thr=thr))
+    # the stencil face blocks
+    nf = trans.shape[0]
+    fv = torch.cat([p3, rho, bmob, rs[None], rv[None]])
+    fc = torch.as_tensor(rng.standard_normal((3, 11, nc)), device=dev)
+    r0 = torch.as_tensor(rng.standard_normal((3, nc)), device=dev)
+    d0 = torch.as_tensor(rng.standard_normal((9, nc)), device=dev)
+
+    def blocks(fn):
+        r, d = r0.clone(), d0.clone()
+        fL = torch.zeros((9, nf), dtype=torch.float64, device=dev)
+        fR = torch.zeros_like(fL)
+        fn(dims, fv, fc, depth, trans, g, r, d, fL, fR, thr=thr)
+        return r, d, fL, fR
+
+    for x, y in zip(blocks(lz.face_blocks_cuda),
+                    blocks(lz.face_blocks_plain)):
+        assert torch.equal(x, y)
+    # the face-list entries over the same faces as a list (a gather grid's
+    # form), against the twins on CPU copies
+    fcells = torch.stack([c1, c2], dim=1).numpy()
+    fl = mb.FaceList(fcells, nc, 0, dev)
+    fl_cpu = mb.FaceList(fcells, nc, 0, "cpu")
+    kd = mb.faces_div_cuda(fl, *a, g, thr=thr)
+    assert torch.equal(kd.cpu(), mb.faces_div_plain(fl_cpu, *cpu, g,
+                                                    thr=thr.cpu()))
+
+    def fblocks(fn, lead, on):
+        r, d = r0.to(on).clone(), d0.to(on).clone()
+        fL = torch.zeros((9, nf), dtype=torch.float64, device=on)
+        fR = torch.zeros_like(fL)
+        blk = fn(lead, fv.to(on), fc.to(on), depth.to(on), trans.to(on), g,
+                 r, d, fL, fR, thr=thr.to(on))
+        return [x.cpu() for x in (r, d, fL, fR, blk)]
+
+    for x, y in zip(fblocks(lz.faces_blocks_cuda, fl, dev),
+                    fblocks(lz.faces_blocks_packed_plain, fl_cpu, "cpu")):
+        assert torch.equal(x, y)

@@ -7,7 +7,6 @@ through opm_tpu would import jax), so the fields must agree exactly."""
 
 import dataclasses
 import os
-import types
 
 import numpy as np
 import pytest
@@ -132,13 +131,27 @@ def test_unported_features_raise():
     case = load_case(SPE1)
     grid = build_grid(case)
     model = BlackoilModel(grid, BlackoilProps.from_case(case, "cpu"))
-    # the CPR route builds (ported, Queue 1 item 6); its THPRES branch
-    # is not ported yet
+    # the CPR route builds (ported, Queue 1 item 6), and so does its
+    # THPRES branch (item 8c): a zero threshold assembles as none does
     assert NonlinearSolver(model, linear_solver="cpr").amg is not None
+    from opm_tpu_torch.models.blackoil import make_well_device_arrays
+    from opm_tpu_torch.sim.blackoil import (init_well_state,
+                                            report_step_wells)
+    from opm_tpu_torch.sim.init import initial_state
+    ws = report_step_wells(build_schedule(case).report_steps[0], grid,
+                           [w.name for w in build_schedule(
+                               case).report_steps[0].wells], 1)
+    wd = make_well_device_arrays(ws, grid.gravity, "cpu")
+    state = init_well_state(initial_state(grid, model.props, case, ws.nw),
+                            ws, True)
+    cdp = torch.zeros(wd["perf_cell"].shape, dtype=torch.float64)
+    acc0 = model.accumulation(state) * 0.999
+    plain = assemble(model, state, acc0, 86400.0, wd, cdp)
     model.threshold_dp = model.trans * 0.0
-    state = types.SimpleNamespace(sgmax=None, somax=None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        assemble(model, state, None, 1.0, {}, None)
+    zero = assemble(model, state, acc0, 86400.0, wd, cdp)
+    model.threshold_dp = None
+    for f in ("r_cell", "diag", "face_L", "face_R", "r_well", "wd_diag"):
+        assert torch.equal(getattr(plain, f), getattr(zero, f)), f
     # OPM_TPU_GMG=0 (the aggregation AMG on a structured grid) is not
     # ported yet
     old = os.environ.get("OPM_TPU_GMG")
